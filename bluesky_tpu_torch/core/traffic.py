@@ -1,0 +1,204 @@
+"""Host-side Traffic facade: create over the device state.
+
+Port of ``Traffic.__init__``, ``create`` and ``flush`` of
+``bluesky_tpu/core/traffic.py``: the tensor ``SimState`` plus host-only
+bookkeeping (callsigns, types, the id -> slot map).  Creations are queued
+and ``flush`` writes them into their slots in one batch per field (in
+place: the state's tensors belong to this object).  Deletion, trails,
+hooks and ``creconfs`` come with later slices of the port.
+"""
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device, settings
+from ..models import perf_coeffs
+from ..ops import aero
+from .state import SimState, make_state
+
+
+class Traffic:
+    """Host facade over a padded SimState on ``device`` (CUDA unless the
+    caller asks for another device)."""
+
+    def __init__(self, nmax: int = 64, wmax: int = 32, dtype=torch.float32,
+                 openap_path: Optional[str] = None, rng_seed: int = 0,
+                 area=(-1.0, 1.0, -1.0, 1.0), device=None):
+        self.device = resolve_device(device)
+        self.nmax = nmax
+        self.wmax = wmax
+        self.dtype = dtype
+        self.state: SimState = make_state(nmax, wmax, dtype, rng_seed,
+                                          device=self.device)
+        model = settings.performance_model
+        if openap_path is None and model == "openap":
+            cand = os.path.join(settings.perf_path, "OpenAP")
+            if os.path.isdir(os.path.join(cand, "fixwing")):
+                openap_path = cand
+        self.coeffdb = perf_coeffs.CoeffDB(openap_path, model=model)
+        self.area = area  # default creation area (lat0, lat1, lon0, lon1)
+        self._rng = np.random.default_rng(rng_seed)
+        self.ids: List[Optional[str]] = [None] * nmax
+        self.types: List[Optional[str]] = [None] * nmax
+        self._id2slot = {}
+        self._pending = []
+        self._autoid = 0
+
+    @property
+    def ntraf(self) -> int:
+        return len(self._id2slot) + len(self._pending)
+
+    def create(self, n=1, actype="B744", acalt=None, acspd=None, dest=None,
+               aclat=None, aclon=None, achdg=None, acid=None):
+        """Queue creation of n aircraft (reference traffic.py:192-252)."""
+        if acid is None:
+            pre = chr(self._rng.integers(65, 91)) + chr(self._rng.integers(65, 91))
+            acid = [f"{pre}{self._autoid + i:>05}" for i in range(n)]
+            self._autoid += n
+        elif isinstance(acid, str):
+            if acid.upper() in self._id2slot:
+                return False, acid + " already exists."
+            acid = [acid.upper()]
+        if isinstance(actype, str):
+            actype = n * [actype]
+
+        lat0, lat1, lon0, lon1 = self.area
+        if aclat is None:
+            aclat = self._rng.random(n) * (lat1 - lat0) + lat0
+        if aclon is None:
+            aclon = self._rng.random(n) * (lon1 - lon0) + lon0
+        aclat = np.atleast_1d(np.asarray(aclat, dtype=np.float64))
+        aclon = np.atleast_1d(np.asarray(aclon, dtype=np.float64))
+        aclon = np.where(aclon > 180.0, aclon - 360.0, aclon)
+        aclon = np.where(aclon < -180.0, aclon + 360.0, aclon)
+        if achdg is None:
+            achdg = self._rng.integers(1, 360, n).astype(np.float64)
+        if acalt is None:
+            acalt = self._rng.integers(2000, 39000, n) * aero.ft
+        if acspd is None:
+            acspd = self._rng.integers(250, 450, n) * aero.kts
+        bc = lambda v: np.broadcast_to(
+            np.atleast_1d(np.asarray(v, np.float64)), (n,))
+        self._pending.append(dict(
+            acid=[a.upper() for a in acid], actype=[t.upper() for t in actype],
+            lat=aclat, lon=aclon, hdg=bc(achdg), alt=bc(acalt),
+            spd=bc(acspd)))
+        return True, None
+
+    def _free_slots(self, n):
+        free = [i for i, v in enumerate(self.ids) if v is None]
+        if len(free) < n:
+            raise RuntimeError(
+                f"traffic full: need {n} slots, {len(free)} free "
+                f"(nmax={self.nmax}); raise nmax")
+        return np.asarray(free[:n])
+
+    def flush(self):
+        """Apply all queued creations in one batched write per field."""
+        if not self._pending:
+            return
+        batch = self._pending
+        self._pending = []
+        ids = sum((b['acid'] for b in batch), [])
+        types = sum((b['actype'] for b in batch), [])
+        cat = lambda k: np.concatenate([b[k] for b in batch])
+        lat, lon, hdg, alt, spd = (cat(k) for k in
+                                   ("lat", "lon", "hdg", "alt", "spd"))
+        n = len(ids)
+        slots = self._free_slots(n)
+        for k, (i, t) in enumerate(zip(ids, types)):
+            s = int(slots[k])
+            self.ids[s] = i
+            self.types[s] = t
+            self._id2slot[i] = s
+
+        st = self.state
+        tas, cas, mach = _np_vcasormach(spd, alt)
+        hdgrad = np.radians(hdg)
+        gsnorth = tas * np.cos(hdgrad)
+        gseast = tas * np.sin(hdgrad)
+        p, rho, temp = _np_vatmos(alt)
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+
+        def put(arr, val):
+            arr[idx] = torch.as_tensor(np.asarray(val), dtype=arr.dtype,
+                                       device=arr.device)
+
+        full = lambda v: np.full(n, v)
+        ac = st.ac
+        for name, val in dict(
+                active=True, lat=lat, lon=lon, alt=alt, hdg=hdg, trk=hdg,
+                tas=tas, gs=tas, gsnorth=gsnorth, gseast=gseast, cas=cas,
+                mach=mach, vs=np.zeros(n), p=p, rho=rho, temp=temp,
+                selspd=cas, selalt=alt, selvs=np.zeros(n), swlnav=False,
+                swvnav=False, abco=False, belco=True,
+                apvsdef=full(1500.0 * aero.fpm), aphi=full(np.radians(25.0)),
+                ax=full(aero.kts), bank=full(np.radians(25.0)),
+                coslat=np.cos(np.radians(lat))).items():
+            put(getattr(ac, name), val)
+        for name, val in dict(trk=hdg, tas=tas, alt=alt, vs=np.zeros(n),
+                              dist2vs=full(-999.0)).items():
+            put(getattr(st.ap, name), val)
+        for name, val in dict(
+                lat=full(89.99), lon=np.zeros(n), spd=full(-999.0),
+                turndist=np.ones(n), flyby=np.ones(n), next_qdr=full(-999.0),
+                nextaltco=np.zeros(n), xtoalt=np.zeros(n)).items():
+            put(getattr(st.actwp, name), val)
+        for name, val in dict(trk=hdg, tas=tas, alt=alt, vs=np.zeros(n),
+                              active=False).items():
+            put(getattr(st.asas, name), val)
+        for name, val in dict(lat=lat, lon=lon, alt=alt, trk=hdg, tas=tas,
+                              gs=tas, lastupdate=np.zeros(n)).items():
+            put(getattr(st.adsb, name), val)
+
+        # Performance coefficients per type (perfoap.py:49-113)
+        cols = {}
+        by_type = {}
+        for t in types:
+            if t not in by_type:
+                by_type[t] = perf_coeffs.slot_values(self.coeffdb.get(t))
+            for name, v in by_type[t].items():
+                cols.setdefault(name, []).append(v)
+        for name, v in cols.items():
+            put(getattr(st.perf, name), v)
+
+        put(st.route.nwp, 0)
+        put(st.route.iactwp, -1)
+
+
+# --- Host-side NumPy twins of the aero conversions used at creation time
+# (float64, the same formulas as ops/aero.py)
+
+def _np_vatmos(h):
+    T = np.maximum(288.15 - 0.0065 * h, 216.65)
+    rhotrop = 1.225 * (T / 288.15) ** 4.256848030018761
+    dhstrat = np.maximum(0.0, h - 11000.0)
+    rho = rhotrop * np.exp(-dhstrat / 6341.552161)
+    return rho * 287.05287 * T, rho, T
+
+
+def _np_vtas2cas(tas, h):
+    p, rho, _ = _np_vatmos(h)
+    qdyn = p * ((1.0 + rho * tas * tas / (7.0 * p)) ** 3.5 - 1.0)
+    cas = np.sqrt(7.0 * aero.p0 / aero.rho0
+                  * ((qdyn / aero.p0 + 1.0) ** (2.0 / 7.0) - 1.0))
+    return np.where(tas < 0, -cas, cas)
+
+
+def _np_vcas2tas(cas, h):
+    p, rho, _ = _np_vatmos(h)
+    qdyn = aero.p0 * ((1.0 + aero.rho0 * cas * cas / (7.0 * aero.p0)) ** 3.5
+                      - 1.0)
+    tas = np.sqrt(7.0 * p / rho * ((1.0 + qdyn / p) ** (2.0 / 7.0) - 1.0))
+    return np.where(cas < 0, -tas, tas)
+
+
+def _np_vcasormach(spd, h):
+    a = np.sqrt(1.4 * 287.05287 * np.maximum(288.15 - 0.0065 * h, 216.65))
+    ismach = (0.1 < spd) & (spd < 1.0)
+    tas = np.where(ismach, spd * a, _np_vcas2tas(spd, h))
+    cas = np.where(ismach, _np_vtas2cas(tas, h), spd)
+    mach = np.where(ismach, spd, tas / a)
+    return tas, cas, mach

@@ -1,0 +1,291 @@
+"""Sparse segment-scheduled CD&R: near-physics-floor pair enumeration.
+
+Port of the single-device replicate path of ``bluesky_tpu/ops/cd_sched.py``:
+
+* **Stripe sort** (``stripe_sort_dest``): aircraft ordered by latitude
+  stripe (stripe height >= the reach radius), longitude within the
+  stripe, each stripe padded to a block boundary, so the reachable
+  columns of a row block form about one contiguous run per stripe.
+* **Segment schedule** (``build_windows``): each row's reachable blocks
+  (``cd_tiled.block_reachability``, an exact bound) are covered by at
+  most ``s_cap`` contiguous segments of at most ``wmax`` blocks; rows
+  needing more are overflow rows.
+* **Segment kernel** (``sched_tiles``): one CTA per ownship row block
+  walks its segments (the hand-written CUDA kernel ``cd_sched_tiles`` of
+  ``csrc/cd_tiles.cu``, replacing the Pallas ``_sched_kernel``).  Overflow
+  rows are covered exactly by ``cd_pallas.full_grid_resume`` restricted
+  to those rows, and the row-disjoint outputs merged with ``torch.where``.
+
+No step here waits for the device: the overflow fallback is always
+launched, on the row-restricted reachability, so rows without overflow
+leave it at once.  Semantics are those of the JAX module: the schedule
+only changes which provably conflict-free tiles are skipped.
+"""
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import cd_pallas
+from .cd_pallas import _BIG, _FIELDS, _NF, TileParams
+from .cd_tiled import RowConflictData, block_reachability, precompute_trig
+from . import geo
+
+#: Launches of the CUDA kernel since the last reset.
+LAUNCHES = {"cd_sched_tiles": 0}
+
+
+def padded_size(n, block=256, extra=32):
+    """Total slots of the padded stripe-sorted layout for n aircraft."""
+    block = min(block, 256)
+    return (-(-n // block) + extra) * block
+
+
+def slot_inverse(perm, n, n_tot, fill=-1):
+    """[n_tot + 1] int32 lookup: padded-slot id -> caller index (``fill``
+    for empty slots); the +1 row makes clipped sentinel lookups safe."""
+    inv = torch.full((n_tot + 1,), fill, dtype=torch.int32,
+                     device=perm.device)
+    inv[torch.clamp(perm, 0, n_tot).long()] = torch.arange(
+        n, dtype=torch.int32, device=perm.device)
+    return inv
+
+
+def reach_threshold_m(gs, active, tlookahead, rpz):
+    """Worst-case reach radius [m] at fleet-max closing speed."""
+    gsmax = torch.where(active, gs, torch.zeros_like(gs)).max()
+    return rpz + tlookahead * 2.0 * gsmax
+
+
+def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra):
+    """Per-aircraft destination slots of the padded stripe-major layout
+    (altitude layering off, as the sparse refresh runs it).  Inactive
+    aircraft sort into the last stripe.  Divisions by constants are the
+    products with the reciprocal that compiled JAX computes."""
+    n = lat.shape[0]
+    dev = lat.device
+    act = active
+    big = torch.full((), 1e9, dtype=lat.dtype, device=dev)
+    any_act = act.any()
+    latmin = torch.where(any_act, torch.where(act, lat, big).min(),
+                         torch.zeros((), dtype=lat.dtype, device=dev))
+    latmax = torch.where(any_act, torch.where(act, lat, -big).max(),
+                         torch.ones((), dtype=lat.dtype, device=dev))
+    span = torch.clamp_min(latmax - latmin, 1e-6)
+    h = torch.clamp_min(torch.maximum(
+        thresh_m * 1.05 * (1.0 / 110000.0),
+        span * (1.0 / (extra - 1))), 0.05)
+    s = torch.clamp(torch.floor((lat - latmin) / h), 0, extra - 2) \
+        .to(torch.int32)
+    s = torch.where(act, s, torch.full_like(s, extra - 1))
+    qlon = torch.clamp((lon + 180.0) * (2 ** 19 / 360.0), 0, 2 ** 19 - 1)
+    key = s * (2 ** 19) + qlon.to(torch.int32)
+    order = torch.argsort(key, stable=True)            # sorted -> original
+    ss = s[order].long()
+    counts = torch.bincount(ss, minlength=extra)
+    nblocks = (counts + block - 1) // block
+    zero = torch.zeros(1, dtype=counts.dtype, device=dev)
+    base = torch.cat([zero, torch.cumsum(nblocks, 0)[:-1]]) * block
+    first = torch.cat([zero, torch.cumsum(counts, 0)[:-1]])
+    rank = torch.arange(n, device=dev) - first[ss]
+    dest = torch.zeros(n, dtype=torch.int32, device=dev)
+    dest[order] = (base[ss] + rank).to(torch.int32)
+    return dest
+
+
+def scatter_padded(arrs, dest, n_tot, neutral=0.0):
+    """Place per-aircraft columns into the padded sorted layout."""
+    idx = dest.long()
+    out = []
+    for a in arrs:
+        z = torch.full((n_tot,), neutral, dtype=a.dtype, device=a.device)
+        z[idx] = a
+        out.append(z)
+    return out
+
+
+def build_windows(reach, s_cap, wmax, pad_start):
+    """Cover each row's reachable columns with <= s_cap segments of
+    <= wmax blocks.  Returns ``(start, ln, overflow)``: [nbr, s_cap]
+    int32 (unused slots start=pad_start, ln=0) and the overflow rows."""
+    nbr, nb = reach.shape
+    dev = reach.device
+    col = torch.arange(nb, dtype=torch.int64, device=dev)
+    zcol = torch.zeros((nbr, 1), dtype=torch.bool, device=dev)
+    prev = torch.cat([zcol, reach[:, :-1]], 1)
+    nxt = torch.cat([reach[:, 1:], zcol], 1)
+    starts = reach & ~prev
+    rs = torch.cummax(torch.where(starts, col, torch.full_like(col, -1)),
+                      dim=1).values
+    off = col - rs
+    newseg = reach & (starts | (off % wmax == 0))
+    segend = reach & (~nxt | (off % wmax == wmax - 1))
+    nseg = newseg.sum(1)
+    overflow = nseg > s_cap
+    want = torch.arange(1, s_cap + 1, dtype=torch.int64, device=dev)
+    want_r = want[None, :].expand(nbr, s_cap).contiguous()
+    st = torch.searchsorted(torch.cumsum(newseg, 1), want_r, side="left")
+    en = torch.searchsorted(torch.cumsum(segend, 1), want_r, side="left")
+    valid = want[None, :] <= nseg[:, None]
+    ln = torch.where(valid, en - st + 1, torch.zeros_like(st))
+    use = valid & ~overflow[:, None]
+    st = torch.where(use, st, torch.full_like(st, pad_start))
+    ln = torch.where(use, ln, torch.zeros_like(ln))
+    return st.to(torch.int32), ln.to(torch.int32), overflow
+
+
+def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams):
+    """Plain PyTorch version of the ``_sched_kernel`` pass: row block i
+    walks its segments ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))``
+    in slot order, blocks past the grid skipped.  Returns the 13
+    outputs (see ``cd_pallas.row_block_plain``)."""
+    nb = packed.shape[0]
+    st = wst.cpu().numpy()
+    ln = np.minimum(wln.cpu().numpy(), wmax)
+
+    def tiles(i):
+        t = [np.arange(b, b + k) for b, k in zip(st[i], ln[i]) if k > 0]
+        t = np.concatenate(t) if t else np.zeros(0, np.int64)
+        return t[t < nb]
+
+    return cd_pallas.rows_plain(packed, pold, tiles, p)
+
+
+def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams):
+    """The segment pass: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see ``sched_tiles_plain``)."""
+    if not packed.is_cuda:
+        return sched_tiles_plain(packed, wst, wln, wmax, pold, p)
+    from . import _cuda
+    nb, B = cd_pallas.check_common(packed, pold)
+    s_cap = wst.shape[1]
+    _cuda.require(wst, torch.int32, (nb, s_cap), "wst")
+    _cuda.require(wln, torch.int32, (nb, s_cap), "wln")
+    acc, ctin, cidx, keep, merged, active = cd_pallas.alloc_outputs(
+        nb, 8, B, packed.device)
+    lib = _cuda.load("cd_tiles.cu")
+    rc = lib.cd_sched_tiles(
+        packed.data_ptr(), nb, B, wst.data_ptr(), wln.data_ptr(), s_cap,
+        int(wmax), pold.data_ptr(), p.rpz, p.rpz * p.rpz, p.hpz,
+        p.tlookahead, p.rpz_m, p.hpz_m, p.tlook_m, p.rpz_resume,
+        acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(), keep.data_ptr(),
+        merged.data_ptr(), active.data_ptr(), _cuda.stream_ptr(packed.device))
+    _cuda.check(rc, "cd_sched_tiles")
+    LAUNCHES["cd_sched_tiles"] += 1
+    return list(acc.unbind(0)) + [ctin, cidx, keep, merged, active]
+
+
+class SchedInputs(NamedTuple):
+    """The kernel operands of one interval and the layout they live in."""
+    packed: torch.Tensor      # [nb, 16, B] f32 slabs (cd_pallas._FIELDS)
+    wst: torch.Tensor         # [nb, s_cap] int32 segment starts
+    wln: torch.Tensor         # [nb, s_cap] int32 segment lengths
+    wmax: int                 # blocks per segment at most
+    overflow: torch.Tensor    # [nb] bool rows left to the full-grid pass
+    reach: torch.Tensor       # [nb, nb] bool block reachability
+    pold: torch.Tensor        # [nb, kk, B] int32 old partners (sorted ids)
+    perm: torch.Tensor        # [n] int32 caller slot -> padded slot
+    n: int
+    n_tot: int
+    nb: int
+    block: int
+
+
+def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
+            rpz, hpz, tlookahead, partners, block=256, s_cap=6, wmax=16,
+            extra_blocks=32, perm=None) -> SchedInputs:
+    """Everything ``detect_resolve_sched`` hands the two kernels: the
+    padded stripe-sorted slabs, the reachability, the segment windows and
+    the partner table in kernel layout.  Always float32."""
+    n = lat.shape[0]
+    dtype = torch.float32
+    block = min(block, 256)
+    f = lambda a: a.to(dtype)
+    if perm is None:
+        thresh = reach_threshold_m(f(gs), active, float(tlookahead),
+                                   float(rpz))
+        perm = stripe_sort_dest(f(lat), f(lon), f(gs), active, thresh,
+                                block, extra_blocks)
+    nb = -(-n // block) + extra_blocks
+    n_tot = nb * block
+    cols = {"lat": lat, "lon": lon, "trk": trk, "gs": gs, "alt": alt,
+            "vs": vs, "gse": gseast, "gsn": gsnorth,
+            "tr": torch.ones_like(f(gs)), "active": active,
+            "noreso": noreso}
+    padded = dict(zip(cols, scatter_padded([f(v) for v in cols.values()],
+                                           perm, n_tot)))
+    fields = precompute_trig(padded["lat"], padded["lon"])
+    trkrad = geo.radians(padded["trk"])
+    fields.update({
+        "u": padded["gs"] * torch.sin(trkrad),
+        "v": padded["gs"] * torch.cos(trkrad),
+        "alt": padded["alt"], "vs": padded["vs"], "gse": padded["gse"],
+        "gsn": padded["gsn"], "trk": padded["trk"], "tr": padded["tr"],
+        "active": padded["active"], "noreso": padded["noreso"]})
+    packed = torch.stack([fields[k] for k in _FIELDS]).reshape(
+        _NF, nb, block).transpose(0, 1).contiguous()
+    reach = block_reachability(
+        padded["lat"], padded["lon"], padded["gs"], padded["active"] > 0.5,
+        nb, block, float(rpz), float(tlookahead), alt=padded["alt"],
+        vs=padded["vs"], hpz=float(hpz))
+    st, ln, overflow = build_windows(reach, s_cap, wmax, pad_start=nb)
+    kk = partners.shape[1]
+    pold = partners.reshape(nb, block, kk).transpose(1, 2) \
+        .to(torch.int32).contiguous()
+    return SchedInputs(packed=packed, wst=torch.clamp(st, 0, nb), wln=ln,
+                       wmax=wmax, overflow=overflow, reach=reach, pold=pold,
+                       perm=perm, n=n, n_tot=n_tot, nb=nb, block=block)
+
+
+def run_kernels(x: SchedInputs, p: TileParams):
+    """The segment pass plus the overflow fallback, merged row-disjointly
+    (the 13 outputs in kernel layout)."""
+    outs_s = sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
+    reach_f = x.reach & x.overflow[:, None]
+    outs_f = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
+    rsel = x.overflow[:, None, None]
+    return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
+
+
+def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
+                         active, noreso, rpz, hpz, tlookahead, mvpcfg,
+                         partners, resume_rpz_m, block=256, s_cap=6,
+                         wmax=16, extra_blocks=32, perm=None):
+    """Sparse-scheduled CD&R with in-kernel resume-nav (the production
+    form of the JAX function: ``partners`` given, MVP sums, one device).
+
+    ``perm`` is the cached ``stripe_sort_dest`` table (recomputed when
+    None); ``partners`` [n_tot, K] int32 is the sorted-space partner
+    table.  Returns ``(rd, partners_new, active)``: the per-ownship
+    reductions in caller order (``rd.topk_*`` sorted-space ids), the
+    merged sorted-space partner table and the caller-space ASAS
+    engagement flags.  The small-N delegate to the full-grid kernel and
+    the mesh decompositions of the JAX function are not ported."""
+    x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+                noreso, rpz, hpz, tlookahead, partners, block=block,
+                s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
+                perm=perm)
+    p = cd_pallas.tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m)
+    outs = run_kernels(x, p)
+    (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
+     ctin, cidx) = outs[:10]
+    n_tot, kk, perm = x.n_tot, partners.shape[1], x.perm.long()
+    stacked = torch.stack([o.reshape(n_tot) for o in
+                           (inconf, tcpamax, sdve, sdvn, sdvv, tsolv,
+                            outs[12])])
+    backed = stacked[:, perm]
+    topk_tin = ctin.transpose(1, 2).reshape(n_tot, kk)[perm]
+    topk_idx = cidx.transpose(1, 2).reshape(n_tot, kk)[perm]
+    topk_idx = torch.where((topk_tin < _BIG) & (topk_idx < n_tot),
+                           topk_idx, torch.full_like(topk_idx, -1))
+    rd = RowConflictData(
+        inconf=backed[0] > 0.5, tcpamax=backed[1],
+        sum_dve=backed[2], sum_dvn=backed[3], sum_dvv=backed[4],
+        tsolv=backed[5],
+        # per-block float counts cast to int32 before summing: an f32
+        # total loses exactness past 2^24 pairs
+        nconf=ncnt.to(torch.int32).sum(dtype=torch.int32),
+        nlos=lcnt.to(torch.int32).sum(dtype=torch.int32),
+        topk_idx=topk_idx, topk_tin=topk_tin)
+    partners_new = outs[11].transpose(1, 2).reshape(n_tot, kk)
+    return rd, partners_new, backed[6] > 0.5

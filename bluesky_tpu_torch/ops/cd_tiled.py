@@ -1,0 +1,158 @@
+"""Blockwise conflict-detection pieces on tensors.
+
+Port of the parts of ``bluesky_tpu/ops/cd_tiled.py`` the sparse
+scheduler runs: the per-aircraft trig columns, the delta-polynomial pair
+geometry of one tile (``tile_geometry``, which the plain tile body and
+the CUDA kernels compute identically) and the exact block reachability
+bound.  The lax-scan backend itself (``detect_resolve_tiled``) comes
+with the ``tiled`` backend.
+"""
+from typing import NamedTuple
+
+import torch
+
+from . import geo, kmath
+
+
+class RowConflictData(NamedTuple):
+    """Per-ownship reductions of the pair space — no [N, N] anywhere."""
+    inconf: torch.Tensor     # [N] bool
+    tcpamax: torch.Tensor    # [N]
+    sum_dve: torch.Tensor    # [N]
+    sum_dvn: torch.Tensor    # [N]
+    sum_dvv: torch.Tensor    # [N]
+    tsolv: torch.Tensor      # [N]  min vertical solve time (1e9 = none)
+    nconf: torch.Tensor      # scalar int32
+    nlos: torch.Tensor       # scalar int32
+    topk_idx: torch.Tensor   # [N, K] int32
+    topk_tin: torch.Tensor   # [N, K]
+
+
+#: per-aircraft columns consumed by tile_geometry, in slab order
+TRIG_FIELDS = ("lat", "lon", "sl", "cl", "rloc", "abslat")
+
+
+def precompute_trig(lat, lon):
+    """Per-aircraft trig/radius columns for the factored pair geometry."""
+    rlat = geo.radians(lat)
+    return {"lat": lat, "lon": lon, "sl": torch.sin(rlat),
+            "cl": torch.cos(rlat), "rloc": geo.rwgs84(lat),
+            "abslat": torch.abs(lat)}
+
+
+def _rwgs84_from_trig(cosphi, sinphi):
+    """geo.rwgs84 from cos/sin of the latitude angle (sqrt * rsqrt)."""
+    an = geo.A_WGS84 * geo.A_WGS84 * cosphi
+    bn = geo.B_WGS84 * geo.B_WGS84 * sinphi
+    ad = geo.A_WGS84 * cosphi
+    bd = geo.B_WGS84 * sinphi
+    return torch.sqrt(an * an + bn * bn) * torch.rsqrt(ad * ad + bd * bd)
+
+
+def _sin_poly(x):
+    """sin(x) as a degree-7 odd Taylor evaluation, |x| <= pi.  The JAX
+    function divides by 6, 20 and 42; compiled, XLA multiplies by the
+    reciprocals in the operand's dtype, and so does this one."""
+    x2 = x * x
+    return x * (1.0 - x2 * (1.0 / 6.0) * (1.0 - x2 * (1.0 / 20.0)
+                                          * (1.0 - x2 * (1.0 / 42.0))))
+
+
+def tile_geometry(own, intr):
+    """Pair distance [m] + bearing sin/cos between broadcast-shaped
+    ownship and intruder TRIG_FIELDS columns (the general branch of the
+    JAX function, which is bit-identical to its same-hemisphere variant
+    on same-hemisphere pairs).  Returns (dist, sin_qdr, cos_qdr)."""
+    sl_o, cl_o = own["sl"], own["cl"]
+    sl_i, cl_i = intr["sl"], intr["cl"]
+    cos_sum = cl_o * cl_i - sl_o * sl_i
+    sin_sum = sl_o * cl_i + cl_o * sl_i
+    res1 = _rwgs84_from_trig(cos_sum, sin_sum)
+    eps = torch.where(own["lat"] == 0.0, 1e-6, 0.0).to(own["lat"].dtype)
+    denom = own["abslat"] + intr["abslat"] + eps
+    res2 = 0.5 * (own["abslat"] * (own["rloc"] + geo.A_WGS84)
+                  + intr["abslat"] * (intr["rloc"] + geo.A_WGS84)) / denom
+    r = torch.where(own["lat"] * intr["lat"] < 0.0, res2, res1)
+
+    dlat = geo.radians(intr["lat"] - own["lat"])
+    dlon_deg = intr["lon"] - own["lon"]
+    dlon = geo.radians(dlon_deg - 360.0 * torch.round(dlon_deg * (1.0 / 360.0)))
+    sh_lat = _sin_poly(0.5 * dlat)
+    sh_lon = _sin_poly(0.5 * dlon)
+    root = sh_lat * sh_lat + cl_o * cl_i * sh_lon * sh_lon
+    root = torch.clamp(root, 0.0, 1.0)
+    dist = 2.0 * r * kmath.asin_taylor(torch.sqrt(root))
+    qy = _sin_poly(dlon) * cl_i
+    qx = _sin_poly(dlat) + sl_o * cl_i * (2.0 * sh_lon * sh_lon)
+    rh = torch.rsqrt(torch.clamp_min(qx * qx + qy * qy, 1e-37))
+    return dist, qy * rh, qx * rh
+
+
+def block_summaries(lat, lon, gs, active, nb, block, alt=None, vs=None):
+    """Per-block active-aircraft summaries the reachability bound reads."""
+    shape = (nb, block)
+    blat, blon, bgs = lat.reshape(shape), lon.reshape(shape), gs.reshape(shape)
+    act = active.reshape(shape)
+    inf = torch.tensor(float("inf"), dtype=lat.dtype, device=lat.device)
+    zero = torch.zeros((), dtype=lat.dtype, device=lat.device)
+    out = dict(
+        latmin=torch.where(act, blat, inf).amin(1),
+        latmax=torch.where(act, blat, -inf).amax(1),
+        lonmin=torch.where(act, blon, inf).amin(1),
+        lonmax=torch.where(act, blon, -inf).amax(1),
+        gsmax=torch.where(act, bgs, zero).amax(1))
+    if alt is not None:
+        balt = alt.reshape(shape)
+        bvs = torch.abs(vs.reshape(shape))
+        out.update(altmin=torch.where(act, balt, inf).amin(1),
+                   altmax=torch.where(act, balt, -inf).amax(1),
+                   vsmax=torch.where(act, bvs, zero).amax(1))
+    return out
+
+
+def reachability_from_summaries(row, col, rpz, tlookahead, hpz=None,
+                                min_reach_m=0.0, min_vreach_m=0.0):
+    """[nbr, nbc] bool reachability between two summary sets."""
+    latmin_r, latmax_r = row["latmin"], row["latmax"]
+    latmin_c, latmax_c = col["latmin"], col["latmax"]
+    maxabslat_r = torch.maximum(torch.abs(latmin_r), torch.abs(latmax_r))
+    maxabslat_c = torch.maximum(torch.abs(latmin_c), torch.abs(latmax_c))
+    dlat_gap = torch.clamp_min(torch.maximum(
+        latmin_r[:, None] - latmax_c[None, :],
+        latmin_c[None, :] - latmax_r[:, None]), 0.0)
+    lin_gap = torch.clamp_min(torch.maximum(
+        row["lonmin"][:, None] - col["lonmax"][None, :],
+        col["lonmin"][None, :] - row["lonmax"][:, None]), 0.0)
+    wrap_gap = torch.clamp_min(360.0 - (
+        torch.maximum(row["lonmax"][:, None], col["lonmax"][None, :])
+        - torch.minimum(row["lonmin"][:, None], col["lonmin"][None, :])), 0.0)
+    dlon_gap = torch.minimum(lin_gap, wrap_gap)
+    cos_lb = torch.cos(geo.radians(torch.clamp_max(
+        torch.maximum(maxabslat_r[:, None], maxabslat_c[None, :]), 90.0)))
+    r_min = 6335000.0
+    zonal = 2.0 * r_min * torch.asin(torch.clamp(
+        cos_lb * torch.sin(geo.radians(0.5 * torch.clamp_max(dlon_gap, 360.0))),
+        0.0, 1.0))
+    merid = dlat_gap * 110000.0
+    dist_lb = torch.maximum(merid, zonal)
+    thresh = rpz + tlookahead * (row["gsmax"][:, None] + col["gsmax"][None, :])
+    thresh = torch.clamp_min(thresh, min_reach_m)
+    reach = dist_lb <= thresh * 1.05
+    if hpz is not None and "altmin" in row:
+        altgap = torch.clamp_min(torch.maximum(
+            row["altmin"][:, None] - col["altmax"][None, :],
+            col["altmin"][None, :] - row["altmax"][:, None]), 0.0)
+        vthresh = hpz + tlookahead * (row["vsmax"][:, None]
+                                      + col["vsmax"][None, :])
+        vthresh = torch.clamp_min(vthresh, min_vreach_m)
+        reach = reach & (altgap <= vthresh * 1.05)
+    return reach
+
+
+def block_reachability(lat, lon, gs, active, nb, block, rpz, tlookahead,
+                       alt=None, vs=None, hpz=None):
+    """[nb, nb] bool: which block pairs can possibly contain a conflict
+    or LoS (the exact horizontal and vertical skip bounds)."""
+    summ = block_summaries(lat, lon, gs, active, nb, block, alt=alt, vs=vs)
+    return reachability_from_summaries(summ, summ, rpz, tlookahead,
+                                       hpz=hpz if alt is not None else None)

@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``bluesky_tpu_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the last line:
+
+1. device: the card's name and power limit (no CUDA device -> exit 2);
+2. build: every CUDA source of ``bluesky_tpu_torch/csrc`` compiled by
+   ``nvcc`` for sm_90a, all sources at once;
+3. kernel checks: each hand-written kernel against its plain PyTorch
+   version on the card, in float32, on three geometries (continental,
+   the 230 nm regional clump with overflow rows, an equator-crossing
+   fleet), each for a fresh and a resumed partner table;
+4. main path: 100,000 aircraft of the continental geometry in 100,352
+   slots, built with ``Traffic.create/flush``, under
+   ``SimConfig(cd_backend="sparse", cd_block=256)``: the sort refresh
+   and 20 steps of ``run_steps``, twice, with every kernel's launch
+   count taken over exactly that run; then the timings of each kernel,
+   its plain version and its bound at the main path's shapes.
+
+It prints one JSON line describing every kernel, then the
+``nvidia-smi`` name and power limit, then the result line
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
+#: outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+#: float32 operations per active pair of a visited tile in the tile body
+#: of csrc/cd_tiles.cu (geometry, CPA, entry/exit times, flags and the
+#: resume keep predicate; every add, multiply, divide, compare, select,
+#: min/max, sqrt and rsqrt counted once, by hand).  The MVP tail of the
+#: conflict pairs (~50 more) is left out: conflicts are a small share.
+PAIR_FLOPS = 190
+
+NM, FT = 1852.0, 0.3048
+KERNELS = {
+    "cd_sched._sched_kernel": dict(
+        source="bluesky_tpu_torch/csrc/cd_tiles.cu",
+        replaces="bluesky_tpu/ops/cd_sched.py:511"),
+    "cd_pallas._kernel_resume": dict(
+        source="bluesky_tpu_torch/csrc/cd_tiles.cu",
+        replaces="bluesky_tpu/ops/cd_pallas.py:449"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def columns(n, geom, seed):
+    """Per-aircraft CD inputs of one geometry, from a numpy seed (the
+    geometries of tests/test_cd_sched.py)."""
+    rng = np.random.default_rng(seed)
+    if geom == "regional":
+        ang = rng.uniform(0, 2 * np.pi, n)
+        r = 3.8 * np.sqrt(rng.random(n))
+        lat = 52.6 + r * np.cos(ang)
+        lon = 5.4 + r * np.sin(ang) / 0.6
+    elif geom == "equator":
+        lat = rng.uniform(-8.0, 8.0, n)
+        lon = rng.uniform(-10.0, 30.0, n)
+    else:
+        lat = rng.uniform(35.0, 60.0, n)
+        lon = rng.uniform(-10.0, 30.0, n)
+    gs = rng.uniform(130.0, 240.0, n)
+    trk = rng.uniform(0.0, 360.0, n)
+    alt = rng.uniform(3000.0, 11000.0, n)
+    vs = rng.uniform(-15.0, 15.0, n)
+    active = rng.random(n) > 0.05
+    return dict(lat=lat, lon=lon, trk=trk, gs=gs, alt=alt, vs=vs,
+                active=active)
+
+
+def cd_args(c, dev, t_ahead=0.0):
+    """The detect_resolve_sched operands of ``c`` on ``dev``, positions
+    moved ``t_ahead`` seconds along the tracks (flat earth)."""
+    import torch
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    trk = np.radians(c["trk"])
+    gse, gsn = c["gs"] * np.sin(trk), c["gs"] * np.cos(trk)
+    lat = c["lat"] + gsn * t_ahead / 111320.0
+    lon = c["lon"] + gse * t_ahead / (111320.0 * np.cos(np.radians(lat)))
+    return [f(lat), f(lon), f(c["trk"]), f(c["gs"]), f(c["alt"]),
+            f(c["vs"]), f(gse), f(gsn),
+            torch.as_tensor(c["active"], device=dev),
+            torch.zeros(len(lat), dtype=torch.bool, device=dev)]
+
+
+def check_kernels(dev, errs, scale=1):
+    """Phase 3: both kernels against their plain versions (fleet sizes
+    divided by ``scale``)."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+    mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                           tlookahead=300.0)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp, 5 * NM * 1.05)
+    # The regional clump runs with s_cap=2: its stripe sort covers every
+    # row with <= 3 segments, so the default s_cap=6 would leave the
+    # overflow kernel without a real tile.
+    for geom, n, s_cap in (("continental", 16384, 6), ("regional", 8192, 2),
+                           ("equator", 8192, 6)):
+        n //= scale
+        c = columns(n, geom, seed=1)
+        n_tot = cd_sched.padded_size(n, 256)
+        table = torch.full((n_tot, 8), -1, dtype=torch.int32, device=dev)
+        perm = None
+        for t_ahead in (0.0, 20.0):
+            # the resumed pass keeps the first pass's (now stale) layout,
+            # in whose slot space its partner table is written
+            x = cd_sched.prepare(*cd_args(c, dev, t_ahead), 5 * NM,
+                                 1000 * FT, 300.0, table, block=256,
+                                 s_cap=s_cap, perm=perm)
+            perm = x.perm
+            reach_f = x.reach & x.overflow[:, None]
+            k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
+                                      x.pold, p)
+            p1 = cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
+                                            x.pold, p)
+            k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
+            p2 = cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold,
+                                                  p)
+            torch.cuda.synchronize()
+            tag = f"{geom} N={n} t+{t_ahead:g}s"
+            e1 = cd_pallas.compare_outputs(f"sched_kernel {tag}", k1, p1)
+            e2 = cd_pallas.compare_outputs(f"kernel_resume {tag}", k2, p2)
+            errs["cd_sched._sched_kernel"] = max(
+                errs["cd_sched._sched_kernel"], e1)
+            errs["cd_pallas._kernel_resume"] = max(
+                errs["cd_pallas._kernel_resume"], e2)
+            merged = [torch.where(x.overflow[:, None, None], f, s)
+                      for f, s in zip(p2, p1)]
+            nconf = int(merged[6].to(torch.int32).sum())
+            nlos = int(merged[7].to(torch.int32).sum())
+            log(f"check {tag}: overflow rows {int(x.overflow.sum())}, "
+                f"scheduled tiles {int(x.wln.sum())}, overflow tiles "
+                f"{int(reach_f.sum())}, nconf {nconf}, nlos {nlos}, "
+                f"max abs err sched {e1:.3g} resume {e2:.3g}: match")
+            if geom == "regional" and not int(x.overflow.sum()):
+                raise AssertionError("regional check has no overflow rows")
+            # the resumed pass starts from this pass's merged table
+            table = merged[11].transpose(1, 2).reshape(n_tot, 8).contiguous()
+
+
+def active_pairs(x, tiles_of_row):
+    """Active ownship-intruder pairs over the visited tiles (self pairs
+    excluded): the work the tile body does on this run's data."""
+    from bluesky_tpu_torch.ops.cd_pallas import _IDX
+    act = (x.packed[:, _IDX["active"], :] > 0.5).sum(1).cpu().numpy() \
+        .astype(np.int64)
+    total = 0
+    for i in range(x.nb):
+        js = tiles_of_row(i)
+        total += int(act[i] * act[js].sum() - act[i] * (js == i).sum())
+    return total
+
+
+def cuda_ms(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0):
+    """The main path's scene and configuration: ``n_ac`` aircraft of the
+    continental geometry of ``__graft_entry__._build_state`` in ``nmax``
+    slots, built with the port's ``Traffic.create/flush`` on ``dev``,
+    under ``SimConfig(cd_backend="sparse", cd_block=256)``.  Returns
+    ``(state, cfg)``."""
+    from bluesky_tpu_torch.core import step as stepmod
+    from bluesky_tpu_torch.core.traffic import Traffic
+    rng = np.random.default_rng(seed)
+    traf = Traffic(nmax=nmax, device=dev)
+    lat = rng.uniform(35.0, 60.0, n_ac)
+    lon = rng.uniform(-10.0, 30.0, n_ac)
+    hdg = rng.uniform(0.0, 360.0, n_ac)
+    alt = rng.uniform(3000.0, 11000.0, n_ac)
+    spd = rng.uniform(130.0, 240.0, n_ac)
+    traf.create(n_ac, "B744", alt, spd, None, lat, lon, hdg)
+    traf.flush()
+    return traf.state, stepmod.SimConfig(cd_backend="sparse", cd_block=256)
+
+
+def main_path(dev, errs, n_ac=100_000, nmax=100_352):
+    """Phase 4: the port's sparse step at 100k aircraft."""
+    import torch
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+
+    t0 = time.perf_counter()
+    state, cfg = main_scene(dev, n_ac, nmax)
+    torch.cuda.synchronize()
+    log(f"main: {n_ac} aircraft in {nmax} slots built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for k in (cd_sched.LAUNCHES, cd_pallas.LAUNCHES):
+        for name in k:
+            k[name] = 0
+    chunk_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = asas.refresh_spatial_sort(state, cfg.asas, block=256,
+                                          impl="sparse")
+        state = stepmod.run_steps(state, cfg, 20)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    launches = {"cd_sched._sched_kernel": cd_sched.LAUNCHES["cd_sched_tiles"],
+                "cd_pallas._kernel_resume":
+                    cd_pallas.LAUNCHES["cd_full_grid_resume"]}
+    peak = torch.cuda.max_memory_allocated()
+    intervals = float(state.asas_tnext) / cfg.asas.dtasas
+    if not stepmod.state_finite(state):
+        raise AssertionError("main path: non-finite state")
+    nconf = int(state.asas.nconf_cur)
+    if nconf <= 0:
+        raise AssertionError("main path: no conflicts detected")
+    for name, cnt in launches.items():
+        if cnt < 1:
+            raise AssertionError(f"main path never launched {name}")
+    log(f"main: chunk seconds {chunk_s}, aircraft-steps/s of the second "
+        f"chunk {n_ac * 20 / chunk_s[1]:.4g}, ASAS intervals {intervals:g}, "
+        f"nconf {nconf}, nlos {int(state.asas.nlos_cur)}, launches "
+        f"{launches}, peak memory {peak / 2**30:.3f} GiB")
+
+    # The layers of a chunk on the stepped state, each timed on its own:
+    # one ASAS interval, one sort refresh, one step without the CD.
+    no_cd = cfg._replace(asas=cfg.asas._replace(swasas=False))
+    layers = {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
+                                                   block=256, impl="sparse"),
+        "sort refresh": lambda: asas.refresh_spatial_sort(
+            state, cfg.asas, block=256, impl="sparse"),
+        "step without CD": lambda: stepmod.step(state, no_cd),
+    }
+    for what, fn in layers.items():
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"main: ms per {what} {ms}")
+
+    # Each kernel, its plain version and its bound at the main path's
+    # shapes: the operands of the next interval of the stepped state.
+    ac, a = state.ac, state.asas
+    c = cfg.asas
+    x = cd_sched.prepare(ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs,
+                         ac.gseast, ac.gsnorth, ac.active, a.noreso, c.rpz,
+                         c.hpz, c.dtlookahead,
+                         a.partners_s[:cd_sched.padded_size(nmax, 256)],
+                         block=256, perm=a.sort_perm)
+    from bluesky_tpu_torch.ops import cr_mvp
+    mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
+                           tlookahead=c.dtlookahead)
+    p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp,
+                              c.rpz * c.resofach)
+    reach_f = x.reach & x.overflow[:, None]
+    st = x.wst.cpu().numpy()
+    ln = np.minimum(x.wln.cpu().numpy(), x.wmax)
+    rf = reach_f.cpu().numpy()
+
+    def sched_tiles_of(i):
+        t = np.concatenate([np.arange(b, b + k) for b, k in zip(st[i], ln[i])]
+                           + [np.zeros(0, np.int64)])
+        return t[t < x.nb]
+
+    nb, B = x.nb, x.block
+    out_bytes = (8 + 1) * nb * B * 4 + 4 * nb * 8 * B * 4
+    in_bytes = x.packed.numel() * 4 + x.pold.numel() * 4
+    runs = {
+        "cd_sched._sched_kernel": dict(
+            kern=lambda: cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
+                                              x.pold, p),
+            plain=lambda: cd_sched.sched_tiles_plain(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p),
+            pairs=active_pairs(x, sched_tiles_of),
+            bytes=in_bytes + 2 * x.wst.numel() * 4 + out_bytes,
+            tiles=int(ln.sum())),
+        "cd_pallas._kernel_resume": dict(
+            kern=lambda: cd_pallas.full_grid_resume(x.packed, reach_f,
+                                                    x.pold, p),
+            plain=lambda: cd_pallas.full_grid_resume_plain(
+                x.packed, reach_f, x.pold, p),
+            pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
+            bytes=in_bytes + nb * nb + out_bytes,
+            tiles=int(rf.sum())),
+    }
+    log(f"main: overflow rows {int(x.overflow.sum())}, scheduled tiles per "
+        f"interval {runs['cd_sched._sched_kernel']['tiles']}, overflow "
+        f"tiles per interval {runs['cd_pallas._kernel_resume']['tiles']}")
+    report = []
+    for name, r in runs.items():
+        errs[name] = max(errs[name], cd_pallas.compare_outputs(
+            f"{name} main path", r["kern"](), r["plain"]()))
+        ms = cuda_ms(r["kern"], 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r["plain"]()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = r["pairs"] * PAIR_FLOPS / PEAK_F32_FLOPS * 1e3
+        log(f"{name}: {ms:.4g} ms per launch, plain {plain_ms:.4g} ms, "
+            f"{r['tiles']} tiles, {r['pairs']} active pairs, bound "
+            f"{max(t_bytes, t_ops):.4g} ms ({t_bytes:.3g} ms bytes, "
+            f"{t_ops:.3g} ms operations)")
+        report.append(dict(
+            name=name, route="cuda", source=KERNELS[name]["source"],
+            replaces=KERNELS[name]["replaces"], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None))
+    return report
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bluesky_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    msgs = _cuda.build_all(verbose=True)
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    for src, m in msgs.items():
+        log(f"build {src}:\n{m.strip()}")
+    for src in _cuda.SIGNATURES:
+        _cuda.load(src)
+
+    errs = {name: 0.0 for name in KERNELS}
+    t0 = time.perf_counter()
+    check_kernels(dev, errs)
+    log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    report = main_path(dev, errs)
+    log(f"main path: {time.perf_counter() - t0:.1f} s")
+
+    print(json.dumps({"kernels": report}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""The port's device policy and host-side gating.
+
+* The FMS and ASAS gates, decided on the host from the state's clocks in
+  their own dtype, take the same decisions as the JAX step's device
+  conditionals, step for step, over 2,000 steps in float32 and float64.
+* ``bluesky_tpu_torch`` imports with ``jax``, ``flax`` and ``bluesky_tpu``
+  blocked.
+* Entry points called without ``device`` raise when no CUDA device
+  exists instead of running on the CPU.
+"""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bluesky_tpu.core import step as jstep
+from bluesky_tpu.core.traffic import Traffic as JTraffic
+from bluesky_tpu_torch.core import asas as tasas, state as tstate, \
+    step as tstep
+from bluesky_tpu_torch.core.traffic import Traffic as TTraffic
+
+from torch_parity import scene
+
+NSTEPS = 2000
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
+    """Both steps run 2,000 times on a 4-aircraft scene; after every step
+    the clocks (simt, fms_t0, asas_tnext) are bit-equal, so every FMS and
+    ASAS decision was the same.  The port's CD interval is replaced by a
+    counter (the gate, not the CD, is under test)."""
+    lat, lon, hdg, alt, spd = scene(4, seed=2)
+    jt = JTraffic(nmax=8, dtype=getattr(jnp, dtype), pair_matrix=True)
+    jt.create(4, "B744", alt, spd, None, lat, lon, hdg)
+    jt.flush()
+    tt = TTraffic(nmax=8, dtype=getattr(torch, dtype), device="cpu")
+    tt.create(4, "B744", alt, spd, None, lat, lon, hdg)
+    tt.flush()
+
+    runs = []
+
+    def fake_update_tiled(state, cfg, block=512, impl="lax"):
+        runs.append(float(state.simt))
+        return state, None
+    monkeypatch.setattr(tasas, "update_tiled", fake_update_tiled)
+
+    js, ts = jt.state, tt.state
+    jcfg = jstep.SimConfig()                      # dense: cheap at N=4
+    tcfg = tstep.SimConfig()                      # sparse
+    fms = 0
+    for _ in range(NSTEPS):
+        js = jstep.run_steps(js, jcfg, 1)
+        t0 = ts.fms_t0
+        ts = tstep.step(ts, tcfg)
+        fms += ts.fms_t0 != t0
+        for k in ("simt", "fms_t0", "asas_tnext"):
+            a, b = np.asarray(getattr(js, k)), getattr(ts, k)
+            assert a.dtype == b.dtype and a == b, k
+    assert len(runs) == int(round(float(ts.asas_tnext)))
+    assert len(runs) >= 99 and fms >= 98
+
+
+def test_import_without_jax():
+    """The package and every module of it import with jax, flax and
+    bluesky_tpu unavailable."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import bluesky_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TTraffic(nmax=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.make_state(8)
+    tree = tstate.state_to_numpy(tstate.make_state(8, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.state_from_numpy(tree)
+    assert TTraffic(nmax=8, device="cpu").state.device.type == "cpu"
+
+
+def test_unported_backends_raise():
+    ts = TTraffic(nmax=8, device="cpu").state
+    for backend in ("dense", "tiled", "pallas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tstep.step(ts, tstep.SimConfig(cd_backend=backend))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tasas.update_tiled(ts, tasas.AsasConfig(reso_method="EBY"),
+                           impl="sparse")

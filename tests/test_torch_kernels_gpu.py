@@ -1,0 +1,70 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+a CUDA device (marker ``gpu``; skipped where there is none):
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+
+Flags, counts, keep bits, candidate and merged partner sets equal; the
+float reductions within rtol 1e-4 / atol 5e-3 (the same check as
+``chip_smoke.py``: ``cd_pallas.compare_outputs``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+
+from torch_parity import FT, NM
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(geom, n, dev):
+    rng = np.random.default_rng(3)
+    if geom == "clump":
+        ang = rng.uniform(0, 2 * np.pi, n)
+        r = 3.8 * np.sqrt(rng.random(n))
+        lat, lon = 52.6 + r * np.cos(ang), 5.4 + r * np.sin(ang) / 0.6
+    else:
+        lat, lon = rng.uniform(35, 60, n), rng.uniform(-10, 30, n)
+    gs, trk = rng.uniform(130, 240, n), rng.uniform(0, 360, n)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return [f(lat), f(lon), f(trk), f(gs), f(rng.uniform(3000, 11000, n)),
+            f(rng.uniform(-15, 15, n)), f(gs * np.sin(np.radians(trk))),
+            f(gs * np.cos(np.radians(trk))),
+            torch.as_tensor(rng.random(n) > 0.05, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev)]
+
+
+@pytest.mark.parametrize("geom,s_cap", [("spread", 6), ("clump", 2)])
+def test_kernels_match_plain(cuda, geom, s_cap):
+    n = 4096
+    n_tot = cd_sched.padded_size(n, 256)
+    x = cd_sched.prepare(*_inputs(geom, n, cuda), 5 * NM, 1000 * FT, 300.0,
+                         torch.full((n_tot, 8), -1, dtype=torch.int32,
+                                    device=cuda), block=256, s_cap=s_cap)
+    cfg = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                           tlookahead=300.0)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, cfg, 5 * NM * 1.05)
+    reach_f = x.reach & x.overflow[:, None]
+    n1 = cd_sched.LAUNCHES["cd_sched_tiles"]
+    n2 = cd_pallas.LAUNCHES["cd_full_grid_resume"]
+    pairs = [
+        (cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p),
+         cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax, x.pold,
+                                    p)),
+        (cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p),
+         cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold, p))]
+    torch.cuda.synchronize()
+    assert cd_sched.LAUNCHES["cd_sched_tiles"] == n1 + 1
+    assert cd_pallas.LAUNCHES["cd_full_grid_resume"] == n2 + 1
+    if geom == "clump":
+        assert int(x.overflow.sum()) > 0
+    for name, (got, want) in zip(("sched", "resume"), pairs):
+        cd_pallas.compare_outputs(f"{name} {geom}", got, want)
