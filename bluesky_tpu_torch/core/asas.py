@@ -1,19 +1,21 @@
-"""Airborne Separation Assurance: the sparse CD&R interval on tensors.
+"""Airborne Separation Assurance: the sparse and pallas CD&R intervals on
+tensors.
 
-Port of the sparse single-device MVP part of ``bluesky_tpu/core/asas.py``:
-``AsasConfig``, the stripe-sort refresh (``refresh_spatial_sort`` with
-``impl="sparse"``) and one ASAS interval through the segment-scheduled
-kernels (``update_tiled`` with ``impl="sparse"``): detect, resolve with
-MVP from the accumulated pair sums, and store the in-kernel merged
-partner table.  The dense, tiled and pallas backends, the EBY, SWARM and
-SSD resolvers and the spatial/tiles shard modes are not ported yet
-(``ROADMAP.md`` §A) and raise ``NotImplementedError``.
+Port of the single-device MVP part of ``bluesky_tpu/core/asas.py``:
+``AsasConfig``, the spatial-sort refresh (``refresh_spatial_sort``: the
+stripe sort of ``impl="sparse"``, the Morton order of ``impl="pallas"``)
+and one ASAS interval (``update_tiled``): detect, resolve with MVP from
+the accumulated pair sums, then resume-nav, in-kernel on the
+sorted-space table ``partners_s`` (sparse) or on the host side of the
+caller-space table ``partners`` (pallas).  The dense and tiled backends,
+the EBY, SWARM and SSD resolvers and the spatial/tiles shard modes are
+not ported yet (``ROADMAP.md`` §A) and raise ``NotImplementedError``.
 """
 from typing import NamedTuple
 
 import torch
 
-from ..ops import aero, cd_sched, cr_mvp
+from ..ops import aero, cd_pallas, cd_sched, cd_tiled, cr_mvp
 from .state import SimState
 
 
@@ -53,11 +55,11 @@ def impl_for_backend(cd_backend: str) -> str:
     return {"pallas": "pallas", "sparse": "sparse"}.get(cd_backend, "lax")
 
 
-def _require_sparse(impl):
-    if impl != "sparse":
+def _require_ported(impl):
+    if impl not in ("sparse", "pallas"):
         raise NotImplementedError(
-            f"CD&R impl {impl!r} is not ported yet: only the sparse "
-            "backend is (ROADMAP.md A1 pallas, A2 dense/tiled)")
+            f"CD&R impl {impl!r} is not ported yet: only the sparse and "
+            "pallas backends are (ROADMAP.md A2 dense/tiled)")
 
 
 def _sparse_sort_refresh(lat, lon, gs, active, old_perm, partners_s, *,
@@ -84,11 +86,19 @@ def _sparse_sort_refresh(lat, lon, gs, active, old_perm, partners_s, *,
 
 def refresh_spatial_sort(state: SimState, cfg: AsasConfig,
                          block: int = 512, impl: str = "lax") -> SimState:
-    """Recompute the cached stripe sort of the sparse backend (host-called
+    """Recompute the cached spatial sort ``asas.sort_perm`` (host-called
     at chunk boundaries; any staleness is exact, it only loosens the
-    windows)."""
-    _require_sparse(impl)
+    blocks).  As in the JAX package the field means two things: for
+    ``impl="sparse"`` it holds the stripe destinations (caller slot ->
+    sorted slot) and the sorted-space ``partners_s`` is remapped with
+    them; for ``impl="pallas"`` it holds the Morton permutation (sorted
+    position -> caller slot) and ``partners`` stays in caller space."""
+    _require_ported(impl)
     ac = state.ac
+    if impl == "pallas":
+        perm = cd_tiled.spatial_permutation(ac.lat, ac.lon, ac.active)
+        return state.replace(asas=state.asas.replace(
+            sort_perm=perm.to(torch.int32)))
     dest, partners_s = _sparse_sort_refresh(
         ac.lat, ac.lon, ac.gs, ac.active, state.asas.sort_perm,
         state.asas.partners_s, block=min(block, 256),
@@ -99,11 +109,15 @@ def refresh_spatial_sort(state: SimState, cfg: AsasConfig,
 
 def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
                  impl: str = "lax"):
-    """One ASAS interval through the sparse backend: detect with the
-    segment-scheduled kernels (resume-nav in-kernel), resolve with MVP
-    from the pair sums, store the merged sorted-space partner table.
-    Returns ``(state, rd)``."""
-    _require_sparse(impl)
+    """One ASAS interval: detect, resolve with MVP from the pair sums,
+    resume-nav.  ``impl="sparse"``: the segment-scheduled kernels with
+    resume-nav in-kernel on the sorted-space ``partners_s``, with
+    ``sort_perm`` the stripe destinations.  ``impl="pallas"``:
+    ``cd_pallas.detect_resolve_pallas`` in the Morton order
+    ``sort_perm`` (sorted position -> caller slot), then resume-nav on
+    the host side of the caller-space ``partners``.  Returns
+    ``(state, rd)``."""
+    _require_ported(impl)
     if cfg.reso_on and cfg.reso_method.upper() != "MVP":
         raise NotImplementedError(
             f"resolver {cfg.reso_method!r} is not ported yet: only MVP is "
@@ -113,14 +127,20 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
         rpz_m=cfg.rpz_m, hpz_m=cfg.hpz_m, tlookahead=cfg.dtlookahead,
         swresohoriz=cfg.swresohoriz, swresospd=cfg.swresospd,
         swresohdg=cfg.swresohdg, swresovert=cfg.swresovert)
-    block = min(block, 256)
-    n_tot = cd_sched.padded_size(ac.lat.shape[0], block)
-    rd, partners_s, act_new = cd_sched.detect_resolve_sched(
-        ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast, ac.gsnorth,
-        ac.active, asas.noreso, cfg.rpz, cfg.hpz, cfg.dtlookahead, mvpcfg,
-        partners=asas.partners_s[:n_tot],
-        resume_rpz_m=cfg.rpz * cfg.resofach, block=block,
-        perm=asas.sort_perm)
+    if impl == "pallas":
+        rd = cd_pallas.detect_resolve_pallas(
+            ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+            ac.gsnorth, ac.active, asas.noreso, cfg.rpz, cfg.hpz,
+            cfg.dtlookahead, mvpcfg, block=block, perm=asas.sort_perm)
+    else:
+        block = min(block, 256)
+        n_tot = cd_sched.padded_size(ac.lat.shape[0], block)
+        rd, partners_s, act_new = cd_sched.detect_resolve_sched(
+            ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+            ac.gsnorth, ac.active, asas.noreso, cfg.rpz, cfg.hpz,
+            cfg.dtlookahead, mvpcfg, partners=asas.partners_s[:n_tot],
+            resume_rpz_m=cfg.rpz * cfg.resofach, block=block,
+            perm=asas.sort_perm)
     if cfg.reso_on:
         newtrk, newgs, newvs, newalt, asase, asasn = \
             cr_mvp.resolve_from_sums(
@@ -135,12 +155,27 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
             trk=w(newtrk, asas.trk), tas=w(newgs, asas.tas),
             vs=w(newvs, asas.vs), alt=w(newalt, asas.alt),
             asase=w(asase, asas.asase), asasn=w(asasn, asas.asasn))
-    spad = asas.partners_s.shape[0] - partners_s.shape[0]
-    if spad > 0:
-        partners_s = torch.cat([partners_s, partners_s.new_full(
-            (spad, partners_s.shape[1]), -1)])
+    if impl == "pallas":
+        # Resume-nav on the caller-space table (asas.py:1124-1144): prune
+        # the old partners, merge in this interval's fresh conflicts,
+        # prune the merged table.
+        prune = lambda tbl: cd_tiled.partner_keep(
+            tbl, ac.lat, ac.lon, ac.gseast, ac.gsnorth, ac.trk, ac.active,
+            cfg.rpz, cfg.rpz * cfg.resofach)
+        new_idx = cd_tiled.topk_partners(rd, asas.partners.shape[1])
+        merged = cd_tiled.merge_partners(new_idx, asas.partners,
+                                         prune(asas.partners))
+        partners = torch.where(prune(merged), merged,
+                               torch.full_like(merged, -1))
+        asas = asas.replace(partners=partners)
+        act_new = (partners >= 0).any(1)
+    else:
+        spad = asas.partners_s.shape[0] - partners_s.shape[0]
+        if spad > 0:
+            partners_s = torch.cat([partners_s, partners_s.new_full(
+                (spad, partners_s.shape[1]), -1)])
+        asas = asas.replace(partners_s=partners_s)
     asas = asas.replace(
-        partners_s=partners_s,
         active=act_new & cfg.reso_on,
         inconf=rd.inconf,
         tcpamax=rd.tcpamax.to(asas.tcpamax.dtype),

@@ -1,11 +1,11 @@
 """The simulation step on tensors.
 
 Port of ``bluesky_tpu/core/step.py`` for the slice the port runs: one
-device, ``cd_backend="sparse"``, the MVP resolver.  Pipeline order per
-step (reference traffic.py:383-423): atmosphere -> ADS-B -> FMS (gated)
--> ASAS CD&R (gated) -> AP/ASAS arbitration -> performance update ->
-envelope limits -> airspeed -> groundspeed (wind) -> position ->
-turbulence.
+device, ``cd_backend="sparse"`` or ``"pallas"``, the MVP resolver.
+Pipeline order per step (reference traffic.py:383-423): atmosphere ->
+ADS-B -> FMS (gated) -> ASAS CD&R (gated) -> AP/ASAS arbitration ->
+performance update -> envelope limits -> airspeed -> groundspeed (wind)
+-> position -> turbulence.
 
 The FMS and ASAS gates are decided on the host from the state's host
 clocks (``simt``, ``fms_t0``, ``asas_tnext``, numpy scalars in the
@@ -27,7 +27,7 @@ from .state import SimState
 
 #: SimConfig.cd_backend values of the JAX package that the port does not
 #: run yet, with the roadmap item that ports each
-_NOT_PORTED = {"dense": "A2", "tiled": "A2", "pallas": "A1"}
+_NOT_PORTED = {"dense": "A2", "tiled": "A2"}
 
 
 class SimConfig(NamedTuple):
@@ -39,7 +39,7 @@ class SimConfig(NamedTuple):
     asas: AsasConfig = AsasConfig()
     noise: NoiseConfig = NoiseConfig()
     use_wind: bool = False
-    cd_backend: str = "sparse"   # the only backend ported so far
+    cd_backend: str = "sparse"   # "sparse" or "pallas" (ported so far)
     cd_block: int = 256
 
 
@@ -50,8 +50,9 @@ def check_config(cfg: SimConfig):
     if cfg.cd_backend in _NOT_PORTED:
         raise NotImplementedError(
             f"cd_backend {cfg.cd_backend!r} is not ported yet (ROADMAP.md "
-            f"{_NOT_PORTED[cfg.cd_backend]}); use cd_backend='sparse'")
-    if cfg.cd_backend != "sparse":
+            f"{_NOT_PORTED[cfg.cd_backend]}); use cd_backend='sparse' or "
+            "'pallas'")
+    if cfg.cd_backend not in ("sparse", "pallas"):
         raise ValueError(
             f"Unknown SimConfig.cd_backend {cfg.cd_backend!r}; expected "
             "'dense', 'tiled', 'pallas' or 'sparse'.")

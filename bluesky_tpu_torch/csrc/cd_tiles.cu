@@ -1,15 +1,23 @@
-// Conflict detection & MVP resolution tiles with in-kernel resume-nav,
-// hand-written for Hopper (sm_90a).
+// Conflict detection & MVP resolution tiles, hand-written for Hopper
+// (sm_90a).
 //
-// Replaces two Pallas TPU kernels of bluesky_tpu:
-//   * cd_sched_tiles   <- ops/cd_sched.py::_sched_kernel   (segment walker)
+// Replaces the four Pallas TPU kernels of bluesky_tpu:
+//   * cd_sched_tiles      <- ops/cd_sched.py::_sched_kernel (segment walker)
 //   * cd_full_grid_resume <- ops/cd_pallas.py::_kernel_resume (reach-masked
-//                            full-grid walker, the overflow-row fallback)
-// Both run the same per-pair body (cd_pallas._tile_pairs: factored
-// haversine, CPA, horizontal/vertical entry and exit times, conflict and
-// LoS flags, MVP displacement sums, the resume keep predicate and a
-// running top-KK of partner candidates) and the same partner merge
-// (cd_pallas._merge_partners_block).
+//                            full-grid walker, the sparse overflow fallback)
+//   * cd_full_grid        <- ops/cd_pallas.py::_kernel (the same walker
+//                            without a partner table: the pallas backend)
+//   * cd_cand_tiles       <- ops/cd_pallas.py::_kernel_cand (ownship block
+//                            against its candidate aircraft)
+// All run one per-pair body (cd_pallas._tile_pairs: factored haversine,
+// CPA, horizontal/vertical entry and exit times, conflict and LoS flags,
+// MVP displacement sums and a running top-KK of partner candidates).
+// With the compile-time flag RESUME (the first two) the body also
+// evaluates the resume keep predicate, offers only kept conflict pairs as
+// candidates, and the row ends with the partner merge
+// (cd_pallas._merge_partners_block); without it (the last two) every
+// conflict pair is a candidate and only the accumulators and the top-KK
+// are stored.
 //
 // Design (correct first, not yet fast): one CTA per ownship row block of
 // B <= 256 slots, one thread per ownship.  For each intruder block the
@@ -21,12 +29,24 @@
 // tin first, ties to the earlier / smaller id).  Masked pairs (inactive,
 // self) are skipped instead of being pushed out of range with +1e9.
 //
+// The candidate kernel stages, for each sub-chunk of B entries of its row's
+// candidate table, the B slab columns straight from the packed slabs
+// through the ids (the gather the TPU path materializes as a
+// [nb*nsub, 16, B] array) and takes each intruder's id from the staged
+// table instead of jb*B + lane.  The sentinel id nb*B is staged as an
+// inactive column.  Ids ascend within a row, so the strict '<' insert
+// keeps the Pallas tie order there too.
+//
 // Bound on the card: the pair math.  Each visited tile costs B*B pairs
-// of ~190 f32 operations (a handful of sqrt/rsqrt/divisions among
-// them) against 16*B*4 bytes of slab, so the kernels sit far above the
-// memory roofline and are bounded by the f32 rate (chip_smoke.py
-// computes the bound from the active pairs of each run).  Nothing here
-// uses the tensor cores; occupancy and intruder reuse are later work.
+// of ~175 f32 operations without the keep predicate and ~220 with it
+// (a handful of sqrt/rsqrt/divisions among them; chip_smoke.py has the
+// hand counts) against 16*B*4 bytes of slab, so the kernels sit far
+// above the memory roofline and are bounded by the f32 rate
+// (chip_smoke.py computes the bound from the active pairs of each run).
+// The full-grid walker gives each row block one CTA, so the row with the
+// most reachable tiles (a Morton block straddling a jump of the curve has
+// a wide bounding box) sets its time.  Nothing here uses the tensor
+// cores; occupancy, intruder reuse and splitting long rows are later work.
 //
 // Plain C interface (built with nvcc, loaded with ctypes); every entry
 // point launches on the caller's stream and returns cudaGetLastError().
@@ -124,14 +144,15 @@ __device__ __forceinline__ void insert_cand(Row<KK>& r, float tin, int id) {
   }
 }
 
-// One ownship against one staged intruder slab (cd_pallas._tile_pairs with
-// the resume keep predicate).
-template <int KK>
-__device__ void tile_pairs(float (*s)[MAXB], int B, int jb,
+// One ownship against one staged intruder slab (cd_pallas._tile_pairs; with
+// RESUME, the resume keep predicate too).  The intruder ids are the staged
+// ids sid with IDS, else those of block jb, jb*B + lane.
+template <int KK, bool RESUME, bool IDS>
+__device__ void tile_pairs(float (*s)[MAXB], const int* sid, int jb, int B,
                            Row<KK>& r, const Params& P) {
   const float* o = r.o;
   for (int t = 0; t < B; ++t) {
-    const int gid_i = jb * B + t;
+    const int gid_i = IDS ? sid[t] : jb * B + t;
     if (!(s[F_ACTIVE][t] > 0.5f) || gid_i == r.gid) continue;
     const float lat_i = s[F_LAT][t], lon_i = s[F_LON][t];
     const float sl_i = s[F_SL][t], cl_i = s[F_CL][t];
@@ -237,6 +258,10 @@ __device__ void tile_pairs(float (*s)[MAXB], int B, int jb,
       }
     }
 
+    if constexpr (!RESUME) {
+      if (swconfl) insert_cand<KK>(r, tinconf, gid_i);
+      continue;
+    }
     // --- resume-nav keep predicate: cr_mvp.resume_keep_core ---
     const float cos_half = sqrtf(fmaxf(0.5f + 0.5f * cos_sum, 0.0f));
     const float dist_e = REARTH * ((lon_i - o[F_LON]) * RAD) * cos_half;
@@ -254,7 +279,7 @@ __device__ void tile_pairs(float (*s)[MAXB], int B, int jb,
   }
 }
 
-template <int KK>
+template <int KK, bool RESUME>
 __device__ void row_begin(Row<KK>& r, const float* packed, const int* pold,
                           int i, int B, int t) {
 #pragma unroll
@@ -267,7 +292,8 @@ __device__ void row_begin(Row<KK>& r, const float* packed, const int* pold,
   for (int k = 0; k < KK; ++k) {
     r.ct[k] = BIG;
     r.ci[k] = BIG_I;
-    r.pold[k] = pold[((size_t)i * KK + k) * B + t];
+    if constexpr (RESUME) r.pold[k] = pold[((size_t)i * KK + k) * B + t];
+    else r.pold[k] = -1;
   }
   r.keep = 0u;
 }
@@ -280,32 +306,54 @@ __device__ __forceinline__ void stage(float (*s)[MAXB], const float* packed,
   __syncthreads();
 }
 
-// cd_pallas._merge_partners_block for one ownship, then the stores.
-template <int KK>
+// Stage B candidate aircraft by id, read through the ids from the packed
+// slabs; the sentinel n (= nb*B) becomes an all-zero, inactive column.
+__device__ __forceinline__ void stage_ids(float (*s)[MAXB], int* sid,
+                                          const float* packed,
+                                          const int* ids, int n, int B,
+                                          int t) {
+  __syncthreads();
+  const int id = ids[t];
+  const bool real = id >= 0 && id < n;
+  const size_t base = real ? ((size_t)(id / B) * NF) * B + id % B : 0;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) s[f][t] = real ? packed[base + (size_t)f * B] : 0.0f;
+  sid[t] = id;
+  __syncthreads();
+}
+
+// The stores of one ownship: the 8 accumulators and the top-KK; with
+// RESUME, cd_pallas._merge_partners_block first, then the keep bits, the
+// merged partners and the engagement flag too.  (Merging before the
+// stores keeps the resume kernels at 80 registers; storing first took 93,
+// one CTA fewer per SM, and made K1 ~30 % slower on an H100.)
+template <int KK, bool RESUME>
 __device__ void row_finish(const Row<KK>& r, const Outs& out, int i, int B,
                            int t, size_t nt) {
-  int cat[2 * KK];
-#pragma unroll
-  for (int k = 0; k < KK; ++k) cat[k] = r.ct[k] < BIG ? r.ci[k] : -1;
-#pragma unroll
-  for (int k = 0; k < KK; ++k) {
-    int old = ((r.keep >> k) & 1u) ? r.pold[k] : -1;
-#pragma unroll
-    for (int m = 0; m < KK; ++m)
-      if (cat[m] >= 0 && old == cat[m]) old = -1;
-    cat[KK + k] = old;
-  }
   int merged[KK];
-#pragma unroll
-  for (int k = 0; k < KK; ++k) merged[k] = -1;
   int n = 0;
+  if constexpr (RESUME) {
+    int cat[2 * KK];
 #pragma unroll
-  for (int c = 0; c < 2 * KK; ++c) {
-    if (cat[c] >= 0) {
+    for (int k = 0; k < KK; ++k) cat[k] = r.ct[k] < BIG ? r.ci[k] : -1;
 #pragma unroll
-      for (int k = 0; k < KK; ++k)
-        if (k == n) merged[k] = cat[c];
-      ++n;
+    for (int k = 0; k < KK; ++k) {
+      int old = ((r.keep >> k) & 1u) ? r.pold[k] : -1;
+#pragma unroll
+      for (int m = 0; m < KK; ++m)
+        if (cat[m] >= 0 && old == cat[m]) old = -1;
+      cat[KK + k] = old;
+    }
+#pragma unroll
+    for (int k = 0; k < KK; ++k) merged[k] = -1;
+#pragma unroll
+    for (int c = 0; c < 2 * KK; ++c) {
+      if (cat[c] >= 0) {
+#pragma unroll
+        for (int k = 0; k < KK; ++k)
+          if (k == n) merged[k] = cat[c];
+        ++n;
+      }
     }
   }
   const size_t g = (size_t)i * B + t;
@@ -322,10 +370,12 @@ __device__ void row_finish(const Row<KK>& r, const Outs& out, int i, int B,
     const size_t e = ((size_t)i * KK + k) * B + t;
     out.ctin[e] = r.ct[k];
     out.cidx[e] = r.ci[k];
-    out.keep[e] = (float)((r.keep >> k) & 1u);
-    out.merged[e] = merged[k];
+    if constexpr (RESUME) {
+      out.keep[e] = (float)((r.keep >> k) & 1u);
+      out.merged[e] = merged[k];
+    }
   }
-  out.active[g] = n > 0 ? 1.0f : 0.0f;
+  if constexpr (RESUME) out.active[g] = n > 0 ? 1.0f : 0.0f;
 }
 
 // _sched_kernel: row block i walks its <= S (start, len) segments of
@@ -338,7 +388,7 @@ sched_kernel(const float* __restrict__ packed, int nbc, int B,
   __shared__ float s[NF][MAXB];
   const int i = blockIdx.x, t = threadIdx.x;
   Row<KK> r;
-  row_begin<KK>(r, packed, pold, i, B, t);
+  row_begin<KK, true>(r, packed, pold, i, B, t);
   const bool own_act = r.o[F_ACTIVE] > 0.5f;
   if (__syncthreads_or(own_act)) {
     for (int sg = 0; sg < S; ++sg) {
@@ -348,16 +398,17 @@ sched_kernel(const float* __restrict__ packed, int nbc, int B,
         const int jb = base + k;
         if (jb >= nbc) break;
         stage(s, packed, jb, B, t);
-        if (own_act) tile_pairs<KK>(s, B, jb, r, P);
+        if (own_act) tile_pairs<KK, true, false>(s, nullptr, jb, B, r, P);
       }
     }
   }
-  row_finish<KK>(r, out, i, B, t, (size_t)gridDim.x * B);
+  row_finish<KK, true>(r, out, i, B, t, (size_t)gridDim.x * B);
 }
 
-// _kernel_resume: row block i visits every intruder block jb with
-// reach[i, jb] != 0 (the caller restricts reach to the overflow rows).
-template <int KK>
+// _kernel_resume (RESUME) and _kernel: row block i visits every intruder
+// block jb with reach[i, jb] != 0, in ascending jb (the callers restrict
+// reach to the overflow rows where it is a fallback).
+template <int KK, bool RESUME>
 __global__ void __launch_bounds__(MAXB)
 full_grid_kernel(const float* __restrict__ packed, int nbc, int B,
                  const uint8_t* __restrict__ reach,
@@ -365,17 +416,44 @@ full_grid_kernel(const float* __restrict__ packed, int nbc, int B,
   __shared__ float s[NF][MAXB];
   const int i = blockIdx.x, t = threadIdx.x;
   Row<KK> r;
-  row_begin<KK>(r, packed, pold, i, B, t);
+  row_begin<KK, RESUME>(r, packed, pold, i, B, t);
   const bool own_act = r.o[F_ACTIVE] > 0.5f;
   if (__syncthreads_or(own_act)) {
     const uint8_t* rrow = reach + (size_t)i * nbc;
     for (int jb = 0; jb < nbc; ++jb) {
       if (!rrow[jb]) continue;
       stage(s, packed, jb, B, t);
-      if (own_act) tile_pairs<KK>(s, B, jb, r, P);
+      if (own_act) tile_pairs<KK, RESUME, false>(s, nullptr, jb, B, r, P);
     }
   }
-  row_finish<KK>(r, out, i, B, t, (size_t)gridDim.x * B);
+  row_finish<KK, RESUME>(r, out, i, B, t, (size_t)gridDim.x * B);
+}
+
+// _kernel_cand: row block i against the aircraft of its candidate table
+// cand[i, 0:c_cap] (ascending ids, then sentinels nb*B), B at a time.
+// A sub-chunk that starts with the sentinel holds nothing else, nor does
+// any later one, so the row ends there (an overflow row's table is all
+// sentinel and costs one read).
+template <int KK>
+__global__ void __launch_bounds__(MAXB)
+cand_kernel(const float* __restrict__ packed, int nb, int B,
+            const int* __restrict__ cand, int c_cap, Params P, Outs out) {
+  __shared__ float s[NF][MAXB];
+  __shared__ int sid[MAXB];
+  const int i = blockIdx.x, t = threadIdx.x;
+  const int n = nb * B;
+  Row<KK> r;
+  row_begin<KK, false>(r, packed, nullptr, i, B, t);
+  const bool own_act = r.o[F_ACTIVE] > 0.5f;
+  if (__syncthreads_or(own_act)) {
+    const int* crow = cand + (size_t)i * c_cap;
+    for (int c = 0; c < c_cap; c += B) {
+      if (crow[c] >= n) break;
+      stage_ids(s, sid, packed, crow + c, n, B, t);
+      if (own_act) tile_pairs<KK, false, true>(s, sid, 0, B, r, P);
+    }
+  }
+  row_finish<KK, false>(r, out, i, B, t, (size_t)gridDim.x * B);
 }
 
 Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
@@ -419,8 +497,39 @@ int cd_full_grid_resume(const float* packed, int nb, int B,
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume);
   Outs o{acc, ctin, cidx, keep, merged, active};
-  full_grid_kernel<8><<<nb, B, 0, (cudaStream_t)stream>>>(
+  full_grid_kernel<8, true><<<nb, B, 0, (cudaStream_t)stream>>>(
       packed, nb, B, reach, pold, P, o);
+  return (int)cudaGetLastError();
+}
+
+// The reach-masked full grid without a partner table (rpz_resume unused).
+int cd_full_grid(const float* packed, int nb, int B, const uint8_t* reach,
+                 float rpz, float r2, float hpz, float tlook, float rpz_m,
+                 float hpz_m, float tlook_m, float rpz_resume, float* acc,
+                 float* ctin, int* cidx, void* stream) {
+  if (B <= 0 || B > MAXB) return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return 0;
+  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                         rpz_resume);
+  Outs o{acc, ctin, cidx, nullptr, nullptr, nullptr};
+  full_grid_kernel<8, false><<<nb, B, 0, (cudaStream_t)stream>>>(
+      packed, nb, B, reach, nullptr, P, o);
+  return (int)cudaGetLastError();
+}
+
+// The candidate pass; c_cap is a multiple of B (rpz_resume unused).
+int cd_cand_tiles(const float* packed, int nb, int B, const int* cand,
+                  int c_cap, float rpz, float r2, float hpz, float tlook,
+                  float rpz_m, float hpz_m, float tlook_m, float rpz_resume,
+                  float* acc, float* ctin, int* cidx, void* stream) {
+  if (B <= 0 || B > MAXB || c_cap < 0 || c_cap % B)
+    return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return 0;
+  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                         rpz_resume);
+  Outs o{acc, ctin, cidx, nullptr, nullptr, nullptr};
+  cand_kernel<8><<<nb, B, 0, (cudaStream_t)stream>>>(packed, nb, B, cand,
+                                                     c_cap, P, o);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,8 @@ SIGNATURES = {
         "cd_sched_tiles": [_p, _i, _i, _p, _p, _i, _i, _p] + [_f] * 8
         + [_p] * 7,
         "cd_full_grid_resume": [_p, _i, _i, _p, _p] + [_f] * 8 + [_p] * 7,
+        "cd_full_grid": [_p, _i, _i, _p] + [_f] * 8 + [_p] * 4,
+        "cd_cand_tiles": [_p, _i, _i, _p, _i] + [_f] * 8 + [_p] * 4,
     },
 }
 

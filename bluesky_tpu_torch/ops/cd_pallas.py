@@ -1,32 +1,43 @@
-"""Fused blockwise CD&R tile body and the full-grid resume pass.
+"""Fused blockwise CD&R: the ``pallas`` backend and its tile kernels.
 
-Port of the parts of ``bluesky_tpu/ops/cd_pallas.py`` the sparse
-scheduler runs: the packed slab layout (``_FIELDS``), the per-pair tile
-body with the resume keep predicate (``_tile_pairs``), the partner merge
-(``_merge_partners_block``) and ``full_grid_pass`` in its resume form,
-which the scheduler uses as its exact fallback for overflow rows.
+Port of ``bluesky_tpu/ops/cd_pallas.py``: the packed slab layout
+(``_FIELDS``), the per-pair tile body with and without the resume keep
+predicate (``row_block_plain``), the partner merge
+(``merge_partners_block``), the candidate tables (``build_candidates``)
+and ``detect_resolve_pallas``, the CD&R of ``SimConfig(cd_backend=
+"pallas")``: Morton-sorted slots, the exact block reachability, and the
+reach-masked full grid or, with ``cand_cap > 0``, the candidate-list
+scheduler with the full grid covering its overflow rows.
 
-The TPU kernel ``_kernel_resume`` becomes the hand-written CUDA kernel
-``cd_full_grid_resume`` of ``csrc/cd_tiles.cu`` (one CTA per ownship row
-block, one thread per ownship).  ``full_grid_resume_plain`` computes the
-same function with plain PyTorch on any device; ``full_grid_resume``
-launches the kernel for CUDA tensors and runs the plain version only for
-CPU tensors.
+Three TPU kernels become hand-written CUDA kernels of
+``csrc/cd_tiles.cu`` (one CTA per ownship row block, one thread per
+ownship), each beside a plain PyTorch version of the same function:
 
-Both this module's plain version and the kernel visit a row's tiles in
-ascending intruder-block order and break top-K ties towards the smaller
-intruder id, which is exactly the Pallas extraction order (smallest
-``tinconf`` first, ties to the smaller id, earlier tiles win across
-tiles).  Masked pairs (inactive, self) are left out instead of being
-pushed out of range with ``_BIG``.
+* ``_kernel`` -> ``cd_full_grid`` (``full_grid`` / ``full_grid_plain``);
+* ``_kernel_cand`` -> ``cd_cand_tiles`` (``cand_tiles`` /
+  ``cand_tiles_plain``);
+* ``_kernel_resume`` -> ``cd_full_grid_resume`` (``full_grid_resume`` /
+  ``full_grid_resume_plain``), the sparse scheduler's overflow fallback.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version only for CPU tensors.
+
+The plain versions and the kernels visit a row's intruders in ascending
+slot id (tiles in ascending block order; candidate ids ascend within a
+row) and break top-K ties towards the smaller intruder id, which is
+exactly the Pallas extraction order (smallest ``tinconf`` first, ties to
+the smaller id, earlier tiles win across tiles).  Masked pairs
+(inactive, self) are left out instead of being pushed out of range with
+``_BIG``.
 """
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import cr_mvp, geo
-from .cd_tiled import TRIG_FIELDS, tile_geometry
+from . import cd_tiled, cr_mvp, geo
+from .cd_tiled import (RowConflictData, TRIG_FIELDS, block_reachability,
+                       precompute_trig, tile_geometry)
 
 # Packed slab rows of the [nb, 16, block] arrays.  The "tr" row is
 # overloaded per resolver (tas/gs ratio for Eby, cas for Swarm); MVP
@@ -37,6 +48,9 @@ _NF = len(_FIELDS)
 _IDX = {k: i for i, k in enumerate(_FIELDS)}
 _BIG = 1e9
 _BIG_I = 2 ** 30
+#: Candidate sub-block width: candidate ids come in runs of this many
+#: consecutive slots, one warp's contiguous load in ``cd_cand_tiles``.
+CAND_SUB = 32
 #: Partner-table width K (columns of ``partners_s``), fixed by the kernels.
 KK = 8
 
@@ -44,9 +58,9 @@ KK = 8
 #: inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx.
 _ACC_NEUTRAL = (0.0, 0.0, 0.0, 0.0, 0.0, _BIG, 0.0, 0.0, _BIG, _BIG_I)
 
-#: Launches of the CUDA kernel since the last reset (plain versions and
-#: CPU calls do not count).
-LAUNCHES = {"cd_full_grid_resume": 0}
+#: Launches of each CUDA kernel of this module since the last reset
+#: (plain versions and CPU calls do not count).
+LAUNCHES = {"cd_full_grid_resume": 0, "cd_full_grid": 0, "cd_cand_tiles": 0}
 
 
 class TileParams(NamedTuple):
@@ -61,10 +75,17 @@ class TileParams(NamedTuple):
     rpz_resume: float     # [m] resume-nav bouncing radius rpz * resofach
 
 
-def tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m) -> TileParams:
+def tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m=0.0) -> TileParams:
+    """``resume_rpz_m`` is read by the resume kernels only."""
     return TileParams(float(rpz), float(hpz), float(tlookahead),
                       float(mvpcfg.rpz_m), float(mvpcfg.hpz_m),
                       float(mvpcfg.tlookahead), float(resume_rpz_m))
+
+
+def kernel_floats(p: TileParams):
+    """The 8 float arguments every C entry point of ``cd_tiles.cu`` takes."""
+    return (p.rpz, p.rpz * p.rpz, p.hpz, p.tlookahead, p.rpz_m, p.hpz_m,
+            p.tlook_m, p.rpz_resume)
 
 
 def _rdiv(c, t):
@@ -75,16 +96,18 @@ def _rdiv(c, t):
 
 
 def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams):
-    """One ownship row block against its visited intruder tiles.
+    """One ownship row block against its visited intruders.
 
     ``own`` [_NF, B] ownship slab; ``intr`` [_NF, M] the visited
-    intruders in visiting order (ascending block, then lane) with their
-    global slot ids ``gid_int`` [M]; ``gid_own`` [B]; ``pold`` [kk, B]
-    the old partner table (sorted-space ids, -1 empty).  Returns the 13
-    per-row outputs of the kernel: eight [B] accumulators, ctin/cidx/
-    keep/merged [kk, B] and active [B]."""
-    kk = pold.shape[0]
-    B = own.shape[1]
+    intruders in visiting order with their slot ids ``gid_int`` [M];
+    ``gid_own`` [B]; ``pold`` [kk, B] the old partner table (sorted-space
+    ids, -1 empty) or None.  With ``pold`` this is the resume body
+    (``_kernel_resume``: keep predicate, fresh candidates filtered by it,
+    partner merge) and returns 13 per-row outputs: eight [B]
+    accumulators, ctin/cidx/keep/merged [kk, B] and active [B].  Without
+    it this is the ``_kernel`` body (every conflict pair a candidate) and
+    returns the first 10."""
+    kk = KK if pold is None else pold.shape[0]
     if intr.shape[1] < kk:
         # pad with inactive intruders so every reduction and the top-kk
         # have at least kk rows to work on
@@ -147,31 +170,35 @@ def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams):
     ncnt = swconfl.sum(0).to(dist.dtype)
     lcnt = swlos.sum(0).to(dist.dtype)
 
-    # Resume-nav keep predicate on every visited pair: flat-earth
-    # displacement from the per-aircraft trig, cos(0.5*(lat_o+lat_i)) =
-    # sqrt((1+cos(lat_o+lat_i))/2).
-    cos_sum = o("cl") * i("cl") - o("sl") * i("sl")
-    cos_half = torch.sqrt(torch.clamp_min(0.5 + 0.5 * cos_sum, 0.0))
-    dist_e = geo.REARTH * geo.radians(i("lon") - o("lon")) * cos_half
-    dist_n = geo.REARTH * geo.radians(i("lat") - o("lat"))
-    keep_pair = cr_mvp.resume_keep_core(
-        dist_e, dist_n, vrel_e, vrel_n, o("trk"), i("trk"), pairmask,
-        p.rpz, p.rpz_resume)
-    keep = torch.stack([
-        ((gid_int[:, None] == pold[k][None, :]) & keep_pair).any(0)
-        for k in range(kk)]).to(dist.dtype)
+    cand = swconfl
+    if pold is not None:
+        # Resume-nav keep predicate on every visited pair: flat-earth
+        # displacement from the per-aircraft trig, cos(0.5*(lat_o+lat_i))
+        # = sqrt((1+cos(lat_o+lat_i))/2).
+        cos_sum = o("cl") * i("cl") - o("sl") * i("sl")
+        cos_half = torch.sqrt(torch.clamp_min(0.5 + 0.5 * cos_sum, 0.0))
+        dist_e = geo.REARTH * geo.radians(i("lon") - o("lon")) * cos_half
+        dist_n = geo.REARTH * geo.radians(i("lat") - o("lat"))
+        keep_pair = cr_mvp.resume_keep_core(
+            dist_e, dist_n, vrel_e, vrel_n, o("trk"), i("trk"), pairmask,
+            p.rpz, p.rpz_resume)
+        keep = torch.stack([
+            ((gid_int[:, None] == pold[k][None, :]) & keep_pair).any(0)
+            for k in range(kk)]).to(dist.dtype)
+        cand = swconfl & keep_pair
 
     # Running top-kk of the fresh candidates by entry time; a stable
-    # sort over intruders in ascending id breaks ties to the smaller id.
-    cand = swconfl & keep_pair
+    # sort over intruders in visiting order breaks ties to the earlier.
     urg = torch.where(cand, tinconf, torch.full_like(tinconf, _BIG))
     tin_s, order = torch.sort(urg, dim=0, stable=True)
     ctin = tin_s[:kk]
     cidx = torch.where(ctin < _BIG, gid_int[order[:kk]].to(torch.int32),
                        torch.full_like(order[:kk], _BIG_I, dtype=torch.int32))
+    outs = (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx)
+    if pold is None:
+        return outs
     merged, active = merge_partners_block(pold, keep, ctin, cidx)
-    return (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
-            ctin, cidx, keep, merged, active)
+    return outs + (keep, merged, active)
 
 
 def merge_partners_block(pold, keep, ctin, cidx):
@@ -196,25 +223,37 @@ def merge_partners_block(pold, keep, ctin, cidx):
     return merged, active
 
 
-def rows_plain(packed, pold, tiles_of_row, p: TileParams):
-    """Run ``row_block_plain`` for every row block.  ``tiles_of_row(i)``
-    gives row i's visited intruder blocks in visiting order.  Returns the
-    13 outputs in the kernel's layout ([nb, 1|kk, B])."""
+def block_ids(tiles, B):
+    """Slot ids of the intruder blocks ``tiles`` (ascending lanes)."""
+    tiles = torch.as_tensor(np.asarray(tiles, np.int64))
+    return (tiles[:, None] * B + torch.arange(B)[None, :]).reshape(-1)
+
+
+def rows_plain(packed, pold, ids_of_row, p: TileParams):
+    """Run ``row_block_plain`` for every row block.  ``ids_of_row(i)``
+    gives row i's intruder slot ids in visiting order; id ``nb * B`` is
+    the all-inactive sentinel column.  Returns the 13 outputs (10 when
+    ``pold`` is None) in the kernel's layout ([nb, 1|kk, B])."""
     nb, _, B = packed.shape
     dev = packed.device
     lane = torch.arange(B, device=dev, dtype=torch.int64)
+    allf = torch.cat([packed.transpose(0, 1).reshape(_NF, nb * B),
+                      packed.new_zeros((_NF, 1))], 1)
     rows = []
     for i in range(nb):
-        tiles = torch.as_tensor(tiles_of_row(i), dtype=torch.int64,
-                                device=dev)
-        intr = packed[tiles].permute(1, 0, 2).reshape(_NF, -1)
-        gid_int = (tiles[:, None] * B + lane[None, :]).reshape(-1)
-        rows.append(row_block_plain(packed[i], intr, i * B + lane,
-                                    gid_int, pold[i], p))
+        ids = torch.as_tensor(ids_of_row(i), device=dev).long()
+        rows.append(row_block_plain(packed[i], allf[:, ids], i * B + lane,
+                                    ids, None if pold is None else pold[i],
+                                    p))
     outs = [torch.stack(parts) for parts in zip(*rows)]
-    for j in (0, 1, 2, 3, 4, 5, 6, 7, 12):
+    for j in list(range(8)) + ([12] if pold is not None else []):
         outs[j] = outs[j][:, None, :]
     return outs
+
+
+def _reach_rows(reach, B):
+    reach_h = reach.cpu().numpy()
+    return lambda i: block_ids(np.flatnonzero(reach_h[i]), B)
 
 
 def full_grid_resume_plain(packed, reach, pold, p: TileParams):
@@ -222,24 +261,39 @@ def full_grid_resume_plain(packed, reach, pold, p: TileParams):
     block i against every intruder block j with ``reach[i, j]``, in
     ascending j.  ``packed`` [nb, _NF, B] f32, ``reach`` [nb, nb] bool,
     ``pold`` [nb, kk, B] int32.  Returns the 13 outputs."""
-    reach_h = reach.cpu().numpy()
-    return rows_plain(packed, pold,
-                      lambda i: np.flatnonzero(reach_h[i]), p)
+    return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2]), p)
+
+
+def full_grid_plain(packed, reach, p: TileParams):
+    """Plain PyTorch version of the ``_kernel`` pass: the reach-masked
+    full grid without a partner table.  Returns the 10 outputs."""
+    return rows_plain(packed, None, _reach_rows(reach, packed.shape[2]), p)
+
+
+def cand_tiles_plain(packed, cand, p: TileParams):
+    """Plain PyTorch version of the ``_kernel_cand`` pass: row block i
+    against the aircraft of its candidate table ``cand[i]`` ([nb, c_cap]
+    int32 slot ids, ascending, sentinel ``nb * B`` inactive).  Returns
+    the 10 outputs."""
+    return rows_plain(packed, None, lambda i: cand[i], p)
 
 
 def compare_outputs(name, got, want):
-    """Hold a kernel's 13 outputs against its plain version's: flags,
-    counts, keep bits and the candidate and merged partner sets exactly,
-    the float reductions within rtol 1e-4 / atol 5e-3 (f32 summation
-    order differs: the kernel sums per thread in tile order, the plain
-    version with ``torch.sum``).  Raises ``AssertionError`` naming
-    ``name`` on a mismatch; returns the largest absolute difference of
-    the float outputs."""
+    """Hold a kernel's outputs (13 for the resume kernels, 10 for the
+    others) against its plain version's: flags, counts, keep bits and the
+    candidate and merged partner sets exactly, the float reductions
+    within rtol 1e-4 / atol 5e-3 (f32 summation order differs: the
+    kernel sums per thread in tile order, the plain version with
+    ``torch.sum``).  Raises ``AssertionError`` naming ``name`` on a
+    mismatch; returns the largest absolute difference of the float
+    outputs."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs, want {len(want)}")
     g = [t.detach().cpu() for t in got]
     w = [t.detach().cpu() for t in want]
     for j, what in ((0, "inconf"), (6, "ncnt"), (7, "lcnt"), (10, "keep"),
                     (12, "active")):
-        if not torch.equal(g[j], w[j]):
+        if j < len(g) and not torch.equal(g[j], w[j]):
             raise AssertionError(f"{name}: {what} differs")
     err = 0.0
     for j, what in ((1, "tcpamax"), (2, "sdve"), (3, "sdvn"), (4, "sdvv"),
@@ -254,55 +308,321 @@ def compare_outputs(name, got, want):
         return [frozenset(r[r >= 0].tolist()) for r in ids]
     if sets(g[9], g[8] < _BIG) != sets(w[9], w[8] < _BIG):
         raise AssertionError(f"{name}: candidate sets differ")
-    if sets(g[11], g[11] >= 0) != sets(w[11], w[11] >= 0):
+    if len(g) > 11 and sets(g[11], g[11] >= 0) != sets(w[11], w[11] >= 0):
         raise AssertionError(f"{name}: merged partner sets differ")
     return err
 
 
-def alloc_outputs(nb, kk, B, device):
+def compare_rows(name, got, want):
+    """Hold two ``RowConflictData`` against each other: inconf, nconf,
+    nlos and the top-K ids exactly, the float reductions within rtol
+    1e-4 / atol 5e-3.  Raises ``AssertionError`` naming ``name``."""
+    for k in ("inconf", "nconf", "nlos", "topk_idx"):
+        if not torch.equal(getattr(got, k).cpu(), getattr(want, k).cpu()):
+            raise AssertionError(f"{name}: {k} differs")
+    for k in ("tcpamax", "sum_dve", "sum_dvn", "sum_dvv", "tsolv",
+              "topk_tin"):
+        torch.testing.assert_close(getattr(got, k).cpu(),
+                                   getattr(want, k).cpu(), rtol=1e-4,
+                                   atol=5e-3,
+                                   msg=lambda m: f"{name}: {k}: {m}")
+
+
+def alloc_outputs(nb, kk, B, device, resume=True):
     """Output tensors of one kernel launch: the 8 accumulators share one
-    [8, nb, 1, B] buffer, then ctin, cidx, keep, merged, active."""
+    [8, nb, 1, B] buffer, then ctin, cidx and, for the resume kernels,
+    keep, merged, active."""
     f32 = dict(dtype=torch.float32, device=device)
-    acc = torch.empty((8, nb, 1, B), **f32)
-    return (acc, torch.empty((nb, kk, B), **f32),
-            torch.empty((nb, kk, B), dtype=torch.int32, device=device),
-            torch.empty((nb, kk, B), **f32),
-            torch.empty((nb, kk, B), dtype=torch.int32, device=device),
-            torch.empty((nb, 1, B), **f32))
+    i32 = dict(dtype=torch.int32, device=device)
+    outs = (torch.empty((8, nb, 1, B), **f32),
+            torch.empty((nb, kk, B), **f32), torch.empty((nb, kk, B), **i32))
+    if resume:
+        outs += (torch.empty((nb, kk, B), **f32),
+                 torch.empty((nb, kk, B), **i32),
+                 torch.empty((nb, 1, B), **f32))
+    return outs
 
 
-def check_common(packed, pold):
+def check_common(packed, pold=None):
     """Validate the slab and partner-table operands of a kernel launch."""
     from . import _cuda
     nb, nf, B = packed.shape
     if nf != _NF or not 0 < B <= 256:
         raise ValueError(f"packed must be [nb, {_NF}, B<=256], "
                          f"got {tuple(packed.shape)}")
-    if pold.shape[1] != KK:
-        raise ValueError(f"the CUDA tile kernels take K = {KK} partners")
     _cuda.require(packed, torch.float32, (nb, _NF, B), "packed")
-    _cuda.require(pold, torch.int32, (nb, KK, B), "pold")
+    if pold is not None:
+        if pold.shape[1] != KK:
+            raise ValueError(f"the CUDA tile kernels take K = {KK} partners")
+        _cuda.require(pold, torch.int32, (nb, KK, B), "pold")
     return nb, B
 
 
+def _reach_u8(reach, nb):
+    from . import _cuda
+    reach_u8 = reach.to(torch.uint8).contiguous()
+    _cuda.require(reach_u8, torch.uint8, (nb, nb), "reach")
+    return reach_u8
+
+
 def full_grid_resume(packed, reach, pold, p: TileParams):
-    """The overflow-row fallback pass: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors (see ``full_grid_resume_plain``)."""
+    """The sparse overflow-row fallback pass: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors (see
+    ``full_grid_resume_plain``)."""
     if not packed.is_cuda:
         return full_grid_resume_plain(packed, reach, pold, p)
     from . import _cuda
     nb, B = check_common(packed, pold)
-    reach_u8 = reach.to(torch.uint8).contiguous()
-    _cuda.require(reach_u8, torch.uint8, (nb, nb), "reach")
+    reach_u8 = _reach_u8(reach, nb)
     acc, ctin, cidx, keep, merged, active = alloc_outputs(nb, KK, B,
                                                           packed.device)
     lib = _cuda.load("cd_tiles.cu")
     rc = lib.cd_full_grid_resume(
         packed.data_ptr(), nb, B, reach_u8.data_ptr(), pold.data_ptr(),
-        p.rpz, p.rpz * p.rpz, p.hpz, p.tlookahead, p.rpz_m, p.hpz_m,
-        p.tlook_m, p.rpz_resume, acc.data_ptr(), ctin.data_ptr(),
+        *kernel_floats(p), acc.data_ptr(), ctin.data_ptr(),
         cidx.data_ptr(), keep.data_ptr(), merged.data_ptr(),
         active.data_ptr(), _cuda.stream_ptr(packed.device))
     _cuda.check(rc, "cd_full_grid_resume")
     LAUNCHES["cd_full_grid_resume"] += 1
     return list(acc.unbind(0)) + [ctin, cidx, keep, merged, active]
+
+
+def full_grid(packed, reach, p: TileParams):
+    """The reach-masked full-grid pass (``_kernel``): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors (see
+    ``full_grid_plain``)."""
+    if not packed.is_cuda:
+        return full_grid_plain(packed, reach, p)
+    from . import _cuda
+    nb, B = check_common(packed)
+    reach_u8 = _reach_u8(reach, nb)
+    acc, ctin, cidx = alloc_outputs(nb, KK, B, packed.device, resume=False)
+    lib = _cuda.load("cd_tiles.cu")
+    rc = lib.cd_full_grid(
+        packed.data_ptr(), nb, B, reach_u8.data_ptr(), *kernel_floats(p),
+        acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(),
+        _cuda.stream_ptr(packed.device))
+    _cuda.check(rc, "cd_full_grid")
+    LAUNCHES["cd_full_grid"] += 1
+    return list(acc.unbind(0)) + [ctin, cidx]
+
+
+def cand_tiles(packed, cand, p: TileParams):
+    """The candidate-list pass (``_kernel_cand``): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors (see
+    ``cand_tiles_plain``)."""
+    if not packed.is_cuda:
+        return cand_tiles_plain(packed, cand, p)
+    from . import _cuda
+    nb, B = check_common(packed)
+    c_cap = cand.shape[1]
+    if c_cap % B:
+        raise ValueError(f"candidate capacity {c_cap} is not a multiple "
+                         f"of the block {B}")
+    _cuda.require(cand, torch.int32, (nb, c_cap), "cand")
+    acc, ctin, cidx = alloc_outputs(nb, KK, B, packed.device, resume=False)
+    lib = _cuda.load("cd_tiles.cu")
+    rc = lib.cd_cand_tiles(
+        packed.data_ptr(), nb, B, cand.data_ptr(), c_cap, *kernel_floats(p),
+        acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(),
+        _cuda.stream_ptr(packed.device))
+    _cuda.check(rc, "cd_cand_tiles")
+    LAUNCHES["cd_cand_tiles"] += 1
+    return list(acc.unbind(0)) + [ctin, cidx]
+
+
+def build_candidates(lat, lon, gs, active, nb, block, c_cap, rpz,
+                     tlookahead):
+    """Per-ownship-block candidate aircraft (``_build_candidates``): a
+    sub-block of ``CAND_SUB`` consecutive (Morton-sorted) slots is a
+    candidate of row block i iff the conservative distance lower bound
+    between their active bounding boxes is within ``rpz + tlookahead *
+    (gsmax_row + gsmax_sub)`` (x1.05), the bound of
+    ``block_reachability`` at sub-block granularity.  Candidate
+    sub-blocks are compacted per row by a sort (ascending ids) and
+    expanded to slot ids.
+
+    Inputs are the padded sorted-space columns (``n = nb * block``).
+    Returns ``(cand [nb, c_cap] int32, row_over [nb] bool)``: entries
+    past a row's count hold the sentinel id ``n`` (the all-inactive
+    column); an overflow row (more than ``c_cap`` candidates) is all
+    sentinel and left to the full-grid pass."""
+    sub = CAND_SUB
+    n = lat.shape[0]
+    nsb = n // sub
+    c_sub = c_cap // sub
+    dev = lat.device
+
+    def boxes(shape):
+        inf = torch.tensor(float("inf"), dtype=lat.dtype, device=dev)
+        zero = torch.zeros((), dtype=lat.dtype, device=dev)
+        blat, blon = lat.reshape(shape), lon.reshape(shape)
+        act = active.reshape(shape)
+        return (torch.where(act, blat, inf).amin(1),
+                torch.where(act, blat, -inf).amax(1),
+                torch.where(act, blon, inf).amin(1),
+                torch.where(act, blon, -inf).amax(1),
+                torch.where(act, gs.reshape(shape), zero).amax(1),
+                act.any(1))
+
+    rlatmin, rlatmax, rlonmin, rlonmax, rgsmax, _ = boxes((nb, block))
+    slatmin, slatmax, slonmin, slonmax, sgsmax, s_any = boxes((nsb, sub))
+    r_abslat = torch.maximum(torch.abs(rlatmin), torch.abs(rlatmax))
+    s_abslat = torch.maximum(torch.abs(slatmin), torch.abs(slatmax))
+
+    # [nb, nsb] box-to-box gaps: meridional < 110 km/deg, zonal from the
+    # smallest meridian spacing at the larger |lat|, circular longitude
+    dlat_gap = torch.clamp_min(torch.maximum(
+        rlatmin[:, None] - slatmax[None, :],
+        slatmin[None, :] - rlatmax[:, None]), 0.0)
+    lin_gap = torch.clamp_min(torch.maximum(
+        rlonmin[:, None] - slonmax[None, :],
+        slonmin[None, :] - rlonmax[:, None]), 0.0)
+    wrap_gap = torch.clamp_min(360.0 - (
+        torch.maximum(rlonmax[:, None], slonmax[None, :])
+        - torch.minimum(rlonmin[:, None], slonmin[None, :])), 0.0)
+    dlon_gap = torch.minimum(lin_gap, wrap_gap)
+    cos_lb = torch.cos(geo.radians(torch.clamp_max(
+        torch.maximum(r_abslat[:, None], s_abslat[None, :]), 90.0)))
+    zonal = 2.0 * 6335000.0 * torch.asin(torch.clamp(
+        cos_lb * torch.sin(geo.radians(0.5 * torch.clamp_max(dlon_gap,
+                                                             360.0))),
+        0.0, 1.0))
+    dist_lb = torch.maximum(dlat_gap * 110000.0, zonal)
+    thresh = rpz + tlookahead * (rgsmax[:, None] + sgsmax[None, :])
+    mask = (dist_lb <= thresh * 1.05) & s_any[None, :]
+
+    row_over = mask.sum(1) > c_sub
+    key = torch.where(mask, torch.arange(nsb, dtype=torch.int32,
+                                         device=dev)[None, :],
+                      torch.full((), _BIG_I, dtype=torch.int32, device=dev))
+    cand_sub = torch.sort(key, dim=1).values[:, :c_sub]       # [nb, c_sub]
+    valid = (cand_sub < _BIG_I) & ~row_over[:, None]
+    cand = torch.where(valid, cand_sub, 0)[:, :, None] * sub \
+        + torch.arange(sub, dtype=torch.int32, device=dev)[None, None, :]
+    cand = torch.where(valid[:, :, None], cand,
+                       torch.full((), n, dtype=torch.int32, device=dev))
+    return cand.reshape(nb, c_sub * sub).contiguous(), row_over
+
+
+class PallasInputs(NamedTuple):
+    """The kernel operands of one pallas-backend pass (sorted space)."""
+    packed: torch.Tensor      # [nb, 16, B] f32 slabs (_FIELDS)
+    reach: torch.Tensor       # [nb, nb] bool block reachability
+    lat: torch.Tensor         # [nb*B] f32 padded columns of the
+    lon: torch.Tensor         # candidate bound
+    gs: torch.Tensor
+    active: torch.Tensor      # [nb*B] bool
+    n: int                    # caller's aircraft count
+    nb: int
+    block: int
+
+
+def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
+            rpz, tlookahead, block=256) -> PallasInputs:
+    """Packed float32 slabs and block reachability of already sorted
+    columns, padded to whole blocks: ``block`` capped at 256 and at the
+    power of two that covers ``n``, 128 for ``n <= 128``."""
+    dtype = torch.float32
+    n = lat.shape[0]
+    block = 128 if n <= 128 else min(block, 256, 1 << (n - 1).bit_length())
+    nb = -(-n // block)
+    npad = nb * block - n
+
+    def pad(a):
+        a = a.to(dtype)
+        return a if npad == 0 else torch.cat([a, a.new_zeros(npad)])
+
+    gs32 = gs.to(dtype)
+    trkrad = geo.radians(trk.to(dtype))
+    fields = precompute_trig(pad(lat), pad(lon))
+    fields.update({
+        "u": pad(gs32 * torch.sin(trkrad)), "v": pad(gs32 * torch.cos(trkrad)),
+        "alt": pad(alt), "vs": pad(vs), "gse": pad(gseast),
+        "gsn": pad(gsnorth), "trk": pad(trk),
+        "tr": pad(torch.ones_like(gs32)),        # MVP: the tas/gs ratio 1
+        "active": pad(active), "noreso": pad(noreso)})
+    packed = torch.stack([fields[k] for k in _FIELDS]).reshape(
+        _NF, nb, block).transpose(0, 1).contiguous()
+    act = fields["active"] > 0.5
+    reach = block_reachability(fields["lat"], fields["lon"], pad(gs), act,
+                               nb, block, float(rpz), float(tlookahead))
+    return PallasInputs(packed=packed, reach=reach, lat=fields["lat"],
+                        lon=fields["lon"], gs=pad(gs), active=act, n=n,
+                        nb=nb, block=block)
+
+
+def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0):
+    """The pass of ``detect_resolve_pallas`` on prepared operands: the
+    full grid, or with ``cand_cap > 0`` (rounded up to whole blocks) and
+    at least 8 row blocks the candidate pass plus the full grid over its
+    overflow rows, merged row-disjointly.  The full grid is launched on
+    ``reach & row_over`` whether or not a row overflowed, so nothing
+    waits for the device.  Returns the 10 outputs in kernel layout."""
+    c_cap = -(-cand_cap // x.block) * x.block if cand_cap else 0
+    if not (x.nb >= 8 and 0 < c_cap < x.nb * x.block):
+        return full_grid(x.packed, x.reach, p)
+    cand, row_over = build_candidates(
+        x.lat, x.lon, x.gs, x.active, x.nb, x.block, c_cap, p.rpz,
+        p.tlookahead)
+    outs_c = cand_tiles(x.packed, cand, p)
+    outs_f = full_grid(x.packed, x.reach & row_over[:, None], p)
+    rsel = row_over[:, None, None]
+    return [torch.where(rsel, f, c) for f, c in zip(outs_f, outs_c)]
+
+
+def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
+                          active, noreso, rpz, hpz, tlookahead, mvpcfg,
+                          block=256, cand_cap=0, perm=None, reso="mvp"):
+    """CD&R of the ``pallas`` backend; returns a ``RowConflictData`` in
+    caller order (``topk_idx`` caller slots, -1 empty).  Always float32.
+
+    With more slots than ``block`` the pass runs in Morton-sorted slot
+    space (``cd_tiled.run_spatially_sorted``, ``perm`` a cached sorted ->
+    caller permutation, recomputed when None).  ``cand_cap > 0`` turns on
+    the candidate-list scheduler (see ``run_kernels``); the result is the
+    same either way.  Only the MVP pair sums are ported; the Swarm sums
+    and the mesh branch are not."""
+    if reso == "swarm" and cand_cap:
+        raise ValueError("cand_cap mixed mode does not carry the swarm "
+                         "neighbour sums; use cand_cap=0 with RESO SWARM")
+    if reso != "mvp":
+        raise NotImplementedError(
+            f"resolver sums {reso!r} are not ported yet: only MVP is "
+            "(ROADMAP.md A3)")
+    args = (lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
+            rpz, hpz, tlookahead, mvpcfg)
+    if lat.shape[0] > block:
+        return cd_tiled.run_spatially_sorted(
+            _detect_resolve_sorted, *args, perm=perm, block=block,
+            cand_cap=cand_cap)
+    return _detect_resolve_sorted(*args, block=block, cand_cap=cand_cap)
+
+
+def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
+                           active, noreso, rpz, hpz, tlookahead, mvpcfg,
+                           block, cand_cap):
+    """``detect_resolve_pallas`` on columns already in the slot order the
+    pass runs in; ``topk_idx`` holds slots of that order."""
+    n = lat.shape[0]
+    x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+                noreso, rpz, tlookahead, block=block)
+    outs = run_kernels(x, tile_params(rpz, hpz, tlookahead, mvpcfg),
+                       cand_cap)
+    (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
+     ctin, cidx) = outs
+    nt = x.nb * x.block
+    unb = lambda a: a.reshape(nt)[:n]
+    topk_tin = ctin.transpose(1, 2).reshape(nt, KK)[:n]
+    topk_idx = cidx.transpose(1, 2).reshape(nt, KK)[:n]
+    topk_idx = torch.where(topk_tin < _BIG, topk_idx,
+                           torch.full_like(topk_idx, -1))
+    return RowConflictData(
+        inconf=unb(inconf) > 0.5, tcpamax=unb(tcpamax),
+        sum_dve=unb(sdve), sum_dvn=unb(sdvn), sum_dvv=unb(sdvv),
+        tsolv=unb(tsolv),
+        # per-block float counts cast to int32 before summing: an f32
+        # total loses exactness past 2^24 pairs
+        nconf=ncnt.to(torch.int32).sum(dtype=torch.int32),
+        nlos=lcnt.to(torch.int32).sum(dtype=torch.int32),
+        topk_idx=topk_idx, topk_tin=topk_tin)

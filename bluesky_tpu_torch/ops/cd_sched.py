@@ -139,16 +139,16 @@ def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams):
     walks its segments ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))``
     in slot order, blocks past the grid skipped.  Returns the 13
     outputs (see ``cd_pallas.row_block_plain``)."""
-    nb = packed.shape[0]
+    nb, _, B = packed.shape
     st = wst.cpu().numpy()
     ln = np.minimum(wln.cpu().numpy(), wmax)
 
-    def tiles(i):
+    def ids(i):
         t = [np.arange(b, b + k) for b, k in zip(st[i], ln[i]) if k > 0]
         t = np.concatenate(t) if t else np.zeros(0, np.int64)
-        return t[t < nb]
+        return cd_pallas.block_ids(t[t < nb], B)
 
-    return cd_pallas.rows_plain(packed, pold, tiles, p)
+    return cd_pallas.rows_plain(packed, pold, ids, p)
 
 
 def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams):
@@ -166,8 +166,7 @@ def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams):
     lib = _cuda.load("cd_tiles.cu")
     rc = lib.cd_sched_tiles(
         packed.data_ptr(), nb, B, wst.data_ptr(), wln.data_ptr(), s_cap,
-        int(wmax), pold.data_ptr(), p.rpz, p.rpz * p.rpz, p.hpz,
-        p.tlookahead, p.rpz_m, p.hpz_m, p.tlook_m, p.rpz_resume,
+        int(wmax), pold.data_ptr(), *cd_pallas.kernel_floats(p),
         acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(), keep.data_ptr(),
         merged.data_ptr(), active.data_ptr(), _cuda.stream_ptr(packed.device))
     _cuda.check(rc, "cd_sched_tiles")

@@ -1,17 +1,20 @@
 """Blockwise conflict-detection pieces on tensors.
 
-Port of the parts of ``bluesky_tpu/ops/cd_tiled.py`` the sparse
-scheduler runs: the per-aircraft trig columns, the delta-polynomial pair
-geometry of one tile (``tile_geometry``, which the plain tile body and
-the CUDA kernels compute identically) and the exact block reachability
-bound.  The lax-scan backend itself (``detect_resolve_tiled``) comes
-with the ``tiled`` backend.
+Port of the parts of ``bluesky_tpu/ops/cd_tiled.py`` the sparse and
+pallas backends run: the per-aircraft trig columns, the delta-polynomial
+pair geometry of one tile (``tile_geometry``, which the plain tile body
+and the CUDA kernels compute identically), the exact block reachability
+bound, the Morton slot order with its sorted-space runner
+(``spatial_permutation``, ``run_spatially_sorted``) and the host-side
+partner-table resume-nav (``topk_partners``, ``partner_keep``,
+``merge_partners``).  The lax-scan backend itself
+(``detect_resolve_tiled``) comes with the ``tiled`` backend.
 """
 from typing import NamedTuple
 
 import torch
 
-from . import geo, kmath
+from . import cr_mvp, geo, kmath
 
 
 class RowConflictData(NamedTuple):
@@ -86,6 +89,104 @@ def tile_geometry(own, intr):
     qx = _sin_poly(dlat) + sl_o * cl_i * (2.0 * sh_lon * sh_lon)
     rh = torch.rsqrt(torch.clamp_min(qx * qx + qy * qy, 1e-37))
     return dist, qy * rh, qx * rh
+
+
+def _spread15(x):
+    """Spread the low 15 bits of int64 ``x`` to the even bit positions
+    (the Morton bit trick, in int64: uint32 shifts are not supported on
+    every PyTorch device)."""
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    x = (x | (x << 1)) & 0x55555555
+    return x
+
+
+def spatial_permutation(lat, lon, active):
+    """[N] int64 permutation (sorted position -> caller slot) ordering
+    aircraft along a Morton curve of 15-bit quantized lat/lon; inactive
+    slots sort last.  The quantization runs in the input's dtype as
+    compiled JAX computes ``(lat + 90) / 180 * 32767``: XLA folds the two
+    constants into one product.  The sort is stable, like
+    ``jnp.argsort``, so colliding codes keep slot order."""
+    qlat = torch.clamp((lat + 90.0) * (32767.0 / 180.0), 0, 32767)
+    qlon = torch.clamp((lon + 180.0) * (32767.0 / 360.0), 0, 32767)
+    code = _spread15(qlat.to(torch.int64)) \
+        | (_spread15(qlon.to(torch.int64)) << 1)
+    key = torch.where(active, code, torch.full_like(code, 0x7FFFFFFF))
+    return torch.argsort(key, stable=True)
+
+
+def run_spatially_sorted(kernel, lat, lon, trk, gs, alt, vs, gseast,
+                         gsnorth, active, noreso, *args, perm=None, **kw):
+    """Run a CD&R function in Morton-sorted slot space and map its
+    ``RowConflictData`` back to caller order: rows by the inverse
+    permutation, partner ids through ``perm`` (they are sorted-space
+    positions).  ``perm`` [N] (sorted position -> caller slot) may be a
+    stale cached permutation: any permutation is exact, since the
+    reachability is recomputed from the true positions."""
+    if perm is None:
+        perm = spatial_permutation(lat, lon, active)
+    perm = perm.long()
+    # invert by scatter, an O(N) store instead of a second sort
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    g = lambda a: a[perm]
+    rd = kernel(g(lat), g(lon), g(trk), g(gs), g(alt), g(vs), g(gseast),
+                g(gsnorth), g(active), g(noreso), *args, **kw)
+    back = lambda a: a[inv]
+    topk_idx = torch.where(
+        rd.topk_idx >= 0, perm[torch.clamp_min(rd.topk_idx, 0).long()]
+        .to(torch.int32), torch.full_like(rd.topk_idx, -1))
+    return RowConflictData(
+        inconf=back(rd.inconf), tcpamax=back(rd.tcpamax),
+        sum_dve=back(rd.sum_dve), sum_dvn=back(rd.sum_dvn),
+        sum_dvv=back(rd.sum_dvv), tsolv=back(rd.tsolv),
+        nconf=rd.nconf, nlos=rd.nlos,
+        topk_idx=back(topk_idx), topk_tin=back(rd.topk_tin))
+
+
+def topk_partners(rd, k):
+    """The [N, K] partner candidates of a ``RowConflictData`` (-1 empty),
+    already in urgency order, cropped or padded to the table width K."""
+    idx = rd.topk_idx[:, :k]
+    pad = k - idx.shape[1]
+    if pad > 0:
+        idx = torch.cat([idx, idx.new_full((idx.shape[0], pad), -1)], 1)
+    return idx
+
+
+def partner_keep(partners, lat, lon, gseast, gsnorth, trk, active, rpz,
+                 rpz_m):
+    """Resume-nav keep mask [N, K] of the partner table (reference
+    asas.py:426-455) on the gathered partner state."""
+    n = lat.shape[0]
+    valid = partners >= 0
+    j = torch.clamp(partners, 0, n - 1).long()
+    dist_e, dist_n = cr_mvp.resume_displacement(
+        lat[:, None], lon[:, None], lat[j], lon[j])
+    vrel_e = gseast[j] - gseast[:, None]
+    vrel_n = gsnorth[j] - gsnorth[:, None]
+    alive = active[:, None] & active[j]
+    keep = cr_mvp.resume_keep_core(dist_e, dist_n, vrel_e, vrel_n,
+                                   trk[:, None], trk[j], alive, rpz, rpz_m)
+    return keep & valid
+
+
+def merge_partners(new_idx, old_idx, old_keep):
+    """New [N, K] partner table: the fresh partners ``new_idx`` (most
+    urgent first, -1 empty) first, then the old partners surviving
+    ``old_keep`` in slot order, duplicates of fresh ones dropped."""
+    k = new_idx.shape[1]
+    old = torch.where(old_keep, old_idx, torch.full_like(old_idx, -1))
+    dup = ((old[:, :, None] == new_idx[:, None, :])
+           & (new_idx[:, None, :] >= 0)).any(2)
+    old = torch.where(dup, torch.full_like(old, -1), old)
+    cat = torch.cat([new_idx, old], 1)                    # [N, 2K]
+    pos = torch.arange(2 * k, device=cat.device)[None, :]
+    key = torch.where(cat >= 0, pos, 2 * k + pos)         # valid first
+    order = torch.argsort(key, dim=1, stable=True)[:, :k]
+    return torch.gather(cat, 1, order)
 
 
 def block_summaries(lat, lon, gs, active, nb, block, alt=None, vs=None):

@@ -4,8 +4,9 @@ Port of the large-N half of ``bluesky_tpu/ops/cr_mvp.py``: the per-pair
 displacement from the bearing's sin/cos (``pair_contrib_trig``, which
 the plain tile body uses), the per-aircraft command synthesis from the
 accumulated sums (``resolve_from_sums``) and the resume-nav keep
-predicate (``resume_keep_core``).  The priority rules act on the dense
-pair matrices only and come with the dense backend.
+predicate (``resume_keep_core``) with its flat-earth displacement
+(``resume_displacement``).  The priority rules act on the dense pair
+matrices only and come with the dense backend.
 """
 from typing import NamedTuple
 
@@ -127,6 +128,15 @@ def resolve_from_sums(sum_dve, sum_dvn, sum_dvv, tsolv,
     if cfg.swresohoriz:
         newalt = selalt
     return newtrk, newgs_, newvs, newalt, asase, asasn
+
+
+def resume_displacement(lat_own, lon_own, lat_other, lon_other):
+    """Flat-earth east/north displacement [m] of the resume predicates
+    (reference asas.py:426-432), for the gathered [N, K] partner table."""
+    dist_e = geo.REARTH * (geo.radians(lon_other - lon_own)
+                           * torch.cos(0.5 * geo.radians(lat_other + lat_own)))
+    dist_n = geo.REARTH * geo.radians(lat_other - lat_own)
+    return dist_e, dist_n
 
 
 def resume_keep_core(dist_e, dist_n, vrel_e, vrel_n, trk_i, trk_j,

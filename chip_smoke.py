@@ -10,15 +10,26 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every CUDA source of ``bluesky_tpu_torch/csrc`` compiled by
    ``nvcc`` for sm_90a, all sources at once;
 3. kernel checks: each hand-written kernel against its plain PyTorch
-   version on the card, in float32, on three geometries (continental,
-   the 230 nm regional clump with overflow rows, an equator-crossing
-   fleet), each for a fresh and a resumed partner table;
-4. main path: 100,000 aircraft of the continental geometry in 100,352
-   slots, built with ``Traffic.create/flush``, under
+   version on the card, in float32.  The sparse path's two kernels on
+   three geometries (continental, the 230 nm regional clump with
+   overflow rows, an equator-crossing fleet), each for a fresh and a
+   resumed partner table; the pallas full grid on the same three
+   geometries in Morton order; the candidate kernel on eight clusters,
+   at a capacity most rows fit and at one that sends most rows to the
+   full grid.  Each pallas check also holds ``detect_resolve_pallas``
+   with candidates against the one without;
+4. sparse path: 100,000 aircraft of the continental geometry in
+   100,352 slots, built with ``Traffic.create/flush``, under
    ``SimConfig(cd_backend="sparse", cd_block=256)``: the sort refresh
    and 20 steps of ``run_steps``, twice, with every kernel's launch
    count taken over exactly that run; then the timings of each kernel,
-   its plain version and its bound at the main path's shapes.
+   its plain version and its bound at the path's shapes;
+5. pallas path: the same scene under ``SimConfig(cd_backend="pallas",
+   cd_block=256)``: the Morton refresh and 20 steps, twice, then
+   ``detect_resolve_pallas(cand_cap=4096)`` on the stepped state, with
+   the launch counts taken over exactly that run; then the same
+   timings for the pallas kernels, and the candidate kernel's once more
+   at a capacity most rows fit.
 
 It prints one JSON line describing every kernel, then the
 ``nvidia-smi`` name and power limit, then the result line
@@ -33,15 +44,27 @@ import time
 import numpy as np
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
-#: outside the tensor cores.
+#: outside the tensor cores.  The float32 rate counts a fused
+#: multiply-add as two operations; the kernels are built with
+#: --fmad=false, so they reach at most half of it and the bound errs low.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 #: float32 operations per active pair of a visited tile in the tile body
-#: of csrc/cd_tiles.cu (geometry, CPA, entry/exit times, flags and the
-#: resume keep predicate; every add, multiply, divide, compare, select,
-#: min/max, sqrt and rsqrt counted once, by hand).  The MVP tail of the
-#: conflict pairs (~50 more) is left out: conflicts are a small share.
-PAIR_FLOPS = 190
+#: of csrc/cd_tiles.cu, counted by hand: every float32 add, multiply,
+#: divide, compare, select, abs, min/max, rint, sqrt and rsqrt once;
+#: integer and boolean operations are not counted.  Without the keep
+#: predicate (cd_full_grid, cd_cand_tiles): the activity test 1,
+#: geometry 116 (cos/sin sums 6, the two radii and their choice 27,
+#: dlat/dlon 8, the four sin polynomials and their products 48, the
+#: clamped root 7, the arcsine distance 13, the bearing normalization
+#: 7), CPA and entry/exit times 44, the conflict and LoS compares 6 and
+#: the LoS count 1.  The MVP tail of the conflict pairs (~60 more) is
+#: left out: conflicts are a small share of the pairs.
+PAIR_FLOPS_FULL = 168
+#: With the keep predicate (cd_sched_tiles, cd_full_grid_resume): 168
+#: plus the relative velocity 2, the flat-earth displacement 11, the
+#: past-CPA test 4, the distance 4 and the keep compares 5.
+PAIR_FLOPS = 194
 
 NM, FT = 1852.0, 0.3048
 KERNELS = {
@@ -51,7 +74,15 @@ KERNELS = {
     "cd_pallas._kernel_resume": dict(
         source="bluesky_tpu_torch/csrc/cd_tiles.cu",
         replaces="bluesky_tpu/ops/cd_pallas.py:449"),
+    "cd_pallas._kernel": dict(
+        source="bluesky_tpu_torch/csrc/cd_tiles.cu",
+        replaces="bluesky_tpu/ops/cd_pallas.py:96"),
+    "cd_pallas._kernel_cand": dict(
+        source="bluesky_tpu_torch/csrc/cd_tiles.cu",
+        replaces="bluesky_tpu/ops/cd_pallas.py:494"),
 }
+#: candidate capacity of the pallas path's candidate-mode call
+CAND_CAP = 4096
 
 
 def log(*a):
@@ -68,9 +99,15 @@ def nvidia_smi():
 
 def columns(n, geom, seed):
     """Per-aircraft CD inputs of one geometry, from a numpy seed (the
-    geometries of tests/test_cd_sched.py)."""
+    geometries of tests/test_cd_sched.py and, "clusters", the eight
+    clusters ~550 km apart of tests/test_cd_pallas_candidates.py)."""
     rng = np.random.default_rng(seed)
-    if geom == "regional":
+    if geom == "clusters":
+        centers = [(45 + 5 * (i // 4), -5 + 5 * (i % 4)) for i in range(8)]
+        ci = rng.integers(0, 8, n)
+        lat = np.array([centers[c][0] for c in ci]) + rng.normal(0, 0.3, n)
+        lon = np.array([centers[c][1] for c in ci]) + rng.normal(0, 0.4, n)
+    elif geom == "regional":
         ang = rng.uniform(0, 2 * np.pi, n)
         r = 3.8 * np.sqrt(rng.random(n))
         lat = 52.6 + r * np.cos(ang)
@@ -106,8 +143,8 @@ def cd_args(c, dev, t_ahead=0.0):
 
 
 def check_kernels(dev, errs, scale=1):
-    """Phase 3: both kernels against their plain versions (fleet sizes
-    divided by ``scale``)."""
+    """Phase 3, sparse backend: both kernels against their plain versions
+    (fleet sizes divided by ``scale``)."""
     import torch
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
     mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
@@ -160,6 +197,75 @@ def check_kernels(dev, errs, scale=1):
             table = merged[11].transpose(1, 2).reshape(n_tot, 8).contiguous()
 
 
+def pallas_operands(cols, perm, c):
+    """The pallas kernels' operands of the caller-order columns ``cols``
+    in the Morton order ``perm`` (sorted position -> caller slot), and
+    the candidate table of capacity ``c["cap"]``: ``(x, cand,
+    row_over)``."""
+    from bluesky_tpu_torch.ops import cd_pallas
+    perm = perm.long()
+    x = cd_pallas.prepare(*[a[perm] for a in cols], c["rpz"],
+                          c["tlook"], block=256)
+    cand, row_over = cd_pallas.build_candidates(
+        x.lat, x.lon, x.gs, x.active, x.nb, x.block, c["cap"], c["rpz"],
+        c["tlook"])
+    return x, cand, row_over
+
+
+def check_pallas_kernels(dev, errs):
+    """Phase 3, pallas backend: the full grid (``_kernel``) on the three
+    geometries and the eight clusters, in Morton order; the candidate
+    kernel (``_kernel_cand``) on the clusters at a capacity most rows fit
+    (4096) and one most rows overflow (2048); and everywhere
+    ``detect_resolve_pallas`` with candidates held against the one
+    without (flags, counts and top-K ids equal)."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_tiled, cr_mvp
+    mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                           tlookahead=300.0)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp)
+    for geom, n, caps in (("continental", 16384, (4096,)),
+                          ("regional", 8192, (4096,)),
+                          ("equator", 8192, (4096,)),
+                          ("clusters", 16384, (4096, 2048))):
+        cols = cd_args(columns(n, geom, seed=1), dev)
+        perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8])
+        tag = f"{geom} N={n}"
+        rd0 = cd_pallas.detect_resolve_pallas(
+            *cols, 5 * NM, 1000 * FT, 300.0, mvp, block=256)
+        for cap in caps:
+            x, cand, row_over = pallas_operands(
+                cols, perm, dict(rpz=5 * NM, tlook=300.0, cap=cap))
+            if cap == caps[0]:
+                e = cd_pallas.compare_outputs(
+                    f"_kernel {tag}", cd_pallas.full_grid(x.packed, x.reach, p),
+                    cd_pallas.full_grid_plain(x.packed, x.reach, p))
+                errs["cd_pallas._kernel"] = max(errs["cd_pallas._kernel"], e)
+                log(f"check _kernel {tag}: {int(x.reach.sum())} tiles, nconf "
+                    f"{int(rd0.nconf)}, nlos {int(rd0.nlos)}, max abs err "
+                    f"{e:.3g}: match")
+            n_over = int(row_over.sum())
+            if geom == "clusters":
+                e = cd_pallas.compare_outputs(
+                    f"_kernel_cand {tag} cap {cap}",
+                    cd_pallas.cand_tiles(x.packed, cand, p),
+                    cd_pallas.cand_tiles_plain(x.packed, cand, p))
+                errs["cd_pallas._kernel_cand"] = max(
+                    errs["cd_pallas._kernel_cand"], e)
+                log(f"check _kernel_cand {tag} cap {cap}: overflow rows "
+                    f"{n_over} of {x.nb}, max abs err {e:.3g}: match")
+                if not (0 < n_over < x.nb
+                        and (n_over <= x.nb // 4) == (cap == 4096)):
+                    raise AssertionError(
+                        f"cap {cap}: {n_over} overflow rows of {x.nb}")
+            rd = cd_pallas.detect_resolve_pallas(
+                *cols, 5 * NM, 1000 * FT, 300.0, mvp, block=256,
+                cand_cap=cap)
+            cd_pallas.compare_rows(f"cand_cap={cap} vs 0, {tag}", rd, rd0)
+            log(f"check detect_resolve_pallas {tag}: cand_cap={cap} "
+                f"({n_over} overflow rows) equals cand_cap=0")
+
+
 def active_pairs(x, tiles_of_row):
     """Active ownship-intruder pairs over the visited tiles (self pairs
     excluded): the work the tile body does on this run's data."""
@@ -187,11 +293,11 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0):
+def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse"):
     """The main path's scene and configuration: ``n_ac`` aircraft of the
     continental geometry of ``__graft_entry__._build_state`` in ``nmax``
     slots, built with the port's ``Traffic.create/flush`` on ``dev``,
-    under ``SimConfig(cd_backend="sparse", cd_block=256)``.  Returns
+    under ``SimConfig(cd_backend=cd_backend, cd_block=256)``.  Returns
     ``(state, cfg)``."""
     from bluesky_tpu_torch.core import step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
@@ -204,60 +310,75 @@ def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0):
     spd = rng.uniform(130.0, 240.0, n_ac)
     traf.create(n_ac, "B744", alt, spd, None, lat, lon, hdg)
     traf.flush()
-    return traf.state, stepmod.SimConfig(cd_backend="sparse", cd_block=256)
+    return traf.state, stepmod.SimConfig(cd_backend=cd_backend,
+                                         cd_block=256)
 
 
-def main_path(dev, errs, n_ac=100_000, nmax=100_352):
-    """Phase 4: the port's sparse step at 100k aircraft."""
-    import torch
-    from bluesky_tpu_torch.core import asas, step as stepmod
+def reset_launches():
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched
-
-    t0 = time.perf_counter()
-    state, cfg = main_scene(dev, n_ac, nmax)
-    torch.cuda.synchronize()
-    log(f"main: {n_ac} aircraft in {nmax} slots built in "
-        f"{time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
     for k in (cd_sched.LAUNCHES, cd_pallas.LAUNCHES):
         for name in k:
             k[name] = 0
+
+
+def launch_counts():
+    """The launch count of each kernel, by the name of its TPU kernel."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    return {"cd_sched._sched_kernel": cd_sched.LAUNCHES["cd_sched_tiles"],
+            "cd_pallas._kernel_resume":
+                cd_pallas.LAUNCHES["cd_full_grid_resume"],
+            "cd_pallas._kernel": cd_pallas.LAUNCHES["cd_full_grid"],
+            "cd_pallas._kernel_cand": cd_pallas.LAUNCHES["cd_cand_tiles"]}
+
+
+def drive(dev, backend, n_ac, nmax):
+    """Build ``main_scene`` for ``backend`` and run the sort refresh plus
+    20 steps, twice, with every launch count set to 0 just before.
+    Returns ``(state, cfg, chunk seconds)``."""
+    import torch
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    t0 = time.perf_counter()
+    state, cfg = main_scene(dev, n_ac, nmax, cd_backend=backend)
+    torch.cuda.synchronize()
+    log(f"{backend}: {n_ac} aircraft in {nmax} slots built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     chunk_s = []
     for _ in range(2):
         t0 = time.perf_counter()
         state = asas.refresh_spatial_sort(state, cfg.asas, block=256,
-                                          impl="sparse")
+                                          impl=backend)
         state = stepmod.run_steps(state, cfg, 20)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
-    launches = {"cd_sched._sched_kernel": cd_sched.LAUNCHES["cd_sched_tiles"],
-                "cd_pallas._kernel_resume":
-                    cd_pallas.LAUNCHES["cd_full_grid_resume"]}
+    return state, cfg, chunk_s
+
+
+def check_run(backend, state, cfg, launches, chunk_s, n_ac):
+    """Fail unless the run stayed finite, found conflicts and launched
+    each of its kernels; log its end-to-end numbers."""
+    import torch
+    from bluesky_tpu_torch.core import step as stepmod
     peak = torch.cuda.max_memory_allocated()
     intervals = float(state.asas_tnext) / cfg.asas.dtasas
     if not stepmod.state_finite(state):
-        raise AssertionError("main path: non-finite state")
+        raise AssertionError(f"{backend} path: non-finite state")
     nconf = int(state.asas.nconf_cur)
     if nconf <= 0:
-        raise AssertionError("main path: no conflicts detected")
+        raise AssertionError(f"{backend} path: no conflicts detected")
     for name, cnt in launches.items():
         if cnt < 1:
-            raise AssertionError(f"main path never launched {name}")
-    log(f"main: chunk seconds {chunk_s}, aircraft-steps/s of the second "
-        f"chunk {n_ac * 20 / chunk_s[1]:.4g}, ASAS intervals {intervals:g}, "
-        f"nconf {nconf}, nlos {int(state.asas.nlos_cur)}, launches "
-        f"{launches}, peak memory {peak / 2**30:.3f} GiB")
+            raise AssertionError(f"{backend} path never launched {name}")
+    log(f"{backend}: chunk seconds {chunk_s}, aircraft-steps/s of the "
+        f"second chunk {n_ac * 20 / chunk_s[1]:.4g}, ASAS intervals "
+        f"{intervals:g}, nconf {nconf}, nlos {int(state.asas.nlos_cur)}, "
+        f"launches {launches}, peak memory {peak / 2**30:.3f} GiB")
 
-    # The layers of a chunk on the stepped state, each timed on its own:
-    # one ASAS interval, one sort refresh, one step without the CD.
-    no_cd = cfg._replace(asas=cfg.asas._replace(swasas=False))
-    layers = {
-        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
-                                                   block=256, impl="sparse"),
-        "sort refresh": lambda: asas.refresh_spatial_sort(
-            state, cfg.asas, block=256, impl="sparse"),
-        "step without CD": lambda: stepmod.step(state, no_cd),
-    }
+
+def time_layers(backend, layers):
+    """Wall ms of each layer of a chunk, three times, on its own."""
+    import torch
     for what, fn in layers.items():
         ms = []
         for _ in range(3):
@@ -266,10 +387,75 @@ def main_path(dev, errs, n_ac=100_000, nmax=100_352):
             fn()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"main: ms per {what} {ms}")
+        log(f"{backend}: ms per {what} {ms}")
 
-    # Each kernel, its plain version and its bound at the main path's
-    # shapes: the operands of the next interval of the stepped state.
+
+def measure(name, r):
+    """Check ``r["kern"]`` against ``r["plain"]`` once more, time both
+    and compute the bound.  ``r`` gives ``kern``, ``plain``, the active
+    ``pairs``, the ``flops`` per pair, the ``bytes`` it must move and
+    its ``tiles``.  Logs one line; returns the largest float difference,
+    ms per launch, plain ms, bytes ms and operations ms."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas
+    err = cd_pallas.compare_outputs(f"{name} main path", r["kern"](),
+                                    r["plain"]())
+    ms = cuda_ms(r["kern"], 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r["plain"]()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = r["pairs"] * r["flops"] / PEAK_F32_FLOPS * 1e3
+    log(f"{name}: {ms:.4g} ms per launch, plain {plain_ms:.4g} ms, "
+        f"{r['tiles']} tiles, {r['pairs']} active pairs, bound "
+        f"{max(t_bytes, t_ops):.4g} ms ({t_bytes:.3g} ms bytes, "
+        f"{t_ops:.3g} ms operations)")
+    return err, ms, plain_ms, t_bytes, t_ops
+
+
+def report_kernels(runs, launches, errs):
+    """``measure`` each kernel of ``runs``; returns the kernels JSON
+    entries."""
+    report = []
+    for name, r in runs.items():
+        err, ms, plain_ms, t_bytes, t_ops = measure(name, r)
+        errs[name] = max(errs[name], err)
+        log(f"{name}: {launches[name]} launches")
+        report.append(dict(
+            name=name, route="cuda", source=KERNELS[name]["source"],
+            replaces=KERNELS[name]["replaces"], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None))
+    return report
+
+
+def sparse_path(dev, errs, n_ac=100_000, nmax=100_352):
+    """Phase 4: the port's sparse step at 100k aircraft."""
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+
+    state, cfg, chunk_s = drive(dev, "sparse", n_ac, nmax)
+    names = ("cd_sched._sched_kernel", "cd_pallas._kernel_resume")
+    launches = {k: v for k, v in launch_counts().items() if k in names}
+    check_run("sparse", state, cfg, launches, chunk_s, n_ac)
+
+    # The layers of a chunk on the stepped state, each timed on its own:
+    # one ASAS interval, one sort refresh, one step without the CD.
+    no_cd = cfg._replace(asas=cfg.asas._replace(swasas=False))
+    time_layers("sparse", {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
+                                                   block=256, impl="sparse"),
+        "sort refresh": lambda: asas.refresh_spatial_sort(
+            state, cfg.asas, block=256, impl="sparse"),
+        "step without CD": lambda: stepmod.step(state, no_cd),
+    })
+
+    # Each kernel, its plain version and its bound at the path's shapes:
+    # the operands of the next interval of the stepped state.
     ac, a = state.ac, state.asas
     c = cfg.asas
     x = cd_sched.prepare(ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs,
@@ -277,7 +463,6 @@ def main_path(dev, errs, n_ac=100_000, nmax=100_352):
                          c.hpz, c.dtlookahead,
                          a.partners_s[:cd_sched.padded_size(nmax, 256)],
                          block=256, perm=a.sort_perm)
-    from bluesky_tpu_torch.ops import cr_mvp
     mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
                            tlookahead=c.dtlookahead)
     p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp,
@@ -301,7 +486,7 @@ def main_path(dev, errs, n_ac=100_000, nmax=100_352):
                                               x.pold, p),
             plain=lambda: cd_sched.sched_tiles_plain(
                 x.packed, x.wst, x.wln, x.wmax, x.pold, p),
-            pairs=active_pairs(x, sched_tiles_of),
+            pairs=active_pairs(x, sched_tiles_of), flops=PAIR_FLOPS,
             bytes=in_bytes + 2 * x.wst.numel() * 4 + out_bytes,
             tiles=int(ln.sum())),
         "cd_pallas._kernel_resume": dict(
@@ -310,35 +495,120 @@ def main_path(dev, errs, n_ac=100_000, nmax=100_352):
             plain=lambda: cd_pallas.full_grid_resume_plain(
                 x.packed, reach_f, x.pold, p),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
-            bytes=in_bytes + nb * nb + out_bytes,
+            flops=PAIR_FLOPS, bytes=in_bytes + nb * nb + out_bytes,
             tiles=int(rf.sum())),
     }
-    log(f"main: overflow rows {int(x.overflow.sum())}, scheduled tiles per "
-        f"interval {runs['cd_sched._sched_kernel']['tiles']}, overflow "
+    log(f"sparse: overflow rows {int(x.overflow.sum())}, scheduled tiles "
+        f"per interval {runs['cd_sched._sched_kernel']['tiles']}, overflow "
         f"tiles per interval {runs['cd_pallas._kernel_resume']['tiles']}")
-    report = []
-    for name, r in runs.items():
-        errs[name] = max(errs[name], cd_pallas.compare_outputs(
-            f"{name} main path", r["kern"](), r["plain"]()))
-        ms = cuda_ms(r["kern"], 5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r["plain"]()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = r["pairs"] * PAIR_FLOPS / PEAK_F32_FLOPS * 1e3
-        log(f"{name}: {ms:.4g} ms per launch, plain {plain_ms:.4g} ms, "
-            f"{r['tiles']} tiles, {r['pairs']} active pairs, bound "
-            f"{max(t_bytes, t_ops):.4g} ms ({t_bytes:.3g} ms bytes, "
-            f"{t_ops:.3g} ms operations)")
-        report.append(dict(
-            name=name, route="cuda", source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"], launches=launches[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None))
+    return report_kernels(runs, launches, errs)
+
+
+def cand_pairs(x, cand):
+    """Active ownship-candidate pairs of a candidate table (self pairs
+    excluded)."""
+    import torch
+    from bluesky_tpu_torch.ops.cd_pallas import _IDX
+    act = x.packed[:, _IDX["active"], :] > 0.5                # [nb, B]
+    act_ids = torch.cat([act.reshape(-1), act.new_zeros(1)])
+    own = act.sum(1)
+    cand_l = cand.long()
+    c_act = act_ids[cand_l]                                   # [nb, c_cap]
+    rows = torch.arange(x.nb, device=cand.device)[:, None]
+    self_blk = (cand_l // x.block) == rows
+    pairs = own * c_act.sum(1) - (c_act & self_blk).sum(1)
+    return int(pairs.sum())
+
+
+def pallas_path(dev, errs, n_ac=100_000, nmax=100_352):
+    """Phase 5: the port's pallas step at 100k aircraft, then one
+    candidate-mode pass on the stepped state."""
+    import torch
+    from bluesky_tpu_torch.core import asas
+    from bluesky_tpu_torch.ops import cd_pallas, cr_mvp
+
+    state, cfg, chunk_s = drive(dev, "pallas", n_ac, nmax)
+    ac, a = state.ac, state.asas
+    c = cfg.asas
+    mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
+                           tlookahead=c.dtlookahead)
+    cols = [ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+            ac.gsnorth, ac.active, a.noreso]
+    args = (c.rpz, c.hpz, c.dtlookahead, mvp)
+    t0 = time.perf_counter()
+    rd_c = cd_pallas.detect_resolve_pallas(
+        *cols, *args, block=256, perm=a.sort_perm, cand_cap=CAND_CAP)
+    torch.cuda.synchronize()
+    cand_call_ms = (time.perf_counter() - t0) * 1e3
+    names = ("cd_pallas._kernel", "cd_pallas._kernel_cand")
+    launches = {k: v for k, v in launch_counts().items() if k in names}
+    check_run("pallas", state, cfg, launches, chunk_s, n_ac)
+
+    rd_f = cd_pallas.detect_resolve_pallas(*cols, *args, block=256,
+                                           perm=a.sort_perm)
+    cd_pallas.compare_rows("pallas path cand_cap vs 0", rd_c, rd_f)
+    x, cand, row_over = pallas_operands(
+        cols, a.sort_perm, dict(rpz=c.rpz, tlook=c.dtlookahead, cap=CAND_CAP))
+    log(f"pallas: detect_resolve_pallas(cand_cap={CAND_CAP}) "
+        f"{cand_call_ms:.4g} ms, overflow rows {int(row_over.sum())} of "
+        f"{x.nb}, equals cand_cap=0 (nconf {int(rd_c.nconf)})")
+    # one CTA walks one row block, so the longest row bounds the kernel
+    per_row = x.reach.sum(1).float()
+    log(f"pallas: reachable tiles per row block: mean "
+        f"{float(per_row.mean()):.4g}, median {float(per_row.median()):g}, "
+        f"max {int(per_row.max())}")
+
+    time_layers("pallas", {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
+                                                   block=256, impl="pallas"),
+        "sort refresh": lambda: asas.refresh_spatial_sort(
+            state, cfg.asas, block=256, impl="pallas"),
+    })
+    # The candidate scheduler against the block grid on this state: the
+    # detect call at capacities 0 (full grid) to 4 x CAND_CAP.
+    for cap in (0, CAND_CAP, 2 * CAND_CAP, 4 * CAND_CAP):
+        over = pallas_operands(cols, a.sort_perm, dict(
+            rpz=c.rpz, tlook=c.dtlookahead, cap=cap or CAND_CAP))[2]
+        time_layers("pallas", {
+            f"detect with cand_cap={cap} ({int(over.sum()) if cap else 0}"
+            f" overflow rows)": lambda: cd_pallas.detect_resolve_pallas(
+                *cols, *args, block=256, perm=a.sort_perm, cand_cap=cap)})
+
+    p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
+    nb, B = x.nb, x.block
+    rh = x.reach.cpu().numpy()
+    out_bytes = 8 * nb * B * 4 + 2 * nb * 8 * B * 4
+
+    def cand_run(cand):
+        return dict(
+            kern=lambda: cd_pallas.cand_tiles(x.packed, cand, p),
+            plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p),
+            pairs=cand_pairs(x, cand), flops=PAIR_FLOPS_FULL,
+            bytes=x.packed.numel() * 4 + cand.numel() * 4 + out_bytes,
+            tiles=int(((cand < nb * B).sum(1) + B - 1).div(
+                B, rounding_mode="floor").sum()))
+
+    runs = {
+        "cd_pallas._kernel": dict(
+            kern=lambda: cd_pallas.full_grid(x.packed, x.reach, p),
+            plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p),
+            pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
+            flops=PAIR_FLOPS_FULL,
+            bytes=x.packed.numel() * 4 + nb * nb + out_bytes,
+            tiles=int(rh.sum())),
+        "cd_pallas._kernel_cand": cand_run(cand),
+    }
+    report = report_kernels(runs, launches, errs)
+    # At CAND_CAP most rows overflow and leave the candidate kernel after
+    # one read; at 4 x CAND_CAP most rows fit, so this line times the
+    # kernel's pair work against its bound.
+    cap = 4 * CAND_CAP
+    _, cand_w, over_w = pallas_operands(cols, a.sort_perm, dict(
+        rpz=c.rpz, tlook=c.dtlookahead, cap=cap))
+    err = measure(f"cd_pallas._kernel_cand at cand_cap={cap} "
+                  f"({int(over_w.sum())} overflow rows)", cand_run(cand_w))[0]
+    errs["cd_pallas._kernel_cand"] = max(errs["cd_pallas._kernel_cand"], err)
+    report[-1]["max_abs_err"] = errs["cd_pallas._kernel_cand"]
     return report
 
 
@@ -366,10 +636,13 @@ def main():
     errs = {name: 0.0 for name in KERNELS}
     t0 = time.perf_counter()
     check_kernels(dev, errs)
+    check_pallas_kernels(dev, errs)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    report = main_path(dev, errs)
-    log(f"main path: {time.perf_counter() - t0:.1f} s")
+    report = []
+    for path in (sparse_path, pallas_path):
+        t0 = time.perf_counter()
+        report += path(dev, errs)
+        log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": report}))
     print(nvidia_smi())

@@ -2,9 +2,11 @@
 """Where a chunk of the PyTorch/CUDA port's step spends its time on the
 card: one 20-step chunk (sort refresh + ``run_steps``) of the main
 path of ``chip_smoke.py`` (its ``main_scene``: 100,000 continental
-aircraft) under ``torch.profiler``, after a warm-up chunk.
+aircraft) under ``torch.profiler``, after a warm-up chunk, for the
+sparse or the pallas CD backend.
 
-    python3 scripts/torch_step_profile.py [--n 100000] [--nmax 100352]
+    python3 scripts/torch_step_profile.py [--n 100000] [--nmax 100352] \
+        [--backend sparse|pallas]
 
 Prints the chunk's wall time, the summed device time of its kernels and
 their share of the wall time (one stream, so the sum is the busy time),
@@ -34,6 +36,8 @@ def main():
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--nmax", type=int, default=100_352)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--backend", choices=("sparse", "pallas"),
+                    default="sparse")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -43,11 +47,12 @@ def main():
     from chip_smoke import main_scene
 
     n = args.n
-    state, cfg = main_scene(torch.device("cuda"), n, args.nmax)
+    state, cfg = main_scene(torch.device("cuda"), n, args.nmax,
+                            cd_backend=args.backend)
 
     def chunk(st):
         st = asas.refresh_spatial_sort(st, cfg.asas, block=256,
-                                       impl="sparse")
+                                       impl=args.backend)
         return stepmod.run_steps(st, cfg, args.steps)
 
     state = chunk(state)                            # warm-up (builds too)
@@ -62,7 +67,8 @@ def main():
     kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"{torch.cuda.get_device_name(0)}: N={n}, {args.steps}-step chunk "
+    print(f"{torch.cuda.get_device_name(0)}: N={n}, {args.backend}, "
+          f"{args.steps}-step chunk "
           f"{wall_ms:.2f} ms wall, kernels {busy_ms:.2f} ms device "
           f"({100 * busy_ms / wall_ms:.1f}% busy), {launches} kernel "
           f"launches, ASAS intervals so far {float(state.asas_tnext):g}")

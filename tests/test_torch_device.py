@@ -98,9 +98,12 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
 
 def test_unported_backends_raise():
     ts = TTraffic(nmax=8, device="cpu").state
-    for backend in ("dense", "tiled", "pallas"):
+    for backend in ("dense", "tiled"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tstep.step(ts, tstep.SimConfig(cd_backend=backend))
+    for impl in ("sparse", "pallas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tasas.update_tiled(ts, tasas.AsasConfig(reso_method="EBY"),
+                               impl=impl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tasas.update_tiled(ts, tasas.AsasConfig(reso_method="EBY"),
-                           impl="sparse")
+        tasas.refresh_spatial_sort(ts, tasas.AsasConfig(), impl="lax")

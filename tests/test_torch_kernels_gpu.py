@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
-a CUDA device (marker ``gpu``; skipped where there is none):
+a CUDA device (marker ``gpu``; skipped where there is none), and the
+candidate mode of ``detect_resolve_pallas`` against its full grid:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled, cr_mvp
 
 from torch_parity import FT, NM
 
@@ -31,6 +32,11 @@ def _inputs(geom, n, dev):
         ang = rng.uniform(0, 2 * np.pi, n)
         r = 3.8 * np.sqrt(rng.random(n))
         lat, lon = 52.6 + r * np.cos(ang), 5.4 + r * np.sin(ang) / 0.6
+    elif geom == "clusters":
+        centers = np.array([(45 + 5 * (i // 4), -5 + 5 * (i % 4))
+                            for i in range(8)])[rng.integers(0, 8, n)]
+        lat = centers[:, 0] + rng.normal(0, 0.3, n)
+        lon = centers[:, 1] + rng.normal(0, 0.4, n)
     else:
         lat, lon = rng.uniform(35, 60, n), rng.uniform(-10, 30, n)
     gs, trk = rng.uniform(130, 240, n), rng.uniform(0, 360, n)
@@ -68,3 +74,52 @@ def test_kernels_match_plain(cuda, geom, s_cap):
         assert int(x.overflow.sum()) > 0
     for name, (got, want) in zip(("sched", "resume"), pairs):
         cd_pallas.compare_outputs(f"{name} {geom}", got, want)
+
+
+def _mvp():
+    return cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                            tlookahead=300.0)
+
+
+def _sorted(cols):
+    perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8])
+    return cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                             block=256)
+
+
+@pytest.mark.parametrize("geom", ["spread", "clump"])
+def test_full_grid_matches_plain(cuda, geom):
+    """``cd_full_grid`` (``_kernel``) in Morton order."""
+    x = _sorted(_inputs(geom, 4096, cuda))
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    n0 = cd_pallas.LAUNCHES["cd_full_grid"]
+    got = cd_pallas.full_grid(x.packed, x.reach, p)
+    torch.cuda.synchronize()
+    assert cd_pallas.LAUNCHES["cd_full_grid"] == n0 + 1
+    cd_pallas.compare_outputs(f"full grid {geom}", got,
+                              cd_pallas.full_grid_plain(x.packed, x.reach, p))
+
+
+@pytest.mark.parametrize("cap", [2048, 1024])
+def test_cand_tiles_match_plain(cuda, cap):
+    """``cd_cand_tiles`` (``_kernel_cand``) on eight clusters, and
+    ``detect_resolve_pallas`` with candidates (launching both kernels)
+    against the one without."""
+    cols = _inputs("clusters", 8192, cuda)
+    x = _sorted(cols)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    cand, row_over = cd_pallas.build_candidates(
+        x.lat, x.lon, x.gs, x.active, x.nb, x.block, cap, 5 * NM, 300.0)
+    assert 0 < int(row_over.sum()) < x.nb
+    cd_pallas.compare_outputs(f"cand tiles {cap}",
+                              cd_pallas.cand_tiles(x.packed, cand, p),
+                              cd_pallas.cand_tiles_plain(x.packed, cand, p))
+    n0 = dict(cd_pallas.LAUNCHES)
+    rd = cd_pallas.detect_resolve_pallas(*cols, 5 * NM, 1000 * FT, 300.0,
+                                         _mvp(), block=256, cand_cap=cap)
+    assert cd_pallas.LAUNCHES["cd_cand_tiles"] == n0["cd_cand_tiles"] + 1
+    assert cd_pallas.LAUNCHES["cd_full_grid"] == n0["cd_full_grid"] + 1
+    cd_pallas.compare_rows(f"cand_cap={cap} vs 0", rd,
+                           cd_pallas.detect_resolve_pallas(
+                               *cols, 5 * NM, 1000 * FT, 300.0, _mvp(),
+                               block=256))

@@ -1,7 +1,10 @@
 """The port's main path against the JAX package: ``refresh_spatial_sort``
-plus ``run_steps`` under ``SimConfig(cd_backend="sparse")`` on the same
-numpy-seeded scene, in float32, the JAX Pallas kernels in interpret mode
-and the port's kernels through their plain PyTorch versions (CPU).
+plus ``run_steps`` under ``SimConfig(cd_backend=...)`` for the sparse and
+the pallas backends on the same numpy-seeded scene, in float32, the JAX
+Pallas kernels in interpret mode and the port's kernels through their
+plain PyTorch versions (CPU).  The partner table compared is the one
+each backend keeps: the sorted-space ``partners_s`` (sparse) or the
+caller-space ``partners`` (pallas).
 
 Tolerances: integer and bool fields (conflict and LoS counts, the
 in-conflict and ASAS-engaged flags, the partner sets) are equal; lat/lon
@@ -25,29 +28,35 @@ NSTEPS = 21
 BLOCK = 64
 
 
+#: the partner table each backend keeps
+TABLE = {"sparse": "asas.partners_s", "pallas": "asas.partners"}
+
+
 def _run_jax(state, cfg):
     s = jasas.refresh_spatial_sort(state, cfg.asas, block=BLOCK,
-                                   impl="sparse")
+                                   impl=cfg.cd_backend)
     return jstep.run_steps(s, cfg, NSTEPS)
 
 
 def _run_torch(state, cfg):
     s = tasas.refresh_spatial_sort(state, cfg.asas, block=BLOCK,
-                                   impl="sparse")
+                                   impl=cfg.cd_backend)
     return tstep.run_steps(s, cfg, NSTEPS)
 
 
-@pytest.fixture(scope="module")
-def stepped():
+@pytest.fixture(scope="module", params=["sparse", "pallas"])
+def stepped(request):
     """150 aircraft in 256 slots, 21 steps (two ASAS intervals)."""
+    backend = request.param
     jstate, tstate = build_pair(256, 150)
-    jcfg = jstep.SimConfig(cd_backend="sparse", cd_block=BLOCK)
-    tcfg = tstep.SimConfig(cd_backend="sparse", cd_block=BLOCK)
+    jcfg = jstep.SimConfig(cd_backend=backend, cd_block=BLOCK)
+    tcfg = tstep.SimConfig(cd_backend=backend, cd_block=BLOCK)
     j0 = jax_tree_to_numpy(jstate)
     t0 = state_to_numpy(tstate)
     jout, tout = _run_jax(jstate, jcfg), _run_torch(tstate, tcfg)
     return SimpleNamespace(j0=j0, t0=t0, j=jax_tree_to_numpy(jout),
-                           t=state_to_numpy(tout), jout=jout, tout=tout)
+                           t=state_to_numpy(tout), jout=jout, tout=tout,
+                           backend=backend, table=TABLE[backend])
 
 
 def test_traffic_builds_the_same_state(stepped):
@@ -66,8 +75,8 @@ def test_counts_and_flags_equal(stepped):
               "asas.active", "ac.active", "asas.sort_perm", "perf.phase",
               "ac.swhdgsel", "ac.swaltsel"):
         np.testing.assert_array_equal(j[k], t[k], err_msg=k)
-    assert partner_sets(j["asas.partners_s"]) == \
-        partner_sets(t["asas.partners_s"])
+    assert (t[stepped.table] >= 0).sum() > 0
+    assert partner_sets(j[stepped.table]) == partner_sets(t[stepped.table])
     assert float(j["simt"]) == float(t["simt"])
     assert float(j["asas_tnext"]) == float(t["asas_tnext"])
     assert float(j["fms_t0"]) == float(t["fms_t0"])
@@ -96,15 +105,20 @@ def test_state_round_trip_after_steps(stepped):
 
 
 def test_refresh_remaps_the_partner_table(stepped):
-    """A second sort refresh, now with engaged partners, moves the
-    sorted-space table to the new layout identically in both packages."""
+    """A second sort refresh, now with engaged partners, gives the same
+    sort and partner table in both packages: the sparse refresh moves the
+    sorted-space table to the new layout, the pallas refresh leaves the
+    caller-space table as it is."""
     jout, tout = stepped.jout, stepped.tout
-    cfg = tstep.SimConfig(cd_backend="sparse", cd_block=BLOCK).asas
+    impl = stepped.backend
+    cfg = tstep.SimConfig(cd_backend=impl, cd_block=BLOCK).asas
     j = jax_tree_to_numpy(jasas.refresh_spatial_sort(
-        jout, jstep.SimConfig().asas, block=BLOCK, impl="sparse"))
+        jout, jstep.SimConfig().asas, block=BLOCK, impl=impl))
     t = state_to_numpy(tasas.refresh_spatial_sort(tout, cfg, block=BLOCK,
-                                                  impl="sparse"))
-    assert (t["asas.partners_s"] >= 0).sum() > 0
+                                                  impl=impl))
+    assert (t[stepped.table] >= 0).sum() > 0
     np.testing.assert_array_equal(t["asas.sort_perm"], j["asas.sort_perm"])
-    assert partner_sets(t["asas.partners_s"]) == \
-        partner_sets(j["asas.partners_s"])
+    assert partner_sets(t[stepped.table]) == partner_sets(j[stepped.table])
+    if impl == "pallas":
+        np.testing.assert_array_equal(t[stepped.table],
+                                      stepped.t[stepped.table])
