@@ -5,7 +5,7 @@
 //   * cd_sched_tiles      <- ops/cd_sched.py::_sched_kernel (segment walker)
 //   * cd_full_grid_resume <- ops/cd_pallas.py::_kernel_resume (reach-masked
 //                            full-grid walker, the sparse overflow fallback)
-//   * cd_full_grid        <- ops/cd_pallas.py::_kernel (the same walker
+//   * cd_full_grid        <- ops/cd_pallas.py::_kernel (the same walk
 //                            without a partner table: the pallas backend)
 //   * cd_cand_tiles       <- ops/cd_pallas.py::_kernel_cand (ownship block
 //                            against its candidate aircraft)
@@ -19,34 +19,71 @@
 // conflict pair is a candidate and only the accumulators and the top-KK
 // are stored.
 //
-// Design (correct first, not yet fast): one CTA per ownship row block of
-// B <= 256 slots, one thread per ownship.  For each intruder block the
-// CTA stages the [16, B] f32 slab in shared memory (16 KB at B=256) and
-// every thread walks the B intruders in ascending id, keeping its
-// accumulators, its top-KK (tin, id) list, its KK old partners and their
-// keep bits in registers.  Visiting tiles in ascending block order and
-// inserting with a strict '<' reproduces the Pallas tie order (smallest
-// tin first, ties to the earlier / smaller id).  Masked pairs (inactive,
-// self) are skipped instead of being pushed out of range with +1e9.
+// Design.  One thread per ownship, a CTA of B <= 256 threads per ownship
+// row block.  For each intruder block the CTA stages the [16, B] f32 slab
+// in shared memory (16 KB at B=256) and every thread walks the B
+// intruders in ascending id.  Masked pairs (inactive, self) are skipped
+// instead of being pushed out of range with +1e9.
 //
-// The candidate kernel stages, for each sub-chunk of B entries of its row's
-// candidate table, the B slab columns straight from the packed slabs
-// through the ids (the gather the TPU path materializes as a
-// [nb*nsub, 16, B] array) and takes each intruder's id from the staged
-// table instead of jb*B + lane.  The sentinel id nb*B is staged as an
-// inactive column.  Ids ascend within a row, so the strict '<' insert
-// keeps the Pallas tie order there too.
+// * Work items (cd_sched_tiles, cd_full_grid).  A Morton row block of the
+//   100k continental fleet reaches 41 tiles on average but up to 171, and
+//   with one CTA per row the longest row set the time.  So each row's
+//   tiles (the reachable blocks, or the blocks of its segments), in
+//   ascending order, are cut into at most C items of ceil(r / C) tiles
+//   (cd_pallas.work_items; C = 8 cuts the 171-tile row into 22-tile
+//   items, below the ~31 tiles per resident CTA slot of the whole grid).
+//   The grid is fixed, nb * C CTAs, and an empty item exits at once: the
+//   host knows every size without reading device data, and nothing needs
+//   a device counter.  Rows are launched longest items first, so the long
+//   items do not start in the last wave.  The segment walker takes the
+//   same cut over its row's segment blocks instead of one item per
+//   segment: a row's items are then equal to within one tile.
+// * Deterministic row merge (cd_merge_items).  Each item writes its 8
+//   accumulators, its top-KK (tin, id) and, with RESUME, its keep bits to
+//   scratch; a second kernel, one thread per ownship, folds a row's items
+//   in ascending item order (sums and counts add, tcpamax max, tsolv min,
+//   inconf and keep bits or, top-KK merged by (tin, id)) and, with RESUME,
+//   runs the partner merge.  No float atomics: one input gives one output,
+//   bit for bit, from launch to launch.  A walk visits ids in ascending
+//   order, so its strict-'<' insert and the (tin, id) order of the merge
+//   are the same order: the Pallas tie order (smallest tin first, ties to
+//   the smaller id).
+// * Registers.  A pair walk keeps in registers only the ownship column and
+//   the 8 accumulators; the top-KK list, the old partners, the keep bits
+//   and the ownship's gse, gsn and trk live in shared memory, one bank per
+//   thread (Side, 28 KB at B=256), and are touched only by a conflict pair
+//   or an old partner.
+//   The keep predicate runs only for those pairs (its result is read
+//   nowhere else), and the old-partner test is a per-tile mask of the
+//   partners inside the staged block.  __launch_bounds__(256, 4) holds the
+//   walkers to 64 registers, so 4 CTAs (32 warps) fit on an SM: 44 KB of
+//   shared memory each.
 //
-// Bound on the card: the pair math.  Each visited tile costs B*B pairs
-// of ~175 f32 operations without the keep predicate and ~220 with it
-// (a handful of sqrt/rsqrt/divisions among them; chip_smoke.py has the
-// hand counts) against 16*B*4 bytes of slab, so the kernels sit far
-// above the memory roofline and are bounded by the f32 rate
-// (chip_smoke.py computes the bound from the active pairs of each run).
-// The full-grid walker gives each row block one CTA, so the row with the
-// most reachable tiles (a Morton block straddling a jump of the curve has
-// a wide bounding box) sets its time.  Nothing here uses the tensor
-// cores; occupancy, intruder reuse and splitting long rows are later work.
+// cd_full_grid_resume and cd_cand_tiles keep one CTA per row and end with
+// the same row finish as the merge kernel.  Where few rows hold many tiles
+// (the overflow rows of a dense clump, the rows that fit a candidate
+// table) they leave most SMs with one CTA or none, and one CTA cannot
+// hide the body's latency: cutting them into work items too is the next
+// step.  The candidate kernel stages,
+// for each sub-chunk of B entries of its row's candidate table, the B slab
+// columns straight from the packed slabs through the ids and takes each
+// intruder's id from the staged table instead of jb*B + lane; the sentinel
+// id nb*B is staged as an inactive column.  Ids ascend within a row, so
+// the insert keeps the Pallas tie order there too.
+//
+// Bound on the card: the pair math.  Each visited tile costs B*B pairs of
+// 168 f32 operations (the keep predicate adds 26 on the conflict and
+// old-partner pairs only; chip_smoke.py has the hand counts) against
+// 16*B*4 bytes of slab, so the kernels sit far above the memory roofline
+// and are bounded by the f32 rate.  The body is scalar f32 with sqrt,
+// rsqrt and IEEE divisions under a fixed rounding contract, so the tensor
+// cores do not apply; built with --fmad=false, the body issues no fused
+// multiply-add, so half of the f32 peak is the most it can reach.  Where
+// the split walkers lose the rest is not measured (no instruction-level
+// profiler runs on the card); the serial per-pair chain of sqrt, rsqrt
+// and divisions at 32 warps per SM is the first suspect.  The merge
+// moves (8 + 2*KK + 1) words per ownship and item, and is bounded by
+// bytes.
 //
 // Plain C interface (built with nvcc, loaded with ctypes); every entry
 // point launches on the caller's stream and returns cudaGetLastError().
@@ -58,6 +95,7 @@ namespace {
 
 constexpr int NF = 16;        // slab rows (cd_pallas._FIELDS)
 constexpr int MAXB = 256;     // max block width
+constexpr int KK = 8;         // partner-table width K
 constexpr float BIG = 1e9f;
 constexpr int BIG_I = 1 << 30;
 
@@ -85,6 +123,7 @@ struct Params {
   float rpz_resume;                 // resume-nav radius rpz * resofach
 };
 
+// Final outputs, [.., nb, .., B] as cd_pallas.alloc_outputs lays them out.
 struct Outs {
   float* acc;     // [8, NT]: inconf tcpamax sdve sdvn sdvv tsolv ncnt lcnt
   float* ctin;    // [nb, KK, B]
@@ -92,6 +131,29 @@ struct Outs {
   float* keep;    // [nb, KK, B]
   int* merged;    // [nb, KK, B]
   float* active;  // [NT]
+};
+
+// Partials of the work items, item g = row * C + k of G = nb * C.
+struct Parts {
+  float* acc;      // [8, G, B]
+  float* ct;       // [KK, G, B]
+  int* ci;         // [KK, G, B]
+  unsigned* keep;  // [G, B] keep bits (RESUME)
+};
+
+// The hot per-ownship state of a walk, in registers.
+struct Acc {
+  float inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt;
+};
+
+// The rare-path per-ownship state, in shared memory: [k][thread], so the
+// threads of a warp touch 32 different banks.
+struct Side {
+  float ct[KK][MAXB];     // top-KK entry times, ascending
+  int ci[KK][MAXB];       // their intruder ids
+  int pold[KK][MAXB];     // old partners (RESUME)
+  unsigned keep[MAXB];    // keep bits of the old partners (RESUME)
+  float gse[MAXB], gsn[MAXB], trk[MAXB];  // ownship fields of the rare paths
 };
 
 // The reference divides by 6, 20 and 42; compiled, it multiplies by the
@@ -114,46 +176,86 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-template <int KK>
-struct Row {
-  float o[NF];          // ownship slab column
-  int gid;
-  float inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt;
-  float ct[KK];
-  int ci[KK];
-  int pold[KK];
-  unsigned keep;
-};
-
-template <int KK>
-__device__ __forceinline__ void insert_cand(Row<KK>& r, float tin, int id) {
-  if (!(tin < r.ct[KK - 1])) return;
-#pragma unroll
-  for (int j = KK - 1; j > 0; --j) {
-    if (tin < r.ct[j - 1]) {
-      r.ct[j] = r.ct[j - 1];
-      r.ci[j] = r.ci[j - 1];
-    } else if (tin < r.ct[j]) {
-      r.ct[j] = tin;
-      r.ci[j] = id;
-    }
-  }
-  if (tin < r.ct[0]) {
-    r.ct[0] = tin;
-    r.ci[0] = id;
-  }
+__device__ __forceinline__ Acc acc_init() {
+  Acc a;
+  a.inconf = a.tcpamax = a.sdve = a.sdvn = a.sdvv = 0.0f;
+  a.tsolv = BIG;
+  a.ncnt = a.lcnt = 0.0f;
+  return a;
 }
 
-// One ownship against one staged intruder slab (cd_pallas._tile_pairs; with
-// RESUME, the resume keep predicate too).  The intruder ids are the staged
-// ids sid with IDS, else those of block jb, jb*B + lane.
-template <int KK, bool RESUME, bool IDS>
-__device__ void tile_pairs(float (*s)[MAXB], const int* sid, int jb, int B,
-                           Row<KK>& r, const Params& P) {
-  const float* o = r.o;
+// (tin, id) before (ct, ci) in lexicographic order.  A walk offers ids in
+// ascending order, so there it is the strict '<' on tin alone.
+__device__ __forceinline__ bool before(float tin, int id, float ct, int ci) {
+  return tin < ct || (tin == ct && id < ci);
+}
+
+// Insert (tin, id) into thread t's top-KK list; false if it stays out.
+__device__ bool insert_cand(Side& sd, int t, float tin, int id) {
+  if (!before(tin, id, sd.ct[KK - 1][t], sd.ci[KK - 1][t])) return false;
+  int j = KK - 1;
+  for (; j > 0 && before(tin, id, sd.ct[j - 1][t], sd.ci[j - 1][t]); --j) {
+    sd.ct[j][t] = sd.ct[j - 1][t];
+    sd.ci[j][t] = sd.ci[j - 1][t];
+  }
+  sd.ct[j][t] = tin;
+  sd.ci[j][t] = id;
+  return true;
+}
+
+// The ownship column: in registers o, but for the three fields only the
+// MVP tail and the keep predicate read, which go to shared memory.
+__device__ __forceinline__ void own_begin(float* o, Side& sd,
+                                          const float* packed, int i, int B,
+                                          int t) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) o[f] = packed[((size_t)i * NF + f) * B + t];
+  sd.gse[t] = o[F_GSE];
+  sd.gsn[t] = o[F_GSN];
+  sd.trk[t] = o[F_TRK];
+}
+
+template <bool RESUME>
+__device__ __forceinline__ void side_begin(Side& sd, const int* pold, int i,
+                                           int B, int t) {
+#pragma unroll
+  for (int k = 0; k < KK; ++k) {
+    sd.ct[k][t] = BIG;
+    sd.ci[k][t] = BIG_I;
+    sd.pold[k][t] = RESUME ? pold[((size_t)i * KK + k) * B + t] : -1;
+  }
+  sd.keep[t] = 0u;
+}
+
+// Bits k of the old partners pold[k] inside intruder block jb.
+template <bool RESUME>
+__device__ __forceinline__ unsigned old_mask(const Side& sd, int t, int jb,
+                                             int B) {
+  unsigned m = 0u;
+  if constexpr (RESUME) {
+    const int lo = jb * B;
+#pragma unroll
+    for (int k = 0; k < KK; ++k) {
+      const int q = sd.pold[k][t];
+      if (q >= lo && q < lo + B) m |= 1u << k;
+    }
+  }
+  return m;
+}
+
+// One ownship (column o, slot id gid) against one staged intruder slab
+// (cd_pallas._tile_pairs; with RESUME, the resume keep predicate too).
+// The intruder ids are the staged ids sid with IDS, else those of block
+// jb, jb*B + lane.  pmask: old_mask of this block.
+template <bool RESUME, bool IDS>
+__device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
+                                           int jb, int B, const float* o,
+                                           int gid, unsigned pmask, Acc& a,
+                                           Side& sd, int tt,
+                                           const Params& P) {
   for (int t = 0; t < B; ++t) {
     const int gid_i = IDS ? sid[t] : jb * B + t;
-    if (!(s[F_ACTIVE][t] > 0.5f) || gid_i == r.gid) continue;
+    if (!(s[F_ACTIVE][t] > 0.5f) || gid_i == gid) continue;
     const float lat_i = s[F_LAT][t], lon_i = s[F_LON][t];
     const float sl_i = s[F_SL][t], cl_i = s[F_CL][t];
 
@@ -206,16 +308,16 @@ __device__ void tile_pairs(float (*s)[MAXB], const int* sid, int jb, int B,
     const bool swconfl = swhor && (tinconf <= toutconf) && (toutconf > 0.0f)
                          && (tinconf < P.tlook);
     const bool swlos = (dist < P.rpz) && (fabsf(dalt) < P.hpz);
-    const float vrel_e = s[F_GSE][t] - o[F_GSE];
-    const float vrel_n = s[F_GSN][t] - o[F_GSN];
 
-    if (swlos) r.lcnt += 1.0f;
+    if (swlos) a.lcnt += 1.0f;
     if (swconfl) {
-      r.inconf = 1.0f;
-      r.tcpamax = fmaxf(r.tcpamax, tcpa);
-      r.ncnt += 1.0f;
+      a.inconf = 1.0f;
+      a.tcpamax = fmaxf(a.tcpamax, tcpa);
+      a.ncnt += 1.0f;
       if (!(s[F_NORESO][t] > 0.5f)) {
         // --- MVP pair contribution: cr_mvp.pair_contrib_trig ---
+        const float vrel_e = s[F_GSE][t] - sd.gse[tt];
+        const float vrel_n = s[F_GSN][t] - sd.gsn[tt];
         const float drel_e = sinq * dist, drel_n = cosq * dist;
         float dcpa_e = drel_e + vrel_e * tcpa;
         float dcpa_n = drel_n + vrel_n * tcpa;
@@ -251,51 +353,40 @@ __device__ void tile_pairs(float (*s)[MAXB], const int* sid, int jb, int B,
         const float dvv = has_dvs
             ? (iv / tsafe) * (vrel_v > 0.0f ? -1.0f : 1.0f)
             : iv / tsafe;
-        r.sdve += dve;
-        r.sdvn += dvn;
-        r.sdvv += dvv;
-        r.tsolv = fminf(r.tsolv, tsolv);
+        a.sdve += dve;
+        a.sdvn += dvn;
+        a.sdvv += dvv;
+        a.tsolv = fminf(a.tsolv, tsolv);
       }
     }
 
     if constexpr (!RESUME) {
-      if (swconfl) insert_cand<KK>(r, tinconf, gid_i);
+      if (swconfl) insert_cand(sd, tt, tinconf, gid_i);
       continue;
     }
+    // The old partners this intruder is; the keep predicate is read only
+    // for them and for a conflict pair.
+    unsigned hit = 0u;
+    for (unsigned m = pmask; m; m &= m - 1u) {
+      const int k = __ffs(m) - 1;
+      if (sd.pold[k][tt] == gid_i) hit |= 1u << k;
+    }
+    if (!swconfl && !hit) continue;
     // --- resume-nav keep predicate: cr_mvp.resume_keep_core ---
+    const float vrel_e = s[F_GSE][t] - sd.gse[tt];
+    const float vrel_n = s[F_GSN][t] - sd.gsn[tt];
     const float cos_half = sqrtf(fmaxf(0.5f + 0.5f * cos_sum, 0.0f));
     const float dist_e = REARTH * ((lon_i - o[F_LON]) * RAD) * cos_half;
     const float dist_n = REARTH * ((lat_i - o[F_LAT]) * RAD);
     const bool past_cpa = dist_e * vrel_e + dist_n * vrel_n > 0.0f;
     const float hdist = sqrtf(dist_e * dist_e + dist_n * dist_n);
     const bool keep = !past_cpa || (hdist < P.rpz)
-        || ((fabsf(o[F_TRK] - s[F_TRK][t]) < 30.0f) && (hdist < P.rpz_resume));
+        || ((fabsf(sd.trk[tt] - s[F_TRK][t]) < 30.0f) && (hdist < P.rpz_resume));
     if (keep) {
-#pragma unroll
-      for (int k = 0; k < KK; ++k)
-        if (r.pold[k] == gid_i) r.keep |= 1u << k;
-      if (swconfl) insert_cand<KK>(r, tinconf, gid_i);
+      sd.keep[tt] |= hit;
+      if (swconfl) insert_cand(sd, tt, tinconf, gid_i);
     }
   }
-}
-
-template <int KK, bool RESUME>
-__device__ void row_begin(Row<KK>& r, const float* packed, const int* pold,
-                          int i, int B, int t) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f) r.o[f] = packed[((size_t)i * NF + f) * B + t];
-  r.gid = i * B + t;
-  r.inconf = r.tcpamax = r.sdve = r.sdvn = r.sdvv = 0.0f;
-  r.tsolv = BIG;
-  r.ncnt = r.lcnt = 0.0f;
-#pragma unroll
-  for (int k = 0; k < KK; ++k) {
-    r.ct[k] = BIG;
-    r.ci[k] = BIG_I;
-    if constexpr (RESUME) r.pold[k] = pold[((size_t)i * KK + k) * B + t];
-    else r.pold[k] = -1;
-  }
-  r.keep = 0u;
 }
 
 __device__ __forceinline__ void stage(float (*s)[MAXB], const float* packed,
@@ -322,111 +413,158 @@ __device__ __forceinline__ void stage_ids(float (*s)[MAXB], int* sid,
   __syncthreads();
 }
 
-// The stores of one ownship: the 8 accumulators and the top-KK; with
-// RESUME, cd_pallas._merge_partners_block first, then the keep bits, the
-// merged partners and the engagement flag too.  (Merging before the
-// stores keeps the resume kernels at 80 registers; storing first took 93,
-// one CTA fewer per SM, and made K1 ~30 % slower on an H100.)
-template <int KK, bool RESUME>
-__device__ void row_finish(const Row<KK>& r, const Outs& out, int i, int B,
-                           int t, size_t nt) {
-  int merged[KK];
-  int n = 0;
-  if constexpr (RESUME) {
-    int cat[2 * KK];
-#pragma unroll
-    for (int k = 0; k < KK; ++k) cat[k] = r.ct[k] < BIG ? r.ci[k] : -1;
-#pragma unroll
-    for (int k = 0; k < KK; ++k) {
-      int old = ((r.keep >> k) & 1u) ? r.pold[k] : -1;
-#pragma unroll
-      for (int m = 0; m < KK; ++m)
-        if (cat[m] >= 0 && old == cat[m]) old = -1;
-      cat[KK + k] = old;
-    }
-#pragma unroll
-    for (int k = 0; k < KK; ++k) merged[k] = -1;
-#pragma unroll
-    for (int c = 0; c < 2 * KK; ++c) {
-      if (cat[c] >= 0) {
-#pragma unroll
-        for (int k = 0; k < KK; ++k)
-          if (k == n) merged[k] = cat[c];
-        ++n;
-      }
-    }
-  }
+// The final stores of one ownship: the 8 accumulators and the top-KK;
+// with RESUME also the keep bits and cd_pallas._merge_partners_block
+// (fresh candidates in urgency order, then the kept old partners in
+// slot order that are not fresh ones, the first KK) and the engagement
+// flag.
+template <bool RESUME>
+__device__ void finish_row(const Acc& a, const Side& sd, const Outs& out,
+                           int i, int B, int t, size_t nt) {
   const size_t g = (size_t)i * B + t;
-  out.acc[0 * nt + g] = r.inconf;
-  out.acc[1 * nt + g] = r.tcpamax;
-  out.acc[2 * nt + g] = r.sdve;
-  out.acc[3 * nt + g] = r.sdvn;
-  out.acc[4 * nt + g] = r.sdvv;
-  out.acc[5 * nt + g] = r.tsolv;
-  out.acc[6 * nt + g] = r.ncnt;
-  out.acc[7 * nt + g] = r.lcnt;
+  out.acc[0 * nt + g] = a.inconf;
+  out.acc[1 * nt + g] = a.tcpamax;
+  out.acc[2 * nt + g] = a.sdve;
+  out.acc[3 * nt + g] = a.sdvn;
+  out.acc[4 * nt + g] = a.sdvv;
+  out.acc[5 * nt + g] = a.tsolv;
+  out.acc[6 * nt + g] = a.ncnt;
+  out.acc[7 * nt + g] = a.lcnt;
+  const size_t e0 = (size_t)i * KK * B + t;
 #pragma unroll
   for (int k = 0; k < KK; ++k) {
-    const size_t e = ((size_t)i * KK + k) * B + t;
-    out.ctin[e] = r.ct[k];
-    out.cidx[e] = r.ci[k];
-    if constexpr (RESUME) {
-      out.keep[e] = (float)((r.keep >> k) & 1u);
-      out.merged[e] = merged[k];
-    }
+    out.ctin[e0 + (size_t)k * B] = sd.ct[k][t];
+    out.cidx[e0 + (size_t)k * B] = sd.ci[k][t];
   }
-  if constexpr (RESUME) out.active[g] = n > 0 ? 1.0f : 0.0f;
+  if constexpr (RESUME) {
+    const unsigned keep = sd.keep[t];
+    int n = 0;
+    for (int k = 0; k < KK; ++k) {
+      out.keep[e0 + (size_t)k * B] = (float)((keep >> k) & 1u);
+      if (sd.ct[k][t] < BIG) out.merged[e0 + (size_t)(n++) * B] = sd.ci[k][t];
+    }
+    for (int k = 0; k < KK && n < KK; ++k) {
+      if (!((keep >> k) & 1u)) continue;
+      const int q = sd.pold[k][t];
+      bool dup = false;
+      for (int m = 0; m < KK; ++m)
+        dup |= sd.ct[m][t] < BIG && sd.ci[m][t] == q;
+      if (!dup) out.merged[e0 + (size_t)(n++) * B] = q;
+    }
+    for (int k = n; k < KK; ++k) out.merged[e0 + (size_t)k * B] = -1;
+    out.active[g] = n > 0 ? 1.0f : 0.0f;
+  }
 }
 
-// _sched_kernel: row block i walks its <= S (start, len) segments of
-// <= wmax contiguous intruder blocks each.
-template <int KK>
-__global__ void __launch_bounds__(MAXB)
-sched_kernel(const float* __restrict__ packed, int nbc, int B,
-             const int* __restrict__ wst, const int* __restrict__ wln, int S,
-             int wmax, const int* __restrict__ pold, Params P, Outs out) {
+// cd_sched_tiles (RESUME) and cd_full_grid: work item k of row block i
+// walks tiles[i, start : start + len] of its row's ascending tile list
+// and stores its partials.  CTA b takes item b % C of row order[b / C].
+template <bool RESUME>
+__global__ void __launch_bounds__(MAXB, 4)
+items_kernel(const float* __restrict__ packed, int B,
+             const int* __restrict__ tiles, int W,
+             const int* __restrict__ istart, const int* __restrict__ ilen,
+             const int* __restrict__ order, int C,
+             const int* __restrict__ pold, Params P, Parts pt) {
   __shared__ float s[NF][MAXB];
-  const int i = blockIdx.x, t = threadIdx.x;
-  Row<KK> r;
-  row_begin<KK, true>(r, packed, pold, i, B, t);
-  const bool own_act = r.o[F_ACTIVE] > 0.5f;
+  __shared__ Side sd;
+  const int i = order[blockIdx.x / C];
+  const size_t g = (size_t)i * C + blockIdx.x % C;
+  const int len = ilen[g];
+  if (len <= 0) return;
+  const int t = threadIdx.x;
+  float o[NF];
+  own_begin(o, sd, packed, i, B, t);
+  side_begin<RESUME>(sd, pold, i, B, t);
+  Acc a = acc_init();
+  const bool own_act = o[F_ACTIVE] > 0.5f;
   if (__syncthreads_or(own_act)) {
-    for (int sg = 0; sg < S; ++sg) {
-      const int base = wst[i * S + sg];
-      const int len = min(wln[i * S + sg], wmax);
-      for (int k = 0; k < len; ++k) {
-        const int jb = base + k;
-        if (jb >= nbc) break;
-        stage(s, packed, jb, B, t);
-        if (own_act) tile_pairs<KK, true, false>(s, nullptr, jb, B, r, P);
-      }
+    const int* tl = tiles + (size_t)i * W + istart[g];
+    for (int q = 0; q < len; ++q) {
+      const int jb = tl[q];
+      stage(s, packed, jb, B, t);
+      if (own_act)
+        tile_pairs<RESUME, false>(s, nullptr, jb, B, o, i * B + t,
+                                  old_mask<RESUME>(sd, t, jb, B), a, sd, t,
+                                  P);
     }
   }
-  row_finish<KK, true>(r, out, i, B, t, (size_t)gridDim.x * B);
+  const size_t n = (size_t)gridDim.x * B, e = g * B + t;
+  pt.acc[0 * n + e] = a.inconf;
+  pt.acc[1 * n + e] = a.tcpamax;
+  pt.acc[2 * n + e] = a.sdve;
+  pt.acc[3 * n + e] = a.sdvn;
+  pt.acc[4 * n + e] = a.sdvv;
+  pt.acc[5 * n + e] = a.tsolv;
+  pt.acc[6 * n + e] = a.ncnt;
+  pt.acc[7 * n + e] = a.lcnt;
+#pragma unroll
+  for (int k = 0; k < KK; ++k) {
+    pt.ct[k * n + e] = sd.ct[k][t];
+    pt.ci[k * n + e] = sd.ci[k][t];
+  }
+  if constexpr (RESUME) pt.keep[e] = sd.keep[t];
 }
 
-// _kernel_resume (RESUME) and _kernel: row block i visits every intruder
-// block jb with reach[i, jb] != 0, in ascending jb (the callers restrict
-// reach to the overflow rows where it is a fallback).
-template <int KK, bool RESUME>
+// cd_merge_items: ownship t of row block i folds the partials of its
+// row's non-empty items in ascending item order, then finishes the row.
+template <bool RESUME>
 __global__ void __launch_bounds__(MAXB)
-full_grid_kernel(const float* __restrict__ packed, int nbc, int B,
-                 const uint8_t* __restrict__ reach,
-                 const int* __restrict__ pold, Params P, Outs out) {
-  __shared__ float s[NF][MAXB];
+merge_kernel(int B, int C, const int* __restrict__ ilen,
+             const int* __restrict__ pold, Parts pt, Outs out) {
+  __shared__ Side sd;
   const int i = blockIdx.x, t = threadIdx.x;
-  Row<KK> r;
-  row_begin<KK, RESUME>(r, packed, pold, i, B, t);
-  const bool own_act = r.o[F_ACTIVE] > 0.5f;
+  side_begin<RESUME>(sd, pold, i, B, t);
+  Acc a = acc_init();
+  const size_t n = (size_t)gridDim.x * C * B;
+  unsigned keep = 0u;
+  for (int k = 0; k < C; ++k) {
+    const size_t g = (size_t)i * C + k;
+    if (ilen[g] <= 0) continue;
+    const size_t e = g * B + t;
+    a.inconf = fmaxf(a.inconf, pt.acc[0 * n + e]);
+    a.tcpamax = fmaxf(a.tcpamax, pt.acc[1 * n + e]);
+    a.sdve += pt.acc[2 * n + e];
+    a.sdvn += pt.acc[3 * n + e];
+    a.sdvv += pt.acc[4 * n + e];
+    a.tsolv = fminf(a.tsolv, pt.acc[5 * n + e]);
+    a.ncnt += pt.acc[6 * n + e];
+    a.lcnt += pt.acc[7 * n + e];
+    // each item's list ascends, so its first entry that stays out ends it
+    for (int m = 0; m < KK; ++m)
+      if (!insert_cand(sd, t, pt.ct[m * n + e], pt.ci[m * n + e])) break;
+    if constexpr (RESUME) keep |= pt.keep[e];
+  }
+  sd.keep[t] = keep;
+  finish_row<RESUME>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
+}
+
+// _kernel_resume: row block i visits every intruder block jb with
+// reach[i, jb] != 0, in ascending jb (the caller restricts reach to the
+// overflow rows, where it is a fallback).
+__global__ void __launch_bounds__(MAXB, 4)
+resume_grid_kernel(const float* __restrict__ packed, int nbc, int B,
+                   const uint8_t* __restrict__ reach,
+                   const int* __restrict__ pold, Params P, Outs out) {
+  __shared__ float s[NF][MAXB];
+  __shared__ Side sd;
+  const int i = blockIdx.x, t = threadIdx.x;
+  float o[NF];
+  own_begin(o, sd, packed, i, B, t);
+  side_begin<true>(sd, pold, i, B, t);
+  Acc a = acc_init();
+  const bool own_act = o[F_ACTIVE] > 0.5f;
   if (__syncthreads_or(own_act)) {
     const uint8_t* rrow = reach + (size_t)i * nbc;
     for (int jb = 0; jb < nbc; ++jb) {
       if (!rrow[jb]) continue;
       stage(s, packed, jb, B, t);
-      if (own_act) tile_pairs<KK, RESUME, false>(s, nullptr, jb, B, r, P);
+      if (own_act)
+        tile_pairs<true, false>(s, nullptr, jb, B, o, i * B + t,
+                                old_mask<true>(sd, t, jb, B), a, sd, t, P);
     }
   }
-  row_finish<KK, RESUME>(r, out, i, B, t, (size_t)gridDim.x * B);
+  finish_row<true>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
 }
 
 // _kernel_cand: row block i against the aircraft of its candidate table
@@ -434,26 +572,29 @@ full_grid_kernel(const float* __restrict__ packed, int nbc, int B,
 // A sub-chunk that starts with the sentinel holds nothing else, nor does
 // any later one, so the row ends there (an overflow row's table is all
 // sentinel and costs one read).
-template <int KK>
-__global__ void __launch_bounds__(MAXB)
+__global__ void __launch_bounds__(MAXB, 4)
 cand_kernel(const float* __restrict__ packed, int nb, int B,
             const int* __restrict__ cand, int c_cap, Params P, Outs out) {
   __shared__ float s[NF][MAXB];
   __shared__ int sid[MAXB];
+  __shared__ Side sd;
   const int i = blockIdx.x, t = threadIdx.x;
   const int n = nb * B;
-  Row<KK> r;
-  row_begin<KK, false>(r, packed, nullptr, i, B, t);
-  const bool own_act = r.o[F_ACTIVE] > 0.5f;
+  float o[NF];
+  own_begin(o, sd, packed, i, B, t);
+  side_begin<false>(sd, nullptr, i, B, t);
+  Acc a = acc_init();
+  const bool own_act = o[F_ACTIVE] > 0.5f;
   if (__syncthreads_or(own_act)) {
     const int* crow = cand + (size_t)i * c_cap;
     for (int c = 0; c < c_cap; c += B) {
       if (crow[c] >= n) break;
       stage_ids(s, sid, packed, crow + c, n, B, t);
-      if (own_act) tile_pairs<KK, false, true>(s, sid, 0, B, r, P);
+      if (own_act)
+        tile_pairs<false, true>(s, sid, 0, B, o, i * B + t, 0u, a, sd, t, P);
     }
   }
-  row_finish<KK, false>(r, out, i, B, t, (size_t)gridDim.x * B);
+  finish_row<false>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
 }
 
 Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
@@ -465,24 +606,80 @@ Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
   return p;
 }
 
+// Ask for the largest shared-memory carveout (once per kernel, at its
+// first launch), so that four 44 KB CTAs fit on an SM beside the L1.
+template <typename K>
+void prefer_shared(K* kernel) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <bool RESUME>
+int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
+                 const int* istart, const int* ilen, const int* order, int C,
+                 const int* pold, const Params& P, const Parts& pt,
+                 void* stream) {
+  if (B <= 0 || B > MAXB || C <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return 0;
+  static bool once = (prefer_shared(items_kernel<RESUME>), true);
+  (void)once;
+  items_kernel<RESUME><<<nb * C, B, 0, (cudaStream_t)stream>>>(
+      packed, B, tiles, W, istart, ilen, order, C, pold, P, pt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// kk must be 8 (the partner-table width K of the state); B <= 256.
-int cd_sched_tiles(const float* packed, int nb, int B, const int* wst,
-                   const int* wln, int S, int wmax, const int* pold, float rpz,
+// The walkers of cd_sched_tiles and cd_full_grid write the partials of
+// their nb * C work items (cd_pallas.work_items: tiles [nb, W], istart
+// and ilen [nb, C], order [nb]); cd_merge_items makes the outputs.
+// B <= 256; the partner tables are K = 8 wide.
+int cd_sched_tiles(const float* packed, int nb, int B, const int* tiles,
+                   int W, const int* istart, const int* ilen,
+                   const int* order, int C, const int* pold, float rpz,
                    float r2, float hpz, float tlook, float rpz_m, float hpz_m,
-                   float tlook_m, float rpz_resume, float* acc, float* ctin,
-                   int* cidx, float* keep, int* merged, float* active,
-                   void* stream) {
-  if (B <= 0 || B > MAXB) return (int)cudaErrorInvalidValue;
-  if (nb <= 0) return 0;
+                   float tlook_m, float rpz_resume, float* pacc, float* pct,
+                   int* pci, unsigned* pkeep, void* stream) {
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume);
+  return launch_items<true>(packed, nb, B, tiles, W, istart, ilen, order, C,
+                            pold, P, Parts{pacc, pct, pci, pkeep}, stream);
+}
+
+// The reach-masked full grid without a partner table (rpz_resume unused).
+int cd_full_grid(const float* packed, int nb, int B, const int* tiles, int W,
+                 const int* istart, const int* ilen, const int* order, int C,
+                 float rpz, float r2, float hpz, float tlook, float rpz_m,
+                 float hpz_m, float tlook_m, float rpz_resume, float* pacc,
+                 float* pct, int* pci, void* stream) {
+  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                         rpz_resume);
+  return launch_items<false>(packed, nb, B, tiles, W, istart, ilen, order, C,
+                             nullptr, P, Parts{pacc, pct, pci, nullptr},
+                             stream);
+}
+
+// The row merge of either walker: with pold (the cd_sched_tiles form) the
+// keep bits and the partner merge too, and all six outputs; without it
+// only acc, ctin and cidx.
+int cd_merge_items(int nb, int B, int C, const int* ilen, const int* pold,
+                   const float* pacc, const float* pct, const int* pci,
+                   const unsigned* pkeep, float* acc, float* ctin, int* cidx,
+                   float* keep, int* merged, float* active, void* stream) {
+  if (B <= 0 || B > MAXB || C <= 0) return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return 0;
+  Parts pt{const_cast<float*>(pacc), const_cast<float*>(pct),
+           const_cast<int*>(pci), const_cast<unsigned*>(pkeep)};
   Outs o{acc, ctin, cidx, keep, merged, active};
-  sched_kernel<8><<<nb, B, 0, (cudaStream_t)stream>>>(
-      packed, nb, B, wst, wln, S, wmax, pold, P, o);
+  if (pold)
+    merge_kernel<true><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen, pold,
+                                                           pt, o);
+  else
+    merge_kernel<false><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen,
+                                                            nullptr, pt, o);
   return (int)cudaGetLastError();
 }
 
@@ -497,23 +694,10 @@ int cd_full_grid_resume(const float* packed, int nb, int B,
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume);
   Outs o{acc, ctin, cidx, keep, merged, active};
-  full_grid_kernel<8, true><<<nb, B, 0, (cudaStream_t)stream>>>(
-      packed, nb, B, reach, pold, P, o);
-  return (int)cudaGetLastError();
-}
-
-// The reach-masked full grid without a partner table (rpz_resume unused).
-int cd_full_grid(const float* packed, int nb, int B, const uint8_t* reach,
-                 float rpz, float r2, float hpz, float tlook, float rpz_m,
-                 float hpz_m, float tlook_m, float rpz_resume, float* acc,
-                 float* ctin, int* cidx, void* stream) {
-  if (B <= 0 || B > MAXB) return (int)cudaErrorInvalidValue;
-  if (nb <= 0) return 0;
-  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
-                         rpz_resume);
-  Outs o{acc, ctin, cidx, nullptr, nullptr, nullptr};
-  full_grid_kernel<8, false><<<nb, B, 0, (cudaStream_t)stream>>>(
-      packed, nb, B, reach, nullptr, P, o);
+  static bool once = (prefer_shared(resume_grid_kernel), true);
+  (void)once;
+  resume_grid_kernel<<<nb, B, 0, (cudaStream_t)stream>>>(packed, nb, B, reach,
+                                                         pold, P, o);
   return (int)cudaGetLastError();
 }
 
@@ -528,8 +712,10 @@ int cd_cand_tiles(const float* packed, int nb, int B, const int* cand,
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume);
   Outs o{acc, ctin, cidx, nullptr, nullptr, nullptr};
-  cand_kernel<8><<<nb, B, 0, (cudaStream_t)stream>>>(packed, nb, B, cand,
-                                                     c_cap, P, o);
+  static bool once = (prefer_shared(cand_kernel), true);
+  (void)once;
+  cand_kernel<<<nb, B, 0, (cudaStream_t)stream>>>(packed, nb, B, cand, c_cap,
+                                                  P, o);
   return (int)cudaGetLastError();
 }
 

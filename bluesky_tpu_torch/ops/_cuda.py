@@ -33,10 +33,12 @@ _p = ctypes.c_void_p
 #: ctypes signatures of the C entry points, by source file
 SIGNATURES = {
     "cd_tiles.cu": {
-        "cd_sched_tiles": [_p, _i, _i, _p, _p, _i, _i, _p] + [_f] * 8
-        + [_p] * 7,
+        "cd_sched_tiles": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p]
+        + [_f] * 8 + [_p] * 5,
+        "cd_full_grid": [_p, _i, _i, _p, _i, _p, _p, _p, _i] + [_f] * 8
+        + [_p] * 4,
+        "cd_merge_items": [_i, _i, _i] + [_p] * 13,
         "cd_full_grid_resume": [_p, _i, _i, _p, _p] + [_f] * 8 + [_p] * 7,
-        "cd_full_grid": [_p, _i, _i, _p] + [_f] * 8 + [_p] * 4,
         "cd_cand_tiles": [_p, _i, _i, _p, _i] + [_f] * 8 + [_p] * 4,
     },
 }

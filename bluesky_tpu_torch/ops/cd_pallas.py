@@ -10,10 +10,13 @@ reach-masked full grid or, with ``cand_cap > 0``, the candidate-list
 scheduler with the full grid covering its overflow rows.
 
 Three TPU kernels become hand-written CUDA kernels of
-``csrc/cd_tiles.cu`` (one CTA per ownship row block, one thread per
-ownship), each beside a plain PyTorch version of the same function:
+``csrc/cd_tiles.cu`` (one thread per ownship), each beside a plain
+PyTorch version of the same function:
 
-* ``_kernel`` -> ``cd_full_grid`` (``full_grid`` / ``full_grid_plain``);
+* ``_kernel`` -> ``cd_full_grid`` (``full_grid`` / ``full_grid_plain``):
+  each row block's reachable tiles cut into balanced work items
+  (``work_items``), one CTA per item, and the items' partials folded by
+  the row merge ``cd_merge_items`` (``merge_items_plain``);
 * ``_kernel_cand`` -> ``cd_cand_tiles`` (``cand_tiles`` /
   ``cand_tiles_plain``);
 * ``_kernel_resume`` -> ``cd_full_grid_resume`` (``full_grid_resume`` /
@@ -53,6 +56,8 @@ _BIG_I = 2 ** 30
 CAND_SUB = 32
 #: Partner-table width K (columns of ``partners_s``), fixed by the kernels.
 KK = 8
+#: Work items a row block's tiles are cut into at most (``work_items``).
+ITEMS_PER_ROW = 8
 
 #: Identity elements of the 10 accumulator outputs, in output order:
 #: inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx.
@@ -358,6 +363,146 @@ def check_common(packed, pold=None):
     return nb, B
 
 
+class WorkItems(NamedTuple):
+    """The work items of a split walker (``cd_full_grid``,
+    ``cd_sched_tiles``): item k of row block i walks ``tiles[i, start[i,
+    k] : start[i, k] + length[i, k]]``."""
+    tiles: torch.Tensor    # [nb, W] int32 each row's tiles, ascending, first
+    start: torch.Tensor    # [nb, C] int32 an item's first position in them
+    length: torch.Tensor   # [nb, C] int32 its tile count (0: empty item)
+    order: torch.Tensor    # [nb] int32 rows, longest items first
+
+
+def compact_rows(cand, valid):
+    """Row-wise compaction by a cumsum: the entries of ``cand`` [nb, W]
+    where ``valid``, in their order, moved to the front of each row.
+    Returns ``(tiles [nb, W] int32, count [nb] int64)``; entries past a
+    row's count are 0."""
+    nb, w = cand.shape
+    pos = torch.where(valid, torch.cumsum(valid, 1) - 1,
+                      torch.full((), w, device=cand.device))
+    out = torch.zeros((nb, w + 1), dtype=torch.int32, device=cand.device)
+    out.scatter_(1, pos, cand.to(torch.int32))   # column w takes the rest
+    return out[:, :w].contiguous(), valid.sum(1)
+
+
+def work_items(tiles, count, per_row=ITEMS_PER_ROW):
+    """Cut each row's ``count`` tiles (``compact_rows``) into at most
+    ``per_row`` items of ``ceil(count / per_row)`` tiles, in order; the
+    rows are ordered by descending item length (the launch order, so the
+    longest items do not start last).  Tensor ops only: no host sync."""
+    count = count.long()
+    dev = count.device
+    size = torch.clamp_min((count + per_row - 1) // per_row, 1)
+    k = torch.arange(per_row, dtype=torch.int64, device=dev)
+    start = k[None, :] * size[:, None]
+    length = torch.minimum(torch.clamp_min(count[:, None] - start, 0),
+                           size[:, None])
+    order = torch.argsort(-(size * (count > 0)), stable=True)
+    return WorkItems(tiles=tiles, start=start.to(torch.int32),
+                     length=length.to(torch.int32),
+                     order=order.to(torch.int32))
+
+
+def reach_items(reach, per_row=ITEMS_PER_ROW):
+    """``work_items`` of the reach-masked full grid: row i's tiles are the
+    blocks j with ``reach[i, j]``, ascending."""
+    nb, nbc = reach.shape
+    cols = torch.arange(nbc, device=reach.device).expand(nb, nbc)
+    return work_items(*compact_rows(cols, reach), per_row)
+
+
+def merge_items_plain(parts, B, pold=None):
+    """Plain PyTorch version of ``cd_merge_items`` for one row block: the
+    outputs of ``row_block_plain`` on each of the row's non-empty work
+    items, in ascending item order, folded into the row's outputs.  Sums
+    and counts add in item order, tcpamax takes the max, tsolv the min,
+    inconf and (with ``pold``) the keep bits or; the top-KK lists merge by
+    (tin, id), the order of the kernel's insert over ascending ids.  With
+    ``pold`` [kk, B] the partner merge follows and the 13 outputs are
+    returned, else the 10."""
+    if not parts:       # a row without tiles: the identity elements
+        dev = "cpu" if pold is None else pold.device
+        parts = [[torch.full((B,) if j < 8 else (KK, B), v, device=dev,
+                             dtype=torch.int32 if j == 9 else torch.float32)
+                  for j, v in enumerate(_ACC_NEUTRAL)]
+                 + [torch.zeros((KK, B), device=dev)]]
+    cols = list(zip(*parts))
+    sdve, sdvn, sdvv, ncnt, lcnt = (sum(cols[j], torch.zeros_like(cols[j][0]))
+                                    for j in (2, 3, 4, 6, 7))
+    inconf = torch.stack(cols[0]).amax(0)
+    tcpamax = torch.stack(cols[1]).amax(0)
+    tsolv = torch.stack(cols[5]).amin(0)
+    tin, ids = torch.cat(cols[8]), torch.cat(cols[9])        # [items*kk, B]
+    by_id = torch.sort(ids, dim=0, stable=True).indices
+    by_tin = torch.sort(torch.gather(tin, 0, by_id), dim=0,
+                        stable=True).indices
+    first = torch.gather(by_id, 0, by_tin)[:KK]
+    ctin, cidx = torch.gather(tin, 0, first), torch.gather(ids, 0, first)
+    outs = (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx)
+    if pold is None:
+        return outs
+    keep = torch.stack(cols[10]).amax(0)
+    merged, active = merge_partners_block(pold, keep, ctin, cidx)
+    return outs + (keep, merged, active)
+
+
+def walk_items(packed, items, p: TileParams, pold=None):
+    """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
+    partner table ``pold``, ``cd_full_grid`` without.  Returns the items'
+    partials ``(acc [8, G, B], ct [KK, G, B], ci, keep [G, B] or None)``,
+    G = nb * C, for ``merge_items``."""
+    from . import _cuda
+    nb, _, B = packed.shape
+    C = items.length.shape[1]
+    W = items.tiles.shape[1]
+    for name, t, shape in (("tiles", items.tiles, (nb, W)),
+                           ("start", items.start, (nb, C)),
+                           ("length", items.length, (nb, C)),
+                           ("order", items.order, (nb,))):
+        _cuda.require(t, torch.int32, shape, name)
+    G = nb * C
+    dev = packed.device
+    acc = torch.empty((8, G, B), dtype=torch.float32, device=dev)
+    ct = torch.empty((KK, G, B), dtype=torch.float32, device=dev)
+    ci = torch.empty((KK, G, B), dtype=torch.int32, device=dev)
+    head = (packed.data_ptr(), nb, B, items.tiles.data_ptr(), W,
+            items.start.data_ptr(), items.length.data_ptr(),
+            items.order.data_ptr(), C)
+    lib = _cuda.load("cd_tiles.cu")
+    stream = _cuda.stream_ptr(dev)
+    if pold is None:
+        keep = None
+        rc = lib.cd_full_grid(*head, *kernel_floats(p), acc.data_ptr(),
+                              ct.data_ptr(), ci.data_ptr(), stream)
+        _cuda.check(rc, "cd_full_grid")
+    else:
+        keep = torch.empty((G, B), dtype=torch.int32, device=dev)
+        rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *kernel_floats(p),
+                                acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
+                                keep.data_ptr(), stream)
+        _cuda.check(rc, "cd_sched_tiles")
+    return acc, ct, ci, keep
+
+
+def merge_items(parts, items, B, pold=None):
+    """Launch ``cd_merge_items`` on the partials of ``walk_items``:
+    returns the 13 outputs with ``pold``, else the 10."""
+    from . import _cuda
+    acc_p, ct, ci, keep_p = parts
+    nb, C = items.length.shape
+    resume = pold is not None
+    outs = alloc_outputs(nb, KK, B, ct.device, resume=resume)
+    ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))
+    rc = _cuda.load("cd_tiles.cu").cd_merge_items(
+        nb, B, C, items.length.data_ptr(), pold.data_ptr() if resume else 0,
+        acc_p.data_ptr(), ct.data_ptr(), ci.data_ptr(),
+        keep_p.data_ptr() if resume else 0, *ptrs,
+        _cuda.stream_ptr(ct.device))
+    _cuda.check(rc, "cd_merge_items")
+    return list(outs[0].unbind(0)) + list(outs[1:])
+
+
 def _reach_u8(reach, nb):
     from . import _cuda
     reach_u8 = reach.to(torch.uint8).contiguous()
@@ -387,24 +532,23 @@ def full_grid_resume(packed, reach, pold, p: TileParams):
     return list(acc.unbind(0)) + [ctin, cidx, keep, merged, active]
 
 
-def full_grid(packed, reach, p: TileParams):
+def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW):
     """The reach-masked full-grid pass (``_kernel``): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors (see
-    ``full_grid_plain``)."""
+    ``full_grid_plain``).  On the card each row's reachable tiles are cut
+    into at most ``per_row`` work items (``reach_items``), walked by
+    ``cd_full_grid`` and folded by ``cd_merge_items``; nothing waits for
+    the device."""
     if not packed.is_cuda:
         return full_grid_plain(packed, reach, p)
     from . import _cuda
     nb, B = check_common(packed)
-    reach_u8 = _reach_u8(reach, nb)
-    acc, ctin, cidx = alloc_outputs(nb, KK, B, packed.device, resume=False)
-    lib = _cuda.load("cd_tiles.cu")
-    rc = lib.cd_full_grid(
-        packed.data_ptr(), nb, B, reach_u8.data_ptr(), *kernel_floats(p),
-        acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(),
-        _cuda.stream_ptr(packed.device))
-    _cuda.check(rc, "cd_full_grid")
+    _cuda.require(reach, torch.bool, (nb, nb), "reach")
+    items = reach_items(reach, per_row)
+    parts = walk_items(packed, items, p)
+    outs = merge_items(parts, items, B)
     LAUNCHES["cd_full_grid"] += 1
-    return list(acc.unbind(0)) + [ctin, cidx]
+    return outs
 
 
 def cand_tiles(packed, cand, p: TileParams):

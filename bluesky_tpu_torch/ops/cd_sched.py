@@ -10,9 +10,11 @@ Port of the single-device replicate path of ``bluesky_tpu/ops/cd_sched.py``:
   (``cd_tiled.block_reachability``, an exact bound) are covered by at
   most ``s_cap`` contiguous segments of at most ``wmax`` blocks; rows
   needing more are overflow rows.
-* **Segment kernel** (``sched_tiles``): one CTA per ownship row block
-  walks its segments (the hand-written CUDA kernel ``cd_sched_tiles`` of
-  ``csrc/cd_tiles.cu``, replacing the Pallas ``_sched_kernel``).  Overflow
+* **Segment kernel** (``sched_tiles``): each row block's segment blocks
+  are cut into balanced work items (``window_items``), one CTA per item
+  (the hand-written CUDA kernel ``cd_sched_tiles`` of
+  ``csrc/cd_tiles.cu``, replacing the Pallas ``_sched_kernel``), and the
+  row merge ``cd_merge_items`` folds them and merges the partners.  Overflow
   rows are covered exactly by ``cd_pallas.full_grid_resume`` restricted
   to those rows, and the row-disjoint outputs merged with ``torch.where``.
 
@@ -151,9 +153,27 @@ def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams):
     return cd_pallas.rows_plain(packed, pold, ids, p)
 
 
-def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams):
+def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW):
+    """``cd_pallas.work_items`` of the segment pass: row i's tiles are its
+    segments' blocks ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))`` in
+    segment order, blocks past the grid's ``nbc`` left out (ascending:
+    ``build_windows`` gives disjoint segments in slot order)."""
+    nb, s_cap = wst.shape
+    t = torch.arange(wmax, dtype=torch.int64, device=wst.device)
+    cand = wst.long()[:, :, None] + t
+    valid = (t < torch.clamp(wln.long(), 0, wmax)[:, :, None]) & (cand < nbc)
+    return cd_pallas.work_items(
+        *cd_pallas.compact_rows(cand.reshape(nb, s_cap * wmax),
+                                valid.reshape(nb, s_cap * wmax)), per_row)
+
+
+def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams,
+                per_row=cd_pallas.ITEMS_PER_ROW):
     """The segment pass: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see ``sched_tiles_plain``)."""
+    version for CPU tensors (see ``sched_tiles_plain``).  On the card each
+    row's segment blocks are cut into at most ``per_row`` work items
+    (``window_items``), walked by ``cd_sched_tiles`` and folded, with the
+    partner merge, by ``cd_merge_items``; nothing waits for the device."""
     if not packed.is_cuda:
         return sched_tiles_plain(packed, wst, wln, wmax, pold, p)
     from . import _cuda
@@ -161,17 +181,11 @@ def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams):
     s_cap = wst.shape[1]
     _cuda.require(wst, torch.int32, (nb, s_cap), "wst")
     _cuda.require(wln, torch.int32, (nb, s_cap), "wln")
-    acc, ctin, cidx, keep, merged, active = cd_pallas.alloc_outputs(
-        nb, 8, B, packed.device)
-    lib = _cuda.load("cd_tiles.cu")
-    rc = lib.cd_sched_tiles(
-        packed.data_ptr(), nb, B, wst.data_ptr(), wln.data_ptr(), s_cap,
-        int(wmax), pold.data_ptr(), *cd_pallas.kernel_floats(p),
-        acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(), keep.data_ptr(),
-        merged.data_ptr(), active.data_ptr(), _cuda.stream_ptr(packed.device))
-    _cuda.check(rc, "cd_sched_tiles")
+    items = window_items(wst, wln, int(wmax), nb, per_row)
+    parts = cd_pallas.walk_items(packed, items, p, pold)
+    outs = cd_pallas.merge_items(parts, items, B, pold)
     LAUNCHES["cd_sched_tiles"] += 1
-    return list(acc.unbind(0)) + [ctin, cidx, keep, merged, active]
+    return outs
 
 
 class SchedInputs(NamedTuple):

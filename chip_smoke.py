@@ -13,11 +13,13 @@ Phases, in order; any failure exits non-zero before the last line:
    version on the card, in float32.  The sparse path's two kernels on
    three geometries (continental, the 230 nm regional clump with
    overflow rows, an equator-crossing fleet), each for a fresh and a
-   resumed partner table; the pallas full grid on the same three
-   geometries in Morton order; the candidate kernel on eight clusters,
-   at a capacity most rows fit and at one that sends most rows to the
-   full grid.  Each pallas check also holds ``detect_resolve_pallas``
-   with candidates against the one without;
+   resumed partner table, the segment kernel also split into at most
+   two work items per row, and the overflow kernel timed on the clump;
+   the pallas full grid on the same three geometries in Morton order,
+   also split two ways; the candidate kernel on eight clusters, at a
+   capacity most rows fit and at one that sends most rows to the full
+   grid.  Each pallas check also holds ``detect_resolve_pallas`` with
+   candidates against the one without;
 4. sparse path: 100,000 aircraft of the continental geometry in
    100,352 slots, built with ``Traffic.create/flush``, under
    ``SimConfig(cd_backend="sparse", cd_block=256)``: the sort refresh
@@ -31,12 +33,15 @@ Phases, in order; any failure exits non-zero before the last line:
    timings for the pallas kernels, and the candidate kernel's once more
    at a capacity most rows fit.
 
-It prints one JSON line describing every kernel, then the
-``nvidia-smi`` name and power limit, then the result line
-``{"ok": true, "device": {...}}``.
+The split walkers K1 and K3 also log their work items, longest item
+and the time of their row merge alone; every walker's registers and
+spills come from the ``-Xptxas -v`` report of the build.  It prints one
+JSON line describing every kernel, then the ``nvidia-smi`` name and
+power limit, then the result line ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -52,19 +57,19 @@ PEAK_F32_FLOPS = 67e12
 #: float32 operations per active pair of a visited tile in the tile body
 #: of csrc/cd_tiles.cu, counted by hand: every float32 add, multiply,
 #: divide, compare, select, abs, min/max, rint, sqrt and rsqrt once;
-#: integer and boolean operations are not counted.  Without the keep
-#: predicate (cd_full_grid, cd_cand_tiles): the activity test 1,
+#: integer and boolean operations are not counted.  The activity test 1,
 #: geometry 116 (cos/sin sums 6, the two radii and their choice 27,
 #: dlat/dlon 8, the four sin polynomials and their products 48, the
 #: clamped root 7, the arcsine distance 13, the bearing normalization
 #: 7), CPA and entry/exit times 44, the conflict and LoS compares 6 and
 #: the LoS count 1.  The MVP tail of the conflict pairs (~60 more) is
 #: left out: conflicts are a small share of the pairs.
-PAIR_FLOPS_FULL = 168
-#: With the keep predicate (cd_sched_tiles, cd_full_grid_resume): 168
-#: plus the relative velocity 2, the flat-earth displacement 11, the
-#: past-CPA test 4, the distance 4 and the keep compares 5.
-PAIR_FLOPS = 194
+PAIR_FLOPS = 168
+#: The resume keep predicate (cd_sched_tiles, cd_full_grid_resume), run
+#: only on the conflict pairs and the old-partner pairs: the relative
+#: velocity 2, the flat-earth displacement 11, the past-CPA test 4, the
+#: distance 4 and the keep compares 5.
+KEEP_FLOPS = 26
 
 NM, FT = 1852.0, 0.3048
 KERNELS = {
@@ -81,8 +86,16 @@ KERNELS = {
         source="bluesky_tpu_torch/csrc/cd_tiles.cu",
         replaces="bluesky_tpu/ops/cd_pallas.py:494"),
 }
+#: each kernel's walker, by a piece of its mangled name in the
+#: ``nvcc -Xptxas -v`` report
+WALKERS = {"cd_sched._sched_kernel": "items_kernelILb1E",
+           "cd_pallas._kernel_resume": "resume_grid_kernel",
+           "cd_pallas._kernel": "items_kernelILb0E",
+           "cd_pallas._kernel_cand": "cand_kernel"}
 #: candidate capacity of the pallas path's candidate-mode call
 CAND_CAP = 4096
+#: work items per row of the split checks, so that most rows split
+SPLIT = 2
 
 
 def log(*a):
@@ -95,6 +108,32 @@ def nvidia_smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def kernel_registers(report):
+    """``{kernel: registers}`` of each walker of ``WALKERS`` from the
+    ``-Xptxas -v`` report of cd_tiles.cu; logs each entry function's
+    registers and spilled bytes."""
+    regs, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"\d([a-z_]+_kernel)(ILb([01])E)?", name)
+            short = k.group(1) + ("" if not k.group(2) else
+                                  "<true>" if k.group(3) == "1" else "<false>")
+            log(f"registers: {short}: {m.group(1)}, spill stores/loads "
+                f"{spill[0]}/{spill[1]} bytes")
+            for kernel, piece in WALKERS.items():
+                if piece in name:
+                    regs[kernel] = int(m.group(1))
+    return regs
 
 
 def columns(n, geom, seed):
@@ -144,7 +183,9 @@ def cd_args(c, dev, t_ahead=0.0):
 
 def check_kernels(dev, errs, scale=1):
     """Phase 3, sparse backend: both kernels against their plain versions
-    (fleet sizes divided by ``scale``)."""
+    (fleet sizes divided by ``scale``), the segment kernel also with at
+    most two work items per row.  Returns the overflow kernel's timing on
+    the resumed regional clump, where it has real tiles (``measure``)."""
     import torch
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
     mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
@@ -170,6 +211,8 @@ def check_kernels(dev, errs, scale=1):
             reach_f = x.reach & x.overflow[:, None]
             k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
                                       x.pold, p)
+            k1s = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
+                                       x.pold, p, per_row=SPLIT)
             p1 = cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
                                             x.pold, p)
             k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
@@ -177,7 +220,10 @@ def check_kernels(dev, errs, scale=1):
                                                   p)
             torch.cuda.synchronize()
             tag = f"{geom} N={n} t+{t_ahead:g}s"
-            e1 = cd_pallas.compare_outputs(f"sched_kernel {tag}", k1, p1)
+            e1 = max(cd_pallas.compare_outputs(f"sched_kernel {tag}", k1, p1),
+                     cd_pallas.compare_outputs(
+                         f"sched_kernel {tag} split {SPLIT}", k1s, p1))
+            items = cd_sched.window_items(x.wst, x.wln, x.wmax, x.nb, SPLIT)
             e2 = cd_pallas.compare_outputs(f"kernel_resume {tag}", k2, p2)
             errs["cd_sched._sched_kernel"] = max(
                 errs["cd_sched._sched_kernel"], e1)
@@ -190,11 +236,25 @@ def check_kernels(dev, errs, scale=1):
             log(f"check {tag}: overflow rows {int(x.overflow.sum())}, "
                 f"scheduled tiles {int(x.wln.sum())}, overflow tiles "
                 f"{int(reach_f.sum())}, nconf {nconf}, nlos {nlos}, "
-                f"max abs err sched {e1:.3g} resume {e2:.3g}: match")
+                f"max abs err sched {e1:.3g} resume {e2:.3g}: match; "
+                f"split {SPLIT}: {split_rows(items)} rows split")
             if geom == "regional" and not int(x.overflow.sum()):
                 raise AssertionError("regional check has no overflow rows")
+            if geom == "regional" and t_ahead:
+                rf = reach_f.cpu().numpy()
+                tiles = lambda i: np.flatnonzero(rf[i])
+                k2_regional = measure(f"cd_pallas._kernel_resume {tag}", dict(
+                    kern=lambda: cd_pallas.full_grid_resume(
+                        x.packed, reach_f, x.pold, p),
+                    plain=lambda: cd_pallas.full_grid_resume_plain(
+                        x.packed, reach_f, x.pold, p),
+                    pairs=active_pairs(x, tiles),
+                    keep=keep_pairs(x, tiles, k2[6]),
+                    bytes=in_out_bytes(x, True) + x.nb * x.nb,
+                    tiles=int(rf.sum())))
             # the resumed pass starts from this pass's merged table
             table = merged[11].transpose(1, 2).reshape(n_tot, 8).contiguous()
+    return k2_regional
 
 
 def pallas_operands(cols, perm, c):
@@ -214,7 +274,8 @@ def pallas_operands(cols, perm, c):
 
 def check_pallas_kernels(dev, errs):
     """Phase 3, pallas backend: the full grid (``_kernel``) on the three
-    geometries and the eight clusters, in Morton order; the candidate
+    geometries and the eight clusters, in Morton order, also with at most
+    ``SPLIT`` work items per row; the candidate
     kernel (``_kernel_cand``) on the clusters at a capacity most rows fit
     (4096) and one most rows overflow (2048); and everywhere
     ``detect_resolve_pallas`` with candidates held against the one
@@ -237,13 +298,18 @@ def check_pallas_kernels(dev, errs):
             x, cand, row_over = pallas_operands(
                 cols, perm, dict(rpz=5 * NM, tlook=300.0, cap=cap))
             if cap == caps[0]:
-                e = cd_pallas.compare_outputs(
+                want = cd_pallas.full_grid_plain(x.packed, x.reach, p)
+                e = max(cd_pallas.compare_outputs(
                     f"_kernel {tag}", cd_pallas.full_grid(x.packed, x.reach, p),
-                    cd_pallas.full_grid_plain(x.packed, x.reach, p))
+                    want), cd_pallas.compare_outputs(
+                    f"_kernel {tag} split {SPLIT}", cd_pallas.full_grid(
+                        x.packed, x.reach, p, per_row=SPLIT), want))
                 errs["cd_pallas._kernel"] = max(errs["cd_pallas._kernel"], e)
                 log(f"check _kernel {tag}: {int(x.reach.sum())} tiles, nconf "
                     f"{int(rd0.nconf)}, nlos {int(rd0.nlos)}, max abs err "
-                    f"{e:.3g}: match")
+                    f"{e:.3g}: match; split {SPLIT}: "
+                    f"{split_rows(cd_pallas.reach_items(x.reach, SPLIT))} "
+                    f"rows split")
             n_over = int(row_over.sum())
             if geom == "clusters":
                 e = cd_pallas.compare_outputs(
@@ -264,6 +330,41 @@ def check_pallas_kernels(dev, errs):
             cd_pallas.compare_rows(f"cand_cap={cap} vs 0, {tag}", rd, rd0)
             log(f"check detect_resolve_pallas {tag}: cand_cap={cap} "
                 f"({n_over} overflow rows) equals cand_cap=0")
+
+
+def split_rows(items):
+    """Rows of a ``WorkItems`` cut into more than one item."""
+    return int(((items.length > 0).sum(1) > 1).sum())
+
+
+def in_out_bytes(x, resume):
+    """Bytes a pass must move at least: the slabs (and the partner table)
+    read once, the outputs written once."""
+    nb, B = x.nb, x.block
+    if resume:
+        return ((x.packed.numel() + x.pold.numel()) * 4
+                + ((8 + 1) * nb * B + 4 * nb * 8 * B) * 4)
+    return x.packed.numel() * 4 + (8 * nb * B + 2 * nb * 8 * B) * 4
+
+
+def keep_pairs(x, tiles_of_row, ncnt):
+    """Pairs the keep predicate runs on: the conflict pairs of the visited
+    tiles (``ncnt``, the pass's conflict counts) and the active
+    old-partner pairs of ``x.pold`` whose partner lies in a visited tile
+    (a pair that is both counts twice, so this errs high)."""
+    from bluesky_tpu_torch.ops.cd_pallas import _IDX
+    B = x.block
+    act = (x.packed[:, _IDX["active"], :] > 0.5).cpu().numpy()
+    flat = act.reshape(-1)
+    pold = x.pold.cpu().numpy()
+    lane = np.arange(B)
+    total = int(ncnt.double().sum())
+    for i in range(x.nb):
+        q = pold[i]
+        ok = ((q >= 0) & act[i][None, :] & (q != i * B + lane)
+              & np.isin(q // B, tiles_of_row(i)))
+        total += int((ok & flat[np.clip(q, 0, flat.size - 1)]).sum())
+    return total
 
 
 def active_pairs(x, tiles_of_row):
@@ -393,9 +494,10 @@ def time_layers(backend, layers):
 def measure(name, r):
     """Check ``r["kern"]`` against ``r["plain"]`` once more, time both
     and compute the bound.  ``r`` gives ``kern``, ``plain``, the active
-    ``pairs``, the ``flops`` per pair, the ``bytes`` it must move and
-    its ``tiles``.  Logs one line; returns the largest float difference,
-    ms per launch, plain ms, bytes ms and operations ms."""
+    ``pairs`` (``PAIR_FLOPS`` each), the ``keep`` pairs (``KEEP_FLOPS``
+    each more; 0 when absent), the ``bytes`` it must move and its
+    ``tiles``.  Logs one line; returns the largest float difference, ms
+    per launch, plain ms, bytes ms and operations ms."""
     import torch
     from bluesky_tpu_torch.ops import cd_pallas
     err = cd_pallas.compare_outputs(f"{name} main path", r["kern"](),
@@ -407,17 +509,20 @@ def measure(name, r):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = r["pairs"] * r["flops"] / PEAK_F32_FLOPS * 1e3
+    ops = r["pairs"] * PAIR_FLOPS + r.get("keep", 0) * KEEP_FLOPS
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
     log(f"{name}: {ms:.4g} ms per launch, plain {plain_ms:.4g} ms, "
-        f"{r['tiles']} tiles, {r['pairs']} active pairs, bound "
+        f"{r['tiles']} tiles, {r['pairs']} active pairs, "
+        f"{r.get('keep', 0)} keep pairs, bound "
         f"{max(t_bytes, t_ops):.4g} ms ({t_bytes:.3g} ms bytes, "
         f"{t_ops:.3g} ms operations)")
     return err, ms, plain_ms, t_bytes, t_ops
 
 
-def report_kernels(runs, launches, errs):
+def report_kernels(runs, launches, errs, regs):
     """``measure`` each kernel of ``runs``; returns the kernels JSON
-    entries."""
+    entries, with each run's ``extra`` keys and its walker's
+    ``registers`` (``regs``, from ``kernel_registers``)."""
     report = []
     for name, r in runs.items():
         err, ms, plain_ms, t_bytes, t_ops = measure(name, r)
@@ -429,12 +534,26 @@ def report_kernels(runs, launches, errs):
             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None))
+            library_ms=None, registers=regs.get(name), **r.get("extra", {})))
     return report
 
 
-def sparse_path(dev, errs, n_ac=100_000, nmax=100_352):
-    """Phase 4: the port's sparse step at 100k aircraft."""
+def item_extra(name, items, merge):
+    """The JSON keys of a split walker: its non-empty work items, its
+    longest item in tiles and the ms of its row merge alone (``merge``
+    on the walker's partials).  Logs them."""
+    extra = dict(items=int((items.length > 0).sum()),
+                 max_tiles_per_item=int(items.length.max()),
+                 merge_ms=cuda_ms(merge, 5))
+    log(f"{name}: {extra['items']} work items, longest "
+        f"{extra['max_tiles_per_item']} tiles, merge {extra['merge_ms']:.4g}"
+        f" ms per launch")
+    return extra
+
+
+def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
+    """Phase 4: the port's sparse step at 100k aircraft.  ``k2_regional``
+    (``check_kernels``) joins K2's JSON entry."""
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
 
@@ -478,30 +597,45 @@ def sparse_path(dev, errs, n_ac=100_000, nmax=100_352):
         return t[t < x.nb]
 
     nb, B = x.nb, x.block
-    out_bytes = (8 + 1) * nb * B * 4 + 4 * nb * 8 * B * 4
-    in_bytes = x.packed.numel() * 4 + x.pold.numel() * 4
+    k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
+    k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
+    items = cd_sched.window_items(x.wst, x.wln, x.wmax, nb)
+    parts = cd_pallas.walk_items(x.packed, items, p, x.pold)
+    reg_err, reg_ms, _, reg_bytes, reg_ops = k2_regional
     runs = {
         "cd_sched._sched_kernel": dict(
             kern=lambda: cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
                                               x.pold, p),
             plain=lambda: cd_sched.sched_tiles_plain(
                 x.packed, x.wst, x.wln, x.wmax, x.pold, p),
-            pairs=active_pairs(x, sched_tiles_of), flops=PAIR_FLOPS,
-            bytes=in_bytes + 2 * x.wst.numel() * 4 + out_bytes,
-            tiles=int(ln.sum())),
+            pairs=active_pairs(x, sched_tiles_of),
+            keep=keep_pairs(x, sched_tiles_of, k1[6]),
+            bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
+            tiles=int(ln.sum()),
+            extra=item_extra("cd_sched._sched_kernel", items,
+                             lambda: cd_pallas.merge_items(parts, items, B,
+                                                           x.pold))),
         "cd_pallas._kernel_resume": dict(
             kern=lambda: cd_pallas.full_grid_resume(x.packed, reach_f,
                                                     x.pold, p),
             plain=lambda: cd_pallas.full_grid_resume_plain(
                 x.packed, reach_f, x.pold, p),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
-            flops=PAIR_FLOPS, bytes=in_bytes + nb * nb + out_bytes,
-            tiles=int(rf.sum())),
+            keep=keep_pairs(x, lambda i: np.flatnonzero(rf[i]), k2[6]),
+            bytes=in_out_bytes(x, True) + nb * nb, tiles=int(rf.sum()),
+            extra=dict(regional_ms=reg_ms,
+                       regional_bound_ms=max(reg_bytes, reg_ops))),
     }
+    per_row = ln.sum(1)
     log(f"sparse: overflow rows {int(x.overflow.sum())}, scheduled tiles "
-        f"per interval {runs['cd_sched._sched_kernel']['tiles']}, overflow "
-        f"tiles per interval {runs['cd_pallas._kernel_resume']['tiles']}")
-    return report_kernels(runs, launches, errs)
+        f"per interval {runs['cd_sched._sched_kernel']['tiles']} (per row "
+        f"block: mean {per_row.mean():.4g}, median {np.median(per_row):g}, "
+        f"max {per_row.max()}), overflow tiles per interval "
+        f"{runs['cd_pallas._kernel_resume']['tiles']}")
+    report = report_kernels(runs, launches, errs, regs)
+    report[-1]["max_abs_err"] = errs["cd_pallas._kernel_resume"] = max(
+        report[-1]["max_abs_err"], reg_err)
+    return report
 
 
 def cand_pairs(x, cand):
@@ -520,7 +654,7 @@ def cand_pairs(x, cand):
     return int(pairs.sum())
 
 
-def pallas_path(dev, errs, n_ac=100_000, nmax=100_352):
+def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     """Phase 5: the port's pallas step at 100k aircraft, then one
     candidate-mode pass on the stepped state."""
     import torch
@@ -552,7 +686,7 @@ def pallas_path(dev, errs, n_ac=100_000, nmax=100_352):
     log(f"pallas: detect_resolve_pallas(cand_cap={CAND_CAP}) "
         f"{cand_call_ms:.4g} ms, overflow rows {int(row_over.sum())} of "
         f"{x.nb}, equals cand_cap=0 (nconf {int(rd_c.nconf)})")
-    # one CTA walks one row block, so the longest row bounds the kernel
+    # the work items cut these rows; the longest once set K3's time
     per_row = x.reach.sum(1).float()
     log(f"pallas: reachable tiles per row block: mean "
         f"{float(per_row.mean()):.4g}, median {float(per_row.median()):g}, "
@@ -577,14 +711,15 @@ def pallas_path(dev, errs, n_ac=100_000, nmax=100_352):
     p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
     nb, B = x.nb, x.block
     rh = x.reach.cpu().numpy()
-    out_bytes = 8 * nb * B * 4 + 2 * nb * 8 * B * 4
+    items = cd_pallas.reach_items(x.reach)
+    parts = cd_pallas.walk_items(x.packed, items, p)
 
     def cand_run(cand):
         return dict(
             kern=lambda: cd_pallas.cand_tiles(x.packed, cand, p),
             plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p),
-            pairs=cand_pairs(x, cand), flops=PAIR_FLOPS_FULL,
-            bytes=x.packed.numel() * 4 + cand.numel() * 4 + out_bytes,
+            pairs=cand_pairs(x, cand),
+            bytes=in_out_bytes(x, False) + cand.numel() * 4,
             tiles=int(((cand < nb * B).sum(1) + B - 1).div(
                 B, rounding_mode="floor").sum()))
 
@@ -593,12 +728,12 @@ def pallas_path(dev, errs, n_ac=100_000, nmax=100_352):
             kern=lambda: cd_pallas.full_grid(x.packed, x.reach, p),
             plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
-            flops=PAIR_FLOPS_FULL,
-            bytes=x.packed.numel() * 4 + nb * nb + out_bytes,
-            tiles=int(rh.sum())),
+            bytes=in_out_bytes(x, False) + nb * nb, tiles=int(rh.sum()),
+            extra=item_extra("cd_pallas._kernel", items,
+                             lambda: cd_pallas.merge_items(parts, items, B))),
         "cd_pallas._kernel_cand": cand_run(cand),
     }
-    report = report_kernels(runs, launches, errs)
+    report = report_kernels(runs, launches, errs, regs)
     # At CAND_CAP most rows overflow and leave the candidate kernel after
     # one read; at 4 x CAND_CAP most rows fit, so this line times the
     # kernel's pair work against its bound.
@@ -632,16 +767,17 @@ def main():
         log(f"build {src}:\n{m.strip()}")
     for src in _cuda.SIGNATURES:
         _cuda.load(src)
+    regs = kernel_registers(msgs["cd_tiles.cu"])
 
     errs = {name: 0.0 for name in KERNELS}
     t0 = time.perf_counter()
-    check_kernels(dev, errs)
+    k2_regional = check_kernels(dev, errs)
     check_pallas_kernels(dev, errs)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     report = []
-    for path in (sparse_path, pallas_path):
+    for path, more in ((sparse_path, (k2_regional,)), (pallas_path, ())):
         t0 = time.perf_counter()
-        report += path(dev, errs)
+        report += path(dev, errs, regs, *more)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": report}))

@@ -123,3 +123,45 @@ def test_cand_tiles_match_plain(cuda, cap):
                            cd_pallas.detect_resolve_pallas(
                                *cols, 5 * NM, 1000 * FT, 300.0, _mvp(),
                                block=256))
+
+
+@pytest.mark.parametrize("geom,s_cap", [("spread", 6), ("clump", 2)])
+def test_split_walkers_match_plain_and_repeat(cuda, geom, s_cap):
+    """``cd_sched_tiles`` and ``cd_full_grid`` with at most two work items
+    per row (most rows split) against their plain versions; a second
+    launch on the same inputs gives the same outputs bit for bit, and
+    each wrapper call counts one launch."""
+    cols = _inputs(geom, 4096, cuda)
+    n_tot = cd_sched.padded_size(4096, 256)
+    x = cd_sched.prepare(*cols, 5 * NM, 1000 * FT, 300.0,
+                         torch.full((n_tot, 8), -1, dtype=torch.int32,
+                                    device=cuda), block=256, s_cap=s_cap)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp(), 5 * NM * 1.05)
+    xp = _sorted(cols)
+    pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    runs = {
+        "cd_sched_tiles": (
+            cd_sched.LAUNCHES,
+            lambda c: cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
+                                           x.pold, p, per_row=c),
+            cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
+                                       x.pold, p),
+            cd_sched.window_items(x.wst, x.wln, x.wmax, x.nb, 2)),
+        "cd_full_grid": (
+            cd_pallas.LAUNCHES,
+            lambda c: cd_pallas.full_grid(xp.packed, xp.reach, pp, per_row=c),
+            cd_pallas.full_grid_plain(xp.packed, xp.reach, pp),
+            cd_pallas.reach_items(xp.reach, 2)),
+    }
+    for name, (launches, kern, want, items) in runs.items():
+        assert int((items.length > 0).sum(1).eq(2).sum()) > 0
+        n0 = launches[name]
+        first, again, whole = kern(2), kern(2), kern(8)
+        torch.cuda.synchronize()
+        assert launches[name] == n0 + 3
+        cd_pallas.compare_outputs(f"{name} {geom} split", first, want)
+        cd_pallas.compare_outputs(f"{name} {geom}", whole, want)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), f"{name}: two launches differ"
+        # the top-K ids in order, not just as sets
+        assert torch.equal(first[9].cpu(), want[9].cpu())
