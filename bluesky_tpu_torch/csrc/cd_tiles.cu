@@ -1,14 +1,19 @@
 // Conflict detection & MVP resolution tiles, hand-written for Hopper
 // (sm_90a).
 //
-// Replaces the four Pallas TPU kernels of bluesky_tpu:
-//   * cd_sched_tiles      <- ops/cd_sched.py::_sched_kernel (segment walker)
-//   * cd_full_grid_resume <- ops/cd_pallas.py::_kernel_resume (reach-masked
-//                            full-grid walker, the sparse overflow fallback)
-//   * cd_full_grid        <- ops/cd_pallas.py::_kernel (the same walk
-//                            without a partner table: the pallas backend)
-//   * cd_cand_tiles       <- ops/cd_pallas.py::_kernel_cand (ownship block
-//                            against its candidate aircraft)
+// Replaces the four Pallas TPU kernels of bluesky_tpu, all with one split
+// walker (items_kernel) and one row merge (merge_kernel, C entry
+// cd_merge_items):
+//   * ops/cd_sched.py::_sched_kernel   <- cd_sched_tiles on the blocks of
+//                                         each row's segments
+//   * ops/cd_pallas.py::_kernel_resume <- cd_sched_tiles on the reachable
+//                                         blocks of the overflow rows (the
+//                                         sparse overflow fallback)
+//   * ops/cd_pallas.py::_kernel        <- cd_full_grid on the reachable
+//                                         blocks, no partner table (the
+//                                         pallas backend)
+//   * ops/cd_pallas.py::_kernel_cand   <- cd_cand_items on the sub-chunks
+//                                         of each row's candidate table
 // All run one per-pair body (cd_pallas._tile_pairs: factored haversine,
 // CPA, horizontal/vertical entry and exit times, conflict and LoS flags,
 // MVP displacement sums and a running top-KK of partner candidates).
@@ -19,25 +24,39 @@
 // conflict pair is a candidate and only the accumulators and the top-KK
 // are stored.
 //
-// Design.  One thread per ownship, a CTA of B <= 256 threads per ownship
-// row block.  For each intruder block the CTA stages the [16, B] f32 slab
-// in shared memory (16 KB at B=256) and every thread walks the B
-// intruders in ascending id.  Masked pairs (inactive, self) are skipped
-// instead of being pushed out of range with +1e9.
+// Design.  One thread per ownship, a CTA of B <= 256 threads per work
+// item of an ownship row block.  For each tile of its item the CTA stages
+// B intruder columns of the [16, B] f32 slab layout in shared memory
+// (16 KB at B=256) and every thread walks the B intruders in ascending id.
+// Masked pairs (inactive, self) are skipped instead of being pushed out of
+// range with +1e9.
 //
-// * Work items (cd_sched_tiles, cd_full_grid).  A Morton row block of the
-//   100k continental fleet reaches 41 tiles on average but up to 171, and
-//   with one CTA per row the longest row set the time.  So each row's
-//   tiles (the reachable blocks, or the blocks of its segments), in
-//   ascending order, are cut into at most C items of ceil(r / C) tiles
-//   (cd_pallas.work_items; C = 8 cuts the 171-tile row into 22-tile
-//   items, below the ~31 tiles per resident CTA slot of the whole grid).
-//   The grid is fixed, nb * C CTAs, and an empty item exits at once: the
-//   host knows every size without reading device data, and nothing needs
-//   a device counter.  Rows are launched longest items first, so the long
-//   items do not start in the last wave.  The segment walker takes the
-//   same cut over its row's segment blocks instead of one item per
-//   segment: a row's items are then equal to within one tile.
+// * Work items.  A Morton row block of the 100k continental fleet reaches
+//   41 tiles on average but up to 171; the overflow rows of a dense clump
+//   and the rows that fit a candidate table are few and long.  With one
+//   CTA per row the longest row set the time and most SMs sat empty.  So
+//   each row's tiles, in ascending order, are cut into at most C items of
+//   ceil(r / C) tiles (cd_pallas.work_items; C = 8 cuts the 171-tile row
+//   into 22-tile items, below the ~31 tiles per resident CTA slot of the
+//   whole grid).  The grid is fixed, nb * C CTAs, and an empty item exits
+//   at once: the host knows every size without reading device data, and
+//   nothing needs a device counter.  Rows are launched longest items
+//   first, so the long items do not start in the last wave.  The segment
+//   walker takes the same cut over its row's segment blocks instead of one
+//   item per segment: a row's items are then equal to within one tile.
+//   Where a row's tiles are the set columns of a mask (the reachable
+//   blocks, the candidate sub-chunks that hold an id), cd_mask_items
+//   builds the items in one call: a block scan per row, then the launch
+//   order by rank.
+// * Tile source (IDS).  A tile is an intruder block jb, staged from the
+//   slabs, or, for the candidate pass, the jb-th sub-chunk of B entries of
+//   the row's candidate table: the B slab columns are read straight from
+//   the packed slabs through the ids (stage_ids), and each intruder's id
+//   is the staged one instead of jb*B + lane; the sentinel id nb*B is
+//   staged as an inactive column.  Ids ascend within a row, and an item
+//   visits its sub-chunks in ascending order, so the walk offers ids in
+//   ascending order there too.  An overflow row's table is all sentinel:
+//   it has no sub-chunk and all its items are empty.
 // * Deterministic row merge (cd_merge_items).  Each item writes its 8
 //   accumulators, its top-KK (tin, id) and, with RESUME, its keep bits to
 //   scratch; a second kernel, one thread per ownship, folds a row's items
@@ -57,19 +76,7 @@
 //   nowhere else), and the old-partner test is a per-tile mask of the
 //   partners inside the staged block.  __launch_bounds__(256, 4) holds the
 //   walkers to 64 registers, so 4 CTAs (32 warps) fit on an SM: 44 KB of
-//   shared memory each.
-//
-// cd_full_grid_resume and cd_cand_tiles keep one CTA per row and end with
-// the same row finish as the merge kernel.  Where few rows hold many tiles
-// (the overflow rows of a dense clump, the rows that fit a candidate
-// table) they leave most SMs with one CTA or none, and one CTA cannot
-// hide the body's latency: cutting them into work items too is the next
-// step.  The candidate kernel stages,
-// for each sub-chunk of B entries of its row's candidate table, the B slab
-// columns straight from the packed slabs through the ids and takes each
-// intruder's id from the staged table instead of jb*B + lane; the sentinel
-// id nb*B is staged as an inactive column.  Ids ascend within a row, so
-// the insert keeps the Pallas tie order there too.
+//   shared memory each (45 KB with the staged ids).
 //
 // Bound on the card: the pair math.  Each visited tile costs B*B pairs of
 // 168 f32 operations (the keep predicate adds 26 on the conflict and
@@ -456,17 +463,24 @@ __device__ void finish_row(const Acc& a, const Side& sd, const Outs& out,
   }
 }
 
-// cd_sched_tiles (RESUME) and cd_full_grid: work item k of row block i
-// walks tiles[i, start : start + len] of its row's ascending tile list
-// and stores its partials.  CTA b takes item b % C of row order[b / C].
-template <bool RESUME>
+// The split walker: work item k of row block i walks tiles[i, start :
+// start + len] of its row's ascending tile list and stores its partials.
+// CTA b takes item b % C of row order[b / C].  A tile is an intruder block
+// jb, staged from the slabs (cd_sched_tiles with RESUME, cd_full_grid,
+// and cd_sched_tiles on the overflow rows for _kernel_resume), or with
+// IDS the jb-th sub-chunk of B entries of the row's candidate table
+// cand[i, 0:c_cap], staged through its ids (cd_cand_items).
+template <bool RESUME, bool IDS>
 __global__ void __launch_bounds__(MAXB, 4)
 items_kernel(const float* __restrict__ packed, int B,
              const int* __restrict__ tiles, int W,
              const int* __restrict__ istart, const int* __restrict__ ilen,
              const int* __restrict__ order, int C,
+             const int* __restrict__ cand, int c_cap,
              const int* __restrict__ pold, Params P, Parts pt) {
+  static_assert(!(RESUME && IDS), "the candidate pass has no partner table");
   __shared__ float s[NF][MAXB];
+  __shared__ int sid[IDS ? MAXB : 1];
   __shared__ Side sd;
   const int i = order[blockIdx.x / C];
   const size_t g = (size_t)i * C + blockIdx.x % C;
@@ -482,11 +496,15 @@ items_kernel(const float* __restrict__ packed, int B,
     const int* tl = tiles + (size_t)i * W + istart[g];
     for (int q = 0; q < len; ++q) {
       const int jb = tl[q];
-      stage(s, packed, jb, B, t);
+      if constexpr (IDS)
+        stage_ids(s, sid, packed, cand + (size_t)i * c_cap + (size_t)jb * B,
+                  gridDim.x / C * B, B, t);
+      else
+        stage(s, packed, jb, B, t);
       if (own_act)
-        tile_pairs<RESUME, false>(s, nullptr, jb, B, o, i * B + t,
-                                  old_mask<RESUME>(sd, t, jb, B), a, sd, t,
-                                  P);
+        tile_pairs<RESUME, IDS>(s, sid, jb, B, o, i * B + t,
+                                old_mask<RESUME>(sd, t, jb, B), a, sd, t,
+                                P);
     }
   }
   const size_t n = (size_t)gridDim.x * B, e = g * B + t;
@@ -539,62 +557,64 @@ merge_kernel(int B, int C, const int* __restrict__ ilen,
   finish_row<RESUME>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
 }
 
-// _kernel_resume: row block i visits every intruder block jb with
-// reach[i, jb] != 0, in ascending jb (the caller restricts reach to the
-// overflow rows, where it is a fallback).
-__global__ void __launch_bounds__(MAXB, 4)
-resume_grid_kernel(const float* __restrict__ packed, int nbc, int B,
-                   const uint8_t* __restrict__ reach,
-                   const int* __restrict__ pold, Params P, Outs out) {
-  __shared__ float s[NF][MAXB];
-  __shared__ Side sd;
-  const int i = blockIdx.x, t = threadIdx.x;
-  float o[NF];
-  own_begin(o, sd, packed, i, B, t);
-  side_begin<true>(sd, pold, i, B, t);
-  Acc a = acc_init();
-  const bool own_act = o[F_ACTIVE] > 0.5f;
-  if (__syncthreads_or(own_act)) {
-    const uint8_t* rrow = reach + (size_t)i * nbc;
-    for (int jb = 0; jb < nbc; ++jb) {
-      if (!rrow[jb]) continue;
-      stage(s, packed, jb, B, t);
-      if (own_act)
-        tile_pairs<true, false>(s, nullptr, jb, B, o, i * B + t,
-                                old_mask<true>(sd, t, jb, B), a, sd, t, P);
+// cd_mask_items: row i's work items over the columns j with mask[i, j]
+// (cd_pallas.mask_items; its plain version is compact_rows + work_items).
+// One CTA per row compacts the row by a block-wide scan in chunks of
+// blockDim columns, then cuts its count tiles into at most C items of
+// ceil(count / C).  A dozen tensor ops did this before, and on the main
+// path, where the overflow pass finds no row, their host time was most
+// of the pass.
+__global__ void __launch_bounds__(MAXB)
+mask_items_kernel(const uint8_t* __restrict__ mask, int W, int C,
+                  int* __restrict__ tiles, int* __restrict__ istart,
+                  int* __restrict__ ilen) {
+  __shared__ int sc[MAXB];
+  __shared__ int base;
+  const int i = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
+  const uint8_t* m = mask + (size_t)i * W;
+  int* out = tiles + (size_t)i * W;
+  if (t == 0) base = 0;
+  for (int j0 = 0; j0 < W; j0 += nt) {
+    const int j = j0 + t;
+    const bool v = j < W && m[j];
+    sc[t] = v;
+    __syncthreads();
+    for (int d = 1; d < nt; d <<= 1) {   // inclusive scan of sc
+      const int add = t >= d ? sc[t - d] : 0;
+      __syncthreads();
+      sc[t] += add;
+      __syncthreads();
     }
+    if (v) out[base + sc[t] - 1] = j;
+    const int total = sc[nt - 1];
+    __syncthreads();
+    if (t == 0) base += total;
   }
-  finish_row<true>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
+  __syncthreads();
+  const int count = base, size = max((count + C - 1) / C, 1);
+  for (int k = t; k < C; k += nt) {
+    const size_t g = (size_t)i * C + k;
+    istart[g] = k * size;
+    ilen[g] = max(min(count - k * size, size), 0);
+  }
 }
 
-// _kernel_cand: row block i against the aircraft of its candidate table
-// cand[i, 0:c_cap] (ascending ids, then sentinels nb*B), B at a time.
-// A sub-chunk that starts with the sentinel holds nothing else, nor does
-// any later one, so the row ends there (an overflow row's table is all
-// sentinel and costs one read).
-__global__ void __launch_bounds__(MAXB, 4)
-cand_kernel(const float* __restrict__ packed, int nb, int B,
-            const int* __restrict__ cand, int c_cap, Params P, Outs out) {
-  __shared__ float s[NF][MAXB];
-  __shared__ int sid[MAXB];
-  __shared__ Side sd;
-  const int i = blockIdx.x, t = threadIdx.x;
-  const int n = nb * B;
-  float o[NF];
-  own_begin(o, sd, packed, i, B, t);
-  side_begin<false>(sd, nullptr, i, B, t);
-  Acc a = acc_init();
-  const bool own_act = o[F_ACTIVE] > 0.5f;
-  if (__syncthreads_or(own_act)) {
-    const int* crow = cand + (size_t)i * c_cap;
-    for (int c = 0; c < c_cap; c += B) {
-      if (crow[c] >= n) break;
-      stage_ids(s, sid, packed, crow + c, n, B, t);
-      if (own_act)
-        tile_pairs<false, true>(s, sid, 0, B, o, i * B + t, 0u, a, sd, t, P);
-    }
+// The launch order of mask_items_kernel's rows: by descending length of
+// their first item ilen[i, 0] (ceil(count / C), 0 for an empty row), ties
+// in row order, as the stable argsort of work_items; thread i counts the
+// rows that go before it.
+__global__ void __launch_bounds__(MAXB)
+items_order_kernel(const int* __restrict__ ilen, int nb, int C,
+                   int* __restrict__ order) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nb) return;
+  const int s = ilen[(size_t)i * C];
+  int rank = 0;
+  for (int j = 0; j < nb; ++j) {
+    const int sj = ilen[(size_t)j * C];
+    rank += sj > s || (sj == s && j < i);
   }
-  finish_row<false>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
+  order[rank] = i;
 }
 
 Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
@@ -614,18 +634,18 @@ void prefer_shared(K* kernel) {
                        (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool RESUME>
+template <bool RESUME, bool IDS>
 int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
-                 const int* pold, const Params& P, const Parts& pt,
-                 void* stream) {
-  if (B <= 0 || B > MAXB || C <= 0 || W <= 0)
+                 const int* cand, int c_cap, const int* pold,
+                 const Params& P, const Parts& pt, void* stream) {
+  if (B <= 0 || B > MAXB || C <= 0 || W <= 0 || (IDS && c_cap < W * B))
     return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
-  static bool once = (prefer_shared(items_kernel<RESUME>), true);
+  static bool once = (prefer_shared(items_kernel<RESUME, IDS>), true);
   (void)once;
-  items_kernel<RESUME><<<nb * C, B, 0, (cudaStream_t)stream>>>(
-      packed, B, tiles, W, istart, ilen, order, C, pold, P, pt);
+  items_kernel<RESUME, IDS><<<nb * C, B, 0, (cudaStream_t)stream>>>(
+      packed, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P, pt);
   return (int)cudaGetLastError();
 }
 
@@ -633,10 +653,12 @@ int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
 
 extern "C" {
 
-// The walkers of cd_sched_tiles and cd_full_grid write the partials of
-// their nb * C work items (cd_pallas.work_items: tiles [nb, W], istart
-// and ilen [nb, C], order [nb]); cd_merge_items makes the outputs.
-// B <= 256; the partner tables are K = 8 wide.
+// The split walkers write the partials of their nb * C work items
+// (cd_pallas.work_items: tiles [nb, W], istart and ilen [nb, C], order
+// [nb]); cd_merge_items makes the outputs.  B <= 256; the partner tables
+// are K = 8 wide.  cd_sched_tiles, with the partner table pold, serves
+// both _sched_kernel (the segment blocks) and _kernel_resume (the
+// reachable blocks of the overflow rows).
 int cd_sched_tiles(const float* packed, int nb, int B, const int* tiles,
                    int W, const int* istart, const int* ilen,
                    const int* order, int C, const int* pold, float rpz,
@@ -645,8 +667,9 @@ int cd_sched_tiles(const float* packed, int nb, int B, const int* tiles,
                    int* pci, unsigned* pkeep, void* stream) {
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume);
-  return launch_items<true>(packed, nb, B, tiles, W, istart, ilen, order, C,
-                            pold, P, Parts{pacc, pct, pci, pkeep}, stream);
+  return launch_items<true, false>(packed, nb, B, tiles, W, istart, ilen,
+                                   order, C, nullptr, 0, pold, P,
+                                   Parts{pacc, pct, pci, pkeep}, stream);
 }
 
 // The reach-masked full grid without a partner table (rpz_resume unused).
@@ -657,12 +680,42 @@ int cd_full_grid(const float* packed, int nb, int B, const int* tiles, int W,
                  float* pct, int* pci, void* stream) {
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume);
-  return launch_items<false>(packed, nb, B, tiles, W, istart, ilen, order, C,
-                             nullptr, P, Parts{pacc, pct, pci, nullptr},
-                             stream);
+  return launch_items<false, false>(packed, nb, B, tiles, W, istart, ilen,
+                                    order, C, nullptr, 0, nullptr, P,
+                                    Parts{pacc, pct, pci, nullptr}, stream);
 }
 
-// The row merge of either walker: with pold (the cd_sched_tiles form) the
+// The candidate pass: a tile is a sub-chunk index of the row's candidate
+// table cand [nb, c_cap] (ascending ids, then the sentinel nb * B), W
+// sub-chunks of B entries (c_cap >= W * B; rpz_resume unused).
+int cd_cand_items(const float* packed, int nb, int B, const int* tiles,
+                  int W, const int* istart, const int* ilen,
+                  const int* order, int C, const int* cand, int c_cap,
+                  float rpz, float r2, float hpz, float tlook, float rpz_m,
+                  float hpz_m, float tlook_m, float rpz_resume, float* pacc,
+                  float* pct, int* pci, void* stream) {
+  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                         rpz_resume);
+  return launch_items<false, true>(packed, nb, B, tiles, W, istart, ilen,
+                                   order, C, cand, c_cap, nullptr, P,
+                                   Parts{pacc, pct, pci, nullptr}, stream);
+}
+
+// The work items of a row mask [nb, W] (bool, one byte each): tiles
+// [nb, W], istart and ilen [nb, C], order [nb], as cd_pallas.work_items
+// cuts them.
+int cd_mask_items(const uint8_t* mask, int nb, int W, int C, int* tiles,
+                  int* istart, int* ilen, int* order, void* stream) {
+  if (W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return 0;
+  mask_items_kernel<<<nb, MAXB, 0, (cudaStream_t)stream>>>(mask, W, C, tiles,
+                                                           istart, ilen);
+  items_order_kernel<<<(nb + MAXB - 1) / MAXB, MAXB, 0,
+                       (cudaStream_t)stream>>>(ilen, nb, C, order);
+  return (int)cudaGetLastError();
+}
+
+// The row merge of any walker: with pold (the cd_sched_tiles form) the
 // keep bits and the partner merge too, and all six outputs; without it
 // only acc, ctin and cidx.
 int cd_merge_items(int nb, int B, int C, const int* ilen, const int* pold,
@@ -680,42 +733,6 @@ int cd_merge_items(int nb, int B, int C, const int* ilen, const int* pold,
   else
     merge_kernel<false><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen,
                                                             nullptr, pt, o);
-  return (int)cudaGetLastError();
-}
-
-int cd_full_grid_resume(const float* packed, int nb, int B,
-                        const uint8_t* reach, const int* pold, float rpz,
-                        float r2, float hpz, float tlook, float rpz_m,
-                        float hpz_m, float tlook_m, float rpz_resume,
-                        float* acc, float* ctin, int* cidx, float* keep,
-                        int* merged, float* active, void* stream) {
-  if (B <= 0 || B > MAXB) return (int)cudaErrorInvalidValue;
-  if (nb <= 0) return 0;
-  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
-                         rpz_resume);
-  Outs o{acc, ctin, cidx, keep, merged, active};
-  static bool once = (prefer_shared(resume_grid_kernel), true);
-  (void)once;
-  resume_grid_kernel<<<nb, B, 0, (cudaStream_t)stream>>>(packed, nb, B, reach,
-                                                         pold, P, o);
-  return (int)cudaGetLastError();
-}
-
-// The candidate pass; c_cap is a multiple of B (rpz_resume unused).
-int cd_cand_tiles(const float* packed, int nb, int B, const int* cand,
-                  int c_cap, float rpz, float r2, float hpz, float tlook,
-                  float rpz_m, float hpz_m, float tlook_m, float rpz_resume,
-                  float* acc, float* ctin, int* cidx, void* stream) {
-  if (B <= 0 || B > MAXB || c_cap < 0 || c_cap % B)
-    return (int)cudaErrorInvalidValue;
-  if (nb <= 0) return 0;
-  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
-                         rpz_resume);
-  Outs o{acc, ctin, cidx, nullptr, nullptr, nullptr};
-  static bool once = (prefer_shared(cand_kernel), true);
-  (void)once;
-  cand_kernel<<<nb, B, 0, (cudaStream_t)stream>>>(packed, nb, B, cand, c_cap,
-                                                  P, o);
   return (int)cudaGetLastError();
 }
 

@@ -37,9 +37,10 @@ SIGNATURES = {
         + [_f] * 8 + [_p] * 5,
         "cd_full_grid": [_p, _i, _i, _p, _i, _p, _p, _p, _i] + [_f] * 8
         + [_p] * 4,
+        "cd_cand_items": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p, _i]
+        + [_f] * 8 + [_p] * 4,
         "cd_merge_items": [_i, _i, _i] + [_p] * 13,
-        "cd_full_grid_resume": [_p, _i, _i, _p, _p] + [_f] * 8 + [_p] * 7,
-        "cd_cand_tiles": [_p, _i, _i, _p, _i] + [_f] * 8 + [_p] * 4,
+        "cd_mask_items": [_p, _i, _i, _i] + [_p] * 5,
     },
 }
 

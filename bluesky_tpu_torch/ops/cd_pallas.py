@@ -9,18 +9,19 @@ and ``detect_resolve_pallas``, the CD&R of ``SimConfig(cd_backend=
 reach-masked full grid or, with ``cand_cap > 0``, the candidate-list
 scheduler with the full grid covering its overflow rows.
 
-Three TPU kernels become hand-written CUDA kernels of
-``csrc/cd_tiles.cu`` (one thread per ownship), each beside a plain
-PyTorch version of the same function:
+Three TPU kernels become the split walker of ``csrc/cd_tiles.cu`` (one
+thread per ownship): each row block's tiles are cut into balanced work
+items (``work_items``), one CTA per item, and the items' partials are
+folded by the row merge ``cd_merge_items`` (``merge_items_plain``).  Each
+wrapper stands beside a plain PyTorch version of the same function:
 
-* ``_kernel`` -> ``cd_full_grid`` (``full_grid`` / ``full_grid_plain``):
-  each row block's reachable tiles cut into balanced work items
-  (``work_items``), one CTA per item, and the items' partials folded by
-  the row merge ``cd_merge_items`` (``merge_items_plain``);
-* ``_kernel_cand`` -> ``cd_cand_tiles`` (``cand_tiles`` /
-  ``cand_tiles_plain``);
-* ``_kernel_resume`` -> ``cd_full_grid_resume`` (``full_grid_resume`` /
-  ``full_grid_resume_plain``), the sparse scheduler's overflow fallback.
+* ``_kernel`` -> ``cd_full_grid`` over the reachable blocks
+  (``full_grid`` / ``full_grid_plain``);
+* ``_kernel_cand`` -> ``cd_cand_items`` over the sub-chunks of each
+  row's candidate table (``cand_tiles`` / ``cand_tiles_plain``);
+* ``_kernel_resume`` -> ``cd_sched_tiles`` over the reachable blocks of
+  the overflow rows (``full_grid_resume`` / ``full_grid_resume_plain``),
+  the sparse scheduler's overflow fallback.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors.
@@ -52,12 +53,17 @@ _IDX = {k: i for i, k in enumerate(_FIELDS)}
 _BIG = 1e9
 _BIG_I = 2 ** 30
 #: Candidate sub-block width: candidate ids come in runs of this many
-#: consecutive slots, one warp's contiguous load in ``cd_cand_tiles``.
+#: consecutive slots, one warp's contiguous load in ``cd_cand_items``.
 CAND_SUB = 32
 #: Partner-table width K (columns of ``partners_s``), fixed by the kernels.
 KK = 8
-#: Work items a row block's tiles are cut into at most (``work_items``).
+#: Work items a row block's tiles are cut into at most (``work_items``):
+#: ``full_grid`` and ``cd_sched.sched_tiles``, ``full_grid_resume`` and
+#: ``cand_tiles``.  Each is the smallest of 4, 8 and 16 within one call's
+#: spread of the best in ``scripts/torch_kernels_ab.py`` (``PERF.md`` §6).
 ITEMS_PER_ROW = 8
+RESUME_ITEMS_PER_ROW = 16
+CAND_ITEMS_PER_ROW = 16
 
 #: Identity elements of the 10 accumulator outputs, in output order:
 #: inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx.
@@ -365,8 +371,8 @@ def check_common(packed, pold=None):
 
 class WorkItems(NamedTuple):
     """The work items of a split walker (``cd_full_grid``,
-    ``cd_sched_tiles``): item k of row block i walks ``tiles[i, start[i,
-    k] : start[i, k] + length[i, k]]``."""
+    ``cd_sched_tiles``, ``cd_cand_items``): item k of row block i walks
+    ``tiles[i, start[i, k] : start[i, k] + length[i, k]]``."""
     tiles: torch.Tensor    # [nb, W] int32 each row's tiles, ascending, first
     start: torch.Tensor    # [nb, C] int32 an item's first position in them
     length: torch.Tensor   # [nb, C] int32 its tile count (0: empty item)
@@ -404,12 +410,44 @@ def work_items(tiles, count, per_row=ITEMS_PER_ROW):
                      order=order.to(torch.int32))
 
 
+def mask_items(mask, per_row):
+    """``work_items`` of a row mask: row i's tiles are the columns j with
+    ``mask[i, j]`` ([nb, W] bool), ascending.  For a CUDA mask one call of
+    ``cd_mask_items`` (a block scan per row, then the launch order)
+    builds them: the dozen tensor ops of the plain version,
+    ``compact_rows`` + ``work_items``, cost more host time than a pass
+    that finds no tile.  Either way nothing waits for the device."""
+    nb, w = mask.shape
+    if not mask.is_cuda:
+        cols = torch.arange(w, dtype=torch.int32).expand(nb, w)
+        return work_items(*compact_rows(cols, mask), per_row)
+    from . import _cuda
+    _cuda.require(mask, torch.bool, (nb, w), "mask")
+    i32 = dict(dtype=torch.int32, device=mask.device)
+    items = WorkItems(tiles=torch.empty((nb, w), **i32),
+                      start=torch.empty((nb, per_row), **i32),
+                      length=torch.empty((nb, per_row), **i32),
+                      order=torch.empty((nb,), **i32))
+    rc = _cuda.load("cd_tiles.cu").cd_mask_items(
+        mask.data_ptr(), nb, w, per_row, *(t.data_ptr() for t in items),
+        _cuda.stream_ptr(mask.device))
+    _cuda.check(rc, "cd_mask_items")
+    return items
+
+
 def reach_items(reach, per_row=ITEMS_PER_ROW):
     """``work_items`` of the reach-masked full grid: row i's tiles are the
     blocks j with ``reach[i, j]``, ascending."""
-    nb, nbc = reach.shape
-    cols = torch.arange(nbc, device=reach.device).expand(nb, nbc)
-    return work_items(*compact_rows(cols, reach), per_row)
+    return mask_items(reach, per_row)
+
+
+def cand_items(cand, B, per_row=CAND_ITEMS_PER_ROW):
+    """``work_items`` of the candidate pass: row i's tiles are the
+    sub-chunks of B entries of its candidate table ``cand[i]`` that hold
+    an id: ``build_candidates`` gives ascending ids, then the sentinel
+    ``nb * B``, so these are the first ``ceil(count_i / B)``, none on an
+    overflow row."""
+    return mask_items(cand[:, ::B] < cand.shape[0] * B, per_row)
 
 
 def merge_items_plain(parts, B, pold=None):
@@ -447,11 +485,12 @@ def merge_items_plain(parts, B, pold=None):
     return outs + (keep, merged, active)
 
 
-def walk_items(packed, items, p: TileParams, pold=None):
+def walk_items(packed, items, p: TileParams, pold=None, cand=None):
     """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
-    partner table ``pold``, ``cd_full_grid`` without.  Returns the items'
-    partials ``(acc [8, G, B], ct [KK, G, B], ci, keep [G, B] or None)``,
-    G = nb * C, for ``merge_items``."""
+    partner table ``pold``, ``cd_cand_items`` with the candidate table
+    ``cand`` (the tiles are its sub-chunks), ``cd_full_grid`` with
+    neither.  Returns the items' partials ``(acc [8, G, B], ct [KK, G,
+    B], ci, keep [G, B] or None)``, G = nb * C, for ``merge_items``."""
     from . import _cuda
     nb, _, B = packed.shape
     C = items.length.shape[1]
@@ -471,8 +510,13 @@ def walk_items(packed, items, p: TileParams, pold=None):
             items.order.data_ptr(), C)
     lib = _cuda.load("cd_tiles.cu")
     stream = _cuda.stream_ptr(dev)
-    if pold is None:
-        keep = None
+    keep = None
+    if cand is not None:
+        rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1],
+                               *kernel_floats(p), acc.data_ptr(),
+                               ct.data_ptr(), ci.data_ptr(), stream)
+        _cuda.check(rc, "cd_cand_items")
+    elif pold is None:
         rc = lib.cd_full_grid(*head, *kernel_floats(p), acc.data_ptr(),
                               ct.data_ptr(), ci.data_ptr(), stream)
         _cuda.check(rc, "cd_full_grid")
@@ -503,33 +547,24 @@ def merge_items(parts, items, B, pold=None):
     return list(outs[0].unbind(0)) + list(outs[1:])
 
 
-def _reach_u8(reach, nb):
-    from . import _cuda
-    reach_u8 = reach.to(torch.uint8).contiguous()
-    _cuda.require(reach_u8, torch.uint8, (nb, nb), "reach")
-    return reach_u8
-
-
-def full_grid_resume(packed, reach, pold, p: TileParams):
-    """The sparse overflow-row fallback pass: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors (see
-    ``full_grid_resume_plain``)."""
+def full_grid_resume(packed, reach, pold, p: TileParams,
+                     per_row=RESUME_ITEMS_PER_ROW):
+    """The sparse overflow-row fallback pass (``_kernel_resume``): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors (see
+    ``full_grid_resume_plain``).  On the card each row's reachable tiles
+    are cut into at most ``per_row`` work items (``reach_items``), walked
+    by ``cd_sched_tiles`` and folded, with the partner merge, by
+    ``cd_merge_items``; the items of a row that ``reach`` leaves empty
+    exit at once.  Nothing waits for the device."""
     if not packed.is_cuda:
         return full_grid_resume_plain(packed, reach, pold, p)
     from . import _cuda
     nb, B = check_common(packed, pold)
-    reach_u8 = _reach_u8(reach, nb)
-    acc, ctin, cidx, keep, merged, active = alloc_outputs(nb, KK, B,
-                                                          packed.device)
-    lib = _cuda.load("cd_tiles.cu")
-    rc = lib.cd_full_grid_resume(
-        packed.data_ptr(), nb, B, reach_u8.data_ptr(), pold.data_ptr(),
-        *kernel_floats(p), acc.data_ptr(), ctin.data_ptr(),
-        cidx.data_ptr(), keep.data_ptr(), merged.data_ptr(),
-        active.data_ptr(), _cuda.stream_ptr(packed.device))
-    _cuda.check(rc, "cd_full_grid_resume")
+    _cuda.require(reach, torch.bool, (nb, nb), "reach")
+    items = reach_items(reach, per_row)
+    outs = merge_items(walk_items(packed, items, p, pold), items, B, pold)
     LAUNCHES["cd_full_grid_resume"] += 1
-    return list(acc.unbind(0)) + [ctin, cidx, keep, merged, active]
+    return outs
 
 
 def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW):
@@ -551,28 +586,26 @@ def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW):
     return outs
 
 
-def cand_tiles(packed, cand, p: TileParams):
+def cand_tiles(packed, cand, p: TileParams, per_row=CAND_ITEMS_PER_ROW):
     """The candidate-list pass (``_kernel_cand``): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors (see
-    ``cand_tiles_plain``)."""
+    ``cand_tiles_plain``).  On the card each row's candidate sub-chunks
+    are cut into at most ``per_row`` work items (``cand_items``), walked
+    by ``cd_cand_items`` and folded by ``cd_merge_items``; nothing waits
+    for the device."""
     if not packed.is_cuda:
         return cand_tiles_plain(packed, cand, p)
     from . import _cuda
     nb, B = check_common(packed)
     c_cap = cand.shape[1]
-    if c_cap % B:
-        raise ValueError(f"candidate capacity {c_cap} is not a multiple "
-                         f"of the block {B}")
+    if c_cap <= 0 or c_cap % B:
+        raise ValueError(f"candidate capacity {c_cap} is not a positive "
+                         f"multiple of the block {B}")
     _cuda.require(cand, torch.int32, (nb, c_cap), "cand")
-    acc, ctin, cidx = alloc_outputs(nb, KK, B, packed.device, resume=False)
-    lib = _cuda.load("cd_tiles.cu")
-    rc = lib.cd_cand_tiles(
-        packed.data_ptr(), nb, B, cand.data_ptr(), c_cap, *kernel_floats(p),
-        acc.data_ptr(), ctin.data_ptr(), cidx.data_ptr(),
-        _cuda.stream_ptr(packed.device))
-    _cuda.check(rc, "cd_cand_tiles")
+    items = cand_items(cand, B, per_row)
+    outs = merge_items(walk_items(packed, items, p, cand=cand), items, B)
     LAUNCHES["cd_cand_tiles"] += 1
-    return list(acc.unbind(0)) + [ctin, cidx]
+    return outs
 
 
 def build_candidates(lat, lon, gs, active, nb, block, c_cap, rpz,

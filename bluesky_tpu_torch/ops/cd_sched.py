@@ -16,7 +16,8 @@ Port of the single-device replicate path of ``bluesky_tpu/ops/cd_sched.py``:
   ``csrc/cd_tiles.cu``, replacing the Pallas ``_sched_kernel``), and the
   row merge ``cd_merge_items`` folds them and merges the partners.  Overflow
   rows are covered exactly by ``cd_pallas.full_grid_resume`` restricted
-  to those rows, and the row-disjoint outputs merged with ``torch.where``.
+  to those rows (the same walker and merge over their reachable blocks),
+  and the row-disjoint outputs merged with ``torch.where``.
 
 No step here waits for the device: the overflow fallback is always
 launched, on the row-restricted reachability, so rows without overflow

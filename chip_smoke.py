@@ -10,16 +10,20 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every CUDA source of ``bluesky_tpu_torch/csrc`` compiled by
    ``nvcc`` for sm_90a, all sources at once;
 3. kernel checks: each hand-written kernel against its plain PyTorch
-   version on the card, in float32.  The sparse path's two kernels on
-   three geometries (continental, the 230 nm regional clump with
-   overflow rows, an equator-crossing fleet), each for a fresh and a
-   resumed partner table, the segment kernel also split into at most
-   two work items per row, and the overflow kernel timed on the clump;
-   the pallas full grid on the same three geometries in Morton order,
-   also split two ways; the candidate kernel on eight clusters, at a
-   capacity most rows fit and at one that sends most rows to the full
-   grid.  Each pallas check also holds ``detect_resolve_pallas`` with
-   candidates against the one without;
+   version on the card, in float32, at its default work items per row
+   and at ``SPLIT`` (most rows cut in two), the split launch made twice
+   and required bit-equal, and bit-equal to the default launch but for
+   the three MVP sums; the work items that ``cd_mask_items`` builds on
+   the card held against its plain version's.  The sparse path's two
+   kernels on three
+   geometries (continental, the 230 nm regional clump with overflow
+   rows, an equator-crossing fleet), each for a fresh and a resumed
+   partner table, and the overflow kernel timed on the clump; the
+   pallas full grid on the same three geometries in Morton order; the
+   candidate kernel on eight clusters, at a capacity most rows fit and
+   at one that sends most rows to the full grid.  Each pallas check also
+   holds ``detect_resolve_pallas`` with candidates against the one
+   without;
 4. sparse path: 100,000 aircraft of the continental geometry in
    100,352 slots, built with ``Traffic.create/flush``, under
    ``SimConfig(cd_backend="sparse", cd_block=256)``: the sort refresh
@@ -31,13 +35,16 @@ Phases, in order; any failure exits non-zero before the last line:
    ``detect_resolve_pallas(cand_cap=4096)`` on the stepped state, with
    the launch counts taken over exactly that run; then the same
    timings for the pallas kernels, and the candidate kernel's once more
-   at a capacity most rows fit.
+   at a capacity most rows fit.  Every kernel timed at the main path's
+   shapes is checked there as in phase 3 first.
 
-The split walkers K1 and K3 also log their work items, longest item
-and the time of their row merge alone; every walker's registers and
-spills come from the ``-Xptxas -v`` report of the build.  It prints one
-JSON line describing every kernel, then the ``nvidia-smi`` name and
-power limit, then the result line ``{"ok": true, "device": {...}}``.
+Every kernel also logs its work items, longest item and the time of its
+row merge alone (K2 on the clump as well, K4 at both capacities); every
+walker's registers and spills come from the ``-Xptxas -v`` report of the
+build.  The card's power draw, clocks and temperature are logged before
+phase 3 and after phases 4 and 5.  It prints one JSON line describing
+every kernel, then the ``nvidia-smi`` name and power limit, then the
+result line ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -65,7 +72,7 @@ PEAK_F32_FLOPS = 67e12
 #: the LoS count 1.  The MVP tail of the conflict pairs (~60 more) is
 #: left out: conflicts are a small share of the pairs.
 PAIR_FLOPS = 168
-#: The resume keep predicate (cd_sched_tiles, cd_full_grid_resume), run
+#: The resume keep predicate (cd_sched_tiles, for K1 and K2), run
 #: only on the conflict pairs and the old-partner pairs: the relative
 #: velocity 2, the flat-earth displacement 11, the past-CPA test 4, the
 #: distance 4 and the keep compares 5.
@@ -87,11 +94,11 @@ KERNELS = {
         replaces="bluesky_tpu/ops/cd_pallas.py:494"),
 }
 #: each kernel's walker, by a piece of its mangled name in the
-#: ``nvcc -Xptxas -v`` report
-WALKERS = {"cd_sched._sched_kernel": "items_kernelILb1E",
-           "cd_pallas._kernel_resume": "resume_grid_kernel",
-           "cd_pallas._kernel": "items_kernelILb0E",
-           "cd_pallas._kernel_cand": "cand_kernel"}
+#: ``nvcc -Xptxas -v`` report (items_kernel<RESUME, IDS>)
+WALKERS = {"cd_sched._sched_kernel": "items_kernelILb1ELb0E",
+           "cd_pallas._kernel_resume": "items_kernelILb1ELb0E",
+           "cd_pallas._kernel": "items_kernelILb0ELb0E",
+           "cd_pallas._kernel_cand": "items_kernelILb0ELb1E"}
 #: candidate capacity of the pallas path's candidate-mode call
 CAND_CAP = 4096
 #: work items per row of the split checks, so that most rows split
@@ -102,12 +109,18 @@ def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi():
+def nvidia_smi(fields="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def log_card(when):
+    """One line of the card's power, clocks and temperature."""
+    fields = ("name,power.limit,power.draw,clocks.sm,clocks.max.sm,"
+              "temperature.gpu")
+    log(f"nvidia-smi {when} ({fields}): {nvidia_smi(fields)}")
 
 
 def kernel_registers(report):
@@ -125,9 +138,10 @@ def kernel_registers(report):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"\d([a-z_]+_kernel)(ILb([01])E)?", name)
-            short = k.group(1) + ("" if not k.group(2) else
-                                  "<true>" if k.group(3) == "1" else "<false>")
+            k = re.search(r"\d([a-z_]+_kernel)((?:I?Lb[01]E)*)", name)
+            flags = ["true" if f == "1" else "false"
+                     for f in re.findall(r"Lb([01])E", k.group(2))]
+            short = k.group(1) + (f"<{', '.join(flags)}>" if flags else "")
             log(f"registers: {short}: {m.group(1)}, spill stores/loads "
                 f"{spill[0]}/{spill[1]} bytes")
             for kernel, piece in WALKERS.items():
@@ -181,11 +195,54 @@ def cd_args(c, dev, t_ahead=0.0):
             torch.zeros(len(lat), dtype=torch.bool, device=dev)]
 
 
+def check_split(name, kern, want):
+    """Hold ``kern()`` (the wrapper's default work items per row) and
+    ``kern(per_row=SPLIT)`` against the plain outputs ``want``
+    (``cd_pallas.compare_outputs``).  The split launch, made twice, must
+    give equal bits, and equal bits to the default launch in every output
+    but the three MVP sums (one tile body: only the sums add in another
+    order), the top-K ids in order.  Returns ``(largest float difference,
+    the default launch's outputs)``."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas
+    whole, split, again = kern(), kern(per_row=SPLIT), kern(per_row=SPLIT)
+    err = max(cd_pallas.compare_outputs(name, whole, want),
+              cd_pallas.compare_outputs(f"{name} split {SPLIT}", split, want))
+    for j, (a, b, w) in enumerate(zip(split, again, whole)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} split {SPLIT}: output {j} "
+                                 f"differs between two launches")
+        if j not in (2, 3, 4) and not torch.equal(a, w):
+            raise AssertionError(f"{name} split {SPLIT}: output {j} "
+                                 f"differs from the default launch")
+    return err, whole
+
+
+def check_items(name, mask, per_row):
+    """Hold the work items ``cd_mask_items`` builds from the CUDA row mask
+    ``mask`` against those of its plain version on the CPU
+    (``compact_rows`` + ``work_items``) at ``per_row`` and at ``SPLIT``
+    items per row: starts, lengths, launch order and each row's tiles
+    equal."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas
+    w = mask.shape[1]
+    for c in (per_row, SPLIT):
+        got = [t.cpu() for t in cd_pallas.mask_items(mask, c)]
+        want = cd_pallas.mask_items(mask.cpu(), c)
+        valid = torch.arange(w)[None, :] < mask.cpu().sum(1)[:, None]
+        if not (all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+                and torch.equal(got[0][valid], want.tiles[valid])):
+            raise AssertionError(f"{name}: the work items of cd_mask_items "
+                                 f"differ from the plain ones at {c} a row")
+
+
 def check_kernels(dev, errs, scale=1):
     """Phase 3, sparse backend: both kernels against their plain versions
-    (fleet sizes divided by ``scale``), the segment kernel also with at
-    most two work items per row.  Returns the overflow kernel's timing on
-    the resumed regional clump, where it has real tiles (``measure``)."""
+    (fleet sizes divided by ``scale``), each also with at most ``SPLIT``
+    work items per row.  Returns the JSON keys of the overflow kernel on
+    the resumed regional clump, where it has real tiles (``measure`` and
+    ``item_extra``, prefixed ``regional_``)."""
     import torch
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
     mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
@@ -209,22 +266,22 @@ def check_kernels(dev, errs, scale=1):
                                  s_cap=s_cap, perm=perm)
             perm = x.perm
             reach_f = x.reach & x.overflow[:, None]
-            k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
-                                      x.pold, p)
-            k1s = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
-                                       x.pold, p, per_row=SPLIT)
             p1 = cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
                                             x.pold, p)
-            k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
             p2 = cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold,
                                                   p)
-            torch.cuda.synchronize()
             tag = f"{geom} N={n} t+{t_ahead:g}s"
-            e1 = max(cd_pallas.compare_outputs(f"sched_kernel {tag}", k1, p1),
-                     cd_pallas.compare_outputs(
-                         f"sched_kernel {tag} split {SPLIT}", k1s, p1))
+            e1 = check_split(f"sched_kernel {tag}",
+                             lambda **kw: cd_sched.sched_tiles(
+                                 x.packed, x.wst, x.wln, x.wmax, x.pold, p,
+                                 **kw), p1)[0]
+            k2_run = lambda **kw: cd_pallas.full_grid_resume(
+                x.packed, reach_f, x.pold, p, **kw)
+            e2, k2 = check_split(f"kernel_resume {tag}", k2_run, p2)
+            check_items(f"kernel_resume {tag}", reach_f,
+                        cd_pallas.RESUME_ITEMS_PER_ROW)
             items = cd_sched.window_items(x.wst, x.wln, x.wmax, x.nb, SPLIT)
-            e2 = cd_pallas.compare_outputs(f"kernel_resume {tag}", k2, p2)
+            items2 = cd_pallas.reach_items(reach_f, SPLIT)
             errs["cd_sched._sched_kernel"] = max(
                 errs["cd_sched._sched_kernel"], e1)
             errs["cd_pallas._kernel_resume"] = max(
@@ -237,21 +294,28 @@ def check_kernels(dev, errs, scale=1):
                 f"scheduled tiles {int(x.wln.sum())}, overflow tiles "
                 f"{int(reach_f.sum())}, nconf {nconf}, nlos {nlos}, "
                 f"max abs err sched {e1:.3g} resume {e2:.3g}: match; "
-                f"split {SPLIT}: {split_rows(items)} rows split")
+                f"split {SPLIT}: {split_rows(items)} and "
+                f"{split_rows(items2)} rows split")
             if geom == "regional" and not int(x.overflow.sum()):
                 raise AssertionError("regional check has no overflow rows")
             if geom == "regional" and t_ahead:
                 rf = reach_f.cpu().numpy()
                 tiles = lambda i: np.flatnonzero(rf[i])
-                k2_regional = measure(f"cd_pallas._kernel_resume {tag}", dict(
-                    kern=lambda: cd_pallas.full_grid_resume(
-                        x.packed, reach_f, x.pold, p),
+                name = f"cd_pallas._kernel_resume {tag}"
+                err, ms, _, t_bytes, t_ops = measure(name, dict(
+                    kern=k2_run,
                     plain=lambda: cd_pallas.full_grid_resume_plain(
                         x.packed, reach_f, x.pold, p),
                     pairs=active_pairs(x, tiles),
                     keep=keep_pairs(x, tiles, k2[6]),
                     bytes=in_out_bytes(x, True) + x.nb * x.nb,
                     tiles=int(rf.sum())))
+                errs["cd_pallas._kernel_resume"] = max(
+                    errs["cd_pallas._kernel_resume"], err)
+                k2_regional = dict(
+                    regional_ms=ms, regional_bound_ms=max(t_bytes, t_ops),
+                    **item_extra(name, x, cd_pallas.reach_items(reach_f), p,
+                                 pold=x.pold, prefix="regional_"))
             # the resumed pass starts from this pass's merged table
             table = merged[11].transpose(1, 2).reshape(n_tot, 8).contiguous()
     return k2_regional
@@ -298,12 +362,11 @@ def check_pallas_kernels(dev, errs):
             x, cand, row_over = pallas_operands(
                 cols, perm, dict(rpz=5 * NM, tlook=300.0, cap=cap))
             if cap == caps[0]:
-                want = cd_pallas.full_grid_plain(x.packed, x.reach, p)
-                e = max(cd_pallas.compare_outputs(
-                    f"_kernel {tag}", cd_pallas.full_grid(x.packed, x.reach, p),
-                    want), cd_pallas.compare_outputs(
-                    f"_kernel {tag} split {SPLIT}", cd_pallas.full_grid(
-                        x.packed, x.reach, p, per_row=SPLIT), want))
+                check_items(f"_kernel {tag}", x.reach, cd_pallas.ITEMS_PER_ROW)
+                e = check_split(
+                    f"_kernel {tag}", lambda **kw: cd_pallas.full_grid(
+                        x.packed, x.reach, p, **kw),
+                    cd_pallas.full_grid_plain(x.packed, x.reach, p))[0]
                 errs["cd_pallas._kernel"] = max(errs["cd_pallas._kernel"], e)
                 log(f"check _kernel {tag}: {int(x.reach.sum())} tiles, nconf "
                     f"{int(rd0.nconf)}, nlos {int(rd0.nlos)}, max abs err "
@@ -312,14 +375,19 @@ def check_pallas_kernels(dev, errs):
                     f"rows split")
             n_over = int(row_over.sum())
             if geom == "clusters":
-                e = cd_pallas.compare_outputs(
+                check_items(f"_kernel_cand {tag} cap {cap}",
+                            cand[:, ::x.block] < x.nb * x.block,
+                            cd_pallas.CAND_ITEMS_PER_ROW)
+                e = check_split(
                     f"_kernel_cand {tag} cap {cap}",
-                    cd_pallas.cand_tiles(x.packed, cand, p),
-                    cd_pallas.cand_tiles_plain(x.packed, cand, p))
+                    lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, **kw),
+                    cd_pallas.cand_tiles_plain(x.packed, cand, p))[0]
                 errs["cd_pallas._kernel_cand"] = max(
                     errs["cd_pallas._kernel_cand"], e)
+                items = cd_pallas.cand_items(cand, x.block, SPLIT)
                 log(f"check _kernel_cand {tag} cap {cap}: overflow rows "
-                    f"{n_over} of {x.nb}, max abs err {e:.3g}: match")
+                    f"{n_over} of {x.nb}, max abs err {e:.3g}: match; "
+                    f"split {SPLIT}: {split_rows(items)} rows split")
                 if not (0 < n_over < x.nb
                         and (n_over <= x.nb // 4) == (cap == 4096)):
                     raise AssertionError(
@@ -492,16 +560,15 @@ def time_layers(backend, layers):
 
 
 def measure(name, r):
-    """Check ``r["kern"]`` against ``r["plain"]`` once more, time both
-    and compute the bound.  ``r`` gives ``kern``, ``plain``, the active
+    """Check ``r["kern"]`` against ``r["plain"]`` once more
+    (``check_split``), time both and compute the bound.  ``r`` gives
+    ``kern`` (taking the wrapper's ``per_row``), ``plain``, the active
     ``pairs`` (``PAIR_FLOPS`` each), the ``keep`` pairs (``KEEP_FLOPS``
     each more; 0 when absent), the ``bytes`` it must move and its
     ``tiles``.  Logs one line; returns the largest float difference, ms
     per launch, plain ms, bytes ms and operations ms."""
     import torch
-    from bluesky_tpu_torch.ops import cd_pallas
-    err = cd_pallas.compare_outputs(f"{name} main path", r["kern"](),
-                                    r["plain"]())
+    err = check_split(f"{name} main path", r["kern"], r["plain"]())[0]
     ms = cuda_ms(r["kern"], 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -538,17 +605,21 @@ def report_kernels(runs, launches, errs, regs):
     return report
 
 
-def item_extra(name, items, merge):
-    """The JSON keys of a split walker: its non-empty work items, its
-    longest item in tiles and the ms of its row merge alone (``merge``
-    on the walker's partials).  Logs them."""
+def item_extra(name, x, items, p, pold=None, cand=None, prefix=""):
+    """The JSON keys of a split walker on ``items`` of the operands ``x``
+    (``cd_pallas.walk_items`` arguments ``pold``, ``cand``): its
+    non-empty work items, its longest item in tiles and the ms of its row
+    merge alone, each key prefixed with ``prefix``.  Logs them."""
+    from bluesky_tpu_torch.ops import cd_pallas
+    parts = cd_pallas.walk_items(x.packed, items, p, pold, cand)
     extra = dict(items=int((items.length > 0).sum()),
                  max_tiles_per_item=int(items.length.max()),
-                 merge_ms=cuda_ms(merge, 5))
+                 merge_ms=cuda_ms(lambda: cd_pallas.merge_items(
+                     parts, items, x.block, pold), 5))
     log(f"{name}: {extra['items']} work items, longest "
         f"{extra['max_tiles_per_item']} tiles, merge {extra['merge_ms']:.4g}"
         f" ms per launch")
-    return extra
+    return {prefix + k: v for k, v in extra.items()}
 
 
 def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
@@ -596,35 +667,33 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
                            + [np.zeros(0, np.int64)])
         return t[t < x.nb]
 
-    nb, B = x.nb, x.block
+    nb = x.nb
     k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
     k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
-    items = cd_sched.window_items(x.wst, x.wln, x.wmax, nb)
-    parts = cd_pallas.walk_items(x.packed, items, p, x.pold)
-    reg_err, reg_ms, _, reg_bytes, reg_ops = k2_regional
     runs = {
         "cd_sched._sched_kernel": dict(
-            kern=lambda: cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
-                                              x.pold, p),
+            kern=lambda **kw: cd_sched.sched_tiles(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p, **kw),
             plain=lambda: cd_sched.sched_tiles_plain(
                 x.packed, x.wst, x.wln, x.wmax, x.pold, p),
             pairs=active_pairs(x, sched_tiles_of),
             keep=keep_pairs(x, sched_tiles_of, k1[6]),
             bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
             tiles=int(ln.sum()),
-            extra=item_extra("cd_sched._sched_kernel", items,
-                             lambda: cd_pallas.merge_items(parts, items, B,
-                                                           x.pold))),
+            extra=item_extra("cd_sched._sched_kernel", x,
+                             cd_sched.window_items(x.wst, x.wln, x.wmax, nb),
+                             p, pold=x.pold)),
         "cd_pallas._kernel_resume": dict(
-            kern=lambda: cd_pallas.full_grid_resume(x.packed, reach_f,
-                                                    x.pold, p),
+            kern=lambda **kw: cd_pallas.full_grid_resume(
+                x.packed, reach_f, x.pold, p, **kw),
             plain=lambda: cd_pallas.full_grid_resume_plain(
                 x.packed, reach_f, x.pold, p),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
             keep=keep_pairs(x, lambda i: np.flatnonzero(rf[i]), k2[6]),
             bytes=in_out_bytes(x, True) + nb * nb, tiles=int(rf.sum()),
-            extra=dict(regional_ms=reg_ms,
-                       regional_bound_ms=max(reg_bytes, reg_ops))),
+            extra=dict(item_extra("cd_pallas._kernel_resume", x,
+                                  cd_pallas.reach_items(reach_f), p,
+                                  pold=x.pold), **k2_regional)),
     }
     per_row = ln.sum(1)
     log(f"sparse: overflow rows {int(x.overflow.sum())}, scheduled tiles "
@@ -632,10 +701,7 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
         f"block: mean {per_row.mean():.4g}, median {np.median(per_row):g}, "
         f"max {per_row.max()}), overflow tiles per interval "
         f"{runs['cd_pallas._kernel_resume']['tiles']}")
-    report = report_kernels(runs, launches, errs, regs)
-    report[-1]["max_abs_err"] = errs["cd_pallas._kernel_resume"] = max(
-        report[-1]["max_abs_err"], reg_err)
-    return report
+    return report_kernels(runs, launches, errs, regs)
 
 
 def cand_pairs(x, cand):
@@ -711,27 +777,28 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
     nb, B = x.nb, x.block
     rh = x.reach.cpu().numpy()
-    items = cd_pallas.reach_items(x.reach)
-    parts = cd_pallas.walk_items(x.packed, items, p)
 
-    def cand_run(cand):
+    def cand_run(cand, cap):
+        name = f"cd_pallas._kernel_cand at cand_cap={cap}"
         return dict(
-            kern=lambda: cd_pallas.cand_tiles(x.packed, cand, p),
+            kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, **kw),
             plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p),
             pairs=cand_pairs(x, cand),
             bytes=in_out_bytes(x, False) + cand.numel() * 4,
             tiles=int(((cand < nb * B).sum(1) + B - 1).div(
-                B, rounding_mode="floor").sum()))
+                B, rounding_mode="floor").sum()),
+            extra=item_extra(name, x, cd_pallas.cand_items(cand, B), p,
+                             cand=cand))
 
     runs = {
         "cd_pallas._kernel": dict(
-            kern=lambda: cd_pallas.full_grid(x.packed, x.reach, p),
+            kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p, **kw),
             plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
             bytes=in_out_bytes(x, False) + nb * nb, tiles=int(rh.sum()),
-            extra=item_extra("cd_pallas._kernel", items,
-                             lambda: cd_pallas.merge_items(parts, items, B))),
-        "cd_pallas._kernel_cand": cand_run(cand),
+            extra=item_extra("cd_pallas._kernel", x,
+                             cd_pallas.reach_items(x.reach), p)),
+        "cd_pallas._kernel_cand": cand_run(cand, CAND_CAP),
     }
     report = report_kernels(runs, launches, errs, regs)
     # At CAND_CAP most rows overflow and leave the candidate kernel after
@@ -740,10 +807,15 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     cap = 4 * CAND_CAP
     _, cand_w, over_w = pallas_operands(cols, a.sort_perm, dict(
         rpz=c.rpz, tlook=c.dtlookahead, cap=cap))
-    err = measure(f"cd_pallas._kernel_cand at cand_cap={cap} "
-                  f"({int(over_w.sum())} overflow rows)", cand_run(cand_w))[0]
+    wide = cand_run(cand_w, cap)
+    err, ms, plain_ms, t_bytes, t_ops = measure(
+        f"cd_pallas._kernel_cand at cand_cap={cap} ({int(over_w.sum())} "
+        f"overflow rows)", wide)
     errs["cd_pallas._kernel_cand"] = max(errs["cd_pallas._kernel_cand"], err)
     report[-1]["max_abs_err"] = errs["cd_pallas._kernel_cand"]
+    report[-1].update({f"cap{cap}_ms": ms, f"cap{cap}_plain_ms": plain_ms,
+                       f"cap{cap}_bound_ms": max(t_bytes, t_ops)},
+                      **{f"cap{cap}_{k}": v for k, v in wide["extra"].items()})
     return report
 
 
@@ -770,6 +842,7 @@ def main():
     regs = kernel_registers(msgs["cd_tiles.cu"])
 
     errs = {name: 0.0 for name in KERNELS}
+    log_card("before the checks and timings")
     t0 = time.perf_counter()
     k2_regional = check_kernels(dev, errs)
     check_pallas_kernels(dev, errs)
@@ -779,6 +852,7 @@ def main():
         t0 = time.perf_counter()
         report += path(dev, errs, regs, *more)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
+        log_card(f"after {path.__name__}")
 
     print(json.dumps({"kernels": report}))
     print(nvidia_smi())

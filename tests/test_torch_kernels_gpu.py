@@ -102,7 +102,7 @@ def test_full_grid_matches_plain(cuda, geom):
 
 @pytest.mark.parametrize("cap", [2048, 1024])
 def test_cand_tiles_match_plain(cuda, cap):
-    """``cd_cand_tiles`` (``_kernel_cand``) on eight clusters, and
+    """``cand_tiles`` (``_kernel_cand``) on eight clusters, and
     ``detect_resolve_pallas`` with candidates (launching both kernels)
     against the one without."""
     cols = _inputs("clusters", 8192, cuda)
@@ -125,6 +125,28 @@ def test_cand_tiles_match_plain(cuda, cap):
                                block=256))
 
 
+def _split_check(name, launches, kern, want, items):
+    """``kern(per_row)`` at two items per row (twice) and at the default
+    against the plain outputs ``want``: the two split launches bit-equal,
+    the top-K ids in order, one launch counted per call."""
+    assert int((items.length > 0).sum(1).eq(2).sum()) > 0
+    n0 = launches[name]
+    first, again, whole = kern(2), kern(2), kern(None)
+    torch.cuda.synchronize()
+    assert launches[name] == n0 + 3
+    cd_pallas.compare_outputs(f"{name} split", first, want)
+    cd_pallas.compare_outputs(name, whole, want)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+    # the top-K ids in order, not just as sets
+    assert torch.equal(first[9].cpu(), want[9].cpu())
+
+
+def _per_row(fn):
+    """``fn`` called with ``per_row=c``, or with its default for None."""
+    return lambda c: fn() if c is None else fn(per_row=c)
+
+
 @pytest.mark.parametrize("geom,s_cap", [("spread", 6), ("clump", 2)])
 def test_split_walkers_match_plain_and_repeat(cuda, geom, s_cap):
     """``cd_sched_tiles`` and ``cd_full_grid`` with at most two work items
@@ -139,29 +161,69 @@ def test_split_walkers_match_plain_and_repeat(cuda, geom, s_cap):
     p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp(), 5 * NM * 1.05)
     xp = _sorted(cols)
     pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
-    runs = {
-        "cd_sched_tiles": (
-            cd_sched.LAUNCHES,
-            lambda c: cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
-                                           x.pold, p, per_row=c),
-            cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
-                                       x.pold, p),
-            cd_sched.window_items(x.wst, x.wln, x.wmax, x.nb, 2)),
-        "cd_full_grid": (
-            cd_pallas.LAUNCHES,
-            lambda c: cd_pallas.full_grid(xp.packed, xp.reach, pp, per_row=c),
-            cd_pallas.full_grid_plain(xp.packed, xp.reach, pp),
-            cd_pallas.reach_items(xp.reach, 2)),
-    }
-    for name, (launches, kern, want, items) in runs.items():
-        assert int((items.length > 0).sum(1).eq(2).sum()) > 0
-        n0 = launches[name]
-        first, again, whole = kern(2), kern(2), kern(8)
-        torch.cuda.synchronize()
-        assert launches[name] == n0 + 3
-        cd_pallas.compare_outputs(f"{name} {geom} split", first, want)
-        cd_pallas.compare_outputs(f"{name} {geom}", whole, want)
-        for a, b in zip(first, again):
-            assert torch.equal(a, b), f"{name}: two launches differ"
-        # the top-K ids in order, not just as sets
-        assert torch.equal(first[9].cpu(), want[9].cpu())
+    _split_check(
+        "cd_sched_tiles", cd_sched.LAUNCHES,
+        _per_row(lambda **kw: cd_sched.sched_tiles(
+            x.packed, x.wst, x.wln, x.wmax, x.pold, p, **kw)),
+        cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax, x.pold,
+                                   p),
+        cd_sched.window_items(x.wst, x.wln, x.wmax, x.nb, 2))
+    _split_check(
+        "cd_full_grid", cd_pallas.LAUNCHES,
+        _per_row(lambda **kw: cd_pallas.full_grid(xp.packed, xp.reach, pp,
+                                                  **kw)),
+        cd_pallas.full_grid_plain(xp.packed, xp.reach, pp),
+        cd_pallas.reach_items(xp.reach, 2))
+
+
+def test_split_overflow_walker_matches_plain_and_repeat(cuda):
+    """``full_grid_resume`` (``_kernel_resume``: ``cd_sched_tiles`` on
+    the reachable blocks of the overflow rows) on the clump, where rows
+    overflow at ``s_cap=2``."""
+    x = cd_sched.prepare(*_inputs("clump", 4096, cuda), 5 * NM, 1000 * FT,
+                         300.0, torch.full((cd_sched.padded_size(4096, 256),
+                                            8), -1, dtype=torch.int32,
+                                           device=cuda), block=256, s_cap=2)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp(), 5 * NM * 1.05)
+    reach_f = x.reach & x.overflow[:, None]
+    assert int(x.overflow.sum()) > 0
+    _split_check(
+        "cd_full_grid_resume", cd_pallas.LAUNCHES,
+        _per_row(lambda **kw: cd_pallas.full_grid_resume(
+            x.packed, reach_f, x.pold, p, **kw)),
+        cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold, p),
+        cd_pallas.reach_items(reach_f, 2))
+
+
+@pytest.mark.parametrize("cap", [2048, 1024])
+def test_split_cand_walker_matches_plain_and_repeat(cuda, cap):
+    """``cand_tiles`` (``_kernel_cand``: ``cd_cand_items`` on the
+    sub-chunks of each row's candidate table) on eight clusters."""
+    x = _sorted(_inputs("clusters", 8192, cuda))
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    cand, _ = cd_pallas.build_candidates(
+        x.lat, x.lon, x.gs, x.active, x.nb, x.block, cap, 5 * NM, 300.0)
+    _split_check(
+        "cd_cand_tiles", cd_pallas.LAUNCHES,
+        _per_row(lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, **kw)),
+        cd_pallas.cand_tiles_plain(x.packed, cand, p),
+        cd_pallas.cand_items(cand, x.block, 2))
+
+
+def test_mask_items_match_plain(cuda):
+    """``cd_mask_items`` (the work items of a row mask, built on the card)
+    against its plain version on the CPU: starts, lengths, launch order
+    and each row's tiles equal, for masks wider than a CTA and more rows
+    than one CTA of the launch-order kernel."""
+    rng = np.random.default_rng(5)
+    for nb, w, dens in ((7, 5, 0.5), (392, 392, 0.1), (40, 600, 0.7),
+                        (520, 64, 0.3)):
+        mask = torch.as_tensor(rng.random((nb, w)) < dens)
+        mask[0] = False
+        for c in (1, 2, 8, 16):
+            got = [t.cpu() for t in cd_pallas.mask_items(mask.to(cuda), c)]
+            want = cd_pallas.mask_items(mask, c)
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b)
+            valid = torch.arange(w)[None, :] < mask.sum(1)[:, None]
+            assert torch.equal(got[0][valid], want.tiles[valid])

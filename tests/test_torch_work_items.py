@@ -1,17 +1,20 @@
-"""The work items and the row merge of the split walkers ``cd_full_grid``
-and ``cd_sched_tiles``, on the CPU:
+"""The work items and the row merge of the split walkers (``cd_full_grid``,
+``cd_sched_tiles`` on segment blocks and on overflow rows,
+``cd_cand_items``), on the CPU:
 
-* ``cd_pallas.work_items`` (through ``reach_items`` and
-  ``cd_sched.window_items``) covers every reachable tile, or every
-  scheduled segment block, exactly once and in ascending order within a
-  row, with no item longer than ``ceil(r / C)`` tiles and no row cut into
-  more than ``C`` items;
+* ``cd_pallas.work_items`` (through ``reach_items``, ``cand_items`` and
+  ``cd_sched.window_items``) covers every reachable tile, every
+  scheduled segment block, or every candidate sub-chunk that holds an
+  id, exactly once and in ascending order within a row, with no item
+  longer than ``ceil(r / C)`` tiles and no row cut into more than ``C``
+  items;
 * ``cd_pallas.merge_items_plain``, the plain version of the merge kernel
   ``cd_merge_items``, run on the ``row_block_plain`` outputs of a row's
-  items, equals ``row_block_plain`` on the whole row: flags, counts, keep
-  bits, merged partners and the top-K ids in order exactly, the float
+  items, equals the whole row's plain pass: flags, counts, keep bits,
+  merged partners and the top-K ids in order exactly, the float
   reductions within rtol 1e-4 / atol 5e-3 (the items add their sums in
-  another order), for the resume and the plain body.
+  another order), for the resume body (segments, overflow rows) and the
+  plain one (reachable blocks, candidate sub-chunks).
 """
 import numpy as np
 import pytest
@@ -164,9 +167,11 @@ def test_items_of_short_rows(per_row):
     assert int(items.length[int(items.order[-1])].sum()) == 0
 
 
-def merge_rows(packed, items, pold, p):
+def merge_rows(packed, items, pold, p, cand=None):
     """``merge_items_plain`` over the ``row_block_plain`` outputs of every
-    row's items, in the kernels' layout (that of ``rows_plain``)."""
+    row's items, in the kernels' layout (that of ``rows_plain``).  A tile
+    is an intruder block, or with ``cand`` a sub-chunk of B entries of
+    the row's candidate table."""
     nb, _, B = packed.shape
     allf = torch.cat([packed.transpose(0, 1).reshape(cd_pallas._NF, nb * B),
                       packed.new_zeros((cd_pallas._NF, 1))], 1)
@@ -179,8 +184,9 @@ def merge_rows(packed, items, pold, p):
         parts = []
         for k in range(length.shape[1]):
             if length[i, k] > 0:
-                ids = cd_pallas.block_ids(
-                    tiles[i, start[i, k]:start[i, k] + length[i, k]], B)
+                t = tiles[i, start[i, k]:start[i, k] + length[i, k]]
+                ids = (cd_pallas.block_ids(t, B) if cand is None else
+                       cand[i, int(t[0]) * B:(int(t[-1]) + 1) * B].long())
                 parts.append(cd_pallas.row_block_plain(
                     packed[i], allf[:, ids], i * B + lane, ids, po, p))
         splits += len(parts) > 1
@@ -224,4 +230,90 @@ def test_merge_of_items_equals_whole_rows(geom, per_row):
     got, splits = merge_rows(x.packed, items, None, p)
     want = cd_pallas.full_grid_plain(x.packed, x.reach, p)
     assert splits > 0 and int(want[6].sum()) > 0
+    assert_merge_equal(got, want)
+
+
+def cand_inputs(cap):
+    """The eight clusters in Morton order and their candidate table of
+    capacity ``cap``; some rows fit it and some overflow."""
+    x, p = pallas_inputs("clusters")
+    cand, row_over = cd_pallas.build_candidates(
+        x.lat, x.lon, x.gs, x.active, x.nb, x.block, cap, RPZ, TLOOK)
+    assert 0 < int(row_over.sum()) < x.nb
+    return x, p, cand
+
+
+def cand_rows(cand, B):
+    """Row i's sub-chunks that hold an id: ``0 .. ceil(count / B) - 1``,
+    the table being ascending ids, then the sentinel ``nb * B``."""
+    c = cand.numpy()
+    nb = c.shape[0]
+    rows = []
+    for r in c:
+        count = int((r < nb * B).sum())
+        assert (r[:count] < nb * B).all() and (r[count:] == nb * B).all()
+        assert (np.diff(r[:count]) > 0).all()
+        rows.append(np.arange(-(-count // B)))
+    return rows
+
+
+@pytest.mark.parametrize("per_row", [8, 2])
+@pytest.mark.parametrize("cap", [256, 512])
+def test_cand_items_cover_every_sub_chunk(cap, per_row):
+    x, _, cand = cand_inputs(cap)
+    items = cd_pallas.cand_items(cand, BLOCK, per_row)
+    rows = cand_rows(cand, BLOCK)
+    assert items.tiles.shape == (x.nb, cap // BLOCK)
+    assert max(len(r) for r in rows) > 1          # some rows split
+    assert min(len(r) for r in rows) == 0         # an overflow row
+    assert_items_cover(items, rows, per_row)
+
+
+@pytest.mark.parametrize("per_row", [1, 3, 8])
+def test_cand_items_of_short_rows(per_row):
+    """Rows of 0, 1, C - 1, C, C + 1 and 3C sub-chunks, the last one
+    partly sentinel in every other row, and empty rows after them."""
+    nb, B = 3 * per_row + 6, 32
+    w = 3 * per_row
+    sentinel = nb * B
+    cand = np.full((nb, w * B), sentinel, np.int32)
+    rng = np.random.default_rng(per_row)
+    for i, r in enumerate([0, 1, max(per_row - 1, 0), per_row, per_row + 1,
+                           3 * per_row]):
+        count = r * B - (B // 2 if r and i % 2 else 0)
+        cand[i, :count] = np.sort(rng.choice(sentinel, count, replace=False))
+    cand = torch.as_tensor(cand)
+    items = cd_pallas.cand_items(cand, B, per_row)
+    assert_items_cover(items, cand_rows(cand, B), per_row)
+    assert int(items.length[0].sum()) == 0
+    assert int(items.length[int(items.order[-1])].sum()) == 0
+
+
+@pytest.mark.parametrize("per_row", [8, 2])
+@pytest.mark.parametrize("cap", [256, 512])
+def test_merge_of_cand_items_equals_whole_rows(cap, per_row):
+    """The ``cd_cand_items`` form: every conflict pair a candidate, on the
+    sub-chunks of each row's candidate table."""
+    x, p, cand = cand_inputs(cap)
+    items = cd_pallas.cand_items(cand, BLOCK, per_row)
+    got, splits = merge_rows(x.packed, items, None, p, cand=cand)
+    want = cd_pallas.cand_tiles_plain(x.packed, cand, p)
+    assert splits > 0 and int(want[6].sum()) > 0
+    assert_merge_equal(got, want)
+
+
+@pytest.mark.parametrize("per_row", [8, 2])
+@pytest.mark.parametrize("s_cap", [1, 2])
+def test_merge_of_overflow_items_equals_whole_rows(s_cap, per_row):
+    """The ``_kernel_resume`` form: ``cd_sched_tiles`` and the partner
+    merge on the reachable blocks of the regional clump's overflow rows
+    (``s_cap`` small enough that some rows overflow)."""
+    x, p = sched_inputs("regional", s_cap=s_cap)
+    assert int(x.overflow.sum()) > 0
+    reach_f = x.reach & x.overflow[:, None]
+    items = cd_pallas.reach_items(reach_f, per_row)
+    got, splits = merge_rows(x.packed, items, x.pold, p)
+    want = cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold, p)
+    assert splits > 0
+    assert int(want[6].sum()) > 0 and int(want[10].sum()) > 0
     assert_merge_equal(got, want)
