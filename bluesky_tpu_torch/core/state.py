@@ -27,7 +27,6 @@ import torch
 
 from .. import resolve_device
 from ..ops import aero
-from ..ops.cd_pallas import KK
 
 #: worst-case extra padded slots of the sparse backend's stripe-sorted
 #: layout: 32 pad blocks of <= 256 slots plus block rounding
@@ -115,12 +114,14 @@ class PilotArrays(_Struct):
 class AsasArrays(_Struct):
     """Conflict detection & resolution state.
 
-    ``partners_s`` is the sparse backend's partner table in the padded
-    stripe-sorted slot space ([N + SORT_PAD, K] int32, -1 empty);
-    ``sort_perm`` the cached stripe destinations (caller slot -> sorted
-    slot).  ``resopairs`` is the dense backend's [N, N] pair matrix; the
-    port has no dense backend yet, so ``make_state`` allocates it [0, 0]
-    (``state_from_numpy`` carries whatever shape the tree holds)."""
+    ``resopairs`` is the dense backend's [N, N] pair matrix ([0, 0]
+    without ``pair_matrix``); ``partners`` the caller-space [N, K]
+    partner table of the pallas and tiled backends; ``partners_s`` the
+    sparse backend's table in the padded stripe-sorted slot space
+    ([N + SORT_PAD, K] int32, -1 empty); ``sort_perm`` the cached sort
+    (the stripe destinations, caller slot -> sorted slot, for sparse;
+    the Morton permutation, sorted position -> caller slot, for pallas
+    and tiled)."""
     trk: torch.Tensor
     tas: torch.Tensor
     vs: torch.Tensor
@@ -223,10 +224,15 @@ class SimState(_Struct):
 
 
 def make_state(nmax: int = 64, wmax: int = 32, dtype=torch.float32,
-               rng_seed: int = 0, device=None) -> SimState:
+               rng_seed: int = 0, pair_matrix: bool = True,
+               k_partners: int = 8, device=None) -> SimState:
     """Allocate an empty padded simulation state on ``device`` (CUDA by
-    default), with partner tables of ``KK`` = 8 columns.  Padding slots
-    hold benign values so the math stays NaN-free without branching."""
+    default).  ``pair_matrix`` allocates the dense backend's [nmax, nmax]
+    ``resopairs`` (else [0, 0]: large fleets on the blockwise backends
+    pass False); the partner tables take ``k_partners`` columns (the
+    CUDA kernels of the sparse and pallas backends take 8).  Padding
+    slots hold benign values so the math stays NaN-free without
+    branching."""
     dev = resolve_device(device)
     f = lambda: torch.zeros(nmax, dtype=dtype, device=dev)
     full = lambda v: torch.full((nmax,), v, dtype=dtype, device=dev)
@@ -256,12 +262,13 @@ def make_state(nmax: int = 64, wmax: int = 32, dtype=torch.float32,
     asas = AsasArrays(
         trk=f(), tas=f(), vs=f(), alt=f(),
         active=b(), inconf=b(), tcpamax=f(),
-        resopairs=torch.zeros((0, 0), dtype=torch.bool, device=dev),
-        partners=torch.full((nmax, KK), -1, **i32),
+        resopairs=torch.zeros((nmax, nmax) if pair_matrix else (0, 0),
+                              dtype=torch.bool, device=dev),
+        partners=torch.full((nmax, k_partners), -1, **i32),
         asasn=f(), asase=f(), noreso=b(), resooff=b(),
         nconf_cur=torch.zeros((), **i32), nlos_cur=torch.zeros((), **i32),
         sort_perm=torch.arange(nmax, **i32),
-        partners_s=torch.full((nmax + SORT_PAD, KK), -1, **i32))
+        partners_s=torch.full((nmax + SORT_PAD, k_partners), -1, **i32))
     tab = lambda v: torch.full((nmax, wmax), v, dtype=dtype, device=dev)
     route = RouteArrays(
         wplat=tab(89.99), wplon=tab(0.0), wpalt=tab(-999.0),

@@ -1,7 +1,8 @@
 """The simulation step on tensors.
 
 Port of ``bluesky_tpu/core/step.py`` for the slice the port runs: one
-device, ``cd_backend="sparse"`` or ``"pallas"``, the MVP resolver.
+device, the four CD backends (``dense``, ``tiled``, ``pallas``,
+``sparse``), the MVP resolver.
 Pipeline order per step (reference traffic.py:383-423): atmosphere ->
 ADS-B -> FMS (gated) -> ASAS CD&R (gated) -> AP/ASAS arbitration ->
 performance update -> envelope limits -> airspeed -> groundspeed (wind)
@@ -25,37 +26,40 @@ from .asas import AsasConfig
 from .noise import NoiseConfig
 from .state import SimState
 
-#: SimConfig.cd_backend values of the JAX package that the port does not
-#: run yet, with the roadmap item that ports each
-_NOT_PORTED = {"dense": "A2", "tiled": "A2"}
-
-
 class SimConfig(NamedTuple):
     """Simulation configuration (the fields of the JAX ``SimConfig`` that
-    the ported slice reads; the mesh, shard-mode, differentiable, in-scan
-    telemetry/refresh and fingerprint options are not ported)."""
+    the port reads, with its defaults; the mesh, shard-mode,
+    differentiable, in-scan telemetry/refresh and fingerprint options are
+    not ported).  ``cd_backend``: ``"dense"`` materialises [N, N] pair
+    matrices (fine to ~16k aircraft; needs ``Traffic(pair_matrix=True)``),
+    ``"tiled"`` streams [cd_block, cd_block] tiles with an [N, K] partner
+    table, ``"pallas"`` is the tiled scheme on the CUDA tile kernels and
+    ``"sparse"`` the segment-scheduled kernels with the stripe sort."""
     simdt: float = 0.05          # [s] (reference simulation.py:15)
     fms_dt: float = autopilot.FMS_DT
     asas: AsasConfig = AsasConfig()
     noise: NoiseConfig = NoiseConfig()
     use_wind: bool = False
-    cd_backend: str = "sparse"   # "sparse" or "pallas" (ported so far)
-    cd_block: int = 256
+    cd_backend: str = "dense"
+    cd_block: int = 512
 
 
-def check_config(cfg: SimConfig):
-    """Raise for a configuration the port cannot run."""
+def check_config(cfg: SimConfig, state: SimState):
+    """Raise for a configuration the port cannot run on ``state`` (the
+    one-device checks of the JAX step)."""
     if not cfg.asas.swasas:
         return
-    if cfg.cd_backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"cd_backend {cfg.cd_backend!r} is not ported yet (ROADMAP.md "
-            f"{_NOT_PORTED[cfg.cd_backend]}); use cd_backend='sparse' or "
-            "'pallas'")
-    if cfg.cd_backend not in ("sparse", "pallas"):
+    if cfg.cd_backend not in ("dense", "tiled", "pallas", "sparse"):
         raise ValueError(
             f"Unknown SimConfig.cd_backend {cfg.cd_backend!r}; expected "
             "'dense', 'tiled', 'pallas' or 'sparse'.")
+    if cfg.cd_backend == "dense" and state.asas.resopairs.numel() == 0:
+        raise ValueError(
+            "State was allocated with pair_matrix=False (no [N,N] "
+            "resopairs) but SimConfig.cd_backend is 'dense'. Use "
+            "SimConfig(cd_backend='tiled') or allocate "
+            "Traffic(pair_matrix=True).")
+    asasmod.require_resolver(cfg.asas)
 
 
 def fms_due(state: SimState, fms_dt: float) -> bool:
@@ -77,7 +81,7 @@ def _next_seed(seed: int) -> int:
 
 def step(state: SimState, cfg: SimConfig) -> SimState:
     """Advance the simulation by one simdt."""
-    check_config(cfg)
+    check_config(cfg, state)
     dt = state.simt.dtype.type
     simt = state.simt
     simdt = float(dt(cfg.simdt))
@@ -101,9 +105,12 @@ def step(state: SimState, cfg: SimConfig) -> SimState:
 
     # ---------- ASAS CD&R, gated at dtasas ----------
     if cfg.asas.swasas and asas_due(state):
-        impl = asasmod.impl_for_backend(cfg.cd_backend)
-        state, _rd = asasmod.update_tiled(state, cfg.asas,
-                                          block=cfg.cd_block, impl=impl)
+        if cfg.cd_backend == "dense":
+            state, _cd = asasmod.update(state, cfg.asas)
+        else:
+            impl = asasmod.impl_for_backend(cfg.cd_backend)
+            state, _rd = asasmod.update_tiled(state, cfg.asas,
+                                              block=cfg.cd_block, impl=impl)
         state = state.replace(asas_tnext=state.asas_tnext
                               + dt(cfg.asas.dtasas))
 
@@ -145,7 +152,7 @@ def step(state: SimState, cfg: SimConfig) -> SimState:
 
 def run_steps(state: SimState, cfg: SimConfig, nsteps: int) -> SimState:
     """Advance ``nsteps`` steps."""
-    check_config(cfg)
+    check_config(cfg, state)
     for _ in range(nsteps):
         state = step(state, cfg)
     return state

@@ -1,11 +1,14 @@
-"""Host-side Traffic facade: create over the device state.
+"""Host-side Traffic facade: create, delete and lookup over the device
+state.
 
-Port of ``Traffic.__init__``, ``create`` and ``flush`` of
-``bluesky_tpu/core/traffic.py``: the tensor ``SimState`` plus host-only
-bookkeeping (callsigns, types, the id -> slot map).  Creations are queued
-and ``flush`` writes them into their slots in one batch per field (in
-place: the state's tensors belong to this object).  Deletion, trails,
-hooks and ``creconfs`` come with later slices of the port.
+Port of ``bluesky_tpu/core/traffic.py``: the tensor ``SimState`` plus
+host-only bookkeeping (callsigns, types, the id -> slot map, trails and
+the create/delete/permute hooks).  Creations are queued and ``flush``
+writes them into their slots in one batch per field; ``delete`` is a
+mask flip that also purges the slot from every pair and partner table.
+Both write in place: the state's tensors belong to this object.  Slots
+are stable (the reference compacts arrays, traffic.py:365-381), which
+keeps the [N, N] pair matrix valid.
 """
 import os
 from typing import List, Optional
@@ -16,7 +19,9 @@ import torch
 from .. import resolve_device, settings
 from ..models import perf_coeffs
 from ..ops import aero
+from ..ops import geo
 from .state import SimState, make_state
+from .trails import Trails
 
 
 class Traffic:
@@ -25,12 +30,16 @@ class Traffic:
 
     def __init__(self, nmax: int = 64, wmax: int = 32, dtype=torch.float32,
                  openap_path: Optional[str] = None, rng_seed: int = 0,
-                 area=(-1.0, 1.0, -1.0, 1.0), device=None):
+                 area=(-1.0, 1.0, -1.0, 1.0), pair_matrix: bool = True,
+                 k_partners: int = 8, device=None):
         self.device = resolve_device(device)
         self.nmax = nmax
         self.wmax = wmax
         self.dtype = dtype
+        self.pair_matrix = pair_matrix
+        self.k_partners = k_partners
         self.state: SimState = make_state(nmax, wmax, dtype, rng_seed,
+                                          pair_matrix, k_partners,
                                           device=self.device)
         model = settings.performance_model
         if openap_path is None and model == "openap":
@@ -45,10 +54,44 @@ class Traffic:
         self._id2slot = {}
         self._pending = []
         self._autoid = 0
+        # Observers of an old -> new slot map (``apply_slot_permutation``;
+        # defined before the trails, which subscribe at construction)
+        self.permute_hooks = []
+        self.trails = Trails(self)
+        # Observers of deleted slot indices and of created slot arrays
+        self.delete_hooks = []
+        self.create_hooks = []
+
+    def apply_slot_permutation(self, newslot):
+        """Re-bucket the host bookkeeping after the device state moved
+        aircraft between slots (``newslot[old] = new``): remap ids and
+        types and fan out to ``permute_hooks``."""
+        newslot = np.asarray(newslot)
+        src = np.empty(self.nmax, dtype=np.intp)      # new -> old slot
+        src[newslot] = np.arange(self.nmax, dtype=np.intp)
+        self.ids = np.asarray(self.ids, dtype=object)[src].tolist()
+        self.types = np.asarray(self.types, dtype=object)[src].tolist()
+        self._id2slot = {i: int(newslot[s])
+                         for i, s in self._id2slot.items()}
+        for hook in self.permute_hooks:
+            hook(newslot)
 
     @property
     def ntraf(self) -> int:
         return len(self._id2slot) + len(self._pending)
+
+    def id2idx(self, acid):
+        """Slot index of a callsign; -1 if unknown (traffic.py:485-501).
+        ``#`` or ``*`` is the last created aircraft (-2 while creations
+        are queued)."""
+        if not isinstance(acid, str):
+            return [self.id2idx(a) for a in acid]
+        if acid in ('#', '*'):
+            if self._pending:
+                return -2
+            slots = [s for s, i in enumerate(self.ids) if i is not None]
+            return slots[-1] if slots else -1
+        return self._id2slot.get(acid.upper(), -1)
 
     def create(self, n=1, actype="B744", acalt=None, acspd=None, dest=None,
                aclat=None, aclon=None, achdg=None, acid=None):
@@ -166,6 +209,110 @@ class Traffic:
 
         put(st.route.nwp, 0)
         put(st.route.iactwp, -1)
+        self.trails.create(slots, lat, lon, t=float(st.simt))
+        for hook in self.create_hooks:
+            hook(slots)
+
+    def delete(self, idx):
+        """Deactivate slot(s) (cf. traffic.py:365-381), purging them from
+        ``resopairs``, from the caller-space ``partners`` (their rows and
+        every reference to them) and from the sorted-space ``partners_s``
+        at ``sort_perm[idx]``, so a freed slot reused by ``create`` before
+        the next ASAS interval carries no stale pair."""
+        self.flush()
+        idx = [int(i) for i in np.atleast_1d(np.asarray(idx))]
+        for i in idx:
+            if self.ids[i] is not None:
+                del self._id2slot[self.ids[i]]
+                self.ids[i] = None
+                self.types[i] = None
+        st = self.state
+        t = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+        st.ac.active[t] = False
+        st.asas.active[t] = False
+        rp = st.asas.resopairs
+        if rp.numel():
+            rp[t, :] = False
+            rp[:, t] = False
+        partners = st.asas.partners
+        partners[t, :] = -1
+        partners.masked_fill_(torch.isin(partners, t.to(torch.int32)), -1)
+        sidx = st.asas.sort_perm[t].long()
+        partners_s = st.asas.partners_s
+        partners_s[sidx, :] = -1
+        partners_s.masked_fill_(
+            torch.isin(partners_s, sidx.to(torch.int32)), -1)
+        for hook in self.delete_hooks:
+            hook(idx)
+        return True
+
+    def reset(self):
+        """Empty the traffic: a fresh state with a new seed from the
+        facade's generator, cleared bookkeeping and trails."""
+        seed = int(self._rng.integers(0, 2**31 - 1))
+        self.state = make_state(self.nmax, self.wmax, self.dtype, seed,
+                                self.pair_matrix, self.k_partners,
+                                device=self.device)
+        self.ids = [None] * self.nmax
+        self.types = [None] * self.nmax
+        self._id2slot = {}
+        self._pending = []
+        self._autoid = 0
+        self.trails.reset()
+
+    def creconfs(self, acid, actype, targetidx, dpsi, cpa, tlosh,
+                 dh=None, tlosv=None, spd=None, pzr_nm=5.0, pzh_ft=1000.0):
+        """Create an aircraft on a synthetic conflict course with the
+        target slot (reference traffic.py:314-363): heading change
+        ``dpsi`` [deg], closest approach ``cpa`` [nm] after ``tlosh`` [s],
+        optionally ``dh`` [m] above it with a vertical LoS after
+        ``tlosv``, at ground speed ``spd`` [m/s]."""
+        self.flush()
+        ac = self.state.ac
+        getf = lambda a: float(a[targetidx])
+        latref, lonref = getf(ac.lat), getf(ac.lon)
+        altref = getf(ac.alt)
+        trkref = np.radians(getf(ac.trk))
+        gsref = getf(ac.gs)
+        vsref = getf(ac.vs)
+        cpa_m = cpa * aero.nm
+        pzr = pzr_nm * aero.nm
+        pzh = pzh_ft * aero.ft
+
+        trk = trkref + np.radians(dpsi)
+        gs = gsref if spd is None else spd
+        if dh is None:
+            acalt = altref
+            acvs = 0.0
+        else:
+            acalt = altref + dh
+            tlosv = tlosh if tlosv is None else tlosv
+            acvs = vsref - np.sign(dh) * (abs(dh) - pzh) / tlosv
+
+        gsn, gse = gs * np.cos(trk), gs * np.sin(trk)
+        vreln = gsref * np.cos(trkref) - gsn
+        vrele = gsref * np.sin(trkref) - gse
+        vrel = np.sqrt(vreln * vreln + vrele * vrele)
+        drelcpa = tlosh * vrel + (0 if cpa_m > pzr
+                                  else np.sqrt(pzr * pzr - cpa_m * cpa_m))
+        dist = np.sqrt(drelcpa * drelcpa + cpa_m * cpa_m)
+        rd = drelcpa / dist
+        rx = cpa_m / dist
+        brn = np.degrees(np.arctan2(-rx * vreln + rd * vrele,
+                                    rd * vreln + rx * vrele))
+        # the projection in the state's dtype, on the host
+        h = lambda v: torch.tensor(v, dtype=self.dtype)
+        aclat, aclon = (float(x) for x in geo.qdrpos(
+            h(latref), h(lonref), h(brn), h(dist / aero.nm)))
+        acspd = float(_np_vtas2cas(np.hypot(gsn, gse), acalt))
+        achdg = float(np.degrees(np.arctan2(gse, gsn)))
+        self.create(1, actype, acalt, acspd, None, aclat, aclon, achdg, acid)
+        self.flush()
+        s = self._id2slot[acid.upper()]
+        ac = self.state.ac
+        ac.vs[s] = acvs
+        ac.selalt[s] = altref
+        ac.selvs[s] = acvs
 
 
 # --- Host-side NumPy twins of the aero conversions used at creation time

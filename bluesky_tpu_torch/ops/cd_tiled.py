@@ -1,17 +1,28 @@
-"""Blockwise conflict-detection pieces on tensors.
+"""Blockwise conflict detection and MVP accumulation on tensors.
 
-Port of the parts of ``bluesky_tpu/ops/cd_tiled.py`` the sparse and
-pallas backends run: the per-aircraft trig columns, the delta-polynomial
-pair geometry of one tile (``tile_geometry``, which the plain tile body
-and the CUDA kernels compute identically), the exact block reachability
-bound, the Morton slot order with its sorted-space runner
-(``spatial_permutation``, ``run_spatially_sorted``) and the host-side
-partner-table resume-nav (``topk_partners``, ``partner_keep``,
-``merge_partners``).  The lax-scan backend itself
-(``detect_resolve_tiled``) comes with the ``tiled`` backend.
+Port of ``bluesky_tpu/ops/cd_tiled.py``: the per-aircraft trig columns,
+the delta-polynomial pair geometry of one tile (``tile_geometry``, which
+the plain tile bodies and the CUDA kernels compute identically), the
+exact block reachability bound, the Morton slot order with its
+sorted-space runner (``spatial_permutation``, ``run_spatially_sorted``),
+the host-side partner-table resume-nav (``topk_partners``,
+``partner_keep``, ``merge_partners``) and ``detect_resolve_tiled``, the
+CD&R of ``SimConfig(cd_backend="tiled")``.
+
+The JAX ``detect_resolve_tiled`` is a ``lax.scan`` over column blocks
+with a ``lax.cond`` skip per tile, compiled into one program.  Eager
+PyTorch pays a launch per operation, so a tile-by-tile loop would cost
+~100 launches per tile (millions per interval at 100k aircraft).  Here
+the ``[nb, nb]`` block reachability is read to the host once per call,
+and each row block meets the slabs of all its reachable column blocks at
+once: the per-pair formulas of the JAX tile on ``[B, nc * B]`` operands,
+one eager iteration per row block, no host sync inside the loop.  No
+kernel: the JAX function reaches no Pallas kernel either.
 """
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import cr_mvp, geo, kmath
@@ -29,6 +40,10 @@ class RowConflictData(NamedTuple):
     nlos: torch.Tensor       # scalar int32
     topk_idx: torch.Tensor   # [N, K] int32
     topk_tin: torch.Tensor   # [N, K]
+
+
+def _pad1(a, npad, value):
+    return a if npad == 0 else torch.cat([a, a.new_full((npad,), value)])
 
 
 #: per-aircraft columns consumed by tile_geometry, in slab order
@@ -257,3 +272,169 @@ def block_reachability(lat, lon, gs, active, nb, block, rpz, tlookahead,
     summ = block_summaries(lat, lon, gs, active, nb, block, alt=alt, vs=vs)
     return reachability_from_summaries(summ, summ, rpz, tlookahead,
                                        hpz=hpz if alt is not None else None)
+
+
+#: reachable tiles and eager row iterations of the last
+#: ``detect_resolve_tiled`` call (host counts, read by ``chip_smoke.py``)
+LAST_CALL = {"tiles": 0, "iterations": 0, "nb": 0}
+
+
+def _first_k(urg, kk):
+    """The ``kk`` smallest entries of each row of ``urg`` [B, C] in
+    (value, column) order, ties to the lower column, as the JAX
+    per-tile ``lax.top_k`` merged tile by tile in ascending column order
+    selects them.  ``torch.topk`` gives the values but no tie order, so
+    the ties at the k-th value are taken by column rank.  Returns
+    ``(values [B, kk], columns [B, kk])``."""
+    C = urg.shape[1]
+    kth = torch.topk(urg, kk, dim=1, largest=False).values.amax(1, keepdim=True)
+    below = urg < kth
+    at = urg == kth
+    need = kk - below.sum(1, keepdim=True)
+    take = below | (at & (torch.cumsum(at, 1) <= need))
+    pos = torch.arange(C, device=urg.device).expand_as(urg)
+    cols = torch.topk(torch.where(take, pos, C), kk, dim=1,
+                      largest=False, sorted=True).values
+    vals, order = torch.sort(torch.gather(urg, 1, cols), dim=1, stable=True)
+    return vals, torch.gather(cols, 1, order)
+
+
+def detect_resolve_tiled(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
+                         active, noreso, rpz, hpz, tlookahead, mvpcfg,
+                         block=512, k_partners=8, prefilter=True,
+                         spatial_sort=True, perm=None):
+    """One pass over all aircraft pairs in [block, block] tiles, MVP
+    sums accumulated per ownship (reference StateBasedCD.py:7-103 and
+    MVP.py:14-143; JAX ``cd_tiled.py:402-659``).  Arguments as
+    ``cd.detect`` plus the MVP inputs; returns a ``RowConflictData``.
+
+    ``prefilter`` skips the tiles the exact block reachability bound
+    rules out; ``spatial_sort`` runs in the Morton order ``perm`` (sorted
+    position -> caller slot; computed when None).  The partner candidates
+    are the ``min(k_partners, block)`` smallest entry times of each row,
+    ties to the lower sorted-space column, as the JAX scan's running
+    top-K selects them.  Only the MVP sums are ported (the JAX
+    ``reso="mvp"``; Eby and Swarm are ROADMAP.md A3)."""
+    n = lat.shape[0]
+    if spatial_sort and n > block:
+        return run_spatially_sorted(
+            functools.partial(detect_resolve_tiled, block=block,
+                              k_partners=k_partners, prefilter=prefilter,
+                              spatial_sort=False),
+            lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
+            rpz, hpz, tlookahead, mvpcfg, perm=perm)
+    block = min(block, max(n, 1))
+    kk = min(k_partners, block)
+    nb = -(-n // block)
+    # One tile caps the candidates at block = n exactly (at most n - 1
+    # partners exist); across tiles fewer than K a tile would drop some.
+    if nb > 1 and block < k_partners:
+        raise ValueError(
+            f"block ({block}) must be >= k_partners ({k_partners}) "
+            "when the pair space spans multiple tiles")
+    npad = nb * block - n
+    dtype, dev = lat.dtype, lat.device
+    nt = nb * block
+
+    trkrad = geo.radians(_pad1(trk, npad, 0.0))
+    gsp = _pad1(gs, npad, 0.0)
+    cols = precompute_trig(_pad1(lat, npad, 0.0), _pad1(lon, npad, 0.0))
+    cols.update(alt=_pad1(alt, npad, 0.0), vs=_pad1(vs, npad, 0.0),
+                gse=_pad1(gseast, npad, 0.0), gsn=_pad1(gsnorth, npad, 0.0),
+                u=gsp * torch.sin(trkrad), v=gsp * torch.cos(trkrad))
+    names = tuple(cols)
+    slab = torch.stack([cols[k] for k in names])             # [F, nt]
+    act = _pad1(active, npad, False)
+    nor = _pad1(noreso, npad, False)
+
+    if prefilter:
+        reach = block_reachability(cols["lat"], cols["lon"], gsp, act, nb,
+                                   block, rpz, tlookahead)
+        reach_h = reach.cpu().numpy()             # the one host sync
+    else:
+        reach_h = np.ones((nb, nb), bool)
+    rows = [np.flatnonzero(r) for r in reach_h]
+    starts = np.cumsum([0] + [len(r) for r in rows])
+    blocks_dev = torch.as_tensor(np.concatenate(rows + [np.zeros(0, np.int64)]),
+                                 dtype=torch.int64, device=dev)
+    LAST_CALL.update(tiles=int(starts[-1]), nb=nb,
+                     iterations=int(sum(len(r) > 0 for r in rows)))
+
+    big = 1e9
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    inconf = torch.zeros(nt, dtype=torch.bool, device=dev)
+    tcpamax = torch.zeros(nt, dtype=dtype, device=dev)
+    sums = torch.zeros((3, nt), dtype=dtype, device=dev)
+    tsolv = torch.full((nt,), big, dtype=dtype, device=dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    topk_tin = torch.full((nt, kk), big, dtype=dtype, device=dev)
+    topk_idx = torch.full((nt, kk), -1, dtype=torch.int32, device=dev)
+    lane = torch.arange(block, device=dev)
+    r2 = rpz * rpz
+    for ri in range(nb):
+        if starts[ri] == starts[ri + 1]:
+            continue
+        rs = slice(ri * block, (ri + 1) * block)
+        ids = (blocks_dev[starts[ri]:starts[ri + 1], None] * block
+               + lane).reshape(-1)                           # [C]
+        o = {k: slab[j, rs][:, None] for j, k in enumerate(names)}
+        c_all = slab[:, ids]
+        c = {k: c_all[j][None, :] for j, k in enumerate(names)}
+
+        pairmask = (act[rs][:, None] & act[ids][None, :]
+                    & ((ri * block + lane)[:, None] != ids[None, :]))
+        excl = torch.where(pairmask, zero, zero + big)
+        dist0, sinqdr, cosqdr = tile_geometry(o, c)
+        dist = dist0 + excl
+        dx = dist * sinqdr
+        dy = dist * cosqdr
+        du = c["u"] - o["u"]
+        dv = c["v"] - o["v"]
+        dv2 = du * du + dv * dv
+        dv2 = torch.where(torch.abs(dv2) < 1e-6, zero + 1e-6, dv2)
+        rvrel = torch.rsqrt(dv2)
+        tcpa = -(du * dx + dv * dy) * (rvrel * rvrel) + excl
+        dcpa2 = dist * dist - tcpa * tcpa * dv2
+        swhorconf = dcpa2 < r2
+        dtinhor = torch.sqrt(torch.clamp_min(r2 - dcpa2, 0.0)) * rvrel
+        tinhor = torch.where(swhorconf, tcpa - dtinhor, zero + 1e8)
+        touthor = torch.where(swhorconf, tcpa + dtinhor, zero - 1e8)
+
+        drel_v = c["alt"] - o["alt"]
+        dalt = drel_v + excl
+        vrel_v = c["vs"] - o["vs"]
+        dvs = torch.where(torch.abs(vrel_v) < 1e-6, zero + 1e-6, vrel_v)
+        nrdvs = torch.div(zero - 1.0, dvs)    # one divide for both
+        tcrosshi = (dalt + hpz) * nrdvs
+        tcrosslo = (dalt - hpz) * nrdvs
+        tinconf = torch.maximum(torch.minimum(tcrosshi, tcrosslo), tinhor)
+        toutconf = torch.minimum(torch.maximum(tcrosshi, tcrosslo), touthor)
+        swconfl = (swhorconf & (tinconf <= toutconf) & (toutconf > 0.0)
+                   & (tinconf < tlookahead) & pairmask)
+        swlos = (dist < rpz) & (torch.abs(dalt) < hpz) & pairmask
+
+        dve_p, dvn_p, dvv_p, tsolv_p = cr_mvp.pair_contrib_trig(
+            sinqdr, cosqdr, dist, tcpa, tinconf, drel_v, c["gse"] - o["gse"],
+            c["gsn"] - o["gsn"], vrel_v, mvpcfg)
+        mvpmask = swconfl & ~nor[ids][None, :]
+        maskf = mvpmask.to(dtype)
+
+        inconf[rs] = swconfl.any(1)
+        tcpamax[rs] = torch.clamp_min((tcpa * swconfl).amax(1), 0.0)
+        sums[:, rs] = torch.stack([(dve_p * maskf).sum(1),
+                                   (dvn_p * maskf).sum(1),
+                                   (dvv_p * maskf).sum(1)])
+        tsolv[rs] = torch.where(mvpmask, tsolv_p, zero + big).amin(1)
+        counts += torch.stack([swconfl.sum(), swlos.sum()])
+        vals, at = _first_k(torch.where(swconfl, tinconf, zero + big), kk)
+        topk_tin[rs] = vals
+        topk_idx[rs] = ids[at].to(torch.int32)
+
+    topk_idx = torch.where(topk_tin < big, topk_idx,
+                           torch.full_like(topk_idx, -1))
+    counts = counts.to(torch.int32)
+    return RowConflictData(
+        inconf=inconf[:n], tcpamax=tcpamax[:n], sum_dve=sums[0, :n],
+        sum_dvn=sums[1, :n], sum_dvv=sums[2, :n], tsolv=tsolv[:n],
+        nconf=counts[0], nlos=counts[1], topk_idx=topk_idx[:n],
+        topk_tin=topk_tin[:n])

@@ -1,12 +1,15 @@
 """Modified Voltage Potential (MVP) conflict resolution on tensors.
 
-Port of the large-N half of ``bluesky_tpu/ops/cr_mvp.py``: the per-pair
-displacement from the bearing's sin/cos (``pair_contrib_trig``, which
-the plain tile body uses), the per-aircraft command synthesis from the
-accumulated sums (``resolve_from_sums``) and the resume-nav keep
-predicate (``resume_keep_core``) with its flat-earth displacement
-(``resume_displacement``).  The priority rules act on the dense pair
-matrices only and come with the dense backend.
+Port of ``bluesky_tpu/ops/cr_mvp.py``: the per-pair displacement
+(``pair_contrib_trig`` from the bearing's sin/cos, which the tile bodies
+use, and ``pair_contrib_core`` / ``pair_contributions`` on the dense
+``[N, N]`` matrices), the dense ``resolve`` with the NORESO/RESOOFF masks
+and the FF1-3/LAY1-2 priority rules, the per-aircraft command synthesis
+from the accumulated sums (``resolve_from_sums``), and resume-nav: the
+keep predicate (``resume_keep_core``) with its flat-earth displacement
+(``resume_displacement``) and the dense ``resume_nav`` on ``resopairs``.
+The differentiable-mode options of the JAX ``resolve`` (``wconf``,
+``smooth``) are not ported.
 """
 from typing import NamedTuple
 
@@ -24,13 +27,41 @@ class MVPConfig(NamedTuple):
     swresospd: bool = False
     swresohdg: bool = False
     swresovert: bool = False
+    swprio: bool = False         # priority rules on (PRIORULES)
+    priocode: str = "FF1"        # FF1/FF2/FF3/LAY1/LAY2 (MVP.py:235-300)
+
+
+def pair_contributions(cd, alt, gseast, gsnorth, vs, cfg):
+    """Per-pair MVP displacement of all [N, N] pairs of a
+    ``cd.ConflictData`` (MVP.py:149-231): (dve, dvn, dvv, tsolv), the
+    contribution of pair (i, j) to ownship i; garbage where
+    ``cd.swconfl`` is False."""
+    return pair_contrib_core(
+        cd.qdr, cd.dist, cd.tcpa, cd.tinconf,
+        alt[None, :] - alt[:, None],
+        gseast[None, :] - gseast[:, None],
+        gsnorth[None, :] - gsnorth[:, None],
+        vs[None, :] - vs[:, None], cfg)
+
+
+def pair_contrib_core(qdr_deg, dist, tcpa, tlos, drel_v, vrel_e, vrel_n,
+                      vrel_v, cfg):
+    """MVP pair math from the bearing in degrees, with the erratum
+    evaluated by a real arcsine, as the JAX dense path passes
+    ``jnp.arcsin``."""
+    qdr = geo.radians(qdr_deg)
+    return pair_contrib_trig(torch.sin(qdr), torch.cos(qdr), dist, tcpa,
+                             tlos, drel_v, vrel_e, vrel_n, vrel_v, cfg,
+                             arcsin=torch.asin)
 
 
 def pair_contrib_trig(sin_qdr, cos_qdr, dist, tcpa, tlos,
-                      drel_v, vrel_e, vrel_n, vrel_v, cfg):
-    """MVP pair math with the bearing as (sin, cos) (MVP.py:149-231);
-    the non-grazing erratum cos(asin r1 - asin r2) by its algebraic
-    identity.  Returns (dve, dvn, dvv, tsolv) of pair (own, intruder)."""
+                      drel_v, vrel_e, vrel_n, vrel_v, cfg, arcsin=None):
+    """MVP pair math with the bearing as (sin, cos) (MVP.py:149-231).
+    The non-grazing erratum is cos(arcsin r1 - arcsin r2) when
+    ``arcsin`` is given (the dense path) and its algebraic identity
+    otherwise (the tile bodies); the two round differently.  Returns
+    (dve, dvn, dvv, tsolv) of pair (own, intruder)."""
     drel_e = sin_qdr * dist
     drel_n = cos_qdr * dist
     dcpa_e = drel_e + vrel_e * tcpa
@@ -49,11 +80,17 @@ def pair_contrib_trig(sin_qdr, cos_qdr, dist, tcpa, tlos,
     dvn = (ih * dcpa_n) / (abstcpa * dabsh)
 
     apply_err = (cfg.rpz_m < dist) & (dabsh < dist)
-    ratio1 = torch.clamp(cfg.rpz_m / safe_dist, -1.0, 1.0)
+    # one correctly rounded division, as JAX computes it (a Python float
+    # over a tensor would be reciprocal-then-multiply)
+    ratio1 = torch.clamp(torch.div(dist.new_tensor(cfg.rpz_m), safe_dist),
+                         -1.0, 1.0)
     ratio2 = torch.clamp(dabsh / safe_dist, -1.0, 1.0)
-    erratum = (torch.sqrt(torch.clamp_min(1.0 - ratio1 * ratio1, 0.0))
-               * torch.sqrt(torch.clamp_min(1.0 - ratio2 * ratio2, 0.0))
-               + ratio1 * ratio2)
+    if arcsin is not None:
+        erratum = torch.cos(arcsin(ratio1) - arcsin(ratio2))
+    else:
+        erratum = (torch.sqrt(torch.clamp_min(1.0 - ratio1 * ratio1, 0.0))
+                   * torch.sqrt(torch.clamp_min(1.0 - ratio2 * ratio2, 0.0))
+                   + ratio1 * ratio2)
     erratum = torch.where(apply_err, erratum, torch.ones_like(erratum))
     erratum = torch.where(torch.abs(erratum) < 1e-9,
                           torch.full_like(erratum, 1e-9), erratum)
@@ -75,6 +112,61 @@ def pair_contrib_trig(sin_qdr, cos_qdr, dist, tcpa, tlos,
     dvv = torch.where(has_dvs, (iv / tsolv_safe) * (-torch.sign(vrel_v)),
                       iv / tsolv_safe)
     return dve, dvn, dvv, tsolv
+
+
+def _prio_masks(priocode, ci, mixed):
+    """The priority rules (MVP.py:235-300) as (apply, vertical apply)
+    masks of the directional pair (i, j) from the cruise flags ``ci`` of
+    the ownships and ``mixed`` (one of the two cruises): "ownship i
+    solves" keeps row i's contribution."""
+    if priocode == "FF2":
+        # cruiser has priority: the climbing/descending one solves
+        apply = torch.where(mixed, ~ci, True)
+        return apply, apply
+    if priocode == "FF3":
+        # climber/descender has priority: the cruiser solves, in mixed
+        # pairs horizontally only
+        apply = torch.where(mixed, ci, True)
+        return apply, apply & ~mixed
+    if priocode == "LAY1":
+        # all horizontal; the climbing/descending one solves in mixed pairs
+        return torch.where(mixed, ~ci, True), torch.zeros_like(mixed)
+    if priocode == "LAY2":
+        # all horizontal; the cruiser solves in mixed pairs
+        return torch.where(mixed, ci, True), torch.zeros_like(mixed)
+    raise ValueError(f"Unknown priocode {priocode!r}; expected "
+                     "FF1/FF2/FF3/LAY1/LAY2")
+
+
+def resolve(cd, alt, gseast, gsnorth, vs, trk, gs, selalt, ap_vs, prev_alt,
+            vmin, vmax, vsmin, vsmax, cfg, noreso=None, resooff=None):
+    """Per-aircraft MVP commands from the dense conflict matrices of
+    ``cd`` (MVP.py:14-143): nobody avoids a ``noreso`` intruder,
+    ``resooff`` aircraft do not resolve, and with ``cfg.swprio`` the
+    ``cfg.priocode`` rule masks each pair's contribution.  Returns
+    (newtrk, newgs, newvs, newalt, asase, asasn)."""
+    dve_p, dvn_p, dvv_p, tsolv_p = pair_contributions(
+        cd, alt, gseast, gsnorth, vs, cfg)
+    mask = cd.swconfl
+    if noreso is not None:
+        mask = mask & ~noreso[None, :]
+    maskf = mask.to(dve_p.dtype)
+    vmaskf = maskf
+    if cfg.swprio and cfg.priocode != "FF1":
+        cruise = torch.abs(vs) < 0.1        # cruising: |vs| < 0.1 m/s
+        ci = cruise[:, None]
+        apply, vapply = _prio_masks(cfg.priocode, ci, ci ^ cruise[None, :])
+        maskf = maskf * apply
+        vmaskf = maskf * vapply
+
+    sum_dve = (dve_p * maskf).sum(1)
+    sum_dvn = (dvn_p * maskf).sum(1)
+    sum_dvv = (dvv_p * vmaskf).sum(1)
+    tsolv = torch.where(mask, tsolv_p, torch.full_like(tsolv_p, 1e9)).amin(1)
+    return resolve_from_sums(
+        sum_dve, sum_dvn, sum_dvv, tsolv, alt, gseast, gsnorth, vs, trk, gs,
+        selalt, ap_vs, prev_alt, vmin, vmax, vsmin, vsmax, cfg,
+        resooff=resooff)
 
 
 def resolve_from_sums(sum_dve, sum_dvn, sum_dvv, tsolv,
@@ -149,3 +241,21 @@ def resume_keep_core(dist_e, dist_n, vrel_e, vrel_n, trk_i, trk_j,
     hor_los = hdist < rpz
     is_bouncing = (torch.abs(trk_i - trk_j) < 30.0) & (hdist < rpz_m)
     return (~past_cpa | hor_los | is_bouncing) & alive
+
+
+def resume_nav(resopairs, lat, lon, gseast, gsnorth, trk, active_ac, rpz,
+               rpz_m):
+    """Resume-nav on the dense pair matrix (reference asas.py:409-471): a
+    pair of ``resopairs`` [N, N] stays engaged while the keep predicate
+    holds.  Returns (new_resopairs, asas_active), ``asas_active[i]`` =
+    any pair (i, j) still engaged.  (The JAX function's unused ``swlos``
+    argument is dropped.)"""
+    dist_e, dist_n = resume_displacement(lat[:, None], lon[:, None],
+                                         lat[None, :], lon[None, :])
+    vrel_e = gseast[None, :] - gseast[:, None]
+    vrel_n = gsnorth[None, :] - gsnorth[:, None]
+    alive = active_ac[:, None] & active_ac[None, :]
+    keep = resume_keep_core(dist_e, dist_n, vrel_e, vrel_n, trk[:, None],
+                            trk[None, :], alive, rpz, rpz_m)
+    new_resopairs = resopairs & keep
+    return new_resopairs, new_resopairs.any(1)

@@ -1,6 +1,7 @@
 """WGS-84 geodesy on tensors: the part of ``bluesky_tpu/ops/geo.py`` the
-simulation step uses (local radius and the haversine bearing/distance of
-the autopilot)."""
+simulation uses (local radius, the haversine bearing/distance of the
+autopilot, the all-pairs matrices of dense conflict detection with the
+reference's radius-at-sum quirk, and the dead-reckoning ``qdrpos``)."""
 import math
 
 import torch
@@ -46,6 +47,21 @@ def _mean_radius_scalar(latd1, latd2):
     return torch.where(latd1 * latd2 >= 0.0, res1, res2)
 
 
+def _mean_radius_matrix(latd1, latd2):
+    """Hemisphere-aware radius with the reference *matrix* quirks
+    (reference geo.py:117-128): the same-hemisphere radius at ``lat1 +
+    lat2`` (not the average) and a 1e-6 deg epsilon in the denominator
+    where lat1 == 0."""
+    res1 = rwgs84(latd1 + latd2)
+    r1 = rwgs84(latd1)
+    r2 = rwgs84(latd2)
+    eps = torch.where(latd1 == 0.0, 1e-6, 0.0).to(latd1.dtype)
+    denom = torch.abs(latd1) + torch.abs(latd2) + eps
+    res2 = 0.5 * (torch.abs(latd1) * (r1 + A_WGS84)
+                  + torch.abs(latd2) * (r2 + A_WGS84)) / denom
+    return torch.where(latd1 * latd2 < 0.0, res2, res1)
+
+
 def _haversine_qdr_dist(latd1, lond1, latd2, lond2, r):
     """Bearing [deg] and distance [m] given radius r (exact atan2)."""
     lat1 = radians(latd1)
@@ -70,3 +86,42 @@ def qdrdist(latd1, lond1, latd2, lond2):
     r = _mean_radius_scalar(latd1, latd2)
     qdr, d = _haversine_qdr_dist(latd1, lond1, latd2, lond2, r)
     return qdr, d / nm
+
+
+def latlondist(latd1, lond1, latd2, lond2):
+    """Distance [m] between two positions (reference geo.py:165-208)."""
+    r = _mean_radius_scalar(latd1, latd2)
+    return _haversine_qdr_dist(latd1, lond1, latd2, lond2, r)[1]
+
+
+def qdrdist_matrix(latd1, lond1, latd2, lond2):
+    """All-pairs bearing [deg] / distance [nm], row i from pos1[i], column
+    j to pos2[j] (reference geo.py:110-162, with its radius-at-sum
+    quirk).  Inputs are 1-D; outputs [len(pos1), len(pos2)]."""
+    latd1, lond1 = latd1[:, None], lond1[:, None]
+    latd2, lond2 = latd2[None, :], lond2[None, :]
+    r = _mean_radius_matrix(latd1, latd2)
+    qdr, d = _haversine_qdr_dist(latd1, lond1, latd2, lond2, r)
+    return qdr, d / nm
+
+
+def latlondist_matrix(latd1, lond1, latd2, lond2):
+    """All-pairs distance [nm] (reference geo.py:211-248, whose code
+    returns nm although its docstring says metres)."""
+    return qdrdist_matrix(latd1, lond1, latd2, lond2)[1]
+
+
+def qdrpos(latd1, lond1, qdr, dist):
+    """Project a position: start [deg], bearing [deg], distance [nm] ->
+    (lat2, lon2) [deg], great-circle dead reckoning on the local WGS-84
+    sphere (reference geo.py:263-285)."""
+    R = rwgs84(latd1) / nm
+    lat1 = radians(latd1)
+    lon1 = radians(lond1)
+    dr = dist / R
+    qdrr = radians(qdr)
+    lat2 = torch.asin(torch.sin(lat1) * torch.cos(dr)
+                      + torch.cos(lat1) * torch.sin(dr) * torch.cos(qdrr))
+    lon2 = lon1 + torch.atan2(torch.sin(qdrr) * torch.sin(dr) * torch.cos(lat1),
+                              torch.cos(dr) - torch.sin(lat1) * torch.sin(lat2))
+    return degrees(lat2), degrees(lon2)

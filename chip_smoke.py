@@ -36,13 +36,25 @@ Phases, in order; any failure exits non-zero before the last line:
    the launch counts taken over exactly that run; then the same
    timings for the pallas kernels, and the candidate kernel's once more
    at a capacity most rows fit.  Every kernel timed at the main path's
-   shapes is checked there as in phase 3 first.
+   shapes is checked there as in phase 3 first;
+6. dense path: 10,000 aircraft of the 230 nm regional circle in 10,240
+   slots, ``Traffic(pair_matrix=True)``, under ``SimConfig(cd_backend=
+   "dense")`` (the default configuration of both packages): 20 steps,
+   twice, then one ASAS interval and one step without CD timed alone;
+7. tiled path: phase 4's scene under ``SimConfig(cd_backend="tiled",
+   cd_block=512)``: the Morton refresh and 20 steps, twice, then one ASAS
+   interval and one refresh timed alone, with the reachable tiles and the
+   eager row iterations of an interval (at most nb);
+8. dense against tiled on the card in float64 (N=2,048 regional), and
+   the dense CD&R on the card against the same call on the CPU.
+   Phases 6-8 run no kernel: the JAX package computes them in plain
+   XLA, the port in plain PyTorch.
 
 Every kernel also logs its work items, longest item and the time of its
 row merge alone (K2 on the clump as well, K4 at both capacities); every
 walker's registers and spills come from the ``-Xptxas -v`` report of the
 build.  The card's power draw, clocks and temperature are logged before
-phase 3 and after phases 4 and 5.  It prints one JSON line describing
+phase 3 and after each later phase.  It prints one JSON line describing
 every kernel, then the ``nvidia-smi`` name and power limit, then the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -462,16 +474,18 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse"):
+def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse",
+               cd_block=256):
     """The main path's scene and configuration: ``n_ac`` aircraft of the
     continental geometry of ``__graft_entry__._build_state`` in ``nmax``
-    slots, built with the port's ``Traffic.create/flush`` on ``dev``,
-    under ``SimConfig(cd_backend=cd_backend, cd_block=256)``.  Returns
-    ``(state, cfg)``."""
+    slots, built with the port's ``Traffic(pair_matrix=False)
+    .create/flush`` on ``dev`` (no [N, N] ``resopairs``: 10 GB at this
+    size), under ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)``.
+    Returns ``(state, cfg)``."""
     from bluesky_tpu_torch.core import step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
     rng = np.random.default_rng(seed)
-    traf = Traffic(nmax=nmax, device=dev)
+    traf = Traffic(nmax=nmax, pair_matrix=False, device=dev)
     lat = rng.uniform(35.0, 60.0, n_ac)
     lon = rng.uniform(-10.0, 30.0, n_ac)
     hdg = rng.uniform(0.0, 360.0, n_ac)
@@ -480,7 +494,26 @@ def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse"):
     traf.create(n_ac, "B744", alt, spd, None, lat, lon, hdg)
     traf.flush()
     return traf.state, stepmod.SimConfig(cd_backend=cd_backend,
-                                         cd_block=256)
+                                         cd_block=cd_block)
+
+
+def regional_scene(dev, n_ac=10_000, nmax=10_240, seed=0, cd_backend="dense",
+                   cd_block=512):
+    """The dense path's scene: ``n_ac`` aircraft in the 230 nm regional
+    circle of ``columns`` (the JAX ``cd_tiled.py`` docstring calls 10,000
+    there ~3x the density of the busiest real airspace) in ``nmax``
+    slots, built with ``Traffic(pair_matrix=True)`` on ``dev``, under
+    ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)``.  Returns
+    ``(state, cfg)``."""
+    from bluesky_tpu_torch.core import step as stepmod
+    from bluesky_tpu_torch.core.traffic import Traffic
+    c = columns(n_ac, "regional", seed)
+    traf = Traffic(nmax=nmax, pair_matrix=True, device=dev)
+    traf.create(n_ac, "B744", c["alt"], c["gs"], None, c["lat"], c["lon"],
+                c["trk"])
+    traf.flush()
+    return traf.state, stepmod.SimConfig(cd_backend=cd_backend,
+                                         cd_block=cd_block)
 
 
 def reset_launches():
@@ -500,14 +533,15 @@ def launch_counts():
             "cd_pallas._kernel_cand": cd_pallas.LAUNCHES["cd_cand_tiles"]}
 
 
-def drive(dev, backend, n_ac, nmax):
-    """Build ``main_scene`` for ``backend`` and run the sort refresh plus
-    20 steps, twice, with every launch count set to 0 just before.
-    Returns ``(state, cfg, chunk seconds)``."""
+def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
+    """Build ``scene`` (``main_scene``; ``kw`` to it) for ``backend`` and
+    run the sort refresh (none for dense) plus 20 steps, twice, with every
+    launch count set to 0 just before.  Returns ``(state, cfg, chunk
+    seconds)``."""
     import torch
     from bluesky_tpu_torch.core import asas, step as stepmod
     t0 = time.perf_counter()
-    state, cfg = main_scene(dev, n_ac, nmax, cd_backend=backend)
+    state, cfg = scene(dev, n_ac, nmax, cd_backend=backend, **kw)
     torch.cuda.synchronize()
     log(f"{backend}: {n_ac} aircraft in {nmax} slots built in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -516,8 +550,10 @@ def drive(dev, backend, n_ac, nmax):
     chunk_s = []
     for _ in range(2):
         t0 = time.perf_counter()
-        state = asas.refresh_spatial_sort(state, cfg.asas, block=256,
-                                          impl=backend)
+        if backend != "dense":
+            state = asas.refresh_spatial_sort(
+                state, cfg.asas, block=cfg.cd_block,
+                impl=asas.impl_for_backend(backend))
         state = stepmod.run_steps(state, cfg, 20)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
@@ -819,6 +855,150 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     return report
 
 
+def dense_path(dev, n_ac=10_000, nmax=10_240):
+    """Phase 6: the dense step (``SimConfig(cd_backend="dense")``, the
+    JAX package's default) on ``regional_scene``: 20 steps, twice, then
+    one ASAS interval (``asas.update``) and one step without the CD
+    timed on their own.  No kernel runs on this path."""
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    state, cfg, chunk_s = drive(dev, "dense", n_ac, nmax,
+                                scene=regional_scene)
+    log(f"dense: kernel launches {launch_counts()} (none expected)")
+    check_run("dense", state, cfg, {}, chunk_s, n_ac)
+    log(f"dense: engaged pairs in resopairs "
+        f"{int(state.asas.resopairs.sum())}")
+    no_cd = cfg._replace(asas=cfg.asas._replace(swasas=False))
+    log(f"dense: ms per ASAS interval (cuda_ms, 3 runs) "
+        f"{cuda_ms(lambda: asas.update(state, cfg.asas), 3):.4g}")
+    time_layers("dense", {
+        "ASAS interval": lambda: asas.update(state, cfg.asas),
+        "step without CD": lambda: stepmod.step(state, no_cd)})
+
+
+def tiled_path(dev, n_ac=100_000, nmax=100_352):
+    """Phase 7: the tiled step (``SimConfig(cd_backend="tiled",
+    cd_block=512)``) on ``main_scene``: the Morton refresh and 20 steps,
+    twice; then one ASAS interval (``update_tiled(impl="lax")``) and one
+    refresh timed on their own, with the reachable tiles and the eager
+    row iterations of an interval (at most nb).  No kernel runs on this
+    path."""
+    from bluesky_tpu_torch.core import asas
+    from bluesky_tpu_torch.ops import cd_tiled
+    state, cfg, chunk_s = drive(dev, "tiled", n_ac, nmax, cd_block=512)
+    log(f"tiled: kernel launches {launch_counts()} (none expected)")
+    check_run("tiled", state, cfg, {}, chunk_s, n_ac)
+    last = dict(cd_tiled.LAST_CALL)
+    if not 0 < last["iterations"] <= last["nb"]:
+        raise AssertionError(f"tiled path: {last['iterations']} eager "
+                             f"iterations for nb={last['nb']}")
+    log(f"tiled: per interval {last['tiles']} reachable tiles of "
+        f"{last['nb'] ** 2} ({last['tiles'] / last['nb']:.4g} per row "
+        f"block), {last['iterations']} eager row iterations, nb "
+        f"{last['nb']}")
+    log(f"tiled: ms per ASAS interval (cuda_ms, 3 runs) "
+        f"{cuda_ms(lambda: asas.update_tiled(state, cfg.asas, block=512, impl='lax'), 3):.4g}")
+    time_layers("tiled", {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
+                                                   block=512, impl="lax"),
+        "sort refresh": lambda: asas.refresh_spatial_sort(
+            state, cfg.asas, block=512, impl="lax")})
+
+
+def check_dense_tiled(dev, n=2048):
+    """Phase 8: the dense and tiled CD&R against each other on the card,
+    in float64, at ``n`` aircraft of the regional geometry (block 256,
+    eight row blocks): ``inconf``, ``nconf`` and ``nlos`` equal,
+    ``tcpamax`` and the three MVP sums within rtol 1e-6 / atol 1e-4 (the
+    tolerances of tests/test_cd_tiled.py).  Then the same dense call on
+    the card and on the CPU: flags equal, floats within 1e-9 relative
+    (each pair matrix relative to its value plus the scale of the terms
+    it cancels; the MVP sums and commands with a 1e-9 absolute floor for
+    values near zero)."""
+    import torch
+    from bluesky_tpu_torch.ops import cd, cd_tiled, cr_mvp
+    c = columns(n, "regional", seed=2)
+    trk = np.radians(c["trk"])
+    c.update(gse=c["gs"] * np.sin(trk), gsn=c["gs"] * np.cos(trk),
+             noreso=np.arange(n) % 97 == 0)
+    rpz, hpz, tlook = 5 * NM, 1000 * FT, 300.0
+    mvp = cr_mvp.MVPConfig(rpz_m=rpz * 1.05, hpz_m=hpz * 1.05,
+                           tlookahead=tlook)
+
+    def cols(d):
+        t = lambda k: torch.as_tensor(c[k], device=d)
+        return [t(k).double() for k in ("lat", "lon", "trk", "gs", "alt",
+                                         "vs", "gse", "gsn")] \
+            + [t("active"), t("noreso")]
+
+    def dense(d):
+        lat, lon, trk_, gs, alt, vs, gse, gsn, act, nor = cols(d)
+        out = cd.detect(lat, lon, trk_, gs, alt, vs, act, rpz, hpz, tlook)
+        parts = cr_mvp.pair_contributions(out, alt, gse, gsn, vs, mvp)
+        m = (out.swconfl & ~nor[None, :]).double()
+        sums = [(p * m).sum(1) for p in parts[:3]]
+        cmds = cr_mvp.resolve(out, alt, gse, gsn, vs, trk_, gs, alt,
+                              torch.zeros_like(vs), alt, 51.4, 92.6, -15.24,
+                              15.24, mvp, noreso=nor)
+        return out, sums, cmds
+
+    out, sums, cmds = dense(dev)
+    rd = cd_tiled.detect_resolve_tiled(*cols(dev), rpz, hpz, tlook, mvp,
+                                       block=256)
+    h = lambda a: a.detach().cpu().numpy()
+    nconf, nlos = int(out.swconfl.sum()), int(out.swlos.sum())
+    if not (np.array_equal(h(out.inconf), h(rd.inconf))
+            and nconf == int(rd.nconf) > 0 and nlos == int(rd.nlos)):
+        raise AssertionError(
+            f"dense vs tiled on the card: nconf {nconf} / {int(rd.nconf)}, "
+            f"nlos {nlos} / {int(rd.nlos)}, inconf differs in "
+            f"{int((h(out.inconf) != h(rd.inconf)).sum())} rows")
+    worst = 0.0
+    for name, a, b in (("tcpamax", rd.tcpamax, out.tcpamax),
+                       ("sum_dve", rd.sum_dve, sums[0]),
+                       ("sum_dvn", rd.sum_dvn, sums[1]),
+                       ("sum_dvv", rd.sum_dvv, sums[2])):
+        np.testing.assert_allclose(h(a), h(b), rtol=1e-6, atol=1e-4,
+                                   err_msg=f"dense vs tiled {name}")
+        worst = max(worst, float(np.abs(h(a) - h(b)).max()))
+    log(f"check dense vs tiled (float64, N={n}, card): nconf {nconf}, nlos "
+        f"{nlos}, {int(out.inconf.sum())} ownships in conflict equal; "
+        f"tcpamax and MVP sums within rtol 1e-6 / atol 1e-4 (largest "
+        f"difference {worst:.3g})")
+
+    out_c, sums_c, cmds_c = dense("cpu")
+    for k in ("swconfl", "swlos", "inconf"):
+        if not np.array_equal(h(getattr(out, k)), h(getattr(out_c, k))):
+            raise AssertionError(f"dense card vs CPU: {k} differs")
+    act = c["active"]
+    pm = act[:, None] & act[None, :] & ~np.eye(n, dtype=bool)
+    # each matrix relative to its value plus the scale of the terms it
+    # cancels: 180 deg for the bearing, dist / vrel for the times (|tcpa|
+    # <= dist / vrel), dist^2 for dcpa2
+    dist = h(out_c.dist)[pm]
+    u, v = c["gse"], c["gsn"]
+    vrel = np.sqrt(np.maximum((u[None, :] - u[:, None]) ** 2
+                              + (v[None, :] - v[:, None]) ** 2, 1e-6))[pm]
+    scale = dict(qdr=180.0, dist=0.0, tcpa=dist / vrel, tinconf=dist / vrel,
+                 toutconf=dist / vrel, dcpa2=dist ** 2)
+    worst = 0.0
+    for k, s in scale.items():
+        g, w = h(getattr(out, k))[pm], h(getattr(out_c, k))[pm]
+        rel = float((np.abs(g - w) / (np.abs(w) + s)).max())
+        worst = max(worst, rel)
+        if rel > 1e-9:
+            raise AssertionError(f"dense card vs CPU: {k} differs by {rel:.3g}"
+                                 " relative")
+    for name, a, b in zip(("tcpamax", "sum_dve", "sum_dvn", "sum_dvv",
+                           "trk", "gs", "vs", "alt", "asase", "asasn"),
+                          [out.tcpamax] + sums + list(cmds),
+                          [out_c.tcpamax] + sums_c + list(cmds_c)):
+        np.testing.assert_allclose(h(a), h(b), rtol=1e-9, atol=1e-9,
+                                   err_msg=f"dense card vs CPU {name}")
+    log(f"check dense card vs CPU (float64, N={n}): flags equal, pair "
+        f"matrices within {worst:.3g} relative to their scale, tcpamax, MVP "
+        f"sums and commands within rtol 1e-9 / atol 1e-9")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -851,6 +1031,11 @@ def main():
     for path, more in ((sparse_path, (k2_regional,)), (pallas_path, ())):
         t0 = time.perf_counter()
         report += path(dev, errs, regs, *more)
+        log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
+        log_card(f"after {path.__name__}")
+    for path in (dense_path, tiled_path, check_dense_tiled):
+        t0 = time.perf_counter()
+        path(dev)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
         log_card(f"after {path.__name__}")
 

@@ -2,11 +2,13 @@
 """Where a chunk of the PyTorch/CUDA port's step spends its time on the
 card: one 20-step chunk (sort refresh + ``run_steps``) of the main
 path of ``chip_smoke.py`` (its ``main_scene``: 100,000 continental
-aircraft) under ``torch.profiler``, after a warm-up chunk, for the
-sparse or the pallas CD backend.
+aircraft, ``pair_matrix=False``) under ``torch.profiler``, after a
+warm-up chunk, for the sparse, pallas or tiled CD backend (block 256,
+256 and 512), or for the dense backend on ``regional_scene`` (pass
+``--n 10000 --nmax 10240``; block 512, no sort refresh).
 
     python3 scripts/torch_step_profile.py [--n 100000] [--nmax 100352] \
-        [--backend sparse|pallas]
+        [--backend sparse|pallas|tiled|dense]
 
 Prints the chunk's wall time, the summed device time of its kernels and
 their share of the wall time (one stream, so the sum is the busy time),
@@ -36,23 +38,27 @@ def main():
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--nmax", type=int, default=100_352)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--backend", choices=("sparse", "pallas"),
-                    default="sparse")
+    ap.add_argument("--backend", choices=("sparse", "pallas", "tiled",
+                                          "dense"), default="sparse")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
     from bluesky_tpu_torch.core import asas, step as stepmod
-    from chip_smoke import main_scene
+    from chip_smoke import main_scene, regional_scene
 
     n = args.n
-    state, cfg = main_scene(torch.device("cuda"), n, args.nmax,
-                            cd_backend=args.backend)
+    scene = regional_scene if args.backend == "dense" else main_scene
+    block = 512 if args.backend in ("tiled", "dense") else 256
+    state, cfg = scene(torch.device("cuda"), n, args.nmax,
+                       cd_backend=args.backend, cd_block=block)
 
     def chunk(st):
-        st = asas.refresh_spatial_sort(st, cfg.asas, block=256,
-                                       impl=args.backend)
+        if args.backend != "dense":
+            st = asas.refresh_spatial_sort(
+                st, cfg.asas, block=block,
+                impl=asas.impl_for_backend(args.backend))
         return stepmod.run_steps(st, cfg, args.steps)
 
     state = chunk(state)                            # warm-up (builds too)

@@ -29,10 +29,11 @@ NSTEPS = 2000
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
-    """Both steps run 2,000 times on a 4-aircraft scene; after every step
-    the clocks (simt, fms_t0, asas_tnext) are bit-equal, so every FMS and
-    ASAS decision was the same.  The port's CD interval is replaced by a
-    counter (the gate, not the CD, is under test)."""
+    """Both steps run 2,000 times on a 4-aircraft scene under the default
+    ``SimConfig()`` (dense in both packages); after every step the clocks
+    (simt, fms_t0, asas_tnext) are bit-equal, so every FMS and ASAS
+    decision was the same.  The port's CD intervals (dense and blockwise)
+    are replaced by a counter (the gate, not the CD, is under test)."""
     lat, lon, hdg, alt, spd = scene(4, seed=2)
     jt = JTraffic(nmax=8, dtype=getattr(jnp, dtype), pair_matrix=True)
     jt.create(4, "B744", alt, spd, None, lat, lon, hdg)
@@ -43,14 +44,16 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
     runs = []
 
-    def fake_update_tiled(state, cfg, block=512, impl="lax"):
+    def fake_update(state, cfg, block=512, impl="lax"):
         runs.append(float(state.simt))
         return state, None
-    monkeypatch.setattr(tasas, "update_tiled", fake_update_tiled)
+    monkeypatch.setattr(tasas, "update", fake_update)
+    monkeypatch.setattr(tasas, "update_tiled", fake_update)
 
     js, ts = jt.state, tt.state
     jcfg = jstep.SimConfig()                      # dense: cheap at N=4
-    tcfg = tstep.SimConfig()                      # sparse
+    tcfg = tstep.SimConfig()
+    assert tcfg.cd_backend == jcfg.cd_backend == "dense"
     fms = 0
     for _ in range(NSTEPS):
         js = jstep.run_steps(js, jcfg, 1)
@@ -72,8 +75,13 @@ def test_import_without_jax():
         "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import bluesky_tpu_torch as p\n"
+        "seen = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    seen.add(m.name)\n"
+        "need = {'bluesky_tpu_torch.ops.cd', 'bluesky_tpu_torch.core.trails',\n"
+        "        'bluesky_tpu_torch.core.traffic'}\n"
+        "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -96,14 +104,27 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
     assert TTraffic(nmax=8, device="cpu").state.device.type == "cpu"
 
 
-def test_unported_backends_raise():
+@pytest.mark.parametrize("backend", ["dense", "tiled", "pallas", "sparse"])
+def test_unported_backends_raise(backend):
+    """Every backend runs; the EBY, SWARM and SSD resolvers raise on each
+    of them (step and the interval itself), naming ROADMAP A3; the dense
+    backend on a state without ``resopairs`` raises as in JAX."""
     ts = TTraffic(nmax=8, device="cpu").state
-    for backend in ("dense", "tiled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.step(ts, tstep.SimConfig(cd_backend=backend))
-    for impl in ("sparse", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tasas.update_tiled(ts, tasas.AsasConfig(reso_method="EBY"),
-                               impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tasas.refresh_spatial_sort(ts, tasas.AsasConfig(), impl="lax")
+    impl = tasas.impl_for_backend(backend)
+    for method in ("EBY", "SWARM", "SSD"):
+        acfg = tasas.AsasConfig(reso_method=method)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+            tstep.step(ts, tstep.SimConfig(asas=acfg, cd_backend=backend))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+            if backend == "dense":
+                tasas.update(ts, acfg)
+            else:
+                tasas.update_tiled(ts, acfg, impl=impl)
+    tstep.step(ts, tstep.SimConfig(cd_backend=backend))
+    no_pairs = TTraffic(nmax=8, pair_matrix=False, device="cpu").state
+    cfg = tstep.SimConfig(cd_backend=backend)
+    if backend == "dense":
+        with pytest.raises(ValueError, match="pair_matrix"):
+            tstep.step(no_pairs, cfg)
+    else:
+        tstep.step(no_pairs, cfg)

@@ -1,10 +1,11 @@
 """The port's main path against the JAX package: ``refresh_spatial_sort``
-plus ``run_steps`` under ``SimConfig(cd_backend=...)`` for the sparse and
-the pallas backends on the same numpy-seeded scene, in float32, the JAX
-Pallas kernels in interpret mode and the port's kernels through their
-plain PyTorch versions (CPU).  The partner table compared is the one
-each backend keeps: the sorted-space ``partners_s`` (sparse) or the
-caller-space ``partners`` (pallas).
+plus ``run_steps`` under ``SimConfig(cd_backend=...)`` for each of the
+four backends on the same numpy-seeded scene, in float32, the JAX Pallas
+kernels in interpret mode and the port's kernels through their plain
+PyTorch versions (CPU).  The pair state compared is the one each backend
+keeps: the [N, N] ``resopairs`` (dense, equal), the sorted-space
+``partners_s`` (sparse) or the caller-space ``partners`` (tiled,
+pallas), as partner sets.
 
 Tolerances: integer and bool fields (conflict and LoS counts, the
 in-conflict and ASAS-engaged flags, the partner sets) are equal; lat/lon
@@ -28,27 +29,41 @@ NSTEPS = 21
 BLOCK = 64
 
 
-#: the partner table each backend keeps
-TABLE = {"sparse": "asas.partners_s", "pallas": "asas.partners"}
+#: the pair state each backend keeps
+TABLE = {"dense": "asas.resopairs", "tiled": "asas.partners",
+         "sparse": "asas.partners_s", "pallas": "asas.partners"}
 
 
 def _run_jax(state, cfg):
-    s = jasas.refresh_spatial_sort(state, cfg.asas, block=BLOCK,
-                                   impl=cfg.cd_backend)
+    s = jasas.refresh_spatial_sort(
+        state, cfg.asas, block=BLOCK,
+        impl=jasas.impl_for_backend(cfg.cd_backend))
     return jstep.run_steps(s, cfg, NSTEPS)
 
 
 def _run_torch(state, cfg):
-    s = tasas.refresh_spatial_sort(state, cfg.asas, block=BLOCK,
-                                   impl=cfg.cd_backend)
+    s = tasas.refresh_spatial_sort(
+        state, cfg.asas, block=BLOCK,
+        impl=tasas.impl_for_backend(cfg.cd_backend))
     return tstep.run_steps(s, cfg, NSTEPS)
 
 
-@pytest.fixture(scope="module", params=["sparse", "pallas"])
+def assert_tables_equal(backend, j, t):
+    """The dense ``resopairs`` equal; a partner table's rows equal as
+    sets.  Fails on an empty table too."""
+    if backend == "dense":
+        assert t.sum() > 0
+        np.testing.assert_array_equal(t, j)
+    else:
+        assert (t >= 0).sum() > 0
+        assert partner_sets(j) == partner_sets(t)
+
+
+@pytest.fixture(scope="module", params=["dense", "tiled", "sparse", "pallas"])
 def stepped(request):
     """150 aircraft in 256 slots, 21 steps (two ASAS intervals)."""
     backend = request.param
-    jstate, tstate = build_pair(256, 150)
+    jstate, tstate = build_pair(256, 150, pair_matrix=backend == "dense")
     jcfg = jstep.SimConfig(cd_backend=backend, cd_block=BLOCK)
     tcfg = tstep.SimConfig(cd_backend=backend, cd_block=BLOCK)
     j0 = jax_tree_to_numpy(jstate)
@@ -75,8 +90,7 @@ def test_counts_and_flags_equal(stepped):
               "asas.active", "ac.active", "asas.sort_perm", "perf.phase",
               "ac.swhdgsel", "ac.swaltsel"):
         np.testing.assert_array_equal(j[k], t[k], err_msg=k)
-    assert (t[stepped.table] >= 0).sum() > 0
-    assert partner_sets(j[stepped.table]) == partner_sets(t[stepped.table])
+    assert_tables_equal(stepped.backend, j[stepped.table], t[stepped.table])
     assert float(j["simt"]) == float(t["simt"])
     assert float(j["asas_tnext"]) == float(t["asas_tnext"])
     assert float(j["fms_t0"]) == float(t["fms_t0"])
@@ -106,19 +120,19 @@ def test_state_round_trip_after_steps(stepped):
 
 def test_refresh_remaps_the_partner_table(stepped):
     """A second sort refresh, now with engaged partners, gives the same
-    sort and partner table in both packages: the sparse refresh moves the
-    sorted-space table to the new layout, the pallas refresh leaves the
-    caller-space table as it is."""
+    sort and pair state in both packages: the sparse refresh moves the
+    sorted-space table to the new layout, the Morton refresh of the
+    other backends leaves the caller-space table (or ``resopairs``) as it
+    is."""
     jout, tout = stepped.jout, stepped.tout
-    impl = stepped.backend
-    cfg = tstep.SimConfig(cd_backend=impl, cd_block=BLOCK).asas
+    impl = tasas.impl_for_backend(stepped.backend)
+    cfg = tstep.SimConfig(cd_backend=stepped.backend, cd_block=BLOCK).asas
     j = jax_tree_to_numpy(jasas.refresh_spatial_sort(
         jout, jstep.SimConfig().asas, block=BLOCK, impl=impl))
     t = state_to_numpy(tasas.refresh_spatial_sort(tout, cfg, block=BLOCK,
                                                   impl=impl))
-    assert (t[stepped.table] >= 0).sum() > 0
     np.testing.assert_array_equal(t["asas.sort_perm"], j["asas.sort_perm"])
-    assert partner_sets(t[stepped.table]) == partner_sets(j[stepped.table])
-    if impl == "pallas":
+    assert_tables_equal(stepped.backend, j[stepped.table], t[stepped.table])
+    if impl != "sparse":
         np.testing.assert_array_equal(t[stepped.table],
                                       stepped.t[stepped.table])

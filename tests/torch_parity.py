@@ -44,16 +44,20 @@ def scene(n, geom="box", seed=0):
     return lat, lon, hdg, alt, spd
 
 
-def build_pair(nmax, n, geom="box", seed=0, dtype="float32"):
+def build_pair(nmax, n, geom="box", seed=0, dtype="float32",
+               pair_matrix=False):
     """The same scene created through the JAX ``Traffic`` and the port's
-    ``Traffic`` (on the CPU).  Returns ``(jax_state, torch_state)``."""
+    ``Traffic`` (on the CPU), with the [N, N] ``resopairs`` of the dense
+    backend if ``pair_matrix``.  Returns ``(jax_state, torch_state)``."""
     import jax.numpy as jnp
     import torch
     from bluesky_tpu.core.traffic import Traffic as JTraffic
     from bluesky_tpu_torch.core.traffic import Traffic as TTraffic
     lat, lon, hdg, alt, spd = scene(n, geom, seed)
-    jt = JTraffic(nmax=nmax, dtype=getattr(jnp, dtype), pair_matrix=False)
-    tt = TTraffic(nmax=nmax, dtype=getattr(torch, dtype), device="cpu")
+    jt = JTraffic(nmax=nmax, dtype=getattr(jnp, dtype),
+                  pair_matrix=pair_matrix)
+    tt = TTraffic(nmax=nmax, dtype=getattr(torch, dtype),
+                  pair_matrix=pair_matrix, device="cpu")
     for t in (jt, tt):
         t.create(n, "B744", alt, spd, None, lat, lon, hdg)
         t.flush()
