@@ -1,23 +1,25 @@
 """Airborne Separation Assurance: one CD&R interval on tensors.
 
-Port of the single-device MVP part of ``bluesky_tpu/core/asas.py``:
+Port of the single-device part of ``bluesky_tpu/core/asas.py``:
 ``AsasConfig``; the dense interval (``update``: ``cd.detect`` on
-``[N, N]`` matrices, ``cr_mvp.resolve``, the ``resopairs`` bookkeeping
-and ``cr_mvp.resume_nav``) and ``detect_only``; the spatial-sort refresh
-(``refresh_spatial_sort``: the stripe sort of ``impl="sparse"``, the
-Morton order of ``impl="pallas"`` and ``"lax"``); and the blockwise
-interval (``update_tiled``): detect, resolve with MVP from the
-accumulated pair sums, then resume-nav, in-kernel on the sorted-space
-table ``partners_s`` (sparse) or on the host side of the caller-space
-table ``partners`` (pallas, lax).  The EBY, SWARM and SSD resolvers and
-the spatial/tiles shard modes are not ported yet (``ROADMAP.md`` §A) and
-raise ``NotImplementedError``.
+``[N, N]`` matrices, one of the resolvers MVP, EBY, SWARM or SSD, the
+``resopairs`` bookkeeping and ``cr_mvp.resume_nav``) and
+``detect_only``; the spatial-sort refresh (``refresh_spatial_sort``:
+the stripe sort of ``impl="sparse"``, the Morton order of
+``impl="pallas"`` and ``"lax"``); and the blockwise interval
+(``update_tiled``): detect with the resolver's pair sums (MVP, Eby, or
+MVP plus the Swarm neighbour sums), resolve from the sums (SSD from the
+partner table), then resume-nav, in-kernel on the sorted-space table
+``partners_s`` (sparse) or on the host side of the caller-space table
+``partners`` (pallas, lax).  The spatial/tiles shard modes are not
+ported yet (``ROADMAP.md`` §A).
 """
 from typing import NamedTuple
 
 import torch
 
-from ..ops import aero, cd as cdops, cd_pallas, cd_sched, cd_tiled, cr_mvp
+from ..ops import aero, cd as cdops, cd_pallas, cd_sched, cd_tiled, cr_eby, \
+    cr_mvp, cr_ssd, cr_swarm, geo
 from .state import SimState
 
 
@@ -39,7 +41,7 @@ class AsasConfig(NamedTuple):
     swresohdg: bool = False
     swresovert: bool = False
     reso_on: bool = True         # conflict resolution enabled (RESO MVP/OFF)
-    reso_method: str = "MVP"     # only MVP is ported
+    reso_method: str = "MVP"     # MVP / EBY / SWARM / SSD
     swprio: bool = False         # PRIORULES on/off
     priocode: str = "FF1"        # FF1/FF2/FF3/LAY1/LAY2
     sort_every: int = 30         # CD intervals between Morton re-sorts
@@ -57,22 +59,13 @@ class AsasConfig(NamedTuple):
         return self.hpz * self.resofacv
 
 
-#: resolvers of the JAX package the port does not run yet
-_RESOLVERS_NOT_PORTED = ("EBY", "SWARM", "SSD")
+#: the resolvers of ``AsasConfig.reso_method``
+RESOLVERS = ("MVP", "EBY", "SWARM", "SSD")
 
 
 def require_resolver(cfg: AsasConfig):
-    """Raise for a resolver the port cannot run: EBY, SWARM and SSD are
-    not ported yet (``NotImplementedError``), any other name is unknown
-    (``ValueError``)."""
-    if not cfg.reso_on:
-        return
-    method = cfg.reso_method.upper()
-    if method in _RESOLVERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"resolver {cfg.reso_method!r} is not ported yet: only MVP is "
-            "(ROADMAP.md A3)")
-    if method != "MVP":
+    """Raise ``ValueError`` for an unknown ``reso_method``."""
+    if cfg.reso_on and cfg.reso_method.upper() not in RESOLVERS:
         raise ValueError(
             f"Unknown AsasConfig.reso_method {cfg.reso_method!r}; "
             "expected MVP, EBY, SWARM or SSD.")
@@ -98,26 +91,83 @@ def _apply_commands(asas, upd, cmds):
         for k, new in zip(names, cmds)})
 
 
+def _with_velocity(newtrk, newgs, newvs, newalt):
+    """A resolver's (trk, tas, vs, alt) with the east/north components of
+    (trk, tas)."""
+    trkrad = geo.radians(newtrk)
+    return (newtrk, newgs, newvs, newalt, newgs * torch.sin(trkrad),
+            newgs * torch.cos(trkrad))
+
+
+def _ssd_config(cfg: AsasConfig) -> cr_ssd.SSDConfig:
+    """PRIORULES RS1..RS9 select the SSD rule set (SSD.py:429-558); any
+    other priority code (the MVP FF*/LAY* family) means RS1."""
+    code = cfg.priocode.upper()
+    rs = code if cfg.swprio and code.startswith("RS") else "RS1"
+    return cr_ssd.SSDConfig(rpz_m=cfg.rpz_m, tlookahead=cfg.dtlookahead,
+                            priocode=rs)
+
+
+def _swarm_inputs(state: SimState):
+    """The Swarm blend's autopilot commands: the AP track, ``selspd``
+    resolved to CAS as the autopilot does (the reference blends the raw
+    ``selspd``, a unit bug the JAX package fixes), ``selvs``."""
+    ac = state.ac
+    _, selcas, _ = aero.vcasormach(ac.selspd, ac.alt)
+    return state.ap.trk, selcas, ac.selvs
+
+
 def update(state: SimState, cfg: AsasConfig):
     """One dense ASAS interval (asas.py:473-504): ``cd.detect`` on the
-    [N, N] pair space, MVP on the conflict matrix, the pair bookkeeping
-    ``resopairs |= swconfl`` and resume-nav.  Needs the [N, N]
-    ``resopairs`` of ``make_state(pair_matrix=True)``.  Returns
+    [N, N] pair space, the resolver on the conflict matrix, the pair
+    bookkeeping ``resopairs |= swconfl`` and resume-nav.  Needs the
+    [N, N] ``resopairs`` of ``make_state(pair_matrix=True)``.  Returns
     ``(state, cd)``."""
     require_resolver(cfg)
     ac, asas = state.ac, state.asas
     cd = cdops.detect(ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs,
                       ac.active, cfg.rpz, cfg.hpz, cfg.dtlookahead)
+    method = cfg.reso_method.upper()
+    swarm_on = cfg.reso_on and method == "SWARM"
+    any_conf = cd.swconfl.any()
     if cfg.reso_on:
-        cmds = cr_mvp.resolve(
-            cd, ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
-            ac.selalt, state.ap.vs, asas.alt, cfg.vmin, cfg.vmax,
-            cfg.vsmin, cfg.vsmax, _mvp_config(cfg, prio=True),
-            noreso=asas.noreso, resooff=asas.resooff)
-        asas = _apply_commands(asas, cd.inconf, cmds)
+        upd = cd.inconf
+        if method in ("MVP", "SWARM"):
+            cmds = cr_mvp.resolve(
+                cd, ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
+                ac.selalt, state.ap.vs, asas.alt, cfg.vmin, cfg.vmax,
+                cfg.vsmin, cfg.vsmax, _mvp_config(cfg, prio=True),
+                noreso=asas.noreso, resooff=asas.resooff)
+        if method == "EBY":
+            cmds = _with_velocity(*cr_eby.resolve(
+                cd, ac.alt, ac.vs, ac.trk, ac.tas, cfg.rpz_m, cfg.vmin,
+                cfg.vmax))
+        elif method == "SWARM":
+            # the MVP output blended with alignment and centering; the
+            # CA gate is the previous interval's active flags
+            # (Swarm.py:68-73).  The whole swarm takes the commands once
+            # any conflict exists (asas.py:487, Swarm.py:101-102).
+            cmds = _with_velocity(*cr_swarm.resolve(
+                cd, ac.lat, ac.lon, ac.alt, ac.trk, ac.gs, ac.cas, ac.vs,
+                ac.gseast, ac.gsnorth, ac.active, cmds[0], cmds[1],
+                cmds[2], asas.active, *_swarm_inputs(state), cfg.vmin,
+                cfg.vmax))
+            upd = ac.active & any_conf
+        elif method == "SSD":
+            # a horizontal method (SSD.py:99-104): vs and alt stay
+            newtrk, newgs = cr_ssd.resolve(
+                cd, ac.lat, ac.lon, ac.alt, ac.trk, ac.gs, ac.vs,
+                ac.gseast, ac.gsnorth, ac.active, cfg.vmin, cfg.vmax,
+                _ssd_config(cfg), hdg=ac.hdg, ap_trk=state.ap.trk,
+                ap_tas=state.ap.tas)
+            cmds = _with_velocity(newtrk, newgs, asas.vs, asas.alt)
+        asas = _apply_commands(asas, upd, cmds)
     resopairs, active = cr_mvp.resume_nav(
         asas.resopairs | cd.swconfl, ac.lat, ac.lon, ac.gseast, ac.gsnorth,
         ac.trk, ac.active, cfg.rpz, cfg.rpz * cfg.resofach)
+    if swarm_on:
+        # the whole swarm follows ASAS once a conflict triggered a resolve
+        active = torch.where(any_conf, ac.active, active)
     asas = asas.replace(
         resopairs=resopairs, active=active & cfg.reso_on, inconf=cd.inconf,
         tcpamax=cd.tcpamax, nconf_cur=cd.swconfl.sum(dtype=torch.int32),
@@ -197,43 +247,96 @@ def refresh_spatial_sort(state: SimState, cfg: AsasConfig,
 
 def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
                  impl: str = "lax"):
-    """One blockwise ASAS interval: detect, resolve with MVP from the pair
-    sums, resume-nav.  ``impl="sparse"``: the segment-scheduled kernels
-    with resume-nav in-kernel on the sorted-space ``partners_s``, with
-    ``sort_perm`` the stripe destinations.  ``impl="pallas"``
-    (``cd_pallas.detect_resolve_pallas``) and ``impl="lax"``
-    (``cd_tiled.detect_resolve_tiled``): in the Morton order
-    ``sort_perm`` (sorted position -> caller slot), then resume-nav on
-    the host side of the caller-space ``partners``.  Returns
-    ``(state, rd)``."""
+    """One blockwise ASAS interval: detect with the resolver's pair sums,
+    resolve from the sums, resume-nav.  ``impl="sparse"``: the
+    segment-scheduled kernels with resume-nav in-kernel on the
+    sorted-space ``partners_s``, with ``sort_perm`` the stripe
+    destinations.  ``impl="pallas"`` (``cd_pallas.detect_resolve_pallas``)
+    and ``impl="lax"`` (``cd_tiled.detect_resolve_tiled``): in the Morton
+    order ``sort_perm`` (sorted position -> caller slot), then resume-nav
+    on the host side of the caller-space ``partners``.
+
+    The resolver picks the kernels' form (JAX ``asas.py:936-1156``): MVP
+    and SSD run the MVP sums (SSD then resolves from the partner table),
+    EBY its own pair sums on TAS velocities, SWARM the MVP sums plus the
+    seven neighbour sums (MVP first, then the blend).  Nothing here reads
+    a value back to the host.  Returns ``(state, rd)``."""
     _require_impl(impl)
     require_resolver(cfg)
     ac, asas = state.ac, state.asas
     mvpcfg = _mvp_config(cfg)
+    reso_m = cfg.reso_method.upper()
+    kern_reso = {"EBY": "eby", "SWARM": "swarm"}.get(reso_m, "mvp") \
+        if cfg.reso_on else "mvp"
+    extra = {"eby": {"tas": ac.tas}, "swarm": {"cas": ac.cas}}.get(kern_reso)
     cols = (ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
             ac.gsnorth, ac.active, asas.noreso, cfg.rpz, cfg.hpz,
             cfg.dtlookahead, mvpcfg)
+    k = asas.partners.shape[1]
     if impl == "pallas":
-        rd = cd_pallas.detect_resolve_pallas(*cols, block=block,
-                                             perm=asas.sort_perm)
+        out = cd_pallas.detect_resolve_pallas(
+            *cols, block=block, k_partners=k, perm=asas.sort_perm,
+            extra_cols=extra, reso=kern_reso)
     elif impl == "lax":
-        rd = cd_tiled.detect_resolve_tiled(
-            *cols, block=block, k_partners=asas.partners.shape[1],
-            perm=asas.sort_perm)
+        out = cd_tiled.detect_resolve_tiled(
+            *cols, block=block, k_partners=k, perm=asas.sort_perm,
+            extra_cols=extra, reso=kern_reso)
     else:
         block = min(block, 256)
-        n_tot = cd_sched.padded_size(ac.lat.shape[0], block)
-        rd, partners_s, act_new = cd_sched.detect_resolve_sched(
+        n = ac.lat.shape[0]
+        n_tot = cd_sched.padded_size(n, block)
+        out = cd_sched.detect_resolve_sched(
             *cols, partners=asas.partners_s[:n_tot],
             resume_rpz_m=cfg.rpz * cfg.resofach, block=block,
-            perm=asas.sort_perm)
-    if cfg.reso_on:
+            perm=asas.sort_perm, tas=ac.tas if kern_reso == "eby" else None,
+            cas=ac.cas if kern_reso == "swarm" else None, reso=kern_reso)
+    if kern_reso == "swarm":
+        *out, swarm_sums = out
+    if impl == "sparse":
+        rd, partners_s, act_new = out
+    else:
+        rd = out[0] if kern_reso == "swarm" else out
+
+    if kern_reso == "swarm":
+        # the MVP avoidance from the MVP sums, then the blend with the
+        # neighbour sums; the CA gate is the previous active flags
+        m_trk, m_gs, m_vs, *_ = cr_mvp.resolve_from_sums(
+            rd.sum_dve, rd.sum_dvn, rd.sum_dvv, rd.tsolv,
+            ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
+            ac.selalt, state.ap.vs, asas.alt,
+            cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
+            resooff=asas.resooff)
+        asas = _apply_commands(
+            asas, ac.active & (rd.nconf > 0),
+            _with_velocity(*cr_swarm.resolve_from_sums(
+                *swarm_sums, ac.alt, ac.trk, ac.cas, ac.vs, ac.gseast,
+                ac.gsnorth, ac.active, m_trk, m_gs, m_vs, asas.active,
+                *_swarm_inputs(state), cfg.vmin, cfg.vmax)))
+    elif kern_reso == "eby":
+        asas = _apply_commands(asas, rd.inconf, _with_velocity(
+            *cr_eby.resolve_from_sums(
+                rd.sum_dve, rd.sum_dvn, rd.sum_dvv, ac.alt, ac.vs, ac.trk,
+                ac.tas, cfg.vmin, cfg.vmax)))
+    elif cfg.reso_on and reso_m == "MVP":
         asas = _apply_commands(asas, rd.inconf, cr_mvp.resolve_from_sums(
             rd.sum_dve, rd.sum_dvn, rd.sum_dvv, rd.tsolv,
             ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
             ac.selalt, state.ap.vs, asas.alt,
             cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
             resooff=asas.resooff))
+
+    def ssd_resolve(cur, ptable):
+        """SSD from the caller-space [N, K] partner table
+        (``cr_ssd.resolve_from_partners``), horizontal only."""
+        newtrk, newgs = cr_ssd.resolve_from_partners(
+            ptable, rd.inconf, ac.lat, ac.lon, ac.alt, ac.trk, ac.gs,
+            ac.vs, ac.gseast, ac.gsnorth, ac.active, cfg.vmin, cfg.vmax,
+            _ssd_config(cfg), hdg=ac.hdg, ap_trk=state.ap.trk,
+            ap_tas=state.ap.tas)
+        return _apply_commands(cur, rd.inconf, _with_velocity(
+            newtrk, newgs, cur.vs, cur.alt))
+
+    ssd_on = cfg.reso_on and reso_m == "SSD"
     if impl != "sparse":
         # Resume-nav on the caller-space table (asas.py:1124-1144): prune
         # the old partners, merge in this interval's fresh conflicts,
@@ -241,19 +344,29 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
         prune = lambda tbl: cd_tiled.partner_keep(
             tbl, ac.lat, ac.lon, ac.gseast, ac.gsnorth, ac.trk, ac.active,
             cfg.rpz, cfg.rpz * cfg.resofach)
-        new_idx = cd_tiled.topk_partners(rd, asas.partners.shape[1])
+        new_idx = cd_tiled.topk_partners(rd, k)
         merged = cd_tiled.merge_partners(new_idx, asas.partners,
                                          prune(asas.partners))
         partners = torch.where(prune(merged), merged,
                                torch.full_like(merged, -1))
+        if ssd_on:
+            asas = ssd_resolve(asas, partners)
         asas = asas.replace(partners=partners)
         act_new = (partners >= 0).any(1)
     else:
+        if ssd_on:
+            # the in-kernel merged table is sorted-space
+            asas = ssd_resolve(asas, cd_sched.partners_to_caller(
+                asas.sort_perm, partners_s, ac.lat.shape[0],
+                partners_s.shape[0]))
         spad = asas.partners_s.shape[0] - partners_s.shape[0]
         if spad > 0:
             partners_s = torch.cat([partners_s, partners_s.new_full(
                 (spad, partners_s.shape[1]), -1)])
         asas = asas.replace(partners_s=partners_s)
+    if kern_reso == "swarm":
+        # the whole swarm follows ASAS once a conflict triggered a resolve
+        act_new = torch.where(rd.nconf > 0, ac.active, act_new)
     asas = asas.replace(
         active=act_new & cfg.reso_on,
         inconf=rd.inconf,

@@ -2,7 +2,7 @@
 
 Port of ``bluesky_tpu/core/step.py`` for the slice the port runs: one
 device, the four CD backends (``dense``, ``tiled``, ``pallas``,
-``sparse``), the MVP resolver.
+``sparse``), the resolvers MVP, EBY, SWARM and SSD.
 Pipeline order per step (reference traffic.py:383-423): atmosphere ->
 ADS-B -> FMS (gated) -> ASAS CD&R (gated) -> AP/ASAS arbitration ->
 performance update -> envelope limits -> airspeed -> groundspeed (wind)

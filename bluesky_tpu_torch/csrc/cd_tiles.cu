@@ -1,5 +1,4 @@
-// Conflict detection & MVP resolution tiles, hand-written for Hopper
-// (sm_90a).
+// Conflict detection & resolution tiles, hand-written for Hopper (sm_90a).
 //
 // Replaces the four Pallas TPU kernels of bluesky_tpu, all with one split
 // walker (items_kernel) and one row merge (merge_kernel, C entry
@@ -16,7 +15,22 @@
 //                                         of each row's candidate table
 // All run one per-pair body (cd_pallas._tile_pairs: factored haversine,
 // CPA, horizontal/vertical entry and exit times, conflict and LoS flags,
-// MVP displacement sums and a running top-KK of partner candidates).
+// the resolver's displacement sums and a running top-KK of partner
+// candidates).  The resolver is the compile-time parameter RESO:
+//   * RESO_MVP: the MVP displacement of each conflict pair outside NORESO
+//     (cr_mvp.pair_contrib_trig) and its vertical solve time;
+//   * RESO_EBY: the Eby displacement of each conflict pair
+//     (cr_eby.pair_contrib) on the TAS velocities tr*u, tr*v (the tr slab
+//     row holds tas/gs), no NORESO mask, tsolv left at BIG;
+//   * RESO_SWARM: the MVP sums, and on every visited pair (not only the
+//     conflict pairs) the Swarm neighbour test (cr_swarm.pair_weight:
+//     within 7.5 nm and 1500 ft, track within 90 deg) adding w, w*cas,
+//     w*vs, w*dtrk, w*dx, w*dy and w*alt (the tr row holds the CAS) to
+//     seven more per-ownship sums.  They live in dynamic shared memory,
+//     one bank per thread, touched only by a neighbour pair (through the
+//     non-inlined swarm_add), so the walk keeps its 64 registers without
+//     spills; the CTA then needs 52 KB (opted in), and four still fit on
+//     an SM.  The candidate pass has no Swarm form.
 // With the compile-time flag RESUME (the first two) the body also
 // evaluates the resume keep predicate, offers only kept conflict pairs as
 // candidates, and the row ends with the partner merge
@@ -58,7 +72,8 @@
 //   ascending order there too.  An overflow row's table is all sentinel:
 //   it has no sub-chunk and all its items are empty.
 // * Deterministic row merge (cd_merge_items).  Each item writes its 8
-//   accumulators, its top-KK (tin, id) and, with RESUME, its keep bits to
+//   accumulators (15 with the Swarm sums), its top-KK (tin, id) and, with
+//   RESUME, its keep bits to
 //   scratch; a second kernel, one thread per ownship, folds a row's items
 //   in ascending item order (sums and counts add, tcpamax max, tsolv min,
 //   inconf and keep bits or, top-KK merged by (tin, id)) and, with RESUME,
@@ -105,6 +120,11 @@ constexpr int MAXB = 256;     // max block width
 constexpr int KK = 8;         // partner-table width K
 constexpr float BIG = 1e9f;
 constexpr int BIG_I = 1 << 30;
+constexpr int NACC = 8;       // accumulators of every form
+constexpr int NSW = 7;        // Swarm neighbour sums (cd_pallas.N_SWARM)
+
+// resolver forms, cd_pallas.RESO_CODE
+enum { RESO_MVP = 0, RESO_EBY = 1, RESO_SWARM = 2 };
 
 // slab row order, cd_pallas._FIELDS
 enum {
@@ -123,16 +143,22 @@ constexpr float C1 = (float)(1.0 / 6.0);
 constexpr float C2 = (float)(3.0 / 40.0);
 constexpr float C3 = (float)(15.0 / 336.0);
 constexpr float C4 = (float)(105.0 / 3456.0);
+// cr_swarm.R_SWARM squared and DH_SWARM, rounded to f32 as the plain
+// version's comparisons round them
+constexpr float R2_SWARM = (float)((7.5 * 1852.0) * (7.5 * 1852.0));
+constexpr float DH_SWARM = (float)(1500.0 * 0.3048);
 
 struct Params {
   float rpz, r2, hpz, tlook;        // detection
   float rpz_m, hpz_m, tlook_m;      // MVP (margin-scaled zone)
   float rpz_resume;                 // resume-nav radius rpz * resofach
+  double eby_s, eby_s10;            // Eby: 1 / rpz_m and 10 m in that unit
 };
 
 // Final outputs, [.., nb, .., B] as cd_pallas.alloc_outputs lays them out.
 struct Outs {
   float* acc;     // [8, NT]: inconf tcpamax sdve sdvn sdvv tsolv ncnt lcnt
+                  // (then the NSW Swarm sums: [15, NT])
   float* ctin;    // [nb, KK, B]
   int* cidx;      // [nb, KK, B]
   float* keep;    // [nb, KK, B]
@@ -142,7 +168,7 @@ struct Outs {
 
 // Partials of the work items, item g = row * C + k of G = nb * C.
 struct Parts {
-  float* acc;      // [8, G, B]
+  float* acc;      // [8, G, B] ([15, G, B] with the Swarm sums)
   float* ct;       // [KK, G, B]
   int* ci;         // [KK, G, B]
   unsigned* keep;  // [G, B] keep bits (RESUME)
@@ -181,6 +207,82 @@ __device__ __forceinline__ float asin_taylor(float s) {
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// cr_eby.pair_contrib of one conflict pair: the relative position
+// (dx, dy, dz) and TAS-based relative velocity (vx, vy, vz), evaluated in
+// units of the zone radius (s = 1 / rpz_m, s10 = 10 m in that unit), in
+// the reference's order of operations, in double precision as the plain
+// version computes it: on a near-grazing pair the quadratic's b*b and 4ac
+// agree to 1e-6 and float arithmetic would lose the displacement.  Only
+// conflict pairs reach it.  Writes the displacement, rounded to float.
+__device__ __forceinline__ void eby_pair(float fdx, float fdy, float fdz,
+                                         float fvx, float fvy, float fvz,
+                                         double s, double s10, float& ox,
+                                         float& oy, float& oz) {
+  const double eps = 1e-12;
+  const double dx = fdx * s, dy = fdy * s, dz = fdz * s;
+  const double vx = fvx * s, vy = fvy * s, vz = fvz * s;
+  const double d2 = dx * dx + dy * dy + dz * dz;
+  const double v2 = vx * vx + vy * vy + vz * vz;
+  const double dv = dx * vx + dy * vy + dz * vz;
+  // the quadratic for tstar (Eby.py:104-117), zone radius 1
+  const double a = v2 - dv * dv;
+  const double b = 2.0 * dv * (1.0 - d2);
+  const double c = d2 - d2 * d2;
+  const double disc = fmax(b * b - 4.0 * a * c, 0.0);
+  const double a_safe = fabs(a) < eps ? eps : a;
+  const double sq = sqrt(disc);
+  const double time1 = (-b + sq) / (2.0 * a_safe);
+  const double time2 = (-b - sq) / (2.0 * a_safe);
+  const double tstar = fmin(fabs(time1), fabs(time2));
+  // relative position at tstar; within 10 m, pushed sideways to 10 m
+  double dsx = dx + vx * tstar, dsy = dy + vy * tstar;
+  const double dsz = dz + vz * tstar;
+  double dstar = sqrt(dsx * dsx + dsy * dsy + dsz * dsz);
+  const double dif = s10 - dstar;
+  const double vperp = sqrt(vy * vy + vx * vx);
+  const double vp_safe = vperp < eps ? eps : vperp;
+  if (dif > 0.0) {
+    dsx = dsx + dif * (-vy) / vp_safe;
+    dsy = dsy + dif * vx / vp_safe;
+  }
+  dstar = sqrt(dsx * dsx + dsy * dsy + dsz * dsz);
+  // intrusion and displacement, back in metres
+  const double intr = 1.0 - dstar;
+  double denom = dstar * tstar;
+  if (fabs(denom) < eps) denom = eps;
+  const double scale = intr / (denom * s);
+  ox = (float)(scale * dsx);
+  oy = (float)(scale * dsy);
+  oz = (float)(scale * dsz);
+}
+
+// cr_swarm.wrap_track: (x + 180) mod 360 - 180 with the floored modulo of
+// torch.remainder and jnp.remainder (fmod, then + 360 where it is below 0).
+__device__ __forceinline__ float wrap_track(float x) {
+  float m = fmodf(x + 180.0f, 360.0f);
+  if (m != 0.0f && m < 0.0f) m += 360.0f;
+  return m - 180.0f;
+}
+
+// The rest of cr_swarm.pair_weight for a pair within 7.5 nm and 1500 ft
+// (the track difference d, wrapped, within 90 deg) and its seven sums.
+// Not inlined: only such pairs call it, and inlined its temporaries made
+// the resume walker spill.
+__device__ __noinline__ void swarm_add(float* sw, int B, int tt, float d,
+                                       float cas, float vs, float dx,
+                                       float dy, float alt) {
+  const float dtrk = wrap_track(d);
+  if (fabsf(dtrk) < 90.0f) {
+    sw[0 * B + tt] += 1.0f;
+    sw[1 * B + tt] += cas;
+    sw[2 * B + tt] += vs;
+    sw[3 * B + tt] += dtrk;
+    sw[4 * B + tt] += dx;
+    sw[5 * B + tt] += dy;
+    sw[6 * B + tt] += alt;
+  }
 }
 
 __device__ __forceinline__ Acc acc_init() {
@@ -253,13 +355,14 @@ __device__ __forceinline__ unsigned old_mask(const Side& sd, int t, int jb,
 // One ownship (column o, slot id gid) against one staged intruder slab
 // (cd_pallas._tile_pairs; with RESUME, the resume keep predicate too).
 // The intruder ids are the staged ids sid with IDS, else those of block
-// jb, jb*B + lane.  pmask: old_mask of this block.
-template <bool RESUME, bool IDS>
+// jb, jb*B + lane.  pmask: old_mask of this block.  sw: the Swarm sums,
+// [NSW][B] in shared memory (RESO_SWARM).
+template <bool RESUME, bool IDS, int RESO>
 __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
                                            int jb, int B, const float* o,
                                            int gid, unsigned pmask, Acc& a,
                                            Side& sd, int tt,
-                                           const Params& P) {
+                                           const Params& P, float* sw) {
   for (int t = 0; t < B; ++t) {
     const int gid_i = IDS ? sid[t] : jb * B + t;
     if (!(s[F_ACTIVE][t] > 0.5f) || gid_i == gid) continue;
@@ -317,11 +420,26 @@ __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
     const bool swlos = (dist < P.rpz) && (fabsf(dalt) < P.hpz);
 
     if (swlos) a.lcnt += 1.0f;
+    if constexpr (RESO == RESO_SWARM) {
+      // --- Swarm neighbour sums: cr_swarm.pair_weight ---
+      if (dx * dx + dy * dy < R2_SWARM && fabsf(dalt) < DH_SWARM)
+        swarm_add(sw, B, tt, s[F_TRK][t] - sd.trk[tt], s[F_TR][t],
+                  s[F_VS][t], dx, dy, s[F_ALT][t]);
+    }
     if (swconfl) {
       a.inconf = 1.0f;
       a.tcpamax = fmaxf(a.tcpamax, tcpa);
       a.ncnt += 1.0f;
-      if (!(s[F_NORESO][t] > 0.5f)) {
+      if constexpr (RESO == RESO_EBY) {
+        // --- Eby pair contribution: cr_eby.pair_contrib ---
+        float dve, dvn, dvv;
+        eby_pair(dx, dy, dalt, s[F_TR][t] * s[F_U][t] - o[F_TR] * o[F_U],
+                 s[F_TR][t] * s[F_V][t] - o[F_TR] * o[F_V], vrel_v, P.eby_s,
+                 P.eby_s10, dve, dvn, dvv);
+        a.sdve += dve;
+        a.sdvn += dvn;
+        a.sdvv += dvv;
+      } else if (!(s[F_NORESO][t] > 0.5f)) {
         // --- MVP pair contribution: cr_mvp.pair_contrib_trig ---
         const float vrel_e = s[F_GSE][t] - sd.gse[tt];
         const float vrel_n = s[F_GSN][t] - sd.gsn[tt];
@@ -420,14 +538,14 @@ __device__ __forceinline__ void stage_ids(float (*s)[MAXB], int* sid,
   __syncthreads();
 }
 
-// The final stores of one ownship: the 8 accumulators and the top-KK;
-// with RESUME also the keep bits and cd_pallas._merge_partners_block
-// (fresh candidates in urgency order, then the kept old partners in
-// slot order that are not fresh ones, the first KK) and the engagement
-// flag.
-template <bool RESUME>
-__device__ void finish_row(const Acc& a, const Side& sd, const Outs& out,
-                           int i, int B, int t, size_t nt) {
+// The final stores of one ownship: the 8 accumulators, the Swarm sums sw
+// (RESO_SWARM) and the top-KK; with RESUME also the keep bits and
+// cd_pallas._merge_partners_block (fresh candidates in urgency order,
+// then the kept old partners in slot order that are not fresh ones, the
+// first KK) and the engagement flag.
+template <bool RESUME, int RESO>
+__device__ void finish_row(const Acc& a, const float* sw, const Side& sd,
+                           const Outs& out, int i, int B, int t, size_t nt) {
   const size_t g = (size_t)i * B + t;
   out.acc[0 * nt + g] = a.inconf;
   out.acc[1 * nt + g] = a.tcpamax;
@@ -437,6 +555,10 @@ __device__ void finish_row(const Acc& a, const Side& sd, const Outs& out,
   out.acc[5 * nt + g] = a.tsolv;
   out.acc[6 * nt + g] = a.ncnt;
   out.acc[7 * nt + g] = a.lcnt;
+  if constexpr (RESO == RESO_SWARM) {
+#pragma unroll
+    for (int k = 0; k < NSW; ++k) out.acc[(NACC + k) * nt + g] = sw[k];
+  }
   const size_t e0 = (size_t)i * KK * B + t;
 #pragma unroll
   for (int k = 0; k < KK; ++k) {
@@ -469,8 +591,9 @@ __device__ void finish_row(const Acc& a, const Side& sd, const Outs& out,
 // jb, staged from the slabs (cd_sched_tiles with RESUME, cd_full_grid,
 // and cd_sched_tiles on the overflow rows for _kernel_resume), or with
 // IDS the jb-th sub-chunk of B entries of the row's candidate table
-// cand[i, 0:c_cap], staged through its ids (cd_cand_items).
-template <bool RESUME, bool IDS>
+// cand[i, 0:c_cap], staged through its ids (cd_cand_items).  RESO_SWARM
+// launches with NSW * B floats of dynamic shared memory for its sums.
+template <bool RESUME, bool IDS, int RESO>
 __global__ void __launch_bounds__(MAXB, 4)
 items_kernel(const float* __restrict__ packed, int B,
              const int* __restrict__ tiles, int W,
@@ -479,9 +602,12 @@ items_kernel(const float* __restrict__ packed, int B,
              const int* __restrict__ cand, int c_cap,
              const int* __restrict__ pold, Params P, Parts pt) {
   static_assert(!(RESUME && IDS), "the candidate pass has no partner table");
+  static_assert(!(IDS && RESO == RESO_SWARM),
+                "the candidate pass has no Swarm form");
   __shared__ float s[NF][MAXB];
   __shared__ int sid[IDS ? MAXB : 1];
   __shared__ Side sd;
+  extern __shared__ float sw[];   // [NSW][B], RESO_SWARM only
   const int i = order[blockIdx.x / C];
   const size_t g = (size_t)i * C + blockIdx.x % C;
   const int len = ilen[g];
@@ -490,6 +616,10 @@ items_kernel(const float* __restrict__ packed, int B,
   float o[NF];
   own_begin(o, sd, packed, i, B, t);
   side_begin<RESUME>(sd, pold, i, B, t);
+  if constexpr (RESO == RESO_SWARM) {
+#pragma unroll
+    for (int k = 0; k < NSW; ++k) sw[k * B + t] = 0.0f;
+  }
   Acc a = acc_init();
   const bool own_act = o[F_ACTIVE] > 0.5f;
   if (__syncthreads_or(own_act)) {
@@ -502,9 +632,9 @@ items_kernel(const float* __restrict__ packed, int B,
       else
         stage(s, packed, jb, B, t);
       if (own_act)
-        tile_pairs<RESUME, IDS>(s, sid, jb, B, o, i * B + t,
-                                old_mask<RESUME>(sd, t, jb, B), a, sd, t,
-                                P);
+        tile_pairs<RESUME, IDS, RESO>(s, sid, jb, B, o, i * B + t,
+                                      old_mask<RESUME>(sd, t, jb, B), a, sd,
+                                      t, P, sw);
     }
   }
   const size_t n = (size_t)gridDim.x * B, e = g * B + t;
@@ -516,6 +646,10 @@ items_kernel(const float* __restrict__ packed, int B,
   pt.acc[5 * n + e] = a.tsolv;
   pt.acc[6 * n + e] = a.ncnt;
   pt.acc[7 * n + e] = a.lcnt;
+  if constexpr (RESO == RESO_SWARM) {
+#pragma unroll
+    for (int k = 0; k < NSW; ++k) pt.acc[(NACC + k) * n + e] = sw[k * B + t];
+  }
 #pragma unroll
   for (int k = 0; k < KK; ++k) {
     pt.ct[k * n + e] = sd.ct[k][t];
@@ -526,7 +660,7 @@ items_kernel(const float* __restrict__ packed, int B,
 
 // cd_merge_items: ownship t of row block i folds the partials of its
 // row's non-empty items in ascending item order, then finishes the row.
-template <bool RESUME>
+template <bool RESUME, int RESO>
 __global__ void __launch_bounds__(MAXB)
 merge_kernel(int B, int C, const int* __restrict__ ilen,
              const int* __restrict__ pold, Parts pt, Outs out) {
@@ -534,6 +668,7 @@ merge_kernel(int B, int C, const int* __restrict__ ilen,
   const int i = blockIdx.x, t = threadIdx.x;
   side_begin<RESUME>(sd, pold, i, B, t);
   Acc a = acc_init();
+  float sw[NSW] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const size_t n = (size_t)gridDim.x * C * B;
   unsigned keep = 0u;
   for (int k = 0; k < C; ++k) {
@@ -548,13 +683,17 @@ merge_kernel(int B, int C, const int* __restrict__ ilen,
     a.tsolv = fminf(a.tsolv, pt.acc[5 * n + e]);
     a.ncnt += pt.acc[6 * n + e];
     a.lcnt += pt.acc[7 * n + e];
+    if constexpr (RESO == RESO_SWARM) {
+#pragma unroll
+      for (int q = 0; q < NSW; ++q) sw[q] += pt.acc[(NACC + q) * n + e];
+    }
     // each item's list ascends, so its first entry that stays out ends it
     for (int m = 0; m < KK; ++m)
       if (!insert_cand(sd, t, pt.ct[m * n + e], pt.ci[m * n + e])) break;
     if constexpr (RESUME) keep |= pt.keep[e];
   }
   sd.keep[t] = keep;
-  finish_row<RESUME>(a, sd, out, i, B, t, (size_t)gridDim.x * B);
+  finish_row<RESUME, RESO>(a, sw, sd, out, i, B, t, (size_t)gridDim.x * B);
 }
 
 // cd_mask_items: row i's work items over the columns j with mask[i, j]
@@ -618,23 +757,30 @@ items_order_kernel(const int* __restrict__ ilen, int nb, int C,
 }
 
 Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
-                   float hpz_m, float tlook_m, float rpz_resume) {
+                   float hpz_m, float tlook_m, float rpz_resume, double eby_s,
+                   double eby_s10) {
   Params p;
   p.rpz = rpz; p.r2 = r2; p.hpz = hpz; p.tlook = tlook;
   p.rpz_m = rpz_m; p.hpz_m = hpz_m; p.tlook_m = tlook_m;
   p.rpz_resume = rpz_resume;
+  p.eby_s = eby_s; p.eby_s10 = eby_s10;
   return p;
 }
 
 // Ask for the largest shared-memory carveout (once per kernel, at its
-// first launch), so that four 44 KB CTAs fit on an SM beside the L1.
+// first launch), so that four 44 KB CTAs (52 KB with the Swarm sums) fit
+// on an SM beside the L1; the Swarm form also opts in to the dynamic
+// shared memory that takes it past the 48 KB of a default launch.
 template <typename K>
-void prefer_shared(K* kernel) {
+void prefer_shared(K* kernel, int dyn) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                        (int)cudaSharedmemCarveoutMaxShared);
+  if (dyn > 0)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         dyn);
 }
 
-template <bool RESUME, bool IDS>
+template <bool RESUME, bool IDS, int RESO>
 int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
                  const int* cand, int c_cap, const int* pold,
@@ -642,11 +788,66 @@ int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
   if (B <= 0 || B > MAXB || C <= 0 || W <= 0 || (IDS && c_cap < W * B))
     return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
-  static bool once = (prefer_shared(items_kernel<RESUME, IDS>), true);
+  constexpr int dyn_max = RESO == RESO_SWARM ? NSW * MAXB * 4 : 0;
+  static bool once = (prefer_shared(items_kernel<RESUME, IDS, RESO>, dyn_max),
+                      true);
   (void)once;
-  items_kernel<RESUME, IDS><<<nb * C, B, 0, (cudaStream_t)stream>>>(
+  const size_t dyn = RESO == RESO_SWARM ? (size_t)NSW * B * sizeof(float) : 0;
+  items_kernel<RESUME, IDS, RESO><<<nb * C, B, dyn, (cudaStream_t)stream>>>(
       packed, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P, pt);
   return (int)cudaGetLastError();
+}
+
+// launch_items in the resolver form reso (cd_pallas.RESO_CODE); the
+// candidate pass (IDS) has no Swarm form.
+template <bool RESUME, bool IDS>
+int launch_reso(int reso, const float* packed, int nb, int B,
+                const int* tiles, int W, const int* istart, const int* ilen,
+                const int* order, int C, const int* cand, int c_cap,
+                const int* pold, const Params& P, const Parts& pt,
+                void* stream) {
+  switch (reso) {
+    case RESO_MVP:
+      return launch_items<RESUME, IDS, RESO_MVP>(
+          packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
+          P, pt, stream);
+    case RESO_EBY:
+      return launch_items<RESUME, IDS, RESO_EBY>(
+          packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
+          P, pt, stream);
+    case RESO_SWARM:
+      if constexpr (!IDS)
+        return launch_items<RESUME, IDS, RESO_SWARM>(
+            packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap,
+            pold, P, pt, stream);
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool RESUME, int RESO>
+void launch_merge(int nb, int B, int C, const int* ilen, const int* pold,
+                  const Parts& pt, const Outs& o, void* stream) {
+  merge_kernel<RESUME, RESO><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen,
+                                                                 pold, pt, o);
+}
+
+template <bool RESUME>
+int merge_reso(int reso, int nb, int B, int C, const int* ilen,
+               const int* pold, const Parts& pt, const Outs& o,
+               void* stream) {
+  switch (reso) {
+    case RESO_MVP:
+    case RESO_EBY:   // the same accumulators as MVP
+      launch_merge<RESUME, RESO_MVP>(nb, B, C, ilen, pold, pt, o, stream);
+      return 0;
+    case RESO_SWARM:
+      launch_merge<RESUME, RESO_SWARM>(nb, B, C, ilen, pold, pt, o, stream);
+      return 0;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -656,49 +857,56 @@ extern "C" {
 // The split walkers write the partials of their nb * C work items
 // (cd_pallas.work_items: tiles [nb, W], istart and ilen [nb, C], order
 // [nb]); cd_merge_items makes the outputs.  B <= 256; the partner tables
-// are K = 8 wide.  cd_sched_tiles, with the partner table pold, serves
-// both _sched_kernel (the segment blocks) and _kernel_resume (the
-// reachable blocks of the overflow rows).
+// are K = 8 wide.  reso is the resolver form (RESO_MVP, RESO_EBY,
+// RESO_SWARM; pacc holds 8 accumulators a work item, 15 with RESO_SWARM),
+// eby_s and eby_s10 the Eby scale (read by RESO_EBY only).
+// cd_sched_tiles, with the partner table pold, serves both _sched_kernel
+// (the segment blocks) and _kernel_resume (the reachable blocks of the
+// overflow rows).
 int cd_sched_tiles(const float* packed, int nb, int B, const int* tiles,
                    int W, const int* istart, const int* ilen,
                    const int* order, int C, const int* pold, float rpz,
                    float r2, float hpz, float tlook, float rpz_m, float hpz_m,
-                   float tlook_m, float rpz_resume, float* pacc, float* pct,
+                   float tlook_m, float rpz_resume, double eby_s,
+                   double eby_s10, int reso, float* pacc, float* pct,
                    int* pci, unsigned* pkeep, void* stream) {
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
-                         rpz_resume);
-  return launch_items<true, false>(packed, nb, B, tiles, W, istart, ilen,
-                                   order, C, nullptr, 0, pold, P,
-                                   Parts{pacc, pct, pci, pkeep}, stream);
+                         rpz_resume, eby_s, eby_s10);
+  return launch_reso<true, false>(reso, packed, nb, B, tiles, W, istart,
+                                  ilen, order, C, nullptr, 0, pold, P,
+                                  Parts{pacc, pct, pci, pkeep}, stream);
 }
 
 // The reach-masked full grid without a partner table (rpz_resume unused).
 int cd_full_grid(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
                  float rpz, float r2, float hpz, float tlook, float rpz_m,
-                 float hpz_m, float tlook_m, float rpz_resume, float* pacc,
-                 float* pct, int* pci, void* stream) {
+                 float hpz_m, float tlook_m, float rpz_resume, double eby_s,
+                 double eby_s10, int reso, float* pacc, float* pct, int* pci,
+                 void* stream) {
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
-                         rpz_resume);
-  return launch_items<false, false>(packed, nb, B, tiles, W, istart, ilen,
-                                    order, C, nullptr, 0, nullptr, P,
-                                    Parts{pacc, pct, pci, nullptr}, stream);
+                         rpz_resume, eby_s, eby_s10);
+  return launch_reso<false, false>(reso, packed, nb, B, tiles, W, istart,
+                                   ilen, order, C, nullptr, 0, nullptr, P,
+                                   Parts{pacc, pct, pci, nullptr}, stream);
 }
 
 // The candidate pass: a tile is a sub-chunk index of the row's candidate
 // table cand [nb, c_cap] (ascending ids, then the sentinel nb * B), W
-// sub-chunks of B entries (c_cap >= W * B; rpz_resume unused).
+// sub-chunks of B entries (c_cap >= W * B; rpz_resume unused; no Swarm
+// form).
 int cd_cand_items(const float* packed, int nb, int B, const int* tiles,
                   int W, const int* istart, const int* ilen,
                   const int* order, int C, const int* cand, int c_cap,
                   float rpz, float r2, float hpz, float tlook, float rpz_m,
-                  float hpz_m, float tlook_m, float rpz_resume, float* pacc,
-                  float* pct, int* pci, void* stream) {
+                  float hpz_m, float tlook_m, float rpz_resume, double eby_s,
+                  double eby_s10, int reso, float* pacc, float* pct, int* pci,
+                  void* stream) {
   Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
-                         rpz_resume);
-  return launch_items<false, true>(packed, nb, B, tiles, W, istart, ilen,
-                                   order, C, cand, c_cap, nullptr, P,
-                                   Parts{pacc, pct, pci, nullptr}, stream);
+                         rpz_resume, eby_s, eby_s10);
+  return launch_reso<false, true>(reso, packed, nb, B, tiles, W, istart,
+                                  ilen, order, C, cand, c_cap, nullptr, P,
+                                  Parts{pacc, pct, pci, nullptr}, stream);
 }
 
 // The work items of a row mask [nb, W] (bool, one byte each): tiles
@@ -717,23 +925,23 @@ int cd_mask_items(const uint8_t* mask, int nb, int W, int C, int* tiles,
 
 // The row merge of any walker: with pold (the cd_sched_tiles form) the
 // keep bits and the partner merge too, and all six outputs; without it
-// only acc, ctin and cidx.
+// only acc, ctin and cidx.  reso is the walker's resolver form: with
+// RESO_SWARM pacc and acc hold the 7 Swarm sums after the 8 accumulators.
 int cd_merge_items(int nb, int B, int C, const int* ilen, const int* pold,
                    const float* pacc, const float* pct, const int* pci,
                    const unsigned* pkeep, float* acc, float* ctin, int* cidx,
-                   float* keep, int* merged, float* active, void* stream) {
+                   float* keep, int* merged, float* active, int reso,
+                   void* stream) {
   if (B <= 0 || B > MAXB || C <= 0) return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
   Parts pt{const_cast<float*>(pacc), const_cast<float*>(pct),
            const_cast<int*>(pci), const_cast<unsigned*>(pkeep)};
   Outs o{acc, ctin, cidx, keep, merged, active};
-  if (pold)
-    merge_kernel<true><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen, pold,
-                                                           pt, o);
-  else
-    merge_kernel<false><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen,
-                                                            nullptr, pt, o);
-  return (int)cudaGetLastError();
+  const int rc = pold ? merge_reso<true>(reso, nb, B, C, ilen, pold, pt, o,
+                                         stream)
+                      : merge_reso<false>(reso, nb, B, C, ilen, nullptr, pt,
+                                          o, stream);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 }  // extern "C"

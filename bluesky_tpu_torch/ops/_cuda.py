@@ -28,18 +28,19 @@ _libs = {}
 _lock = threading.Lock()
 
 _f = ctypes.c_float
+_d = ctypes.c_double
 _i = ctypes.c_int
 _p = ctypes.c_void_p
 #: ctypes signatures of the C entry points, by source file
 SIGNATURES = {
     "cd_tiles.cu": {
         "cd_sched_tiles": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p]
-        + [_f] * 8 + [_p] * 5,
+        + [_f] * 8 + [_d] * 2 + [_i] + [_p] * 5,
         "cd_full_grid": [_p, _i, _i, _p, _i, _p, _p, _p, _i] + [_f] * 8
-        + [_p] * 4,
+        + [_d] * 2 + [_i] + [_p] * 4,
         "cd_cand_items": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p, _i]
-        + [_f] * 8 + [_p] * 4,
-        "cd_merge_items": [_i, _i, _i] + [_p] * 13,
+        + [_f] * 8 + [_d] * 2 + [_i] + [_p] * 4,
+        "cd_merge_items": [_i, _i, _i] + [_p] * 12 + [_i, _p],
         "cd_mask_items": [_p, _i, _i, _i] + [_p] * 5,
     },
 }

@@ -26,6 +26,14 @@ wrapper stands beside a plain PyTorch version of the same function:
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors.
 
+The tile body has three resolver forms (``reso``, a compile-time
+parameter of the walker): ``"mvp"`` the MVP pair sums, ``"eby"`` the
+Eby pair sums (``cr_eby.pair_contrib``) on the TAS velocities of the
+``tr`` slab row, ``"swarm"`` the MVP sums plus seven neighbour sums
+(``cr_swarm.pair_weight``, the CAS in the ``tr`` row) appended to the
+outputs.  The CUDA kernels take K = ``KK`` = 8 partners; the plain
+versions any K.
+
 The plain versions and the kernels visit a row's intruders in ascending
 slot id (tiles in ascending block order; candidate ids ascend within a
 row) and break top-K ties towards the smaller intruder id, which is
@@ -39,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cd_tiled, cr_mvp, geo
+from . import cd_tiled, cr_eby, cr_mvp, cr_swarm, geo
 from .cd_tiled import (RowConflictData, TRIG_FIELDS, block_reachability,
                        precompute_trig, tile_geometry)
 
@@ -69,9 +77,27 @@ CAND_ITEMS_PER_ROW = 16
 #: inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx.
 _ACC_NEUTRAL = (0.0, 0.0, 0.0, 0.0, 0.0, _BIG, 0.0, 0.0, _BIG, _BIG_I)
 
-#: Launches of each CUDA kernel of this module since the last reset
-#: (plain versions and CPU calls do not count).
-LAUNCHES = {"cd_full_grid_resume": 0, "cd_full_grid": 0, "cd_cand_tiles": 0}
+#: The resolver forms of the tile body, by their code in ``cd_tiles.cu``.
+RESO_CODE = {"mvp": 0, "eby": 1, "swarm": 2}
+#: Swarm neighbour sums appended to the outputs of the swarm form, in
+#: ``cr_swarm.resolve_from_sums`` order: w, w*cas, w*vs, w*dtrk, w*dx,
+#: w*dy, w*alt.
+N_SWARM = 7
+SWARM_SUMS = ("sw_w", "sw_cas", "sw_vs", "sw_dtrk", "sw_dx", "sw_dy",
+              "sw_alt")
+
+
+def launch_key(name, reso):
+    """The ``LAUNCHES`` key of kernel ``name`` in resolver form ``reso``
+    (the MVP form keeps the plain name)."""
+    return name if reso == "mvp" else f"{name}_{reso}"
+
+
+#: Launches of each CUDA kernel of this module in each resolver form
+#: since the last reset (plain versions and CPU calls do not count).
+LAUNCHES = {launch_key(k, r): 0 for k in ("cd_full_grid_resume",
+                                          "cd_full_grid", "cd_cand_tiles")
+            for r in RESO_CODE}
 
 
 class TileParams(NamedTuple):
@@ -94,19 +120,24 @@ def tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m=0.0) -> TileParams:
 
 
 def kernel_floats(p: TileParams):
-    """The 8 float arguments every C entry point of ``cd_tiles.cu`` takes."""
+    """The 10 floating-point arguments every walker entry point of
+    ``cd_tiles.cu`` takes: 8 floats, then (doubles) the scale ``1/rpz_m``
+    of ``cr_eby.pair_contrib`` and 10 m in that scale, as the plain
+    version computes them."""
+    s = 1.0 / p.rpz_m
     return (p.rpz, p.rpz * p.rpz, p.hpz, p.tlookahead, p.rpz_m, p.hpz_m,
-            p.tlook_m, p.rpz_resume)
+            p.tlook_m, p.rpz_resume, s, 10.0 * s)
 
 
 def _rdiv(c, t):
     """``c / t`` as one correctly rounded division (a Python scalar
     divided by a tensor would otherwise become reciprocal-then-multiply,
     two roundings), as the kernel and the JAX reference compute it."""
-    return torch.div(t.new_tensor(c), t)
+    return torch.div(torch.full((), c, dtype=t.dtype, device=t.device), t)
 
 
-def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams):
+def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams,
+                    reso="mvp", kk=KK):
     """One ownship row block against its visited intruders.
 
     ``own`` [_NF, B] ownship slab; ``intr`` [_NF, M] the visited
@@ -117,8 +148,10 @@ def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams):
     partner merge) and returns 13 per-row outputs: eight [B]
     accumulators, ctin/cidx/keep/merged [kk, B] and active [B].  Without
     it this is the ``_kernel`` body (every conflict pair a candidate) and
-    returns the first 10."""
-    kk = KK if pold is None else pold.shape[0]
+    returns the first 10; ``kk`` is then the top-K width.  ``reso``
+    picks the resolver form; ``"swarm"`` appends the ``N_SWARM``
+    neighbour sums [B]."""
+    kk = kk if pold is None else pold.shape[0]
     if intr.shape[1] < kk:
         # pad with inactive intruders so every reduction and the top-kk
         # have at least kk rows to work on
@@ -161,12 +194,22 @@ def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams):
     vrel_e = i("gse") - o("gse")
     vrel_n = i("gsn") - o("gsn")
 
-    mvp = cr_mvp.MVPConfig(rpz_m=p.rpz_m, hpz_m=p.hpz_m,
-                           tlookahead=p.tlook_m)
-    dve_p, dvn_p, dvv_p, tsolv_p = cr_mvp.pair_contrib_trig(
-        sinq, cosq, dist, tcpa, tinconf, dalt, vrel_e, vrel_n, vrel_v, mvp)
-    mvpmask = swconfl & ~(i("noreso") > 0.5)
     zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    if reso == "eby":
+        # TAS velocities from the tas/gs ratio of the tr row; no noreso
+        # mask, tsolv left at _BIG
+        dve_p, dvn_p, dvv_p = cr_eby.pair_contrib(
+            dx, dy, dalt, i("tr") * i("u") - o("tr") * o("u"),
+            i("tr") * i("v") - o("tr") * o("v"), vrel_v, p.rpz_m)
+        tsolv_p = torch.full_like(dve_p, _BIG)
+        mvpmask = swconfl
+    else:
+        mvp = cr_mvp.MVPConfig(rpz_m=p.rpz_m, hpz_m=p.hpz_m,
+                               tlookahead=p.tlook_m)
+        dve_p, dvn_p, dvv_p, tsolv_p = cr_mvp.pair_contrib_trig(
+            sinq, cosq, dist, tcpa, tinconf, dalt, vrel_e, vrel_n, vrel_v,
+            mvp)
+        mvpmask = swconfl & ~(i("noreso") > 0.5)
 
     def colsum(x, m):
         return torch.where(m, x, zero).sum(0)
@@ -206,10 +249,17 @@ def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams):
     cidx = torch.where(ctin < _BIG, gid_int[order[:kk]].to(torch.int32),
                        torch.full_like(order[:kk], _BIG_I, dtype=torch.int32))
     outs = (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx)
-    if pold is None:
-        return outs
-    merged, active = merge_partners_block(pold, keep, ctin, cidx)
-    return outs + (keep, merged, active)
+    if pold is not None:
+        outs += (keep,) + merge_partners_block(pold, keep, ctin, cidx)
+    if reso == "swarm":
+        # every visited pair, not only the conflict pairs; the tr row
+        # holds the CAS
+        dtrk = cr_swarm.wrap_track(i("trk") - o("trk"))
+        w = cr_swarm.pair_weight(dx, dy, dalt, dtrk, pairmask)
+        outs += (w.to(dist.dtype).sum(0),) + tuple(
+            colsum(t.expand_as(dx), w)
+            for t in (i("tr"), i("vs"), dtrk, dx, dy, i("alt")))
+    return outs
 
 
 def merge_partners_block(pold, keep, ctin, cidx):
@@ -240,11 +290,12 @@ def block_ids(tiles, B):
     return (tiles[:, None] * B + torch.arange(B)[None, :]).reshape(-1)
 
 
-def rows_plain(packed, pold, ids_of_row, p: TileParams):
+def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK):
     """Run ``row_block_plain`` for every row block.  ``ids_of_row(i)``
     gives row i's intruder slot ids in visiting order; id ``nb * B`` is
     the all-inactive sentinel column.  Returns the 13 outputs (10 when
-    ``pold`` is None) in the kernel's layout ([nb, 1|kk, B])."""
+    ``pold`` is None; the swarm form adds ``N_SWARM``) in the kernel's
+    layout ([nb, 1|kk, B])."""
     nb, _, B = packed.shape
     dev = packed.device
     lane = torch.arange(B, device=dev, dtype=torch.int64)
@@ -255,9 +306,11 @@ def rows_plain(packed, pold, ids_of_row, p: TileParams):
         ids = torch.as_tensor(ids_of_row(i), device=dev).long()
         rows.append(row_block_plain(packed[i], allf[:, ids], i * B + lane,
                                     ids, None if pold is None else pold[i],
-                                    p))
+                                    p, reso, kk))
     outs = [torch.stack(parts) for parts in zip(*rows)]
-    for j in list(range(8)) + ([12] if pold is not None else []):
+    nfix = 10 if pold is None else 13
+    for j in list(range(8)) + ([12] if pold is not None else []) \
+            + list(range(nfix, len(outs))):
         outs[j] = outs[j][:, None, :]
     return outs
 
@@ -267,48 +320,56 @@ def _reach_rows(reach, B):
     return lambda i: block_ids(np.flatnonzero(reach_h[i]), B)
 
 
-def full_grid_resume_plain(packed, reach, pold, p: TileParams):
+def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp"):
     """Plain PyTorch version of the ``_kernel_resume`` pass: every row
     block i against every intruder block j with ``reach[i, j]``, in
     ascending j.  ``packed`` [nb, _NF, B] f32, ``reach`` [nb, nb] bool,
-    ``pold`` [nb, kk, B] int32.  Returns the 13 outputs."""
-    return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2]), p)
+    ``pold`` [nb, kk, B] int32.  Returns the 13 outputs (20 for the
+    swarm form)."""
+    return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2]), p,
+                      reso)
 
 
-def full_grid_plain(packed, reach, p: TileParams):
+def full_grid_plain(packed, reach, p: TileParams, reso="mvp", kk=KK):
     """Plain PyTorch version of the ``_kernel`` pass: the reach-masked
-    full grid without a partner table.  Returns the 10 outputs."""
-    return rows_plain(packed, None, _reach_rows(reach, packed.shape[2]), p)
+    full grid without a partner table, top-``kk`` candidates.  Returns
+    the 10 outputs (17 for the swarm form)."""
+    return rows_plain(packed, None, _reach_rows(reach, packed.shape[2]), p,
+                      reso, kk)
 
 
-def cand_tiles_plain(packed, cand, p: TileParams):
+def cand_tiles_plain(packed, cand, p: TileParams, reso="mvp", kk=KK):
     """Plain PyTorch version of the ``_kernel_cand`` pass: row block i
     against the aircraft of its candidate table ``cand[i]`` ([nb, c_cap]
     int32 slot ids, ascending, sentinel ``nb * B`` inactive).  Returns
-    the 10 outputs."""
-    return rows_plain(packed, None, lambda i: cand[i], p)
+    the 10 outputs; no swarm form (Swarm with candidates raises)."""
+    return rows_plain(packed, None, lambda i: cand[i], p, reso, kk)
 
 
 def compare_outputs(name, got, want):
     """Hold a kernel's outputs (13 for the resume kernels, 10 for the
-    others) against its plain version's: flags, counts, keep bits and the
-    candidate and merged partner sets exactly, the float reductions
-    within rtol 1e-4 / atol 5e-3 (f32 summation order differs: the
-    kernel sums per thread in tile order, the plain version with
-    ``torch.sum``).  Raises ``AssertionError`` naming ``name`` on a
+    others, each with the ``N_SWARM`` swarm sums after them in the swarm
+    form) against its plain version's: flags, counts, keep bits and the
+    candidate and merged partner sets exactly, the float reductions and
+    the swarm sums within rtol 1e-4 / atol 5e-3 (f32 summation order
+    differs: the kernel sums per thread in tile order, the plain version
+    with ``torch.sum``).  Raises ``AssertionError`` naming ``name`` on a
     mismatch; returns the largest absolute difference of the float
     outputs."""
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} outputs, want {len(want)}")
+    nfix = len(got) - N_SWARM if len(got) in (10 + N_SWARM, 13 + N_SWARM) \
+        else len(got)
     g = [t.detach().cpu() for t in got]
     w = [t.detach().cpu() for t in want]
     for j, what in ((0, "inconf"), (6, "ncnt"), (7, "lcnt"), (10, "keep"),
                     (12, "active")):
-        if j < len(g) and not torch.equal(g[j], w[j]):
+        if j < nfix and not torch.equal(g[j], w[j]):
             raise AssertionError(f"{name}: {what} differs")
     err = 0.0
     for j, what in ((1, "tcpamax"), (2, "sdve"), (3, "sdvn"), (4, "sdvv"),
-                    (5, "tsolv"), (8, "ctin")):
+                    (5, "tsolv"), (8, "ctin"),
+                    *zip(range(nfix, len(g)), SWARM_SUMS)):
         torch.testing.assert_close(g[j], w[j], rtol=1e-4, atol=5e-3,
                                    msg=lambda m: f"{name}: {what}: {m}")
         err = max(err, float((g[j].double() - w[j].double()).abs().max()))
@@ -319,7 +380,7 @@ def compare_outputs(name, got, want):
         return [frozenset(r[r >= 0].tolist()) for r in ids]
     if sets(g[9], g[8] < _BIG) != sets(w[9], w[8] < _BIG):
         raise AssertionError(f"{name}: candidate sets differ")
-    if len(g) > 11 and sets(g[11], g[11] >= 0) != sets(w[11], w[11] >= 0):
+    if nfix > 11 and sets(g[11], g[11] >= 0) != sets(w[11], w[11] >= 0):
         raise AssertionError(f"{name}: merged partner sets differ")
     return err
 
@@ -339,13 +400,13 @@ def compare_rows(name, got, want):
                                    msg=lambda m: f"{name}: {k}: {m}")
 
 
-def alloc_outputs(nb, kk, B, device, resume=True):
-    """Output tensors of one kernel launch: the 8 accumulators share one
-    [8, nb, 1, B] buffer, then ctin, cidx and, for the resume kernels,
-    keep, merged, active."""
+def alloc_outputs(nb, kk, B, device, resume=True, nacc=8):
+    """Output tensors of one kernel launch: the ``nacc`` accumulators (8,
+    15 in the swarm form) share one [nacc, nb, 1, B] buffer, then ctin,
+    cidx and, for the resume kernels, keep, merged, active."""
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    outs = (torch.empty((8, nb, 1, B), **f32),
+    outs = (torch.empty((nacc, nb, 1, B), **f32),
             torch.empty((nb, kk, B), **f32), torch.empty((nb, kk, B), **i32))
     if resume:
         outs += (torch.empty((nb, kk, B), **f32),
@@ -354,17 +415,25 @@ def alloc_outputs(nb, kk, B, device, resume=True):
     return outs
 
 
-def check_common(packed, pold=None):
-    """Validate the slab and partner-table operands of a kernel launch."""
+def check_common(packed, pold=None, kk=KK, reso="mvp"):
+    """Validate the slab and partner-table operands of a kernel launch:
+    the partner width must be ``KK`` (the kernels have no other; ROADMAP
+    B2) and ``reso`` a resolver form."""
     from . import _cuda
     nb, nf, B = packed.shape
     if nf != _NF or not 0 < B <= 256:
         raise ValueError(f"packed must be [nb, {_NF}, B<=256], "
                          f"got {tuple(packed.shape)}")
+    if reso not in RESO_CODE:
+        raise ValueError(f"unknown resolver form {reso!r}; expected one of "
+                         f"{tuple(RESO_CODE)}")
+    if pold is not None:
+        kk = pold.shape[1]
+    if kk != KK:
+        raise ValueError(f"the CUDA tile kernels take K = {KK} partners, "
+                         f"not {kk} (ROADMAP.md B2)")
     _cuda.require(packed, torch.float32, (nb, _NF, B), "packed")
     if pold is not None:
-        if pold.shape[1] != KK:
-            raise ValueError(f"the CUDA tile kernels take K = {KK} partners")
         _cuda.require(pold, torch.int32, (nb, KK, B), "pold")
     return nb, B
 
@@ -450,24 +519,29 @@ def cand_items(cand, B, per_row=CAND_ITEMS_PER_ROW):
     return mask_items(cand[:, ::B] < cand.shape[0] * B, per_row)
 
 
-def merge_items_plain(parts, B, pold=None):
+def merge_items_plain(parts, B, pold=None, reso="mvp", kk=KK):
     """Plain PyTorch version of ``cd_merge_items`` for one row block: the
     outputs of ``row_block_plain`` on each of the row's non-empty work
     items, in ascending item order, folded into the row's outputs.  Sums
     and counts add in item order, tcpamax takes the max, tsolv the min,
-    inconf and (with ``pold``) the keep bits or; the top-KK lists merge by
+    inconf and (with ``pold``) the keep bits or; the top-kk lists merge by
     (tin, id), the order of the kernel's insert over ascending ids.  With
     ``pold`` [kk, B] the partner merge follows and the 13 outputs are
-    returned, else the 10."""
+    returned, else the 10; the swarm form adds its sums in item order."""
+    if pold is not None:
+        kk = pold.shape[0]
+    nfix = 10 if pold is None else 13
     if not parts:       # a row without tiles: the identity elements
         dev = "cpu" if pold is None else pold.device
-        parts = [[torch.full((B,) if j < 8 else (KK, B), v, device=dev,
-                             dtype=torch.int32 if j == 9 else torch.float32)
-                  for j, v in enumerate(_ACC_NEUTRAL)]
-                 + [torch.zeros((KK, B), device=dev)]]
+        ident = [torch.full((B,) if j < 8 else (kk, B), v, device=dev,
+                            dtype=torch.int32 if j == 9 else torch.float32)
+                 for j, v in enumerate(_ACC_NEUTRAL)]
+        if pold is not None:        # keep bits; merged and active unread
+            ident += [torch.zeros((kk, B), device=dev)] * 3
+        parts = [ident + [torch.zeros(B, device=dev)] * N_SWARM]
     cols = list(zip(*parts))
-    sdve, sdvn, sdvv, ncnt, lcnt = (sum(cols[j], torch.zeros_like(cols[j][0]))
-                                    for j in (2, 3, 4, 6, 7))
+    add = lambda j: sum(cols[j], torch.zeros_like(cols[j][0]))
+    sdve, sdvn, sdvv, ncnt, lcnt = (add(j) for j in (2, 3, 4, 6, 7))
     inconf = torch.stack(cols[0]).amax(0)
     tcpamax = torch.stack(cols[1]).amax(0)
     tsolv = torch.stack(cols[5]).amin(0)
@@ -475,22 +549,25 @@ def merge_items_plain(parts, B, pold=None):
     by_id = torch.sort(ids, dim=0, stable=True).indices
     by_tin = torch.sort(torch.gather(tin, 0, by_id), dim=0,
                         stable=True).indices
-    first = torch.gather(by_id, 0, by_tin)[:KK]
+    first = torch.gather(by_id, 0, by_tin)[:kk]
     ctin, cidx = torch.gather(tin, 0, first), torch.gather(ids, 0, first)
     outs = (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt, ctin, cidx)
-    if pold is None:
-        return outs
-    keep = torch.stack(cols[10]).amax(0)
-    merged, active = merge_partners_block(pold, keep, ctin, cidx)
-    return outs + (keep, merged, active)
+    if pold is not None:
+        keep = torch.stack(cols[10]).amax(0)
+        outs += (keep,) + merge_partners_block(pold, keep, ctin, cidx)
+    if reso == "swarm":
+        outs += tuple(add(j) for j in range(nfix, nfix + N_SWARM))
+    return outs
 
 
-def walk_items(packed, items, p: TileParams, pold=None, cand=None):
+def walk_items(packed, items, p: TileParams, pold=None, cand=None,
+               reso="mvp"):
     """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
     partner table ``pold``, ``cd_cand_items`` with the candidate table
     ``cand`` (the tiles are its sub-chunks), ``cd_full_grid`` with
-    neither.  Returns the items' partials ``(acc [8, G, B], ct [KK, G,
-    B], ci, keep [G, B] or None)``, G = nb * C, for ``merge_items``."""
+    neither, in resolver form ``reso``.  Returns the items' partials
+    ``(acc [8|15, G, B], ct [KK, G, B], ci, keep [G, B] or None)``, G =
+    nb * C, for ``merge_items``."""
     from . import _cuda
     nb, _, B = packed.shape
     C = items.length.shape[1]
@@ -502,53 +579,58 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None):
         _cuda.require(t, torch.int32, shape, name)
     G = nb * C
     dev = packed.device
-    acc = torch.empty((8, G, B), dtype=torch.float32, device=dev)
+    nacc = 8 + (N_SWARM if reso == "swarm" else 0)
+    acc = torch.empty((nacc, G, B), dtype=torch.float32, device=dev)
     ct = torch.empty((KK, G, B), dtype=torch.float32, device=dev)
     ci = torch.empty((KK, G, B), dtype=torch.int32, device=dev)
     head = (packed.data_ptr(), nb, B, items.tiles.data_ptr(), W,
             items.start.data_ptr(), items.length.data_ptr(),
             items.order.data_ptr(), C)
+    tail = (*kernel_floats(p), RESO_CODE[reso])
     lib = _cuda.load("cd_tiles.cu")
     stream = _cuda.stream_ptr(dev)
     keep = None
     if cand is not None:
-        rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1],
-                               *kernel_floats(p), acc.data_ptr(),
-                               ct.data_ptr(), ci.data_ptr(), stream)
+        rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1], *tail,
+                               acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
+                               stream)
         _cuda.check(rc, "cd_cand_items")
     elif pold is None:
-        rc = lib.cd_full_grid(*head, *kernel_floats(p), acc.data_ptr(),
-                              ct.data_ptr(), ci.data_ptr(), stream)
+        rc = lib.cd_full_grid(*head, *tail, acc.data_ptr(), ct.data_ptr(),
+                              ci.data_ptr(), stream)
         _cuda.check(rc, "cd_full_grid")
     else:
         keep = torch.empty((G, B), dtype=torch.int32, device=dev)
-        rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *kernel_floats(p),
+        rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *tail,
                                 acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
                                 keep.data_ptr(), stream)
         _cuda.check(rc, "cd_sched_tiles")
     return acc, ct, ci, keep
 
 
-def merge_items(parts, items, B, pold=None):
+def merge_items(parts, items, B, pold=None, reso="mvp"):
     """Launch ``cd_merge_items`` on the partials of ``walk_items``:
-    returns the 13 outputs with ``pold``, else the 10."""
+    returns the 13 outputs with ``pold``, else the 10, each followed by
+    the ``N_SWARM`` swarm sums in the swarm form."""
     from . import _cuda
     acc_p, ct, ci, keep_p = parts
     nb, C = items.length.shape
     resume = pold is not None
-    outs = alloc_outputs(nb, KK, B, ct.device, resume=resume)
+    nacc = acc_p.shape[0]
+    outs = alloc_outputs(nb, KK, B, ct.device, resume=resume, nacc=nacc)
     ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))
     rc = _cuda.load("cd_tiles.cu").cd_merge_items(
         nb, B, C, items.length.data_ptr(), pold.data_ptr() if resume else 0,
         acc_p.data_ptr(), ct.data_ptr(), ci.data_ptr(),
-        keep_p.data_ptr() if resume else 0, *ptrs,
+        keep_p.data_ptr() if resume else 0, *ptrs, RESO_CODE[reso],
         _cuda.stream_ptr(ct.device))
     _cuda.check(rc, "cd_merge_items")
-    return list(outs[0].unbind(0)) + list(outs[1:])
+    acc = list(outs[0].unbind(0))
+    return acc[:8] + list(outs[1:]) + acc[8:]
 
 
 def full_grid_resume(packed, reach, pold, p: TileParams,
-                     per_row=RESUME_ITEMS_PER_ROW):
+                     per_row=RESUME_ITEMS_PER_ROW, reso="mvp"):
     """The sparse overflow-row fallback pass (``_kernel_resume``): the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors (see
     ``full_grid_resume_plain``).  On the card each row's reachable tiles
@@ -557,17 +639,19 @@ def full_grid_resume(packed, reach, pold, p: TileParams,
     ``cd_merge_items``; the items of a row that ``reach`` leaves empty
     exit at once.  Nothing waits for the device."""
     if not packed.is_cuda:
-        return full_grid_resume_plain(packed, reach, pold, p)
+        return full_grid_resume_plain(packed, reach, pold, p, reso)
     from . import _cuda
-    nb, B = check_common(packed, pold)
+    nb, B = check_common(packed, pold, reso=reso)
     _cuda.require(reach, torch.bool, (nb, nb), "reach")
     items = reach_items(reach, per_row)
-    outs = merge_items(walk_items(packed, items, p, pold), items, B, pold)
-    LAUNCHES["cd_full_grid_resume"] += 1
+    outs = merge_items(walk_items(packed, items, p, pold, reso=reso), items,
+                       B, pold, reso)
+    LAUNCHES[launch_key("cd_full_grid_resume", reso)] += 1
     return outs
 
 
-def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW):
+def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW,
+              reso="mvp", kk=KK):
     """The reach-masked full-grid pass (``_kernel``): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors (see
     ``full_grid_plain``).  On the card each row's reachable tiles are cut
@@ -575,36 +659,40 @@ def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW):
     ``cd_full_grid`` and folded by ``cd_merge_items``; nothing waits for
     the device."""
     if not packed.is_cuda:
-        return full_grid_plain(packed, reach, p)
+        return full_grid_plain(packed, reach, p, reso, kk)
     from . import _cuda
-    nb, B = check_common(packed)
+    nb, B = check_common(packed, kk=kk, reso=reso)
     _cuda.require(reach, torch.bool, (nb, nb), "reach")
     items = reach_items(reach, per_row)
-    parts = walk_items(packed, items, p)
-    outs = merge_items(parts, items, B)
-    LAUNCHES["cd_full_grid"] += 1
+    parts = walk_items(packed, items, p, reso=reso)
+    outs = merge_items(parts, items, B, reso=reso)
+    LAUNCHES[launch_key("cd_full_grid", reso)] += 1
     return outs
 
 
-def cand_tiles(packed, cand, p: TileParams, per_row=CAND_ITEMS_PER_ROW):
+def cand_tiles(packed, cand, p: TileParams, per_row=CAND_ITEMS_PER_ROW,
+               reso="mvp", kk=KK):
     """The candidate-list pass (``_kernel_cand``): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors (see
     ``cand_tiles_plain``).  On the card each row's candidate sub-chunks
     are cut into at most ``per_row`` work items (``cand_items``), walked
     by ``cd_cand_items`` and folded by ``cd_merge_items``; nothing waits
-    for the device."""
+    for the device.  No swarm form."""
+    if reso == "swarm":
+        raise ValueError("the candidate pass has no swarm form")
     if not packed.is_cuda:
-        return cand_tiles_plain(packed, cand, p)
+        return cand_tiles_plain(packed, cand, p, reso, kk)
     from . import _cuda
-    nb, B = check_common(packed)
+    nb, B = check_common(packed, kk=kk, reso=reso)
     c_cap = cand.shape[1]
     if c_cap <= 0 or c_cap % B:
         raise ValueError(f"candidate capacity {c_cap} is not a positive "
                          f"multiple of the block {B}")
     _cuda.require(cand, torch.int32, (nb, c_cap), "cand")
     items = cand_items(cand, B, per_row)
-    outs = merge_items(walk_items(packed, items, p, cand=cand), items, B)
-    LAUNCHES["cd_cand_tiles"] += 1
+    outs = merge_items(walk_items(packed, items, p, cand=cand, reso=reso),
+                       items, B, reso=reso)
+    LAUNCHES[launch_key("cd_cand_tiles", reso)] += 1
     return outs
 
 
@@ -631,7 +719,7 @@ def build_candidates(lat, lon, gs, active, nb, block, c_cap, rpz,
     dev = lat.device
 
     def boxes(shape):
-        inf = torch.tensor(float("inf"), dtype=lat.dtype, device=dev)
+        inf = torch.full((), float("inf"), dtype=lat.dtype, device=dev)
         zero = torch.zeros((), dtype=lat.dtype, device=dev)
         blat, blon = lat.reshape(shape), lon.reshape(shape)
         act = active.reshape(shape)
@@ -693,13 +781,31 @@ class PallasInputs(NamedTuple):
     n: int                    # caller's aircraft count
     nb: int
     block: int
+    reso: str = "mvp"         # the tile body's resolver form
+
+
+def tr_row(gs, extra_cols=None, reso="mvp"):
+    """The overloaded ``tr`` slab row (float32): the CAS under Swarm
+    (``extra_cols["cas"]``, else gs), else the tas/gs ratio of Eby's
+    velocity basis (``tr * u = tas * sin(trk)``; gs floored at 0.5), 1
+    when no tas is given."""
+    gs = gs.to(torch.float32)
+    extra_cols = extra_cols or {}
+    if reso == "swarm":
+        return extra_cols.get("cas", gs).to(torch.float32)
+    if "tas" not in extra_cols:
+        return torch.ones_like(gs)
+    return extra_cols["tas"].to(torch.float32) / torch.clamp_min(gs, 0.5)
 
 
 def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
-            rpz, tlookahead, block=256) -> PallasInputs:
+            rpz, tlookahead, block=256, extra_cols=None,
+            reso="mvp") -> PallasInputs:
     """Packed float32 slabs and block reachability of already sorted
     columns, padded to whole blocks: ``block`` capped at 256 and at the
-    power of two that covers ``n``, 128 for ``n <= 128``."""
+    power of two that covers ``n``, 128 for ``n <= 128``.  ``reso`` and
+    ``extra_cols`` (``tas`` or ``cas``) fill the ``tr`` row
+    (``tr_row``); Swarm widens the reachability to its neighbourhood."""
     dtype = torch.float32
     n = lat.shape[0]
     block = 128 if n <= 128 else min(block, 256, 1 << (n - 1).bit_length())
@@ -717,84 +823,97 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
         "u": pad(gs32 * torch.sin(trkrad)), "v": pad(gs32 * torch.cos(trkrad)),
         "alt": pad(alt), "vs": pad(vs), "gse": pad(gseast),
         "gsn": pad(gsnorth), "trk": pad(trk),
-        "tr": pad(torch.ones_like(gs32)),        # MVP: the tas/gs ratio 1
+        "tr": pad(tr_row(gs32, extra_cols, reso)),
         "active": pad(active), "noreso": pad(noreso)})
     packed = torch.stack([fields[k] for k in _FIELDS]).reshape(
         _NF, nb, block).transpose(0, 1).contiguous()
     act = fields["active"] > 0.5
-    reach = block_reachability(fields["lat"], fields["lon"], pad(gs), act,
-                               nb, block, float(rpz), float(tlookahead))
+    reach = block_reachability(
+        fields["lat"], fields["lon"], pad(gs), act, nb, block, float(rpz),
+        float(tlookahead),
+        min_reach_m=cr_swarm.R_SWARM if reso == "swarm" else 0.0)
     return PallasInputs(packed=packed, reach=reach, lat=fields["lat"],
                         lon=fields["lon"], gs=pad(gs), active=act, n=n,
-                        nb=nb, block=block)
+                        nb=nb, block=block, reso=reso)
 
 
-def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0):
-    """The pass of ``detect_resolve_pallas`` on prepared operands: the
-    full grid, or with ``cand_cap > 0`` (rounded up to whole blocks) and
-    at least 8 row blocks the candidate pass plus the full grid over its
-    overflow rows, merged row-disjointly.  The full grid is launched on
-    ``reach & row_over`` whether or not a row overflowed, so nothing
-    waits for the device.  Returns the 10 outputs in kernel layout."""
+def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK):
+    """The pass of ``detect_resolve_pallas`` on prepared operands, in the
+    resolver form ``x.reso`` with top-``kk`` candidates: the full grid,
+    or with ``cand_cap > 0`` (rounded up to whole blocks) and at least 8
+    row blocks the candidate pass plus the full grid over its overflow
+    rows, merged row-disjointly.  The full grid is launched on ``reach &
+    row_over`` whether or not a row overflowed, so nothing waits for the
+    device.  Returns the outputs in kernel layout."""
     c_cap = -(-cand_cap // x.block) * x.block if cand_cap else 0
     if not (x.nb >= 8 and 0 < c_cap < x.nb * x.block):
-        return full_grid(x.packed, x.reach, p)
+        return full_grid(x.packed, x.reach, p, reso=x.reso, kk=kk)
     cand, row_over = build_candidates(
         x.lat, x.lon, x.gs, x.active, x.nb, x.block, c_cap, p.rpz,
         p.tlookahead)
-    outs_c = cand_tiles(x.packed, cand, p)
-    outs_f = full_grid(x.packed, x.reach & row_over[:, None], p)
+    outs_c = cand_tiles(x.packed, cand, p, reso=x.reso, kk=kk)
+    outs_f = full_grid(x.packed, x.reach & row_over[:, None], p,
+                       reso=x.reso, kk=kk)
     rsel = row_over[:, None, None]
     return [torch.where(rsel, f, c) for f, c in zip(outs_f, outs_c)]
 
 
 def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                           active, noreso, rpz, hpz, tlookahead, mvpcfg,
-                          block=256, cand_cap=0, perm=None, reso="mvp"):
+                          block=256, k_partners=KK, cand_cap=0, perm=None,
+                          extra_cols=None, reso="mvp"):
     """CD&R of the ``pallas`` backend; returns a ``RowConflictData`` in
-    caller order (``topk_idx`` caller slots, -1 empty).  Always float32.
+    caller order (``topk_idx`` caller slots, -1 empty), and with
+    ``reso="swarm"`` ``(rd, swarm_sums)``.  Always float32.
 
     With more slots than ``block`` the pass runs in Morton-sorted slot
     space (``cd_tiled.run_spatially_sorted``, ``perm`` a cached sorted ->
     caller permutation, recomputed when None).  ``cand_cap > 0`` turns on
     the candidate-list scheduler (see ``run_kernels``); the result is the
-    same either way.  Only the MVP pair sums are ported; the Swarm sums
-    and the mesh branch are not."""
+    same either way.  ``reso`` is the tile body's resolver form, with
+    ``extra_cols`` its ``tas`` (Eby) or ``cas`` (Swarm) column.  The
+    partner candidates are the ``min(k_partners, block)`` most urgent;
+    the CUDA kernels take 8 only and raise for another width.  The mesh
+    branch is not ported."""
     if reso == "swarm" and cand_cap:
         raise ValueError("cand_cap mixed mode does not carry the swarm "
                          "neighbour sums; use cand_cap=0 with RESO SWARM")
-    if reso != "mvp":
-        raise NotImplementedError(
-            f"resolver sums {reso!r} are not ported yet: only MVP is "
-            "(ROADMAP.md A3)")
+    if reso not in RESO_CODE:
+        raise ValueError(f"unknown resolver form {reso!r}; expected one of "
+                         f"{tuple(RESO_CODE)}")
     args = (lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, mvpcfg)
+    kw = dict(block=block, k_partners=k_partners, cand_cap=cand_cap,
+              reso=reso)
     if lat.shape[0] > block:
         return cd_tiled.run_spatially_sorted(
-            _detect_resolve_sorted, *args, perm=perm, block=block,
-            cand_cap=cand_cap)
-    return _detect_resolve_sorted(*args, block=block, cand_cap=cand_cap)
+            _detect_resolve_sorted, *args, perm=perm, extra_cols=extra_cols,
+            **kw)
+    return _detect_resolve_sorted(*args, extra_cols=extra_cols, **kw)
 
 
 def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                            active, noreso, rpz, hpz, tlookahead, mvpcfg,
-                           block, cand_cap):
+                           block, k_partners, cand_cap, reso,
+                           extra_cols=None):
     """``detect_resolve_pallas`` on columns already in the slot order the
     pass runs in; ``topk_idx`` holds slots of that order."""
     n = lat.shape[0]
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
-                noreso, rpz, tlookahead, block=block)
+                noreso, rpz, tlookahead, block=block, extra_cols=extra_cols,
+                reso=reso)
+    kk = min(k_partners, x.block)
     outs = run_kernels(x, tile_params(rpz, hpz, tlookahead, mvpcfg),
-                       cand_cap)
+                       cand_cap, kk)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
-     ctin, cidx) = outs
+     ctin, cidx) = outs[:10]
     nt = x.nb * x.block
     unb = lambda a: a.reshape(nt)[:n]
-    topk_tin = ctin.transpose(1, 2).reshape(nt, KK)[:n]
-    topk_idx = cidx.transpose(1, 2).reshape(nt, KK)[:n]
+    topk_tin = ctin.transpose(1, 2).reshape(nt, kk)[:n]
+    topk_idx = cidx.transpose(1, 2).reshape(nt, kk)[:n]
     topk_idx = torch.where(topk_tin < _BIG, topk_idx,
                            torch.full_like(topk_idx, -1))
-    return RowConflictData(
+    rd = RowConflictData(
         inconf=unb(inconf) > 0.5, tcpamax=unb(tcpamax),
         sum_dve=unb(sdve), sum_dvn=unb(sdvn), sum_dvv=unb(sdvv),
         tsolv=unb(tsolv),
@@ -803,3 +922,6 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
         nconf=ncnt.to(torch.int32).sum(dtype=torch.int32),
         nlos=lcnt.to(torch.int32).sum(dtype=torch.int32),
         topk_idx=topk_idx, topk_tin=topk_tin)
+    if reso == "swarm":
+        return rd, tuple(unb(a) for a in outs[10:10 + N_SWARM])
+    return rd

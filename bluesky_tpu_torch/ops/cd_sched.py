@@ -22,20 +22,23 @@ Port of the single-device replicate path of ``bluesky_tpu/ops/cd_sched.py``:
 No step here waits for the device: the overflow fallback is always
 launched, on the row-restricted reachability, so rows without overflow
 leave it at once.  Semantics are those of the JAX module: the schedule
-only changes which provably conflict-free tiles are skipped.
+only changes which provably conflict-free tiles are skipped.  Both
+kernels run in the resolver form of the interval (``reso``: MVP, Eby or
+Swarm, see ``cd_pallas``); Swarm widens the reachability to its
+neighbourhood.
 """
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import cd_pallas
-from .cd_pallas import _BIG, _FIELDS, _NF, TileParams
+from . import cd_pallas, cr_swarm
+from .cd_pallas import _BIG, _FIELDS, _NF, N_SWARM, TileParams, launch_key
 from .cd_tiled import RowConflictData, block_reachability, precompute_trig
 from . import geo
 
-#: Launches of the CUDA kernel since the last reset.
-LAUNCHES = {"cd_sched_tiles": 0}
+#: Launches of the CUDA kernel in each resolver form since the last reset.
+LAUNCHES = {launch_key("cd_sched_tiles", r): 0 for r in cd_pallas.RESO_CODE}
 
 
 def padded_size(n, block=256, extra=32):
@@ -52,6 +55,18 @@ def slot_inverse(perm, n, n_tot, fill=-1):
     inv[torch.clamp(perm, 0, n_tot).long()] = torch.arange(
         n, dtype=torch.int32, device=perm.device)
     return inv
+
+
+def partners_to_caller(perm, partners_s, n, n_tot):
+    """The sorted-space partner table ``partners_s`` [n_tot, K] as a
+    caller-space [n, K] table (-1 empty): partner slots map through
+    ``slot_inverse``, and caller row i reads the row of its slot
+    ``perm[i]``."""
+    inv = slot_inverse(perm, n, n_tot)
+    pc = torch.where(partners_s >= 0,
+                     inv[torch.clamp(partners_s, 0, n_tot).long()],
+                     torch.full_like(partners_s, -1))
+    return pc[torch.clamp(perm, 0, n_tot - 1).long()]
 
 
 def reach_threshold_m(gs, active, tlookahead, rpz):
@@ -137,11 +152,12 @@ def build_windows(reach, s_cap, wmax, pad_start):
     return st.to(torch.int32), ln.to(torch.int32), overflow
 
 
-def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams):
+def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
+                      reso="mvp"):
     """Plain PyTorch version of the ``_sched_kernel`` pass: row block i
     walks its segments ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))``
     in slot order, blocks past the grid skipped.  Returns the 13
-    outputs (see ``cd_pallas.row_block_plain``)."""
+    outputs, 20 in the swarm form (see ``cd_pallas.row_block_plain``)."""
     nb, _, B = packed.shape
     st = wst.cpu().numpy()
     ln = np.minimum(wln.cpu().numpy(), wmax)
@@ -151,7 +167,7 @@ def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams):
         t = np.concatenate(t) if t else np.zeros(0, np.int64)
         return cd_pallas.block_ids(t[t < nb], B)
 
-    return cd_pallas.rows_plain(packed, pold, ids, p)
+    return cd_pallas.rows_plain(packed, pold, ids, p, reso)
 
 
 def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW):
@@ -169,23 +185,23 @@ def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW):
 
 
 def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams,
-                per_row=cd_pallas.ITEMS_PER_ROW):
+                per_row=cd_pallas.ITEMS_PER_ROW, reso="mvp"):
     """The segment pass: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see ``sched_tiles_plain``).  On the card each
     row's segment blocks are cut into at most ``per_row`` work items
     (``window_items``), walked by ``cd_sched_tiles`` and folded, with the
     partner merge, by ``cd_merge_items``; nothing waits for the device."""
     if not packed.is_cuda:
-        return sched_tiles_plain(packed, wst, wln, wmax, pold, p)
+        return sched_tiles_plain(packed, wst, wln, wmax, pold, p, reso)
     from . import _cuda
-    nb, B = cd_pallas.check_common(packed, pold)
+    nb, B = cd_pallas.check_common(packed, pold, reso=reso)
     s_cap = wst.shape[1]
     _cuda.require(wst, torch.int32, (nb, s_cap), "wst")
     _cuda.require(wln, torch.int32, (nb, s_cap), "wln")
     items = window_items(wst, wln, int(wmax), nb, per_row)
-    parts = cd_pallas.walk_items(packed, items, p, pold)
-    outs = cd_pallas.merge_items(parts, items, B, pold)
-    LAUNCHES["cd_sched_tiles"] += 1
+    parts = cd_pallas.walk_items(packed, items, p, pold, reso=reso)
+    outs = cd_pallas.merge_items(parts, items, B, pold, reso)
+    LAUNCHES[launch_key("cd_sched_tiles", reso)] += 1
     return outs
 
 
@@ -203,14 +219,19 @@ class SchedInputs(NamedTuple):
     n_tot: int
     nb: int
     block: int
+    reso: str = "mvp"         # the tile body's resolver form
 
 
 def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, partners, block=256, s_cap=6, wmax=16,
-            extra_blocks=32, perm=None) -> SchedInputs:
+            extra_blocks=32, perm=None, tas=None, cas=None,
+            reso="mvp") -> SchedInputs:
     """Everything ``detect_resolve_sched`` hands the two kernels: the
     padded stripe-sorted slabs, the reachability, the segment windows and
-    the partner table in kernel layout.  Always float32."""
+    the partner table in kernel layout.  Always float32.  ``reso`` with
+    ``tas`` (Eby) or ``cas`` (Swarm) fills the ``tr`` row
+    (``cd_pallas.tr_row``); Swarm widens the reachability to its
+    neighbourhood, horizontally and vertically."""
     n = lat.shape[0]
     dtype = torch.float32
     block = min(block, 256)
@@ -224,8 +245,10 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
     n_tot = nb * block
     cols = {"lat": lat, "lon": lon, "trk": trk, "gs": gs, "alt": alt,
             "vs": vs, "gse": gseast, "gsn": gsnorth,
-            "tr": torch.ones_like(f(gs)), "active": active,
-            "noreso": noreso}
+            "tr": cd_pallas.tr_row(gs, {k: v for k, v in
+                                        (("tas", tas), ("cas", cas))
+                                        if v is not None}, reso),
+            "active": active, "noreso": noreso}
     padded = dict(zip(cols, scatter_padded([f(v) for v in cols.values()],
                                            perm, n_tot)))
     fields = precompute_trig(padded["lat"], padded["lon"])
@@ -238,25 +261,32 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
         "active": padded["active"], "noreso": padded["noreso"]})
     packed = torch.stack([fields[k] for k in _FIELDS]).reshape(
         _NF, nb, block).transpose(0, 1).contiguous()
+    swarm_m = ((cr_swarm.R_SWARM, cr_swarm.DH_SWARM) if reso == "swarm"
+               else (0.0, 0.0))
     reach = block_reachability(
         padded["lat"], padded["lon"], padded["gs"], padded["active"] > 0.5,
         nb, block, float(rpz), float(tlookahead), alt=padded["alt"],
-        vs=padded["vs"], hpz=float(hpz))
+        vs=padded["vs"], hpz=float(hpz), min_reach_m=swarm_m[0],
+        min_vreach_m=swarm_m[1])
     st, ln, overflow = build_windows(reach, s_cap, wmax, pad_start=nb)
     kk = partners.shape[1]
     pold = partners.reshape(nb, block, kk).transpose(1, 2) \
         .to(torch.int32).contiguous()
     return SchedInputs(packed=packed, wst=torch.clamp(st, 0, nb), wln=ln,
                        wmax=wmax, overflow=overflow, reach=reach, pold=pold,
-                       perm=perm, n=n, n_tot=n_tot, nb=nb, block=block)
+                       perm=perm, n=n, n_tot=n_tot, nb=nb, block=block,
+                       reso=reso)
 
 
 def run_kernels(x: SchedInputs, p: TileParams):
-    """The segment pass plus the overflow fallback, merged row-disjointly
-    (the 13 outputs in kernel layout)."""
-    outs_s = sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
+    """The segment pass plus the overflow fallback in the resolver form
+    ``x.reso``, merged row-disjointly (the 13 outputs in kernel layout,
+    20 in the swarm form)."""
+    outs_s = sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p,
+                         reso=x.reso)
     reach_f = x.reach & x.overflow[:, None]
-    outs_f = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
+    outs_f = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p,
+                                        reso=x.reso)
     rsel = x.overflow[:, None, None]
     return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
 
@@ -264,21 +294,25 @@ def run_kernels(x: SchedInputs, p: TileParams):
 def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                          active, noreso, rpz, hpz, tlookahead, mvpcfg,
                          partners, resume_rpz_m, block=256, s_cap=6,
-                         wmax=16, extra_blocks=32, perm=None):
+                         wmax=16, extra_blocks=32, perm=None, tas=None,
+                         cas=None, reso="mvp"):
     """Sparse-scheduled CD&R with in-kernel resume-nav (the production
-    form of the JAX function: ``partners`` given, MVP sums, one device).
+    form of the JAX function: ``partners`` given, one device).
 
     ``perm`` is the cached ``stripe_sort_dest`` table (recomputed when
     None); ``partners`` [n_tot, K] int32 is the sorted-space partner
-    table.  Returns ``(rd, partners_new, active)``: the per-ownship
-    reductions in caller order (``rd.topk_*`` sorted-space ids), the
-    merged sorted-space partner table and the caller-space ASAS
-    engagement flags.  The small-N delegate to the full-grid kernel and
-    the mesh decompositions of the JAX function are not ported."""
+    table.  ``reso`` is the resolver form of the pair sums, with ``tas``
+    (Eby) or ``cas`` (Swarm).  Returns ``(rd, partners_new, active)``,
+    and with ``reso="swarm"`` ``(rd, partners_new, active, swarm_sums)``:
+    the per-ownship reductions in caller order (``rd.topk_*``
+    sorted-space ids), the merged sorted-space partner table, the
+    caller-space ASAS engagement flags and the seven neighbour sums in
+    caller order.  The small-N delegate to the full-grid kernel and the
+    mesh decompositions of the JAX function are not ported."""
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                 noreso, rpz, hpz, tlookahead, partners, block=block,
                 s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
-                perm=perm)
+                perm=perm, tas=tas, cas=cas, reso=reso)
     p = cd_pallas.tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m)
     outs = run_kernels(x, p)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
@@ -286,7 +320,7 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     n_tot, kk, perm = x.n_tot, partners.shape[1], x.perm.long()
     stacked = torch.stack([o.reshape(n_tot) for o in
                            (inconf, tcpamax, sdve, sdvn, sdvv, tsolv,
-                            outs[12])])
+                            *outs[12:])])
     backed = stacked[:, perm]
     topk_tin = ctin.transpose(1, 2).reshape(n_tot, kk)[perm]
     topk_idx = cidx.transpose(1, 2).reshape(n_tot, kk)[perm]
@@ -302,4 +336,7 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
         nlos=lcnt.to(torch.int32).sum(dtype=torch.int32),
         topk_idx=topk_idx, topk_tin=topk_tin)
     partners_new = outs[11].transpose(1, 2).reshape(n_tot, kk)
+    if reso == "swarm":
+        return rd, partners_new, backed[6] > 0.5, \
+            tuple(backed[7:7 + N_SWARM])
     return rd, partners_new, backed[6] > 0.5

@@ -7,7 +7,8 @@ exact block reachability bound, the Morton slot order with its
 sorted-space runner (``spatial_permutation``, ``run_spatially_sorted``),
 the host-side partner-table resume-nav (``topk_partners``,
 ``partner_keep``, ``merge_partners``) and ``detect_resolve_tiled``, the
-CD&R of ``SimConfig(cd_backend="tiled")``.
+CD&R of ``SimConfig(cd_backend="tiled")`` with the pair sums of MVP,
+Eby or MVP plus the Swarm neighbour sums.
 
 The JAX ``detect_resolve_tiled`` is a ``lax.scan`` over column blocks
 with a ``lax.cond`` skip per tile, compiled into one program.  Eager
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cr_mvp, geo, kmath
+from . import cr_eby, cr_mvp, cr_swarm, geo, kmath
 
 
 class RowConflictData(NamedTuple):
@@ -133,12 +134,15 @@ def spatial_permutation(lat, lon, active):
 
 
 def run_spatially_sorted(kernel, lat, lon, trk, gs, alt, vs, gseast,
-                         gsnorth, active, noreso, *args, perm=None, **kw):
+                         gsnorth, active, noreso, *args, perm=None,
+                         extra_cols=None, **kw):
     """Run a CD&R function in Morton-sorted slot space and map its
     ``RowConflictData`` back to caller order: rows by the inverse
     permutation, partner ids through ``perm`` (they are sorted-space
-    positions).  ``perm`` [N] (sorted position -> caller slot) may be a
-    stale cached permutation: any permutation is exact, since the
+    positions).  ``extra_cols`` (per-aircraft columns by name) are
+    permuted too; a ``(rd, swarm_sums)`` result maps its sums back as
+    rows.  ``perm`` [N] (sorted position -> caller slot) may be a stale
+    cached permutation: any permutation is exact, since the
     reachability is recomputed from the true positions."""
     if perm is None:
         perm = spatial_permutation(lat, lon, active)
@@ -147,18 +151,26 @@ def run_spatially_sorted(kernel, lat, lon, trk, gs, alt, vs, gseast,
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
     g = lambda a: a[perm]
+    if extra_cols:
+        kw = dict(kw, extra_cols={k: g(v) for k, v in extra_cols.items()})
     rd = kernel(g(lat), g(lon), g(trk), g(gs), g(alt), g(vs), g(gseast),
                 g(gsnorth), g(active), g(noreso), *args, **kw)
+    extra = None
+    if not isinstance(rd, RowConflictData):        # (rd, swarm_sums)
+        rd, extra = rd
     back = lambda a: a[inv]
     topk_idx = torch.where(
         rd.topk_idx >= 0, perm[torch.clamp_min(rd.topk_idx, 0).long()]
         .to(torch.int32), torch.full_like(rd.topk_idx, -1))
-    return RowConflictData(
+    rd = RowConflictData(
         inconf=back(rd.inconf), tcpamax=back(rd.tcpamax),
         sum_dve=back(rd.sum_dve), sum_dvn=back(rd.sum_dvn),
         sum_dvv=back(rd.sum_dvv), tsolv=back(rd.tsolv),
         nconf=rd.nconf, nlos=rd.nlos,
         topk_idx=back(topk_idx), topk_tin=back(rd.topk_tin))
+    if extra is not None:
+        return rd, tuple(back(a) for a in extra)
+    return rd
 
 
 def topk_partners(rd, k):
@@ -209,7 +221,7 @@ def block_summaries(lat, lon, gs, active, nb, block, alt=None, vs=None):
     shape = (nb, block)
     blat, blon, bgs = lat.reshape(shape), lon.reshape(shape), gs.reshape(shape)
     act = active.reshape(shape)
-    inf = torch.tensor(float("inf"), dtype=lat.dtype, device=lat.device)
+    inf = torch.full((), float("inf"), dtype=lat.dtype, device=lat.device)
     zero = torch.zeros((), dtype=lat.dtype, device=lat.device)
     out = dict(
         latmin=torch.where(act, blat, inf).amin(1),
@@ -266,12 +278,17 @@ def reachability_from_summaries(row, col, rpz, tlookahead, hpz=None,
 
 
 def block_reachability(lat, lon, gs, active, nb, block, rpz, tlookahead,
-                       alt=None, vs=None, hpz=None):
+                       alt=None, vs=None, hpz=None, min_reach_m=0.0,
+                       min_vreach_m=0.0):
     """[nb, nb] bool: which block pairs can possibly contain a conflict
-    or LoS (the exact horizontal and vertical skip bounds)."""
+    or LoS (the exact horizontal and vertical skip bounds), or, with
+    ``min_reach_m`` / ``min_vreach_m``, a pair that near (the Swarm
+    neighbourhood)."""
     summ = block_summaries(lat, lon, gs, active, nb, block, alt=alt, vs=vs)
     return reachability_from_summaries(summ, summ, rpz, tlookahead,
-                                       hpz=hpz if alt is not None else None)
+                                       hpz=hpz if alt is not None else None,
+                                       min_reach_m=min_reach_m,
+                                       min_vreach_m=min_vreach_m)
 
 
 #: reachable tiles and eager row iterations of the last
@@ -302,27 +319,34 @@ def _first_k(urg, kk):
 def detect_resolve_tiled(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                          active, noreso, rpz, hpz, tlookahead, mvpcfg,
                          block=512, k_partners=8, prefilter=True,
-                         spatial_sort=True, perm=None):
-    """One pass over all aircraft pairs in [block, block] tiles, MVP
-    sums accumulated per ownship (reference StateBasedCD.py:7-103 and
-    MVP.py:14-143; JAX ``cd_tiled.py:402-659``).  Arguments as
-    ``cd.detect`` plus the MVP inputs; returns a ``RowConflictData``.
+                         spatial_sort=True, perm=None, extra_cols=None,
+                         reso="mvp"):
+    """One pass over all aircraft pairs in [block, block] tiles, the
+    resolver's pair sums accumulated per ownship (reference
+    StateBasedCD.py:7-103, MVP.py:14-143, Eby.py:73-138, Swarm.py:47-66;
+    JAX ``cd_tiled.py:402-659``).  Arguments as ``cd.detect`` plus the
+    MVP inputs; returns a ``RowConflictData``, and with
+    ``reso="swarm"`` ``(rd, swarm_sums)``: the seven neighbour sums of
+    ``cr_swarm.resolve_from_sums``.
 
-    ``prefilter`` skips the tiles the exact block reachability bound
-    rules out; ``spatial_sort`` runs in the Morton order ``perm`` (sorted
-    position -> caller slot; computed when None).  The partner candidates
-    are the ``min(k_partners, block)`` smallest entry times of each row,
-    ties to the lower sorted-space column, as the JAX scan's running
-    top-K selects them.  Only the MVP sums are ported (the JAX
-    ``reso="mvp"``; Eby and Swarm are ROADMAP.md A3)."""
+    ``reso="eby"`` replaces the MVP sums by the Eby sums on the TAS
+    velocities of ``extra_cols["tas"]`` (no noreso mask, ``tsolv`` left
+    at 1e9); ``reso="swarm"`` keeps the MVP sums, adds the neighbour sums
+    with the CAS of ``extra_cols["cas"]`` and widens the reachability to
+    the swarm radius.  ``prefilter`` skips the tiles the exact block
+    reachability bound rules out; ``spatial_sort`` runs in the Morton
+    order ``perm`` (sorted position -> caller slot; computed when None).
+    The partner candidates are the ``min(k_partners, block)`` smallest
+    entry times of each row, ties to the lower sorted-space column, as
+    the JAX scan's running top-K selects them."""
     n = lat.shape[0]
     if spatial_sort and n > block:
         return run_spatially_sorted(
             functools.partial(detect_resolve_tiled, block=block,
                               k_partners=k_partners, prefilter=prefilter,
-                              spatial_sort=False),
+                              spatial_sort=False, reso=reso),
             lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
-            rpz, hpz, tlookahead, mvpcfg, perm=perm)
+            rpz, hpz, tlookahead, mvpcfg, perm=perm, extra_cols=extra_cols)
     block = min(block, max(n, 1))
     kk = min(k_partners, block)
     nb = -(-n // block)
@@ -342,14 +366,25 @@ def detect_resolve_tiled(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     cols.update(alt=_pad1(alt, npad, 0.0), vs=_pad1(vs, npad, 0.0),
                 gse=_pad1(gseast, npad, 0.0), gsn=_pad1(gsnorth, npad, 0.0),
                 u=gsp * torch.sin(trkrad), v=gsp * torch.cos(trkrad))
+    extra_cols = extra_cols or {}
+    if reso == "eby":
+        # the exact TAS velocity columns
+        tas = _pad1(extra_cols.get("tas", gs), npad, 0.0)
+        cols.update(ute=tas * torch.sin(trkrad), utn=tas * torch.cos(trkrad))
+    elif reso == "swarm":
+        cols.update(trk=_pad1(trk, npad, 0.0),
+                    cas=_pad1(extra_cols.get("cas", gs), npad, 0.0))
     names = tuple(cols)
     slab = torch.stack([cols[k] for k in names])             # [F, nt]
     act = _pad1(active, npad, False)
     nor = _pad1(noreso, npad, False)
 
     if prefilter:
-        reach = block_reachability(cols["lat"], cols["lon"], gsp, act, nb,
-                                   block, rpz, tlookahead)
+        # Swarm widens the bound to its neighbourhood, so that a short
+        # lookahead cannot skip a swarm neighbour
+        reach = block_reachability(
+            cols["lat"], cols["lon"], gsp, act, nb, block, rpz, tlookahead,
+            min_reach_m=cr_swarm.R_SWARM if reso == "swarm" else 0.0)
         reach_h = reach.cpu().numpy()             # the one host sync
     else:
         reach_h = np.ones((nb, nb), bool)
@@ -367,6 +402,7 @@ def detect_resolve_tiled(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     sums = torch.zeros((3, nt), dtype=dtype, device=dev)
     tsolv = torch.full((nt,), big, dtype=dtype, device=dev)
     counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    swarm = torch.zeros((7, nt), dtype=dtype, device=dev)
     topk_tin = torch.full((nt, kk), big, dtype=dtype, device=dev)
     topk_idx = torch.full((nt, kk), -1, dtype=torch.int32, device=dev)
     lane = torch.arange(block, device=dev)
@@ -413,17 +449,31 @@ def detect_resolve_tiled(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                    & (tinconf < tlookahead) & pairmask)
         swlos = (dist < rpz) & (torch.abs(dalt) < hpz) & pairmask
 
-        dve_p, dvn_p, dvv_p, tsolv_p = cr_mvp.pair_contrib_trig(
-            sinqdr, cosqdr, dist, tcpa, tinconf, drel_v, c["gse"] - o["gse"],
-            c["gsn"] - o["gsn"], vrel_v, mvpcfg)
-        mvpmask = swconfl & ~nor[ids][None, :]
-        maskf = mvpmask.to(dtype)
+        if reso == "eby":
+            dve_p, dvn_p, dvv_p = cr_eby.pair_contrib(
+                dx, dy, drel_v, c["ute"] - o["ute"], c["utn"] - o["utn"],
+                vrel_v, mvpcfg.rpz_m)
+            tsolv_p = torch.full_like(dve_p, big)
+            mvpmask = swconfl               # Eby has no noreso mask
+        else:
+            dve_p, dvn_p, dvv_p, tsolv_p = cr_mvp.pair_contrib_trig(
+                sinqdr, cosqdr, dist, tcpa, tinconf, drel_v,
+                c["gse"] - o["gse"], c["gsn"] - o["gsn"], vrel_v, mvpcfg)
+            mvpmask = swconfl & ~nor[ids][None, :]
+        if reso == "swarm":
+            dtrk = cr_swarm.wrap_track(c["trk"] - o["trk"])
+            w = cr_swarm.pair_weight(dx, dy, drel_v, dtrk,
+                                     pairmask).to(dtype)
+            swarm[:, rs] = torch.stack([
+                w.sum(1), (w * c["cas"]).sum(1), (w * c["vs"]).sum(1),
+                (w * dtrk).sum(1), (w * dx).sum(1), (w * dy).sum(1),
+                (w * c["alt"]).sum(1)])
 
         inconf[rs] = swconfl.any(1)
         tcpamax[rs] = torch.clamp_min((tcpa * swconfl).amax(1), 0.0)
-        sums[:, rs] = torch.stack([(dve_p * maskf).sum(1),
-                                   (dvn_p * maskf).sum(1),
-                                   (dvv_p * maskf).sum(1)])
+        # a masked pair adds 0, even where its displacement is not finite
+        sums[:, rs] = torch.stack([torch.where(mvpmask, x, zero).sum(1)
+                                   for x in (dve_p, dvn_p, dvv_p)])
         tsolv[rs] = torch.where(mvpmask, tsolv_p, zero + big).amin(1)
         counts += torch.stack([swconfl.sum(), swlos.sum()])
         vals, at = _first_k(torch.where(swconfl, tinconf, zero + big), kk)
@@ -433,8 +483,11 @@ def detect_resolve_tiled(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     topk_idx = torch.where(topk_tin < big, topk_idx,
                            torch.full_like(topk_idx, -1))
     counts = counts.to(torch.int32)
-    return RowConflictData(
+    rd = RowConflictData(
         inconf=inconf[:n], tcpamax=tcpamax[:n], sum_dve=sums[0, :n],
         sum_dvn=sums[1, :n], sum_dvv=sums[2, :n], tsolv=tsolv[:n],
         nconf=counts[0], nlos=counts[1], topk_idx=topk_idx[:n],
         topk_tin=topk_tin[:n])
+    if reso == "swarm":
+        return rd, tuple(swarm[:, :n])
+    return rd

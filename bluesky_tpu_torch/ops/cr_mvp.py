@@ -82,8 +82,8 @@ def pair_contrib_trig(sin_qdr, cos_qdr, dist, tcpa, tlos,
     apply_err = (cfg.rpz_m < dist) & (dabsh < dist)
     # one correctly rounded division, as JAX computes it (a Python float
     # over a tensor would be reciprocal-then-multiply)
-    ratio1 = torch.clamp(torch.div(dist.new_tensor(cfg.rpz_m), safe_dist),
-                         -1.0, 1.0)
+    ratio1 = torch.clamp(torch.div(torch.full_like(dist, cfg.rpz_m),
+                                   safe_dist), -1.0, 1.0)
     ratio2 = torch.clamp(dabsh / safe_dist, -1.0, 1.0)
     if arcsin is not None:
         erratum = torch.cos(arcsin(ratio1) - arcsin(ratio2))

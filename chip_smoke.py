@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero before the last line:
    candidate kernel on eight clusters, at a capacity most rows fit and
    at one that sends most rows to the full grid.  Each pallas check also
    holds ``detect_resolve_pallas`` with candidates against the one
-   without;
+   without.  Then the Eby and Swarm forms of every kernel the same way:
+   K1 and K3 on the continental check, K2 on the resumed regional clump,
+   K4 (Eby only: the candidate pass has no Swarm form) on the clusters
+   at ``cand_cap=4096``;
 4. sparse path: 100,000 aircraft of the continental geometry in
    100,352 slots, built with ``Traffic.create/flush``, under
    ``SimConfig(cd_backend="sparse", cd_block=256)``: the sort refresh
@@ -36,24 +39,35 @@ Phases, in order; any failure exits non-zero before the last line:
    the launch counts taken over exactly that run; then the same
    timings for the pallas kernels, and the candidate kernel's once more
    at a capacity most rows fit.  Every kernel timed at the main path's
-   shapes is checked there as in phase 3 first;
+   shapes is checked there as in phase 3 first.  Then phases 4 and 5
+   once more under each of ``reso_method="EBY"``, ``"SWARM"`` and
+   ``"SSD"`` (with pallas and EBY one candidate-mode call too): the chunk
+   rate, one ASAS interval (and one more under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host read) and the
+   peak memory of each, and the Eby and Swarm form of every kernel on
+   the path timed and bounded at its shapes (SSD runs the MVP forms);
 6. dense path: 10,000 aircraft of the 230 nm regional circle in 10,240
    slots, ``Traffic(pair_matrix=True)``, under ``SimConfig(cd_backend=
    "dense")`` (the default configuration of both packages): 20 steps,
    twice, then one ASAS interval and one step without CD timed alone;
+   then one dense interval under each of EBY, SWARM and SSD with its
+   peak memory;
 7. tiled path: phase 4's scene under ``SimConfig(cd_backend="tiled",
    cd_block=512)``: the Morton refresh and 20 steps, twice, then one ASAS
    interval and one refresh timed alone, with the reachable tiles and the
    eager row iterations of an interval (at most nb);
 8. dense against tiled on the card in float64 (N=2,048 regional), and
-   the dense CD&R on the card against the same call on the CPU.
+   the dense CD&R on the card against the same call on the CPU; then the
+   dense and tiled intervals under EBY and SWARM against each other, and
+   under SSD each against the same call on the CPU.
    Phases 6-8 run no kernel: the JAX package computes them in plain
    XLA, the port in plain PyTorch.
 
 Every kernel also logs its work items, longest item and the time of its
 row merge alone (K2 on the clump as well, K4 at both capacities); every
-walker's registers and spills come from the ``-Xptxas -v`` report of the
-build.  The card's power draw, clocks and temperature are logged before
+walker's registers and spills (each resolver form, ``WALKERS``) come
+from the ``-Xptxas -v`` report of the build.  The run fails if a kernel
+form of ``FORMS`` was never measured.  The card's power draw, clocks and temperature are logged before
 phase 3 and after each later phase.  It prints one JSON line describing
 every kernel, then the ``nvidia-smi`` name and power limit, then the
 result line ``{"ok": true, "device": {...}}``.
@@ -89,6 +103,24 @@ PAIR_FLOPS = 168
 #: velocity 2, the flat-earth displacement 11, the past-CPA test 4, the
 #: distance 4 and the keep compares 5.
 KEEP_FLOPS = 26
+#: The Eby form (cr_eby.pair_contrib in double precision, on the conflict
+#: pairs only): the TAS velocity differences and the three sums 9 float32
+#: operations; in float64 the scaling 6, the squared norms and dot product
+#: 15, the quadratic's a, b, c and discriminant 12, the safe a 3, sqrt 1,
+#: the two roots 8, their minimum 3, the position at tstar 6 and its norm
+#: 6, the 10 m test 1 and transverse speed 6, the norm again 6, intrusion
+#: and safe denominator 5, the scale 2 and the outputs 3: 84 (the 10 m
+#: push, 8 more, is taken by almost no pair and left out).
+EBY_F32_FLOPS = 9
+EBY_F64_FLOPS = 84
+#: The Swarm form: the distance test of every visited pair (2 products,
+#: a sum, a compare: 4); on each neighbour pair (w = 1) the altitude test
+#: 2, the track wrap and its test 8 and the seven sums 7: 17.  The pairs
+#: that pass the distance test but are no neighbours are left out.
+SWARM_PAIR_FLOPS = 4
+SWARM_NEIGHBOUR_FLOPS = 17
+#: H100 SXM float64 peak outside the tensor cores (NVIDIA data sheet).
+PEAK_F64_FLOPS = 34e12
 
 NM, FT = 1852.0, 0.3048
 KERNELS = {
@@ -105,12 +137,26 @@ KERNELS = {
         source="bluesky_tpu_torch/csrc/cd_tiles.cu",
         replaces="bluesky_tpu/ops/cd_pallas.py:494"),
 }
-#: each kernel's walker, by a piece of its mangled name in the
-#: ``nvcc -Xptxas -v`` report (items_kernel<RESUME, IDS>)
-WALKERS = {"cd_sched._sched_kernel": "items_kernelILb1ELb0E",
-           "cd_pallas._kernel_resume": "items_kernelILb1ELb0E",
-           "cd_pallas._kernel": "items_kernelILb0ELb0E",
-           "cd_pallas._kernel_cand": "items_kernelILb0ELb1E"}
+#: the resolver forms of the kernels: MVP, Eby, Swarm (cd_pallas.RESO_CODE)
+RESOS = ("mvp", "eby", "swarm")
+#: the kernels of each form (the candidate pass has no Swarm form)
+FORMS = [(k, r) for r in RESOS for k in KERNELS
+         if not (r == "swarm" and k == "cd_pallas._kernel_cand")]
+
+
+def form_name(kernel, reso):
+    """The JSON name of a kernel's resolver form: the TPU kernel's name,
+    with ``/eby`` or ``/swarm`` for those forms."""
+    return kernel if reso == "mvp" else f"{kernel}/{reso}"
+
+
+#: each form's walker, by a piece of its mangled name in the ``nvcc
+#: -Xptxas -v`` report (items_kernel<RESUME, IDS, RESO>)
+WALKERS = {
+    form_name(k, r): "items_kernelILb{}ELb{}ELi{}E".format(
+        int(k in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume")),
+        int(k == "cd_pallas._kernel_cand"), RESOS.index(r))
+    for k, r in FORMS}
 #: candidate capacity of the pallas path's candidate-mode call
 CAND_CAP = 4096
 #: work items per row of the split checks, so that most rows split
@@ -136,9 +182,10 @@ def log_card(when):
 
 
 def kernel_registers(report):
-    """``{kernel: registers}`` of each walker of ``WALKERS`` from the
-    ``-Xptxas -v`` report of cd_tiles.cu; logs each entry function's
-    registers and spilled bytes."""
+    """``{form name: (registers, spill store bytes, spill load bytes)}``
+    of each walker of ``WALKERS`` from the ``-Xptxas -v`` report of
+    cd_tiles.cu; logs each entry function's registers and spilled
+    bytes."""
     regs, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -150,15 +197,15 @@ def kernel_registers(report):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"\d([a-z_]+_kernel)((?:I?Lb[01]E)*)", name)
-            flags = ["true" if f == "1" else "false"
-                     for f in re.findall(r"Lb([01])E", k.group(2))]
+            k = re.search(r"\d([a-z_]+_kernel)((?:I?L[bi]\d+E)*)", name)
+            flags = [("true" if v == "1" else "false") if t == "b" else v
+                     for t, v in re.findall(r"L([bi])(\d+)E", k.group(2))]
             short = k.group(1) + (f"<{', '.join(flags)}>" if flags else "")
             log(f"registers: {short}: {m.group(1)}, spill stores/loads "
                 f"{spill[0]}/{spill[1]} bytes")
             for kernel, piece in WALKERS.items():
                 if piece in name:
-                    regs[kernel] = int(m.group(1))
+                    regs[kernel] = (int(m.group(1)), *spill)
     return regs
 
 
@@ -207,24 +254,51 @@ def cd_args(c, dev, t_ahead=0.0):
             torch.zeros(len(lat), dtype=torch.bool, device=dev)]
 
 
+def extra_col(c, reso, dev):
+    """The resolver column of ``c`` on ``dev``, from a numpy seed: the TAS
+    (Eby; 0.9-1.1 x gs) or the CAS (Swarm; 0.6-0.8 x gs); None for MVP."""
+    import torch
+    if reso == "mvp":
+        return None
+    rng = np.random.default_rng(21)
+    lo, hi = (0.9, 1.1) if reso == "eby" else (0.6, 0.8)
+    return torch.as_tensor(
+        np.asarray(c["gs"] * rng.uniform(lo, hi, len(c["gs"])), np.float32),
+        device=dev)
+
+
+def reso_kw(reso, col, sched=True):
+    """The resolver keywords of ``cd_sched.prepare`` (``sched``) or
+    ``cd_pallas.prepare`` for the column ``col`` of ``extra_col``."""
+    if reso == "mvp":
+        return {}
+    key = "tas" if reso == "eby" else "cas"
+    if sched:
+        return {key: col, "reso": reso}
+    return {"extra_cols": {key: col}, "reso": reso}
+
+
 def check_split(name, kern, want):
     """Hold ``kern()`` (the wrapper's default work items per row) and
     ``kern(per_row=SPLIT)`` against the plain outputs ``want``
     (``cd_pallas.compare_outputs``).  The split launch, made twice, must
     give equal bits, and equal bits to the default launch in every output
-    but the three MVP sums (one tile body: only the sums add in another
-    order), the top-K ids in order.  Returns ``(largest float difference,
-    the default launch's outputs)``."""
+    but the three resolver sums and the Swarm sums (one tile body: only
+    the sums add in another order), the top-K ids in order.  Returns
+    ``(largest float difference, the default launch's outputs)``."""
     import torch
     from bluesky_tpu_torch.ops import cd_pallas
     whole, split, again = kern(), kern(per_row=SPLIT), kern(per_row=SPLIT)
     err = max(cd_pallas.compare_outputs(name, whole, want),
               cd_pallas.compare_outputs(f"{name} split {SPLIT}", split, want))
+    sums = {2, 3, 4} | set(range(len(whole) - cd_pallas.N_SWARM,
+                                  len(whole))) \
+        if len(whole) in (17, 20) else {2, 3, 4}
     for j, (a, b, w) in enumerate(zip(split, again, whole)):
         if not torch.equal(a, b):
             raise AssertionError(f"{name} split {SPLIT}: output {j} "
                                  f"differs between two launches")
-        if j not in (2, 3, 4) and not torch.equal(a, w):
+        if j not in sums and not torch.equal(a, w):
             raise AssertionError(f"{name} split {SPLIT}: output {j} "
                                  f"differs from the default launch")
     return err, whole
@@ -333,15 +407,18 @@ def check_kernels(dev, errs, scale=1):
     return k2_regional
 
 
-def pallas_operands(cols, perm, c):
+def pallas_operands(cols, perm, c, reso="mvp", col=None):
     """The pallas kernels' operands of the caller-order columns ``cols``
-    in the Morton order ``perm`` (sorted position -> caller slot), and
+    in the Morton order ``perm`` (sorted position -> caller slot) in the
+    resolver form ``reso`` (with its column ``col``, caller order), and
     the candidate table of capacity ``c["cap"]``: ``(x, cand,
     row_over)``."""
     from bluesky_tpu_torch.ops import cd_pallas
     perm = perm.long()
     x = cd_pallas.prepare(*[a[perm] for a in cols], c["rpz"],
-                          c["tlook"], block=256)
+                          c["tlook"], block=256,
+                          **reso_kw(reso, None if col is None else col[perm],
+                                    False))
     cand, row_over = cd_pallas.build_candidates(
         x.lat, x.lon, x.gs, x.active, x.nb, x.block, c["cap"], c["rpz"],
         c["tlook"])
@@ -412,6 +489,93 @@ def check_pallas_kernels(dev, errs):
                 f"({n_over} overflow rows) equals cand_cap=0")
 
 
+def check_resolver_kernels(dev, errs, scale=1):
+    """Phase 3, the Eby and Swarm forms: K1 and K3 on the continental
+    check (N=16,384), K2 on the regional clump (N=8,192, ``s_cap=2``, the
+    resumed interval) and K4 in the Eby form on the eight clusters at
+    ``cand_cap=4096``, each against its plain version of the same form as
+    ``check_split`` holds the MVP forms, with the TAS (Eby) or CAS (Swarm)
+    column of ``extra_col`` (fleet sizes divided by ``scale``)."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled, cr_mvp
+    mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                           tlookahead=300.0)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp, 5 * NM * 1.05)
+    pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp)
+    for reso in ("eby", "swarm"):
+        k1, k2, k3, k4 = (form_name(k, reso) for k in KERNELS)
+        # K1 and K3 on the continental fleet
+        c = columns(16384 // scale, "continental", seed=1)
+        cols, col = cd_args(c, dev), extra_col(c, reso, dev)
+        n_tot = cd_sched.padded_size(16384 // scale, 256)
+        table = torch.full((n_tot, 8), -1, dtype=torch.int32, device=dev)
+        x = cd_sched.prepare(*cols, 5 * NM, 1000 * FT, 300.0, table,
+                             block=256, **reso_kw(reso, col))
+        e1, out1 = check_split(
+            f"{k1} continental", lambda **kw: cd_sched.sched_tiles(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso=reso, **kw),
+            cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
+                                       x.pold, p, reso))
+        perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8]).long()
+        xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                               block=256, **reso_kw(reso, col[perm], False))
+        e3, out3 = check_split(
+            f"{k3} continental", lambda **kw: cd_pallas.full_grid(
+                xp.packed, xp.reach, pp, reso=reso, **kw),
+            cd_pallas.full_grid_plain(xp.packed, xp.reach, pp, reso))
+        errs[k1], errs[k3] = max(errs[k1], e1), max(errs[k3], e3)
+        more = (f", swarm neighbour pairs {float(out1[13].sum()):g} / "
+                f"{float(out3[10].sum()):g}") if reso == "swarm" else ""
+        log(f"check {reso} continental N={16384 // scale}: nconf "
+            f"{int(out1[6].sum())} / {int(out3[6].sum())}{more}, max abs "
+            f"err sched {e1:.3g}, full grid {e3:.3g}: match")
+        # K2 on the regional clump, the resumed interval
+        c = columns(8192 // scale, "regional", seed=1)
+        col = extra_col(c, reso, dev)
+        n_tot = cd_sched.padded_size(8192 // scale, 256)
+        table = torch.full((n_tot, 8), -1, dtype=torch.int32, device=dev)
+        perm = None
+        for t_ahead in (0.0, 20.0):
+            x = cd_sched.prepare(*cd_args(c, dev, t_ahead), 5 * NM,
+                                 1000 * FT, 300.0, table, block=256,
+                                 s_cap=2, perm=perm, **reso_kw(reso, col))
+            perm = x.perm
+            reach_f = x.reach & x.overflow[:, None]
+            want = cd_pallas.full_grid_resume_plain(x.packed, reach_f,
+                                                    x.pold, p, reso)
+            if t_ahead:
+                e2, _ = check_split(
+                    f"{k2} regional", lambda **kw: cd_pallas.full_grid_resume(
+                        x.packed, reach_f, x.pold, p, reso=reso, **kw), want)
+                errs[k2] = max(errs[k2], e2)
+                log(f"check {reso} regional N={8192 // scale} t+20s: "
+                    f"overflow rows "
+                    f"{int(x.overflow.sum())}, overflow tiles "
+                    f"{int(reach_f.sum())}, max abs err resume {e2:.3g}: "
+                    f"match")
+            merged = cd_sched.run_kernels(x, p)
+            table = merged[11].transpose(1, 2).reshape(n_tot, 8).contiguous()
+        if reso == "swarm":
+            continue
+        # K4 (Eby) on the eight clusters
+        c = columns(16384 // scale, "clusters", seed=1)
+        cols, col = cd_args(c, dev), extra_col(c, reso, dev)
+        perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8]).long()
+        xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                               block=256, **reso_kw(reso, col[perm], False))
+        cand, row_over = cd_pallas.build_candidates(
+            xp.lat, xp.lon, xp.gs, xp.active, xp.nb, xp.block, CAND_CAP,
+            5 * NM, 300.0)
+        e4, _ = check_split(
+            f"{k4} clusters cap {CAND_CAP}", lambda **kw: cd_pallas.cand_tiles(
+                xp.packed, cand, pp, reso=reso, **kw),
+            cd_pallas.cand_tiles_plain(xp.packed, cand, pp, reso))
+        errs[k4] = max(errs[k4], e4)
+        log(f"check {reso} clusters N={16384 // scale} cap {CAND_CAP}: "
+            f"overflow rows "
+            f"{int(row_over.sum())} of {xp.nb}, max abs err {e4:.3g}: match")
+
+
 def split_rows(items):
     """Rows of a ``WorkItems`` cut into more than one item."""
     return int(((items.length > 0).sum(1) > 1).sum())
@@ -419,12 +583,38 @@ def split_rows(items):
 
 def in_out_bytes(x, resume):
     """Bytes a pass must move at least: the slabs (and the partner table)
-    read once, the outputs written once."""
+    read once, the outputs (with the Swarm sums in that form) written
+    once."""
     nb, B = x.nb, x.block
+    nacc = 8 + (7 if x.reso == "swarm" else 0)
     if resume:
         return ((x.packed.numel() + x.pold.numel()) * 4
-                + ((8 + 1) * nb * B + 4 * nb * 8 * B) * 4)
-    return x.packed.numel() * 4 + (8 * nb * B + 2 * nb * 8 * B) * 4
+                + ((nacc + 1) * nb * B + 4 * nb * 8 * B) * 4)
+    return x.packed.numel() * 4 + (nacc * nb * B + 2 * nb * 8 * B) * 4
+
+
+def segment_tiles(x):
+    """Row i's segment blocks of the sparse operands ``x`` (the tiles of
+    K1), as a function of i."""
+    st = x.wst.cpu().numpy()
+    ln = np.minimum(x.wln.cpu().numpy(), x.wmax)
+
+    def tiles(i):
+        t = np.concatenate([np.arange(b, b + k) for b, k in zip(st[i], ln[i])]
+                           + [np.zeros(0, np.int64)])
+        return t[t < x.nb]
+    return tiles
+
+
+def form_work(reso, outs, nfix):
+    """``measure``'s keys of a resolver form from a launch's outputs: the
+    conflict pairs of the Eby form, the neighbour pairs of the Swarm form
+    (its w sum, output ``nfix``)."""
+    if reso == "eby":
+        return dict(eby=int(outs[6].double().sum()))
+    if reso == "swarm":
+        return dict(swarm=True, neighbours=int(outs[nfix].double().sum()))
+    return {}
 
 
 def keep_pairs(x, tiles_of_row, ncnt):
@@ -475,14 +665,14 @@ def cuda_ms(fn, reps):
 
 
 def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse",
-               cd_block=256):
+               cd_block=256, reso_method="MVP"):
     """The main path's scene and configuration: ``n_ac`` aircraft of the
     continental geometry of ``__graft_entry__._build_state`` in ``nmax``
     slots, built with the port's ``Traffic(pair_matrix=False)
     .create/flush`` on ``dev`` (no [N, N] ``resopairs``: 10 GB at this
-    size), under ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)``.
-    Returns ``(state, cfg)``."""
-    from bluesky_tpu_torch.core import step as stepmod
+    size), under ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)``
+    with the resolver ``reso_method``.  Returns ``(state, cfg)``."""
+    from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
     rng = np.random.default_rng(seed)
     traf = Traffic(nmax=nmax, pair_matrix=False, device=dev)
@@ -493,27 +683,32 @@ def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse",
     spd = rng.uniform(130.0, 240.0, n_ac)
     traf.create(n_ac, "B744", alt, spd, None, lat, lon, hdg)
     traf.flush()
-    return traf.state, stepmod.SimConfig(cd_backend=cd_backend,
-                                         cd_block=cd_block)
+    return traf.state, stepmod.SimConfig(
+        cd_backend=cd_backend, cd_block=cd_block,
+        asas=asas.AsasConfig(reso_method=reso_method))
 
 
 def regional_scene(dev, n_ac=10_000, nmax=10_240, seed=0, cd_backend="dense",
-                   cd_block=512):
+                   cd_block=512, reso_method="MVP", dtype=None):
     """The dense path's scene: ``n_ac`` aircraft in the 230 nm regional
     circle of ``columns`` (the JAX ``cd_tiled.py`` docstring calls 10,000
     there ~3x the density of the busiest real airspace) in ``nmax``
-    slots, built with ``Traffic(pair_matrix=True)`` on ``dev``, under
-    ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)``.  Returns
+    slots, built with ``Traffic(pair_matrix=True)`` on ``dev`` (float32,
+    or ``dtype``), under ``SimConfig(cd_backend=cd_backend,
+    cd_block=cd_block)`` with the resolver ``reso_method``.  Returns
     ``(state, cfg)``."""
-    from bluesky_tpu_torch.core import step as stepmod
+    import torch
+    from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
     c = columns(n_ac, "regional", seed)
-    traf = Traffic(nmax=nmax, pair_matrix=True, device=dev)
+    traf = Traffic(nmax=nmax, pair_matrix=True, device=dev,
+                   dtype=dtype or torch.float32)
     traf.create(n_ac, "B744", c["alt"], c["gs"], None, c["lat"], c["lon"],
                 c["trk"])
     traf.flush()
-    return traf.state, stepmod.SimConfig(cd_backend=cd_backend,
-                                         cd_block=cd_block)
+    return traf.state, stepmod.SimConfig(
+        cd_backend=cd_backend, cd_block=cd_block,
+        asas=asas.AsasConfig(reso_method=reso_method))
 
 
 def reset_launches():
@@ -524,13 +719,14 @@ def reset_launches():
 
 
 def launch_counts():
-    """The launch count of each kernel, by the name of its TPU kernel."""
+    """The launch count of each kernel form, by ``form_name``."""
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched
-    return {"cd_sched._sched_kernel": cd_sched.LAUNCHES["cd_sched_tiles"],
-            "cd_pallas._kernel_resume":
-                cd_pallas.LAUNCHES["cd_full_grid_resume"],
-            "cd_pallas._kernel": cd_pallas.LAUNCHES["cd_full_grid"],
-            "cd_pallas._kernel_cand": cd_pallas.LAUNCHES["cd_cand_tiles"]}
+    wrapper = {"cd_sched._sched_kernel": (cd_sched, "cd_sched_tiles"),
+               "cd_pallas._kernel_resume": (cd_pallas, "cd_full_grid_resume"),
+               "cd_pallas._kernel": (cd_pallas, "cd_full_grid"),
+               "cd_pallas._kernel_cand": (cd_pallas, "cd_cand_tiles")}
+    return {form_name(k, r): wrapper[k][0].LAUNCHES[
+        cd_pallas.launch_key(wrapper[k][1], r)] for k, r in FORMS}
 
 
 def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
@@ -543,8 +739,8 @@ def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
     t0 = time.perf_counter()
     state, cfg = scene(dev, n_ac, nmax, cd_backend=backend, **kw)
     torch.cuda.synchronize()
-    log(f"{backend}: {n_ac} aircraft in {nmax} slots built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"{backend} {cfg.asas.reso_method}: {n_ac} aircraft in {nmax} slots "
+        f"built in {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     chunk_s = []
@@ -562,7 +758,8 @@ def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
 
 def check_run(backend, state, cfg, launches, chunk_s, n_ac):
     """Fail unless the run stayed finite, found conflicts and launched
-    each of its kernels; log its end-to-end numbers."""
+    each of its kernels; log its end-to-end numbers.  ``backend`` names
+    the run in the log and the failures."""
     import torch
     from bluesky_tpu_torch.core import step as stepmod
     peak = torch.cuda.max_memory_allocated()
@@ -601,8 +798,12 @@ def measure(name, r):
     ``kern`` (taking the wrapper's ``per_row``), ``plain``, the active
     ``pairs`` (``PAIR_FLOPS`` each), the ``keep`` pairs (``KEEP_FLOPS``
     each more; 0 when absent), the ``bytes`` it must move and its
-    ``tiles``.  Logs one line; returns the largest float difference, ms
-    per launch, plain ms, bytes ms and operations ms."""
+    ``tiles``; for the Eby form the conflict pairs ``eby`` (the Eby
+    body's float32 and float64 counts each), for the Swarm form
+    ``swarm=True`` (``SWARM_PAIR_FLOPS`` on every pair) and the
+    ``neighbours`` (``SWARM_NEIGHBOUR_FLOPS`` each).  Logs one line;
+    returns the largest float difference, ms per launch, plain ms, bytes
+    ms and operations ms."""
     import torch
     err = check_split(f"{name} main path", r["kern"], r["plain"]())[0]
     ms = cuda_ms(r["kern"], 5)
@@ -612,46 +813,58 @@ def measure(name, r):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-    ops = r["pairs"] * PAIR_FLOPS + r.get("keep", 0) * KEEP_FLOPS
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    ops = (r["pairs"] * PAIR_FLOPS + r.get("keep", 0) * KEEP_FLOPS
+           + r.get("eby", 0) * EBY_F32_FLOPS
+           + (r["pairs"] * SWARM_PAIR_FLOPS
+              + r.get("neighbours", 0) * SWARM_NEIGHBOUR_FLOPS
+              if r.get("swarm") else 0))
+    ops64 = r.get("eby", 0) * EBY_F64_FLOPS
+    t_ops = (ops / PEAK_F32_FLOPS + ops64 / PEAK_F64_FLOPS) * 1e3
     log(f"{name}: {ms:.4g} ms per launch, plain {plain_ms:.4g} ms, "
         f"{r['tiles']} tiles, {r['pairs']} active pairs, "
-        f"{r.get('keep', 0)} keep pairs, bound "
+        f"{r.get('keep', 0)} keep pairs, {r.get('eby', 0)} Eby pairs, "
+        f"{r.get('neighbours', 0)} swarm neighbour pairs, bound "
         f"{max(t_bytes, t_ops):.4g} ms ({t_bytes:.3g} ms bytes, "
         f"{t_ops:.3g} ms operations)")
     return err, ms, plain_ms, t_bytes, t_ops
 
 
 def report_kernels(runs, launches, errs, regs):
-    """``measure`` each kernel of ``runs``; returns the kernels JSON
-    entries, with each run's ``extra`` keys and its walker's
-    ``registers`` (``regs``, from ``kernel_registers``)."""
+    """``measure`` each kernel form of ``runs`` (keyed by ``form_name``);
+    returns the kernels JSON entries, with each run's ``extra`` keys, its
+    resolver form and its walker's registers and spilled bytes (``regs``,
+    from ``kernel_registers``)."""
     report = []
     for name, r in runs.items():
         err, ms, plain_ms, t_bytes, t_ops = measure(name, r)
         errs[name] = max(errs[name], err)
         log(f"{name}: {launches[name]} launches")
+        kernel, _, reso = name.partition("/")
+        nreg, st, ld = regs.get(name, (None, None, None))
         report.append(dict(
-            name=name, route="cuda", source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"], launches=launches[name],
+            name=name, route="cuda", source=KERNELS[kernel]["source"],
+            replaces=KERNELS[kernel]["replaces"], launches=launches[name],
             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, registers=regs.get(name), **r.get("extra", {})))
+            library_ms=None, resolver=reso or "mvp", registers=nreg,
+            spill_store_bytes=st, spill_load_bytes=ld,
+            **r.get("extra", {})))
     return report
 
 
-def item_extra(name, x, items, p, pold=None, cand=None, prefix=""):
+def item_extra(name, x, items, p, pold=None, cand=None, prefix="",
+               reso="mvp"):
     """The JSON keys of a split walker on ``items`` of the operands ``x``
-    (``cd_pallas.walk_items`` arguments ``pold``, ``cand``): its
+    (``cd_pallas.walk_items`` arguments ``pold``, ``cand``, ``reso``): its
     non-empty work items, its longest item in tiles and the ms of its row
     merge alone, each key prefixed with ``prefix``.  Logs them."""
     from bluesky_tpu_torch.ops import cd_pallas
-    parts = cd_pallas.walk_items(x.packed, items, p, pold, cand)
+    parts = cd_pallas.walk_items(x.packed, items, p, pold, cand, reso)
     extra = dict(items=int((items.length > 0).sum()),
                  max_tiles_per_item=int(items.length.max()),
                  merge_ms=cuda_ms(lambda: cd_pallas.merge_items(
-                     parts, items, x.block, pold), 5))
+                     parts, items, x.block, pold, reso), 5))
     log(f"{name}: {extra['items']} work items, longest "
         f"{extra['max_tiles_per_item']} tiles, merge {extra['merge_ms']:.4g}"
         f" ms per launch")
@@ -694,15 +907,9 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
     p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp,
                               c.rpz * c.resofach)
     reach_f = x.reach & x.overflow[:, None]
-    st = x.wst.cpu().numpy()
     ln = np.minimum(x.wln.cpu().numpy(), x.wmax)
     rf = reach_f.cpu().numpy()
-
-    def sched_tiles_of(i):
-        t = np.concatenate([np.arange(b, b + k) for b, k in zip(st[i], ln[i])]
-                           + [np.zeros(0, np.int64)])
-        return t[t < x.nb]
-
+    sched_tiles_of = segment_tiles(x)
     nb = x.nb
     k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
     k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
@@ -855,6 +1062,135 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     return report
 
 
+def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
+                  nmax=100_352):
+    """Phases 4-5 under ``method`` (EBY, SWARM or SSD): ``main_scene``
+    under ``SimConfig(cd_backend=backend, cd_block=256)`` with that
+    resolver, the sort refresh and 20 steps, twice (for pallas and EBY
+    also one ``detect_resolve_pallas(cand_cap=4096)`` in the Eby form on
+    the stepped state), each kernel form's launches counted over exactly
+    that run; the chunk rate, one ASAS interval and the peak memory.
+    Then, for EBY and SWARM, each kernel of the path in that form timed
+    against its plain version and bound at the path's shapes, as phases
+    4-5 time the MVP forms; SSD runs the MVP forms, timed there.  One
+    more interval runs with every host synchronisation an error."""
+    import torch
+    from bluesky_tpu_torch.core import asas
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+    reso = {"EBY": "eby", "SWARM": "swarm"}.get(method, "mvp")
+    state, cfg, chunk_s = drive(dev, backend, n_ac, nmax, reso_method=method)
+    ac, a = state.ac, state.asas
+    c = cfg.asas
+    mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
+                           tlookahead=c.dtlookahead)
+    col = {"eby": ac.tas, "swarm": ac.cas}.get(reso)
+    cols = [ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+            ac.gsnorth, ac.active, a.noreso]
+    kernels = (("cd_sched._sched_kernel", "cd_pallas._kernel_resume")
+               if backend == "sparse" else ("cd_pallas._kernel",))
+    if backend == "pallas" and reso == "eby":
+        kernels += ("cd_pallas._kernel_cand",)
+        cd_pallas.detect_resolve_pallas(
+            *cols, c.rpz, c.hpz, c.dtlookahead, mvp, block=256,
+            perm=a.sort_perm, cand_cap=CAND_CAP, reso="eby",
+            extra_cols={"tas": ac.tas})
+        torch.cuda.synchronize()
+    names = [form_name(k, reso) for k in kernels]
+    launches = {k: v for k, v in launch_counts().items() if k in names}
+    tag = f"{backend} {method}"
+    check_run(tag, state, cfg, launches, chunk_s, n_ac)
+    time_layers(tag, {"ASAS interval": lambda: asas.update_tiled(
+        state, c, block=256, impl=backend)})
+    # the interval reads nothing back to the host on these backends: any
+    # synchronising call raises in this mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        asas.update_tiled(state, c, block=256, impl=backend)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{tag}: one ASAS interval under torch.cuda.set_sync_debug_mode("
+        f"'error'): no host synchronisation")
+    if reso == "mvp":
+        return []
+    if backend == "sparse":
+        x = cd_sched.prepare(*cols, c.rpz, c.hpz, c.dtlookahead,
+                             a.partners_s[:cd_sched.padded_size(nmax, 256)],
+                             block=256, perm=a.sort_perm,
+                             **reso_kw(reso, col))
+        p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp,
+                                  c.rpz * c.resofach)
+        reach_f = x.reach & x.overflow[:, None]
+        rf = reach_f.cpu().numpy()
+        seg = segment_tiles(x)
+        k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p,
+                                  reso=reso)
+        k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p,
+                                        reso=reso)
+        runs = {
+            names[0]: dict(
+                kern=lambda **kw: cd_sched.sched_tiles(
+                    x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso=reso,
+                    **kw),
+                plain=lambda: cd_sched.sched_tiles_plain(
+                    x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso),
+                pairs=active_pairs(x, seg), keep=keep_pairs(x, seg, k1[6]),
+                bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
+                tiles=int(sum(len(seg(i)) for i in range(x.nb))),
+                extra=item_extra(names[0], x, cd_sched.window_items(
+                    x.wst, x.wln, x.wmax, x.nb), p, pold=x.pold, reso=reso),
+                **form_work(reso, k1, 13)),
+            names[1]: dict(
+                kern=lambda **kw: cd_pallas.full_grid_resume(
+                    x.packed, reach_f, x.pold, p, reso=reso, **kw),
+                plain=lambda: cd_pallas.full_grid_resume_plain(
+                    x.packed, reach_f, x.pold, p, reso),
+                pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
+                keep=keep_pairs(x, lambda i: np.flatnonzero(rf[i]), k2[6]),
+                bytes=in_out_bytes(x, True) + x.nb * x.nb,
+                tiles=int(rf.sum()),
+                extra=item_extra(names[1], x, cd_pallas.reach_items(reach_f),
+                                 p, pold=x.pold, reso=reso),
+                **form_work(reso, k2, 13))}
+    else:
+        x, cand, _ = pallas_operands(
+            cols, a.sort_perm, dict(rpz=c.rpz, tlook=c.dtlookahead,
+                                    cap=CAND_CAP), reso, col)
+        p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
+        rh = x.reach.cpu().numpy()
+        k3 = cd_pallas.full_grid(x.packed, x.reach, p, reso=reso)
+        runs = {names[0]: dict(
+            kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p,
+                                                  reso=reso, **kw),
+            plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p,
+                                                    reso),
+            pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
+            bytes=in_out_bytes(x, False) + x.nb * x.nb, tiles=int(rh.sum()),
+            extra=item_extra(names[0], x, cd_pallas.reach_items(x.reach), p,
+                             reso=reso),
+            **form_work(reso, k3, 10))}
+        if reso == "eby":
+            k4 = cd_pallas.cand_tiles(x.packed, cand, p, reso=reso)
+            runs[names[1]] = dict(
+                kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p,
+                                                       reso=reso, **kw),
+                plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p,
+                                                         reso),
+                pairs=cand_pairs(x, cand),
+                bytes=in_out_bytes(x, False) + cand.numel() * 4,
+                tiles=int(((cand < x.nb * x.block).sum(1) + x.block - 1)
+                          .div(x.block, rounding_mode="floor").sum()),
+                extra=item_extra(names[1], x, cd_pallas.cand_items(
+                    cand, x.block), p, cand=cand, reso=reso),
+                **form_work(reso, k4, 10))
+    per_row = x.reach.sum(1).float()
+    log(f"{tag}: reachable tiles per row block: mean "
+        f"{float(per_row.mean()):.4g}, max {int(per_row.max())}, total "
+        f"{int(x.reach.sum())}")
+    return report_kernels(runs, launches, errs, regs)
+
+
 def dense_path(dev, n_ac=10_000, nmax=10_240):
     """Phase 6: the dense step (``SimConfig(cd_backend="dense")``, the
     JAX package's default) on ``regional_scene``: 20 steps, twice, then
@@ -873,6 +1209,42 @@ def dense_path(dev, n_ac=10_000, nmax=10_240):
     time_layers("dense", {
         "ASAS interval": lambda: asas.update(state, cfg.asas),
         "step without CD": lambda: stepmod.step(state, no_cd)})
+
+
+def dense_resolvers(dev, n_ac=10_000, nmax=10_240):
+    """Phase 6, the other resolvers: one dense ASAS interval
+    (``asas.update``) on ``regional_scene`` with EBY, SWARM and SSD, each
+    timed with CUDA events over 3 runs after a warm-up, with the peak
+    memory of the interval.  Dense SSD walks the intruder axis in chunks,
+    each a few [N, C, chunk] float32 slabs (C candidates)."""
+    import torch
+    from bluesky_tpu_torch.core import asas
+    from bluesky_tpu_torch.ops import cr_ssd
+    for method in ("EBY", "SWARM", "SSD"):
+        state, cfg = regional_scene(dev, n_ac, nmax, reso_method=method)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, _ = asas.update(state, cfg.asas)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if int(out.asas.nconf_cur) <= 0 or not bool(torch.isfinite(
+                out.asas.trk).all() & torch.isfinite(out.asas.tas).all()):
+            raise AssertionError(f"dense {method}: no conflicts or "
+                                 "non-finite commands")
+        ms = cuda_ms(lambda: asas.update(state, cfg.asas), 3)
+        slab = ""
+        if method == "SSD":
+            sc = cr_ssd.SSDConfig()
+            ncand = sc.ntrk * sc.nspd + 2
+            slab = (f", one [N, C, chunk] slab [{nmax}, {ncand}, "
+                    f"{sc.chunk}] float32 = "
+                    f"{nmax * ncand * sc.chunk * 4 / 2**30:.3f} GiB")
+        log(f"dense {method}: N={n_ac} in {nmax} slots, nconf "
+            f"{int(out.asas.nconf_cur)}, ms per ASAS interval (cuda_ms, 3 "
+            f"runs) {ms:.4g}, peak memory {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB above the state){slab}")
+        del state, out
 
 
 def tiled_path(dev, n_ac=100_000, nmax=100_352):
@@ -999,6 +1371,60 @@ def check_dense_tiled(dev, n=2048):
         f"sums and commands within rtol 1e-9 / atol 1e-9")
 
 
+def check_dense_tiled_resolvers(dev, n=2048):
+    """Phase 8, the other resolvers, in float64 at ``n`` aircraft of the
+    regional geometry (``regional_scene``, block 256): EBY and SWARM,
+    ``asas.update`` (dense) against ``asas.update_tiled(impl="lax")``:
+    the flags, counts and ASAS-engaged flags equal, the commands within
+    rtol 1e-6 / atol 1e-6 (tracks as angles).  SSD: dense SSD draws the
+    obstacle of every intruder within ADS-B range and the tiled one those
+    of its partner table, so each is held against the same call on the
+    CPU instead (flags equal, commands within 1e-9)."""
+    import torch
+    from bluesky_tpu_torch.core import asas
+    from bluesky_tpu_torch.core.state import state_from_numpy, state_to_numpy
+    for method in ("EBY", "SWARM", "SSD"):
+        state, cfg = regional_scene(dev, n, n, cd_backend="tiled",
+                                    reso_method=method, dtype=torch.float64)
+        state = asas.refresh_spatial_sort(state, cfg.asas, block=256,
+                                          impl="lax")
+        dense = state_to_numpy(asas.update(state, cfg.asas)[0])
+        tiled = state_to_numpy(asas.update_tiled(state, cfg.asas, block=256,
+                                                 impl="lax")[0])
+        worst = 0.0
+        pairs = [("dense", dense, "tiled", tiled)]
+        if method == "SSD":
+            cpu = state_from_numpy(state_to_numpy(state), device="cpu")
+            pairs = [
+                ("dense", dense, "dense on the CPU",
+                 state_to_numpy(asas.update(cpu, cfg.asas)[0])),
+                ("tiled", tiled, "tiled on the CPU",
+                 state_to_numpy(asas.update_tiled(cpu, cfg.asas, block=256,
+                                                  impl="lax")[0]))]
+        for na, a, nb_, b in pairs:
+            tol = 1e-9 if method == "SSD" else 1e-6
+            if int(a["asas.nconf_cur"]) <= 0:
+                raise AssertionError(f"{method} {na}: no conflicts")
+            for k in ("asas.inconf", "asas.active", "asas.nconf_cur",
+                      "asas.nlos_cur"):
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"{method}: {k} of {na} and {nb_} "
+                                         "differ")
+            for k in ("asas.trk", "asas.tas", "asas.vs", "asas.alt"):
+                d = np.abs(a[k] - b[k])
+                if k == "asas.trk":
+                    d = np.minimum(d, 360.0 - d)
+                bound = tol + tol * np.abs(b[k])
+                if not (d <= bound).all():
+                    raise AssertionError(
+                        f"{method}: {k} of {na} and {nb_} differ by "
+                        f"{float(d.max()):.3g}")
+                worst = max(worst, float(d.max()))
+            log(f"check {method} {na} vs {nb_} (float64, N={n}): nconf "
+                f"{int(a['asas.nconf_cur'])}, flags equal, commands within "
+                f"{tol:g} (largest difference {worst:.3g})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1021,11 +1447,12 @@ def main():
         _cuda.load(src)
     regs = kernel_registers(msgs["cd_tiles.cu"])
 
-    errs = {name: 0.0 for name in KERNELS}
+    errs = {form_name(k, r): 0.0 for k, r in FORMS}
     log_card("before the checks and timings")
     t0 = time.perf_counter()
     k2_regional = check_kernels(dev, errs)
     check_pallas_kernels(dev, errs)
+    check_resolver_kernels(dev, errs)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     report = []
     for path, more in ((sparse_path, (k2_regional,)), (pallas_path, ())):
@@ -1033,11 +1460,22 @@ def main():
         report += path(dev, errs, regs, *more)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
         log_card(f"after {path.__name__}")
-    for path in (dense_path, tiled_path, check_dense_tiled):
+    for backend in ("sparse", "pallas"):
+        for method in ("EBY", "SWARM", "SSD"):
+            t0 = time.perf_counter()
+            report += resolver_path(dev, errs, regs, backend, method)
+            log(f"resolver_path {backend} {method}: "
+                f"{time.perf_counter() - t0:.1f} s")
+        log_card(f"after the {backend} resolver paths")
+    for path in (dense_path, dense_resolvers, tiled_path, check_dense_tiled,
+                 check_dense_tiled_resolvers):
         t0 = time.perf_counter()
         path(dev)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
         log_card(f"after {path.__name__}")
+    missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
+    if missing:
+        raise AssertionError(f"kernel forms never measured: {sorted(missing)}")
 
     print(json.dumps({"kernels": report}))
     print(nvidia_smi())

@@ -1,38 +1,38 @@
 #!/usr/bin/env python3
-"""K2 (``_kernel_resume``) and K4 (``_kernel_cand``) of
-``bluesky_tpu_torch/csrc/cd_tiles.cu`` against the one-CTA-per-row build
-of that source at commit aa6415a, in one process on one card:
+"""The MVP forms of the four kernels of ``bluesky_tpu_torch/csrc/cd_tiles.cu``
+against the same kernels of an earlier source, in one process on one
+card:
 
     mkdir -p _chipcheck
-    git show aa6415a:bluesky_tpu_torch/csrc/cd_tiles.cu \\
-        > _chipcheck/old_cd_tiles.cu
-    python3 scripts/torch_kernels_ab.py _chipcheck/old_cd_tiles.cu \\
-        [--rounds 2] [--per-row 4 8 16]
+    git show 07a5afa:bluesky_tpu_torch/csrc/cd_tiles.cu \\
+        > _chipcheck/parent_cd_tiles.cu
+    python3 scripts/torch_kernels_ab.py _chipcheck/parent_cd_tiles.cu \\
+        [--rounds 3]
 
-The earlier source must have the C interface of aa6415a for the two
-kernels (``OLD_SIGNATURES``: ``cd_full_grid_resume(packed, nb, B, reach,
-pold, ...)``, ``cd_cand_tiles(packed, nb, B, cand, c_cap, ...)``).  It is
-built with the flags of ``ops/_cuda.py`` (its ``-Xptxas -v`` register
-lines are printed) into ``bluesky_tpu_torch/_build/``.  The cases:
+The earlier source must have the C interface of 07a5afa, the split
+walker before its resolver forms (``PARENT_SIGNATURES``: the walker
+entry points without the Eby scale and the resolver code, the row merge
+without the resolver code).  It is built with the flags of
+``ops/_cuda.py`` (its ``-Xptxas -v`` register lines are printed) into
+``bluesky_tpu_torch/_build/``.  Both builds walk the same work items
+(``cd_mask_items`` and ``window_items`` of the current source).  The
+cases, at the main path's shapes:
 
-* K2 on the regional clump of ``chip_smoke.check_kernels`` (N=8,192,
-  ``s_cap=2``, the second interval), where it has overflow rows;
-* K2 on the main path: 100,000 continental aircraft, the sparse backend
-  stepped 2 x 20 steps, the next interval's operands (no overflow row);
-* K4 on the pallas backend's stepped 100k state at ``cand_cap`` 4096 and
-  16384.
+* K1 (``cd_sched_tiles``) and K2 (``cd_sched_tiles`` on the overflow
+  rows): 100,000 continental aircraft, the sparse backend stepped 2 x 20
+  steps, the next interval's operands; K2 also on the regional clump of
+  ``chip_smoke.check_kernels`` (N=8,192, ``s_cap=2``, the second
+  interval), where it has overflow rows;
+* K3 (``cd_full_grid``) and K4 (``cd_cand_items`` at ``cand_cap=4096``)
+  on the pallas backend's stepped 100k state.
 
 Each case's outputs from the two builds are held against each other
-(``cd_pallas.compare_outputs``), then the two are timed in turns old,
-new, new, old per round (CUDA events over 5 launches after a warm-up; a
-new launch includes its work-item build and row merge), their host
-time to enqueue a launch (the wall time of 20 launches without a
-synchronisation; where it reaches the event time, the host sets the
-pace) and their device time (the kernels and copies of 5 launches in a
-``torch.profiler`` trace), and the new one once more at each ``--per-row`` count of work
-items per row, with the peak memory that launch allocates.  Prints the
-ms of every turn and the card's name, power limit, power draw, clocks
-and temperature before and after.  Needs a CUDA device.
+(``cd_pallas.compare_outputs``), then the two are timed in turns parent,
+change, change, parent per round (CUDA events over 5 launches after a
+warm-up; a launch of either build includes the same work-item build and
+its row merge).  Prints
+the ms of every turn and the card's name, power limit, power draw,
+clocks and temperature before and after.  Needs a CUDA device.
 """
 import argparse
 import ctypes
@@ -41,21 +41,25 @@ import os
 import re
 import subprocess
 import sys
-import time
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
-#: the C entry points of the one-CTA-per-row kernels at aa6415a
-OLD_SIGNATURES = {
-    "cd_full_grid_resume": [_p, _i, _i, _p, _p] + [_f] * 8 + [_p] * 7,
-    "cd_cand_tiles": [_p, _i, _i, _p, _i] + [_f] * 8 + [_p] * 4,
+#: the C entry points of the walkers and the merge at 07a5afa
+PARENT_SIGNATURES = {
+    "cd_sched_tiles": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p] + [_f] * 8
+    + [_p] * 5,
+    "cd_full_grid": [_p, _i, _i, _p, _i, _p, _p, _p, _i] + [_f] * 8
+    + [_p] * 4,
+    "cd_cand_items": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p, _i]
+    + [_f] * 8 + [_p] * 4,
+    "cd_merge_items": [_i, _i, _i] + [_p] * 13,
 }
 
 
-def build_old(source):
+def build_parent(source):
     """Compile ``source`` like ``_cuda.build``; returns the loaded
     library."""
     from bluesky_tpu_torch.ops import _cuda
@@ -70,44 +74,60 @@ def build_old(source):
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
     for line in res.stderr.splitlines():
         if re.search(r"entry function|Used \d+ registers|spill", line):
-            print(f"old build: {line.strip()[:160]}")
+            print(f"parent build: {line.strip()[:160]}")
     lib = ctypes.CDLL(out)
-    for name, argtypes in OLD_SIGNATURES.items():
+    for name, argtypes in PARENT_SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def old_full_grid_resume(lib, x, reach_u8, p):
+def parent_pass(lib, x, make_items, p, pold=None, cand=None):
+    """One launch of the parent's walker on the work items that
+    ``make_items()`` builds (each call builds them, as the current
+    wrappers do) and its row merge: the outputs of
+    ``cd_pallas.merge_items`` (MVP form)."""
     from bluesky_tpu_torch.ops import _cuda, cd_pallas
-    acc, ctin, cidx, keep, merged, active = cd_pallas.alloc_outputs(
-        x.nb, 8, x.block, x.packed.device)
-    rc = lib.cd_full_grid_resume(
-        x.packed.data_ptr(), x.nb, x.block, reach_u8.data_ptr(),
-        x.pold.data_ptr(), *cd_pallas.kernel_floats(p), acc.data_ptr(),
-        ctin.data_ptr(), cidx.data_ptr(), keep.data_ptr(), merged.data_ptr(),
-        active.data_ptr(), _cuda.stream_ptr(x.packed.device))
-    _cuda.check(rc, "old cd_full_grid_resume")
-    return list(acc.unbind(0)) + [ctin, cidx, keep, merged, active]
-
-
-def old_cand_tiles(lib, x, cand, p):
-    from bluesky_tpu_torch.ops import _cuda, cd_pallas
-    acc, ctin, cidx = cd_pallas.alloc_outputs(x.nb, 8, x.block,
-                                              x.packed.device, resume=False)
-    rc = lib.cd_cand_tiles(
-        x.packed.data_ptr(), x.nb, x.block, cand.data_ptr(), cand.shape[1],
-        *cd_pallas.kernel_floats(p), acc.data_ptr(), ctin.data_ptr(),
-        cidx.data_ptr(), _cuda.stream_ptr(x.packed.device))
-    _cuda.check(rc, "old cd_cand_tiles")
-    return list(acc.unbind(0)) + [ctin, cidx]
+    items = make_items()
+    nb, _, B = x.packed.shape
+    C, W = items.length.shape[1], items.tiles.shape[1]
+    G, dev = nb * C, x.packed.device
+    acc = torch.empty((8, G, B), dtype=torch.float32, device=dev)
+    ct = torch.empty((8, G, B), dtype=torch.float32, device=dev)
+    ci = torch.empty((8, G, B), dtype=torch.int32, device=dev)
+    keep = torch.empty((G, B), dtype=torch.int32, device=dev)
+    head = (x.packed.data_ptr(), nb, B, items.tiles.data_ptr(), W,
+            items.start.data_ptr(), items.length.data_ptr(),
+            items.order.data_ptr(), C)
+    floats = cd_pallas.kernel_floats(p)[:8]
+    stream = _cuda.stream_ptr(dev)
+    if cand is not None:
+        rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1],
+                               *floats, acc.data_ptr(), ct.data_ptr(),
+                               ci.data_ptr(), stream)
+    elif pold is None:
+        rc = lib.cd_full_grid(*head, *floats, acc.data_ptr(), ct.data_ptr(),
+                              ci.data_ptr(), stream)
+    else:
+        rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *floats,
+                                acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
+                                keep.data_ptr(), stream)
+    _cuda.check(rc, "parent walker")
+    outs = cd_pallas.alloc_outputs(nb, 8, B, dev, resume=pold is not None)
+    ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))
+    rc = lib.cd_merge_items(
+        nb, B, C, items.length.data_ptr(),
+        0 if pold is None else pold.data_ptr(), acc.data_ptr(),
+        ct.data_ptr(), ci.data_ptr(), 0 if pold is None else keep.data_ptr(),
+        *ptrs, stream)
+    _cuda.check(rc, "parent cd_merge_items")
+    return list(outs[0].unbind(0)) + list(outs[1:])
 
 
 def operands(dev, backend, n, nmax):
     """The main path's next-interval operands of ``backend`` after
     ``chip_smoke.drive``: ``(x, p)`` for the sparse backend; for the
-    pallas backend ``({cap: (x, cand, row_over)}, p)``, the operands and
-    candidate tables at capacities 4096 and 16384."""
+    pallas backend ``((x, cand), p)`` with the candidate table at 4096."""
     import chip_smoke
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
     state, cfg, _ = chip_smoke.drive(dev, backend, n, nmax)
@@ -124,9 +144,9 @@ def operands(dev, backend, n, nmax):
                                         c.rpz * c.resofach)
     cols = [ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
             ac.gsnorth, ac.active, a.noreso]
-    cands = {cap: chip_smoke.pallas_operands(cols, a.sort_perm, dict(
-        rpz=c.rpz, tlook=c.dtlookahead, cap=cap)) for cap in (4096, 16384)}
-    return cands, cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
+    x, cand, _ = chip_smoke.pallas_operands(cols, a.sort_perm, dict(
+        rpz=c.rpz, tlook=c.dtlookahead, cap=4096))
+    return (x, cand), cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
 
 
 def clump(dev):
@@ -152,39 +172,10 @@ def clump(dev):
     return x, p
 
 
-def host_ms(fn, reps=20):
-    """Host wall ms to enqueue one call of ``fn`` (no synchronisation
-    inside the ``reps`` calls)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / reps * 1e3
-
-
-def device_ms(fn, reps=5):
-    """Device ms of one call of ``fn``: the self time of every kernel
-    and copy in a ``torch.profiler`` trace of ``reps`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / reps / 1e3
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("old_source")
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--per-row", type=int, nargs="*", default=[])
+    ap.add_argument("parent_source")
+    ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--nmax", type=int, default=100_352)
     args = ap.parse_args()
@@ -192,58 +183,52 @@ def main():
         print("torch_kernels_ab: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
-    from bluesky_tpu_torch.ops import _cuda, cd_pallas
+    from bluesky_tpu_torch.ops import _cuda, cd_pallas, cd_sched
     dev = torch.device("cuda")
-    old = build_old(args.old_source)
+    parent = build_parent(args.parent_source)
     _cuda.load("cd_tiles.cu")
 
-    xc, pc = clump(dev)
     xs, ps = operands(dev, "sparse", args.n, args.nmax)
-    cands, pp = operands(dev, "pallas", args.n, args.nmax)
+    (xp, cand), pp = operands(dev, "pallas", args.n, args.nmax)
+    xc, pc = clump(dev)
     cases = {}
-    for tag, x, p in (("clump", xc, pc), ("main path", xs, ps)):
+    items1 = lambda: cd_sched.window_items(xs.wst, xs.wln, xs.wmax, xs.nb)
+    cases["K1 sched_tiles, main path"] = (
+        lambda: parent_pass(parent, xs, items1, ps, pold=xs.pold),
+        lambda: cd_sched.sched_tiles(xs.packed, xs.wst, xs.wln, xs.wmax,
+                                     xs.pold, ps))
+    for tag, x, p in (("main path", xs, ps), ("clump", xc, pc)):
         reach_f = x.reach & x.overflow[:, None]
-        reach_u8 = reach_f.to(torch.uint8)
+        items2 = lambda r=reach_f: cd_pallas.reach_items(
+            r, cd_pallas.RESUME_ITEMS_PER_ROW)
         print(f"K2 {tag}: {int(x.overflow.sum())} overflow rows, "
               f"{int(reach_f.sum())} tiles")
         cases[f"K2 full_grid_resume, {tag}"] = (
-            lambda x=x, r=reach_u8, p=p: old_full_grid_resume(old, x, r, p),
-            lambda c=None, x=x, r=reach_f, p=p: cd_pallas.full_grid_resume(
-                x.packed, r, x.pold, p,
-                per_row=c or cd_pallas.RESUME_ITEMS_PER_ROW))
-    for cap, (x, cand, over) in cands.items():
-        print(f"K4 cand_cap={cap}: {int(over.sum())} overflow rows of "
-              f"{x.nb}, {int(cd_pallas.cand_items(cand, x.block, 1).length.sum())}"
-              f" sub-chunks")
-        cases[f"K4 cand_tiles, cand_cap={cap}"] = (
-            lambda x=x, cand=cand: old_cand_tiles(old, x, cand, pp),
-            lambda c=None, x=x, cand=cand: cd_pallas.cand_tiles(
-                x.packed, cand, pp,
-                per_row=c or cd_pallas.CAND_ITEMS_PER_ROW))
+            lambda x=x, r=reach_f, p=p, it=items2: parent_pass(
+                parent, x, it, p, pold=x.pold),
+            lambda x=x, r=reach_f, p=p: cd_pallas.full_grid_resume(
+                x.packed, r, x.pold, p))
+    items3 = lambda: cd_pallas.reach_items(xp.reach)
+    cases["K3 full_grid, main path"] = (
+        lambda: parent_pass(parent, xp, items3, pp),
+        lambda: cd_pallas.full_grid(xp.packed, xp.reach, pp))
+    items4 = lambda: cd_pallas.cand_items(cand, xp.block)
+    cases["K4 cand_tiles, cand_cap=4096"] = (
+        lambda: parent_pass(parent, xp, items4, pp, cand=cand),
+        lambda: cd_pallas.cand_tiles(xp.packed, cand, pp))
 
     chip_smoke.log_card("before the timings")
-    for name, (run_old, run_new) in cases.items():
-        err = cd_pallas.compare_outputs(f"{name} new vs old", run_new(),
-                                        run_old())
-        print(f"{name}: new equals old (max abs float difference {err:.3g})")
+    for name, (run_parent, run_change) in cases.items():
+        err = cd_pallas.compare_outputs(f"{name} change vs parent",
+                                        run_change(), run_parent())
+        print(f"{name}: change equals parent (max abs float difference "
+              f"{err:.3g})")
         for r in range(args.rounds):
-            turns = [("old", run_old), ("new", run_new), ("new", run_new),
-                     ("old", run_old)]
+            turns = [("parent", run_parent), ("change", run_change),
+                     ("change", run_change), ("parent", run_parent)]
             ms = [(who, chip_smoke.cuda_ms(fn, 5)) for who, fn in turns]
             print(f"{name} round {r}: " + ", ".join(
                 f"{who} {t:.4g} ms" for who, t in ms), flush=True)
-        print(f"{name} per call: host enqueue old {host_ms(run_old):.4g} "
-              f"ms, new {host_ms(run_new):.4g} ms; device old "
-              f"{device_ms(run_old):.4g} ms, new {device_ms(run_new):.4g} ms",
-              flush=True)
-        for c in args.per_row:
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t = chip_smoke.cuda_ms(lambda: run_new(c), 5)
-            peak = torch.cuda.max_memory_allocated() - base
-            print(f"{name} new at {c} items per row: {t:.4g} ms, peak "
-                  f"memory of the launch {peak / 2**20:.1f} MiB", flush=True)
     chip_smoke.log_card("after the timings")
     return 0
 

@@ -18,6 +18,15 @@ pair whose ``dcpa_n = drel_n + vrel_n * tcpa`` cancels 75155 m against
 75142 m; compiled XLA rounds that pair otherwise (a contracted
 multiply-add, two divisions merged into one) and lands 4.5e-3 from the
 port.  The test asserts that this is the only such row.
+
+The Eby sums have a witness of their own.  On a near-grazing conflict
+the Eby quadratic's ``b*b`` and ``4ac`` agree to 1e-6, and float32
+arithmetic moves the pair's displacement by up to tens of percent; the
+port computes each Eby pair in float64 (``cr_eby.pair_contrib``), JAX in
+float32.  So every Eby sum of the port lies within the tolerance of the
+float64 witness, and JAX's within the tolerance of the port's wherever
+JAX's itself does of the witness.  That the port computes JAX's Eby
+function is shown in float64 as well (``test_tile_body_float64``).
 """
 import functools
 
@@ -32,7 +41,7 @@ from bluesky_tpu.ops import cd_pallas as jpallas, cd_tiled as jtiled, \
     cr_mvp as jmvp
 from bluesky_tpu_torch.ops import cd_pallas, cd_tiled, cr_mvp
 
-from torch_parity import FT, NM
+from torch_parity import FT, NM, slab64
 
 RPZ, HPZ, TLOOK = 5 * NM, 1000 * FT, 300.0
 N, BLOCK = 512, 64
@@ -316,10 +325,168 @@ def test_compare_rows_checks_ids_and_sums():
 
 
 def test_swarm_with_candidates_raises():
-    cols = [torch.from_numpy(a) for a in columns(N, "regional")]
+    """Swarm with candidates raises, as in JAX; Eby with candidates runs
+    and equals Eby without them."""
+    cols = [torch.from_numpy(a) for a in columns(N, "clusters")]
     with pytest.raises(ValueError, match="swarm"):
         cd_pallas.detect_resolve_pallas(*cols, RPZ, HPZ, TLOOK, _mvp(cr_mvp),
                                         cand_cap=128, reso="swarm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cd_pallas.detect_resolve_pallas(*cols, RPZ, HPZ, TLOOK, _mvp(cr_mvp),
-                                        reso="eby")
+    extra = {"tas": cols[3] * 1.05}
+    rd = cd_pallas.detect_resolve_pallas(*cols, RPZ, HPZ, TLOOK, _mvp(cr_mvp),
+                                         block=BLOCK, cand_cap=448,
+                                         reso="eby", extra_cols=extra)
+    assert int(rd.nconf) > 0
+    cd_pallas.compare_rows("eby cand_cap=448 vs 0", rd,
+                           cd_pallas.detect_resolve_pallas(
+                               *cols, RPZ, HPZ, TLOOK, _mvp(cr_mvp),
+                               block=BLOCK, reso="eby", extra_cols=extra))
+
+
+def _extra(cols, reso, seed=6):
+    """The tas (Eby: 0.9-1.1 x gs) or cas (Swarm: 0.6-0.8 x gs) column."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (0.9, 1.1) if reso == "eby" else (0.6, 0.8)
+    key = "tas" if reso == "eby" else "cas"
+    return key, (cols[3] * rng.uniform(lo, hi, len(cols[3]))).astype(
+        np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_detect_reso(reso, cand_cap, key):
+    @jax.jit
+    def run(cols, extra):
+        return jpallas.detect_resolve_pallas(
+            *cols, RPZ, HPZ, TLOOK, _mvp(jmvp), block=BLOCK,
+            interpret=True, cand_cap=cand_cap, reso=reso,
+            extra_cols={key: extra})
+    return run
+
+
+@pytest.mark.parametrize("reso,geom,cand_cap", [
+    ("eby", "continental", 0), ("eby", "regional", 0),
+    ("eby", "clusters", 448), ("swarm", "continental", 0),
+    ("swarm", "regional", 0)])
+def test_resolver_forms_match_jax(reso, geom, cand_cap):
+    """The Eby and Swarm forms of ``detect_resolve_pallas`` against JAX's
+    in interpret mode: flags, counts and top-K ids equal; the MVP-side
+    floats (and, for Swarm, the MVP sums) as the MVP test holds them; the
+    seven Swarm sums within rtol 2e-4 / atol 2e-3; the Eby sums against
+    the float64 witness (module docstring)."""
+    cols = columns(N, geom)
+    key, extra = _extra(cols, reso)
+    j = _jax_detect_reso(reso, cand_cap, key)(
+        [jnp.asarray(a) for a in cols], jnp.asarray(extra))
+    t = cd_pallas.detect_resolve_pallas(
+        *[torch.from_numpy(a) for a in cols], RPZ, HPZ, TLOOK, _mvp(cr_mvp),
+        block=BLOCK, cand_cap=cand_cap, reso=reso,
+        extra_cols={key: torch.from_numpy(extra)})
+    if reso == "swarm":
+        (j, jsw), (t, tsw) = j, t
+        assert float(tsw[0].sum()) > 0
+        for name, a, b in zip(cd_pallas.SWARM_SUMS, tsw, jsw):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                       atol=2e-3, err_msg=name)
+        assert_rd_match(t, j, cols) in (set(), {351})
+        return
+    assert int(j.nconf) > 0
+    for k in ("inconf", "nconf", "nlos", "topk_idx"):
+        np.testing.assert_array_equal(getattr(t, k).numpy(),
+                                      np.asarray(getattr(j, k)), err_msg=k)
+    for k in ("tcpamax", "tsolv", "topk_tin"):
+        np.testing.assert_allclose(getattr(t, k).numpy(),
+                                   np.asarray(getattr(j, k)), rtol=2e-4,
+                                   atol=2e-3, err_msg=k)
+    s = slab64(cols, key, extra)
+    n = s.shape[1]
+    w = cd_pallas.row_block_plain(
+        s, s, torch.arange(n), torch.arange(n), None,
+        cd_pallas.tile_params(RPZ, HPZ, TLOOK, _mvp(cr_mvp)), "eby")
+    ok = lambda a, b: np.isclose(a, b, rtol=2e-4, atol=2e-3)
+    for k, idx in (("sum_dve", 2), ("sum_dvn", 3), ("sum_dvv", 4)):
+        wit = w[idx].numpy()
+        got, want = getattr(t, k).numpy(), np.asarray(getattr(j, k))
+        np.testing.assert_allclose(got, wit, rtol=2e-4, atol=2e-3,
+                                   err_msg=f"{k} against float64")
+        assert (ok(got, want) | ~ok(want, wit)).all(), k
+
+
+@pytest.mark.parametrize("reso", ["eby", "swarm"])
+def test_tile_body_float64(reso):
+    """The plain tile body of the kernels (``row_block_plain``, the TAS
+    velocity from the tas/gs ratio of the ``tr`` row) on float64 slabs
+    against the JAX tiled backend in float64: the Eby sums within rtol
+    1e-6 (the quadratic's cancellation on near-grazing pairs), the Swarm
+    sums within rtol 1e-9 / atol 1e-9; flags and counts equal."""
+    cols = columns(N, "regional")
+    key, extra = _extra(cols, reso)
+    c64 = [a.astype(np.float64) if a.dtype == np.float32 else a
+           for a in cols]
+    j = jtiled.detect_resolve_tiled(
+        *[jnp.asarray(a) for a in c64], RPZ, HPZ, TLOOK, _mvp(jmvp),
+        block=BLOCK, reso=reso,
+        extra_cols={key: jnp.asarray(extra.astype(np.float64))})
+    s = slab64(cols, key, extra)
+    n = s.shape[1]
+    w = cd_pallas.row_block_plain(
+        s, s, torch.arange(n), torch.arange(n), None,
+        cd_pallas.tile_params(RPZ, HPZ, TLOOK, _mvp(cr_mvp)), reso)
+    if reso == "swarm":
+        j, jsw = j
+        for name, a, b in zip(cd_pallas.SWARM_SUMS, w[10:], jsw):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-9,
+                                       atol=1e-9, err_msg=name)
+    assert int(w[6].sum()) == int(j.nconf) > 0
+    np.testing.assert_array_equal(w[0].numpy() > 0.5, np.asarray(j.inconf))
+    rtol = 1e-6 if reso == "eby" else 1e-9
+    for k, idx in (("sum_dve", 2), ("sum_dvn", 3), ("sum_dvv", 4)):
+        np.testing.assert_allclose(w[idx].numpy(), np.asarray(getattr(j, k)),
+                                   rtol=rtol, atol=1e-9, err_msg=k)
+
+
+def test_k16_partners_match_jax():
+    """Fault C1: ``Traffic(k_partners=16)`` on the pallas backend keeps up
+    to 16 fresh partners a row, as JAX does (200 aircraft of the clump at
+    one altitude, block 64, one refresh and one interval; JAX in interpret
+    mode).  On a CUDA tensor a width other than 8 raises."""
+    from bluesky_tpu.core.traffic import Traffic as JTraffic
+    from bluesky_tpu_torch.core import asas as tasas
+    from bluesky_tpu_torch.core.traffic import Traffic as TTraffic
+    from torch_parity import scene
+    lat, lon, hdg, alt, spd = scene(200, "clump", 3)
+    alt = np.full_like(alt, 9500.0)
+    jt = JTraffic(nmax=256, pair_matrix=False, k_partners=16)
+    tt = TTraffic(nmax=256, pair_matrix=False, k_partners=16, device="cpu")
+    for tr in (jt, tt):
+        tr.create(200, "B744", alt, spd, None, lat, lon, hdg)
+        tr.flush()
+    with jax.default_device(jax.devices("cpu")[0]):
+        js = jasas.refresh_spatial_sort(jt.state, jasas.AsasConfig(),
+                                        block=BLOCK, impl="pallas")
+        js, _ = jasas.update_tiled(js, jasas.AsasConfig(), block=BLOCK,
+                                   impl="pallas")
+    ts = tasas.refresh_spatial_sort(tt.state, tasas.AsasConfig(),
+                                    block=BLOCK, impl="pallas")
+    ts, _ = tasas.update_tiled(ts, tasas.AsasConfig(), block=BLOCK,
+                               impl="pallas")
+    jp, tp = np.asarray(js.asas.partners), ts.asas.partners.numpy()
+    assert tp.shape == (256, 16)
+    assert int(((tp >= 0).sum(1) > 8).sum()) > 100
+    from torch_parity import partner_sets
+    assert partner_sets(tp) == partner_sets(jp)
+    assert int(ts.asas.nconf_cur) == int(js.asas.nconf_cur)
+
+    class OnCard(torch.Tensor):
+        """A tensor that reports itself on a CUDA device."""
+        @property
+        def is_cuda(self):
+            return True
+
+    x = _sorted_inputs(columns(N, "regional"))
+    p = cd_pallas.tile_params(RPZ, HPZ, TLOOK, _mvp(cr_mvp))
+    packed = x.packed.as_subclass(OnCard)
+    with pytest.raises(ValueError, match="K = 8"):
+        cd_pallas.full_grid(packed, x.reach, p, kk=16)
+    with pytest.raises(ValueError, match="K = 8"):
+        cd_pallas.full_grid_resume(
+            packed, x.reach, torch.full((x.nb, 16, x.block), -1,
+                                        dtype=torch.int32), p)

@@ -21,7 +21,7 @@ import torch
 from bluesky_tpu.ops import cd_sched as jsched, cr_mvp as jmvp
 from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
 
-from torch_parity import FT, NM, partner_sets
+from torch_parity import FT, NM, partner_sets, slab64
 
 N = 300
 BLOCK = 64
@@ -142,6 +142,92 @@ def test_sched_matches_jax(geom, s_cap):
     j2 = run_jax(cols2, perm, j[1], s_cap)
     assert (j2[1] >= 0).sum() > 0
     assert_match(j2, run_torch(cols2, perm, j[1], s_cap))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fn_reso(reso):
+    cfg = jmvp.MVPConfig(rpz_m=RPZ * 1.05, hpz_m=HPZ * 1.05,
+                         tlookahead=TLOOK)
+
+    @jax.jit
+    def run(cols, perm, partners, extra):
+        return jsched.detect_resolve_sched(
+            *cols, RPZ, HPZ, TLOOK, cfg, block=BLOCK, s_cap=1,
+            interpret=True, perm=perm, partners=partners,
+            resume_rpz_m=RPZ * 1.05, reso=reso,
+            tas=extra if reso == "eby" else None,
+            cas=extra if reso == "swarm" else None)
+    return run
+
+
+@pytest.mark.parametrize("reso", ["eby", "swarm"])
+def test_sched_resolver_forms_match_jax(reso):
+    """The Eby and Swarm forms of ``detect_resolve_sched`` on the clump
+    (``s_cap=1``: overflow rows, so both kernels run), a fresh and a
+    resumed interval, against JAX in interpret mode: flags, counts, the
+    engaged flags and the partner sets equal; the MVP-side floats and the
+    Swarm sums within rtol 1e-4 / atol 5e-3; the Eby sums within that of
+    the float64 witness, and JAX's within it of the port's wherever
+    JAX's lies within it of the witness (``test_torch_cd_pallas``)."""
+    c = columns("clump")
+    rng = np.random.default_rng(12)
+    lo, hi = (0.9, 1.1) if reso == "eby" else (0.6, 0.8)
+    extra = (c["gs"] * rng.uniform(lo, hi, N)).astype(np.float32)
+    key = "tas" if reso == "eby" else "cas"
+    cfg = cr_mvp.MVPConfig(rpz_m=RPZ * 1.05, hpz_m=HPZ * 1.05,
+                           tlookahead=TLOOK)
+    cols = ordered(c)
+    act = torch.from_numpy(cols[8])
+    gs_t = torch.from_numpy(cols[3])
+    perm = cd_sched.stripe_sort_dest(
+        torch.from_numpy(cols[0]), torch.from_numpy(cols[1]), gs_t, act,
+        cd_sched.reach_threshold_m(gs_t, act, TLOOK, RPZ), BLOCK, 32).numpy()
+    table = np.full((cd_sched.padded_size(N, BLOCK), 8), -1, np.int32)
+    close = lambda a, b: np.isclose(a, b, rtol=1e-4, atol=5e-3)
+    for k in range(2):
+        cols = ordered(moved(c, 20.0 * k))
+        out_j = jax.tree_util.tree_map(np.asarray, _jax_fn_reso(reso)(
+            [jnp.asarray(a) for a in cols], jnp.asarray(perm),
+            jnp.asarray(table), jnp.asarray(extra)))
+        out_t = cd_sched.detect_resolve_sched(
+            *[torch.from_numpy(a) for a in cols], RPZ, HPZ, TLOOK, cfg,
+            partners=torch.from_numpy(np.array(table)),
+            resume_rpz_m=RPZ * 1.05, block=BLOCK, s_cap=1,
+            perm=torch.from_numpy(perm),
+            tas=torch.from_numpy(extra) if reso == "eby" else None,
+            cas=torch.from_numpy(extra) if reso == "swarm" else None,
+            reso=reso)
+        (jrd, jp, ja), (trd, tp, ta) = out_j[:3], out_t[:3]
+        assert int(jrd.nconf) > 0
+        for f in ("inconf", "nconf", "nlos"):
+            np.testing.assert_array_equal(getattr(trd, f).numpy(),
+                                          getattr(jrd, f), err_msg=f)
+        np.testing.assert_array_equal(ta.numpy(), ja)
+        assert partner_sets(trd.topk_idx.numpy()) == partner_sets(
+            jrd.topk_idx)
+        assert partner_sets(tp.numpy()) == partner_sets(jp)
+        sums = ("sum_dve", "sum_dvn", "sum_dvv")
+        for f in ("tcpamax", "tsolv") + (sums if reso == "swarm" else ()):
+            np.testing.assert_allclose(getattr(trd, f).numpy(),
+                                       getattr(jrd, f), rtol=1e-4,
+                                       atol=5e-3, err_msg=f)
+        if reso == "swarm":
+            assert float(out_t[3][0].sum()) > 0
+            for name, a, b in zip(cd_pallas.SWARM_SUMS, out_t[3], out_j[3]):
+                np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                           atol=5e-3, err_msg=name)
+        else:
+            s = slab64(cols, key, extra)
+            w = cd_pallas.row_block_plain(
+                s, s, torch.arange(N), torch.arange(N), None,
+                cd_pallas.tile_params(RPZ, HPZ, TLOOK, cfg), "eby")
+            for f, idx in zip(sums, (2, 3, 4)):
+                got, want = getattr(trd, f).numpy(), getattr(jrd, f)
+                wit = w[idx].numpy()
+                np.testing.assert_allclose(got, wit, rtol=1e-4, atol=5e-3,
+                                           err_msg=f"{f} against float64")
+                assert (close(got, want) | ~close(want, wit)).all(), f
+        table = jp
 
 
 @pytest.mark.parametrize("geom", ["spread", "clump", "equator"])

@@ -106,21 +106,28 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["dense", "tiled", "pallas", "sparse"])
 def test_unported_backends_raise(backend):
-    """Every backend runs; the EBY, SWARM and SSD resolvers raise on each
-    of them (step and the interval itself), naming ROADMAP A3; the dense
-    backend on a state without ``resopairs`` raises as in JAX."""
+    """Every resolver runs on every backend on the CPU (one step and the
+    interval itself, here with nothing in conflict); an unknown
+    ``reso_method`` raises ``ValueError``, and so does the dense backend
+    on a state without ``resopairs``, as in JAX."""
     ts = TTraffic(nmax=8, device="cpu").state
     impl = tasas.impl_for_backend(backend)
-    for method in ("EBY", "SWARM", "SSD"):
+    for method in ("MVP", "EBY", "SWARM", "SSD"):
         acfg = tasas.AsasConfig(reso_method=method)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            tstep.step(ts, tstep.SimConfig(asas=acfg, cd_backend=backend))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            if backend == "dense":
-                tasas.update(ts, acfg)
-            else:
-                tasas.update_tiled(ts, acfg, impl=impl)
-    tstep.step(ts, tstep.SimConfig(cd_backend=backend))
+        out = tstep.step(ts, tstep.SimConfig(asas=acfg, cd_backend=backend))
+        assert int(out.asas.nconf_cur) == 0
+        if backend == "dense":
+            tasas.update(ts, acfg)
+        else:
+            tasas.update_tiled(ts, acfg, impl=impl)
+    bad = tasas.AsasConfig(reso_method="VO")
+    with pytest.raises(ValueError, match="reso_method"):
+        tstep.step(ts, tstep.SimConfig(asas=bad, cd_backend=backend))
+    with pytest.raises(ValueError, match="reso_method"):
+        if backend == "dense":
+            tasas.update(ts, bad)
+        else:
+            tasas.update_tiled(ts, bad, impl=impl)
     no_pairs = TTraffic(nmax=8, pair_matrix=False, device="cpu").state
     cfg = tstep.SimConfig(cd_backend=backend)
     if backend == "dense":

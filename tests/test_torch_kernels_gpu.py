@@ -227,3 +227,117 @@ def test_mask_items_match_plain(cuda):
                 assert torch.equal(a, b)
             valid = torch.arange(w)[None, :] < mask.sum(1)[:, None]
             assert torch.equal(got[0][valid], want.tiles[valid])
+
+
+def _reso_extra(cols, reso):
+    """The tas (Eby) or cas (Swarm) column of ``cols``, from a numpy seed:
+    tas 0.9-1.1 x gs, cas 0.6-0.8 x gs."""
+    rng = np.random.default_rng(11)
+    f = rng.uniform(0.9, 1.1, cols[3].shape[0]) if reso == "eby" \
+        else rng.uniform(0.6, 0.8, cols[3].shape[0])
+    return cols[3] * torch.as_tensor(f, dtype=torch.float32,
+                                     device=cols[3].device)
+
+
+@pytest.mark.parametrize("reso", ["eby", "swarm"])
+@pytest.mark.parametrize("geom,s_cap", [("spread", 6), ("clump", 2)])
+def test_resolver_forms_match_plain(cuda, reso, geom, s_cap):
+    """The Eby and Swarm forms of ``cd_sched_tiles`` (K1, and K2 on the
+    overflow rows) and of ``cd_full_grid`` (K3) against their plain
+    versions, each call counting one launch of its form."""
+    cols = _inputs(geom, 4096, cuda)
+    extra = _reso_extra(cols, reso)
+    n_tot = cd_sched.padded_size(4096, 256)
+    x = cd_sched.prepare(*cols, 5 * NM, 1000 * FT, 300.0,
+                         torch.full((n_tot, 8), -1, dtype=torch.int32,
+                                    device=cuda), block=256, s_cap=s_cap,
+                         tas=extra if reso == "eby" else None,
+                         cas=extra if reso == "swarm" else None, reso=reso)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp(), 5 * NM * 1.05)
+    reach_f = x.reach & x.overflow[:, None]
+    perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8])
+    xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                           block=256, reso=reso,
+                           extra_cols={"tas" if reso == "eby" else "cas":
+                                       extra[perm]})
+    pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    key = lambda name: cd_pallas.launch_key(name, reso)
+    n0 = (cd_sched.LAUNCHES[key("cd_sched_tiles")],
+          cd_pallas.LAUNCHES[key("cd_full_grid_resume")],
+          cd_pallas.LAUNCHES[key("cd_full_grid")])
+    runs = [
+        ("sched", lambda: cd_sched.sched_tiles(
+            x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso=reso),
+         lambda: cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
+                                            x.pold, p, reso)),
+        ("resume", lambda: cd_pallas.full_grid_resume(
+            x.packed, reach_f, x.pold, p, reso=reso),
+         lambda: cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold,
+                                                  p, reso)),
+        ("full grid", lambda: cd_pallas.full_grid(xp.packed, xp.reach, pp,
+                                                  reso=reso),
+         lambda: cd_pallas.full_grid_plain(xp.packed, xp.reach, pp, reso))]
+    for name, kern, plain in runs:
+        got = kern()
+        cd_pallas.compare_outputs(f"{name} {reso} {geom}", got, plain())
+        assert torch.equal(kern()[9], got[9])
+    torch.cuda.synchronize()
+    assert (cd_sched.LAUNCHES[key("cd_sched_tiles")],
+            cd_pallas.LAUNCHES[key("cd_full_grid_resume")],
+            cd_pallas.LAUNCHES[key("cd_full_grid")]) == tuple(
+                k + 2 for k in n0)
+    if geom == "clump":
+        assert int(x.overflow.sum()) > 0
+    if reso == "swarm":
+        assert float(got[10].sum()) > 0      # swarm neighbours were found
+
+
+def test_eby_cand_tiles_match_plain(cuda):
+    """The Eby form of ``cand_tiles`` (K4) on eight clusters; the Swarm
+    form of the candidate pass raises, as in the JAX package."""
+    cols = _inputs("clusters", 8192, cuda)
+    tas = _reso_extra(cols, "eby")
+    perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8])
+    x = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                          block=256, reso="eby", extra_cols={"tas": tas[perm]})
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    cand, row_over = cd_pallas.build_candidates(
+        x.lat, x.lon, x.gs, x.active, x.nb, x.block, 2048, 5 * NM, 300.0)
+    assert 0 < int(row_over.sum()) < x.nb
+    n0 = cd_pallas.LAUNCHES["cd_cand_tiles_eby"]
+    cd_pallas.compare_outputs(
+        "cand tiles eby", cd_pallas.cand_tiles(x.packed, cand, p, reso="eby"),
+        cd_pallas.cand_tiles_plain(x.packed, cand, p, "eby"))
+    assert cd_pallas.LAUNCHES["cd_cand_tiles_eby"] == n0 + 1
+    with pytest.raises(ValueError, match="swarm"):
+        cd_pallas.cand_tiles(x.packed, cand, p, reso="swarm")
+
+
+def test_swarm_track_wrap_on_the_card(cuda):
+    """The Swarm neighbour test on pairs whose track difference lies near
+    -180, +180, -90 and +90 deg: the kernel's floored modulo gives the
+    plain version's (``torch.remainder``) neighbour sums."""
+    n = 512
+    rng = np.random.default_rng(2)
+    base = rng.uniform(0.0, 360.0, n // 2)
+    dt = rng.choice([-180.0, 180.0, -90.0, 90.0], n // 2) \
+        + rng.uniform(-1e-3, 1e-3, n // 2)
+    trk = np.stack([base, np.mod(base + dt, 360.0)], 1).reshape(-1)
+    lat = np.repeat(rng.uniform(52.0, 52.5, n // 2), 2) \
+        + rng.uniform(0, 0.02, n)
+    lon = np.repeat(rng.uniform(4.0, 4.8, n // 2), 2) \
+        + rng.uniform(0, 0.02, n)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    gs = np.full(n, 200.0)
+    cols = [f(lat), f(lon), f(trk), f(gs), f(np.full(n, 9000.0)),
+            f(np.zeros(n)), f(gs * np.sin(np.radians(trk))),
+            f(gs * np.cos(np.radians(trk))),
+            torch.ones(n, dtype=torch.bool, device=cuda),
+            torch.zeros(n, dtype=torch.bool, device=cuda)]
+    x = cd_pallas.prepare(*cols, 5 * NM, 300.0, block=128, reso="swarm",
+                          extra_cols={"cas": f(gs * 0.7)})
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    got = cd_pallas.full_grid(x.packed, x.reach, p, reso="swarm")
+    want = cd_pallas.full_grid_plain(x.packed, x.reach, p, "swarm")
+    cd_pallas.compare_outputs("swarm track wrap", got, want)
+    assert float(want[10].sum()) > 0

@@ -1,6 +1,7 @@
 """The port's main path against the JAX package: ``refresh_spatial_sort``
-plus ``run_steps`` under ``SimConfig(cd_backend=...)`` for each of the
-four backends on the same numpy-seeded scene, in float32, the JAX Pallas
+plus ``run_steps`` under ``SimConfig(cd_backend=..., asas=AsasConfig(
+reso_method=...))`` for each of the four backends and each of the four
+resolvers on the same numpy-seeded scene, in float32, the JAX Pallas
 kernels in interpret mode and the port's kernels through their plain
 PyTorch versions (CPU).  The pair state compared is the one each backend
 keeps: the [N, N] ``resopairs`` (dense, equal), the sorted-space
@@ -12,7 +13,13 @@ in-conflict and ASAS-engaged flags, the partner sets) are equal; lat/lon
 within 1e-5 deg, altitude within 1e-2 m, speeds and tracks within rtol
 1e-4 / atol 1e-3.  The two float32 pipelines differ only in rounding
 (rsqrt, summation order of the pair sums), which 21 steps cannot grow
-past these bounds.
+past these bounds.  Under EBY the commanded track, speed and vertical
+speed (``asas.*``, and the ``pilot.*`` that follow them) are held to
+the JAX package's own bound between its float32 Eby backends
+(``tests/test_resolvers_blockwise.py``: tracks 0.3 deg at the 99th
+percentile and 5 deg at most, speeds 0.05 and 1.0 m/s): JAX computes
+each Eby pair in float32, where a near-grazing pair's quadratic
+cancels, the port in float64 (``ops/cr_eby.py``).
 """
 from types import SimpleNamespace
 
@@ -59,19 +66,24 @@ def assert_tables_equal(backend, j, t):
         assert partner_sets(j) == partner_sets(t)
 
 
-@pytest.fixture(scope="module", params=["dense", "tiled", "sparse", "pallas"])
+@pytest.fixture(scope="module", params=[
+    (backend, reso) for reso in ("MVP", "EBY", "SWARM", "SSD")
+    for backend in ("dense", "tiled", "sparse", "pallas")],
+    ids=lambda p: p[0] if p[1] == "MVP" else f"{p[0]}-{p[1]}")
 def stepped(request):
     """150 aircraft in 256 slots, 21 steps (two ASAS intervals)."""
-    backend = request.param
+    backend, reso = request.param
     jstate, tstate = build_pair(256, 150, pair_matrix=backend == "dense")
-    jcfg = jstep.SimConfig(cd_backend=backend, cd_block=BLOCK)
-    tcfg = tstep.SimConfig(cd_backend=backend, cd_block=BLOCK)
+    jcfg = jstep.SimConfig(cd_backend=backend, cd_block=BLOCK,
+                           asas=jasas.AsasConfig(reso_method=reso))
+    tcfg = tstep.SimConfig(cd_backend=backend, cd_block=BLOCK,
+                           asas=tasas.AsasConfig(reso_method=reso))
     j0 = jax_tree_to_numpy(jstate)
     t0 = state_to_numpy(tstate)
     jout, tout = _run_jax(jstate, jcfg), _run_torch(tstate, tcfg)
     return SimpleNamespace(j0=j0, t0=t0, j=jax_tree_to_numpy(jout),
                            t=state_to_numpy(tout), jout=jout, tout=tout,
-                           backend=backend, table=TABLE[backend])
+                           backend=backend, reso=reso, table=TABLE[backend])
 
 
 def test_traffic_builds_the_same_state(stepped):
@@ -96,15 +108,31 @@ def test_counts_and_flags_equal(stepped):
     assert float(j["fms_t0"]) == float(t["fms_t0"])
 
 
+#: the commands a float32 Eby pair moves (module docstring), with the
+#: JAX package's bound at the 99th percentile and at most
+EBY_COMMANDS = {"asas.trk": (0.3, 5.0), "asas.tas": (0.05, 1.0),
+                "asas.vs": (0.05, 1.0), "pilot.trk": (0.3, 5.0),
+                "pilot.tas": (0.05, 1.0)}
+
+
 def test_kinematics_within_tolerance(stepped):
     j, t = stepped.j, stepped.t
     for k in ("ac.lat", "ac.lon"):
         np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-5,
                                    err_msg=k)
     np.testing.assert_allclose(t["ac.alt"], j["ac.alt"], rtol=0, atol=1e-2)
+    eby = stepped.reso == "EBY"
     for k in ("ac.tas", "ac.gs", "ac.cas", "ac.vs", "ac.gsnorth",
               "ac.gseast", "ac.trk", "ac.hdg", "asas.trk", "asas.tas",
               "asas.vs", "asas.tcpamax", "pilot.trk", "pilot.tas"):
+        if eby and k in EBY_COMMANDS:
+            d = np.abs(t[k].astype(np.float64) - j[k])
+            if k.endswith("trk"):
+                d = np.minimum(d, 360.0 - d)
+            p99, most = EBY_COMMANDS[k]
+            assert np.percentile(d, 99) < p99 and d.max() < most, \
+                (k, np.percentile(d, 99), d.max())
+            continue
         np.testing.assert_allclose(t[k], j[k], rtol=1e-4, atol=1e-3,
                                    err_msg=k)
 

@@ -78,3 +78,23 @@ def partner_sets(table):
     """Row-wise sets of the non-negative ids of a partner table."""
     return [frozenset(int(x) for x in row if x >= 0)
             for row in np.asarray(table)]
+
+
+def slab64(cols, key, extra):
+    """The ``cd_pallas`` slab fields of every aircraft of the CD columns
+    ``cols`` (lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+    noreso), in float64 from the float32 inputs, with the ``tr`` row of
+    ``key``: the cas column ``extra`` itself, or the tas/gs ratio of the
+    tas column ``extra`` (``cd_pallas.tr_row`` in float64).  The float64
+    witness of a kernel pass is ``cd_pallas.row_block_plain`` on it."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_tiled
+    lat, lon, trk, gs, alt, vs, gse, gsn, act, noreso = (
+        torch.from_numpy(np.asarray(a)).double() for a in cols)
+    trkrad = torch.deg2rad(trk)
+    ex = torch.from_numpy(np.asarray(extra)).double()
+    f = cd_tiled.precompute_trig(lat, lon)
+    f.update(u=gs * torch.sin(trkrad), v=gs * torch.cos(trkrad), alt=alt,
+             vs=vs, gse=gse, gsn=gsn, trk=trk, active=act, noreso=noreso,
+             tr=ex if key == "cas" else ex / torch.clamp_min(gs, 0.5))
+    return torch.stack([f[k] for k in cd_pallas._FIELDS])
