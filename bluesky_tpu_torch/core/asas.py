@@ -5,8 +5,9 @@ Port of the single-device part of ``bluesky_tpu/core/asas.py``:
 ``[N, N]`` matrices, one of the resolvers MVP, EBY, SWARM or SSD, the
 ``resopairs`` bookkeeping and ``cr_mvp.resume_nav``) and
 ``detect_only``; the spatial-sort refresh (``refresh_spatial_sort``:
-the stripe sort of ``impl="sparse"``, the Morton order of
-``impl="pallas"`` and ``"lax"``); and the blockwise interval
+the stripe sort of ``impl="sparse"``, also as ``inscan_sparse_refresh``
+for the chunk runner, the Morton order of ``impl="pallas"`` and
+``"lax"``); and the blockwise interval
 (``update_tiled``): detect with the resolver's pair sums (MVP, Eby, or
 MVP plus the Swarm neighbour sums), resolve from the sums (SSD from the
 partner table), then resume-nav, in-kernel on the sorted-space table
@@ -232,11 +233,21 @@ def refresh_spatial_sort(state: SimState, cfg: AsasConfig,
     permutation (sorted position -> caller slot) and ``partners`` stays
     in caller space."""
     _require_impl(impl)
+    if impl == "sparse":
+        return inscan_sparse_refresh(state, cfg, block=block)
     ac = state.ac
-    if impl != "sparse":
-        perm = cd_tiled.spatial_permutation(ac.lat, ac.lon, ac.active)
-        return state.replace(asas=state.asas.replace(
-            sort_perm=perm.to(torch.int32)))
+    perm = cd_tiled.spatial_permutation(ac.lat, ac.lon, ac.active)
+    return state.replace(asas=state.asas.replace(
+        sort_perm=perm.to(torch.int32)))
+
+
+def inscan_sparse_refresh(state: SimState, cfg: AsasConfig,
+                          block: int = 256) -> SimState:
+    """The sparse sort refresh as a state -> state function: the
+    ``refresh_spatial_sort`` sparse branch, which the chunk runner calls
+    between steps when ``SimConfig.inscan_refresh`` is due
+    (``core/step.py``)."""
+    ac = state.ac
     dest, partners_s = _sparse_sort_refresh(
         ac.lat, ac.lon, ac.gs, ac.active, state.asas.sort_perm,
         state.asas.partners_s, block=min(block, 256),

@@ -1,4 +1,4 @@
-"""The simulation step on tensors.
+"""The simulation step and its chunk runners on tensors.
 
 Port of ``bluesky_tpu/core/step.py`` for the slice the port runs: one
 device, the four CD backends (``dense``, ``tiled``, ``pallas``,
@@ -12,11 +12,32 @@ The FMS and ASAS gates are decided on the host from the state's host
 clocks (``simt``, ``fms_t0``, ``asas_tnext``, numpy scalars in the
 state's dtype), with the same expressions the JAX step evaluates on the
 device, so every decision is the JAX one bit for bit and a chunk never
-waits for the device to learn which branch to take.  PyTorch runs
-eagerly, so ``run_steps`` is a loop of ``step`` calls.
+waits for the device to learn which branch to take (``next_clocks``).
+
+The chunk runners (``run_steps``, ``run_steps_checked``,
+``run_steps_edge``, ``run_steps_edge_keep``) share one chunk body, the
+port's counterpart of JAX's ``lax.scan`` over ``step``: each step, then
+the folds its flags ask for (the first-bad-step guard, ``ScanStats``,
+the state fingerprint) and, before it, the in-scan sort refresh.  On a
+CPU state the body runs the steps eagerly.  On a CUDA state the steps
+without an ASAS interval replay captured CUDA graphs
+(``core/graph.py``), and the ASAS steps and the refreshes run eagerly
+between replays; no runner reads the device back to the host.
+
+Donation: on a CUDA state a runner copies its input into the graph
+buffers of its configuration (a tensor that already is the buffer is not
+copied), and ``run_steps``, ``run_steps_checked`` and ``run_steps_edge``
+return those buffers.  Passing a returned state (or one made from it,
+say by the sort refresh) back in donates it, as JAX's donation does:
+the chunk advances it in place, so it must not be read afterwards.  A
+returned state that is not passed back stays valid: a chunk of another
+state gets buffers of its own.  ``run_steps_edge_keep`` writes neither
+its input nor any state returned before.  On the CPU every runner
+returns new tensors.
 """
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import asas as asasmod
@@ -26,15 +47,20 @@ from .asas import AsasConfig
 from .noise import NoiseConfig
 from .state import SimState
 
+
 class SimConfig(NamedTuple):
     """Simulation configuration (the fields of the JAX ``SimConfig`` that
-    the port reads, with its defaults; the mesh, shard-mode,
-    differentiable, in-scan telemetry/refresh and fingerprint options are
-    not ported).  ``cd_backend``: ``"dense"`` materialises [N, N] pair
-    matrices (fine to ~16k aircraft; needs ``Traffic(pair_matrix=True)``),
-    ``"tiled"`` streams [cd_block, cd_block] tiles with an [N, K] partner
-    table, ``"pallas"`` is the tiled scheme on the CUDA tile kernels and
-    ``"sparse"`` the segment-scheduled kernels with the stripe sort."""
+    the port reads, with its defaults; the mesh, shard-mode and
+    differentiable options are not ported).  ``cd_backend``: ``"dense"``
+    materialises [N, N] pair matrices (fine to ~16k aircraft; needs
+    ``Traffic(pair_matrix=True)``), ``"tiled"`` streams [cd_block,
+    cd_block] tiles with an [N, K] partner table, ``"pallas"`` is the
+    tiled scheme on the CUDA tile kernels and ``"sparse"`` the
+    segment-scheduled kernels with the stripe sort.  ``scanstats``,
+    ``inscan_refresh`` and ``fingerprint`` add the chunk runners' folds
+    (``obs/scanstats.py``, the sparse sort refresh on its
+    ``sort_every * dtasas`` cadence, ``obs/fingerprint.py``); off, a
+    chunk launches nothing for them."""
     simdt: float = 0.05          # [s] (reference simulation.py:15)
     fms_dt: float = autopilot.FMS_DT
     asas: AsasConfig = AsasConfig()
@@ -42,6 +68,9 @@ class SimConfig(NamedTuple):
     use_wind: bool = False
     cd_backend: str = "dense"
     cd_block: int = 512
+    scanstats: bool = False
+    inscan_refresh: bool = False
+    fingerprint: bool = False
 
 
 def check_config(cfg: SimConfig, state: SimState):
@@ -62,16 +91,30 @@ def check_config(cfg: SimConfig, state: SimState):
     asasmod.require_resolver(cfg.asas)
 
 
-def fms_due(state: SimState, fms_dt: float) -> bool:
-    """The FMS gate of the JAX step, on the host clocks in their dtype."""
+class Clocks(NamedTuple):
+    """The host side of a state: its clocks (numpy scalars in the
+    state's dtype) and its noise seed."""
+    simt: np.floating
+    fms_t0: np.floating
+    asas_tnext: np.floating
+    rng: int
+
+
+def fms_due(state, fms_dt: float) -> bool:
+    """The FMS gate of the JAX step, on the host clocks in their dtype
+    (``state``: a ``SimState`` or ``Clocks``)."""
     dt = state.simt.dtype.type
     simt, t0 = state.simt, state.fms_t0
     return bool((t0 + dt(fms_dt) < simt) | (simt < t0) | (simt < dt(fms_dt)))
 
 
-def asas_due(state: SimState) -> bool:
+def asas_due(state) -> bool:
     """The ASAS gate of the JAX step, on the host clocks."""
     return bool(state.simt >= state.asas_tnext)
+
+
+def noise_on(cfg: SimConfig) -> bool:
+    return bool(cfg.noise.turb_active or cfg.noise.adsb_transnoise)
 
 
 def _next_seed(seed: int) -> int:
@@ -79,40 +122,54 @@ def _next_seed(seed: int) -> int:
     return (seed * 6364136223846793005 + 1442695040888963407) % 2 ** 64
 
 
-def step(state: SimState, cfg: SimConfig) -> SimState:
-    """Advance the simulation by one simdt."""
-    check_config(cfg, state)
+def next_clocks(state, cfg: SimConfig):
+    """One step's gate decisions and the host side after it: ``(fms,
+    asas, Clocks)``.  ``state`` is a ``SimState`` or ``Clocks``; ``step``
+    and the chunk runners both advance the host side through here."""
     dt = state.simt.dtype.type
-    simt = state.simt
-    simdt = float(dt(cfg.simdt))
+    fms = fms_due(state, cfg.fms_dt)
+    asas = bool(cfg.asas.swasas) and asas_due(state)
+    return fms, asas, Clocks(
+        simt=state.simt + dt(cfg.simdt),
+        fms_t0=state.simt if fms else state.fms_t0,
+        asas_tnext=state.asas_tnext + dt(cfg.asas.dtasas) if asas
+        else state.asas_tnext,
+        rng=_next_seed(state.rng) if noise_on(cfg) else state.rng)
+
+
+def noise_seed(state) -> int:
+    """The seed of a step's noise generator, from the pre-step ``rng``."""
+    return state.rng % 2 ** 63
+
+
+def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
+              simt, gen) -> SimState:
+    """The device part of one step, with the gates decided: ``simt`` is
+    the pre-step clock (a host scalar, or a 0-d tensor of the same value
+    on the state's device), ``gen`` the noise generator (None without
+    noise).  Leaves the host side of ``state`` as it was."""
+    simdt = float(state.simt.dtype.type(cfg.simdt))
 
     # ---------- Atmosphere ----------
     state = state.replace(ac=kinematics.update_atmosphere(state.ac))
 
     # ---------- ADS-B broadcast model ----------
-    gen = None
-    if cfg.noise.turb_active or cfg.noise.adsb_transnoise:
-        gen = torch.Generator(device=state.device)
-        gen.manual_seed(state.rng % 2 ** 63)
-        state = state.replace(rng=_next_seed(state.rng))
     state = state.replace(adsb=noise.adsb_update(
         state.adsb, state.ac, gen, simt, cfg.noise))
 
     # ---------- FMS / autopilot, gated at fms_dt ----------
-    if fms_due(state, cfg.fms_dt):
-        state = autopilot.update_fms(state).replace(fms_t0=simt)
+    if fms:
+        state = autopilot.update_fms(state)
     state = autopilot.update_continuous(state)
 
     # ---------- ASAS CD&R, gated at dtasas ----------
-    if cfg.asas.swasas and asas_due(state):
+    if asas:
         if cfg.cd_backend == "dense":
             state, _cd = asasmod.update(state, cfg.asas)
         else:
             impl = asasmod.impl_for_backend(cfg.cd_backend)
             state, _rd = asasmod.update_tiled(state, cfg.asas,
                                               block=cfg.cd_block, impl=impl)
-        state = state.replace(asas_tnext=state.asas_tnext
-                              + dt(cfg.asas.dtasas))
 
     # ---------- Pilot arbitration ----------
     if cfg.use_wind:
@@ -147,25 +204,271 @@ def step(state: SimState, cfg: SimConfig) -> SimState:
         alt=frz(ac.alt, state.ac.alt), hdg=frz(ac.hdg, state.ac.hdg),
         trk=frz(ac.trk, state.ac.trk), tas=frz(ac.tas, state.ac.tas),
         gs=frz(ac.gs, state.ac.gs), vs=frz(ac.vs, state.ac.vs))
-    return state.replace(ac=ac, simt=simt + dt(cfg.simdt))
+    return state.replace(ac=ac)
 
 
-def run_steps(state: SimState, cfg: SimConfig, nsteps: int) -> SimState:
-    """Advance ``nsteps`` steps."""
+def step(state: SimState, cfg: SimConfig) -> SimState:
+    """Advance the simulation by one simdt (eagerly; no host read)."""
     check_config(cfg, state)
-    for _ in range(nsteps):
-        state = step(state, cfg)
-    return state
+    fms, asas, clk = next_clocks(state, cfg)
+    gen = None
+    if noise_on(cfg):
+        gen = torch.Generator(device=state.device)
+        gen.manual_seed(noise_seed(state))
+    out = step_body(state, cfg, fms, asas, state.simt, gen)
+    return out.replace(**clk._asdict())
 
 
 #: Per-aircraft fields the integrity check watches (JAX GUARD_FIELDS).
 GUARD_FIELDS = ("lat", "lon", "alt", "tas", "gs", "vs")
 
 
-def state_finite(state: SimState) -> bool:
-    """Every guarded field is finite on the live rows."""
+def state_finite(state: SimState) -> torch.Tensor:
+    """0-d bool tensor on the state's device: every guarded field is
+    finite on the live rows (padding rows are excluded).  Reads nothing
+    back to the host."""
     ac = state.ac
     bad = torch.zeros_like(ac.active)
     for f in GUARD_FIELDS:
         bad |= ~torch.isfinite(getattr(ac, f))
-    return not bool((bad & ac.active).any())
+    return ~torch.any(bad & ac.active)
+
+
+# ------------------------------------------------------------ the chunk body
+
+def init_carry(state: SimState, cfg: SimConfig, checked: bool) -> dict:
+    """The folds a chunk carries, fresh: ``bad`` (int32, -1) and the step
+    index ``i`` for ``checked``, ``st`` (``ScanStats``) for
+    ``cfg.scanstats``, ``fp`` (``FingerprintPack``) for
+    ``cfg.fingerprint``; tensors on the state's device."""
+    dev = state.device
+    carry = {}
+    if checked:
+        carry["bad"] = torch.full((), -1, dtype=torch.int32, device=dev)
+        carry["i"] = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.scanstats:
+        from ..obs import scanstats
+        carry["st"] = scanstats.init(state, cfg)
+    if cfg.fingerprint:
+        from ..obs import fingerprint
+        carry["fp"] = fingerprint.init(state, cfg)
+    return carry
+
+
+def fold_carry(carry: dict, state: SimState, cfg: SimConfig) -> dict:
+    """The carry after one step, from the post-step ``state``: the first
+    step whose state is not finite on a live row (its index in the
+    chunk), the ScanStats and fingerprint folds.  Device tensors only."""
+    out = {}
+    if "bad" in carry:
+        bad, i = carry["bad"], carry["i"]
+        out["bad"] = torch.where(bad >= 0, bad,
+                                 torch.where(state_finite(state), -1, i))
+        out["i"] = i + 1
+    if "st" in carry:
+        from ..obs import scanstats
+        out["st"] = scanstats.fold(carry["st"], state, cfg)
+    if "fp" in carry:
+        from ..obs import fingerprint
+        out["fp"] = fingerprint.fold(carry["fp"], state, cfg)
+    return out
+
+
+class _EagerChunk:
+    """The chunk body on the CPU: each step eagerly (``step``), then the
+    folds."""
+
+    def __init__(self, state: SimState, cfg: SimConfig, checked: bool):
+        self.cfg, self.state = cfg, state
+        self.carry = init_carry(state, cfg, checked)
+
+    def step(self):
+        self.state = step(self.state, self.cfg)
+        self.carry = fold_carry(self.carry, self.state, self.cfg)
+
+    def apply(self, fn):
+        """Replace the state by ``fn(state)`` (the sort refresh)."""
+        self.state = fn(self.state)
+
+    def finish(self, keep: bool):
+        simt = torch.full((), float(self.state.simt),
+                          dtype=self.state.ac.lat.dtype,
+                          device=self.state.device)
+        return self.state, self.carry, simt
+
+
+def _graphed(state: SimState) -> bool:
+    """Whether a chunk of ``state`` replays CUDA graphs (a CUDA state)."""
+    return state.device.type == "cuda"
+
+
+# ---------------------------------------------------------- in-scan refresh
+
+def inscan_refresh_active(cfg: SimConfig) -> bool:
+    """True when this config folds the sort refresh into the chunk: the
+    flag is on, the backend is 'sparse' (the tiled/pallas Morton refresh
+    stays host-called) and ASAS runs.  Callers pivot output arity on
+    it."""
+    return bool(cfg.inscan_refresh and cfg.asas.swasas
+                and cfg.cd_backend == "sparse")
+
+
+class RefreshPack(NamedTuple):
+    """The in-chunk refresh record, returned at the chunk edge.
+
+    * ``sort_t``: sim time of the most recent refresh, a host scalar in
+      the state's dtype (-1 = never); the next chunk takes it as
+      ``sort_t0``.  The due gate is decided on the host, from the host
+      clocks, like the FMS and ASAS gates.
+    * ``count``: int32 refreshes fired in this chunk.
+    * ``guard``: int32 guard word (0: the spatial and tiles modes that set
+      it wait for ROADMAP A9).
+    * ``newslot``: the composed slot bijection of spatial refreshes;
+      empty ``[0]`` int32 on the single-device sparse backend.
+    """
+    sort_t: np.floating
+    count: torch.Tensor
+    guard: torch.Tensor
+    newslot: torch.Tensor
+
+
+def refresh_due(simt, sort_t, cfg: SimConfig) -> bool:
+    """The refresh gate of the JAX chunk, on host scalars in the state's
+    dtype: never refreshed, or ``sort_every * dtasas`` elapsed."""
+    dt = simt.dtype.type
+    period = dt(float(cfg.asas.sort_every * cfg.asas.dtasas))
+    return bool((sort_t < dt(0.0)) | (simt - sort_t >= period))
+
+
+# --------------------------------------------------------------- the runners
+
+def _run_chunk(state: SimState, cfg: SimConfig, nsteps: int, checked: bool,
+               sort_t0=None, keep: bool = False):
+    """The one chunk body of every runner: ``nsteps`` steps, each after
+    the in-scan refresh when due and before the carry folds.  Returns
+    ``(state, carry, simt, refresh)``: ``simt`` the end clock as a 0-d
+    tensor on the device (the graph buffer's copy on a CUDA state),
+    ``refresh`` a ``RefreshPack`` or None."""
+    check_config(cfg, state)
+    if _graphed(state):
+        from . import graph
+        ex = graph.chunk(state, cfg, checked, keep)
+    else:
+        ex = _EagerChunk(state, cfg, checked)
+    inscan = inscan_refresh_active(cfg)
+    sort_t = state.simt.dtype.type(-1.0 if sort_t0 is None else sort_t0)
+    count = 0
+    for _ in range(nsteps):
+        if inscan and refresh_due(ex.state.simt, sort_t, cfg):
+            sort_t, count = ex.state.simt, count + 1
+            ex.apply(lambda s: asasmod.inscan_sparse_refresh(
+                s, cfg.asas, block=min(cfg.cd_block, 256)))
+        ex.step()
+    state, carry, simt = ex.finish(keep)
+    refresh = None
+    if inscan:
+        i32 = dict(dtype=torch.int32, device=state.device)
+        refresh = RefreshPack(
+            sort_t=sort_t, count=torch.full((), count, **i32),
+            guard=torch.zeros((), **i32), newslot=torch.zeros((0,), **i32))
+    return state, carry, simt, refresh
+
+
+def run_steps(state: SimState, cfg: SimConfig, nsteps: int) -> SimState:
+    """Advance ``nsteps`` steps (with the in-scan refresh when
+    ``inscan_refresh_active(cfg)``).  On a CUDA state the input may be
+    overwritten and the result lives in the graph buffers (module
+    docstring)."""
+    cfg = cfg._replace(scanstats=False, fingerprint=False)
+    return _run_chunk(state, cfg, nsteps, checked=False)[0]
+
+
+def run_steps_checked(state: SimState, cfg: SimConfig, nsteps: int):
+    """``run_steps`` with the integrity guard folded in: returns
+    ``(state, bad)``, ``bad`` an int32 0-d tensor on the device holding
+    the index (0-based in the chunk) of the first step whose post-step
+    state had a non-finite guarded value on a live row, or -1.  The
+    index is a device counter, so nothing is read back."""
+    cfg = cfg._replace(scanstats=False, fingerprint=False)
+    state, carry, _, _ = _run_chunk(state, cfg, nsteps, checked=True)
+    return state, carry["bad"]
+
+
+class EdgeTelemetry(NamedTuple):
+    """Packed chunk-edge telemetry: what the host's chunk-edge consumers
+    read from the device.  Every field is a buffer of its own, never an
+    alias of a state tensor, so it survives the next chunk."""
+    simt: torch.Tensor       # [s] sim time at the chunk edge (0-d)
+    bad: torch.Tensor        # int32 first bad step in chunk, -1 = clean
+    nconf_cur: torch.Tensor  # int32 directional conflict count
+    nlos_cur: torch.Tensor   # int32 directional LoS count
+    active: torch.Tensor
+    lat: torch.Tensor
+    lon: torch.Tensor
+    alt: torch.Tensor
+    hdg: torch.Tensor
+    trk: torch.Tensor
+    tas: torch.Tensor
+    gs: torch.Tensor
+    cas: torch.Tensor
+    vs: torch.Tensor
+    inconf: torch.Tensor
+    tcpamax: torch.Tensor
+    asasn: torch.Tensor
+    asase: torch.Tensor
+
+
+def pack_telemetry(state: SimState, bad=None, simt=None) -> EdgeTelemetry:
+    """Copy the edge fields of a post-chunk state into new buffers:
+    ``simt`` a 0-d tensor (default: the host clock on the device), ``bad``
+    the checked runner's word (default -1)."""
+    ac, asas = state.ac, state.asas
+    dev = state.device
+    if bad is None:
+        bad = torch.full((), -1, dtype=torch.int32, device=dev)
+    if simt is None:
+        simt = torch.full((), float(state.simt), dtype=ac.lat.dtype,
+                          device=dev)
+    c = torch.clone
+    return EdgeTelemetry(
+        simt=c(simt), bad=c(bad), nconf_cur=c(asas.nconf_cur),
+        nlos_cur=c(asas.nlos_cur), active=c(ac.active), lat=c(ac.lat),
+        lon=c(ac.lon), alt=c(ac.alt), hdg=c(ac.hdg), trk=c(ac.trk),
+        tas=c(ac.tas), gs=c(ac.gs), cas=c(ac.cas), vs=c(ac.vs),
+        inconf=c(asas.inconf), tcpamax=c(asas.tcpamax),
+        asasn=c(asas.asasn), asase=c(asas.asase))
+
+
+def _edge(state, cfg, nsteps, checked, sort_t0, keep):
+    """``(state, telemetry)`` extended with the ScanStats pack when
+    ``cfg.scanstats``, the ``RefreshPack`` when
+    ``inscan_refresh_active(cfg)`` and the ``FingerprintPack`` when
+    ``cfg.fingerprint``, in that order, as in JAX."""
+    state, carry, simt, refresh = _run_chunk(state, cfg, nsteps, checked,
+                                             sort_t0, keep)
+    out = (state, pack_telemetry(state, carry.get("bad"), simt))
+    if "st" in carry:
+        out += (carry["st"],)
+    if refresh is not None:
+        out += (refresh,)
+    if "fp" in carry:
+        out += (carry["fp"],)
+    return out
+
+
+def run_steps_edge(state: SimState, cfg: SimConfig, nsteps: int,
+                   checked: bool = False, sort_t0=None):
+    """``run_steps`` (or the checked chunk, ``checked=True``) returning
+    ``(state, EdgeTelemetry[, ScanStats][, RefreshPack]
+    [, FingerprintPack])``; the packs are buffers of their own.
+    ``sort_t0`` (host scalar, the previous chunk's ``RefreshPack.sort_t``)
+    seeds the in-scan refresh gate.  The input is donated as in
+    ``run_steps``."""
+    return _edge(state, cfg, nsteps, checked, sort_t0, keep=False)
+
+
+def run_steps_edge_keep(state: SimState, cfg: SimConfig, nsteps: int,
+                        checked: bool = False, sort_t0=None):
+    """``run_steps_edge`` without donation: the input's tensors, and every
+    state a runner returned before, stay as they were."""
+    return _edge(state, cfg, nsteps, checked, sort_t0, keep=True)

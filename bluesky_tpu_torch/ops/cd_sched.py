@@ -100,7 +100,10 @@ def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra):
     key = s * (2 ** 19) + qlon.to(torch.int32)
     order = torch.argsort(key, stable=True)            # sorted -> original
     ss = s[order].long()
-    counts = torch.bincount(ss, minlength=extra)
+    # a count by index_add, not bincount: on the card bincount reads the
+    # largest index back to the host to size its output
+    counts = torch.zeros(extra, dtype=torch.int64,
+                         device=dev).index_add_(0, ss, torch.ones_like(ss))
     nblocks = (counts + block - 1) // block
     zero = torch.zeros(1, dtype=counts.dtype, device=dev)
     base = torch.cat([zero, torch.cumsum(nblocks, 0)[:-1]]) * block

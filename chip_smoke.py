@@ -30,11 +30,11 @@ Phases, in order; any failure exits non-zero before the last line:
 4. sparse path: 100,000 aircraft of the continental geometry in
    100,352 slots, built with ``Traffic.create/flush``, under
    ``SimConfig(cd_backend="sparse", cd_block=256)``: the sort refresh
-   and 20 steps of ``run_steps``, twice, with every kernel's launch
+   and 20 steps of ``run_steps``, three times, with every kernel's launch
    count taken over exactly that run; then the timings of each kernel,
    its plain version and its bound at the path's shapes;
 5. pallas path: the same scene under ``SimConfig(cd_backend="pallas",
-   cd_block=256)``: the Morton refresh and 20 steps, twice, then
+   cd_block=256)``: the Morton refresh and 20 steps, three times, then
    ``detect_resolve_pallas(cand_cap=4096)`` on the stepped state, with
    the launch counts taken over exactly that run; then the same
    timings for the pallas kernels, and the candidate kernel's once more
@@ -49,19 +49,34 @@ Phases, in order; any failure exits non-zero before the last line:
 6. dense path: 10,000 aircraft of the 230 nm regional circle in 10,240
    slots, ``Traffic(pair_matrix=True)``, under ``SimConfig(cd_backend=
    "dense")`` (the default configuration of both packages): 20 steps,
-   twice, then one ASAS interval and one step without CD timed alone;
-   then one dense interval under each of EBY, SWARM and SSD with its
+   three times, then one ASAS interval and one step without CD timed
+   alone; then one dense interval under each of EBY, SWARM and SSD with its
    peak memory;
 7. tiled path: phase 4's scene under ``SimConfig(cd_backend="tiled",
-   cd_block=512)``: the Morton refresh and 20 steps, twice, then one ASAS
-   interval and one refresh timed alone, with the reachable tiles and the
-   eager row iterations of an interval (at most nb);
+   cd_block=512)``: the Morton refresh and 20 steps, three times, then
+   one ASAS interval and one refresh timed alone, with the reachable
+   tiles and the eager row iterations of an interval (at most nb);
 8. dense against tiled on the card in float64 (N=2,048 regional), and
    the dense CD&R on the card against the same call on the CPU; then the
    dense and tiled intervals under EBY and SWARM against each other, and
    under SSD each against the same call on the CPU.
    Phases 6-8 run no kernel: the JAX package computes them in plain
-   XLA, the port in plain PyTorch.
+   XLA, the port in plain PyTorch;
+9. graph phase: on phase 4's sparse and phase 5's pallas scene and on
+   phase 6's dense one (MVP), a chunk through ``step`` in a Python loop
+   against one through the runners, which replay CUDA graphs for the
+   steps without an ASAS interval, from copies of the same state: every
+   state tensor bit-equal, the host clocks equal and the device ``simt``
+   equal to the host's, flags off and with ``checked``, ``scanstats``,
+   ``fingerprint`` (and ``inscan_refresh`` on sparse), on dense with
+   noise on too; the checked runner's bad step with a NaN in a live row,
+   chunk k's telemetry after chunk k+1, ``run_steps_edge_keep``'s input
+   (sparse and dense); then eager against graphed chunks and steps
+   without CD, alternating for three rounds, each profiled once (host
+   launch calls per step, busy share), and the host synchronisations
+   inside each runner's chunk.
+
+Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
 Every kernel also logs its work items, longest item and the time of its
 row merge alone (K2 on the clump as well, K4 at both capacities); every
@@ -731,11 +746,13 @@ def launch_counts():
 
 def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
     """Build ``scene`` (``main_scene``; ``kw`` to it) for ``backend`` and
-    run the sort refresh (none for dense) plus 20 steps, twice, with every
-    launch count set to 0 just before.  Returns ``(state, cfg, chunk
-    seconds)``."""
+    run the sort refresh (none for dense) plus 20 steps, three times, with
+    every launch count set to 0 just before: the first two chunks capture
+    the step's graphs (all steps before simt 1.01 s are FMS-due), the
+    third only replays them.  Returns ``(state, cfg, chunk seconds)``."""
     import torch
-    from bluesky_tpu_torch.core import asas, step as stepmod
+    from bluesky_tpu_torch.core import asas, graph, step as stepmod
+    graph.clear()
     t0 = time.perf_counter()
     state, cfg = scene(dev, n_ac, nmax, cd_backend=backend, **kw)
     torch.cuda.synchronize()
@@ -744,7 +761,7 @@ def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     chunk_s = []
-    for _ in range(2):
+    for _ in range(3):
         t0 = time.perf_counter()
         if backend != "dense":
             state = asas.refresh_spatial_sort(
@@ -764,7 +781,7 @@ def check_run(backend, state, cfg, launches, chunk_s, n_ac):
     from bluesky_tpu_torch.core import step as stepmod
     peak = torch.cuda.max_memory_allocated()
     intervals = float(state.asas_tnext) / cfg.asas.dtasas
-    if not stepmod.state_finite(state):
+    if not bool(stepmod.state_finite(state)):
         raise AssertionError(f"{backend} path: non-finite state")
     nconf = int(state.asas.nconf_cur)
     if nconf <= 0:
@@ -773,7 +790,7 @@ def check_run(backend, state, cfg, launches, chunk_s, n_ac):
         if cnt < 1:
             raise AssertionError(f"{backend} path never launched {name}")
     log(f"{backend}: chunk seconds {chunk_s}, aircraft-steps/s of the "
-        f"second chunk {n_ac * 20 / chunk_s[1]:.4g}, ASAS intervals "
+        f"third chunk {n_ac * 20 / chunk_s[-1]:.4g}, ASAS intervals "
         f"{intervals:g}, nconf {nconf}, nlos {int(state.asas.nlos_cur)}, "
         f"launches {launches}, peak memory {peak / 2**30:.3f} GiB")
 
@@ -1066,7 +1083,7 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
                   nmax=100_352):
     """Phases 4-5 under ``method`` (EBY, SWARM or SSD): ``main_scene``
     under ``SimConfig(cd_backend=backend, cd_block=256)`` with that
-    resolver, the sort refresh and 20 steps, twice (for pallas and EBY
+    resolver, the sort refresh and 20 steps, three times (for pallas and EBY
     also one ``detect_resolve_pallas(cand_cap=4096)`` in the Eby form on
     the stepped state), each kernel form's launches counted over exactly
     that run; the chunk rate, one ASAS interval and the peak memory.
@@ -1193,7 +1210,7 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
 
 def dense_path(dev, n_ac=10_000, nmax=10_240):
     """Phase 6: the dense step (``SimConfig(cd_backend="dense")``, the
-    JAX package's default) on ``regional_scene``: 20 steps, twice, then
+    JAX package's default) on ``regional_scene``: 20 steps, three times, then
     one ASAS interval (``asas.update``) and one step without the CD
     timed on their own.  No kernel runs on this path."""
     from bluesky_tpu_torch.core import asas, step as stepmod
@@ -1250,7 +1267,7 @@ def dense_resolvers(dev, n_ac=10_000, nmax=10_240):
 def tiled_path(dev, n_ac=100_000, nmax=100_352):
     """Phase 7: the tiled step (``SimConfig(cd_backend="tiled",
     cd_block=512)``) on ``main_scene``: the Morton refresh and 20 steps,
-    twice; then one ASAS interval (``update_tiled(impl="lax")``) and one
+    three times; then one ASAS interval (``update_tiled(impl="lax")``) and one
     refresh timed on their own, with the reachable tiles and the eager
     row iterations of an interval (at most nb).  No kernel runs on this
     path."""
@@ -1425,6 +1442,293 @@ def check_dense_tiled_resolvers(dev, n=2048):
                 f"{tol:g} (largest difference {worst:.3g})")
 
 
+#: steps of a chunk, as every path above drives it
+CHUNK = 20
+#: host-side CUDA calls that launch work, counted by ``profile_chunk``
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def state_copy(state):
+    """A copy of every tensor of ``state`` (the host side shared)."""
+    from bluesky_tpu_torch.core import graph
+    return graph.rebuild(state, iter([t.clone()
+                                      for _, t in graph.leaves(state)]))
+
+
+def bits_equal(a, b):
+    """Bit-equality of two tensors, NaN payloads included."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        w = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(w), b.view(w))
+    return torch.equal(a, b)
+
+
+def assert_same(tag, a, b):
+    """Every tensor of ``a`` and ``b`` (states or packs) bit-equal, and the
+    host clocks and seed of two states equal."""
+    from bluesky_tpu_torch.core import graph
+    la, lb = graph.leaves(a), graph.leaves(b)
+    bad = [k for (k, x), (_, y) in zip(la, lb) if not bits_equal(x, y)]
+    if len(la) != len(lb) or bad:
+        raise AssertionError(f"{tag}: graph and eager differ in {bad[:8]}")
+    for k in ("simt", "fms_t0", "asas_tnext", "rng"):
+        if hasattr(a, k) and getattr(a, k) != getattr(b, k):
+            raise AssertionError(f"{tag}: host {k} {getattr(a, k)} != "
+                                 f"{getattr(b, k)}")
+
+
+def eager_chunk(state, cfg, nsteps, checked=False):
+    """The eager reference of a chunk: ``step`` in a Python loop, the folds
+    of ``fold_carry`` after each step and, for the in-scan refresh,
+    ``inscan_sparse_refresh`` before each step where it is due.  Returns
+    ``(state, carry, (sort_t, refreshes))``."""
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    carry = stepmod.init_carry(state, cfg, checked)
+    sort_t, count = state.simt.dtype.type(-1.0), 0
+    for _ in range(nsteps):
+        if stepmod.inscan_refresh_active(cfg) and stepmod.refresh_due(
+                state.simt, sort_t, cfg):
+            sort_t, count = state.simt, count + 1
+            state = asas.inscan_sparse_refresh(state, cfg.asas,
+                                               block=min(cfg.cd_block, 256))
+        state = stepmod.step(state, cfg)
+        carry = stepmod.fold_carry(carry, state, cfg)
+    return state, carry, (sort_t, count)
+
+
+def check_graph_chunk(tag, state, cfg):
+    """One chunk of ``state`` through ``step`` in a Python loop and one
+    through ``run_steps`` (graph replays), from copies: every state
+    tensor bit-equal, the host clocks equal.  Then the same with
+    ``checked=True, scanstats=True, fingerprint=True`` (and
+    ``inscan_refresh=True`` on sparse) through ``run_steps_edge``, the
+    guard word, ScanStats and fingerprint packs and the refresh record
+    equal too, and the device ``simt`` of the graph buffers equal to the
+    host ``simt``."""
+    from bluesky_tpu_torch.core import step as stepmod
+    from bluesky_tpu_torch.obs import fingerprint
+    want = eager_chunk(state_copy(state), cfg, CHUNK)[0]
+    got = stepmod.run_steps(state_copy(state), cfg, CHUNK)
+    assert_same(f"{tag} run_steps", got, want)
+    on = cfg._replace(scanstats=True, fingerprint=True,
+                      inscan_refresh=cfg.cd_backend == "sparse")
+    w_state, w_carry, (w_sort_t, w_count) = eager_chunk(
+        state_copy(state), on, CHUNK, checked=True)
+    out = stepmod.run_steps_edge(state_copy(state), on, CHUNK, checked=True)
+    g_state, tel, stats = out[:3]
+    assert_same(f"{tag} flags on", g_state, w_state)
+    assert_same(f"{tag} ScanStats", stats, w_carry["st"])
+    assert_same(f"{tag} fingerprint", out[-1], w_carry["fp"])
+    if int(tel.bad) != int(w_carry["bad"]) or int(tel.bad) != -1:
+        raise AssertionError(f"{tag}: bad {int(tel.bad)} / "
+                             f"{int(w_carry['bad'])}")
+    more = ""
+    if stepmod.inscan_refresh_active(on):
+        rp = out[3]
+        if (rp.sort_t, int(rp.count)) != (w_sort_t, w_count) or w_count < 1:
+            raise AssertionError(f"{tag}: refresh {rp.sort_t} x "
+                                 f"{int(rp.count)} / {w_sort_t} x {w_count}")
+        more = f", {w_count} in-scan refresh at simt {float(w_sort_t):g}"
+    if tel.simt.item() != float(g_state.simt):
+        raise AssertionError(f"{tag}: device simt {tel.simt.item()!r} != "
+                             f"host {g_state.simt!r}")
+    log(f"check graph {tag}: run_steps and run_steps_edge(checked, "
+        f"scanstats, fingerprint{', inscan_refresh' * bool(more)}) equal "
+        f"the eager loop bit for bit over {CHUNK} steps (simt "
+        f"{float(g_state.simt):g} on host and device, fingerprint "
+        f"{fingerprint.combine(out[-1]):08x}, conf_peak "
+        f"{int(stats.conf_peak)}{more})")
+
+
+def check_graph_guard_and_edges(tag, state, cfg):
+    """The checked runner with a NaN latitude in the first live row gives
+    the eager loop's first bad step (0); chunk k's ``EdgeTelemetry`` is
+    unchanged after chunk k+1 ran on k's donated state; and
+    ``run_steps_edge_keep`` leaves its input bit for bit."""
+    from bluesky_tpu_torch.core import step as stepmod
+    bad_state = state_copy(state)
+    bad_state.ac.lat[0] = float("nan")
+    _, bad = stepmod.run_steps_checked(state_copy(bad_state), cfg, CHUNK)
+    _, carry, _ = eager_chunk(bad_state, cfg, CHUNK, checked=True)
+    if not int(bad) == int(carry["bad"]) == 0:
+        raise AssertionError(f"{tag}: bad {int(bad)} / {int(carry['bad'])}")
+    s1, tel1 = stepmod.run_steps_edge(state_copy(state), cfg, CHUNK)
+    kept = [t.clone() for t in tel1]
+    s2, tel2 = stepmod.run_steps_edge(s1, cfg, CHUNK)
+    if not all(bits_equal(a, b) for a, b in zip(tel1, kept)) \
+            or not tel2.simt.item() > tel1.simt.item():
+        raise AssertionError(f"{tag}: chunk k+1 changed chunk k's telemetry")
+    before = state_copy(s2)
+    stepmod.run_steps_edge_keep(s2, cfg, CHUNK)
+    assert_same(f"{tag} run_steps_edge_keep input", s2, before)
+    log(f"check graph {tag}: first bad step 0 on both paths (NaN in row "
+        f"0); chunk k's telemetry unchanged by chunk k+1; "
+        f"run_steps_edge_keep leaves its input unchanged")
+
+
+def device_us(evt):
+    """Self device time of a profiler row [us] across torch versions."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def profile_chunk(fn):
+    """Wall ms of ``fn()`` under ``torch.profiler``, the device ms of its
+    kernels (one stream: the busy time), its kernel executions and its
+    host launch calls by name (``LAUNCH_CALLS``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows if device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = {e.key: e.count for e in rows if e.key in LAUNCH_CALLS}
+    return wall, sum(device_us(e) for e in kernels) / 1e3, \
+        sum(e.count for e in kernels), calls
+
+
+def count_syncs(fn):
+    """Host synchronisations ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def time_graph_chunks(tag, state, cfg, n_ac):
+    """Eager against graphed chunks of ``state``, alternating for three
+    rounds: a chunk is the sort refresh (none for dense) and ``CHUNK``
+    steps, eager through ``step`` in a loop, graphed through
+    ``run_steps`` chained on its own output.  Then the step without CD
+    the same way, both paths profiled (launches per step, busy share),
+    and the host synchronisations inside each runner.  Logs and returns
+    the numbers."""
+    import torch
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    impl = asas.impl_for_backend(cfg.cd_backend)
+
+    def chunk(s, graphed, c=cfg):
+        if c.cd_backend != "dense" and c.asas.swasas:
+            s = asas.refresh_spatial_sort(s, c.asas, block=c.cd_block,
+                                          impl=impl)
+        if graphed:
+            return stepmod.run_steps(s, c, CHUNK)
+        for _ in range(CHUNK):
+            s = stepmod.step(s, c)
+        return s
+
+    no_cd = cfg._replace(asas=cfg.asas._replace(swasas=False))
+    res = {}
+    for what, c in (("chunk", cfg), ("step without CD", no_cd)):
+        runs = {True: state_copy(state), False: state_copy(state)}
+        runs[True] = chunk(runs[True], True, c)          # the captures
+        ms = {True: [], False: []}
+        for r in range(3):
+            for graphed in ((False, True) if r % 2 == 0 else (True, False)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[graphed] = chunk(runs[graphed], graphed, c)
+                torch.cuda.synchronize()
+                ms[graphed].append((time.perf_counter() - t0) * 1e3)
+        prof = {g: profile_chunk(lambda: runs.__setitem__(
+            g, chunk(runs[g], g, c))) for g in (False, True)}
+        res[what] = (ms, prof)
+        for g, name in ((False, "eager"), (True, "graph")):
+            wall, busy, nk, calls = prof[g]
+            per = ", ".join(f"{k} {v / CHUNK:.4g}" for k, v in
+                            sorted(calls.items()))
+            rate = [f"{n_ac * CHUNK / (m / 1e3):.4g}" for m in ms[g]]
+            log(f"graph timing {tag} {what}, {name}: ms per chunk "
+                f"{[round(m, 3) for m in ms[g]]}, ms per step "
+                f"{[round(m / CHUNK, 4) for m in ms[g]]}, aircraft-steps/s "
+                f"{rate}; profiled chunk {wall:.3f} ms wall, {busy:.3f} ms "
+                f"kernels ({100 * busy / wall:.1f} % busy), "
+                f"{nk / CHUNK:.4g} kernel executions per step, host calls "
+                f"per step: {per}")
+    def chained(run):
+        """Syncs of ``run`` on its own output, after its captures."""
+        out = run(state_copy(state))
+        return count_syncs(lambda: run(out))
+
+    flags = cfg._replace(scanstats=True, fingerprint=True)
+    syncs = {
+        "run_steps": chained(lambda s: stepmod.run_steps(s, cfg, CHUNK)),
+        "run_steps_checked": chained(
+            lambda s: stepmod.run_steps_checked(s, cfg, CHUNK)[0]),
+        "run_steps_edge(checked, scanstats, fingerprint)": chained(
+            lambda s: stepmod.run_steps_edge(s, flags, CHUNK,
+                                             checked=True)[0])}
+    if cfg.cd_backend == "sparse":
+        inscan = cfg._replace(inscan_refresh=True)
+        syncs["run_steps_edge(inscan_refresh)"] = chained(
+            lambda s: stepmod.run_steps_edge(s, inscan, CHUNK)[0])
+    log(f"graph syncs {tag}: host synchronisations inside one chunk "
+        f"(after its captures) {syncs}; the edge read adds one")
+    return res, syncs
+
+
+def graph_phase(dev):
+    """Phase 9: the captured chunk against the eager one on 100k
+    continental sparse and pallas and 10k regional dense (MVP): the
+    checks of ``check_graph_chunk``, on dense also with noise on and the
+    guard and edge checks of ``check_graph_guard_and_edges`` (on sparse
+    too), then ``time_graph_chunks``."""
+    import torch
+    from bluesky_tpu_torch.core import asas, graph, step as stepmod
+    for backend, scene, n_ac, nmax in (
+            ("sparse", main_scene, 100_000, 100_352),
+            ("pallas", main_scene, 100_000, 100_352),
+            ("dense", regional_scene, 10_000, 10_240)):
+        graph.clear()
+        t0 = time.perf_counter()
+        state, cfg = scene(dev, n_ac, nmax, cd_backend=backend)
+        if backend != "dense":
+            state = asas.refresh_spatial_sort(
+                state, cfg.asas, block=cfg.cd_block,
+                impl=asas.impl_for_backend(backend))
+        # the chunk starts one step before an ASAS interval, so that the
+        # FMS-due, plain and ASAS steps all run in it
+        state = stepmod.run_steps(state, cfg, CHUNK - 1)
+        check_graph_chunk(backend, state, cfg)
+        if backend != "pallas":
+            check_graph_guard_and_edges(backend, state, cfg)
+        if backend == "dense":
+            noisy = cfg._replace(noise=stepmod.NoiseConfig(
+                turb_active=True, adsb_transnoise=True))
+            want = eager_chunk(state_copy(state), noisy, CHUNK)[0]
+            got = stepmod.run_steps(state_copy(state), noisy, CHUNK)
+            assert_same("dense noise on", got, want)
+            log("check graph dense noise on (turbulence and ADS-B noise): "
+                "run_steps equals the eager loop bit for bit")
+        time_graph_chunks(backend, state, cfg, n_ac)
+        log(f"graph_phase {backend}: {time.perf_counter() - t0:.1f} s, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del state
+    graph.clear()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1468,7 +1772,7 @@ def main():
                 f"{time.perf_counter() - t0:.1f} s")
         log_card(f"after the {backend} resolver paths")
     for path in (dense_path, dense_resolvers, tiled_path, check_dense_tiled,
-                 check_dense_tiled_resolvers):
+                 check_dense_tiled_resolvers, graph_phase):
         t0 = time.perf_counter()
         path(dev)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")

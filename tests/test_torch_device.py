@@ -68,8 +68,9 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
 
 def test_import_without_jax():
-    """The package and every module of it import with jax, flax and
-    bluesky_tpu unavailable."""
+    """The package and every module of it (the chunk graphs and the
+    ``obs`` instruments among them) import with jax, flax and bluesky_tpu
+    unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
@@ -80,7 +81,9 @@ def test_import_without_jax():
         "    importlib.import_module(m.name)\n"
         "    seen.add(m.name)\n"
         "need = {'bluesky_tpu_torch.ops.cd', 'bluesky_tpu_torch.core.trails',\n"
-        "        'bluesky_tpu_torch.core.traffic'}\n"
+        "        'bluesky_tpu_torch.core.traffic', 'bluesky_tpu_torch.core.graph',\n"
+        "        'bluesky_tpu_torch.obs.scanstats',\n"
+        "        'bluesky_tpu_torch.obs.fingerprint'}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"

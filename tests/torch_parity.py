@@ -35,6 +35,9 @@ def scene(n, geom="box", seed=0):
     elif geom == "equator":
         lat = rng.uniform(-2.0, 2.0, n)
         lon = rng.uniform(-3.0, 3.0, n)
+    elif geom == "cluster":                 # conflicts in the first step
+        lat = rng.uniform(51.85, 52.15, n)
+        lon = rng.uniform(3.8, 4.2, n)
     else:                                   # a few stripes wide
         lat = rng.uniform(50.0, 55.0, n)
         lon = rng.uniform(2.0, 8.0, n)
