@@ -26,9 +26,9 @@ from .state import SimState
 
 class AsasConfig(NamedTuple):
     """ASAS settings (reference asas.py:10-13 defaults + setters), the
-    fields and field order of the JAX ``AsasConfig``.  ``mar`` and
-    ``sort_every`` are read by nothing the port runs yet (the stack and
-    the simulation loop, ROADMAP.md A6)."""
+    fields and field order of the JAX ``AsasConfig``.  ``sort_every``
+    sets the simulation loop's refresh cadence (``simulation/sim.py``);
+    ``mar`` is read by nothing the port runs yet."""
     swasas: bool = True
     dtasas: float = 1.0          # [s] CD&R interval
     dtlookahead: float = 300.0   # [s]

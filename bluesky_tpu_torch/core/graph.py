@@ -150,11 +150,11 @@ class ChunkGraphs:
     """The static buffers and captured step graphs of one configuration,
     with the chunk-executor interface of ``step._EagerChunk``."""
 
-    def __init__(self, state, cfg, checked: bool):
+    def __init__(self, state, cfg, checked: bool, static=None):
         self.cfg = cfg
         self.device = state.device
-        self.static = rebuild(state, iter(
-            [torch.empty_like(t) for _, t in leaves(state)]))
+        self.static = static if static is not None else rebuild(
+            state, iter([torch.empty_like(t) for _, t in leaves(state)]))
         self.bufs = [t for _, t in leaves(self.static)]
         self.carry = stepmod.init_carry(self.static, cfg, checked)
         self.carry_bufs = [t for _, t in leaves(self.carry)]
@@ -238,12 +238,41 @@ def chunk(state, cfg, checked: bool, keep: bool) -> ChunkGraphs:
     """The executor of one chunk of ``state`` under ``cfg``, its buffers
     loaded.  The buffers of a returned state are reused only when that
     state (or one made from it) comes back, which donates it as in JAX;
-    a chunk of any other state gets new buffers and graphs.  ``keep``
-    chunks own buffers of their own and return copies, so they write
-    neither their input nor a state returned before."""
+    a chunk of any other state gets new buffers and graphs.  A returned
+    state that comes back under another configuration (a stack command
+    changed the CD backend or the resolver) donates its buffers to that
+    configuration's new executor, which captures its own graphs on them:
+    the state is not copied, and the executor it came from is dropped.
+    ``keep`` chunks own buffers of their own and return copies, so they
+    write neither their input nor a state returned before."""
     key = (cfg, checked, keep, state.device, signature(state))
     ex = _CHUNKS.get(key)
     if ex is None or (ex.lent and not ex.owns(state)):
-        ex = _CHUNKS[key] = ChunkGraphs(state, cfg, checked)
+        lender = None if keep else _lender(state, key)
+        ex = _CHUNKS[key] = ChunkGraphs(
+            state, cfg, checked,
+            static=lender.static if lender is not None else None)
     ex.start(state)
     return ex
+
+
+def _lender(state, key):
+    """The executor of another configuration, of the same layout and
+    not ``keep``, whose buffers ``state`` holds; removed from the table
+    (a chunk of ``state`` donates the buffers)."""
+    for k, ex in list(_CHUNKS.items()):
+        if k != key and not k[2] and k[3:] == key[3:] and ex.lent \
+                and ex.owns(state):
+            del _CHUNKS[k]
+            return ex
+    return None
+
+
+def release(state):
+    """Declare that ``state``, a state a runner returned, will not be
+    read again: the executor whose buffers it holds may reuse them for
+    a chunk of any state (``chunk`` then copies that state in instead of
+    allocating new buffers and capturing new graphs)."""
+    for ex in _CHUNKS.values():
+        if ex.lent and ex.owns(state):
+            ex.lent = False

@@ -17,10 +17,19 @@ _MACH_REF = 0.8
 _VCAS_REF = aero.host_scalar(aero.vmach2cas, _MACH_REF, 35000 * aero.ft)
 
 
+#: The JAX step divides by these unit constants; XLA compiles ``x / c``
+#: as ``x * (1 / c)``, which can round one ulp below the quotient.  The
+#: autopilot holds aircraft exactly on the thresholds (1500 fpm, FL050:
+#: ``7.62 / 0.00508 == 1500`` but ``7.62 * (1 / 0.00508) < 1500``), so
+#: the port multiplies by the same reciprocals to take JAX's branches.
+_PER_FPM = 1.0 / aero.fpm
+_PER_FT = 1.0 / aero.ft
+
+
 def infer_phase(tas, vs, alt):
     """Fixed-wing flight phase from state (later rules override)."""
-    roc_fpm = vs / 0.00508
-    alt_ft = alt / aero.ft
+    roc_fpm = vs * _PER_FPM
+    alt_ft = alt * _PER_FT
     ph = torch.zeros(tas.shape, dtype=torch.int32, device=tas.device)
     w = lambda c, v, p: torch.where(c, torch.full_like(p, v), p)
     ph = w((alt_ft <= 10) & (roc_fpm <= 100) & (roc_fpm >= -100), PH_GD, ph)
@@ -44,7 +53,7 @@ def _thrust_ratio_takeoff(bpr, tas, alt):
 
 
 def _thrust_ratio_inflight(tas, alt, vs, thr0):
-    roc = torch.abs(vs / aero.fpm)
+    roc = torch.abs(vs * _PER_FPM)
     v = torch.clamp_min(tas, 10.0)
     mach = aero.vtas2mach(v, alt)
     vcas = aero.vtas2cas(v, alt)

@@ -1,11 +1,11 @@
 """Wind field: fixed-capacity point-defined field with altitude profiles.
 
-Port of the device half of ``bluesky_tpu/core/wind.py`` (``WindState``,
-``make_windstate``, ``getdata``); adding points is host-side stack
-business and comes with the stack port.
+Port of ``bluesky_tpu/core/wind.py``: ``WindState``, ``make_windstate``,
+``add_point`` (the host side of the WIND command) and ``getdata``.
 """
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops import aero, geo
@@ -34,6 +34,52 @@ def make_windstate(pmax: int = 16, dtype=torch.float32,
         lat=z(pmax), lon=z(pmax), vnorth=z(pmax, KALT), veast=z(pmax, KALT),
         active=torch.zeros(pmax, dtype=torch.bool, device=device),
         winddim=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def add_point(wind: WindState, lat, lon, winddir, windspd,
+              windalt=None) -> WindState:
+    """Write a wind point into the first free slot, in place; returns
+    ``wind``.
+
+    winddir [deg] is the direction the wind comes FROM (the +pi in
+    reference windfield.py:84-92 converts to the blow-to vector).
+    windspd [m/s].  With ``windalt`` (list), dir/spd are arrays per
+    altitude, linearly resampled onto the fixed axis."""
+    altaxis = np.arange(0.0, KALT) * ALTSTEP
+    if windalt is None:
+        wdir = np.full(KALT, float(np.atleast_1d(winddir)[0]))
+        wspd = np.full(KALT, float(np.atleast_1d(windspd)[0]))
+        vn = wspd * np.cos(np.radians(wdir) + np.pi)
+        ve = wspd * np.sin(np.radians(wdir) + np.pi)
+        prof3d = False
+    else:
+        wdir = np.asarray(winddir, dtype=float)
+        wspd = np.asarray(windspd, dtype=float)
+        altvn = wspd * np.cos(np.radians(wdir) + np.pi)
+        altve = wspd * np.sin(np.radians(wdir) + np.pi)
+        vn = np.interp(altaxis, np.asarray(windalt, dtype=float), altvn)
+        ve = np.interp(altaxis, np.asarray(windalt, dtype=float), altve)
+        prof3d = True
+
+    active = wind.active.cpu().numpy()
+    free = np.flatnonzero(~active)
+    if len(free) == 0:
+        raise ValueError("wind field full; increase pmax")
+    i = int(free[0])
+    nactive = int(active.sum()) + 1
+    winddim = int(wind.winddim)
+    if winddim < 3:
+        winddim = min(2, nactive)
+    if prof3d:
+        winddim = 3
+    row = lambda a, v: torch.as_tensor(v, dtype=a.dtype, device=a.device)
+    wind.lat[i] = float(lat)
+    wind.lon[i] = float(lon)
+    wind.vnorth[i] = row(wind.vnorth, vn)
+    wind.veast[i] = row(wind.veast, ve)
+    wind.active[i] = True
+    wind.winddim.fill_(winddim)
+    return wind
 
 
 def getdata(wind: WindState, lat, lon, alt):

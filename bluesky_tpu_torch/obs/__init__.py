@@ -1,3 +1,7 @@
-"""In-chunk instruments of the port: the ScanStats accumulators
-(``scanstats``) and the state fingerprint (``fingerprint``), folded once
-per step by the chunk runners of ``core/step.py``."""
+"""Observability of the port: the in-chunk instruments (``scanstats``,
+the ScanStats accumulators, and ``fingerprint``, the state fingerprint,
+folded once per step by the chunk runners of ``core/step.py``), the
+metrics registry (``metrics``) their drains feed, and the flight
+recorder (``trace``)."""
+from .metrics import Registry, get_registry          # noqa: F401
+from .trace import Recorder, get_recorder            # noqa: F401

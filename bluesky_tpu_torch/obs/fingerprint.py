@@ -16,8 +16,8 @@ field-transposed changes move the fingerprint.
 torch has few operators on ``uint32``, so a 32-bit word is held in an
 ``int64`` in [0, 2**32): the 32-bit mask keeps every shift exact and
 every right shift logical.  The XOR over the rows is taken bit by bit,
-as the parity of each bit's count.  ``drain`` (the metrics registry
-feed) waits for ``obs/metrics.py`` (ROADMAP A10).
+as the parity of each bit's count.  ``drain`` retires a pack into the
+``obs/metrics.py`` registry.
 """
 from typing import NamedTuple
 
@@ -116,3 +116,18 @@ def summarize(chain_fp: int, chunks: int, steps: int) -> dict:
     """The wire/heartbeat summary dict of a running chain."""
     return {"fp": format(chain_fp & _M32, "08x"),
             "chunks": int(chunks), "steps": int(steps)}
+
+
+def drain(reg, pack) -> int:
+    """Retire one chunk pack into a metrics ``Registry``
+    (``obs/metrics.py``): returns the combined 32-bit chunk fingerprint
+    and counts the fold cadence."""
+    fp = combine(pack)
+    steps = pack.steps
+    steps = int(steps.item() if isinstance(steps, torch.Tensor)
+                else np.asarray(steps))
+    reg.counter("sim_fp_chunks",
+                "Chunks retired with a state fingerprint fold").inc()
+    reg.counter("sim_fp_steps",
+                "Steps folded into state fingerprints").inc(steps)
+    return fp

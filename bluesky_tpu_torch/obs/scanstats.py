@@ -10,8 +10,7 @@ Every field is a sum, min, max or histogram fold, so one 20-step chunk's
 pack equals ``reduce_packs`` of twenty 1-step packs bit for bit.  The
 ``[P]`` fields keep per-device partials; the port runs on one device, so
 ``P`` is 1 (``n_partials``) until the mesh forms arrive (ROADMAP A9).
-``drain`` (the metrics registry feed) waits for ``obs/metrics.py``
-(ROADMAP A10).
+``drain`` feeds a retired pack into the ``obs/metrics.py`` registry.
 """
 from typing import NamedTuple
 
@@ -271,3 +270,61 @@ def merge_summaries(summaries):
         "min_sep_m": _min("min_sep_m"),
         "alt_headroom_min_m": _min("alt_headroom_min_m"),
     }
+
+
+#: Registry series the drain feeds (docs/OBSERVABILITY.md catalogue).
+#: Counters and histograms add exactly across chunks; gauges are the last
+#: chunk's.
+SERIES_HELP = {
+    "sim_scan_conf_per_step": "per-step conflict count (in-scan fold)",
+    "sim_scan_los_per_step": "per-step LoS count (in-scan fold)",
+    "sim_scan_steps": "steps folded by in-scan telemetry",
+    "sim_scan_clamp_sat_rowsteps":
+        "live row-steps with a binding perf envelope clamp",
+    "sim_scan_live_rowsteps": "live row-steps folded (ratio denominator)",
+    "sim_scan_conf_peak": "last chunk's peak per-step conflict count",
+    "sim_scan_los_peak": "last chunk's peak per-step LoS count",
+    "sim_scan_engaged_peak": "last chunk's peak resolver-engaged rows",
+    "sim_scan_occupancy_peak": "last chunk's peak per-stripe occupancy",
+    "sim_scan_min_sep_m": "last chunk's min engaged-pair separation [m]",
+    "sim_scan_alt_headroom_min_m":
+        "last chunk's min live-row ceiling headroom [m]",
+    "sim_scan_clamp_sat_ratio":
+        "last chunk's clamp-saturated fraction of live row-steps",
+}
+
+
+def drain(reg, pack) -> dict:
+    """Fold one chunk's pack (host arrays or tensors) into a metrics
+    ``Registry`` (``obs/metrics.py``): histogram bucket counts merge
+    count-exactly, totals ride counters, last-chunk reductions land in
+    gauges.  Returns the ``summarize`` dict."""
+    s = summarize(pack)
+    if s["steps"] == 0:
+        return s
+    hlp = SERIES_HELP
+    reg.histogram("sim_scan_conf_per_step", buckets=COUNT_BUCKETS,
+                  help=hlp["sim_scan_conf_per_step"]).add_counts(
+        _np(pack.conf_hist).tolist(), float(_np(pack.conf_sum)))
+    reg.histogram("sim_scan_los_per_step", buckets=COUNT_BUCKETS,
+                  help=hlp["sim_scan_los_per_step"]).add_counts(
+        _np(pack.los_hist).tolist(), float(_np(pack.los_sum)))
+    reg.counter("sim_scan_steps", help=hlp["sim_scan_steps"]).inc(
+        s["steps"])
+    reg.counter("sim_scan_clamp_sat_rowsteps",
+                help=hlp["sim_scan_clamp_sat_rowsteps"]).inc(
+        int(np.sum(_np(pack.clamp_sat))))
+    reg.counter("sim_scan_live_rowsteps",
+                help=hlp["sim_scan_live_rowsteps"]).inc(
+        int(np.sum(_np(pack.live_rowsteps))))
+    g = lambda name, v: reg.gauge(name, help=hlp[name]).set(v)
+    g("sim_scan_conf_peak", s["conf_peak"])
+    g("sim_scan_los_peak", s["los_peak"])
+    g("sim_scan_engaged_peak", s["engaged_peak"])
+    g("sim_scan_occupancy_peak", s["occ_peak"])
+    g("sim_scan_clamp_sat_ratio", s["clamp_sat_ratio"])
+    if s["min_sep_m"] is not None:
+        g("sim_scan_min_sep_m", s["min_sep_m"])
+    if s["alt_headroom_min_m"] is not None:
+        g("sim_scan_alt_headroom_min_m", s["alt_headroom_min_m"])
+    return s

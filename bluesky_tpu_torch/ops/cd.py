@@ -85,7 +85,11 @@ def detect(lat, lon, trk, gs, alt, vs, active, rpz, hpz, tlookahead):
     swconfl = (swhorconf & (tinconf <= toutconf) & (toutconf > 0.0)
                & (tinconf < tlookahead) & pairmask)
     inconf = swconfl.any(1)
-    tcpamax = (tcpa * swconfl).amax(1)
+    # JAX's max of ``tcpa * swconfl`` drops the NaN of a pair with a
+    # non-finite aircraft (XLA's reduce-max); torch's amax would return
+    # it on every row.  Such a pair is never in conflict, so masking
+    # before the max gives JAX's rows.
+    tcpamax = torch.where(swconfl, tcpa, torch.zeros_like(tcpa)).amax(1)
     swlos = (dist < rpz) & (torch.abs(dalt) < hpz) & pairmask
     return ConflictData(swconfl=swconfl, swlos=swlos, inconf=inconf,
                         tcpamax=tcpamax, qdr=qdr, dist=dist, dcpa2=dcpa2,

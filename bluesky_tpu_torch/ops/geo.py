@@ -1,9 +1,11 @@
 """WGS-84 geodesy on tensors: the part of ``bluesky_tpu/ops/geo.py`` the
 simulation uses (local radius, the haversine bearing/distance of the
 autopilot, the all-pairs matrices of dense conflict detection with the
-reference's radius-at-sum quirk, and the dead-reckoning ``qdrpos``)."""
+reference's radius-at-sum quirk, the dead-reckoning ``qdrpos``, and the
+wrapped flat-earth distance of the area and metrics code)."""
 import math
 
+import numpy as np
 import torch
 
 nm = 1852.0
@@ -125,3 +127,19 @@ def qdrpos(latd1, lond1, qdr, dist):
     lon2 = lon1 + torch.atan2(torch.sin(qdrr) * torch.sin(dr) * torch.cos(lat1),
                               torch.cos(dr) - torch.sin(lat1) * torch.sin(lat2))
     return degrees(lat2), degrees(lon2)
+
+
+def kwikdist_wrapped(lata, lona, latb, lonb):
+    """Flat-earth distance [nm] with the longitude difference wrapped to
+    [-180, 180): on tensors when any argument is one, else in NumPy (the
+    host consumers: area circles, sector metrics).  The reference
+    ``kwikdist`` is wrong across the antimeridian; this is the JAX
+    package's deliberate fix."""
+    on_dev = any(isinstance(a, torch.Tensor) for a in (lata, lona, latb, lonb))
+    xp = torch if on_dev else np
+    rad = radians if on_dev else np.radians
+    dlat = rad(latb - lata)
+    dlon = rad(((lonb - lona) + 180.0) % 360.0 - 180.0)
+    cavelat = xp.cos(rad(lata + latb) * 0.5)
+    dangle = xp.sqrt(dlat * dlat + dlon * dlon * cavelat * cavelat)
+    return REARTH * dangle / nm

@@ -1,12 +1,45 @@
-"""The settings the slice reads (a copy of two ``bluesky_tpu.settings``
-values; the port imports nothing from the JAX package).
+"""The settings the port reads: a copy of the ``bluesky_tpu.settings``
+values its modules use, with the JAX defaults (the port imports nothing
+from the JAX package).
 
-``perf_path`` is relative to the working directory: the port reads no
-data outside its checkout, so without a ``data/performance`` directory
-``Traffic`` uses the built-in coefficient tables.
+Every path is relative to the working directory: the port reads and
+writes nothing outside its checkout.  Without a ``data/performance``
+directory ``Traffic`` uses the built-in coefficient tables; without
+``data/navdata`` the navigation database is the built-in world set.
 """
 import os
 
+simdt = 0.05
+chunk_steps = 20                  # interactive chunk length in steps
+                                  # (1 s sim time at simdt=0.05);
+                                  # CHUNKSTEPS stack command at runtime
+chunk_pipeline = True             # dispatch chunk k+1 before chunk k's
+                                  # edge work (simulation/sim.py)
 performance_model = "openap"
 data_path = "data"
 perf_path = os.path.join(data_path, "performance")
+navdata_path = os.path.join(data_path, "navdata")
+cache_path = os.path.join(data_path, "cache")
+log_path = "output"
+scenario_path = "scenario"
+ref_scenario_path = ""            # a second scenario library, searched
+                                  # after scenario_path ("" = none)
+
+# ----- fault tolerance
+guard_enabled = True              # in-chunk isfinite integrity guard
+guard_policy = "quarantine"       # "quarantine" | "rollback" | "halt"
+snap_ring_depth = 4               # rollback horizon = depth * dt sim-sec
+snap_ring_dt = 30.0               # [sim s] between ring captures (0 = off)
+
+# ----- observability
+trace_enabled = False             # flight recorder on at startup (TRACE)
+trace_ring_size = 4096            # bounded event ring per process
+trace_dir = ""                    # TRACE DUMP target dir ("" -> log_path)
+trace_autodump = True             # dump the ring on guard trips
+metrics_export_path = ""          # Prometheus text dump file ("" = off)
+metrics_export_dt = 10.0          # [wall s] min interval between dumps
+scanstats = False                 # in-chunk ScanStats (SCANSTATS)
+inscan_refresh = False            # in-chunk sparse sort refresh
+                                  # (SORTREFRESH)
+fingerprint = False               # in-chunk state fingerprint
+                                  # (FINGERPRINT)

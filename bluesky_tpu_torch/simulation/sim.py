@@ -1,0 +1,1311 @@
+"""The simulation loop: fixed-dt stepping, fast-time control, benchmark.
+
+Port of ``bluesky_tpu/simulation/sim.py`` (the embedded, headless
+``Simulation``), with the parity of the reference ``Simulation`` node
+(simulation/qtgl/simulation.py:18-287): sim states INIT/HOLD/OP/END,
+wall-clock pacing with fast-forward and DTMULT, scenario-command
+scheduling, BENCHMARK timing, and the event surface (op/pause/reset/ff)
+the stack binds to.
+
+The device advances in *chunks* of k steps through the chunk runners of
+``core/step.py`` (``run_steps_edge``; on a CUDA state the steps without
+an ASAS interval replay CUDA graphs, ``core/graph.py``) and the host
+syncs only at chunk edges: stack commands, scenario triggers, loggers
+and conditionals run at chunk boundaries.  The default chunk of 20
+steps is 1 s of sim time.
+
+Chunk edges are *pipelined* by default (``settings.chunk_pipeline`` /
+CHUNKSTEPS PIPELINE): ``step()`` dispatches the next chunk before
+running the previous chunk's edge subsystems, which read that chunk's
+telemetry pack (``pipeline.ChunkEdge``, copied to pinned host memory
+behind the chunk) instead of the live state; the guard word is polled
+one chunk deferred, and any edge that must mutate state falls back to a
+synchronous chunk that is bit-identical to the unpipelined loop.
+
+The host clocks of the port's state (``simt``, ``fms_t0``,
+``asas_tnext``) are host scalars, so reading ``simt`` never waits for
+the device.
+
+Not ported here, each with its ROADMAP item: the shard and mesh modes
+(``set_shard``, the spatial refresh, mesh-epoch recovery; A9),
+``optimize_trajectories`` (A8), the device-profiling hooks and plugins
+(A10), autosave, preemption and the network node (A6b), and the
+multi-world identity (A7).
+"""
+import datetime
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.route import RouteManager
+from ..core.step import SimConfig
+from ..core.traffic import Traffic
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..utils import asnumpy
+from .pipeline import ChunkEdge
+
+# Sim states (reference bluesky/__init__.py:12)
+INIT, HOLD, OP, END = range(4)
+
+
+class _SyncReasonsView:
+    """dict-like view over the ``sim_sync_reason_<r>`` registry
+    counters — keeps the historical ``pipe_stats["sync_reasons"]``
+    read/write surface while the data lives in the metrics registry."""
+    _PREFIX = "sim_sync_reason_"
+
+    def __init__(self, reg):
+        self._reg = reg
+
+    def __getitem__(self, k):
+        m = self._reg.get(self._PREFIX + k)
+        if m is None:
+            raise KeyError(k)
+        return int(m.value)
+
+    def __setitem__(self, k, v):
+        self._reg.counter(self._PREFIX + k)._set(v)
+
+    def get(self, k, default=None):
+        m = self._reg.get(self._PREFIX + k)
+        return default if m is None else int(m.value)
+
+    def __contains__(self, k):
+        return self._reg.get(self._PREFIX + k) is not None
+
+    def __iter__(self):
+        for m in self._reg:
+            if isinstance(m, obs_metrics.Counter) \
+                    and m.name.startswith(self._PREFIX):
+                yield m.name[len(self._PREFIX):]
+
+    def keys(self):
+        return list(self)
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+    def __len__(self):
+        return sum(1 for _ in self)
+
+    def __eq__(self, other):
+        return dict(self.items()) == other
+
+    def __repr__(self):
+        return repr(dict(self.items()))
+
+
+class _PipeStatsView:
+    """The historical ``sim.pipe_stats`` dict surface, backed by the
+    sim's metrics registry: reads/writes go to the
+    ``sim_chunks_*`` counters, ``"sync_reasons"`` to the per-reason
+    counter family, so HEALTH/CHUNKSTEPS readbacks, tests and the
+    multi-world runner keep working unchanged."""
+    _COUNTERS = {"pipelined_chunks": "sim_chunks_pipelined",
+                 "sync_chunks": "sim_chunks_sync",
+                 "deferred_trips": "sim_deferred_trips"}
+
+    def __init__(self, reg):
+        self._reg = reg
+        self._reasons = _SyncReasonsView(reg)
+        for name in self._COUNTERS.values():
+            reg.counter(name)
+
+    def __getitem__(self, k):
+        if k == "sync_reasons":
+            return self._reasons
+        return int(self._reg.counter(self._COUNTERS[k]).value)
+
+    def __setitem__(self, k, v):
+        self._reg.counter(self._COUNTERS[k])._set(v)
+
+    def get(self, k, default=None):
+        try:
+            return self[k]
+        except KeyError:
+            return default
+
+    def keys(self):
+        return list(self._COUNTERS) + ["sync_reasons"]
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+    def __contains__(self, k):
+        return k in self._COUNTERS or k == "sync_reasons"
+
+    def __repr__(self):
+        return repr({k: (dict(v.items())
+                         if k == "sync_reasons" else v)
+                     for k, v in self.items()})
+
+
+class DisplayState:
+    """Display state of the headless Screen (the JAX package's node-mode
+    ScreenIO duck-types the same surface): shape registry, pan
+    centre, zoom, feature switches, altitude filter, symbol toggle,
+    editline inserts, ND selection.  Every display command in the stack
+    works against this mixin in both modes."""
+
+    def _init_display(self):
+        self.objdata = {}     # named display shapes (screenio objappend)
+        self.ctrlat = 0.0
+        self.ctrlon = 0.0
+        self.scrzoom = 1.0
+        self.user_view = False  # True once PAN/ZOOM issued (radar.py)
+        self.features = {}
+        self.altfilter = None       # (bottom, top) in meters or None
+        self.swsymbol = True
+        self.editline = ""
+        self.nd_acid = None
+        self.route_acid = ""        # ROUTEDATA selection (showroute)
+        self.ssd_all = False        # SSD disc selection (reference
+        self.ssd_conflicts = False  # guiclient.py:283-296 show_ssd)
+        self.ssd_ownship = set()
+
+    def showroute(self, acid=""):
+        """Select the aircraft whose route streams in ROUTEDATA
+        (reference scr.showroute, called from POS)."""
+        self.route_acid = acid
+        return True
+
+    def reset(self):
+        """Clear display state on sim RESET (reference ScreenIO.reset)."""
+        self._init_display()
+
+    def getviewbounds(self):
+        """Lat/lon box currently in view (screenio pan/zoom state)."""
+        half = 1.0 / max(self.scrzoom, 1e-9)
+        return (self.ctrlat - half, self.ctrlat + half,
+                self.ctrlon - half, self.ctrlon + half)
+
+    def objappend(self, objtype, objname, data):
+        """Mirror a named shape to the display (screenio.py objappend);
+        empty objtype deletes."""
+        if not objtype:
+            self.objdata.pop(objname, None)
+        else:
+            self.objdata[objname] = (objtype, data)
+        return True
+
+    def addnavwpt(self, name, lat, lon):
+        """Mirror a user-defined waypoint to the display (reference
+        navdatabase.py:136 -> scr.addnavwpt; ScreenIO broadcasts it as
+        the DEFWPT event the Qt client consumes, guiclient.py:232)."""
+        self.custwpts = getattr(self, "custwpts", {})
+        self.custwpts[name] = (float(lat), float(lon))
+        return True
+
+    def pan(self, lat, lon):
+        self.ctrlat = float(lat)
+        self.ctrlon = float(lon)
+        self.user_view = True       # radar stops auto-fitting
+        return True
+
+    def zoom(self, factor, absolute=False):
+        self.scrzoom = float(factor) if absolute \
+            else self.scrzoom * float(factor)
+        self.user_view = True
+        return True
+
+    def feature(self, sw, arg=None):
+        """SWRAD switches (screenio.feature): toggle/record per name."""
+        self.features[sw.upper()] = arg if arg is not None \
+            else not self.features.get(sw.upper(), False)
+        return True
+
+    def filteralt(self, flag, bottom=None, top=None):
+        self.altfilter = (bottom, top) if flag else None
+        return True
+
+    def symbol(self):
+        self.swsymbol = not self.swsymbol
+        return True
+
+    def cmdline(self, text):
+        """INSEDIT: text inserted on the console edit line."""
+        self.editline = text
+        return True
+
+    def shownd(self, acid=None):
+        self.nd_acid = acid
+        return True
+
+    def show_ssd(self, *args):
+        """Select which aircraft draw their solution-space disc on the
+        radar (reference guiclient.py:283-296: ALL / CONFLICTS / OFF or
+        a toggled set of callsigns)."""
+        arg = {str(a).upper() for a in args}
+        if "ALL" in arg:
+            self.ssd_all, self.ssd_conflicts = True, False
+        elif "CONFLICTS" in arg:
+            self.ssd_all, self.ssd_conflicts = False, True
+        elif "OFF" in arg:
+            self.ssd_all, self.ssd_conflicts = False, False
+            self.ssd_ownship = set()
+        else:
+            remove = self.ssd_ownship.intersection(arg)
+            self.ssd_ownship = self.ssd_ownship.union(arg) - remove
+        return True
+
+
+class Screen(DisplayState):
+    """Echo/plot sink — headless stand-in for ScreenIO (screenio.py:11-263).
+
+    Collects echo lines so stack command output is observable; the network
+    node subclass streams instead.
+    """
+
+    def __init__(self):
+        self.echobuf = []
+        self._init_display()
+
+    def echo(self, text="", flags=0):
+        self.echobuf.append(text)
+        return True
+
+
+class Simulation:
+    """Host simulation driver owning traffic, config and the step loop.
+
+    ``Simulation(nmax, wmax, dtype, ..., device=None)`` builds its
+    ``Traffic`` on ``device`` (``bluesky_tpu_torch.resolve_device``:
+    CUDA unless the caller asks for another device; without CUDA and
+    without ``device`` it raises)."""
+
+    # Allowed chunk sizes, largest first (each size and gate pattern is
+    # one set of captured graphs per SimConfig on the card).
+    CHUNK_LADDER = (1000, 200, 20, 5, 1)
+
+    def __init__(self, nmax: int = 1024, wmax: int = 32, dtype=None,
+                 openap_path: Optional[str] = None, rng_seed: int = 0,
+                 chunk_steps: Optional[int] = None,
+                 datalog_registry=None, device=None):
+        self.traf = Traffic(nmax=nmax, wmax=wmax,
+                            dtype=dtype or torch.float32,
+                            openap_path=openap_path, rng_seed=rng_seed,
+                            device=device)
+        self.routes = RouteManager(self.traf, wmax)
+        self.scr = Screen()
+        self.cfg = SimConfig()
+        self.state_flag = INIT
+        # Per-sim datalog registry (utils/datalog.LogRegistry): assigned
+        # BEFORE metrics/guard construction — both define event loggers
+        # into it.  Standalone sims share the process default registry.
+        from ..utils import datalog as _datalog
+        self.datalog = datalog_registry if datalog_registry is not None \
+            else _datalog.default_registry()
+        from .. import settings
+        # Interactive chunk length: settings knob + CHUNKSTEPS stack
+        # command (ctor arg overrides for embedded use)
+        self.chunk_steps = int(chunk_steps if chunk_steps is not None
+                               else settings.chunk_steps)
+        # Chunk pipeline: when on, step() dispatches chunk k+1 before
+        # running chunk k's edge subsystems off its telemetry pack, with
+        # a synchronous fallback whenever edge work must mutate state.
+        self.pipeline_enabled = bool(settings.chunk_pipeline)
+        self._pending_edge = None    # ChunkEdge of the in-flight chunk
+        self._simt_next = 0.0        # predicted clock after that chunk
+        self._last_edge = None       # newest retired edge (ACDATA cache)
+        self._retiring = False       # reentrancy guard for drains
+        # In-chunk telemetry (obs/scanstats.py), drained at each edge;
+        # the SCANSTATS stack command toggles it at runtime.
+        if settings.scanstats:
+            self.cfg = self.cfg._replace(scanstats=True)
+        self._scan_last = None       # newest drained chunk summary dict
+        # In-chunk sort refresh of the sparse backend (SORTREFRESH).
+        if settings.inscan_refresh:
+            self.cfg = self.cfg._replace(inscan_refresh=True)
+        self._sort_t_chain = None    # previous chunk's RefreshPack
+        #                              sort_t, chained into the next
+        #                              dispatch (pipelined chunks)
+        self._refresh_fired = 0      # in-chunk refreshes retired so far
+        # State fingerprint (obs/fingerprint.py), chained host-side;
+        # the FINGERPRINT stack command toggles it at runtime.
+        if settings.fingerprint:
+            self.cfg = self.cfg._replace(fingerprint=True)
+        self._fp_chain = 0           # running piece-chain fold (32-bit)
+        self._fp_chunks = 0          # chunks folded into the chain
+        self._fp_steps = 0           # steps folded into the chain
+        # Observability: a per-sim metrics registry + the per-process
+        # flight recorder.  pipe_stats is a view over the registry.
+        self.obs = obs_metrics.Registry()
+        self.recorder = obs_trace.get_recorder()
+        if settings.trace_enabled:
+            self.recorder.enable()
+        self.pipe_stats = _PipeStatsView(self.obs)
+        self.obs.counter("sim_guard_trips",
+                         help="integrity-guard trips (all policies)")
+        self.obs.counter("sim_inscan_refreshes",
+                         help="sort refreshes fired inside chunks")
+        _h = self.obs.histogram
+        _h("sim_chunk_latency_ms",
+           help="chunk dispatch -> edge retirement wall ms")
+        _h("sim_dispatch_gap_ms",
+           help="host gap between consecutive chunk dispatches")
+        _h("sim_edge_pull_ms",
+           help="wait for an edge's telemetry on the host, wall ms")
+        _h("sim_sort_refresh_ms",
+           help="spatial-sort refresh wall ms")
+        _h("sim_snapshot_capture_ms",
+           help="snapshot-ring capture wall ms")
+        self._edge_pull_sink = \
+            self.obs.get("sim_edge_pull_ms").observe
+        self._chunk_seq = 0          # host-side dispatch sequence tag
+        self._seq_dispatched = 0     # tag of the newest dispatch
+        self._last_dispatch_end = None   # wall stamp: dispatch-gap series
+        self.dtmult = 1.0
+        self.ffmode = False
+        self.ffstop: Optional[float] = None
+        self.syst = -1.0          # wall-clock anchor
+        self.bencht = 0.0
+        self.benchdt = -1.0
+        self._step_count = 0
+        self._sort_simt = -1.0    # simt of last spatial-sort refresh
+        self._sort_backend = None  # cd_backend the cached sort belongs to
+        self._utc0 = datetime.datetime.combine(datetime.date.today(),
+                                               datetime.time())
+        # Named areas + deferred conditional commands (chunk-edge subsystems)
+        from ..utils.areafilter import AreaRegistry
+        from ..core.conditional import ConditionList
+        from ..utils.plotter import Plotter
+        self.areas = AreaRegistry(self.scr)
+        self.cond = ConditionList(self)
+        self.plotter = Plotter(self)
+        from ..core.metrics import Metrics
+        self.metrics = Metrics(self)
+        # Fault tolerance: periodic in-memory snapshot ring + the
+        # state-integrity guard responding to in-chunk finite trips.
+        from .snapshot import SnapshotRing
+        from ..fault.guard import IntegrityGuard
+        self.snap_ring = SnapshotRing(depth=settings.snap_ring_depth,
+                                      dt=settings.snap_ring_dt)
+        self.guard = IntegrityGuard(self)
+        self.traf.delete_hooks.append(self.cond.delac)
+        self.traf.permute_hooks.append(self.cond.permute)
+        # Late import to avoid cycles; stack binds commands to this sim.
+        from ..stack.stack import Stack
+        self.stack = Stack(self)
+        # Periodic loggers (reference traffic.py:86-89 defaults: SNAPLOG/
+        # INSTLOG/SKYLOG) + their auto-registered stack commands, in
+        # this sim's own registry.
+        for name, dt in (("SNAPLOG", 30.0), ("INSTLOG", 30.0),
+                         ("SKYLOG", 60.0)):
+            if self.datalog.getlogger(name) is None:
+                self.datalog.define_periodic(name, f"{name} logfile.", dt)
+        self.datalog.register_stack_commands(self)
+
+    @property
+    def navdb(self):
+        """Lazy shared navigation database (loads on first named-position
+        lookup)."""
+        from ..navdb import get_navdb
+        return get_navdb()
+
+    # ----------------------------------------------------------- time/state
+    @property
+    def simt(self) -> float:
+        """The sim clock: a host scalar of the state, no device read."""
+        return float(self.traf.state.simt)
+
+    @property
+    def simt_planned(self) -> float:
+        """The sim clock of the edge of the chunk in flight (pipelined
+        stepping): the host's prediction, exact, because it folds the
+        per-step additions in the state's own float dtype as the chunk
+        runner does.  With no chunk in flight it is ``simt``."""
+        if self._pending_edge is not None:
+            return self._simt_next
+        return self.simt
+
+    @property
+    def simdt(self) -> float:
+        return self.cfg.simdt
+
+    def setdt(self, dt: float):
+        self.cfg = self.cfg._replace(simdt=float(dt))
+        return True
+
+    @property
+    def utc(self):
+        """Simulated UTC clock = epoch + simt (simulation.py setutc)."""
+        return self._utc0 + datetime.timedelta(seconds=self.simt)
+
+    def setutc(self, *args):
+        """TIME/DATE: RUN / REAL/UTC / HH:MM:SS.hh / day,month,year,time
+        (reference simulation.py setutc)."""
+        if not args or args[0] is None or str(args[0]).upper() == "RUN":
+            self._utc0 = datetime.datetime.combine(
+                datetime.date.today(), datetime.time()) \
+                - datetime.timedelta(seconds=self.simt)
+            return True
+        a0 = str(args[0]).upper()
+        if a0 in ("REAL", "UTC"):
+            now = datetime.datetime.now(datetime.timezone.utc) \
+                .replace(tzinfo=None) if a0 == "UTC" \
+                else datetime.datetime.now()
+            self._utc0 = now - datetime.timedelta(seconds=self.simt)
+            return True
+        try:
+            if len(args) >= 4:   # DATE day, month, year, HH:MM:SS
+                day, month, year = int(args[0]), int(args[1]), int(args[2])
+                t = datetime.datetime.strptime(
+                    str(args[3]).split(".")[0], "%H:%M:%S").time()
+                base = datetime.datetime.combine(
+                    datetime.date(year, month, day), t)
+            else:                # TIME HH:MM:SS[.hh]
+                t = datetime.datetime.strptime(
+                    a0.split(".")[0], "%H:%M:%S").time()
+                base = datetime.datetime.combine(self.utc.date(), t)
+        except ValueError as e:
+            return False, f"TIME/DATE: {e}"
+        self._utc0 = base - datetime.timedelta(seconds=self.simt)
+        return True
+
+    def setFixdt(self, flag, tend=None):
+        """FIXDT ON/OFF [tend]: fixed-dt stepping — equivalent to
+        fast-forward pacing in this architecture (simulation.py
+        setFixdt)."""
+        if flag:
+            self.fastforward(tend)
+        else:
+            self.ffmode = False
+        return True
+
+    def setdtmult(self, mult: float):
+        self.dtmult = float(mult)
+        return True
+
+    def op(self):
+        """Start/resume (reference simulation.py OP)."""
+        self.state_flag = OP
+        self.syst = -1.0
+        self.ffmode = False
+        return True
+
+    def pause(self):
+        self._retire_edge("pause")
+        self.state_flag = HOLD
+        return True
+
+    def stop(self):
+        self._retire_edge("stop")
+        self.state_flag = END
+        self.datalog.reset()
+        return True
+
+    def reset_traffic(self):
+        """Traffic-scoped reset: clear aircraft + routes + deferred
+        conditions, keep sim settings/stack/logs.
+
+        Mirrors the reference's ``bs.traf.reset()`` (trafficarrays cascade:
+        routes and conditional commands are traf children there), which is
+        what the SYN generators call (reference synthetic.py:48,58,...) —
+        unlike the full ``reset`` they must NOT wipe SimConfig (CDMETHOD,
+        DT) or datalog state."""
+        self._retire_edge("reset")
+        self._last_edge = None
+        self.traf.reset()
+        self.cond.reset()
+        self.routes = RouteManager(self.traf, self.routes.wmax)
+        self._invalidate_sort()
+        return True
+
+    def reset(self):
+        self._retire_edge("reset")
+        self._last_edge = None
+        self.state_flag = INIT
+        self._invalidate_sort()
+        self.traf.reset()
+        self.areas.reset()
+        self.cond.reset()
+        self.routes = RouteManager(self.traf, self.routes.wmax)
+        # scanstats/inscan_refresh/fingerprint are runtime knobs, not
+        # scenario state (like the TRACE recorder): the toggles survive
+        # RESET while the rest of the config rebuilds to defaults
+        self.cfg = SimConfig(scanstats=self.cfg.scanstats,
+                             inscan_refresh=self.cfg.inscan_refresh,
+                             fingerprint=self.cfg.fingerprint)
+        self._scan_last = None
+        # a new scenario starts a fresh fingerprint chain
+        self._fp_chain = 0
+        self._fp_chunks = 0
+        self._fp_steps = 0
+        self.dtmult = 1.0
+        self.ffmode = False
+        self.stack.reset()
+        self.datalog.reset()
+        self.scr.reset()
+        self.metrics.reset()
+        self.snap_ring.clear()
+        self.guard.reset()
+        self.plotter.reset()
+        return True
+
+    def scan_health(self):
+        """The HEALTH ``sim`` section: in-chunk telemetry enablement plus
+        the newest drained chunk's summary (obs/scanstats.summarize) and
+        the sort-refresh readback.  Pure host state: no device reads."""
+        d = dict(scanstats=bool(self.cfg.scanstats),
+                 fingerprint=bool(self.cfg.fingerprint),
+                 sort_refresh=self.refresh_health())
+        if self._scan_last is not None:
+            d.update(self._scan_last)
+        return d
+
+    def set_scanstats(self, on: bool) -> bool:
+        """Toggle in-chunk telemetry.  Drains the pipeline first (the
+        in-flight chunk ran with the OLD flag and its edge must retire
+        under it).  Returns True if the flag changed."""
+        on = bool(on)
+        if on == bool(self.cfg.scanstats):
+            return False
+        self.drain_pipeline()
+        self.cfg = self.cfg._replace(scanstats=on)
+        if not on:
+            self._scan_last = None
+        return True
+
+    # ------------------------------------------------------ fingerprint
+    def set_fingerprint(self, on: bool) -> bool:
+        """Toggle the state-fingerprint fold (``set_scanstats``
+        contract).  Turning it ON mid-piece starts the chain at the
+        current state."""
+        on = bool(on)
+        if on == bool(self.cfg.fingerprint):
+            return False
+        self.drain_pipeline()
+        self.cfg = self.cfg._replace(fingerprint=on)
+        self._fp_chain = 0
+        self._fp_chunks = 0
+        self._fp_steps = 0
+        return True
+
+    def fp_summary(self):
+        """The fingerprint summary of the running chain, or None before
+        any chunk folded."""
+        if not self.cfg.fingerprint or self._fp_chunks == 0:
+            return None
+        from ..obs import fingerprint as fpmod
+        return fpmod.summarize(self._fp_chain, self._fp_chunks,
+                               self._fp_steps)
+
+    def _drain_fingerprint(self, edge) -> None:
+        """Retire one edge's FingerprintPack (host arrays) into the
+        running piece chain."""
+        if edge.fingerprint is None:
+            return
+        from ..obs import fingerprint as fpmod
+        pack = edge.fingerprint
+        edge.fingerprint = None
+        chunk_fp = fpmod.drain(self.obs, pack)
+        self._fp_chain = fpmod.chain(self._fp_chain, chunk_fp)
+        self._fp_chunks += 1
+        self._fp_steps += int(pack.steps)
+        self.recorder.instant("fingerprint_chunk", cat="sdc",
+                              fp=format(chunk_fp, "08x"),
+                              chain=format(self._fp_chain, "08x"))
+
+    # ------------------------------------------------- in-chunk sort refresh
+    def _invalidate_sort(self):
+        """THE spatial-sort invalidation point: every event that voids
+        the cached sort — RESET, snapshot restore, backend switch —
+        routes through here, so the refresh due-gate (host edge or the
+        in-chunk RefreshPack seed) has a single source of truth."""
+        self._sort_simt = -1.0
+        self._sort_backend = None
+        self._sort_t_chain = None
+
+    def _inscan_refresh_active(self) -> bool:
+        """Does the CURRENT config fold the sort refresh into the chunk?
+        (core/step.inscan_refresh_active: flag on + sparse backend.)"""
+        from ..core.step import inscan_refresh_active
+        return inscan_refresh_active(self.cfg)
+
+    def set_inscan_refresh(self, on: bool) -> bool:
+        """Toggle the in-chunk sort refresh (SORTREFRESH command).
+        Drains the pipeline first.  Returns True if the flag changed."""
+        on = bool(on)
+        if on == bool(self.cfg.inscan_refresh):
+            return False
+        self.drain_pipeline()
+        self.cfg = self.cfg._replace(inscan_refresh=on)
+        if not on:
+            # host refresh resumes from the last retired edge's sort_t
+            self._sort_t_chain = None
+        return True
+
+    def _sort_t0_for_dispatch(self, state):
+        """The in-chunk due-gate seed for the next dispatch (a host
+        scalar in the state's dtype): the previous chunk's RefreshPack
+        ``sort_t`` when one is chained, else the host's last-refresh
+        time (-1 after any invalidation, and after a backend switch:
+        'sparse' stores stripe destinations in sort_perm, the others a
+        Morton permutation, so a stale cross-backend sort must refresh
+        at the first step)."""
+        if self._sort_t_chain is not None:
+            return self._sort_t_chain
+        t = self._sort_simt
+        if self._sort_backend != self.cfg.cd_backend:
+            t = -1.0
+        return state.simt.dtype.type(t)
+
+    def _retire_refresh(self, edge):
+        """Retire one edge's in-chunk RefreshPack: fold the refresh
+        bookkeeping back into host state (last-refresh time, counters).
+        Runs BEFORE the edge's other consumers.  No-op when the edge
+        carries no pack.  On one device the pack's slot permutation is
+        the identity and its guard word 0 (the spatial modes that set
+        them are ROADMAP A9)."""
+        pack = edge.refresh
+        if pack is None:
+            return
+        edge.refresh = None          # idempotent
+        self._sort_simt = float(pack.sort_t)
+        self._sort_backend = self.cfg.cd_backend
+        count = int(pack.count)
+        if count > 0:
+            self._refresh_fired += count
+            self.obs.counter("sim_inscan_refreshes").inc(count)
+
+    def refresh_health(self):
+        """The HEALTH ``sim`` sort-refresh readback: mode, due-gate
+        state and retired in-chunk counters (SORTREFRESH shows the same
+        numbers).  Pure host state: no device reads."""
+        return dict(inscan=bool(self.cfg.inscan_refresh),
+                    active=self._inscan_refresh_active(),
+                    last_refresh_simt=float(self._sort_simt),
+                    inscan_refreshes=int(self._refresh_fired),
+                    guard_trips=0)       # set by the spatial modes (A9)
+
+    def fastforward(self, nsec: Optional[float] = None):
+        """FF [sec]: run at full speed [for nsec] (simulation.py:180-185)."""
+        self.ffmode = True
+        self.ffstop = self.simt + nsec if nsec else None
+        return True
+
+    def benchmark(self, fname: str = "IC", tend: float = 60.0):
+        """BENCHMARK [scen, t]: load scenario, FF a span, report wall time
+        (simulation.py:187-190, completion report :72-77)."""
+        ok, msg = self.stack.ic(fname)
+        if not ok:
+            return False, msg
+        self.bencht = 0.0
+        self.benchdt = float(tend)
+        self.fastforward(float(tend))
+        self.op()
+        return True
+
+    # ----------------------------------------------------------------- step
+    def step(self, max_chunk: Optional[int] = None):
+        """One host iteration: scenario triggers + stack + a device chunk.
+
+        Mirrors the per-step order of simulation.py:62-128 at chunk
+        granularity.  Returns False once END is reached.
+
+        Pipelined stepping (default, ``settings.chunk_pipeline``): the
+        next chunk is dispatched BEFORE the previous chunk's edge
+        subsystems run, so host edge work (guard word, metrics, trails,
+        snapshot capture) overlaps the chunk on the device.  Any edge
+        that must read-modify the state — pending stack commands (incl.
+        every scenario-trigger boundary), queued aircraft creations,
+        armed conditionals, runway approach, due loggers/plots, FF stop,
+        guard policy ``halt`` — retires the deferred edge first and
+        steps synchronously, bit-identically to the unpipelined loop.
+        """
+        if self.state_flag == END:
+            return False
+        plan = self._plan_chunk(max_chunk)
+        if plan is None:
+            return True
+        chunk, simt = plan
+        reasons = self._sync_reasons(simt, chunk)
+        if reasons:
+            self._retire_edge(reasons[0])
+            # every co-occurring cause counts
+            sync_hist = self.pipe_stats["sync_reasons"]
+            for r in reasons:
+                sync_hist[r] = sync_hist.get(r, 0) + 1
+            self._step_sync(chunk, self.simt)
+        else:
+            self._step_pipelined(chunk, simt)
+        self._after_chunk()
+        return True
+
+    def _plan_chunk(self, max_chunk: Optional[int] = None):
+        """The host pre-chunk phase of ``step()``: process the stack,
+        decide whether a device chunk runs this iteration and how long
+        it is.  Returns ``(chunk, simt)`` ready for dispatch, or
+        ``None`` when this iteration is already handled without a chunk
+        (HOLD, FF horizon reached, stack-only work)."""
+        # Scenario commands due at current sim time (stack.checkfile).
+        simt = self.simt_planned
+        self.stack.checkfile(simt)
+        # Process pending commands (may change state/config/traffic).
+        # Commands observe and mutate the post-chunk state, so the
+        # deferred edge retires first — this IS the trigger-boundary /
+        # stack-command synchronous fallback.
+        if self.stack.cmdstack:
+            self._retire_edge("stack")
+            self.stack.process()
+            simt = self.simt_planned    # RESET/IC may move the clock
+
+        if self.state_flag == INIT and self.traf.ntraf > 0:
+            self.op()   # auto-start like simulation.py:89-98
+
+        if self.state_flag != OP:
+            self._retire_edge("hold")
+            return None
+
+        # Benchmark bookkeeping
+        if self.benchdt > 0.0 and self.bencht == 0.0:
+            self.bencht = time.perf_counter()
+
+        if self.traf._pending:
+            # queued aircraft creations write into the state tensors:
+            # retire the deferred edge, then apply them (sync fallback)
+            self._retire_edge("flush")
+        self.traf.flush()
+
+        # Determine the chunk: stop exactly at the next scenario trigger,
+        # quantized to a small ladder (each chunk length is one more
+        # set of captured graphs on the card).
+        if max_chunk is not None:
+            chunk = max_chunk        # explicit caller bound (run horizon)
+        else:
+            chunk = self.chunk_steps
+            if self.ffmode:
+                chunk = max(chunk, 1000)
+        limit = chunk
+        # Subsystem dt clamps (conditionals <= 1 s, trail resolution,
+        # plots, metrics), run as EXACT step counts.
+        dtclamp = None
+        if self.cond.ncond > 0:
+            dtclamp = max(1, int(round(1.0 / self.cfg.simdt)))
+        # Landing detection samples at ~1 s once an aircraft is near its
+        # threshold (see _runway_approach_active for the gate radius).
+        self._rwy_near = self._runway_approach_active()
+        if self._rwy_near:
+            c = max(1, int(round(1.0 / self.cfg.simdt)))
+            dtclamp = c if dtclamp is None else min(dtclamp, c)
+        if self.traf.trails.active:
+            c = max(1, int(round(self.traf.trails.dt / self.cfg.simdt)))
+            dtclamp = c if dtclamp is None else min(dtclamp, c)
+        if self.plotter.plots:
+            pdt = min(p.dt for p in self.plotter.plots)
+            c = max(1, int(round(pdt / self.cfg.simdt)))
+            dtclamp = c if dtclamp is None else min(dtclamp, c)
+        if self.metrics.metric_number >= 0:
+            c = max(1, int(round(self.metrics.dt / self.cfg.simdt)))
+            dtclamp = c if dtclamp is None else min(dtclamp, c)
+        if dtclamp is not None:
+            limit = min(limit, dtclamp)
+        tnext = self.stack.next_trigger_time()
+        if tnext is not None:
+            steps_to_trigger = int(np.ceil(
+                max(0.0, tnext - simt) / self.cfg.simdt + 1e-9))
+            if steps_to_trigger > 0:
+                limit = min(limit, steps_to_trigger)
+        if self.ffstop is not None:
+            steps_to_stop = int(round((self.ffstop - simt) / self.cfg.simdt))
+            if steps_to_stop <= 0:
+                self._end_ff()
+                return None
+            limit = min(limit, steps_to_stop)
+        # Quantize to the ladder — EXCEPT when the binding constraint is
+        # a dt clamp, which runs exactly.  A CHUNKSTEPS value off the
+        # ladder joins it.
+        ladder = self.CHUNK_LADDER
+        if self.chunk_steps not in ladder:
+            ladder = tuple(sorted(set(ladder) | {int(self.chunk_steps)},
+                                  reverse=True))
+        chunk = 1
+        for c in ladder:
+            if c <= limit:
+                chunk = c
+                break
+        if dtclamp is not None and limit == dtclamp \
+                and dtclamp < self.CHUNK_LADDER[-3] and chunk < limit:
+            chunk = limit
+
+        # Wall-clock pacing (skipped in fast-forward), simulation.py:67-70
+        if not self.ffmode and self.dtmult <= 1.0 and self.syst >= 0:
+            now = time.perf_counter()
+            if now < self.syst:
+                time.sleep(self.syst - now)
+        if self.syst < 0:
+            self.syst = time.perf_counter()
+        self.syst += chunk * self.cfg.simdt / max(self.dtmult, 1e-9)
+        return chunk, simt
+
+    def _after_chunk(self):
+        """Post-dispatch horizon check."""
+        if self.ffstop is not None \
+                and self.simt_planned >= self.ffstop - 1e-9:
+            self._end_ff()
+        # rate-limited Prometheus text dump (metrics_export_path knob;
+        # no-op when unset)
+        self.obs.maybe_export()
+
+    # ------------------------------------------------- chunk dispatch/edges
+    def _sync_reasons(self, simt: float, chunk: int):
+        """Why the upcoming chunk edge cannot be deferred (empty list =
+        safe to pipeline).  Every reason is a subsystem that reads or
+        mutates the post-chunk state on the host at that edge."""
+        reasons = []
+        if not self.pipeline_enabled:
+            reasons.append("off")
+        t_edge = self._fold_clock(simt, chunk)
+        if self.cond.ncond > 0:
+            reasons.append("cond")          # ATALT/ATSPD sample + fire
+        if self._rwy_near:
+            reasons.append("runway")        # landing chain reads state
+        if self.plotter.plots:
+            reasons.append("plot")          # PLOT samples live attrs
+        if self.datalog.any_due(t_edge):
+            reasons.append("datalog")       # periodic logger samples
+        if self.ffstop is not None and t_edge >= self.ffstop - 1e-9:
+            reasons.append("ff-stop")       # _end_ff timing boundary
+        if self.guard.enabled and self.guard.policy == "halt":
+            reasons.append("guard-halt")    # halt wants the tripped
+            #                                 state frozen at its edge
+        return reasons
+
+    def _dispatch_chunk(self, state, chunk: int, keep: bool, simt: float):
+        """Enqueue the (due) spatial-sort refresh and the chunk
+        back-to-back, with no host read between them.  Returns
+        ``(state, telemetry, stats, refresh, fingerprint)``: ``stats``
+        the ScanStats pack when ``cfg.scanstats``, ``refresh`` the
+        RefreshPack when the in-chunk refresh rides, ``fingerprint`` the
+        FingerprintPack when ``cfg.fingerprint`` (None otherwise).
+
+        ``keep=True`` selects the runner that leaves its input intact
+        (``run_steps_edge_keep``): the caller needs the *input* state
+        to stay valid (snapshot-ring capture of the post-chunk state
+        while the next chunk runs)."""
+        rec = self.recorder
+        t0 = time.perf_counter()
+        if self._last_dispatch_end is not None:
+            self.obs.get("sim_dispatch_gap_ms").observe(
+                (t0 - self._last_dispatch_end) * 1e3)
+        seq = self._next_seq()
+        with rec.span("chunk_dispatch", seq=seq, chunk=chunk, simt=simt):
+            state = self._pre_dispatch_refresh(state, simt)
+            from ..core.step import run_steps_edge, run_steps_edge_keep
+            runner = run_steps_edge_keep if keep else run_steps_edge
+            inscan = self._inscan_refresh_active()
+            sort_t0 = self._sort_t0_for_dispatch(state) if inscan \
+                else None
+            out = runner(state, self.cfg, chunk,
+                         checked=self.guard.enabled, sort_t0=sort_t0)
+        self._last_dispatch_end = time.perf_counter()
+        # Normalized return: the runner's output arity follows the cfg
+        # flags (core/step._edge: stats before refresh before
+        # fingerprint); the callers always see five.
+        rest = list(out[2:])
+        sstats = rest.pop(0) if self.cfg.scanstats else None
+        rpack = rest.pop(0) if inscan else None
+        fpack = rest.pop(0) if self.cfg.fingerprint else None
+        if rpack is not None:
+            # chain the due gate: the NEXT dispatch takes this chunk's
+            # final sort_t (a host scalar)
+            self._sort_t_chain = rpack.sort_t
+            self._sort_backend = self.cfg.cd_backend
+        return out[0], out[1], sstats, rpack, fpack
+
+    def _next_seq(self) -> int:
+        """Bump and return the host-side chunk-sequence correlation tag:
+        one per dispatched chunk, stamped onto the ChunkEdge and every
+        span of that chunk."""
+        self._chunk_seq += 1
+        self._seq_dispatched = self._chunk_seq
+        return self._chunk_seq
+
+    def _pre_dispatch_refresh(self, state, simt: float):
+        """The (due) chunk-edge spatial-sort refresh.  With the in-chunk
+        refresh active this is a NO-OP (the refresh rides the chunk and
+        retires via the RefreshPack)."""
+        if self._inscan_refresh_active():
+            return state
+        if self.cfg.cd_backend in ("tiled", "pallas", "sparse"):
+            due = self.cfg.asas.sort_every * self.cfg.asas.dtasas
+            # Also force a refresh when the backend changed: 'sparse'
+            # stores stripe DESTINATIONS in sort_perm, the others a
+            # Morton PERMUTATION — feeding one into the other scrambles
+            # the sorted layout.
+            if (simt - self._sort_simt >= due
+                    or self._sort_simt < 0
+                    or self._sort_backend != self.cfg.cd_backend):
+                t0 = time.perf_counter()
+                with self.recorder.span("sort_refresh",
+                                        backend=self.cfg.cd_backend):
+                    from ..core.asas import impl_for_backend, \
+                        refresh_spatial_sort
+                    state = refresh_spatial_sort(
+                        state, self.cfg.asas,
+                        block=self.cfg.cd_block,
+                        impl=impl_for_backend(self.cfg.cd_backend))
+                self.obs.get("sim_sort_refresh_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+                self._sort_simt = simt
+                self._sort_backend = self.cfg.cd_backend
+        return state
+
+    def _fold_clock(self, t0: float, chunk: int) -> float:
+        """Predict the clock after ``chunk`` steps by folding the
+        per-step additions in the state's own float dtype — bit-exact
+        emulation of the chunk runner's ``simt + simdt`` chain (strictly
+        sequential rounding, as ``np.add.accumulate`` applies it)."""
+        dt_np = self.traf.state.simt.dtype
+        chain = np.empty(chunk + 1, dt_np)
+        chain[0] = t0
+        chain[1:] = np.asarray(self.cfg.simdt, dt_np)
+        return float(np.add.accumulate(chain)[-1])
+
+    def _step_pipelined(self, chunk: int, simt: float):
+        """Double-buffered dispatch: enqueue the next chunk, THEN retire
+        the previous chunk's edge off its telemetry pack while the new
+        chunk runs on the device."""
+        pend = self._pending_edge
+        ring = self.snap_ring
+        # Will retiring the pending edge capture a rollback restore
+        # point?  Then this dispatch must NOT donate its input: it is
+        # exactly the post-chunk state that goes into the ring.
+        capture_due = (ring.dt > 0
+                       and simt - ring.t_last >= ring.dt - 1e-9)
+        capture_now = (pend is not None and capture_due
+                       and self.guard.enabled
+                       and self.guard.policy == "rollback")
+        state_in = self.traf.state
+        new_state, telem, sstats, rpack, fpack = self._dispatch_chunk(
+            state_in, chunk, keep=capture_now, simt=simt)
+        self.traf.state = new_state
+        self._step_count += chunk
+        self._simt_next = self._fold_clock(simt, chunk)
+        self._pending_edge = ChunkEdge(telem, chunk,
+                                       simt_planned=self._simt_next,
+                                       seq=self._seq_dispatched,
+                                       obs_sink=self._edge_pull_sink,
+                                       stats=sstats, refresh=rpack,
+                                       fingerprint=fpack)
+        self.pipe_stats["pipelined_chunks"] += 1
+        if pend is not None:
+            self._finish_edge(
+                pend, capture_state=state_in if capture_now else None)
+
+    def _step_sync(self, chunk: int, simt: float):
+        """The synchronous chunk: dispatch, wait for the guard word,
+        then run every edge subsystem against the live state."""
+        self.pipe_stats["sync_chunks"] += 1
+        state, telem, sstats, rpack, fpack = self._dispatch_chunk(
+            self.traf.state, chunk, keep=False, simt=simt)
+        self._apply_chunk_result(state, telem, chunk, stats=sstats,
+                                 refresh=rpack, fingerprint=fpack)
+
+    def _apply_chunk_result(self, state, telem, chunk: int,
+                            seq: Optional[int] = None, stats=None,
+                            refresh=None, fingerprint=None):
+        """Install one synchronously-completed chunk's result and run
+        every edge subsystem against it — the post-dispatch half of
+        ``_step_sync``."""
+        self.traf.state = state
+        self._step_count += chunk
+        if seq is None:
+            seq = self._seq_dispatched
+        edge = ChunkEdge(telem, chunk,      # device clock, no prediction
+                         seq=seq, obs_sink=self._edge_pull_sink,
+                         stats=stats, refresh=refresh,
+                         fingerprint=fingerprint)
+        t_ret0 = time.perf_counter()
+        # Retire the in-chunk refresh pack FIRST (before the guard
+        # response and every edge consumer).
+        self._retire_refresh(edge)
+        tripped = False
+        if self.guard.enabled:
+            # Integrity-guarded chunk: the isfinite check rides the
+            # chunk's carry and pins a trip to one step of the chunk;
+            # the guard then quarantines or rolls back at this edge.
+            bad = edge.bad_step
+            if bad >= 0:
+                self.guard.trip(bad, chunk)
+                tripped = True
+        # Publish the edge to the ACDATA cache only when its pack still
+        # describes the live state: a trip just scrubbed/rolled back the
+        # fleet, so the tripped pack must never reach the stream.
+        self._last_edge = None if tripped else edge
+        # Drain the in-chunk stats pack only off a CLEAN edge.
+        if not tripped:
+            self._drain_scanstats(edge)
+            self._drain_fingerprint(edge)
+
+        # Chunk-edge subsystems: conditional triggers, trails, loggers
+        # (the reference runs these per 0.05 s step,
+        # simulation.py:110-116; here they sample the chunk-edge state)
+        self.traf.flush()
+        self.cond.update()
+        self._check_runway_landings()
+        self.plotter.update(self.simt)
+        self.metrics.update()
+        if self.traf.trails.active:
+            # inactive trails only re-anchor, and TRAIL ON anchors anew
+            self.traf.trails.update(self.simt)
+        self.datalog.postupdate(self)
+
+        # Periodic snapshot-ring capture: the post-chunk state is
+        # verified finite when the guard is on, so ring entries are
+        # always healthy restore points.  Only the rollback policy
+        # consumes the ring, and a capture is a full device->host copy
+        # of the state, so other policies do not pay for it.
+        if self.state_flag == OP and self.guard.enabled \
+                and self.guard.policy == "rollback":
+            self.snap_ring.maybe_capture(self)
+        self._edge_retired(edge, t_ret0)
+
+    def _finish_edge(self, edge, capture_state=None):
+        """Retire one DEFERRED chunk edge: poll the guard word (the
+        completion fence), respond to a late trip, then run the passive
+        edge consumers off the telemetry pack.  Runs while the next
+        chunk computes on the device."""
+        t_ret0 = time.perf_counter()
+        self._retire_refresh(edge)
+        bad = edge.bad_step
+        if self.guard.enabled and bad >= 0:
+            self._deferred_trip(edge, bad)
+            return
+        # Passive consumers: each samples the edge state from the pack.
+        self._drain_scanstats(edge)
+        self._drain_fingerprint(edge)
+        self.metrics.update(edge)
+        if self.traf.trails.active:
+            pack = edge.fetch()
+            self.traf.trails.update(edge.simt,
+                                    np.asarray(pack.lat),
+                                    np.asarray(pack.lon),
+                                    active=np.asarray(pack.active))
+        # Snapshot-ring capture of the kept (not donated) post-chunk
+        # state while the next chunk is in flight; the runners return
+        # that state to no one else, so its buffers are free after it.
+        if capture_state is not None:
+            self.snap_ring.capture(self, state=capture_state,
+                                   simt=edge.simt)
+            from ..core import graph
+            graph.release(capture_state)
+        self._last_edge = edge
+        self._edge_retired(edge, t_ret0)
+
+    def _drain_scanstats(self, edge):
+        """Drain one clean edge's in-chunk accumulator pack (host
+        arrays) into the registry and the HEALTH summary.  No-op when
+        the edge carries no pack."""
+        if edge.stats is None:
+            return
+        from ..obs import scanstats as ssmod
+        t0 = time.perf_counter()
+        summary = ssmod.drain(self.obs, edge.stats)
+        self._scan_last = summary
+        rec = self.recorder
+        if rec.enabled:
+            rec.complete("scanstats", rec.wall_us(t0),
+                         (time.perf_counter() - t0) * 1e6,
+                         seq=edge.seq, chunk=edge.chunk,
+                         conf_peak=summary.get("conf_peak"),
+                         min_sep_m=summary.get("min_sep_m"),
+                         clamp_sat_ratio=summary.get("clamp_sat_ratio"))
+
+    def _edge_retired(self, edge, t_ret0: float):
+        """Book one retired edge into the registry + recorder: the
+        chunk-latency series and a chunk_edge span covering the
+        retirement work itself."""
+        now = time.perf_counter()
+        self.obs.get("sim_chunk_latency_ms").observe(
+            (now - edge.t_dispatch) * 1e3)
+        rec = self.recorder
+        if rec.enabled:
+            rec.complete("chunk_edge", rec.wall_us(t_ret0),
+                         (now - t_ret0) * 1e6,
+                         seq=edge.seq, chunk=edge.chunk,
+                         latency_ms=round(
+                             (now - edge.t_dispatch) * 1e3, 3))
+
+    def _deferred_trip(self, edge, bad: int):
+        """A guard word that came back tripped one chunk LATE: the fleet
+        has already advanced into the next chunk, computed from the
+        poisoned state.  Drop the in-flight edge and run the guard
+        response against the CURRENT state — ``rollback`` restores a
+        pre-fault ring entry exactly as in the synchronous path;
+        ``quarantine`` deletes every aircraft non-finite NOW.  ``halt``
+        never defers (guard-halt is a sync fallback reason)."""
+        pend = self._pending_edge
+        if pend is not None:
+            self._retire_refresh(pend)
+        self._pending_edge = None
+        self._last_edge = None
+        self.pipe_stats["deferred_trips"] += 1
+        rec = self.guard.trip(int(bad), edge.chunk)
+        if isinstance(rec, dict):
+            rec["deferred"] = True
+            rec["detect_lag_chunks"] = 1
+
+    def _retire_edge(self, reason: str = "sync"):
+        """Synchronization point: finish the deferred edge work of the
+        in-flight chunk (if any) before host code reads or mutates the
+        state.  Reentrancy-guarded because edge work itself (guard
+        rollback -> reset_traffic) drains."""
+        if self._pending_edge is None or self._retiring:
+            return
+        self._retiring = True
+        try:
+            edge, self._pending_edge = self._pending_edge, None
+            self._finish_edge(edge, capture_state=None)
+            # The retired edge state IS the live state again (nothing
+            # was dispatched after it), so a due ring capture can use
+            # the classic path at this sync boundary.
+            if self.state_flag == OP and self.guard.enabled \
+                    and self.guard.policy == "rollback":
+                self.snap_ring.maybe_capture(self)
+        finally:
+            self._retiring = False
+
+    def drain_pipeline(self):
+        """Public alias: block until no chunk is in flight and all edge
+        work has run (callers: tests, snapshots)."""
+        self._retire_edge("drain")
+        return True
+
+    def _runway_approach_active(self) -> bool:
+        """Any unlanded runway-destination aircraft within its landing
+        gate?  Cheap host flat-earth test — gates the 1 s landing
+        sampling clamp so cruise fast-forward keeps long chunks.
+
+        The gate radius is per-aircraft: threshold proximity guard plus
+        the worst one-chunk travel at that aircraft's actual ground
+        speed (floored at 340 m/s).
+
+        While a pipelined chunk is in flight, the test samples the last
+        RETIRED edge's telemetry pack instead of the live state (a read
+        of the live state would wait for the chunk in flight).  The pack
+        is up to one extra chunk stale, so the gate widens by one more
+        chunk of worst-case travel."""
+        cands = self.routes.runway_final_slots()
+        if not cands:
+            return False
+        edge = self._last_edge if self._pending_edge is not None else None
+        if edge is not None:
+            pack = edge.fetch()
+            lat = np.asarray(pack.lat)
+            lon = np.asarray(pack.lon)
+            gs = np.asarray(pack.gs)
+            staleness = 2.0        # [chunks] covered by the gate radius
+        else:
+            st = self.traf.state
+            lat = asnumpy(st.ac.lat)
+            lon = asnumpy(st.ac.lon)
+            gs = asnumpy(st.ac.gs)
+            staleness = 1.0
+        chunk_s = staleness * self.CHUNK_LADDER[0] * self.cfg.simdt
+        # Worst-case acceleration cushion over one unclamped chunk.
+        accel_cushion = 2.0 * chunk_s
+        for slot, r in cands:
+            if self.traf.ids[slot] is None:
+                continue
+            last = r.nwp - 1
+            gate_nm = 5.0 + chunk_s * (
+                max(340.0, float(gs[slot]) + accel_cushion)) / 1852.0
+            dlat = lat[slot] - r.lat[last]
+            dlon = (lon[slot] - r.lon[last]) * np.cos(np.radians(r.lat[last]))
+            if np.hypot(dlat, dlon) * 60.0 <= gate_nm:
+                return True
+        return False
+
+    def _check_runway_landings(self):
+        """Runway-landing chain (reference route.py getnextwp:741-775).
+
+        When the device FMS has reached an aircraft's FINAL waypoint and
+        that waypoint is a runway threshold (DEST/ADDWPT ``APT/RWNN``),
+        issue the reference's landing command sequence: hold the runway
+        heading, decelerate after 10 s, delete after 42 s.  Runs at chunk
+        edges; a 3 nm proximity guard distinguishes "reached the
+        threshold" from a manual LNAV OFF far from the field.
+        """
+        # The pre-chunk gate proves nobody can be near a threshold this
+        # chunk — skip the device transfers entirely for the cruise phase.
+        if not getattr(self, "_rwy_near", True):
+            return
+        cands = self.routes.runway_final_slots()
+        if not cands:
+            return
+        st = self.traf.state
+        swlnav = asnumpy(st.ac.swlnav)
+        iact = asnumpy(st.route.iactwp)
+        lat = asnumpy(st.ac.lat)
+        lon = asnumpy(st.ac.lon)
+        fired = False
+        for slot, r in cands:
+            acid = self.traf.ids[slot]
+            last = r.nwp - 1
+            if acid is None or iact[slot] < last or swlnav[slot]:
+                continue
+            dlat = lat[slot] - r.lat[last]
+            dlon = (lon[slot] - r.lon[last]) * np.cos(np.radians(r.lat[last]))
+            if np.hypot(dlat, dlon) * 60.0 > 3.0:     # [nm] proximity guard
+                continue
+            # Runway heading from the threshold database when known, else
+            # the final leg bearing (same number the FMS flew)
+            apt, _, rwy = r.name[last].partition("/")
+            thr = self.navdb.getrwythreshold(apt, rwy) if rwy else None
+            if thr is not None:
+                hdg = thr[2]
+            elif last > 0:
+                from ..ops import hostgeo
+                hdg = float(hostgeo.qdrdist(
+                    r.lat[last - 1], r.lon[last - 1],
+                    r.lat[last], r.lon[last])[0]) % 360.0
+            else:
+                hdg = float(st.ac.trk[slot])
+            r.flag_landed = True
+            fired = True
+            self.stack.stack(f"HDG {acid} {hdg:.1f}")
+            self.stack.stack(f"DELAY 10 SPD {acid} 10")
+            self.stack.stack(f"DELAY 42 DEL {acid}")
+        if fired:
+            self.stack.process()
+
+    def _end_ff(self):
+        self.ffmode = False
+        self.ffstop = None
+        if self.benchdt > 0.0:
+            wall = time.perf_counter() - self.bencht
+            self.scr.echo(
+                f"Benchmark complete: {wall:.3f} s wall for "
+                f"{self.benchdt:.1f} s sim ({self.benchdt / max(wall, 1e-9):.1f}x)")
+            self.benchdt = -1.0
+        self.pause()
+
+    def run(self, until_simt: Optional[float] = None, max_iters: int = 10 ** 9):
+        """Drive step() until END/HOLD or a sim-time horizon.
+
+        Horizon math uses the planned clock so the loop itself never
+        waits for the device; the pipeline drains before returning so
+        callers observe a fully-retired state."""
+        it = 0
+        while it < max_iters:
+            it += 1
+            mc = None
+            if until_simt is not None:
+                remaining = until_simt - self.simt_planned
+                if remaining <= 1e-9:
+                    break
+                # stop exactly at the horizon (ladder-quantized downstream)
+                mc = max(1, int(round(remaining / self.cfg.simdt)))
+            alive = self.step(max_chunk=mc)
+            if not alive or self.state_flag in (HOLD, END):
+                if self.state_flag == HOLD and until_simt is not None \
+                        and self.simt_planned < until_simt - 1e-9:
+                    break
+                if self.state_flag != OP:
+                    break
+        self.drain_pipeline()
+        return self.simt

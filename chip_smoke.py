@@ -74,7 +74,22 @@ Phases, in order; any failure exits non-zero before the last line:
    (sparse and dense); then eager against graphed chunks and steps
    without CD, alternating for three rounds, each profiled once (host
    launch calls per step, busy share), and the host synchronisations
-   inside each runner's chunk.
+   inside each runner's chunk;
+10. Simulation phase (``sim_phase``): the embedded ``Simulation`` on the
+    card, driven through its stack as a user types it.  100,000 aircraft
+    (``MCRE`` in a 25 x 25 deg continental view, 100,352 slots, the
+    default ``Traffic(pair_matrix=True)``) under CDMETHOD SPARSE and
+    ASAS ON, then CDMETHOD PALLAS and RESO EBY: the loop's rate against
+    the bare runner's, per chunk the wall, edge-pull and dispatch-gap
+    ms and the host syncs, pipelined against ``chunk_pipeline`` off,
+    graph captures per MCRE, a ring capture, the busy share and peak
+    memory, with K1, K2 and K3 launched through ``Simulation.run``
+    (their counts are the ``sim_launches`` of the kernels line).  Then
+    10,000 aircraft of the regional view through the same command
+    script on the card and on the CPU (plain versions), float64, under
+    CDMETHOD DENSE, SPARSE and PALLAS for two ASAS intervals each, held
+    against each other after every interval (``compare_sims``), each
+    interval's CD from the same inputs.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -1729,6 +1744,381 @@ def graph_phase(dev):
     graph.clear()
 
 
+#: the Simulation phase's fleets: 100k continental through MCRE in the
+#: 25 x 25 deg view of PAN 47.5 10 / ZOOM 0.08 (lat 35-60, lon -2.5-22.5,
+#: ``DisplayState.getviewbounds``), and 10k regional in the +-3.8 deg view
+#: of PAN 52.6 5.4 / ZOOM 1/3.8
+SIM_N, SIM_NMAX = 100_000, 100_352
+SIM_VIEW = ("PAN 47.5 10", "ZOOM 0.08")
+SIM_BOX = (35.0, 60.0, -2.5, 22.5)
+REG_N, REG_NMAX = 10_000, 10_240
+REG_VIEW = ("PAN 52.6 5.4", f"ZOOM {1 / 3.8!r}")
+REG_BOX = (52.6 - 3.8, 52.6 + 3.8, 5.4 - 3.8, 5.4 + 3.8)
+
+
+def sim_do(sim, *lines):
+    """Stack and process ``lines`` as a user types them; fail on any
+    echo that reports an error.  Returns the echo lines."""
+    for line in lines:
+        sim.stack.stack(line)
+    sim.stack.process()
+    out, sim.scr.echobuf[:] = list(sim.scr.echobuf), []
+    bad = [e for e in out if any(m in e for m in (
+        "Unknown command", "Usage", "failed", "not found", "error"))]
+    if bad:
+        raise AssertionError(f"stack {lines}: {bad}")
+    return out
+
+
+def sim_view(sim, view, box):
+    """Set the display view and check the MCRE box it gives."""
+    sim_do(sim, *view)
+    got = sim.scr.getviewbounds()
+    if not np.allclose(got, box, atol=1e-9):
+        raise AssertionError(f"view {view}: bounds {got}, want {box}")
+
+
+def sim_chunks(sim, n, syncs=False):
+    """Step ``sim`` ``n`` chunks of ``CHUNK`` steps; per chunk the wall
+    ms of ``Simulation.step``, the ms spent waiting for edge telemetry
+    (``sim_edge_pull_ms``), the host gap before its dispatch
+    (``sim_dispatch_gap_ms``) and, with ``syncs``, the host
+    synchronisations it made (``count_syncs``, which synchronises the
+    card around the chunk)."""
+    pulls = []
+    sim._edge_pull_sink = pulls.append
+    gap = sim.obs.get("sim_dispatch_gap_ms")
+    rows = []
+    for _ in range(n):
+        n0, g0, s0 = len(pulls), gap.count, gap.sum
+        t0 = time.perf_counter()
+        if syncs:
+            ns = count_syncs(lambda: sim.step(max_chunk=CHUNK))
+        else:
+            ns = None
+            sim.step(max_chunk=CHUNK)
+        rows.append(dict(
+            wall_ms=(time.perf_counter() - t0) * 1e3,
+            pull_ms=sum(pulls[n0:]),
+            gap_ms=gap.sum - s0 if gap.count > g0 else None, syncs=ns))
+    return rows
+
+
+def log_chunks(tag, rows, n_ac):
+    wall = sum(r["wall_ms"] for r in rows) / 1e3
+    sim_s = len(rows) * CHUNK * 0.05
+    log(f"sim {tag}: {len(rows)} chunks in {wall:.4f} s: "
+        f"{sim_s / wall:.4g} sim-s per wall-s, "
+        f"{n_ac * CHUNK * len(rows) / wall:.4g} aircraft-steps/s; per "
+        f"chunk wall ms {[round(r['wall_ms'], 3) for r in rows]}, edge "
+        f"pull ms {[round(r['pull_ms'], 3) for r in rows]}, dispatch gap "
+        f"ms {[None if r['gap_ms'] is None else round(r['gap_ms'], 3) for r in rows]}"
+        + (f", host syncs {[r['syncs'] for r in rows]}"
+           if rows[0]["syncs"] is not None else ""))
+    return wall
+
+
+def captures():
+    """CUDA graphs captured so far (``core/graph.py``)."""
+    from bluesky_tpu_torch.core import graph
+    return sum(len(p[2]) for p in graph._POOLS.values())
+
+
+def check_sim_state(tag, sim):
+    """The stepped fleet is finite, fills its slots and has conflicts."""
+    from bluesky_tpu_torch.core import step as stepmod
+    st = sim.traf.state
+    if not bool(stepmod.state_finite(st)):
+        raise AssertionError(f"sim {tag}: non-finite state")
+    if int(st.ac.active.sum()) != sim.traf.ntraf:
+        raise AssertionError(f"sim {tag}: live slots != ntraf")
+    if int(st.asas.nconf_cur) <= 0:
+        raise AssertionError(f"sim {tag}: no conflicts detected")
+
+
+def sim_continental(dev):
+    """The 100k continental session through the stack: CDMETHOD SPARSE,
+    ASAS ON, the view, MCRE 100000 B744, OP, five ASAS intervals and
+    more (pipelined, with host syncs counted, then with the pipeline
+    off, then the bare runner on the same state), a ring capture, then
+    CDMETHOD PALLAS and RESO EBY for three intervals.  Returns the
+    kernel launches of the session."""
+    import torch
+    from bluesky_tpu_torch.core import graph, step as stepmod
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    graph.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = Simulation(nmax=SIM_NMAX)
+    if sim.traf.device.type != dev.type:
+        raise AssertionError(f"Simulation() runs on {sim.traf.device}")
+    sim_do(sim, "CDMETHOD SPARSE", "ASAS ON")
+    sim_view(sim, SIM_VIEW, SIM_BOX)
+    cap0 = captures()
+    reset_launches()
+    # FF: fast-time, no wall-clock pacing (Simulation._plan_chunk)
+    sim_do(sim, f"MCRE {SIM_N} B744", "OP", "FF")
+    torch.cuda.synchronize()
+    log(f"sim continental: Simulation(nmax={SIM_NMAX}) and MCRE {SIM_N} "
+        f"in {time.perf_counter() - t0:.2f} s, {sim.traf.ntraf} aircraft")
+    first = sim_chunks(sim, 2)
+    log(f"sim continental: graph captures of the first MCRE's chunks "
+        f"{captures() - cap0}")
+    log_chunks("sparse MVP, first two chunks (captures)", first, SIM_N)
+    piped = sim_chunks(sim, 6)
+    wall_p = log_chunks("sparse MVP pipelined", piped, SIM_N)
+    log_chunks("sparse MVP pipelined, host syncs counted",
+               sim_chunks(sim, 2, syncs=True), SIM_N)
+    sim_do(sim, "CHUNKSTEPS PIPELINE OFF")
+    sync = sim_chunks(sim, 4)
+    wall_s = log_chunks("sparse MVP chunk_pipeline off", sync, SIM_N)
+    log_chunks("sparse MVP chunk_pipeline off, host syncs counted",
+               sim_chunks(sim, 2, syncs=True), SIM_N)
+    sim_do(sim, "CHUNKSTEPS PIPELINE ON")
+    log(f"sim continental: pipelined {1e3 * wall_p / len(piped):.4g} ms "
+        f"per chunk against {1e3 * wall_s / len(sync):.4g} ms synchronous")
+    wall, busy, nk, calls = profile_chunk(
+        lambda: (sim.step(max_chunk=CHUNK), sim.drain_pipeline()))
+    log(f"sim continental: profiled chunk {wall:.3f} ms wall, {busy:.3f} "
+        f"ms kernels ({100 * busy / wall:.1f} % busy), {nk} kernel "
+        f"executions, host calls {calls}")
+    check_sim_state("sparse", sim)
+    # the bare runner on the same state: no stack, no edge work
+    sim.drain_pipeline()
+    state = sim.traf.state
+    bare = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = stepmod.run_steps_edge(state, sim.cfg, CHUNK,
+                                       checked=True)[0]
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t1) * 1e3)
+    sim.traf.state = state
+    log(f"sim continental: bare run_steps_edge(checked) ms per chunk "
+        f"{[round(m, 3) for m in bare]}, aircraft-steps/s "
+        f"{[f'{SIM_N * CHUNK / (m / 1e3):.4g}' for m in bare]}")
+    t1 = time.perf_counter()
+    sim.snap_ring.capture(sim)
+    log(f"sim continental: snapshot-ring capture "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    sim.snap_ring.clear()
+    cap1 = captures()
+    sim_do(sim, "CDMETHOD PALLAS", "RESO EBY")
+    eby = sim_chunks(sim, 4)
+    log_chunks("pallas EBY (first chunk captures)", eby, SIM_N)
+    log(f"sim continental: graph captures after CDMETHOD PALLAS, RESO EBY "
+        f"{captures() - cap1}")
+    sim.drain_pipeline()
+    check_sim_state("pallas EBY", sim)
+    launches = launch_counts()
+    log(f"sim continental: kernel launches {launches}")
+    # K1 and K2 on the sparse path, K3 (Eby form) on the pallas one
+    for form in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume",
+                 "cd_pallas._kernel/eby"):
+        if launches[form] < 1:
+            raise AssertionError(f"Simulation.run never launched {form}")
+    ps = sim.pipe_stats
+    log(f"sim continental: {time.perf_counter() - t0:.1f} s, simt "
+        f"{sim.simt:.2f}, ASAS intervals {float(sim.traf.state.asas_tnext):g}"
+        f", chunks {ps['pipelined_chunks']} pipelined / {ps['sync_chunks']}"
+        f" sync, sync reasons {dict(ps['sync_reasons'].items())}, peak "
+        f"device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del sim, state
+    graph.clear()
+    return launches
+
+
+def caller_partners(asas):
+    """Row-wise caller-space partner sets of a state's ``asas`` arrays
+    (host NumPy): the sorted-space ``partners_s`` mapped back through
+    the stripe destinations ``sort_perm`` (sparse), else ``partners``."""
+    ps, perm = asas["asas.partners_s"], asas["asas.sort_perm"]
+    inv = np.full(ps.shape[0], -1)
+    inv[perm] = np.arange(perm.size)
+    return [frozenset(int(inv[j]) for j in ps[perm[i]] if j >= 0)
+            for i in range(perm.size)]
+
+
+def borderline_pairs(pre, cfg, dev, margin=1e-4):
+    """The directional pairs of the state ``pre`` (host arrays, float64)
+    whose float64 conflict or LoS flag hangs on a comparison within
+    ``margin`` of its threshold (relative to R^2, the lookahead, R or
+    the half-height), the pair's other comparisons holding: a float32
+    evaluation may flag them either way.  Conflict: dcpa^2 against R^2
+    with the closest approach inside the lookahead, the window's ends
+    against each other, 0 and the lookahead, and the altitude gap
+    against the half-height when the pair is in horizontal conflict;
+    LoS: the distance against R and the altitude gap against the
+    half-height."""
+    import torch
+    from bluesky_tpu_torch.ops import cd
+    t = lambda k: torch.as_tensor(pre[k], device=dev)
+    act = t("ac.active")
+    o = cd.detect(t("ac.lat"), t("ac.lon"), t("ac.trk"), t("ac.gs"),
+                  t("ac.alt"), t("ac.vs"), act, cfg.rpz, cfg.hpz,
+                  cfg.dtlookahead)
+    tl, r2, hpz, alt = cfg.dtlookahead, cfg.rpz ** 2, cfg.hpz, t("ac.alt")
+    dalt = (alt[None, :] - alt[:, None]).abs()
+    near = lambda x, ref, scale: (x - ref).abs() < margin * scale
+    h, nh = o.dcpa2 < r2, near(o.dcpa2, r2, r2)
+    na = near(o.tinconf, o.toutconf, tl)
+    nb = near(o.toutconf, 0.0, tl)
+    nc = near(o.tinconf, tl, tl)
+    nv = near(dalt, hpz, hpz)
+    ahead = (o.tcpa > -margin * tl) & (o.tcpa < tl * (1 + margin))
+    conf = (h & ((o.tinconf <= o.toutconf) | na) & ((o.toutconf > 0) | nb)
+            & ((o.tinconf < tl) | nc) & (na | nb | nc)) \
+        | ((nh | (nv & h)) & ahead)
+    los = (near(o.dist, cfg.rpz, cfg.rpz) & (dalt < hpz * (1 + margin))) \
+        | (nv & (o.dist < cfg.rpz * (1 + margin)))
+    pairs = act[:, None] & act[None, :]
+    pairs.fill_diagonal_(False)
+    return torch.nonzero((conf | los) & pairs).cpu().numpy()
+
+
+def compare_sims(tag, backend, card, cpu, pre):
+    """Card against CPU after one ASAS interval from the same inputs
+    ``pre`` (host arrays of the state at the ASAS step): callsigns, every
+    int and bool (flags, counts) and the partner sets equal; floats
+    within rtol 1e-9 / atol 1e-9 on dense (PR 5's card-vs-CPU bound,
+    float64 on both sides).  Where the float32 kernels ran (sparse,
+    pallas) the rows of the pairs ``borderline_pairs`` finds are set
+    apart (a float32 test may go either way there: the counts may differ
+    by at most their number, and no other row may differ); the floats
+    are held at the float32 bounds of ``tests/test_torch_slice.py``
+    (lat/lon 1e-5 deg, the aircraft's altitudes 1e-2 m, the rest rtol
+    1e-4 / atol 1e-3), but for the resolver's commands (``asas.*``,
+    ``pilot.*``): they come from pair sums that the card adds in another
+    float32 order (the kernel check ``cd_pallas.compare_outputs`` allows
+    rtol 1e-4 / atol 5e-3 on one call's sums), held at rtol 1e-3 / atol
+    5e-2."""
+    from bluesky_tpu_torch.core.state import state_to_numpy
+    a, b = state_to_numpy(card.traf.state), state_to_numpy(cpu.traf.state)
+    n = card.traf.nmax
+    if card.traf.ids != cpu.traf.ids:
+        raise AssertionError(f"sim {tag}: callsigns differ")
+    edge = np.zeros((0, 2), int) if backend == "dense" \
+        else borderline_pairs(pre, card.cfg.asas, card.traf.device)
+    keep = np.ones(n, bool)
+    keep[edge.ravel()] = False
+    row = lambda k, x: x[keep] if x.ndim and x.shape[0] == n \
+        and k != "asas.resopairs" else x
+    bad, moved = [], set()
+    for k in a:
+        if a[k].dtype.kind in "fc" or k in (
+                "asas.partners_s", "asas.sort_perm", "asas.partners"):
+            continue
+        if k in ("asas.nconf_cur", "asas.nlos_cur"):
+            if abs(int(a[k]) - int(b[k])) > len(edge):
+                bad.append(f"{k} {int(a[k])} / {int(b[k])}")
+        elif not np.array_equal(a[k], b[k]):
+            d = np.atleast_1d(a[k] != b[k])
+            if d.shape[0] == n:
+                moved |= set(np.flatnonzero(d.reshape(n, -1).any(1)))
+            if not np.array_equal(row(k, a[k]), row(k, b[k])):
+                bad.append(f"{k} in {int(d.sum())} entries")
+    if backend == "sparse":
+        pa, pb = caller_partners(a), caller_partners(b)
+    elif backend == "pallas":
+        pa, pb = ([frozenset(r[r >= 0]) for r in x["asas.partners"]]
+                  for x in (a, b))
+    else:
+        pa, pb = ([frozenset(np.flatnonzero(r)) for r in x["asas.resopairs"]]
+                  for x in (a, b))
+    moved |= {i for i in range(n) if pa[i] != pb[i]}
+    if any(pa[i] != pb[i] for i in np.flatnonzero(keep)):
+        bad.append("partner sets")
+    worst = {}
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype.kind not in "fc" or not x.size:
+            continue
+        if backend == "dense":
+            rtol, atol = 1e-9, 1e-9
+        elif k.endswith((".lat", ".lon")):
+            rtol, atol = 0.0, 1e-5
+        elif k in ("ac.alt", "ac.selalt", "adsb.alt"):
+            rtol, atol = 0.0, 1e-2
+        elif k.startswith(("asas.", "pilot.")):
+            rtol, atol = 1e-3, 5e-2
+        else:
+            rtol, atol = 1e-4, 1e-3
+        x, y = row(k, x), row(k, y)
+        d = np.abs(x - y)
+        if k.endswith(("trk", "hdg")):
+            d = np.minimum(d, 360.0 - d)
+        worst[k] = float(d.max())
+        if not (d <= atol + rtol * np.abs(y)).all():
+            bad.append(f"{k} by {worst[k]:.3g}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    log(f"check sim {tag} card vs CPU: nconf {int(a['asas.nconf_cur'])} / "
+        f"{int(b['asas.nconf_cur'])}, nlos {int(a['asas.nlos_cur'])} / "
+        f"{int(b['asas.nlos_cur'])}, {len(edge)} borderline directional "
+        f"pairs (rows {sorted(set(edge.ravel().tolist()))[:12]}), rows "
+        f"that differ {sorted(int(i) for i in moved)[:12]}, largest float "
+        f"differences {top}")
+    if bad:
+        raise AssertionError(f"sim {tag}: card vs CPU differ: {bad}")
+    log(f"check sim {tag} card vs CPU: ids, flags, counts and partner sets "
+        "equal off the borderline pairs, floats within bounds")
+
+
+def sim_regional(dev):
+    """The 10k regional session through the stack on the card and on the
+    CPU (the plain versions), float64: the view, MCRE 10000, ASAS ON,
+    OP, FF, then CDMETHOD DENSE, SPARSE and PALLAS for two ASAS
+    intervals each.  Each interval starts from the same inputs: both
+    step to the ASAS step, the CPU takes the card's state, both finish
+    the second, and ``compare_sims`` holds them against each other."""
+    import torch
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.core.state import state_from_numpy, state_to_numpy
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    graph.clear()
+    t0 = time.perf_counter()
+    card, cpu = (Simulation(nmax=REG_NMAX, dtype=torch.float64, device=d)
+                 for d in (dev, "cpu"))
+    for sim in (card, cpu):
+        sim_view(sim, REG_VIEW, REG_BOX)
+        sim_do(sim, f"MCRE {REG_N} B744", "ASAS ON", "OP", "FF")
+    for backend in ("dense", "sparse", "pallas"):
+        t1 = time.perf_counter()
+        for sim in (card, cpu):
+            sim_do(sim, f"CDMETHOD {backend.upper()}")
+        for k in (1, 2):
+            t_end = card.simt + 1.0
+            for sim in (card, cpu):
+                st = sim.traf.state
+                while st.simt < st.asas_tnext:      # up to the ASAS step
+                    sim.run(until_simt=sim.simt + sim.simdt)
+                    st = sim.traf.state
+            pre = {k: np.array(v, copy=True)
+                   for k, v in state_to_numpy(card.traf.state).items()}
+            cpu.traf.state = state_from_numpy(pre, device="cpu")
+            for sim in (card, cpu):
+                sim.run(until_simt=t_end)
+            compare_sims(f"regional {backend} interval {k}", backend, card,
+                         cpu, pre)
+        log(f"sim regional {backend}: two ASAS intervals on the card and "
+            f"the CPU in {time.perf_counter() - t1:.1f} s")
+    check_sim_state("regional", card)
+    log(f"sim regional: {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    graph.clear()
+
+
+def sim_phase(dev):
+    """Phase 10: the embedded ``Simulation`` driven through its stack
+    (``sim_continental``, then ``sim_regional``); returns the kernel
+    launches of the continental session."""
+    launches = sim_continental(dev)
+    log_card("after sim_continental")
+    sim_regional(dev)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1777,6 +2167,12 @@ def main():
         path(dev)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
         log_card(f"after {path.__name__}")
+    t0 = time.perf_counter()
+    sim_launches = sim_phase(dev)
+    log(f"sim_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after sim_phase")
+    for entry in report:
+        entry["sim_launches"] = sim_launches[entry["name"]]
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")

@@ -333,6 +333,36 @@ def test_donation_and_keep_contract(stand_in, backend):
     assert all(torch.equal(x, y) for x, y in zip(tel, tel_np))
 
 
+def test_config_switch_and_release_reuse_buffers(stand_in):
+    """A returned state chunked under another configuration (a stack
+    command switched the resolver) donates its buffers to that
+    configuration's executor, and the executor it came from is dropped;
+    after ``graph.release`` of a returned state its executor reuses its
+    buffers for another state.  Each chunk equals the eager steps."""
+    def eager(state, cfg, n=5):
+        s = _tcopy(state)
+        for _ in range(n):
+            s = tstep.step(s, cfg)
+        return _numpy(s)
+
+    a = build_pair(32, 24, geom="cluster", pair_matrix=True)[1]
+    mvp = tstep.SimConfig(cd_block=32)
+    eby = mvp._replace(asas=tasas.AsasConfig(reso_method="EBY"))
+    out = tstep.run_steps(a, mvp, 5)
+    want = eager(out, eby)
+    out2 = tstep.run_steps(out, eby, 5)
+    assert out2.ac.lat.data_ptr() == out.ac.lat.data_ptr()
+    assert len([ex for ex in graph._CHUNKS.values() if ex.owns(out2)]) == 1
+    _assert_equal_np(_numpy(out2), want)
+    kept = tstep.run_steps_edge_keep(out2, eby, 5)[0]
+    assert kept.ac.lat.data_ptr() != out2.ac.lat.data_ptr()
+    want = eager(kept, eby)
+    graph.release(out2)
+    out3 = tstep.run_steps(kept, eby, 5)
+    assert out3.ac.lat.data_ptr() == out2.ac.lat.data_ptr()
+    _assert_equal_np(_numpy(out3), want)
+
+
 def test_write_back_clones_what_it_overwrites():
     a, b = torch.arange(4.0), torch.arange(4.0) + 10
     graph.write_back([a, b], [b, a])

@@ -68,8 +68,9 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
 
 def test_import_without_jax():
-    """The package and every module of it (the chunk graphs and the
-    ``obs`` instruments among them) import with jax, flax and bluesky_tpu
+    """The package and every module of it (the chunk graphs, the ``obs``
+    instruments, and the Simulation with its stack, routes, navdb and
+    guard among them) import with jax, flax and bluesky_tpu
     unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -80,10 +81,16 @@ def test_import_without_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "    seen.add(m.name)\n"
-        "need = {'bluesky_tpu_torch.ops.cd', 'bluesky_tpu_torch.core.trails',\n"
-        "        'bluesky_tpu_torch.core.traffic', 'bluesky_tpu_torch.core.graph',\n"
-        "        'bluesky_tpu_torch.obs.scanstats',\n"
-        "        'bluesky_tpu_torch.obs.fingerprint'}\n"
+        "need = {'bluesky_tpu_torch.' + m for m in (\n"
+        "    'ops.cd', 'ops.hostgeo', 'core.trails', 'core.traffic',\n"
+        "    'core.graph', 'core.route', 'core.conditional', 'core.metrics',\n"
+        "    'obs.scanstats', 'obs.fingerprint', 'obs.metrics', 'obs.trace',\n"
+        "    'utils.units', 'utils.signalslot', 'utils.timer',\n"
+        "    'utils.areafilter', 'utils.datalog', 'utils.plotter',\n"
+        "    'navdb', 'navdb.builtin_data', 'navdb.loaders',\n"
+        "    'navdb.navdatabase', 'stack.argparser', 'stack.synthetic',\n"
+        "    'stack.stack', 'stack.commands', 'simulation.pipeline',\n"
+        "    'simulation.snapshot', 'simulation.sim', 'fault.guard')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"
@@ -101,10 +108,14 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
         TTraffic(nmax=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         tstate.make_state(8)
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Simulation(nmax=8)
     tree = tstate.state_to_numpy(tstate.make_state(8, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         tstate.state_from_numpy(tree)
     assert TTraffic(nmax=8, device="cpu").state.device.type == "cpu"
+    assert Simulation(nmax=8, device="cpu").traf.state.device.type == "cpu"
 
 
 @pytest.mark.parametrize("backend", ["dense", "tiled", "pallas", "sparse"])

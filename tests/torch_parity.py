@@ -8,8 +8,18 @@ kernels in interpret mode), the port with ``device="cpu"``, where each
 kernel wrapper runs its plain PyTorch version.  JAX is imported only
 where a helper needs it, so the GPU-only kernel tests can use this
 module on a machine without JAX.
+
+Importing it sets torch's intra-op threads to one for the test process.
+The parity tests run at small sizes, where more threads gain nothing
+(``tests/test_torch_work_items.py``: 25 s alone with one thread or
+eight), while under the test runner's six workers eight spinning
+OpenMP threads a worker oversubscribe the cores (the same file: 1024 s
+in the full run; the whole run 1049 s against 345 s with one thread).
 """
 import numpy as np
+import torch
+
+torch.set_num_threads(1)
 
 NM, FT = 1852.0, 0.3048
 
@@ -101,3 +111,109 @@ def slab64(cols, key, extra):
              vs=vs, gse=gse, gsn=gsn, trk=trk, active=act, noreso=noreso,
              tr=ex if key == "cas" else ex / torch.clamp_min(gs, 0.5))
     return torch.stack([f[k] for k in cd_pallas._FIELDS])
+
+
+# ----------------------------------------------------- the Simulation pair
+
+#: the resolver commands, the pilot targets that follow them and the
+#: vertical speed that snaps to its target: the resolvers divide by
+#: closure rates and times that cancel, which lifts the last-bit
+#: differences of torch's and XLA's float64 arithmetic to ~1e-8
+#: relative over ten intervals (``SIM_CMD_RTOL``)
+SIM_CMD_FIELDS = ("asas.trk", "asas.tas", "asas.vs", "asas.alt",
+                  "pilot.alt", "pilot.hdg", "pilot.trk", "pilot.vs",
+                  "pilot.tas", "ac.vs", "adsb.vs")
+SIM_RTOL = SIM_ATOL = 1e-9
+SIM_CMD_RTOL = 1e-7
+
+
+def no_pacing(monkeypatch):
+    """Switch off the simulations' wall-clock pacing (``time.sleep`` in
+    ``Simulation._plan_chunk``), which changes no state, so a case runs
+    at the speed of its steps."""
+    import time
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+
+
+def sim_pair(nmax=32, **kw):
+    """The JAX ``Simulation`` and the port's on the CPU, float64."""
+    import jax.numpy as jnp
+    import torch
+    from bluesky_tpu.simulation.sim import Simulation as JSim
+    from bluesky_tpu_torch.simulation.sim import Simulation as TSim
+    return (JSim(nmax=nmax, dtype=jnp.float64, **kw),
+            TSim(nmax=nmax, dtype=torch.float64, device="cpu", **kw))
+
+
+def sim_do(sim, *lines):
+    """Stack and process ``lines``; return and clear the echo."""
+    for line in lines:
+        sim.stack.stack(line)
+    sim.stack.process()
+    out = list(sim.scr.echobuf)
+    sim.scr.echobuf.clear()
+    return out
+
+
+def _close(k, x, y, rtol, atol):
+    d = np.abs(x - y)
+    if k.endswith(("trk", "hdg")):
+        d = np.minimum(d, 360.0 - d)
+    ok = (d <= atol + rtol * np.abs(x)) | (np.isnan(x) & np.isnan(y))
+    assert ok.all(), (k, float(np.nanmax(d)), np.flatnonzero(~ok)[:8])
+
+
+def assert_sim_states(jsim, tsim, f32_cd=False, skip=()):
+    """The two simulations' states, field by field: ints and bools
+    equal, the sorted-space partner table as row sets; floats within
+    rtol/atol ``SIM_RTOL``/``SIM_ATOL`` (the resolver commands
+    ``SIM_CMD_FIELDS`` within ``SIM_CMD_RTOL``), or, with ``f32_cd``
+    (the float32 CD kernels of the sparse and pallas backends ran), at
+    the float32 bounds of ``tests/test_torch_slice.py``: lat/lon 1e-5
+    deg, altitude 1e-2 m, the rest rtol 1e-4 / atol 1e-3."""
+    from bluesky_tpu_torch.core.state import state_to_numpy
+    a = jax_tree_to_numpy(jsim.traf.state)
+    b = state_to_numpy(tsim.traf.state)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if k in skip:
+            continue
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        assert (x.dtype, x.shape) == (y.dtype, y.shape), k
+        if k in ("asas.partners_s", "asas.partners"):
+            assert partner_sets(x) == partner_sets(y), k
+        elif x.dtype.kind != "f":
+            assert np.array_equal(x, y), (k, np.flatnonzero(x != y)[:8])
+        elif not f32_cd:
+            _close(k, x, y, SIM_CMD_RTOL if k in SIM_CMD_FIELDS
+                   else SIM_RTOL, SIM_ATOL)
+        elif k.endswith((".lat", ".lon")):
+            _close(k, x, y, 0.0, 1e-5)
+        elif k.endswith(".alt"):
+            _close(k, x, y, 0.0, 1e-2)
+        else:
+            _close(k, x, y, 1e-4, 1e-3)
+
+
+def host_routes(sim):
+    """Every slot's host route as plain tuples."""
+    return {s: (r.name, r.lat, r.lon, r.alt, r.spd, r.wtype, r.flyby,
+                r.iactwp, r.flag_landed, r.swflyby)
+            for s, r in sim.routes.routes.items()}
+
+
+def assert_sims_equal(jsim, tsim, jecho, techo, **kw):
+    """Echo text, callsigns, types, routes, the configuration and the
+    state of the two simulations agree (``assert_sim_states``)."""
+    assert techo == jecho
+    assert tsim.traf.ids == jsim.traf.ids
+    assert tsim.traf.types == jsim.traf.types
+    assert host_routes(tsim) == host_routes(jsim)
+    for f in tsim.cfg._fields:
+        t, j = getattr(tsim.cfg, f), getattr(jsim.cfg, f)
+        if hasattr(t, "_asdict"):
+            t, j = t._asdict(), j._asdict()
+        assert t == j, f
+    assert (tsim.dtmult, tsim.state_flag) == (jsim.dtmult, jsim.state_flag)
+    assert tsim.simt == jsim.simt
+    assert_sim_states(jsim, tsim, **kw)
