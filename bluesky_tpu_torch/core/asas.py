@@ -122,7 +122,10 @@ def update(state: SimState, cfg: AsasConfig):
     """One dense ASAS interval (asas.py:473-504): ``cd.detect`` on the
     [N, N] pair space, the resolver on the conflict matrix, the pair
     bookkeeping ``resopairs |= swconfl`` and resume-nav.  Needs the
-    [N, N] ``resopairs`` of ``make_state(pair_matrix=True)``.  Returns
+    [N, N] ``resopairs`` of ``make_state(pair_matrix=True)``.  A stacked
+    state (``step.stack_worlds``: [W, N] columns, [W, N, N]
+    ``resopairs``) runs every world at once, the pair matrices
+    [W, N, N] by broadcasting over the leading axis.  Returns
     ``(state, cd)``."""
     require_resolver(cfg)
     ac, asas = state.ac, state.asas
@@ -130,7 +133,7 @@ def update(state: SimState, cfg: AsasConfig):
                       ac.active, cfg.rpz, cfg.hpz, cfg.dtlookahead)
     method = cfg.reso_method.upper()
     swarm_on = cfg.reso_on and method == "SWARM"
-    any_conf = cd.swconfl.any()
+    any_conf = cd.swconfl.any(-1).any(-1)      # per world on [W, N, N]
     if cfg.reso_on:
         upd = cd.inconf
         if method in ("MVP", "SWARM"):
@@ -153,7 +156,7 @@ def update(state: SimState, cfg: AsasConfig):
                 ac.gseast, ac.gsnorth, ac.active, cmds[0], cmds[1],
                 cmds[2], asas.active, *_swarm_inputs(state), cfg.vmin,
                 cfg.vmax))
-            upd = ac.active & any_conf
+            upd = ac.active & any_conf[..., None]
         elif method == "SSD":
             # a horizontal method (SSD.py:99-104): vs and alt stay
             newtrk, newgs = cr_ssd.resolve(
@@ -168,11 +171,12 @@ def update(state: SimState, cfg: AsasConfig):
         ac.trk, ac.active, cfg.rpz, cfg.rpz * cfg.resofach)
     if swarm_on:
         # the whole swarm follows ASAS once a conflict triggered a resolve
-        active = torch.where(any_conf, ac.active, active)
+        active = torch.where(any_conf[..., None], ac.active, active)
     asas = asas.replace(
         resopairs=resopairs, active=active & cfg.reso_on, inconf=cd.inconf,
-        tcpamax=cd.tcpamax, nconf_cur=cd.swconfl.sum(dtype=torch.int32),
-        nlos_cur=cd.swlos.sum(dtype=torch.int32))
+        tcpamax=cd.tcpamax,
+        nconf_cur=cd.swconfl.sum((-2, -1), dtype=torch.int32),
+        nlos_cur=cd.swlos.sum((-2, -1), dtype=torch.int32))
     return state.replace(asas=asas), cd
 
 
@@ -203,23 +207,27 @@ def _require_impl(impl):
 def _sparse_sort_refresh(lat, lon, gs, active, old_perm, partners_s, *,
                          block, tlookahead, rpz):
     """Stripe sort plus the remap of the sorted-space partner table from
-    the old layout to the new one (old slot -> caller slot -> new slot)."""
+    the old layout to the new one (old slot -> caller slot -> new slot);
+    each world on its own for columns with a leading world axis."""
     thresh = cd_sched.reach_threshold_m(gs, active, tlookahead, rpz)
     dest = cd_sched.stripe_sort_dest(lat, lon, gs, active, thresh, block, 32)
-    n = lat.shape[0]
+    n = lat.shape[-1]
     n_tot = cd_sched.padded_size(n, block)
     inv_old = cd_sched.slot_inverse(old_perm, n, n_tot)
-    pv = partners_s[:n_tot]
+    pv = partners_s[..., :n_tot, :]
     neg = torch.full_like(pv, -1)
     caller_vals = torch.where(
-        pv >= 0, inv_old[torch.clamp(pv, 0, n_tot).long()], neg)
-    new_vals = torch.where(
-        caller_vals >= 0, dest[torch.clamp(caller_vals, 0, n - 1).long()],
+        pv >= 0, cd_tiled.take_ids(inv_old, torch.clamp(pv, 0, n_tot).long()),
         neg)
-    per_caller = new_vals[torch.clamp(old_perm, 0, n_tot - 1).long(), :]
+    new_vals = torch.where(
+        caller_vals >= 0,
+        cd_tiled.take_ids(dest, torch.clamp(caller_vals, 0, n - 1).long()),
+        neg)
+    per_caller = cd_tiled.take_rows(
+        new_vals, torch.clamp(old_perm, 0, n_tot - 1).long())
     new_partners = torch.full_like(partners_s, -1)
-    new_partners[dest.long()] = per_caller
-    return dest, new_partners
+    rows = dest.long()[..., None].expand(*dest.shape, partners_s.shape[-1])
+    return dest, new_partners.scatter_(-2, rows, per_caller)
 
 
 def refresh_spatial_sort(state: SimState, cfg: AsasConfig,
@@ -256,6 +264,22 @@ def inscan_sparse_refresh(state: SimState, cfg: AsasConfig,
                                                  partners_s=partners_s))
 
 
+def _global_ids(t, size):
+    """World-local ids ``t`` [W, m, K] (-1 empty) as ids of the W * m
+    rows of the flattened worlds: world w's id i becomes ``w * size +
+    i``."""
+    off = torch.arange(t.shape[0], device=t.device, dtype=t.dtype) * size
+    g = torch.where(t >= 0, t + off.reshape(-1, *[1] * (t.ndim - 1)), t)
+    return g.reshape(-1, *t.shape[2:])
+
+
+def _local_ids(t, nworlds, size):
+    """Inverse of ``_global_ids``: [W * m, K] global ids -> [W, m, K]."""
+    t = t.reshape(nworlds, -1, *t.shape[1:])
+    off = torch.arange(nworlds, device=t.device, dtype=t.dtype) * size
+    return torch.where(t >= 0, t - off.reshape(-1, *[1] * (t.ndim - 1)), t)
+
+
 def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
                  impl: str = "lax"):
     """One blockwise ASAS interval: detect with the resolver's pair sums,
@@ -271,9 +295,23 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
     and SSD run the MVP sums (SSD then resolves from the partner table),
     EBY its own pair sums on TAS velocities, SWARM the MVP sums plus the
     seven neighbour sums (MVP first, then the blend).  Nothing here reads
-    a value back to the host.  Returns ``(state, rd)``."""
+    a value back to the host.  Returns ``(state, rd)``.
+
+    A stacked state (``step.stack_worlds``) runs every world.  Sparse and
+    pallas detect all worlds in one pass, each kernel launched once for
+    the stack, and the resolvers then run per aircraft on the W * N
+    aircraft, partner ids made global for the gathers.  Tiled loops over
+    the worlds: its eager row loop is to be redesigned (ROADMAP A11)."""
     _require_impl(impl)
     require_resolver(cfg)
+    from .state import (flatten_worlds, is_stacked, stack_worlds,
+                        unflatten_worlds, unstack_worlds)
+    worlds = is_stacked(state)
+    if worlds and impl == "lax":
+        outs = [update_tiled(sw, cfg, block, impl)
+                for sw in unstack_worlds(state)]
+        return (stack_worlds([o[0] for o in outs]),
+                stack_worlds([o[1] for o in outs]))
     ac, asas = state.ac, state.asas
     mvpcfg = _mvp_config(cfg)
     reso_m = cfg.reso_method.upper()
@@ -283,7 +321,8 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
     cols = (ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
             ac.gsnorth, ac.active, asas.noreso, cfg.rpz, cfg.hpz,
             cfg.dtlookahead, mvpcfg)
-    k = asas.partners.shape[1]
+    k = asas.partners.shape[-1]
+    n = ac.lat.shape[-1]
     if impl == "pallas":
         out = cd_pallas.detect_resolve_pallas(
             *cols, block=block, k_partners=k, perm=asas.sort_perm,
@@ -294,10 +333,9 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
             extra_cols=extra, reso=kern_reso)
     else:
         block = min(block, 256)
-        n = ac.lat.shape[0]
         n_tot = cd_sched.padded_size(n, block)
         out = cd_sched.detect_resolve_sched(
-            *cols, partners=asas.partners_s[:n_tot],
+            *cols, partners=asas.partners_s[..., :n_tot, :],
             resume_rpz_m=cfg.rpz * cfg.resofach, block=block,
             perm=asas.sort_perm, tas=ac.tas if kern_reso == "eby" else None,
             cas=ac.cas if kern_reso == "swarm" else None, reso=kern_reso)
@@ -307,6 +345,31 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
         rd, partners_s, act_new = out
     else:
         rd = out[0] if kern_reso == "swarm" else out
+    rd_out = rd
+
+    stacked = state
+    if worlds:
+        # the resolvers on the W * N aircraft of the flattened worlds,
+        # with the partner tables in global ids
+        nw = ac.lat.shape[0]
+        state = flatten_worlds(state)
+        flat = lambda a: a.reshape(-1, *a.shape[2:])
+        state = state.replace(asas=state.asas.replace(
+            partners=_global_ids(stacked.asas.partners, n)))
+        rd = rd._replace(**{f: flat(getattr(rd, f)) for f in
+                            ("inconf", "tcpamax", "sum_dve", "sum_dvn",
+                             "sum_dvv", "tsolv", "topk_tin")},
+                         topk_idx=(_global_ids(rd.topk_idx, n)
+                                   if impl == "pallas" else
+                                   flat(rd.topk_idx)))
+        if kern_reso == "swarm":
+            swarm_sums = tuple(flat(a) for a in swarm_sums)
+        if impl == "sparse":
+            act_new = flat(act_new)
+        nconf = rd.nconf[:, None].expand(-1, n).reshape(-1)
+    else:
+        nconf = rd.nconf
+    ac, asas = state.ac, state.asas
 
     if kern_reso == "swarm":
         # the MVP avoidance from the MVP sums, then the blend with the
@@ -318,7 +381,7 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
             cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
             resooff=asas.resooff)
         asas = _apply_commands(
-            asas, ac.active & (rd.nconf > 0),
+            asas, ac.active & (nconf > 0),
             _with_velocity(*cr_swarm.resolve_from_sums(
                 *swarm_sums, ac.alt, ac.trk, ac.cas, ac.vs, ac.gseast,
                 ac.gsnorth, ac.active, m_trk, m_gs, m_vs, asas.active,
@@ -367,21 +430,27 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
     else:
         if ssd_on:
             # the in-kernel merged table is sorted-space
-            asas = ssd_resolve(asas, cd_sched.partners_to_caller(
-                asas.sort_perm, partners_s, ac.lat.shape[0],
-                partners_s.shape[0]))
-        spad = asas.partners_s.shape[0] - partners_s.shape[0]
+            ptable = cd_sched.partners_to_caller(
+                stacked.asas.sort_perm, partners_s, n, partners_s.shape[-2])
+            asas = ssd_resolve(asas, _global_ids(ptable, n) if worlds
+                               else ptable)
+        spad = stacked.asas.partners_s.shape[-2] - partners_s.shape[-2]
         if spad > 0:
             partners_s = torch.cat([partners_s, partners_s.new_full(
-                (spad, partners_s.shape[1]), -1)])
-        asas = asas.replace(partners_s=partners_s)
+                (*partners_s.shape[:-2], spad, partners_s.shape[-1]), -1)],
+                -2)
+        asas = asas.replace(partners_s=partners_s.reshape(
+            asas.partners_s.shape))
     if kern_reso == "swarm":
         # the whole swarm follows ASAS once a conflict triggered a resolve
-        act_new = torch.where(rd.nconf > 0, ac.active, act_new)
+        act_new = torch.where(nconf > 0, ac.active, act_new)
     asas = asas.replace(
         active=act_new & cfg.reso_on,
         inconf=rd.inconf,
         tcpamax=rd.tcpamax.to(asas.tcpamax.dtype),
         nconf_cur=rd.nconf,
         nlos_cur=rd.nlos)
-    return state.replace(asas=asas), rd
+    if worlds:
+        asas = asas.replace(partners=_local_ids(asas.partners, nw, n))
+        return unflatten_worlds(state.replace(asas=asas), stacked), rd_out
+    return state.replace(asas=asas), rd_out

@@ -35,6 +35,17 @@ registered with the graphs and reseeded before every step, exactly as
 the eager step seeds its own: a step's draws are those of Philox with
 the step's seed from offset 0 on either path.  A capture or replay that
 fails raises; nothing falls back to the eager loop on the card.
+
+A stacked state (``step.stack_worlds``) is chunked the same way: its
+buffers carry the leading [W] axis, the device clock is a [W] buffer,
+and the captured steps are ``step.step_body_worlds``.  The FMS gate is
+hoisted as in JAX: the host decides which worlds are due, the FMS-due
+graph runs when any is, and the per-world select inside it reads a
+static [W] mask buffer that is filled (a non-blocking copy from pinned
+memory) before each replay, so one captured graph serves every pattern
+of due worlds.  The ASAS step, eager, reads a mask buffer filled the
+same way.  Each world draws its noise from a generator of its own, all
+of them registered with the graphs and reseeded before every step.
 """
 import dataclasses
 
@@ -126,8 +137,9 @@ def _capture(body, device, gen):
     pool, side, graphs = _POOLS[device]
     cur = torch.cuda.current_stream(device)
     g = torch.cuda.CUDAGraph()
-    if gen is not None:
-        g.register_generator_state(gen)
+    for one in (gen if isinstance(gen, list) else [gen]):
+        if one is not None:
+            g.register_generator_state(one)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         body()
@@ -158,12 +170,23 @@ class ChunkGraphs:
         self.bufs = [t for _, t in leaves(self.static)]
         self.carry = stepmod.init_carry(self.static, cfg, checked)
         self.carry_bufs = [t for _, t in leaves(self.carry)]
+        from .state import is_stacked
         dtype = state.ac.lat.dtype
-        self.simt = torch.zeros((), dtype=dtype, device=self.device)
+        self.worlds = is_stacked(state)
+        lead = tuple(state.ac.lat.shape[:-1])
+        self.simt = torch.zeros(lead, dtype=dtype, device=self.device)
         self.simdt = torch.full((), float(state.simt.dtype.type(cfg.simdt)),
                                 dtype=dtype, device=self.device)
-        self.gen = torch.Generator(device=self.device) \
-            if stepmod.noise_on(cfg) else None
+        self.gen = None
+        if stepmod.noise_on(cfg):
+            self.gen = [torch.Generator(device=self.device)
+                        for _ in range(lead[0])] if self.worlds \
+                else torch.Generator(device=self.device)
+        if self.worlds:
+            # the per-world gate masks the FMS graph and the ASAS step read
+            self.fms_mask = torch.zeros(lead, dtype=torch.bool,
+                                        device=self.device)
+            self.asas_mask = torch.zeros_like(self.fms_mask)
         self.checked = checked
         self.replays = {}
         self.clocks = None
@@ -182,7 +205,10 @@ class ChunkGraphs:
         write_back(self.bufs, [t for _, t in leaves(state)])
         write_back(self.carry_bufs, [t for _, t in leaves(
             stepmod.init_carry(state, self.cfg, self.checked))])
-        self.simt.fill_(float(state.simt))
+        if self.worlds:
+            self.simt.copy_(stepmod.host_to_device(state.simt, self.device))
+        else:
+            self.simt.fill_(float(state.simt))
         self.clocks = stepmod.Clocks(state.simt, state.fms_t0,
                                      state.asas_tnext, state.rng)
 
@@ -193,8 +219,13 @@ class ChunkGraphs:
 
     def _body(self, fms: bool, asas: bool):
         """One step and its folds on the buffers, written back."""
-        out = stepmod.step_body(self.static, self.cfg, fms, asas, self.simt,
-                                self.gen)
+        if self.worlds:
+            out = stepmod.step_body_worlds(
+                self.static, self.cfg, fms, asas, self.fms_mask,
+                self.asas_mask, self.simt, self.gen)
+        else:
+            out = stepmod.step_body(self.static, self.cfg, fms, asas,
+                                    self.simt, self.gen)
         carry = stepmod.fold_carry(self.carry, out, self.cfg)
         write_back(self.bufs + self.carry_bufs,
                    [t for _, t in leaves(out)]
@@ -202,9 +233,18 @@ class ChunkGraphs:
         self.simt.add_(self.simdt)
 
     def step(self):
-        fms, asas, clk = stepmod.next_clocks(self.clocks, self.cfg)
-        if self.gen is not None:
-            self.gen.manual_seed(stepmod.noise_seed(self.clocks))
+        if self.worlds:
+            fms, asas, clk = stepmod.next_clocks_worlds(self.clocks, self.cfg)
+            for mask, due in ((self.fms_mask, fms), (self.asas_mask, asas)):
+                mask.copy_(stepmod.host_to_device(due, self.device),
+                           non_blocking=True)
+            fms, asas = bool(fms.any()), bool(asas.any())
+            if self.gen is not None:
+                stepmod.seed_worlds(self.gen, self.clocks.rng)
+        else:
+            fms, asas, clk = stepmod.next_clocks(self.clocks, self.cfg)
+            if self.gen is not None:
+                self.gen.manual_seed(stepmod.noise_seed(self.clocks))
         if asas:
             self._body(fms, True)
         else:

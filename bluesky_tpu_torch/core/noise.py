@@ -47,6 +47,14 @@ def make_adsb(nmax: int, dtype, device) -> AdsbArrays:
 
 
 def _normal(gen, like):
+    """Standard normal draws shaped like ``like`` from ``gen``, or, for a
+    list of W generators (``core/step.seed_worlds``), the draws of
+    each world's aircraft from its own generator, world-major."""
+    if isinstance(gen, list):
+        n = like.shape[0] // len(gen)
+        return torch.cat([torch.randn((n,) + like.shape[1:], generator=g,
+                                      dtype=like.dtype, device=like.device)
+                          for g in gen])
     return torch.randn(like.shape, generator=gen, dtype=like.dtype,
                        device=like.device)
 
@@ -73,7 +81,8 @@ def turbulence_woosh(ac, gen, simdt, cfg: NoiseConfig):
 
 def adsb_update(adsb: AdsbArrays, ac, gen, simt: float, cfg: NoiseConfig):
     """Refresh broadcast state for aircraft whose truncation window
-    elapsed (``simt`` is the host clock)."""
+    elapsed (``simt`` is the host clock, or a tensor of each aircraft's
+    world clock)."""
     up = adsb.lastupdate + cfg.adsb_trunctime < simt
     if cfg.adsb_transnoise:
         lat = ac.lat + _normal(gen, ac.lat) * cfg.adsb_err_latlon

@@ -304,8 +304,11 @@ def state_to_numpy(state: SimState) -> dict:
                 walk(v, key + ".")
             elif isinstance(v, torch.Tensor):
                 out[key] = v.detach().cpu().numpy()
-            elif fld.name == "rng":
-                out[key] = np.array([v >> 32, v & 0xFFFFFFFF], np.uint32)
+            elif fld.name == "rng":      # [2], or [W, 2] for a stack
+                v = np.asarray(v, dtype=np.uint64)
+                out[key] = np.stack([v >> np.uint64(32),
+                                     v & np.uint64(0xFFFFFFFF)],
+                                    -1).astype(np.uint32)
             else:
                 out[key] = np.asarray(v)
 
@@ -329,7 +332,113 @@ def state_from_numpy(tree: dict, device=None) -> SimState:
             fld.name: torch.from_numpy(
                 np.array(tree[f"{name}.{fld.name}"], copy=True)).to(dev)
             for fld in dataclasses.fields(cls)})
-    key = np.asarray(tree["rng"], np.uint32).reshape(-1)
-    rng = (int(key[0]) << 32) | int(key[1])
+    key = np.asarray(tree["rng"], np.uint64)
+    rng = (key[..., 0] << np.uint64(32)) | key[..., 1]
+    rng = int(rng) if rng.ndim == 0 else rng
     clocks = {c: np.asarray(tree[c])[()] for c in _CLOCKS}
     return SimState(rng=rng, **subs, **clocks)
+
+
+# ------------------------------------------------------------- the world axis
+# A stacked state (``stack_worlds``) holds W same-shape states: every
+# tensor gains a leading [W] axis, the host clocks become [W] numpy
+# arrays in the state's dtype and ``rng`` a [W] uint64 array, so worlds
+# at different sim times batch together (JAX ``core/step.py:730-755``).
+
+
+def _tree_map(fn, obj, *rest, name=""):
+    """``obj`` (a dataclass, NamedTuple, tuple or leaf) with every leaf
+    replaced by ``fn(name, leaf, *leaves of rest)``."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _tree_map(fn, getattr(obj, f.name),
+                              *[getattr(r, f.name) for r in rest],
+                              name=f.name)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[_tree_map(fn, getattr(obj, k),
+                                     *[getattr(r, k) for r in rest], name=k)
+                           for k in obj._fields])
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_tree_map(fn, *xs) for xs in zip(obj, *rest))
+    return fn(name, obj, *rest)
+
+
+def stack_worlds(states):
+    """Stack same-shape states (or packs: any dataclass or NamedTuple of
+    tensors and host scalars) into one with a leading [W] axis."""
+    states = list(states)
+    if not states:
+        raise ValueError("stack_worlds: need at least one world")
+
+    def stack(name, *xs):
+        x = xs[0]
+        if isinstance(x, torch.Tensor):
+            return torch.stack(xs)
+        if x is None:
+            return None
+        if name == "rng":
+            return np.array([int(v) for v in xs], dtype=np.uint64)
+        return np.stack([np.asarray(v) for v in xs])
+
+    return _tree_map(stack, *states)
+
+
+def world_slice(wtree, w: int):
+    """World ``w``'s slice of any stacked state or pack (telemetry,
+    ScanStats, FingerprintPack, RefreshPack): tensors ``x[w]``, host
+    clocks their ``w``-th scalar, ``rng`` a Python int."""
+    def take(name, x):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            return int(x[w]) if name == "rng" else x[w]
+        return x
+    return _tree_map(take, wtree)
+
+
+def unstack_worlds(wstate):
+    """Split a stacked state back into per-world states."""
+    return [world_slice(wstate, w) for w in range(len(wstate.simt))]
+
+
+def is_stacked(state) -> bool:
+    """Whether ``state`` carries a leading world axis."""
+    return state.ac.lat.ndim == 2
+
+
+def flatten_worlds(state):
+    """The stacked ``state`` as one fleet of W * N aircraft: every tensor
+    of two or more dimensions has its world and aircraft axes merged (a
+    view), the [W] per-world scalars stay.  The per-aircraft step
+    functions run on it unchanged; partner ids keep their world-local
+    values."""
+    def flat(name, x):
+        if isinstance(x, torch.Tensor) and x.ndim >= 2:
+            return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+        return x
+    return _tree_map(flat, state)
+
+
+def unflatten_worlds(flat, like):
+    """Inverse of ``flatten_worlds``: ``flat``'s tensors in the shapes
+    of ``like``'s (a stacked state), its host side from ``like``."""
+    def back(name, x, ref):
+        if isinstance(ref, torch.Tensor):
+            return x.reshape(ref.shape)
+        return ref
+    return _tree_map(back, flat, like)
+
+
+def select_worlds(mask: torch.Tensor, new, old):
+    """Per-world select: ``mask`` is a [W] bool tensor; the tensors of
+    ``new`` and ``old`` (stacked or flattened, world-major) take the new
+    values on the worlds where it is True and keep the old ones bit for
+    bit elsewhere.  A tensor ``new`` shares with ``old`` is kept."""
+    nw = mask.shape[0]
+
+    def sel(name, a, b):
+        if not isinstance(a, torch.Tensor) or a is b:
+            return a
+        m = mask.reshape(nw, 1)
+        return torch.where(m, a.reshape(nw, -1), b.reshape(nw, -1)) \
+            .reshape(a.shape)
+    return _tree_map(sel, new, old)

@@ -45,7 +45,8 @@ from . import autopilot, kinematics, noise, perf as perfmod, pilot
 from . import wind as windmod
 from .asas import AsasConfig
 from .noise import NoiseConfig
-from .state import SimState
+from .state import (SimState, stack_worlds, unstack_worlds,  # noqa: F401
+                    world_slice)
 
 
 class SimConfig(NamedTuple):
@@ -177,6 +178,13 @@ def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
                                        state.ac.lon, state.ac.alt)
     else:
         windn = winde = None
+    return _tail(state, cfg, simdt, gen, windn, winde)
+
+
+def _tail(state: SimState, cfg: SimConfig, simdt: float, gen, windn,
+          winde) -> SimState:
+    """The step after the ASAS interval: pilot arbitration, performance,
+    envelope limits, kinematics and turbulence, per aircraft."""
     state = pilot.ap_or_asas(state, windn, winde)
 
     # ---------- Performance model update ----------
@@ -219,19 +227,131 @@ def step(state: SimState, cfg: SimConfig) -> SimState:
     return out.replace(**clk._asdict())
 
 
+# --------------------------------------------------------------- multi-world
+# World-batched stepping (JAX ``core/step.py:704-874``): a stacked state
+# (``stack_worlds``) advances W independent scenarios per step.  The
+# per-aircraft parts of the step run once on the W * N aircraft
+# (``state.flatten_worlds``), the ASAS interval once for the whole stack
+# (``asas.update`` on [W, N, N], ``asas.update_tiled`` with one kernel
+# launch per pass for the group).  The gates stay hoisted, as in JAX:
+# the host decides per world whether the FMS or ASAS branch is due, runs
+# the branch when any world is, and a per-world select keeps the worlds
+# that are not due bit for bit.  Per-world clocks may differ, so worlds
+# at different sim times batch together.
+
+
+def next_clocks_worlds(clk, cfg: SimConfig):
+    """``next_clocks`` of a stacked state (or ``Clocks`` of [W] arrays):
+    ``(fms [W], asas [W], Clocks)`` with numpy bool masks, each world's
+    decision the one ``next_clocks`` takes for it alone."""
+    dt = clk.simt.dtype.type
+    simt, t0, tnext = clk.simt, clk.fms_t0, clk.asas_tnext
+    fms = (t0 + dt(cfg.fms_dt) < simt) | (simt < t0) | (simt < dt(cfg.fms_dt))
+    asas = (simt >= tnext) & bool(cfg.asas.swasas)
+    rng = clk.rng
+    if noise_on(cfg):
+        with np.errstate(over="ignore"):     # the LCG step wraps mod 2**64
+            rng = rng * np.uint64(6364136223846793005) \
+                + np.uint64(1442695040888963407)
+    return fms, asas, Clocks(
+        simt=simt + dt(cfg.simdt), fms_t0=np.where(fms, simt, t0),
+        asas_tnext=np.where(asas, tnext + dt(cfg.asas.dtasas), tnext),
+        rng=rng)
+
+
+def seed_worlds(gens, rng):
+    """Seed one noise generator per world as ``step`` seeds a world alone
+    (``noise_seed`` of its pre-step ``rng``), so world w's draws are the
+    ones it makes run alone.  Returns ``gens``."""
+    for g, r in zip(gens, rng, strict=True):
+        g.manual_seed(int(r) % 2 ** 63)
+    return gens
+
+
+def host_to_device(a, device) -> torch.Tensor:
+    """A host array (a per-world mask, clock or count) as a tensor on
+    ``device``, copied without waiting for the device: through pinned
+    memory on a card, whose allocator keeps the block until the copy is
+    done."""
+    t = torch.from_numpy(np.array(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+
+def _wind_worlds(state: SimState, n: int):
+    """The wind at every aircraft of a stacked state, world by world."""
+    from .state import world_slice
+    parts = [windmod.getdata(world_slice(state.wind, w), state.ac.lat[w],
+                             state.ac.lon[w], state.ac.alt[w])
+             for w in range(state.ac.lat.shape[0])]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def step_body_worlds(state: SimState, cfg: SimConfig, fms: bool,
+                     asas: bool, fms_mask, asas_mask, simt,
+                     gens) -> SimState:
+    """The device part of one step of a stacked state, the gates decided:
+    ``fms``/``asas`` whether any world is due, ``fms_mask``/``asas_mask``
+    the [W] bool tensors of the worlds that are, ``simt`` the [W]
+    pre-step clocks as a tensor on the device, ``gens`` the worlds'
+    noise generators (None without noise)."""
+    from .state import flatten_worlds, select_worlds, unflatten_worlds
+    n = state.ac.lat.shape[1]
+    simdt = float(state.simt.dtype.type(cfg.simdt))
+    flat = flatten_worlds(state)
+    flat = flat.replace(ac=kinematics.update_atmosphere(flat.ac))
+    flat = flat.replace(adsb=noise.adsb_update(
+        flat.adsb, flat.ac, gens, simt[:, None].expand(-1, n).reshape(-1),
+        cfg.noise))
+    if fms:
+        flat = select_worlds(fms_mask, autopilot.update_fms(flat), flat)
+    flat = autopilot.update_continuous(flat)
+    if asas:
+        state = unflatten_worlds(flat, state)
+        if cfg.cd_backend == "dense":
+            new, _cd = asasmod.update(state, cfg.asas)
+        else:
+            impl = asasmod.impl_for_backend(cfg.cd_backend)
+            new, _rd = asasmod.update_tiled(state, cfg.asas,
+                                            block=cfg.cd_block, impl=impl)
+        flat = flatten_worlds(select_worlds(asas_mask, new, state))
+    windn = winde = None
+    if cfg.use_wind:
+        windn, winde = _wind_worlds(state, n)
+    return unflatten_worlds(_tail(flat, cfg, simdt, gens, windn, winde),
+                            state)
+
+
+def step_worlds(state: SimState, cfg: SimConfig) -> SimState:
+    """One simdt for every world of a stacked state (eagerly; no host
+    read).  World w of the result equals ``step`` of world w alone, bit
+    for bit, noise included."""
+    check_config(cfg, state)
+    fms, asas, clk = next_clocks_worlds(state, cfg)
+    dev = state.device
+    gens = seed_worlds([torch.Generator(device=dev) for _ in state.rng],
+                       state.rng) if noise_on(cfg) else None
+    out = step_body_worlds(state, cfg, bool(fms.any()), bool(asas.any()),
+                           host_to_device(fms, dev), host_to_device(asas, dev),
+                           host_to_device(state.simt, dev), gens)
+    return out.replace(**clk._asdict())
+
 #: Per-aircraft fields the integrity check watches (JAX GUARD_FIELDS).
 GUARD_FIELDS = ("lat", "lon", "alt", "tas", "gs", "vs")
 
 
 def state_finite(state: SimState) -> torch.Tensor:
-    """0-d bool tensor on the state's device: every guarded field is
-    finite on the live rows (padding rows are excluded).  Reads nothing
-    back to the host."""
+    """0-d bool tensor on the state's device ([W] for a stacked state):
+    every guarded field is finite on the live rows (padding rows are
+    excluded).  Reads nothing back to the host."""
     ac = state.ac
     bad = torch.zeros_like(ac.active)
     for f in GUARD_FIELDS:
         bad |= ~torch.isfinite(getattr(ac, f))
-    return ~torch.any(bad & ac.active)
+    return ~torch.any(bad & ac.active, dim=-1)
 
 
 # ------------------------------------------------------------ the chunk body
@@ -240,11 +360,13 @@ def init_carry(state: SimState, cfg: SimConfig, checked: bool) -> dict:
     """The folds a chunk carries, fresh: ``bad`` (int32, -1) and the step
     index ``i`` for ``checked``, ``st`` (``ScanStats``) for
     ``cfg.scanstats``, ``fp`` (``FingerprintPack``) for
-    ``cfg.fingerprint``; tensors on the state's device."""
+    ``cfg.fingerprint``; tensors on the state's device, with a leading
+    [W] for a stacked state."""
     dev = state.device
     carry = {}
     if checked:
-        carry["bad"] = torch.full((), -1, dtype=torch.int32, device=dev)
+        carry["bad"] = torch.full(state.ac.active.shape[:-1], -1,
+                                  dtype=torch.int32, device=dev)
         carry["i"] = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.scanstats:
         from ..obs import scanstats
@@ -275,15 +397,17 @@ def fold_carry(carry: dict, state: SimState, cfg: SimConfig) -> dict:
 
 
 class _EagerChunk:
-    """The chunk body on the CPU: each step eagerly (``step``), then the
-    folds."""
+    """The chunk body on the CPU: each step eagerly (``step``, or
+    ``step_worlds`` for a stacked state), then the folds."""
 
     def __init__(self, state: SimState, cfg: SimConfig, checked: bool):
+        from .state import is_stacked
         self.cfg, self.state = cfg, state
         self.carry = init_carry(state, cfg, checked)
+        self._step = step_worlds if is_stacked(state) else step
 
     def step(self):
-        self.state = step(self.state, self.cfg)
+        self.state = self._step(self.state, self.cfg)
         self.carry = fold_carry(self.carry, self.state, self.cfg)
 
     def apply(self, fn):
@@ -291,10 +415,13 @@ class _EagerChunk:
         self.state = fn(self.state)
 
     def finish(self, keep: bool):
-        simt = torch.full((), float(self.state.simt),
-                          dtype=self.state.ac.lat.dtype,
-                          device=self.state.device)
-        return self.state, self.carry, simt
+        return self.state, self.carry, _simt_tensor(self.state)
+
+
+def _simt_tensor(state: SimState) -> torch.Tensor:
+    """The host clock of ``state`` as a tensor on its device (0-d, or
+    [W] for a stacked state)."""
+    return host_to_device(state.simt, state.device)
 
 
 def _graphed(state: SimState) -> bool:
@@ -332,12 +459,13 @@ class RefreshPack(NamedTuple):
     newslot: torch.Tensor
 
 
-def refresh_due(simt, sort_t, cfg: SimConfig) -> bool:
+def refresh_due(simt, sort_t, cfg: SimConfig) -> np.ndarray:
     """The refresh gate of the JAX chunk, on host scalars in the state's
-    dtype: never refreshed, or ``sort_every * dtasas`` elapsed."""
-    dt = simt.dtype.type
+    dtype ([W] arrays for a stacked state): never refreshed, or
+    ``sort_every * dtasas`` elapsed.  A numpy bool (array)."""
+    dt = np.asarray(simt).dtype.type
     period = dt(float(cfg.asas.sort_every * cfg.asas.dtasas))
-    return bool((sort_t < dt(0.0)) | (simt - sort_t >= period))
+    return np.asarray((sort_t < dt(0.0)) | (simt - sort_t >= period))
 
 
 # --------------------------------------------------------------- the runners
@@ -346,9 +474,11 @@ def _run_chunk(state: SimState, cfg: SimConfig, nsteps: int, checked: bool,
                sort_t0=None, keep: bool = False):
     """The one chunk body of every runner: ``nsteps`` steps, each after
     the in-scan refresh when due and before the carry folds.  Returns
-    ``(state, carry, simt, refresh)``: ``simt`` the end clock as a 0-d
+    ``(state, carry, simt, refresh)``: ``simt`` the end clock as a
     tensor on the device (the graph buffer's copy on a CUDA state),
-    ``refresh`` a ``RefreshPack`` or None."""
+    ``refresh`` a ``RefreshPack`` or None.  A stacked state steps every
+    world (``step_worlds``); its refresh gate is per world."""
+    from .state import is_stacked, select_worlds
     check_config(cfg, state)
     if _graphed(state):
         from . import graph
@@ -356,22 +486,37 @@ def _run_chunk(state: SimState, cfg: SimConfig, nsteps: int, checked: bool,
     else:
         ex = _EagerChunk(state, cfg, checked)
     inscan = inscan_refresh_active(cfg)
-    sort_t = state.simt.dtype.type(-1.0 if sort_t0 is None else sort_t0)
-    count = 0
+    worlds = is_stacked(state)
+    dt = state.simt.dtype
+    sort_t = np.full(np.shape(state.simt), -1.0, dt) if sort_t0 is None \
+        else np.array(sort_t0, dtype=dt)
+    count = np.zeros(np.shape(state.simt), np.int32)
+    refresh = lambda s: asasmod.inscan_sparse_refresh(
+        s, cfg.asas, block=min(cfg.cd_block, 256))
     for _ in range(nsteps):
-        if inscan and refresh_due(ex.state.simt, sort_t, cfg):
-            sort_t, count = ex.state.simt, count + 1
-            ex.apply(lambda s: asasmod.inscan_sparse_refresh(
-                s, cfg.asas, block=min(cfg.cd_block, 256)))
+        if inscan:
+            simt = ex.state.simt
+            due = refresh_due(simt, sort_t, cfg)
+            if due.any():
+                sort_t = np.where(due, simt, sort_t).astype(dt)
+                count = count + due
+                if worlds:
+                    mask = host_to_device(due, state.device)
+                    ex.apply(lambda s: select_worlds(mask, refresh(s), s))
+                else:
+                    ex.apply(refresh)
         ex.step()
     state, carry, simt = ex.finish(keep)
-    refresh = None
+    rpack = None
     if inscan:
         i32 = dict(dtype=torch.int32, device=state.device)
-        refresh = RefreshPack(
-            sort_t=sort_t, count=torch.full((), count, **i32),
-            guard=torch.zeros((), **i32), newslot=torch.zeros((0,), **i32))
-    return state, carry, simt, refresh
+        lead = np.shape(count)
+        rpack = RefreshPack(
+            sort_t=sort_t if worlds else sort_t[()],
+            count=host_to_device(count, state.device),
+            guard=torch.zeros(lead, **i32),
+            newslot=torch.zeros(lead + (0,), **i32))
+    return state, carry, simt, rpack
 
 
 def run_steps(state: SimState, cfg: SimConfig, nsteps: int) -> SimState:
@@ -421,14 +566,14 @@ class EdgeTelemetry(NamedTuple):
 def pack_telemetry(state: SimState, bad=None, simt=None) -> EdgeTelemetry:
     """Copy the edge fields of a post-chunk state into new buffers:
     ``simt`` a 0-d tensor (default: the host clock on the device), ``bad``
-    the checked runner's word (default -1)."""
+    the checked runner's word (default -1); every field gains a leading
+    [W] for a stacked state."""
     ac, asas = state.ac, state.asas
-    dev = state.device
     if bad is None:
-        bad = torch.full((), -1, dtype=torch.int32, device=dev)
+        bad = torch.full(ac.active.shape[:-1], -1, dtype=torch.int32,
+                         device=state.device)
     if simt is None:
-        simt = torch.full((), float(state.simt), dtype=ac.lat.dtype,
-                          device=dev)
+        simt = _simt_tensor(state)
     c = torch.clone
     return EdgeTelemetry(
         simt=c(simt), bad=c(bad), nconf_cur=c(asas.nconf_cur),
@@ -472,3 +617,49 @@ def run_steps_edge_keep(state: SimState, cfg: SimConfig, nsteps: int,
     """``run_steps_edge`` without donation: the input's tensors, and every
     state a runner returned before, stay as they were."""
     return _edge(state, cfg, nsteps, checked, sort_t0, keep=True)
+
+
+
+# ------------------------------------------------------- the world runners
+# The runners above take a stacked state as they take a single one; these
+# are the JAX package's names for that use (``run_steps_worlds*``), with
+# the world axis required.  ``bad`` is then a [W] vector of first bad
+# steps, so a trip names the (world, step) pair; the telemetry and packs
+# gain a leading [W] (``world_slice`` demuxes them), and ``sort_t0`` is a
+# [W] array of the worlds' last refresh times.
+
+
+def _require_stacked(state: SimState):
+    from .state import is_stacked
+    if not is_stacked(state):
+        raise ValueError("the world runners take a stacked state "
+                         "(stack_worlds); use run_steps for one world")
+
+
+def run_steps_worlds(state: SimState, cfg: SimConfig, nsteps: int):
+    """``run_steps`` over a stacked state: W scenarios advance ``nsteps``
+    steps together; world w equals its ``run_steps`` alone, bit for bit."""
+    _require_stacked(state)
+    return run_steps(state, cfg, nsteps)
+
+
+def run_steps_worlds_checked(state: SimState, cfg: SimConfig, nsteps: int):
+    """``run_steps_checked`` over a stacked state: ``(state, bad)`` with
+    ``bad`` [W] int32, each world's first bad step or -1."""
+    _require_stacked(state)
+    return run_steps_checked(state, cfg, nsteps)
+
+
+def run_steps_worlds_edge(state: SimState, cfg: SimConfig, nsteps: int,
+                          checked: bool = False, sort_t0=None):
+    """``run_steps_edge`` over a stacked state: the telemetry and packs
+    carry a leading [W]."""
+    _require_stacked(state)
+    return run_steps_edge(state, cfg, nsteps, checked, sort_t0)
+
+
+def run_steps_worlds_edge_keep(state: SimState, cfg: SimConfig, nsteps: int,
+                               checked: bool = False, sort_t0=None):
+    """``run_steps_worlds_edge`` without donation."""
+    _require_stacked(state)
+    return run_steps_edge_keep(state, cfg, nsteps, checked, sort_t0)

@@ -63,21 +63,25 @@ def _words(x: torch.Tensor) -> torch.Tensor:
 
 
 def _xor_rows(acc: torch.Tensor) -> torch.Tensor:
-    """XOR of the words of each row of ``acc`` [P, M] -> [P]: each bit of
-    the result is the parity of that bit's count over the row."""
+    """XOR of the words of each row of ``acc`` [..., P, M] -> [..., P]:
+    each bit of the result is the parity of that bit's count over the
+    row."""
     shift = torch.arange(32, device=acc.device)
     bits = (acc[..., None] >> shift) & 1                   # [P, M, 32]
-    parity = bits.sum(1) & 1                               # [P, 32]
-    return (parity << shift).sum(1)
+    parity = bits.sum(-2) & 1                              # [P, 32]
+    return (parity << shift).sum(-1)
 
 
 def init(state, cfg) -> FingerprintPack:
-    """Fresh fold for one chunk, on the state's device."""
+    """Fresh fold for one chunk, on the state's device; a stacked state
+    (``core/step.stack_worlds``) gets a pack per world, [W, P] and
+    [W]."""
     dev = state.ac.active.device
+    lead = tuple(state.ac.active.shape[:-1])
     p = n_partials(cfg, int(state.ac.active.shape[-1]))
-    return FingerprintPack(fp=torch.zeros((p,), dtype=torch.int64,
+    return FingerprintPack(fp=torch.zeros(lead + (p,), dtype=torch.int64,
                                           device=dev),
-                           steps=torch.zeros((), dtype=torch.int32,
+                           steps=torch.zeros(lead, dtype=torch.int32,
                                              device=dev))
 
 
@@ -86,11 +90,12 @@ def fold(pack: FingerprintPack, state, cfg) -> FingerprintPack:
     step_word``, the step word the XOR of the row split of every watched
     column, each column rotated by its field index first."""
     from ..core.step import GUARD_FIELDS
-    p = pack.fp.shape[0]
+    p = pack.fp.shape[-1]
     ac = state.ac
-    acc = _words(ac.active).reshape(p, -1)
+    part = lambda x: x.reshape(*ac.active.shape[:-1], p, -1)
+    acc = part(_words(ac.active))
     for i, f in enumerate(GUARD_FIELDS):
-        acc = acc ^ _rotl(_words(getattr(ac, f)).reshape(p, -1), i + 1)
+        acc = acc ^ _rotl(part(_words(getattr(ac, f))), i + 1)
     return FingerprintPack(fp=_rotl(pack.fp, 1) ^ _xor_rows(acc),
                            steps=pack.steps + 1)
 

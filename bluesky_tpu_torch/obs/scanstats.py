@@ -62,15 +62,18 @@ def n_partials(cfg, nmax: int) -> int:
 
 
 def init(state, cfg) -> ScanStats:
-    """Fresh accumulators for one chunk, on the state's device."""
+    """Fresh accumulators for one chunk, on the state's device; a stacked
+    state (``core/step.stack_worlds``) gets a pack per world, every field
+    with a leading [W]."""
     dev = state.ac.active.device
     _bounds(dev)
+    lead = tuple(state.ac.active.shape[:-1])
     p = n_partials(cfg, int(state.ac.active.shape[-1]))
     nb = len(COUNT_BUCKETS) + 1
     i32 = dict(dtype=torch.int32, device=dev)
-    z = lambda *shape: torch.zeros(shape, **i32)
-    inf_p = lambda: torch.full((p,), float("inf"), dtype=torch.float32,
-                               device=dev)
+    z = lambda *shape: torch.zeros(lead + shape, **i32)
+    inf_p = lambda: torch.full(lead + (p,), float("inf"),
+                               dtype=torch.float32, device=dev)
     return ScanStats(
         steps=z(), conf_peak=z(), conf_sum=z(), conf_hist=z(nb),
         los_peak=z(), los_sum=z(), los_hist=z(nb),
@@ -89,12 +92,16 @@ def _dist_m(lat1, lon1, lat2, lon2):
 
 def _partner_min_sep(ac, idx):
     """[N] per-row min separation to the listed partner rows (-1 =
-    empty slot); +inf where nothing is engaged."""
-    n = ac.lat.shape[0]
+    empty slot); +inf where nothing is engaged (per world, [W, N], for
+    a stacked state)."""
+    from ..ops.cd_tiled import take_ids
+    n = ac.lat.shape[-1]
     j = torch.clamp(idx, 0, n - 1).long()
-    valid = (idx >= 0) & ac.active[:, None] & ac.active[j]
-    d = _dist_m(ac.lat[:, None], ac.lon[:, None], ac.lat[j], ac.lon[j])
-    return torch.where(valid, d, float("inf")).amin(1)
+    g = lambda a: take_ids(a, j)
+    valid = (idx >= 0) & ac.active[..., :, None] & g(ac.active)
+    d = _dist_m(ac.lat[..., :, None], ac.lon[..., :, None], g(ac.lat),
+                g(ac.lon))
+    return torch.where(valid, d, float("inf")).amin(-1)
 
 
 def _min_sep(state, cfg, p: int):
@@ -102,72 +109,78 @@ def _min_sep(state, cfg, p: int):
     resolver tracks), +inf where none is; the sparse backend's table is
     read through the caller-space translation of its sorted slots."""
     dev = state.ac.lat.device
-    inf = torch.full((p,), float("inf"), dtype=torch.float32, device=dev)
+    lead = tuple(state.ac.lat.shape[:-1])
+    inf = torch.full(lead + (p,), float("inf"), dtype=torch.float32,
+                     device=dev)
     if not cfg.asas.swasas:
         return inf
     ac, asas = state.ac, state.asas
     if cfg.cd_backend == "dense":
         if asas.resopairs.numel() == 0:
             return inf
-        mask = asas.resopairs & ac.active[:, None] & ac.active[None, :]
-        d = _dist_m(ac.lat[:, None], ac.lon[:, None],
-                    ac.lat[None, :], ac.lon[None, :])
-        row = torch.where(mask, d, float("inf")).amin(1)
+        mask = (asas.resopairs & ac.active[..., :, None]
+                & ac.active[..., None, :])
+        d = _dist_m(ac.lat[..., :, None], ac.lon[..., :, None],
+                    ac.lat[..., None, :], ac.lon[..., None, :])
+        row = torch.where(mask, d, float("inf")).amin(-1)
     elif cfg.cd_backend == "sparse":
         from ..ops import cd_sched
-        n = ac.lat.shape[0]
+        n = ac.lat.shape[-1]
         ptable = cd_sched.partners_to_caller(
-            asas.sort_perm, asas.partners_s, n, asas.partners_s.shape[0])
+            asas.sort_perm, asas.partners_s, n, asas.partners_s.shape[-2])
         row = _partner_min_sep(ac, ptable)
     else:                          # tiled / pallas: caller-space table
         if asas.partners.numel() == 0:
             return inf
         row = _partner_min_sep(ac, asas.partners)
     row = torch.where(ac.active, row, float("inf"))
-    return row.reshape(p, -1).amin(1).to(torch.float32)
+    return row.reshape(*lead, p, -1).amin(-1).to(torch.float32)
 
 
 def _bucket(count, bounds):
-    """The histogram bucket of a 0-d count: the number of bounds below it
-    (``searchsorted`` with side='left')."""
-    return torch.searchsorted(bounds, count.to(torch.float32).reshape(1))
+    """The histogram bucket of a count (0-d, or [W]) as a [..., 1] index:
+    the number of bounds below it (``searchsorted`` with side='left')."""
+    return torch.searchsorted(bounds, count.to(torch.float32)[..., None])
 
 
 def fold(stats: ScanStats, state, cfg) -> ScanStats:
     """One step's fold (post-step state -> accumulators): reductions on
-    the device only, no host read and no state write."""
+    the device only, no host read and no state write.  A stacked state
+    folds each world into its own pack."""
     from ..ops import aero
-    p = stats.occ_peak.shape[0]
+    p = stats.occ_peak.shape[-1]
     ac, asas = state.ac, state.asas
-    part = lambda x: x.reshape(p, -1)
+    part = lambda x: x.reshape(*ac.active.shape[:-1], p, -1)
 
     nconf = asas.nconf_cur.to(torch.int32)
     nlos = asas.nlos_cur.to(torch.int32)
     bounds = _bounds(nconf.device)
-    one = torch.ones(1, dtype=torch.int32, device=nconf.device)
+    one = torch.ones(nconf.shape + (1,), dtype=torch.int32,
+                     device=nconf.device)
 
     live = ac.active
-    occ = part(live).sum(1, dtype=torch.int32)
-    engaged = part(asas.active & live).sum(1, dtype=torch.int32)
+    occ = part(live).sum(-1, dtype=torch.int32)
+    engaged = part(asas.active & live).sum(-1, dtype=torch.int32)
     # the pilot targets are clipped by the envelope, so a binding
     # envelope leaves the commanded CAS or altitude on the bound
     cas_cmd = aero.vtas2cas(state.pilot.tas, state.pilot.alt)
     sat = live & ((cas_cmd <= state.perf.vmin + SAT_EPS_MS)
                   | (cas_cmd >= state.perf.vmax - SAT_EPS_MS)
                   | (state.pilot.alt >= state.perf.hmax - SAT_EPS_M))
-    nsat = part(sat).sum(1, dtype=torch.int32)
+    nsat = part(sat).sum(-1, dtype=torch.int32)
     headroom = torch.where(live, state.perf.hmax - ac.alt, float("inf"))
-    hr_min = part(headroom).amin(1).to(torch.float32)
+    hr_min = part(headroom).amin(-1).to(torch.float32)
     sep = _min_sep(state, cfg, p)
 
     return ScanStats(
         steps=stats.steps + 1,
         conf_peak=torch.maximum(stats.conf_peak, nconf),
         conf_sum=stats.conf_sum + nconf,
-        conf_hist=stats.conf_hist.index_add(0, _bucket(nconf, bounds), one),
+        conf_hist=stats.conf_hist.scatter_add(-1, _bucket(nconf, bounds),
+                                              one),
         los_peak=torch.maximum(stats.los_peak, nlos),
         los_sum=stats.los_sum + nlos,
-        los_hist=stats.los_hist.index_add(0, _bucket(nlos, bounds), one),
+        los_hist=stats.los_hist.scatter_add(-1, _bucket(nlos, bounds), one),
         engaged_peak=torch.maximum(stats.engaged_peak, engaged),
         occ_peak=torch.maximum(stats.occ_peak, occ),
         clamp_sat=stats.clamp_sat + nsat,

@@ -40,10 +40,10 @@ def detect(lat, lon, trk, gs, alt, vs, active, rpz, hpz, tlookahead):
     (position [deg], track [deg], ground speed [m/s], altitude [m],
     vertical speed [m/s], ``active`` bool) with protected zone ``rpz``
     [m] / ``hpz`` [m] and lookahead [s].  Returns a ``ConflictData``."""
-    n = lat.shape[0]
+    n = lat.shape[-1]
     dt = lat.dtype
     eye = torch.eye(n, dtype=torch.bool, device=lat.device)
-    pairmask = (active[:, None] & active[None, :]) & ~eye
+    pairmask = (active[..., :, None] & active[..., None, :]) & ~eye
     zero = torch.zeros((), dtype=dt, device=lat.device)
     excl = torch.where(pairmask, zero, zero + 1e9)
 
@@ -57,8 +57,8 @@ def detect(lat, lon, trk, gs, alt, vs, active, rpz, hpz, tlookahead):
     trkrad = geo.radians(trk)
     u = gs * torch.sin(trkrad)
     v = gs * torch.cos(trkrad)
-    du = u[None, :] - u[:, None]
-    dv = v[None, :] - v[:, None]
+    du = u[..., None, :] - u[..., :, None]
+    dv = v[..., None, :] - v[..., :, None]
     dv2 = du * du + dv * dv
     dv2 = torch.where(torch.abs(dv2) < 1e-6, zero + 1e-6, dv2)
     vrel = torch.sqrt(dv2)
@@ -72,8 +72,8 @@ def detect(lat, lon, trk, gs, alt, vs, active, rpz, hpz, tlookahead):
     touthor = torch.where(swhorconf, tcpa + dtinhor, zero - 1e8)
 
     # Vertical geometry: dalt[i, j] = alt[j] - alt[i]
-    dalt = alt[None, :] - alt[:, None] + excl
-    dvs = vs[None, :] - vs[:, None]
+    dalt = alt[..., None, :] - alt[..., :, None] + excl
+    dvs = vs[..., None, :] - vs[..., :, None]
     dvs = torch.where(torch.abs(dvs) < 1e-6, zero + 1e-6, dvs)
     tcrosshi = (dalt + hpz) / -dvs
     tcrosslo = (dalt - hpz) / -dvs
@@ -84,12 +84,12 @@ def detect(lat, lon, trk, gs, alt, vs, active, rpz, hpz, tlookahead):
     toutconf = torch.minimum(toutver, touthor)
     swconfl = (swhorconf & (tinconf <= toutconf) & (toutconf > 0.0)
                & (tinconf < tlookahead) & pairmask)
-    inconf = swconfl.any(1)
+    inconf = swconfl.any(-1)
     # JAX's max of ``tcpa * swconfl`` drops the NaN of a pair with a
     # non-finite aircraft (XLA's reduce-max); torch's amax would return
     # it on every row.  Such a pair is never in conflict, so masking
     # before the max gives JAX's rows.
-    tcpamax = torch.where(swconfl, tcpa, torch.zeros_like(tcpa)).amax(1)
+    tcpamax = torch.where(swconfl, tcpa, torch.zeros_like(tcpa)).amax(-1)
     swlos = (dist < rpz) & (torch.abs(dalt) < hpz) & pairmask
     return ConflictData(swconfl=swconfl, swlos=swlos, inconf=inconf,
                         tcpamax=tcpamax, qdr=qdr, dist=dist, dcpa2=dcpa2,

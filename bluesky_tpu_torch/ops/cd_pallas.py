@@ -295,18 +295,25 @@ def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK):
     gives row i's intruder slot ids in visiting order; id ``nb * B`` is
     the all-inactive sentinel column.  Returns the 13 outputs (10 when
     ``pold`` is None; the swarm form adds ``N_SWARM``) in the kernel's
-    layout ([nb, 1|kk, B])."""
+    layout ([nb, 1|kk, B]).  A row without intruders gives the identity
+    elements whatever its own slab and old partners (every pair is
+    masked), so the first such row's outputs serve the others."""
     nb, _, B = packed.shape
     dev = packed.device
     lane = torch.arange(B, device=dev, dtype=torch.int64)
     allf = torch.cat([packed.transpose(0, 1).reshape(_NF, nb * B),
                       packed.new_zeros((_NF, 1))], 1)
-    rows = []
+    rows, empty = [], None
     for i in range(nb):
         ids = torch.as_tensor(ids_of_row(i), device=dev).long()
+        if ids.numel() == 0 and empty is not None:
+            rows.append(empty)
+            continue
         rows.append(row_block_plain(packed[i], allf[:, ids], i * B + lane,
                                     ids, None if pold is None else pold[i],
                                     p, reso, kk))
+        if ids.numel() == 0:
+            empty = rows[-1]
     outs = [torch.stack(parts) for parts in zip(*rows)]
     nfix = 10 if pold is None else 13
     for j in list(range(8)) + ([12] if pold is not None else []) \
@@ -315,9 +322,19 @@ def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK):
     return outs
 
 
+def world_base(rows, nbw, device=None):
+    """[rows] int64 first block of each row's world: row i of a stack of
+    worlds of ``nbw`` row blocks each belongs to world ``i // nbw``."""
+    return torch.arange(rows, device=device) // nbw * nbw
+
+
 def _reach_rows(reach, B):
+    """Row i's intruder slot ids: the blocks j with ``reach[i, j]``, in
+    row i's world (``reach`` [W * nbw, nbw] for a stack of worlds)."""
     reach_h = reach.cpu().numpy()
-    return lambda i: block_ids(np.flatnonzero(reach_h[i]), B)
+    nbw = reach_h.shape[1]
+    return lambda i: block_ids(np.flatnonzero(reach_h[i]) + i // nbw * nbw,
+                               B)
 
 
 def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp"):
@@ -325,7 +342,10 @@ def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp"):
     block i against every intruder block j with ``reach[i, j]``, in
     ascending j.  ``packed`` [nb, _NF, B] f32, ``reach`` [nb, nb] bool,
     ``pold`` [nb, kk, B] int32.  Returns the 13 outputs (20 for the
-    swarm form)."""
+    swarm form).  A stack of W worlds of nbw row blocks each passes
+    ``packed`` [W * nbw, _NF, B] and ``reach`` [W * nbw, nbw] (each row's
+    reach in its own world); slot ids and ``pold`` are then global, world
+    w's slot s being ``w * nbw * B + s``."""
     return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2]), p,
                       reso)
 
@@ -375,12 +395,14 @@ def compare_outputs(name, got, want):
         err = max(err, float((g[j].double() - w[j].double()).abs().max()))
 
     def sets(ids, valid):
+        """Each ownship's ids, sorted: equal rows are equal sets (a row
+        holds no id twice)."""
         ids = torch.where(valid, ids, torch.full_like(ids, -1))
-        ids = ids.transpose(1, 2).reshape(-1, ids.shape[1]).numpy()
-        return [frozenset(r[r >= 0].tolist()) for r in ids]
-    if sets(g[9], g[8] < _BIG) != sets(w[9], w[8] < _BIG):
+        return torch.sort(ids, dim=1).values
+    if not torch.equal(sets(g[9], g[8] < _BIG), sets(w[9], w[8] < _BIG)):
         raise AssertionError(f"{name}: candidate sets differ")
-    if nfix > 11 and sets(g[11], g[11] >= 0) != sets(w[11], w[11] >= 0):
+    if nfix > 11 and not torch.equal(sets(g[11], g[11] >= 0),
+                                     sets(w[11], w[11] >= 0)):
         raise AssertionError(f"{name}: merged partner sets differ")
     return err
 
@@ -479,16 +501,24 @@ def work_items(tiles, count, per_row=ITEMS_PER_ROW):
                      order=order.to(torch.int32))
 
 
-def mask_items(mask, per_row):
+def mask_items(mask, per_row, nbw=None):
     """``work_items`` of a row mask: row i's tiles are the columns j with
     ``mask[i, j]`` ([nb, W] bool), ascending.  For a CUDA mask one call of
     ``cd_mask_items`` (a block scan per row, then the launch order)
     builds them: the dozen tensor ops of the plain version,
     ``compact_rows`` + ``work_items``, cost more host time than a pass
-    that finds no tile.  Either way nothing waits for the device."""
+    that finds no tile.  Either way nothing waits for the device.
+
+    With ``nbw`` the mask is a stack of worlds of ``nbw`` row blocks
+    ([W * nbw, nbw], each row's columns the blocks of its own world): the
+    tiles of row i are offset by its world's first block ``world_base``,
+    so one walker launch serves the whole stack."""
     nb, w = mask.shape
+    worlds = nbw is not None and nbw != nb
     if not mask.is_cuda:
         cols = torch.arange(w, dtype=torch.int32).expand(nb, w)
+        if worlds:
+            cols = cols + world_base(nb, w).to(torch.int32)[:, None]
         return work_items(*compact_rows(cols, mask), per_row)
     from . import _cuda
     _cuda.require(mask, torch.bool, (nb, w), "mask")
@@ -501,13 +531,17 @@ def mask_items(mask, per_row):
         mask.data_ptr(), nb, w, per_row, *(t.data_ptr() for t in items),
         _cuda.stream_ptr(mask.device))
     _cuda.check(rc, "cd_mask_items")
+    if worlds:
+        items.tiles.add_(world_base(nb, w, mask.device)
+                         .to(torch.int32)[:, None])
     return items
 
 
 def reach_items(reach, per_row=ITEMS_PER_ROW):
     """``work_items`` of the reach-masked full grid: row i's tiles are the
-    blocks j with ``reach[i, j]``, ascending."""
-    return mask_items(reach, per_row)
+    blocks j with ``reach[i, j]``, ascending, in row i's world for a
+    stack of worlds (``reach`` [W * nbw, nbw])."""
+    return mask_items(reach, per_row, nbw=reach.shape[1])
 
 
 def cand_items(cand, B, per_row=CAND_ITEMS_PER_ROW):
@@ -642,7 +676,7 @@ def full_grid_resume(packed, reach, pold, p: TileParams,
         return full_grid_resume_plain(packed, reach, pold, p, reso)
     from . import _cuda
     nb, B = check_common(packed, pold, reso=reso)
-    _cuda.require(reach, torch.bool, (nb, nb), "reach")
+    _cuda.require(reach, torch.bool, (nb, reach.shape[1]), "reach")
     items = reach_items(reach, per_row)
     outs = merge_items(walk_items(packed, items, p, pold, reso=reso), items,
                        B, pold, reso)
@@ -662,7 +696,7 @@ def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW,
         return full_grid_plain(packed, reach, p, reso, kk)
     from . import _cuda
     nb, B = check_common(packed, kk=kk, reso=reso)
-    _cuda.require(reach, torch.bool, (nb, nb), "reach")
+    _cuda.require(reach, torch.bool, (nb, reach.shape[1]), "reach")
     items = reach_items(reach, per_row)
     parts = walk_items(packed, items, p, reso=reso)
     outs = merge_items(parts, items, B, reso=reso)
@@ -771,17 +805,20 @@ def build_candidates(lat, lon, gs, active, nb, block, c_cap, rpz,
 
 
 class PallasInputs(NamedTuple):
-    """The kernel operands of one pallas-backend pass (sorted space)."""
-    packed: torch.Tensor      # [nb, 16, B] f32 slabs (_FIELDS)
-    reach: torch.Tensor       # [nb, nb] bool block reachability
-    lat: torch.Tensor         # [nb*B] f32 padded columns of the
-    lon: torch.Tensor         # candidate bound
+    """The kernel operands of one pallas-backend pass (sorted space).  A
+    stack of W worlds stacks the slabs along the row-block axis: row
+    block w * nb + i is world w's block i."""
+    packed: torch.Tensor      # [W * nb, 16, B] f32 slabs (_FIELDS)
+    reach: torch.Tensor       # [W * nb, nb] bool block reachability
+    lat: torch.Tensor         # [W, nb*B] f32 padded columns of the
+    lon: torch.Tensor         # candidate bound ([nb*B] for one world)
     gs: torch.Tensor
-    active: torch.Tensor      # [nb*B] bool
-    n: int                    # caller's aircraft count
-    nb: int
+    active: torch.Tensor      # [W, nb*B] bool
+    n: int                    # caller's aircraft count (per world)
+    nb: int                   # row blocks per world
     block: int
     reso: str = "mvp"         # the tile body's resolver form
+    worlds: int = 1
 
 
 def tr_row(gs, extra_cols=None, reso="mvp"):
@@ -805,16 +842,20 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
     columns, padded to whole blocks: ``block`` capped at 256 and at the
     power of two that covers ``n``, 128 for ``n <= 128``.  ``reso`` and
     ``extra_cols`` (``tas`` or ``cas``) fill the ``tr`` row
-    (``tr_row``); Swarm widens the reachability to its neighbourhood."""
+    (``tr_row``); Swarm widens the reachability to its neighbourhood.
+    Columns with a leading world axis [W, n] give the stacked operands
+    of every world (``PallasInputs``)."""
     dtype = torch.float32
-    n = lat.shape[0]
+    lead = lat.shape[:-1]
+    n = lat.shape[-1]
     block = 128 if n <= 128 else min(block, 256, 1 << (n - 1).bit_length())
     nb = -(-n // block)
     npad = nb * block - n
 
     def pad(a):
         a = a.to(dtype)
-        return a if npad == 0 else torch.cat([a, a.new_zeros(npad)])
+        return a if npad == 0 else torch.cat([a, a.new_zeros(*lead, npad)],
+                                             -1)
 
     gs32 = gs.to(dtype)
     trkrad = geo.radians(trk.to(dtype))
@@ -826,15 +867,16 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
         "tr": pad(tr_row(gs32, extra_cols, reso)),
         "active": pad(active), "noreso": pad(noreso)})
     packed = torch.stack([fields[k] for k in _FIELDS]).reshape(
-        _NF, nb, block).transpose(0, 1).contiguous()
+        _NF, -1, block).transpose(0, 1).contiguous()
     act = fields["active"] > 0.5
     reach = block_reachability(
         fields["lat"], fields["lon"], pad(gs), act, nb, block, float(rpz),
         float(tlookahead),
         min_reach_m=cr_swarm.R_SWARM if reso == "swarm" else 0.0)
-    return PallasInputs(packed=packed, reach=reach, lat=fields["lat"],
-                        lon=fields["lon"], gs=pad(gs), active=act, n=n,
-                        nb=nb, block=block, reso=reso)
+    return PallasInputs(packed=packed, reach=reach.reshape(-1, nb),
+                        lat=fields["lat"], lon=fields["lon"], gs=pad(gs),
+                        active=act, n=n, nb=nb, block=block, reso=reso,
+                        worlds=int(np.prod(lead, dtype=np.int64)))
 
 
 def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK):
@@ -844,10 +886,14 @@ def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK):
     row blocks the candidate pass plus the full grid over its overflow
     rows, merged row-disjointly.  The full grid is launched on ``reach &
     row_over`` whether or not a row overflowed, so nothing waits for the
-    device.  Returns the outputs in kernel layout."""
+    device.  Returns the outputs in kernel layout.  A stack of worlds
+    runs the full grid, one launch for all of them (candidate mode takes
+    one world)."""
     c_cap = -(-cand_cap // x.block) * x.block if cand_cap else 0
     if not (x.nb >= 8 and 0 < c_cap < x.nb * x.block):
         return full_grid(x.packed, x.reach, p, reso=x.reso, kk=kk)
+    if x.worlds > 1:
+        raise ValueError("candidate mode (cand_cap > 0) takes one world")
     cand, row_over = build_candidates(
         x.lat, x.lon, x.gs, x.active, x.nb, x.block, c_cap, p.rpz,
         p.tlookahead)
@@ -874,7 +920,12 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     ``extra_cols`` its ``tas`` (Eby) or ``cas`` (Swarm) column.  The
     partner candidates are the ``min(k_partners, block)`` most urgent;
     the CUDA kernels take 8 only and raise for another width.  The mesh
-    branch is not ported."""
+    branch is not ported.
+
+    Columns with a leading world axis [W, N] (and ``perm`` [W, N]) run W
+    worlds in one pass, each kernel launched once for the stack; the
+    result has the leading axis too (``nconf``/``nlos`` [W]), with
+    world-local partner ids."""
     if reso == "swarm" and cand_cap:
         raise ValueError("cand_cap mixed mode does not carry the swarm "
                          "neighbour sums; use cand_cap=0 with RESO SWARM")
@@ -885,7 +936,7 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
             rpz, hpz, tlookahead, mvpcfg)
     kw = dict(block=block, k_partners=k_partners, cand_cap=cand_cap,
               reso=reso)
-    if lat.shape[0] > block:
+    if lat.shape[-1] > block:
         return cd_tiled.run_spatially_sorted(
             _detect_resolve_sorted, *args, perm=perm, extra_cols=extra_cols,
             **kw)
@@ -897,8 +948,10 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                            block, k_partners, cand_cap, reso,
                            extra_cols=None):
     """``detect_resolve_pallas`` on columns already in the slot order the
-    pass runs in; ``topk_idx`` holds slots of that order."""
-    n = lat.shape[0]
+    pass runs in; ``topk_idx`` holds slots of that order (of its own
+    world, for a stack of worlds)."""
+    lead = lat.shape[:-1]
+    n = lat.shape[-1]
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                 noreso, rpz, tlookahead, block=block, extra_cols=extra_cols,
                 reso=reso)
@@ -908,9 +961,12 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
      ctin, cidx) = outs[:10]
     nt = x.nb * x.block
-    unb = lambda a: a.reshape(nt)[:n]
-    topk_tin = ctin.transpose(1, 2).reshape(nt, kk)[:n]
-    topk_idx = cidx.transpose(1, 2).reshape(nt, kk)[:n]
+    unb = lambda a: a.reshape(*lead, nt)[..., :n]
+    topk_tin = ctin.transpose(1, 2).reshape(*lead, nt, kk)[..., :n, :]
+    topk_idx = cidx.transpose(1, 2).reshape(*lead, nt, kk)[..., :n, :]
+    if lead:        # the kernels' slot ids are global: back to the world's
+        off = torch.arange(x.worlds, device=cidx.device, dtype=torch.int32)
+        topk_idx = topk_idx - (off * nt).reshape(*lead, 1, 1)
     topk_idx = torch.where(topk_tin < _BIG, topk_idx,
                            torch.full_like(topk_idx, -1))
     rd = RowConflictData(
@@ -919,8 +975,10 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
         tsolv=unb(tsolv),
         # per-block float counts cast to int32 before summing: an f32
         # total loses exactness past 2^24 pairs
-        nconf=ncnt.to(torch.int32).sum(dtype=torch.int32),
-        nlos=lcnt.to(torch.int32).sum(dtype=torch.int32),
+        nconf=ncnt.to(torch.int32).reshape(*lead, -1).sum(-1,
+                                                           dtype=torch.int32),
+        nlos=lcnt.to(torch.int32).reshape(*lead, -1).sum(-1,
+                                                         dtype=torch.int32),
         topk_idx=topk_idx, topk_tin=topk_tin)
     if reso == "swarm":
         return rd, tuple(unb(a) for a in outs[10:10 + N_SWARM])

@@ -133,6 +133,32 @@ def spatial_permutation(lat, lon, active):
     return torch.argsort(key, stable=True)
 
 
+def take(a, idx):
+    """``a[..., idx]`` row by row: ``a`` [..., n] gathered by ``idx``
+    [..., m] along the last axis (``a[idx]`` for one world)."""
+    return a[idx] if a.ndim == 1 else torch.gather(a, -1, idx)
+
+
+def take_ids(a, ids):
+    """``a[..., ids]`` for an id table ``ids`` [..., n, K] and a lookup
+    ``a`` [..., m], per world."""
+    return take(a, ids.reshape(*ids.shape[:-2], -1)).reshape(ids.shape)
+
+
+def take_rows(a, idx):
+    """The rows ``idx`` [..., m] of ``a`` [..., n, k], per world."""
+    if a.ndim == 2:
+        return a[idx]
+    return torch.gather(a, -2, idx[..., None].expand(*idx.shape, a.shape[-1]))
+
+
+def invert(perm):
+    """The inverse of a permutation ``perm`` [..., n] (per world), by
+    scatter: an O(N) store instead of a second sort."""
+    ar = torch.arange(perm.shape[-1], device=perm.device).expand_as(perm)
+    return torch.empty_like(perm).scatter_(-1, perm, ar)
+
+
 def run_spatially_sorted(kernel, lat, lon, trk, gs, alt, vs, gseast,
                          gsnorth, active, noreso, *args, perm=None,
                          extra_cols=None, **kw):
@@ -143,14 +169,13 @@ def run_spatially_sorted(kernel, lat, lon, trk, gs, alt, vs, gseast,
     permuted too; a ``(rd, swarm_sums)`` result maps its sums back as
     rows.  ``perm`` [N] (sorted position -> caller slot) may be a stale
     cached permutation: any permutation is exact, since the
-    reachability is recomputed from the true positions."""
+    reachability is recomputed from the true positions.  Columns with a
+    leading world axis [W, N] sort each world by its own ``perm``."""
     if perm is None:
         perm = spatial_permutation(lat, lon, active)
     perm = perm.long()
-    # invert by scatter, an O(N) store instead of a second sort
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-    g = lambda a: a[perm]
+    inv = invert(perm)
+    g = lambda a: take(a, perm)
     if extra_cols:
         kw = dict(kw, extra_cols={k: g(v) for k, v in extra_cols.items()})
     rd = kernel(g(lat), g(lon), g(trk), g(gs), g(alt), g(vs), g(gseast),
@@ -158,16 +183,18 @@ def run_spatially_sorted(kernel, lat, lon, trk, gs, alt, vs, gseast,
     extra = None
     if not isinstance(rd, RowConflictData):        # (rd, swarm_sums)
         rd, extra = rd
-    back = lambda a: a[inv]
-    topk_idx = torch.where(
-        rd.topk_idx >= 0, perm[torch.clamp_min(rd.topk_idx, 0).long()]
-        .to(torch.int32), torch.full_like(rd.topk_idx, -1))
+    back = lambda a: take(a, inv)
+    idx = torch.clamp_min(rd.topk_idx, 0).long()
+    topk_idx = torch.where(rd.topk_idx >= 0,
+                           take_ids(perm, idx).to(torch.int32),
+                           torch.full_like(rd.topk_idx, -1))
     rd = RowConflictData(
         inconf=back(rd.inconf), tcpamax=back(rd.tcpamax),
         sum_dve=back(rd.sum_dve), sum_dvn=back(rd.sum_dvn),
         sum_dvv=back(rd.sum_dvv), tsolv=back(rd.tsolv),
         nconf=rd.nconf, nlos=rd.nlos,
-        topk_idx=back(topk_idx), topk_tin=back(rd.topk_tin))
+        topk_idx=take_rows(topk_idx, inv),
+        topk_tin=take_rows(rd.topk_tin, inv))
     if extra is not None:
         return rd, tuple(back(a) for a in extra)
     return rd
@@ -217,61 +244,63 @@ def merge_partners(new_idx, old_idx, old_keep):
 
 
 def block_summaries(lat, lon, gs, active, nb, block, alt=None, vs=None):
-    """Per-block active-aircraft summaries the reachability bound reads."""
-    shape = (nb, block)
+    """Per-block active-aircraft summaries the reachability bound reads
+    (a leading world axis gives [W, nb] summaries)."""
+    shape = (*lat.shape[:-1], nb, block)
     blat, blon, bgs = lat.reshape(shape), lon.reshape(shape), gs.reshape(shape)
     act = active.reshape(shape)
     inf = torch.full((), float("inf"), dtype=lat.dtype, device=lat.device)
     zero = torch.zeros((), dtype=lat.dtype, device=lat.device)
     out = dict(
-        latmin=torch.where(act, blat, inf).amin(1),
-        latmax=torch.where(act, blat, -inf).amax(1),
-        lonmin=torch.where(act, blon, inf).amin(1),
-        lonmax=torch.where(act, blon, -inf).amax(1),
-        gsmax=torch.where(act, bgs, zero).amax(1))
+        latmin=torch.where(act, blat, inf).amin(-1),
+        latmax=torch.where(act, blat, -inf).amax(-1),
+        lonmin=torch.where(act, blon, inf).amin(-1),
+        lonmax=torch.where(act, blon, -inf).amax(-1),
+        gsmax=torch.where(act, bgs, zero).amax(-1))
     if alt is not None:
         balt = alt.reshape(shape)
         bvs = torch.abs(vs.reshape(shape))
-        out.update(altmin=torch.where(act, balt, inf).amin(1),
-                   altmax=torch.where(act, balt, -inf).amax(1),
-                   vsmax=torch.where(act, bvs, zero).amax(1))
+        out.update(altmin=torch.where(act, balt, inf).amin(-1),
+                   altmax=torch.where(act, balt, -inf).amax(-1),
+                   vsmax=torch.where(act, bvs, zero).amax(-1))
     return out
 
 
 def reachability_from_summaries(row, col, rpz, tlookahead, hpz=None,
                                 min_reach_m=0.0, min_vreach_m=0.0):
-    """[nbr, nbc] bool reachability between two summary sets."""
+    """[nbr, nbc] bool reachability between two summary sets ([W, nbr,
+    nbc] for summaries with a leading world axis)."""
+    r = lambda x: x[..., :, None]          # row summaries down the rows
+    c = lambda x: x[..., None, :]          # column summaries across
     latmin_r, latmax_r = row["latmin"], row["latmax"]
     latmin_c, latmax_c = col["latmin"], col["latmax"]
     maxabslat_r = torch.maximum(torch.abs(latmin_r), torch.abs(latmax_r))
     maxabslat_c = torch.maximum(torch.abs(latmin_c), torch.abs(latmax_c))
     dlat_gap = torch.clamp_min(torch.maximum(
-        latmin_r[:, None] - latmax_c[None, :],
-        latmin_c[None, :] - latmax_r[:, None]), 0.0)
+        r(latmin_r) - c(latmax_c), c(latmin_c) - r(latmax_r)), 0.0)
     lin_gap = torch.clamp_min(torch.maximum(
-        row["lonmin"][:, None] - col["lonmax"][None, :],
-        col["lonmin"][None, :] - row["lonmax"][:, None]), 0.0)
+        r(row["lonmin"]) - c(col["lonmax"]),
+        c(col["lonmin"]) - r(row["lonmax"])), 0.0)
     wrap_gap = torch.clamp_min(360.0 - (
-        torch.maximum(row["lonmax"][:, None], col["lonmax"][None, :])
-        - torch.minimum(row["lonmin"][:, None], col["lonmin"][None, :])), 0.0)
+        torch.maximum(r(row["lonmax"]), c(col["lonmax"]))
+        - torch.minimum(r(row["lonmin"]), c(col["lonmin"]))), 0.0)
     dlon_gap = torch.minimum(lin_gap, wrap_gap)
     cos_lb = torch.cos(geo.radians(torch.clamp_max(
-        torch.maximum(maxabslat_r[:, None], maxabslat_c[None, :]), 90.0)))
+        torch.maximum(r(maxabslat_r), c(maxabslat_c)), 90.0)))
     r_min = 6335000.0
     zonal = 2.0 * r_min * torch.asin(torch.clamp(
         cos_lb * torch.sin(geo.radians(0.5 * torch.clamp_max(dlon_gap, 360.0))),
         0.0, 1.0))
     merid = dlat_gap * 110000.0
     dist_lb = torch.maximum(merid, zonal)
-    thresh = rpz + tlookahead * (row["gsmax"][:, None] + col["gsmax"][None, :])
+    thresh = rpz + tlookahead * (r(row["gsmax"]) + c(col["gsmax"]))
     thresh = torch.clamp_min(thresh, min_reach_m)
     reach = dist_lb <= thresh * 1.05
     if hpz is not None and "altmin" in row:
         altgap = torch.clamp_min(torch.maximum(
-            row["altmin"][:, None] - col["altmax"][None, :],
-            col["altmin"][None, :] - row["altmax"][:, None]), 0.0)
-        vthresh = hpz + tlookahead * (row["vsmax"][:, None]
-                                      + col["vsmax"][None, :])
+            r(row["altmin"]) - c(col["altmax"]),
+            c(col["altmin"]) - r(row["altmax"])), 0.0)
+        vthresh = hpz + tlookahead * (r(row["vsmax"]) + c(col["vsmax"]))
         vthresh = torch.clamp_min(vthresh, min_vreach_m)
         reach = reach & (altgap <= vthresh * 1.05)
     return reach
@@ -283,7 +312,8 @@ def block_reachability(lat, lon, gs, active, nb, block, rpz, tlookahead,
     """[nb, nb] bool: which block pairs can possibly contain a conflict
     or LoS (the exact horizontal and vertical skip bounds), or, with
     ``min_reach_m`` / ``min_vreach_m``, a pair that near (the Swarm
-    neighbourhood)."""
+    neighbourhood).  Columns with a leading world axis [W, nb * block]
+    give each world's [W, nb, nb]."""
     summ = block_summaries(lat, lon, gs, active, nb, block, alt=alt, vs=vs)
     return reachability_from_summaries(summ, summ, rpz, tlookahead,
                                        hpz=hpz if alt is not None else None,

@@ -112,21 +112,23 @@ def resolve(cd, alt, vs, trk, tas, rpz_m, vmin, vmax):
     trkrad = geo.radians(trk)
     ve = tas * torch.sin(trkrad)
     vn = tas * torch.cos(trkrad)
-    n = alt.shape[0]
+    n = alt.shape[-1]
     zero = torch.zeros((), dtype=alt.dtype, device=alt.device)
     sums = []
     for s0 in range(0, n, ROWS):
         r = slice(s0, min(s0 + ROWS, n))
-        qdrrad = geo.radians(cd.qdr[r])
-        dist = cd.dist[r]
+        qdrrad = geo.radians(cd.qdr[..., r, :])
+        dist = cd.dist[..., r, :]
         dve_p, dvn_p, dvv_p = pair_contrib(
             dist * torch.sin(qdrrad), dist * torch.cos(qdrrad),
-            alt[None, :] - alt[r, None], ve[None, :] - ve[r, None],
-            vn[None, :] - vn[r, None], vs[None, :] - vs[r, None], rpz_m)
+            alt[..., None, :] - alt[..., r, None],
+            ve[..., None, :] - ve[..., r, None],
+            vn[..., None, :] - vn[..., r, None],
+            vs[..., None, :] - vs[..., r, None], rpz_m)
         # a masked pair adds 0, even where its displacement is not finite
-        m = cd.swconfl[r]
-        sums.append(torch.stack([torch.where(m, d, zero).sum(1)
+        m = cd.swconfl[..., r, :]
+        sums.append(torch.stack([torch.where(m, d, zero).sum(-1)
                                  for d in (dve_p, dvn_p, dvv_p)]))
-    sum_dve, sum_dvn, sum_dvv = torch.cat(sums, 1)
+    sum_dve, sum_dvn, sum_dvv = torch.cat(sums, -1)
     return resolve_from_sums(sum_dve, sum_dvn, sum_dvv, alt, vs, trk, tas,
                              vmin, vmax)

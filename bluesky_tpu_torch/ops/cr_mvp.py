@@ -38,10 +38,10 @@ def pair_contributions(cd, alt, gseast, gsnorth, vs, cfg):
     ``cd.swconfl`` is False."""
     return pair_contrib_core(
         cd.qdr, cd.dist, cd.tcpa, cd.tinconf,
-        alt[None, :] - alt[:, None],
-        gseast[None, :] - gseast[:, None],
-        gsnorth[None, :] - gsnorth[:, None],
-        vs[None, :] - vs[:, None], cfg)
+        alt[..., None, :] - alt[..., :, None],
+        gseast[..., None, :] - gseast[..., :, None],
+        gsnorth[..., None, :] - gsnorth[..., :, None],
+        vs[..., None, :] - vs[..., :, None], cfg)
 
 
 def pair_contrib_core(qdr_deg, dist, tcpa, tlos, drel_v, vrel_e, vrel_n,
@@ -149,20 +149,21 @@ def resolve(cd, alt, gseast, gsnorth, vs, trk, gs, selalt, ap_vs, prev_alt,
         cd, alt, gseast, gsnorth, vs, cfg)
     mask = cd.swconfl
     if noreso is not None:
-        mask = mask & ~noreso[None, :]
+        mask = mask & ~noreso[..., None, :]
     maskf = mask.to(dve_p.dtype)
     vmaskf = maskf
     if cfg.swprio and cfg.priocode != "FF1":
         cruise = torch.abs(vs) < 0.1        # cruising: |vs| < 0.1 m/s
-        ci = cruise[:, None]
-        apply, vapply = _prio_masks(cfg.priocode, ci, ci ^ cruise[None, :])
+        ci = cruise[..., :, None]
+        apply, vapply = _prio_masks(cfg.priocode, ci,
+                                    ci ^ cruise[..., None, :])
         maskf = maskf * apply
         vmaskf = maskf * vapply
 
-    sum_dve = (dve_p * maskf).sum(1)
-    sum_dvn = (dvn_p * maskf).sum(1)
-    sum_dvv = (dvv_p * vmaskf).sum(1)
-    tsolv = torch.where(mask, tsolv_p, torch.full_like(tsolv_p, 1e9)).amin(1)
+    sum_dve = (dve_p * maskf).sum(-1)
+    sum_dvn = (dvn_p * maskf).sum(-1)
+    sum_dvv = (dvv_p * vmaskf).sum(-1)
+    tsolv = torch.where(mask, tsolv_p, torch.full_like(tsolv_p, 1e9)).amin(-1)
     return resolve_from_sums(
         sum_dve, sum_dvn, sum_dvv, tsolv, alt, gseast, gsnorth, vs, trk, gs,
         selalt, ap_vs, prev_alt, vmin, vmax, vsmin, vsmax, cfg,
@@ -250,12 +251,12 @@ def resume_nav(resopairs, lat, lon, gseast, gsnorth, trk, active_ac, rpz,
     holds.  Returns (new_resopairs, asas_active), ``asas_active[i]`` =
     any pair (i, j) still engaged.  (The JAX function's unused ``swlos``
     argument is dropped.)"""
-    dist_e, dist_n = resume_displacement(lat[:, None], lon[:, None],
-                                         lat[None, :], lon[None, :])
-    vrel_e = gseast[None, :] - gseast[:, None]
-    vrel_n = gsnorth[None, :] - gsnorth[:, None]
-    alive = active_ac[:, None] & active_ac[None, :]
-    keep = resume_keep_core(dist_e, dist_n, vrel_e, vrel_n, trk[:, None],
-                            trk[None, :], alive, rpz, rpz_m)
+    dist_e, dist_n = resume_displacement(lat[..., :, None], lon[..., :, None],
+                                         lat[..., None, :], lon[..., None, :])
+    vrel_e = gseast[..., None, :] - gseast[..., :, None]
+    vrel_n = gsnorth[..., None, :] - gsnorth[..., :, None]
+    alive = active_ac[..., :, None] & active_ac[..., None, :]
+    keep = resume_keep_core(dist_e, dist_n, vrel_e, vrel_n, trk[..., :, None],
+                            trk[..., None, :], alive, rpz, rpz_m)
     new_resopairs = resopairs & keep
-    return new_resopairs, new_resopairs.any(1)
+    return new_resopairs, new_resopairs.any(-1)

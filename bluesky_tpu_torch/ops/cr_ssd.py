@@ -76,18 +76,19 @@ def _vo_masks(cve, cvn, dxm, dym, gseast, gsnorth, pairok, cfg):
     geometry, the intruder axis in slabs of ``cfg.chunk`` intruders, or
     fewer where an [N, C, chunk] slab would pass ``_SLAB_ELEMENTS`` (the
     reductions are exact, so the slab width changes no result).
-    ``cve/cvn`` [N, C].  Returns (anyconf [N, C], min_tin [N, C])."""
-    n, c = cve.shape
-    step = max(1, min(cfg.chunk, _SLAB_ELEMENTS // (n * c)))
+    ``cve/cvn`` [..., N, C], the geometry [..., N, N] (a leading world
+    axis broadcasts).  Returns (anyconf [..., N, C], min_tin)."""
+    n = cve.shape[-2]
+    step = max(1, min(cfg.chunk, _SLAB_ELEMENTS // cve.numel()))
     anyc = mint = None
     for s in range(0, n, step):
         e = min(s + step, n)
-        dx = dxm[:, None, s:e]
-        dy = dym[:, None, s:e]
-        wve = gseast[None, None, s:e] - cve[:, :, None]   # [N, C, chunk]
-        wvn = gsnorth[None, None, s:e] - cvn[:, :, None]
-        a, m = _reduce(*_vo_conf(wve, wvn, dx, dy, pairok[:, None, s:e],
-                                 cfg), 2)
+        dx = dxm[..., :, None, s:e]
+        dy = dym[..., :, None, s:e]
+        wve = gseast[..., None, None, s:e] - cve[..., :, :, None]
+        wvn = gsnorth[..., None, None, s:e] - cvn[..., :, :, None]
+        a, m = _reduce(*_vo_conf(wve, wvn, dx, dy, pairok[..., :, None, s:e],
+                                 cfg), -1)
         anyc = a if anyc is None else anyc | a
         mint = m if mint is None else torch.minimum(mint, m)
     return anyc, mint
@@ -210,30 +211,42 @@ def resolve(cd, lat, lon, alt, trk, gs, vs, gseast, gsnorth, active,
     """Resolution velocities of the in-conflict aircraft from the dense
     [N, N] matrices of ``cd``; the others keep trk/gs.  ``hdg``,
     ``ap_trk`` and ``ap_tas`` (default trk, trk, gs) feed the heading-
-    and autopilot-referenced rules.  Returns (newtrk, newgs)."""
-    n = lat.shape[0]
+    and autopilot-referenced rules.  A leading world axis ([W, N]
+    columns, [W, N, N] matrices) runs the per-aircraft candidate grid
+    and pick on the W * N aircraft at once.  Returns (newtrk, newgs)."""
+    shape = lat.shape
+    n = shape[-1]
     rule = cfg.priocode.upper()
     hdg, ap_tas, ap_ve, ap_vn = _ap_velocity(trk, gs, hdg, ap_trk, ap_tas)
-    cve, cvn, ctrk = _candidate_grid(n, rule, cfg, gs.dtype, hdg, ap_tas,
-                                     ap_ve, ap_vn, gseast, gsnorth, vmin,
-                                     vmax)
+    flat = lambda a: a.reshape(-1, *a.shape[len(shape):])
+    cve, cvn, ctrk = _candidate_grid(flat(lat).shape[0], rule, cfg,
+                                     gs.dtype, flat(hdg), flat(ap_tas),
+                                     flat(ap_ve), flat(ap_vn), flat(gseast),
+                                     flat(gsnorth), vmin, vmax)
+    grid = lambda a: a.reshape(*shape, a.shape[-1])
     qdrrad = geo.radians(cd.qdr)
     dxm = cd.dist * torch.sin(qdrrad)
     dym = cd.dist * torch.cos(qdrrad)
     eye = torch.eye(n, dtype=torch.bool, device=lat.device)
     # only intruders within ADS-B range are seen (SSD.py:110)
-    pairok = (active[:, None] & active[None, :] & ~eye
+    pairok = (active[..., :, None] & active[..., None, :] & ~eye
               & (cd.dist < ADSB_MAX))
     if rule == "RS6":
-        pairok = pairok & _must_avoid(cd.qdr, hdg[:, None], hdg[None, :])
-    anyconf, min_tin = _vo_masks(cve, cvn, dxm, dym, gseast, gsnorth,
-                                 pairok, cfg)
-    near = lambda: _vo_masks(cve, cvn, dxm, dym, gseast, gsnorth,
-                             pairok & (cd.dist < ADSB_MAX / 2.0), cfg)
-    btrk, bspd = _select_best(rule, cve, cvn, ctrk, hdg, ~anyconf, min_tin,
-                              near, ap_ve, ap_vn, gseast, gsnorth)
-    return (torch.where(cd.inconf, btrk, trk),
-            torch.where(cd.inconf, bspd, gs))
+        pairok = pairok & _must_avoid(cd.qdr, hdg[..., :, None],
+                                      hdg[..., None, :])
+
+    def masks(ok):
+        anyc, mint = _vo_masks(grid(cve), grid(cvn), dxm, dym, gseast,
+                               gsnorth, ok, cfg)
+        return flat(anyc), flat(mint)
+
+    anyconf, min_tin = masks(pairok)
+    near = lambda: masks(pairok & (cd.dist < ADSB_MAX / 2.0))
+    btrk, bspd = _select_best(rule, cve, cvn, ctrk, flat(hdg), ~anyconf,
+                              min_tin, near, flat(ap_ve), flat(ap_vn),
+                              flat(gseast), flat(gsnorth))
+    return (torch.where(cd.inconf, btrk.reshape(shape), trk),
+            torch.where(cd.inconf, bspd.reshape(shape), gs))
 
 
 def _vo_masks_pairs(cve, cvn, dx, dy, vje, vjn, ok, cfg, chunk=16):

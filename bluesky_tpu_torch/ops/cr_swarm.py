@@ -23,9 +23,9 @@ WEIGHTS = (10.0, 3.0, 1.0)   # CA / alignment / centering
 
 def _wavg(x, w):
     """Row-wise weighted average with an all-zero-row guard."""
-    den = w.sum(1)
+    den = w.sum(-1)
     den = torch.where(den == 0.0, torch.ones_like(den), den)
-    return (x * w).sum(1) / den
+    return (x * w).sum(-1) / den
 
 
 def wrap_track(dtrk):
@@ -110,30 +110,30 @@ def resolve(cd, lat, lon, alt, trk, gs, cas, vs, gseast, gsnorth, active,
     output ``mvp_*`` with its ASAS-active flags (Swarm runs MVP first,
     Swarm.py:68), the autopilot commands for the others, the speed caps.
     Returns (newtrk, newtas, newvs, newalt) for every aircraft."""
-    n = lat.shape[0]
+    n = lat.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=lat.device)
     qdrrad = geo.radians(cd.qdr)
     dx = cd.dist * torch.sin(qdrrad)
     dy = cd.dist * torch.cos(qdrrad)
-    dalt = alt[:, None] - alt[None, :]
-    pairok = active[:, None] & active[None, :] & ~eye
-    dtrk = wrap_track(trk[None, :] - trk[:, None])
+    dalt = alt[..., :, None] - alt[..., None, :]
+    pairok = active[..., :, None] & active[..., None, :] & ~eye
+    dtrk = wrap_track(trk[..., None, :] - trk[..., :, None])
     w = (pair_weight(dx, dy, dalt, dtrk, pairok)
-         | (eye & active[:, None])).to(gs.dtype)
+         | (eye & active[..., :, None])).to(gs.dtype)
 
     ca = (torch.where(mvp_active, mvp_trk, ap_trk),
           torch.where(mvp_active, mvp_tas, selspd),
           torch.where(mvp_active, mvp_vs, selvs))
 
-    va_cas = _wavg(cas[None, :].expand(n, n), w)
-    va_vs = _wavg(vs[None, :].expand(n, n), w)
+    va_cas = _wavg(cas[..., None, :].expand_as(w), w)
+    va_vs = _wavg(vs[..., None, :].expand_as(w), w)
     va_trk = trk + _wavg(dtrk, w)
 
-    dxflock = torch.where(eye, (gseast / 100.0)[:, None], dx)
-    dyflock = torch.where(eye, (gsnorth / 100.0)[:, None], dy)
+    dxflock = torch.where(eye, (gseast / 100.0)[..., :, None], dx)
+    dyflock = torch.where(eye, (gsnorth / 100.0)[..., :, None], dy)
     fc_dx = _wavg(dxflock, w)
     fc_dy = _wavg(dyflock, w)
-    fc_dz = _wavg(alt[None, :].expand(n, n), w) - alt
+    fc_dz = _wavg(alt[..., None, :].expand_as(w), w) - alt
     fc_trk, fc_vs = _centering(fc_dx, fc_dy, fc_dz, cas)
     return _blend(ca, (va_trk, va_cas, va_vs), (fc_trk, cas, fc_vs),
                   vmin, vmax)

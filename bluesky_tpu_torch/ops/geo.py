@@ -100,8 +100,8 @@ def qdrdist_matrix(latd1, lond1, latd2, lond2):
     """All-pairs bearing [deg] / distance [nm], row i from pos1[i], column
     j to pos2[j] (reference geo.py:110-162, with its radius-at-sum
     quirk).  Inputs are 1-D; outputs [len(pos1), len(pos2)]."""
-    latd1, lond1 = latd1[:, None], lond1[:, None]
-    latd2, lond2 = latd2[None, :], lond2[None, :]
+    latd1, lond1 = latd1[..., :, None], lond1[..., :, None]
+    latd2, lond2 = latd2[..., None, :], lond2[..., None, :]
     r = _mean_radius_matrix(latd1, latd2)
     qdr, d = _haversine_qdr_dist(latd1, lond1, latd2, lond2, r)
     return qdr, d / nm

@@ -43,3 +43,10 @@ inscan_refresh = False            # in-chunk sparse sort refresh
                                   # (SORTREFRESH)
 fingerprint = False               # in-chunk state fingerprint
                                   # (FINGERPRINT)
+
+# ----- multi-world serving (simulation/worlds.py)
+world_pack = False                # pack compatible BATCH pieces into
+                                  # world-batches: one worker steps W
+                                  # scenarios per device dispatch
+                                  # (WORLDS stack command at runtime)
+world_batch_max = 8               # max pieces per world-batch dispatch

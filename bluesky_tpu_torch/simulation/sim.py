@@ -26,11 +26,16 @@ The host clocks of the port's state (``simt``, ``fms_t0``,
 ``asas_tnext``) are host scalars, so reading ``simt`` never waits for
 the device.
 
+A sim may be one world of a packed batch (``simulation/worlds.py``,
+``WorldBatch``): its ``world_tag`` goes into its log names (through its
+tagged ``LogRegistry``) and onto its trace spans, and the batch steps it
+through ``_plan_chunk`` and ``_apply_chunk_result`` around one stacked
+dispatch for every compatible world.
+
 Not ported here, each with its ROADMAP item: the shard and mesh modes
 (``set_shard``, the spatial refresh, mesh-epoch recovery; A9),
 ``optimize_trajectories`` (A8), the device-profiling hooks and plugins
-(A10), autosave, preemption and the network node (A6b), and the
-multi-world identity (A7).
+(A10), autosave, preemption and the network node (A6b).
 """
 import datetime
 import time
@@ -283,7 +288,14 @@ class Simulation:
     def __init__(self, nmax: int = 1024, wmax: int = 32, dtype=None,
                  openap_path: Optional[str] = None, rng_seed: int = 0,
                  chunk_steps: Optional[int] = None,
-                 datalog_registry=None, device=None):
+                 datalog_registry=None, device=None, world_tag: str = ""):
+        # Multi-world identity (simulation/worlds.py): a non-empty tag
+        # marks this sim as one world of a packed batch; it labels the
+        # sim's trace spans (its log names carry it through its tagged
+        # LogRegistry).  host_tag names the owning worker for on-disk
+        # names (set by the batch runner).
+        self.world_tag = str(world_tag)
+        self.host_tag = ""
         self.traf = Traffic(nmax=nmax, wmax=wmax,
                             dtype=dtype or torch.float32,
                             openap_path=openap_path, rng_seed=rng_seed,
@@ -892,7 +904,8 @@ class Simulation:
             self.obs.get("sim_dispatch_gap_ms").observe(
                 (t0 - self._last_dispatch_end) * 1e3)
         seq = self._next_seq()
-        with rec.span("chunk_dispatch", seq=seq, chunk=chunk, simt=simt):
+        with rec.span("chunk_dispatch", seq=seq, chunk=chunk, simt=simt,
+                      world=self.world_tag):
             state = self._pre_dispatch_refresh(state, simt)
             from ..core.step import run_steps_edge, run_steps_edge_keep
             runner = run_steps_edge_keep if keep else run_steps_edge
@@ -941,7 +954,8 @@ class Simulation:
                     or self._sort_backend != self.cfg.cd_backend):
                 t0 = time.perf_counter()
                 with self.recorder.span("sort_refresh",
-                                        backend=self.cfg.cd_backend):
+                                        backend=self.cfg.cd_backend,
+                                        world=self.world_tag):
                     from ..core.asas import impl_for_backend, \
                         refresh_spatial_sort
                     state = refresh_spatial_sort(

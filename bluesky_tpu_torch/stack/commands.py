@@ -33,9 +33,6 @@ DEFERRED = {
             "Gradient-based trajectory optimization"),
     "GRAD": ("A8", "GRAD [tend]",
              "One checked value_and_grad of the soft-LoS+fuel objective"),
-    "BATCH": ("A7", "BATCH filename",
-              "Start a scenario file as batch simulation"),
-    "WORLDS": ("A7", "WORLDS [ON/OFF | MAX n]", "Multi-world BATCH packing"),
     "PROFILE": ("A10", "PROFILE START [dir]/STOP/KERNELS [nsteps]/DEEP/"
                 "DEVICE [n] [dir]/TRACE [ON/OFF/DUMP]",
                 "Trace capture, per-kernel timings, device-trace windows "
@@ -1047,6 +1044,44 @@ def register_all(stack):
         return True, (f"Chunk set to {n} steps "
                       f"(={n * sim.simdt:.2f} s sim){note}")
 
+    def batchcmd(fname):
+        """BATCH scenario: farmed out by a server; a headless sim has
+        none (the network half is ROADMAP A6b)."""
+        fn = getattr(sim, "batch", None)
+        if fn is None:
+            return True, "BATCH: no server attached (headless sim)"
+        return fn(fname)
+
+    def worldscmd(arg=None, val=None):
+        """WORLDS [ON/OFF | MAX n]: multi-world BATCH packing, pieces
+        packed into world-batches stepped as one stacked dispatch
+        (``simulation/worlds.py``).  On a detached sim bare WORLDS reads
+        the local settings a server would inherit; ON/OFF and MAX n set
+        them."""
+        from .. import settings as _settings
+        if arg is None:
+            return True, (
+                f"detached sim: WORLDS packing "
+                f"{'ON' if getattr(_settings, 'world_pack', False) else 'OFF'}"
+                f", max {getattr(_settings, 'world_batch_max', 8)} "
+                "pieces/dispatch (settings.world_pack / "
+                "settings.world_batch_max; a server inherits these)")
+        a = str(arg).upper()
+        if a in ("ON", "OFF", "TRUE", "FALSE", "1", "0"):
+            on = a in ("ON", "TRUE", "1")
+            _settings.world_pack = on
+            return True, f"WORLDS packing {'ON' if on else 'OFF'}"
+        if a == "MAX":
+            try:
+                n = int(float(val))
+            except (TypeError, ValueError):
+                return False, "WORLDS MAX n: need an integer n >= 1"
+            if n < 1:
+                return False, f"WORLDS MAX: need n >= 1, got {n}"
+            _settings.world_batch_max = n
+            return True, f"WORLDS max {n} pieces/dispatch"
+        return False, "WORLDS [ON/OFF | MAX n]"
+
     def healthcmd():
         """HEALTH: the detached sim's local state (the serving fabric's
         health query needs the worker side of the network, ROADMAP
@@ -1434,6 +1469,11 @@ def register_all(stack):
         "TRACE": ["TRACE [ON/OFF/DUMP]", "[txt]", tracecmd,
                   "Flight recorder: bounded span ring dumped as "
                   "Perfetto trace JSON (readback bare)"],
+        "BATCH": ["BATCH filename", "string", batchcmd,
+                  "Start a scenario file as batch simulation"],
+        "WORLDS": ["WORLDS [ON/OFF | MAX n]", "[txt,txt]", worldscmd,
+                   "Multi-world BATCH packing: world-batch size + "
+                   "per-bucket packing on/off (readback bare)"],
         "HEALTH": ["HEALTH", "", healthcmd,
                    "Serving-fabric health: queue depth, worker "
                    "progress, hedges, drops"],

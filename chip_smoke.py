@@ -90,6 +90,25 @@ Phases, in order; any failure exits non-zero before the last line:
     CDMETHOD DENSE, SPARSE and PALLAS for two ASAS intervals each, held
     against each other after every interval (``compare_sims``), each
     interval's CD from the same inputs.
+11. worlds phase (``worlds_phase``): world-batched stepping.  Sparse and
+    pallas (MVP) on 256 worlds of 500 aircraft of the regional geometry
+    (world w from numpy seed w) in 512 slots each, sparse EBY on 16
+    worlds of 10,000 in 10,240 slots, dense on 16 worlds of 2,000 in
+    2,048: three chunks (sort refresh and 20 steps) of the stack through
+    ``run_steps_worlds_edge``, with the launch counts set to 0 just
+    before and read just after (each kernel once per ASAS interval for
+    the whole group, or the run fails), and the host syncs of a stacked
+    chunk (none, or the run fails); then the same chunks world by world
+    through ``run_steps_edge``, every world held to its solo run (flags,
+    counts and partner sets equal, floats within the float32 bounds,
+    bit-equality reported); ms per chunk, aggregate aircraft-steps/s,
+    launches per interval and peak memory of both.  The world-group
+    launches of K1 and K2 (sparse) and K3 (pallas) are held against their
+    plain versions on the stacked operands and timed with their bounds:
+    the ``/worlds`` entries of the kernels line.  Then 64 BATCH pieces of
+    500 aircraft (CRE lines from numpy seeds, CDMETHOD SPARSE, ASAS ON,
+    FF 60, the guard on) through ``WorldBatch.run()``, four of them held
+    to solo ``Simulation``s.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -614,8 +633,8 @@ def split_rows(items):
 def in_out_bytes(x, resume):
     """Bytes a pass must move at least: the slabs (and the partner table)
     read once, the outputs (with the Swarm sums in that form) written
-    once."""
-    nb, B = x.nb, x.block
+    once (every row block of a stack of worlds)."""
+    nb, B = x.packed.shape[0], x.block
     nacc = 8 + (7 if x.reso == "swarm" else 0)
     if resume:
         return ((x.packed.numel() + x.pold.numel()) * 4
@@ -625,15 +644,23 @@ def in_out_bytes(x, resume):
 
 def segment_tiles(x):
     """Row i's segment blocks of the sparse operands ``x`` (the tiles of
-    K1), as a function of i."""
+    K1), as a function of i; for a stack of worlds the blocks of row i's
+    world, as global block ids."""
     st = x.wst.cpu().numpy()
     ln = np.minimum(x.wln.cpu().numpy(), x.wmax)
 
     def tiles(i):
         t = np.concatenate([np.arange(b, b + k) for b, k in zip(st[i], ln[i])]
                            + [np.zeros(0, np.int64)])
-        return t[t < x.nb]
+        return t[t < x.nb] + i // x.nb * x.nb
     return tiles
+
+
+def reach_tiles(x, reach):
+    """Row i's blocks of a reach mask of the operands ``x`` ([rows, nb]),
+    as global block ids (a stack of worlds: those of row i's world)."""
+    rh = reach.cpu().numpy()
+    return lambda i: np.flatnonzero(rh[i]) + i // x.nb * x.nb
 
 
 def form_work(reso, outs, nfix):
@@ -659,7 +686,7 @@ def keep_pairs(x, tiles_of_row, ncnt):
     pold = x.pold.cpu().numpy()
     lane = np.arange(B)
     total = int(ncnt.double().sum())
-    for i in range(x.nb):
+    for i in range(x.packed.shape[0]):
         q = pold[i]
         ok = ((q >= 0) & act[i][None, :] & (q != i * B + lane)
               & np.isin(q // B, tiles_of_row(i)))
@@ -674,7 +701,7 @@ def active_pairs(x, tiles_of_row):
     act = (x.packed[:, _IDX["active"], :] > 0.5).sum(1).cpu().numpy() \
         .astype(np.int64)
     total = 0
-    for i in range(x.nb):
+    for i in range(x.packed.shape[0]):
         js = tiles_of_row(i)
         total += int(act[i] * act[js].sum() - act[i] * (js == i).sum())
     return total
@@ -719,19 +746,20 @@ def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse",
 
 
 def regional_scene(dev, n_ac=10_000, nmax=10_240, seed=0, cd_backend="dense",
-                   cd_block=512, reso_method="MVP", dtype=None):
+                   cd_block=512, reso_method="MVP", dtype=None,
+                   pair_matrix=True):
     """The dense path's scene: ``n_ac`` aircraft in the 230 nm regional
     circle of ``columns`` (the JAX ``cd_tiled.py`` docstring calls 10,000
     there ~3x the density of the busiest real airspace) in ``nmax``
-    slots, built with ``Traffic(pair_matrix=True)`` on ``dev`` (float32,
-    or ``dtype``), under ``SimConfig(cd_backend=cd_backend,
+    slots, built with ``Traffic(pair_matrix=pair_matrix)`` on ``dev``
+    (float32, or ``dtype``), under ``SimConfig(cd_backend=cd_backend,
     cd_block=cd_block)`` with the resolver ``reso_method``.  Returns
     ``(state, cfg)``."""
     import torch
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
     c = columns(n_ac, "regional", seed)
-    traf = Traffic(nmax=nmax, pair_matrix=True, device=dev,
+    traf = Traffic(nmax=nmax, pair_matrix=pair_matrix, device=dev,
                    dtype=dtype or torch.float32)
     traf.create(n_ac, "B744", c["alt"], c["gs"], None, c["lat"], c["lon"],
                 c["trk"])
@@ -837,13 +865,13 @@ def measure(name, r):
     returns the largest float difference, ms per launch, plain ms, bytes
     ms and operations ms."""
     import torch
-    err = check_split(f"{name} main path", r["kern"], r["plain"]())[0]
-    ms = cuda_ms(r["kern"], 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r["plain"]()
+    want = r["plain"]()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    err = check_split(f"{name} main path", r["kern"], want)[0]
+    ms = cuda_ms(r["kern"], 5)
     t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
     ops = (r["pairs"] * PAIR_FLOPS + r.get("keep", 0) * KEEP_FLOPS
            + r.get("eby", 0) * EBY_F32_FLOPS
@@ -869,10 +897,12 @@ def report_kernels(runs, launches, errs, regs):
     report = []
     for name, r in runs.items():
         err, ms, plain_ms, t_bytes, t_ops = measure(name, r)
-        errs[name] = max(errs[name], err)
+        errs[name] = max(errs.get(name, 0.0), err)
         log(f"{name}: {launches[name]} launches")
         kernel, _, reso = name.partition("/")
-        nreg, st, ld = regs.get(name, (None, None, None))
+        reso = r.get("reso", reso)
+        walker = form_name(kernel, reso or "mvp")
+        nreg, st, ld = regs.get(walker, (None, None, None))
         report.append(dict(
             name=name, route="cuda", source=KERNELS[kernel]["source"],
             replaces=KERNELS[kernel]["replaces"], launches=launches[name],
@@ -2109,6 +2139,366 @@ def sim_regional(dev):
     graph.clear()
 
 
+# ------------------------------------------------------------ worlds phase
+#: the worlds shapes: (worlds, aircraft a world, slots a world).  The
+#: MVP shape is the 256 x N=500 fleet of BENCH_WORLDS.json's projected
+#: headline (128k slots, about the main path's size), EBY an ensemble of
+#: sixteen national-airspace-sized scenarios (nb = 40 row blocks a world
+#: at block 256), dense the file's largest N.
+WORLDS_MVP = (256, 500, 512)
+WORLDS_EBY = (16, 10_000, 10_240)
+WORLDS_DENSE = (16, 2_000, 2_048)
+#: the world-axis forms of the kernels, by the kernel of each backend
+WORLD_KERNELS = {"sparse": ("cd_sched._sched_kernel",
+                            "cd_pallas._kernel_resume"),
+                 "pallas": ("cd_pallas._kernel",)}
+
+
+def world_scene(dev, worlds, n_ac, nmax, backend, reso="MVP"):
+    """``worlds`` worlds of ``regional_scene`` (world w from numpy seed
+    w), float32, ``Traffic(pair_matrix=backend == "dense")``, built on
+    the CPU (no launches) and stacked on ``dev``; the sort refresh is the
+    chunk's.  Returns ``(stacked state, cfg)``."""
+    from bluesky_tpu_torch.core import graph, step as stepmod
+    states = []
+    for w in range(worlds):
+        st, cfg = regional_scene("cpu", n_ac, nmax, seed=w,
+                                 cd_backend=backend, cd_block=256,
+                                 reso_method=reso,
+                                 pair_matrix=backend == "dense")
+        states.append(st)
+    ws = stepmod.stack_worlds(states)
+    return graph.rebuild(ws, iter([t.to(dev) for _, t in
+                                   graph.leaves(ws)])), cfg
+
+
+def world_chunk(state, cfg, backend, batched=True):
+    """One chunk of the worlds phase: the sort refresh (none for dense)
+    and ``CHUNK`` steps through ``run_steps_worlds_edge`` (a stacked
+    state) or ``run_steps_edge`` (one world)."""
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    if backend != "dense":
+        state = asas.refresh_spatial_sort(state, cfg.asas, block=256,
+                                          impl=asas.impl_for_backend(backend))
+    run = stepmod.run_steps_worlds_edge if batched else stepmod.run_steps_edge
+    return run(state, cfg, CHUNK)[0]
+
+
+def launches_per_interval(launches, intervals):
+    return {k: v / intervals for k, v in launches.items() if v}
+
+
+def compare_worlds(tag, got, want, backend):
+    """Hold each world of the stacked ``got`` against its solo run
+    ``want`` (stacked too): flags, counts and the pair state (the
+    partner tables as row sets) equal, floats within the float32 bounds
+    of PERF.md §2 (lat/lon 1e-5 deg, altitude 1e-2 m, the rest rtol 1e-4
+    / atol 1e-3).  Returns whether every tensor is bit-equal."""
+    import torch
+    from bluesky_tpu_torch.core import graph
+    same = True
+    for (k, a), (_, b) in zip(graph.leaves(got), graph.leaves(want)):
+        if bits_equal(a, b):
+            continue
+        same = False
+        if k in ("asas.partners_s.", "asas.partners."):
+            if not torch.equal(torch.sort(a, -1).values,
+                               torch.sort(b, -1).values):
+                raise AssertionError(f"{tag}: {k} partner sets differ")
+        elif not a.is_floating_point():
+            w = (a != b).reshape(a.shape[0], -1).any(1).nonzero()
+            raise AssertionError(f"{tag}: {k} differs in worlds "
+                                 f"{w.flatten()[:8].tolist()}")
+        else:
+            d = (a.double() - b.double()).abs()
+            if k.endswith(("trk.", "hdg.")):
+                d = torch.minimum(d, 360.0 - d)
+            rtol, atol = ((0.0, 1e-5) if k.endswith(("lat.", "lon."))
+                          else (0.0, 1e-2) if k.endswith("alt.")
+                          else (1e-4, 1e-3))
+            bad = (d > atol + rtol * b.double().abs()) \
+                & ~(a.isnan() & b.isnan())
+            if bool(bad.any()):
+                raise AssertionError(f"{tag}: {k} off by {float(d.max())}")
+    for k in ("simt", "fms_t0", "asas_tnext"):
+        if not np.array_equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"{tag}: host {k} differs")
+    return same
+
+
+def worlds_batched_vs_solo(dev, backend, shape, reso="MVP"):
+    """Phase 11, one shape: ``CHUNKS`` chunks of the stacked worlds through
+    ``run_steps_worlds_edge`` (counts set to 0 just before, read just
+    after), then the same chunks on the same worlds one at a time through
+    ``run_steps_edge``; every world held to its solo run
+    (``compare_worlds``); ms per chunk, aggregate aircraft-steps/s,
+    launches per ASAS interval, peak memory and host synchronisations of
+    a batched chunk.  Returns ``(stepped stack, cfg, batched launches)``."""
+    import torch
+    from bluesky_tpu_torch.core import graph, step as stepmod
+    worlds, n_ac, nmax = shape
+    tag = f"worlds {backend} {reso} {worlds} x {n_ac}"
+    t0 = time.perf_counter()
+    init, cfg = world_scene(dev, worlds, n_ac, nmax, backend, reso)
+    torch.cuda.synchronize()
+    log(f"{tag}: built in {time.perf_counter() - t0:.2f} s")
+    graph.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, ms = init, []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state = world_chunk(state, cfg, backend)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    intervals = 3
+    steps = worlds * n_ac * CHUNK
+    log(f"{tag} batched: ms per chunk {[round(m, 3) for m in ms]} (the "
+        f"first two capture), aircraft-steps/s of the third "
+        f"{steps / ms[-1] * 1e3:.4g}, kernel launches per ASAS interval "
+        f"{launches_per_interval(launches, intervals)}, peak memory "
+        f"{peak / 2**30:.3f} GiB, nconf {state.asas.nconf_cur.sum().item()}")
+    if not bool(stepmod.state_finite(state).all()):
+        raise AssertionError(f"{tag}: non-finite state")
+    if int(state.asas.nconf_cur.sum()) <= 0:
+        raise AssertionError(f"{tag}: no conflicts detected")
+    for k in WORLD_KERNELS.get(backend, ()):
+        name = form_name(k, {"MVP": "mvp", "EBY": "eby"}.get(reso, "mvp"))
+        if launches[name] != intervals:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times in {intervals} intervals, not "
+                                 "once per interval for the group")
+    done = state_copy(state)
+    graph.release(state)        # the sync count reuses the buffers
+    syncs = count_syncs(lambda: world_chunk(state_copy(done), cfg, backend))
+    log(f"{tag} batched: host syncs in a chunk {syncs}")
+    if syncs:
+        raise AssertionError(f"{tag}: {syncs} host syncs in a worlds chunk")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    solo = []
+    t0 = time.perf_counter()
+    for w in range(worlds):
+        s = stepmod.world_slice(init, w)
+        for _ in range(3):
+            s = world_chunk(s, cfg, backend, batched=False)
+        solo.append(state_copy(s))
+        graph.release(s)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo_launches = launch_counts()
+    solo_peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} solo loop: ms per chunk of all worlds "
+        f"{solo_s / 3 * 1e3:.4g} (captures included), aircraft-steps/s "
+        f"{steps * 3 / solo_s:.4g}, kernel launches per ASAS interval "
+        f"{launches_per_interval(solo_launches, intervals)}, peak memory "
+        f"{solo_peak / 2**30:.3f} GiB")
+    same = compare_worlds(tag, done, stepmod.stack_worlds(solo), backend)
+    log(f"{tag}: every world equals its solo run (flags, counts, partner "
+        f"sets; floats within the f32 bounds); bit-equal: {same}")
+    return done, cfg, launches
+
+
+def world_kernel_runs(state, cfg, backend):
+    """The world-group launches of phase 11's kernels on the operands of
+    the next interval of the stepped stack ``state``, for ``measure``:
+    K1 and K2 (sparse) or K3 (pallas, on the Morton-sorted columns)."""
+    import torch
+    from bluesky_tpu_torch.core import asas as asasmod
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled
+    ac, a, c = state.ac, state.asas, cfg.asas
+    mvp = asasmod._mvp_config(c)
+    cols = [ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+            ac.gsnorth, ac.active, a.noreso]
+    worlds, nmax = ac.lat.shape
+    if backend == "pallas":
+        perm = a.sort_perm.long()
+        x = cd_pallas.prepare(*[cd_tiled.take(t, perm) for t in cols],
+                              c.rpz, c.dtlookahead, block=256)
+        p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
+        tiles = reach_tiles(x, x.reach)
+        return {"cd_pallas._kernel/worlds": dict(
+            kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p, **kw),
+            plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p),
+            pairs=active_pairs(x, tiles),
+            bytes=in_out_bytes(x, False) + x.reach.numel(),
+            tiles=int(x.reach.sum()), reso="mvp",
+            extra=dict(worlds=worlds, slots=nmax, **item_extra(
+                "cd_pallas._kernel/worlds", x,
+                cd_pallas.reach_items(x.reach), p)))}
+    n_tot = cd_sched.padded_size(nmax, 256)
+    x = cd_sched.prepare(*cols, c.rpz, c.hpz, c.dtlookahead,
+                         a.partners_s[..., :n_tot, :], block=256,
+                         perm=a.sort_perm)
+    p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp,
+                              c.rpz * c.resofach)
+    reach_f = x.reach & x.overflow[:, None]
+    seg = segment_tiles(x)
+    over = reach_tiles(x, reach_f)
+    k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p,
+                              nbw=x.nb)
+    k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
+    ln = np.minimum(x.wln.cpu().numpy(), x.wmax)
+    log(f"worlds sparse operands: {x.packed.shape[0]} row blocks "
+        f"({worlds} worlds of {x.nb}), overflow rows "
+        f"{int(x.overflow.sum())}, scheduled tiles {int(ln.sum())}")
+    return {
+        "cd_sched._sched_kernel/worlds": dict(
+            kern=lambda **kw: cd_sched.sched_tiles(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p, nbw=x.nb, **kw),
+            plain=lambda: cd_sched.sched_tiles_plain(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p, nbw=x.nb),
+            pairs=active_pairs(x, seg), keep=keep_pairs(x, seg, k1[6]),
+            bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
+            tiles=int(ln.sum()), reso="mvp",
+            extra=dict(worlds=worlds, slots=nmax, **item_extra(
+                "cd_sched._sched_kernel/worlds", x,
+                cd_sched.window_items(x.wst, x.wln, x.wmax, x.nb), p,
+                pold=x.pold))),
+        "cd_pallas._kernel_resume/worlds": dict(
+            kern=lambda **kw: cd_pallas.full_grid_resume(
+                x.packed, reach_f, x.pold, p, **kw),
+            plain=lambda: cd_pallas.full_grid_resume_plain(
+                x.packed, reach_f, x.pold, p),
+            pairs=active_pairs(x, over), keep=keep_pairs(x, over, k2[6]),
+            bytes=in_out_bytes(x, True) + reach_f.numel(),
+            tiles=int(reach_f.sum()), reso="mvp",
+            extra=dict(worlds=worlds, slots=nmax, **item_extra(
+                "cd_pallas._kernel_resume/worlds", x,
+                cd_pallas.reach_items(reach_f), p, pold=x.pold))),
+    }
+
+
+def world_piece(seed, n_ac, tend):
+    """A BATCH piece of ``n_ac`` aircraft of the regional geometry from
+    numpy seed ``seed`` as CRE lines (altitudes in ft, CAS 250-450 kt),
+    under CDMETHOD SPARSE and ASAS ON, fast-forwarded ``tend`` sim-s."""
+    c = columns(n_ac, "regional", seed)
+    cas = np.random.default_rng(1000 + seed).uniform(250.0, 450.0, n_ac)
+    lines = ["CDMETHOD SPARSE", "ASAS ON"] + [
+        f"CRE W{seed:02d}{i:04d} B744 {c['lat'][i]:.6f} {c['lon'][i]:.6f} "
+        f"{c['trk'][i]:.2f} {c['alt'][i] / FT:.0f} {cas[i]:.1f}"
+        for i in range(n_ac)] + [f"FF {tend:g}"]
+    return [0.0] * len(lines), lines
+
+
+def worldbatch_phase(dev, pieces=64, n_ac=500, nmax=512, tend=60.0,
+                     nsolo=4):
+    """Phase 11, the user's path: ``pieces`` BATCH pieces through
+    ``WorldBatch.run()`` (guard on), ``nsolo`` of them held to solo
+    ``Simulation``s run to the same time.  Returns the kernel launches
+    of the pack's run."""
+    import torch
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.simulation.sim import OP, Simulation
+    from bluesky_tpu_torch.simulation.worlds import WorldBatch
+    scen = [world_piece(s, n_ac, tend) for s in range(pieces)]
+    graph.clear()
+    t0 = time.perf_counter()
+    wb = WorldBatch(scen, simkw=dict(nmax=nmax, device=dev))
+    setup = stack_setup(wb.sims)
+    log(f"worldbatch: {pieces} pieces set up in "
+        f"{time.perf_counter() - t0:.2f} s, their scenario lines "
+        f"({pieces * (n_ac + 3)} stack commands) processed in {setup:.2f} s")
+    reset_launches()
+    t0 = time.perf_counter()
+    status = wb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if status != ["completed"] * pieces:
+        raise AssertionError(f"worldbatch: statuses {set(status)}")
+    if any(s.guard.trips for s in wb.sims):
+        raise AssertionError("worldbatch: a guard tripped")
+    sim_s = sum(s.simt for s in wb.sims)
+    log(f"worldbatch: {pieces} x {n_ac} aircraft, {tend:g} sim-s each: "
+        f"joint_dispatches {wb.stats['joint_dispatches']}, largest group "
+        f"{wb.stats['max_group']}, solo dispatches "
+        f"{wb.stats['solo_dispatches']}, run() {wall:.3f} s wall, "
+        f"{sim_s / wall:.4g} sim-s per wall-s of the pack "
+        f"({sim_s * n_ac / wall / wb.sims[0].cfg.simdt:.4g} "
+        f"aircraft-steps/s; {sim_s / (wall + setup):.4g} sim-s per wall-s "
+        f"with the scenario lines), kernel launches {launches}")
+    for k in WORLD_KERNELS["sparse"]:
+        if not launches.get(k):
+            raise AssertionError(f"worldbatch never launched {k}")
+    for i in range(min(nsolo, pieces)):
+        graph.clear()
+        sim = Simulation(nmax=nmax, device=dev)
+        sim.pipeline_enabled = False
+        sim.stack.set_scendata(*scen[i])
+        sim.op()
+        setup = stack_setup([sim])
+        t0 = time.perf_counter()
+        while sim.state_flag == OP:
+            sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sim.simt != wb.sims[i].simt:
+            raise AssertionError(f"worldbatch world {i}: simt "
+                                 f"{wb.sims[i].simt} != solo {sim.simt}")
+        same = compare_worlds(f"worldbatch world {i}",
+                              _stack1(wb.sims[i].traf.state),
+                              _stack1(sim.traf.state), "sparse")
+        log(f"worldbatch world {i}: equals its solo Simulation "
+            f"(bit-equal: {same}); solo {sim.simt / wall:.4g} sim-s per "
+            f"wall-s (captures included; {sim.simt / (wall + setup):.4g} "
+            f"with the scenario lines)")
+    return launches
+
+
+def stack_setup(sims):
+    """Process the scenario lines due at sim time 0 of each of ``sims``
+    (its CRE lines and settings, as ``_plan_chunk`` would at the first
+    step); returns the wall seconds."""
+    import torch
+    t0 = time.perf_counter()
+    for sim in sims:
+        sim.stack.checkfile(sim.simt)
+        sim.stack.process()
+        sim.traf.flush()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _stack1(state):
+    from bluesky_tpu_torch.core import step as stepmod
+    return stepmod.stack_worlds([state])
+
+
+def worlds_phase(dev, errs, regs, scale=1):
+    """Phase 11: world-batched stepping (``worlds_batched_vs_solo`` on the
+    three worlds shapes, world counts divided by ``scale``), the
+    world-group launches of K1, K2 and K3 against their plain versions
+    at the MVP shape, and ``worldbatch_phase``.  Returns the kernels
+    JSON entries of the world-axis forms."""
+    shrink = lambda s: (max(2, s[0] // scale),) + s[1:]
+    report = []
+    for backend in ("sparse", "pallas"):
+        t0 = time.perf_counter()
+        state, cfg, launches = worlds_batched_vs_solo(
+            dev, backend, shrink(WORLDS_MVP))
+        runs = world_kernel_runs(state, cfg, backend)
+        launches = {f"{k}/worlds": launches[k]
+                    for k in WORLD_KERNELS[backend]}
+        report += report_kernels(runs, launches, errs, regs)
+        log(f"worlds {backend}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worlds_batched_vs_solo(dev, "sparse", shrink(WORLDS_EBY), reso="EBY")
+    log(f"worlds sparse EBY: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worlds_batched_vs_solo(dev, "dense", shrink(WORLDS_DENSE))
+    log(f"worlds dense: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worldbatch_phase(dev, pieces=max(2, 64 // scale))
+    log(f"worldbatch: {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def sim_phase(dev):
     """Phase 10: the embedded ``Simulation`` driven through its stack
     (``sim_continental``, then ``sim_regional``); returns the kernel
@@ -2171,8 +2561,13 @@ def main():
     sim_launches = sim_phase(dev)
     log(f"sim_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after sim_phase")
+    t0 = time.perf_counter()
+    world_report = worlds_phase(dev, errs, regs)
+    log(f"worlds_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after worlds_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
+    report += world_report
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")

@@ -69,9 +69,9 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
 def test_import_without_jax():
     """The package and every module of it (the chunk graphs, the ``obs``
-    instruments, and the Simulation with its stack, routes, navdb and
-    guard among them) import with jax, flax and bluesky_tpu
-    unavailable."""
+    instruments, and the Simulation with its stack, routes, navdb,
+    guard and multi-world batch among them) import with jax, flax and
+    bluesky_tpu unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
@@ -90,7 +90,8 @@ def test_import_without_jax():
         "    'navdb', 'navdb.builtin_data', 'navdb.loaders',\n"
         "    'navdb.navdatabase', 'stack.argparser', 'stack.synthetic',\n"
         "    'stack.stack', 'stack.commands', 'simulation.pipeline',\n"
-        "    'simulation.snapshot', 'simulation.sim', 'fault.guard')}\n"
+        "    'simulation.snapshot', 'simulation.sim', 'simulation.worlds',\n"
+        "    'fault.guard')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"

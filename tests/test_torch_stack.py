@@ -102,6 +102,13 @@ CASES = {
         ("OP", "FF 2"), 6.0,
         ("OP", "CHUNKSTEPS PIPELINE OFF", "SCANSTATS OFF", "FINGERPRINT OFF",
          "CHUNKSTEPS 20"), 7.0, ("CHUNKSTEPS", "RESET", "CHUNKSTEPS")],
+    # the detached sim: BATCH has no server, WORLDS reads and sets the
+    # packing settings (restored after the case)
+    "batch_worlds": [
+        ("CRE KL204 B744 52 4 90 FL200 250", "BATCH myscen.scn", "WORLDS",
+         "WORLDS ON", "WORLDS", "WORLDS MAX 32", "WORLDS"), 1.0,
+        ("WORLDS MAX 0", "WORLDS MAX many", "WORLDS FOO", "WORLDS OFF",
+         "WORLDS")],
 }
 
 
@@ -124,6 +131,11 @@ def run_case(sim, steps):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_stack_case(case, tmp_path, monkeypatch):
+    from bluesky_tpu import settings as jsettings
+    from bluesky_tpu_torch import settings as tsettings
+    for mod in (jsettings, tsettings):      # WORLDS sets these
+        for knob in ("world_pack", "world_batch_max"):
+            monkeypatch.setattr(mod, knob, getattr(mod, knob))
     jsim, tsim = sim_pair()
     out = {}
     for name, sim in (("jax", jsim), ("port", tsim)):
@@ -133,6 +145,12 @@ def test_stack_case(case, tmp_path, monkeypatch):
         sim.stack.scenario_path = "."
         out[name] = run_case(sim, CASES[case])
     assert_sims_equal(jsim, tsim, out["jax"], out["port"])
+    assert (tsettings.world_pack, tsettings.world_batch_max) \
+        == (jsettings.world_pack, jsettings.world_batch_max)
+    if case == "batch_worlds":
+        assert "BATCH: no server attached (headless sim)" in out["port"]
+        assert (tsettings.world_pack, tsettings.world_batch_max) \
+            == (False, 32)
     jfiles = sorted(p.name for p in (tmp_path / "jax").iterdir())
     assert sorted(p.name for p in (tmp_path / "port").iterdir()) == jfiles
     for f in jfiles:
