@@ -118,20 +118,36 @@ def _swarm_inputs(state: SimState):
     return state.ap.trk, selcas, ac.selvs
 
 
-def update(state: SimState, cfg: AsasConfig):
+def update(state: SimState, cfg: AsasConfig, smooth=None):
     """One dense ASAS interval (asas.py:473-504): ``cd.detect`` on the
     [N, N] pair space, the resolver on the conflict matrix, the pair
     bookkeeping ``resopairs |= swconfl`` and resume-nav.  Needs the
     [N, N] ``resopairs`` of ``make_state(pair_matrix=True)``.  A stacked
     state (``step.stack_worlds``: [W, N] columns, [W, N, N]
     ``resopairs``) runs every world at once, the pair matrices
-    [W, N, N] by broadcasting over the leading axis.  Returns
-    ``(state, cd)``."""
+    [W, N, N] by broadcasting over the leading axis.
+
+    ``smooth`` (a ``diff.smooth.SmoothConfig``; None on the serving
+    path) relaxes the MVP resolver for the differentiable rollout:
+    sigmoid pair weights on the contribution sums
+    (``soft_conflict_weight``), a softmin solve time and
+    straight-through caps.  The per-aircraft engagement (``inconf``,
+    ``active``) stays hard; the gradient rides the weights.  Another
+    resolver raises ``ValueError``.  Returns ``(state, cd)``."""
     require_resolver(cfg)
     ac, asas = state.ac, state.asas
     cd = cdops.detect(ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs,
                       ac.active, cfg.rpz, cfg.hpz, cfg.dtlookahead)
     method = cfg.reso_method.upper()
+    if smooth is not None and cfg.reso_on and method != "MVP":
+        raise ValueError(
+            "differentiable mode (SimConfig.smooth) relaxes the MVP "
+            f"resolver only, not {cfg.reso_method!r}: use RESO MVP "
+            "(or RESO OFF) for gradient workloads.")
+    wconf = None
+    if smooth is not None and cfg.reso_on:
+        from ..diff.smooth import soft_conflict_weight
+        wconf = soft_conflict_weight(cd, cfg.rpz, cfg.dtlookahead, smooth)
     swarm_on = cfg.reso_on and method == "SWARM"
     any_conf = cd.swconfl.any(-1).any(-1)      # per world on [W, N, N]
     if cfg.reso_on:
@@ -141,7 +157,8 @@ def update(state: SimState, cfg: AsasConfig):
                 cd, ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
                 ac.selalt, state.ap.vs, asas.alt, cfg.vmin, cfg.vmax,
                 cfg.vsmin, cfg.vsmax, _mvp_config(cfg, prio=True),
-                noreso=asas.noreso, resooff=asas.resooff)
+                noreso=asas.noreso, resooff=asas.resooff, wconf=wconf,
+                smooth=smooth)
         if method == "EBY":
             cmds = _with_velocity(*cr_eby.resolve(
                 cd, ac.alt, ac.vs, ac.trk, ac.tas, cfg.rpz_m, cfg.vmin,

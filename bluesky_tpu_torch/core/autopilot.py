@@ -8,7 +8,7 @@ host-side and comes with the stack port.
 """
 import torch
 
-from ..ops import aero, geo
+from ..ops import aero, geo, ties
 from .state import SimState
 
 STEEPNESS = 3000.0 * aero.ft / (10.0 * aero.nm)
@@ -22,7 +22,7 @@ def degto180(angle):
 
 def calcturn(tas, bank, wpqdr, next_wpqdr):
     """Turn-anticipation distance and turn radius."""
-    turnrad = tas * tas / (torch.clamp_min(torch.tan(bank), 0.01) * aero.g0)
+    turnrad = tas * tas / (ties.maximum(torch.tan(bank), 0.01) * aero.g0)
     turndist = torch.abs(
         turnrad * torch.tan(geo.radians(0.5 * torch.abs(
             degto180(wpqdr % 360.0 - next_wpqdr % 360.0)))))
@@ -121,13 +121,13 @@ def update_fms(state: SimState) -> SimState:
 
     startdescent = (dist2wp < dist2vs) | (actwp.nextaltco > ac.alt)
     swvnavvs = swvnav & torch.where(
-        swlnav, startdescent, dist <= torch.clamp_min(actwp.turndist, 185.2))
+        swlnav, startdescent, dist <= ties.maximum(actwp.turndist, 185.2))
 
-    t2go2alt = torch.clamp_min(dist2wp + actwp.xtoalt - actwp.turndist, 0.0) \
-        / torch.clamp_min(ac.gs, 0.5)
+    t2go2alt = ties.maximum(dist2wp + actwp.xtoalt - actwp.turndist, 0.0) \
+        / ties.maximum(ac.gs, 0.5)
     actwp_vs = torch.maximum(STEEPNESS * ac.gs,
                              torch.abs(actwp.nextaltco - ac.alt)
-                             / torch.clamp_min(t2go2alt, 1.0))
+                             / ties.maximum(t2go2alt, 1.0))
     actwp = actwp.replace(vs=actwp_vs)
 
     vnavvs = torch.where(swvnavvs, actwp_vs, ap.vnavvs)
@@ -139,7 +139,7 @@ def update_fms(state: SimState) -> SimState:
 
     nexttas = aero.vcasormach2tas(actwp.spd, ac.alt)
     tasdiff = nexttas - ac.tas
-    dtspdchg = torch.abs(tasdiff) / torch.clamp_min(torch.abs(ac.ax), 0.01)
+    dtspdchg = torch.abs(tasdiff) / ties.maximum(torch.abs(ac.ax), 0.01)
     dxspdchg = (0.5 * torch.sign(tasdiff) * torch.abs(ac.ax) * dtspdchg
                 * dtspdchg + ac.tas * dtspdchg)
     usespdcon = (dist2wp < dxspdchg) & (actwp.spd > -990.0) & swvnav

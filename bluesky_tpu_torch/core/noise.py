@@ -3,7 +3,9 @@
 Port of ``bluesky_tpu/core/noise.py``.  The random draws come from an
 explicit ``torch.Generator``; torch cannot reproduce JAX's threefry
 streams, so noise-on runs agree with the JAX package in distribution
-only.  Both models are off by default.
+only.  Both models are off by default.  In the differentiable mode
+(``SimConfig.smooth`` with ``stop_grad_noise``) the draws are detached:
+they do not depend on the optimized parameters.
 """
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -59,14 +61,21 @@ def _normal(gen, like):
                        device=like.device)
 
 
-def turbulence_woosh(ac, gen, simdt, cfg: NoiseConfig):
+def _detached(smooth, *draws):
+    if smooth is not None and smooth.stop_grad_noise:
+        return tuple(d.detach() for d in draws)
+    return draws
+
+
+def turbulence_woosh(ac, gen, simdt, cfg: NoiseConfig, smooth=None):
     """Positional turbulence jitter scaled by sqrt(dt)."""
     if not cfg.turb_active:
         return ac
     timescale = simdt ** 0.5
-    turbhf = _normal(gen, ac.lat) * (cfg.turb_sd_hf * timescale)
-    turbhw = _normal(gen, ac.lat) * (cfg.turb_sd_hw * timescale)
-    turbalt = _normal(gen, ac.lat) * (cfg.turb_sd_vert * timescale)
+    turbhf, turbhw, turbalt = _detached(
+        smooth, _normal(gen, ac.lat) * (cfg.turb_sd_hf * timescale),
+        _normal(gen, ac.lat) * (cfg.turb_sd_hw * timescale),
+        _normal(gen, ac.lat) * (cfg.turb_sd_vert * timescale))
     trkrad = geo.radians(ac.trk)
     turblat = torch.cos(trkrad) * turbhf - torch.sin(trkrad) * turbhw
     turblon = torch.sin(trkrad) * turbhf + torch.cos(trkrad) * turbhw
@@ -79,15 +88,19 @@ def turbulence_woosh(ac, gen, simdt, cfg: NoiseConfig):
             turblon / aero.Rearth / ac.coslat), ac.lon))
 
 
-def adsb_update(adsb: AdsbArrays, ac, gen, simt: float, cfg: NoiseConfig):
+def adsb_update(adsb: AdsbArrays, ac, gen, simt: float, cfg: NoiseConfig,
+                smooth=None):
     """Refresh broadcast state for aircraft whose truncation window
     elapsed (``simt`` is the host clock, or a tensor of each aircraft's
     world clock)."""
     up = adsb.lastupdate + cfg.adsb_trunctime < simt
     if cfg.adsb_transnoise:
-        lat = ac.lat + _normal(gen, ac.lat) * cfg.adsb_err_latlon
-        lon = ac.lon + _normal(gen, ac.lat) * cfg.adsb_err_latlon
-        alt = ac.alt + _normal(gen, ac.lat) * cfg.adsb_err_alt
+        err1, err2, err3 = _detached(smooth, _normal(gen, ac.lat),
+                                     _normal(gen, ac.lat),
+                                     _normal(gen, ac.lat))
+        lat = ac.lat + err1 * cfg.adsb_err_latlon
+        lon = ac.lon + err2 * cfg.adsb_err_latlon
+        alt = ac.alt + err3 * cfg.adsb_err_alt
     else:
         lat, lon, alt = ac.lat, ac.lon, ac.alt
     sel = lambda new, old: torch.where(up, new, old)

@@ -7,7 +7,7 @@ import torch
 
 from ..models.perf_coeffs import (
     PH_TO, PH_IC, PH_CL, PH_CR, PH_DE, PH_AP, PH_LD, PH_GD)
-from ..ops import aero, geo
+from ..ops import aero, geo, ties
 
 # Constants of the in-flight thrust model, formed at double precision
 # on the host (the JAX package forms them from weakly-typed scalars).
@@ -54,7 +54,7 @@ def _thrust_ratio_takeoff(bpr, tas, alt):
 
 def _thrust_ratio_inflight(tas, alt, vs, thr0):
     roc = torch.abs(vs * _PER_FPM)
-    v = torch.clamp_min(tas, 10.0)
+    v = ties.maximum(tas, 10.0)
     mach = aero.vtas2mach(v, alt)
     vcas = aero.vtas2cas(v, alt)
     p = aero.vpressure(alt)
@@ -119,7 +119,7 @@ def update(perf, tas, vs, alt):
     cd0 = torch.where(phase == PH_GD, perf.cd0_gd, cd0)
 
     rho = aero.vdensity(alt)
-    safe_tas = torch.clamp_min(tas, 1.0)
+    safe_tas = ties.maximum(tas, 1.0)
     rhovs = 0.5 * rho * safe_tas * safe_tas * perf.sref
     cl = perf.mass * aero.g0 / rhovs
     drag = rhovs * (cd0 + perf.k * cl * cl)
@@ -146,11 +146,18 @@ def update(perf, tas, vs, alt):
     return new_perf, bank
 
 
-def limits(perf, intent_tas, intent_vs, intent_alt, ax):
-    """Clip pilot intents to the flight envelope."""
+def limits(perf, intent_tas, intent_vs, intent_alt, ax, smooth=None):
+    """Clip pilot intents to the flight envelope.  With ``smooth`` (a
+    ``diff.smooth.SmoothConfig`` with ``ste_caps``) the CAS clamp is
+    straight-through: the same forward value, the gradient of the
+    identity, so gradients flow through an intent pinned at a limit."""
     allow_alt = torch.minimum(intent_alt, perf.hmax)
     intent_cas = aero.vtas2cas(intent_tas, allow_alt)
-    allow_cas = torch.clamp(intent_cas, perf.vmin, perf.vmax)
+    if smooth is not None and smooth.ste_caps:
+        from ..diff.smooth import ste_clip
+        allow_cas = ste_clip(intent_cas, perf.vmin, perf.vmax)
+    else:
+        allow_cas = ties.clip(intent_cas, perf.vmin, perf.vmax)
     allow_tas = aero.vcas2tas(allow_cas, allow_alt)
     vs_max_with_acc = (1.0 - ax / perf.axmax) * perf.vsmax
     allow_vs = torch.where(intent_vs > perf.vsmax, vs_max_with_acc, intent_vs)

@@ -4,7 +4,7 @@ Port of ``bluesky_tpu/core/pilot.py``.
 """
 import torch
 
-from ..ops import geo
+from ..ops import geo, ties
 from . import perf as perfmod
 from .state import SimState
 
@@ -27,8 +27,8 @@ def ap_or_asas(state: SimState, windn=None, winde=None) -> SimState:
         vw = torch.sqrt(windn * windn + winde * winde)
         winddir = torch.atan2(winde, windn)
         drift = geo.radians(trk) - winddir
-        steer = torch.asin(torch.clamp(
-            vw * torch.sin(drift) / torch.clamp_min(ac.tas, 0.001), -1.0, 1.0))
+        steer = torch.asin(ties.clip(
+            vw * torch.sin(drift) / ties.maximum(ac.tas, 0.001), -1.0, 1.0))
         hdg = (trk + geo.degrees(steer)) % 360.0
     else:
         hdg = trk % 360.0
@@ -36,9 +36,10 @@ def ap_or_asas(state: SimState, windn=None, winde=None) -> SimState:
     return state.replace(pilot=pilot)
 
 
-def apply_limits(state: SimState) -> SimState:
-    """Clip pilot intents to the performance envelope."""
+def apply_limits(state: SimState, smooth=None) -> SimState:
+    """Clip pilot intents to the performance envelope (``smooth``: the
+    straight-through clamp of ``perf.limits``)."""
     pilot = state.pilot
     tas, vs, alt = perfmod.limits(state.perf, pilot.tas, pilot.vs, pilot.alt,
-                                  state.ac.ax)
+                                  state.ac.ax, smooth=smooth)
     return state.replace(pilot=pilot.replace(tas=tas, vs=vs, alt=alt))

@@ -2,7 +2,8 @@
 
 Port of ``bluesky_tpu/core/step.py`` for the slice the port runs: one
 device, the four CD backends (``dense``, ``tiled``, ``pallas``,
-``sparse``), the resolvers MVP, EBY, SWARM and SSD.
+``sparse``), the resolvers MVP, EBY, SWARM and SSD, and the
+differentiable mode of the dense backend (``SimConfig.smooth``).
 Pipeline order per step (reference traffic.py:383-423): atmosphere ->
 ADS-B -> FMS (gated) -> ASAS CD&R (gated) -> AP/ASAS arbitration ->
 performance update -> envelope limits -> airspeed -> groundspeed (wind)
@@ -51,8 +52,8 @@ from .state import (SimState, stack_worlds, unstack_worlds,  # noqa: F401
 
 class SimConfig(NamedTuple):
     """Simulation configuration (the fields of the JAX ``SimConfig`` that
-    the port reads, with its defaults; the mesh, shard-mode and
-    differentiable options are not ported).  ``cd_backend``: ``"dense"``
+    the port reads, with its defaults; the mesh and shard-mode options
+    are not ported).  ``cd_backend``: ``"dense"``
     materialises [N, N] pair matrices (fine to ~16k aircraft; needs
     ``Traffic(pair_matrix=True)``), ``"tiled"`` streams [cd_block,
     cd_block] tiles with an [N, K] partner table, ``"pallas"`` is the
@@ -61,7 +62,11 @@ class SimConfig(NamedTuple):
     ``inscan_refresh`` and ``fingerprint`` add the chunk runners' folds
     (``obs/scanstats.py``, the sparse sort refresh on its
     ``sort_every * dtasas`` cadence, ``obs/fingerprint.py``); off, a
-    chunk launches nothing for them."""
+    chunk launches nothing for them.  ``smooth``: a
+    ``diff.smooth.SmoothConfig`` swaps the hard gates of the dense step
+    for the relaxations of the differentiable rollout (``diff/``); None,
+    the default and the only value the Simulation sets, is the serving
+    step bit for bit."""
     simdt: float = 0.05          # [s] (reference simulation.py:15)
     fms_dt: float = autopilot.FMS_DT
     asas: AsasConfig = AsasConfig()
@@ -69,6 +74,7 @@ class SimConfig(NamedTuple):
     use_wind: bool = False
     cd_backend: str = "dense"
     cd_block: int = 512
+    smooth: object = None
     scanstats: bool = False
     inscan_refresh: bool = False
     fingerprint: bool = False
@@ -83,6 +89,12 @@ def check_config(cfg: SimConfig, state: SimState):
         raise ValueError(
             f"Unknown SimConfig.cd_backend {cfg.cd_backend!r}; expected "
             "'dense', 'tiled', 'pallas' or 'sparse'.")
+    if cfg.smooth is not None and cfg.cd_backend != "dense":
+        raise ValueError(
+            "SimConfig.smooth (differentiable mode) relaxes the dense "
+            "CD&R path only: the tiled/pallas/sparse kernels carry integer "
+            "partner tables that do not differentiate.  Use "
+            "cd_backend='dense' (diff workloads run small-N).")
     if cfg.cd_backend == "dense" and state.asas.resopairs.numel() == 0:
         raise ValueError(
             "State was allocated with pair_matrix=False (no [N,N] "
@@ -156,7 +168,7 @@ def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
 
     # ---------- ADS-B broadcast model ----------
     state = state.replace(adsb=noise.adsb_update(
-        state.adsb, state.ac, gen, simt, cfg.noise))
+        state.adsb, state.ac, gen, simt, cfg.noise, smooth=cfg.smooth))
 
     # ---------- FMS / autopilot, gated at fms_dt ----------
     if fms:
@@ -166,7 +178,7 @@ def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
     # ---------- ASAS CD&R, gated at dtasas ----------
     if asas:
         if cfg.cd_backend == "dense":
-            state, _cd = asasmod.update(state, cfg.asas)
+            state, _cd = asasmod.update(state, cfg.asas, smooth=cfg.smooth)
         else:
             impl = asasmod.impl_for_backend(cfg.cd_backend)
             state, _rd = asasmod.update_tiled(state, cfg.asas,
@@ -193,16 +205,17 @@ def _tail(state: SimState, cfg: SimConfig, simdt: float, gen, windn,
     state = state.replace(perf=new_perf, ac=state.ac.replace(bank=bank))
 
     # ---------- Envelope limits ----------
-    state = pilot.apply_limits(state)
+    state = pilot.apply_limits(state, smooth=cfg.smooth)
 
     # ---------- Kinematics ----------
     accel = perfmod.acceleration(state.perf.phase, state.ac.tas)
-    ac = kinematics.update_airspeed(state.ac, state.pilot, accel, simdt)
+    ac = kinematics.update_airspeed(state.ac, state.pilot, accel, simdt,
+                                    smooth=cfg.smooth)
     ac = kinematics.update_groundspeed(ac, windn, winde)
     ac = kinematics.update_position(ac, state.pilot, simdt)
 
     # ---------- Turbulence ----------
-    ac = noise.turbulence_woosh(ac, gen, simdt, cfg.noise)
+    ac = noise.turbulence_woosh(ac, gen, simdt, cfg.noise, smooth=cfg.smooth)
 
     # Freeze padding slots: inactive rows keep their values bit-exactly.
     live = ac.active
@@ -305,14 +318,14 @@ def step_body_worlds(state: SimState, cfg: SimConfig, fms: bool,
     flat = flat.replace(ac=kinematics.update_atmosphere(flat.ac))
     flat = flat.replace(adsb=noise.adsb_update(
         flat.adsb, flat.ac, gens, simt[:, None].expand(-1, n).reshape(-1),
-        cfg.noise))
+        cfg.noise, smooth=cfg.smooth))
     if fms:
         flat = select_worlds(fms_mask, autopilot.update_fms(flat), flat)
     flat = autopilot.update_continuous(flat)
     if asas:
         state = unflatten_worlds(flat, state)
         if cfg.cd_backend == "dense":
-            new, _cd = asasmod.update(state, cfg.asas)
+            new, _cd = asasmod.update(state, cfg.asas, smooth=cfg.smooth)
         else:
             impl = asasmod.impl_for_backend(cfg.cd_backend)
             new, _rd = asasmod.update_tiled(state, cfg.asas,
@@ -429,6 +442,19 @@ def _graphed(state: SimState) -> bool:
     return state.device.type == "cuda"
 
 
+def executor(state: SimState, cfg: SimConfig, checked: bool = False,
+             keep: bool = False):
+    """The chunk executor of ``state``, loaded: ``graph.chunk`` (CUDA
+    graphs, with its donation rules) on a CUDA state, ``_EagerChunk``
+    otherwise.  Its ``step()`` advances one step with the folds,
+    ``state`` is the current state and ``finish(keep)`` ends the chunk
+    (``(state, carry, simt)``)."""
+    if _graphed(state):
+        from . import graph
+        return graph.chunk(state, cfg, checked, keep)
+    return _EagerChunk(state, cfg, checked)
+
+
 # ---------------------------------------------------------- in-scan refresh
 
 def inscan_refresh_active(cfg: SimConfig) -> bool:
@@ -480,11 +506,7 @@ def _run_chunk(state: SimState, cfg: SimConfig, nsteps: int, checked: bool,
     world (``step_worlds``); its refresh gate is per world."""
     from .state import is_stacked, select_worlds
     check_config(cfg, state)
-    if _graphed(state):
-        from . import graph
-        ex = graph.chunk(state, cfg, checked, keep)
-    else:
-        ex = _EagerChunk(state, cfg, checked)
+    ex = executor(state, cfg, checked, keep)
     inscan = inscan_refresh_active(cfg)
     worlds = is_stacked(state)
     dt = state.simt.dtype

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from . import ties
+
 kts = 0.514444          # m/s per knot
 ft = 0.3048             # m per foot
 fpm = ft / 60.0         # m/s per foot-per-minute
@@ -31,14 +33,14 @@ a0 = math.sqrt(gamma * R * T0)  # sea-level speed of sound
 
 def vtemp(h):
     """ISA temperature [K] at altitude h [m]."""
-    return torch.clamp_min(T0 + beta * h, Tstrat)
+    return ties.maximum(T0 + beta * h, Tstrat)
 
 
 def vatmos(h):
     """ISA pressure [Pa], density [kg/m3], temperature [K] at h [m]."""
     T = vtemp(h)
     rhotrop = rho0 * (T / T0) ** 4.256848030018761
-    dhstrat = torch.clamp_min(h - 11000.0, 0.0)
+    dhstrat = ties.maximum(h - 11000.0, 0.0)
     rho = rhotrop * torch.exp(-dhstrat / 6341.552161)  # = g0/(R*Tstrat)
     p = rho * R * T
     return p, rho, T

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import geo
+from . import geo, ties
 
 
 class ConflictData(NamedTuple):
@@ -67,7 +67,7 @@ def detect(lat, lon, trk, gs, alt, vs, active, rpz, hpz, tlookahead):
     dcpa2 = dist * dist - tcpa * tcpa * dv2
     r2 = rpz * rpz
     swhorconf = dcpa2 < r2
-    dtinhor = torch.sqrt(torch.clamp_min(r2 - dcpa2, 0.0)) / vrel
+    dtinhor = torch.sqrt(ties.maximum(r2 - dcpa2, 0.0)) / vrel
     tinhor = torch.where(swhorconf, tcpa - dtinhor, zero + 1e8)
     touthor = torch.where(swhorconf, tcpa + dtinhor, zero - 1e8)
 

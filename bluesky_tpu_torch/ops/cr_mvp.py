@@ -8,14 +8,15 @@ and the FF1-3/LAY1-2 priority rules, the per-aircraft command synthesis
 from the accumulated sums (``resolve_from_sums``), and resume-nav: the
 keep predicate (``resume_keep_core``) with its flat-earth displacement
 (``resume_displacement``) and the dense ``resume_nav`` on ``resopairs``.
-The differentiable-mode options of the JAX ``resolve`` (``wconf``,
-``smooth``) are not ported.
+The differentiable mode (``wconf``, ``smooth``; ``diff/smooth.py``)
+weights the pair sums by sigmoid conflict weights, takes the solve
+time as a softmin and the velocity caps as straight-through clips.
 """
 from typing import NamedTuple
 
 import torch
 
-from . import geo
+from . import geo, ties
 
 
 class MVPConfig(NamedTuple):
@@ -70,21 +71,21 @@ def pair_contrib_trig(sin_qdr, cos_qdr, dist, tcpa, tlos,
     ih = cfg.rpz_m - dabsh
 
     headon = dabsh <= 10.0
-    safe_dist = torch.clamp_min(dist, 1e-9)
+    safe_dist = ties.maximum(dist, 1e-9)
     dcpa_e = torch.where(headon, drel_n / safe_dist * 10.0, dcpa_e)
     dcpa_n = torch.where(headon, -drel_e / safe_dist * 10.0, dcpa_n)
     dabsh = torch.where(headon, torch.full_like(dabsh, 10.0), dabsh)
 
-    abstcpa = torch.clamp_min(torch.abs(tcpa), 1e-9)
+    abstcpa = ties.maximum(torch.abs(tcpa), 1e-9)
     dve = (ih * dcpa_e) / (abstcpa * dabsh)
     dvn = (ih * dcpa_n) / (abstcpa * dabsh)
 
     apply_err = (cfg.rpz_m < dist) & (dabsh < dist)
     # one correctly rounded division, as JAX computes it (a Python float
     # over a tensor would be reciprocal-then-multiply)
-    ratio1 = torch.clamp(torch.div(torch.full_like(dist, cfg.rpz_m),
+    ratio1 = ties.clip(torch.div(torch.full_like(dist, cfg.rpz_m),
                                    safe_dist), -1.0, 1.0)
-    ratio2 = torch.clamp(dabsh / safe_dist, -1.0, 1.0)
+    ratio2 = ties.clip(dabsh / safe_dist, -1.0, 1.0)
     if arcsin is not None:
         erratum = torch.cos(arcsin(ratio1) - arcsin(ratio2))
     else:
@@ -139,18 +140,30 @@ def _prio_masks(priocode, ci, mixed):
 
 
 def resolve(cd, alt, gseast, gsnorth, vs, trk, gs, selalt, ap_vs, prev_alt,
-            vmin, vmax, vsmin, vsmax, cfg, noreso=None, resooff=None):
+            vmin, vmax, vsmin, vsmax, cfg, noreso=None, resooff=None,
+            wconf=None, smooth=None):
     """Per-aircraft MVP commands from the dense conflict matrices of
     ``cd`` (MVP.py:14-143): nobody avoids a ``noreso`` intruder,
     ``resooff`` aircraft do not resolve, and with ``cfg.swprio`` the
-    ``cfg.priocode`` rule masks each pair's contribution.  Returns
-    (newtrk, newgs, newvs, newalt, asase, asasn)."""
+    ``cfg.priocode`` rule masks each pair's contribution.  In the
+    differentiable mode ``wconf`` ([N, N] in [0, 1],
+    ``smooth.soft_conflict_weight``) replaces the hard ``cd.swconfl``
+    mask on the sums, and with ``smooth`` the solve time is a weighted
+    softmin and the caps are straight-through.  Returns (newtrk, newgs,
+    newvs, newalt, asase, asasn)."""
     dve_p, dvn_p, dvv_p, tsolv_p = pair_contributions(
         cd, alt, gseast, gsnorth, vs, cfg)
     mask = cd.swconfl
     if noreso is not None:
         mask = mask & ~noreso[..., None, :]
-    maskf = mask.to(dve_p.dtype)
+    if wconf is not None:
+        # masked and diagonal pairs carry the detect's 1e9 offsets, which
+        # drive their weight to exactly 0, and their pair fields are
+        # finite, so 0 * x stays 0
+        maskf = wconf if noreso is None \
+            else wconf * (~noreso[..., None, :]).to(dve_p.dtype)
+    else:
+        maskf = mask.to(dve_p.dtype)
     vmaskf = maskf
     if cfg.swprio and cfg.priocode != "FF1":
         cruise = torch.abs(vs) < 0.1        # cruising: |vs| < 0.1 m/s
@@ -163,20 +176,28 @@ def resolve(cd, alt, gseast, gsnorth, vs, trk, gs, selalt, ap_vs, prev_alt,
     sum_dve = (dve_p * maskf).sum(-1)
     sum_dvn = (dvn_p * maskf).sum(-1)
     sum_dvv = (dvv_p * vmaskf).sum(-1)
-    tsolv = torch.where(mask, tsolv_p, torch.full_like(tsolv_p, 1e9)).amin(-1)
+    if wconf is not None and smooth is not None:
+        from ..diff.smooth import softmin_weighted
+        tsolv = softmin_weighted(tsolv_p, maskf,
+                                 smooth.temp_min * cfg.tlookahead)
+    else:
+        tsolv = torch.where(mask, tsolv_p,
+                            torch.full_like(tsolv_p, 1e9)).amin(-1)
     return resolve_from_sums(
         sum_dve, sum_dvn, sum_dvv, tsolv, alt, gseast, gsnorth, vs, trk, gs,
         selalt, ap_vs, prev_alt, vmin, vmax, vsmin, vsmax, cfg,
-        resooff=resooff)
+        resooff=resooff, smooth=smooth)
 
 
 def resolve_from_sums(sum_dve, sum_dvn, sum_dvv, tsolv,
                       alt, gseast, gsnorth, vs, trk, gs,
                       selalt, ap_vs, prev_alt,
-                      vmin, vmax, vsmin, vsmax, cfg, resooff=None):
+                      vmin, vmax, vsmin, vsmax, cfg, resooff=None,
+                      smooth=None):
     """Per-aircraft command synthesis from accumulated pair contributions
-    (MVP.py:67-143).  Returns (newtrk, newgs, newvs, newalt, asase,
-    asasn)."""
+    (MVP.py:67-143); with ``smooth`` (``ste_caps``) the velocity caps
+    are straight-through clips.  Returns (newtrk, newgs, newvs, newalt,
+    asase, asasn)."""
     dve = -sum_dve
     dvn = -sum_dvn
     dvv = -0.5 * sum_dvv
@@ -206,8 +227,13 @@ def resolve_from_sums(sum_dve, sum_dvn, sum_dvv, tsolv,
     else:
         newtrk, newgs_, newvs = full_trk, full_gs, newv_v
 
-    newgs_ = torch.clamp(newgs_, vmin, vmax)
-    newvs = torch.clamp(newvs, vsmin, vsmax)
+    if smooth is not None and smooth.ste_caps:
+        from ..diff.smooth import ste_clip
+        newgs_ = ste_clip(newgs_, vmin, vmax)
+        newvs = ste_clip(newvs, vsmin, vsmax)
+    else:
+        newgs_ = ties.clip(newgs_, vmin, vmax)
+        newvs = ties.clip(newvs, vsmin, vsmax)
 
     zero = torch.zeros_like(newgs_)
     asase = torch.where(has_reso, newgs_ * torch.sin(geo.radians(newtrk)), zero)

@@ -8,6 +8,8 @@ import math
 import numpy as np
 import torch
 
+from . import ties
+
 nm = 1852.0
 A_WGS84 = 6378137.0
 B_WGS84 = 6356752.314245
@@ -44,7 +46,7 @@ def _mean_radius_scalar(latd1, latd2):
     r2 = rwgs84(latd2)
     denom = torch.abs(latd1) + torch.abs(latd2)
     res2 = 0.5 * (torch.abs(latd1) * (r1 + A_WGS84)
-                  + torch.abs(latd2) * (r2 + A_WGS84)) / torch.clamp_min(
+                  + torch.abs(latd2) * (r2 + A_WGS84)) / ties.maximum(
                       denom, 1e-30)
     return torch.where(latd1 * latd2 >= 0.0, res1, res2)
 

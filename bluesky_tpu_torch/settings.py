@@ -44,6 +44,21 @@ inscan_refresh = False            # in-chunk sparse sort refresh
 fingerprint = False               # in-chunk state fingerprint
                                   # (FINGERPRINT)
 
+# ----- differentiable simulation (diff/; the OPT and GRAD commands):
+# the optimizer's defaults, which the command's arguments override
+opt_tend = 600.0                  # [sim s] optimization rollout horizon
+opt_simdt = 1.0                   # [s] smooth-rollout step (the hard
+                                  # verification runs at opt_verify_dt)
+opt_chunk = 50                    # steps per checkpointed chunk
+opt_iters = 40                    # Adam iterations
+opt_lr = 0.15                     # Adam learning rate (normalized units)
+opt_temp0 = 0.3                   # soft-LoS temperature: anneal start
+opt_temp1 = 0.05                  # ... and end (fractions of rpz/hpz)
+opt_restarts = 1                  # multi-start particles on the world
+                                  # axis (the best one wins)
+opt_los_margin = 1.2              # soft-zone inflation over the hard rpz
+opt_verify_dt = 0.05              # [s] hard-metric verification step
+
 # ----- multi-world serving (simulation/worlds.py)
 world_pack = False                # pack compatible BATCH pieces into
                                   # world-batches: one worker steps W

@@ -34,8 +34,8 @@ dispatch for every compatible world.
 
 Not ported here, each with its ROADMAP item: the shard and mesh modes
 (``set_shard``, the spatial refresh, mesh-epoch recovery; A9),
-``optimize_trajectories`` (A8), the device-profiling hooks and plugins
-(A10), autosave, preemption and the network node (A6b).
+the device-profiling hooks and plugins (A10), autosave, preemption and
+the network node (A6b).
 """
 import datetime
 import time
@@ -710,6 +710,57 @@ class Simulation:
         self.fastforward(float(tend))
         self.op()
         return True
+
+    # -------------------------------------------- differentiable workloads
+    def optimize_trajectories(self, tend=None, iters=None, lr=None,
+                              restarts=None, **kw):
+        """Gradient-based trajectory optimization of the current fleet
+        (the OPT stack command; ``diff/optimize.py``).
+
+        Drains the pipeline and flushes pending creations so the
+        optimizer sees the true state, descends on per-aircraft lateral
+        waypoint / departure-time offsets against the soft-LoS and fuel
+        objective, verifies against the hard metric, and records a guard
+        trip (a non-finite forward step, objective or gradient) in the
+        integrity guard's trip log.  Returns the ``OptResult``; the fleet
+        is left as it was.
+        """
+        from .. import settings as _s
+        from ..diff import optimize as diffopt
+
+        def opt(name, given, default, cast=float):
+            return cast(given if given is not None
+                        else getattr(_s, name, default))
+        self.drain_pipeline()
+        self.traf.flush()
+        result = diffopt.optimize(
+            self.traf.state, self.cfg.asas,
+            tend=opt("opt_tend", tend, 600.0),
+            simdt=opt("opt_simdt", kw.pop("simdt", None), 1.0),
+            chunk=opt("opt_chunk", kw.pop("chunk", None), 50, int),
+            iters=opt("opt_iters", iters, 40, int),
+            lr=opt("opt_lr", lr, 0.15),
+            temp0=opt("opt_temp0", kw.pop("temp0", None), 0.3),
+            temp1=opt("opt_temp1", kw.pop("temp1", None), 0.05),
+            restarts=opt("opt_restarts", restarts, 1, int),
+            los_margin=opt("opt_los_margin", kw.pop("los_margin", None),
+                           1.2),
+            verify_simdt=opt("opt_verify_dt", kw.pop("verify_simdt", None),
+                             0.05),
+            **kw)
+        if result.bad != -1:
+            # the backward-extended guard trip goes where forward trips go
+            self.guard.trips.append({
+                "simt": self.simt, "bad_step": int(result.bad),
+                "ids": [], "action": "opt_halt",
+                "source": "diff.optimize backward guard"})
+            what = {diffopt.GUARD_BAD_GRADS: "non-finite gradients",
+                    diffopt.GUARD_BAD_VALUE: "non-finite objective"}.get(
+                        result.bad, "forward step")
+            self.scr.echo(
+                f"OPT: integrity-guard trip (word {result.bad}: {what})"
+                " — descent halted at the last finite iterate")
+        return result
 
     # ----------------------------------------------------------------- step
     def step(self, max_chunk: Optional[int] = None):

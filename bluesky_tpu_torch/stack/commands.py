@@ -29,10 +29,6 @@ from .argparser import txt2alt, txt2spd
 DEFERRED = {
     "SHARD": ("A9", "SHARD [OFF | REPLICATE [n] | SPATIAL [n [halo]] | "
               "TILE RxC]", "Multi-chip mode"),
-    "OPT": ("A8", "OPT [tend,iters,lr,restarts]",
-            "Gradient-based trajectory optimization"),
-    "GRAD": ("A8", "GRAD [tend]",
-             "One checked value_and_grad of the soft-LoS+fuel objective"),
     "PROFILE": ("A10", "PROFILE START [dir]/STOP/KERNELS [nsteps]/DEEP/"
                 "DEVICE [n] [dir]/TRACE [ON/OFF/DUMP]",
                 "Trace capture, per-kernel timings, device-trace windows "
@@ -1052,6 +1048,55 @@ def register_all(stack):
             return True, "BATCH: no server attached (headless sim)"
         return fn(fname)
 
+    def optcmd(tend=None, iters=None, lr=None, restarts=None):
+        """OPT [tend,iters,lr,restarts]: gradient-based trajectory
+        optimization of the current fleet (``diff/``): Adam descent on
+        per-aircraft lateral-waypoint/time offsets with gradients from
+        torch.autograd through the checkpointed smooth rollout, verified
+        against the hard LoS metric; the sim then HOLDs.  Defaults from
+        the settings.opt_* knobs.  (The networked OPTRESULT report of a
+        BATCH piece is ROADMAP A6b.)"""
+        if traf.ntraf == 0:
+            return False, "OPT: no traffic to optimize"
+        try:
+            res = sim.optimize_trajectories(tend, iters, lr, restarts)
+        except (ValueError, RuntimeError) as e:
+            return False, f"OPT: {e}"
+        sim.pause()      # leave OP: a BATCH piece completes here
+        ok = res.bad == -1
+        return ok, (
+            f"OPT: objective {res.objective[0]:.3f} -> "
+            f"{res.objective[-1]:.3f} in {res.iters} iters "
+            f"({res.restarts} restart(s), best {res.best_restart}); "
+            f"hard LoS {res.hard_los_before} -> {res.hard_los_after}; "
+            f"max |lateral| {float(np.abs(res.lateral_m).max()):.0f} m, "
+            f"max |tshift| {float(np.abs(res.tshift_s).max()):.1f} s"
+            + ("" if ok else f"; GUARD TRIP word {res.bad}"))
+
+    def gradcmd(tend=None):
+        """GRAD [tend]: one checked value and gradient of the
+        soft-LoS+fuel objective at zero offsets: reports the objective,
+        the gradient norm and the (backward-extended) guard word without
+        descending."""
+        if traf.ntraf == 0:
+            return False, "GRAD: no traffic"
+        from .. import settings as _settings
+        from ..diff import optimize as diffopt
+        sim.drain_pipeline()
+        traf.flush()
+        try:
+            v, gnorm, bad = diffopt.grad_once(
+                st(), sim.cfg.asas,
+                tend=float(tend) if tend is not None
+                else getattr(_settings, "opt_tend", 600.0),
+                simdt=getattr(_settings, "opt_simdt", 1.0),
+                chunk=getattr(_settings, "opt_chunk", 50))
+        except (ValueError, RuntimeError) as e:
+            return False, f"GRAD: {e}"
+        return bad == -1, (
+            f"GRAD: objective {v:.4f}, |grad| {gnorm:.4g}, guard "
+            + ("clean" if bad == -1 else f"TRIPPED (word {bad})"))
+
     def worldscmd(arg=None, val=None):
         """WORLDS [ON/OFF | MAX n]: multi-world BATCH packing, pieces
         packed into world-batches stepped as one stacked dispatch
@@ -1348,6 +1393,14 @@ def register_all(stack):
         "NORESO": ["NORESO [acid]", "[txt]", noreso,
                    "Toggle no-avoidance for an aircraft"],
         "OP": ["OP", "", op, "Start/resume the simulation"],
+        "OPT": ["OPT [tend,iters,lr,restarts]",
+                "[float,int,float,int]", optcmd,
+                "Gradient-based trajectory optimization: descend on "
+                "per-aircraft waypoint/time offsets to zero LoS "
+                "(bluesky_tpu_torch/diff/)"],
+        "GRAD": ["GRAD [tend]", "[float]", gradcmd,
+                 "One checked value and gradient of the soft-LoS+fuel "
+                 "objective (reports objective, |grad|, guard word)"],
         "ORIG": ["ORIG acid,latlon", "acid,[latlon]",
                  lambda idx, pos=None: dest_orig("ORIG", idx, pos),
                  "Set origin"],

@@ -109,6 +109,19 @@ Phases, in order; any failure exits non-zero before the last line:
     500 aircraft (CRE lines from numpy seeds, CDMETHOD SPARSE, ASAS ON,
     FF 60, the guard on) through ``WorldBatch.run()``, four of them held
     to solo ``Simulation``s.
+12. differentiable phase (``diff_phase``): gradients through the smooth
+    dense step (``bluesky_tpu_torch/diff``; no kernel runs on this path,
+    and the launch counts must read 0 after it).  (a) 25 head-on pairs
+    (``conflict_scene(50)``) in a float64 ``Simulation`` on the card, ``OPT
+    100,10,0.5`` typed into its stack: the guard clean, hard LoS before
+    and none after, the objective falling, the wall seconds of each
+    descent iteration; (b) the same with 4 restarts on the world axis;
+    (c) ``value_and_grad_once`` on ``conflict_scene(8)`` in float64 on
+    the card against the CPU, ASAS out of the loop and in it (value and
+    gradient within 1e-9, equal guard words); (d) the rollout of
+    2,000 aircraft in 2,048 slots (float32, 400 steps of 1 s) without
+    and with ASAS: forward and forward+backward ms, peak memory,
+    gradient norm, with the card's name and power limit.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -2499,6 +2512,187 @@ def worlds_phase(dev, errs, regs, scale=1):
     return report
 
 
+#: the differentiable phase (``diff_phase``): the demo scene (25 head-on
+#: pairs, ``conflict_scene``, with legs of 20 km: the pairs meet at
+#: ~80 s; float64, whose descent the card follows to 1e-14 of the CPU's,
+#: where float32 rounding takes another path) and the OPT arguments
+#: (tend, iterations, learning rate); the
+#: card-against-CPU check's scene and horizon; the full-width rollout
+#: (the dense worlds shape of the worlds phase) and its chunks without
+#: and with ASAS in the loop (50 does not fit in 80 GB with ASAS)
+DIFF_DEMO_N, DIFF_DEMO_LEG_KM, DIFF_DEMO_OPT = 50, 20.0, (100.0, 10, 0.5)
+DIFF_CHECK_N, DIFF_CHECK_TEND = 8, 100.0
+DIFF_CHECK_RTOL = 1e-9
+DIFF_WIDE = dict(n_ac=2000, nmax=2048, tend=400.0, simdt=1.0,
+                 chunk=(50, 25))
+
+_OPT_ECHO = re.compile(
+    r"OPT: objective (\S+) -> (\S+) in (\d+) iters \((\d+) restart\(s\), "
+    r"best (\d+)\); hard LoS (\d+) -> (\d+)")
+
+
+def diff_opt_demo(dev, restarts=1):
+    """Phase 12 (a)/(b): ``conflict_scene(DIFF_DEMO_N)`` created in a
+    float64 ``Simulation`` on the card, then ``TRACE ON`` and ``OPT
+    tend,iters,lr[,restarts]`` typed into its stack.  Fails unless the
+    guard stays clean, the plan had hard LoS before and none after, and
+    the objective fell.  Logs the wall seconds of each descent iteration
+    (the ``opt_step`` spans of the flight recorder) and of the command."""
+    import torch
+    from bluesky_tpu_torch.diff import optimize as dopt
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    tend, n_it, lr = DIFF_DEMO_OPT
+    sim = Simulation(nmax=DIFF_DEMO_N, dtype=torch.float64, device=dev)
+    dopt.conflict_scene(DIFF_DEMO_N, leg_km=DIFF_DEMO_LEG_KM, traf=sim.traf)
+    cmd = f"OPT {tend:g},{n_it},{lr:g}" \
+        + (f",{restarts}" if restarts > 1 else "")
+    sim.stack.stack("TRACE ON")
+    sim.stack.process()
+    sim.recorder.clear()
+    sim.scr.echobuf.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.stack.stack(cmd)
+    sim.stack.process()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = " ".join(sim.scr.echobuf)
+    m = _OPT_ECHO.search(text)
+    if m is None or "GUARD TRIP" in text or "integrity-guard" in text:
+        raise AssertionError(f"diff {cmd}: {text}")
+    first, last = float(m.group(1)), float(m.group(2))
+    iters_run, before, after = int(m.group(3)), int(m.group(6)), \
+        int(m.group(7))
+    spans = [e["dur"] / 1e6 for e in list(sim.recorder._ring)
+             if e["name"] == "opt_step"]
+    sim.recorder.disable()
+    log(f"diff {cmd} on {DIFF_DEMO_N} aircraft: {text}")
+    log(f"diff {cmd}: {wall:.2f} s wall, {len(spans)} iterations "
+        f"{sum(spans):.2f} s ({min(spans):.3f}-{max(spans):.3f} s each, "
+        f"median {float(np.median(spans)):.3f}; the first includes the "
+        f"warm-up), the rest (hard-metric verification at 0.05 s, before "
+        f"and after) {wall - sum(spans):.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not (iters_run == n_it and before > 0 and after == 0
+            and last < first):
+        raise AssertionError(
+            f"diff {cmd}: {iters_run} iterations, hard LoS {before} -> "
+            f"{after}, objective {first} -> {last}")
+
+
+def diff_card_vs_cpu(dev):
+    """Phase 12 (c): ``value_and_grad_once`` on ``conflict_scene(
+    DIFF_CHECK_N)`` in float64 on the card and on the CPU, ASAS out of
+    the loop and in it: equal guard words, equal non-finite gradient
+    entries, and the value and the finite gradient entries within
+    ``DIFF_CHECK_RTOL`` of the CPU's (relative to the largest entry)."""
+    import torch
+    from bluesky_tpu_torch.diff import optimize as dopt
+    for with_asas in (False, True):
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            traf, acfg = dopt.conflict_scene(DIFF_CHECK_N,
+                                             dtype=torch.float64, device=d)
+            t0 = time.perf_counter()
+            value, grads, bad = dopt.value_and_grad_once(
+                traf.state, acfg, tend=DIFF_CHECK_TEND,
+                with_asas=with_asas)
+            g = np.concatenate([x.cpu().numpy() for x in grads])
+            res[d.type] = (float(value), g, int(bad),
+                           time.perf_counter() - t0)
+        (vc, gc, bc, tc), (vh, gh, bh, th) = res["cuda"], res["cpu"]
+        fin = np.isfinite(gh)
+        scale = max(float(np.abs(gh[fin]).max(initial=0.0)), 1e-300)
+        gerr = float(np.abs(gc[fin] - gh[fin]).max(initial=0.0)) / scale
+        verr = abs(vc - vh) / max(abs(vh), 1e-300)
+        log(f"diff card vs CPU, conflict_scene({DIFF_CHECK_N}) float64, "
+            f"tend {DIFF_CHECK_TEND:g}, with_asas={with_asas}: value "
+            f"{vc!r} / {vh!r} (rel err {verr:.3g}), guard word {bc} / {bh}, "
+            f"gradient max err {gerr:.3g} of its max |g| {scale:.6g}, "
+            f"{int((~fin).sum())} non-finite entries on the CPU; "
+            f"{tc:.2f} s card, {th:.2f} s CPU")
+        if bc != bh or not np.array_equal(fin, np.isfinite(gc)) \
+                or verr > DIFF_CHECK_RTOL or gerr > DIFF_CHECK_RTOL:
+            raise AssertionError(
+                f"diff card vs CPU (with_asas={with_asas}) disagree")
+
+
+def diff_full_width(dev):
+    """Phase 12 (d): the rollout at the full width of the dense worlds
+    shape, ``regional_scene(n_ac=2000, nmax=2048)`` in float32, tend
+    400 s at simdt 1, ASAS out of the loop (chunks of 50) and in it
+    (chunks of 25: about 40 saved [2048, 2048] tensors a step, so 50
+    steps need about 90 GiB): the forward alone (no gradient) and
+    forward+backward (``value_and_grad_once``) timed, with the peak
+    memory of each, the gradient norm and the guard word."""
+    import torch
+    from bluesky_tpu_torch.core.step import SimConfig
+    from bluesky_tpu_torch.diff import optimize as dopt
+    from bluesky_tpu_torch.diff.objectives import ObjectiveWeights
+    from bluesky_tpu_torch.diff.smooth import SmoothConfig
+    w = DIFF_WIDE
+    state, cfg0 = regional_scene(dev, n_ac=w["n_ac"], nmax=w["nmax"])
+    nsteps = int(round(w["tend"] / w["simdt"]))
+    for with_asas, chunk in zip((False, True), w["chunk"]):
+        asas = cfg0.asas._replace(swasas=with_asas)
+        cfg = SimConfig(simdt=w["simdt"], asas=asas, cd_backend="dense",
+                        smooth=SmoothConfig())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            acc, _, fbad = dopt._rollout(state, cfg, nsteps, chunk,
+                                         ObjectiveWeights(), 1.0, False,
+                                         los_margin=1.2)
+            acc = float(acc)
+        fwd = time.perf_counter() - t0
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value, grads, bad = dopt.value_and_grad_once(
+            state, asas, tend=w["tend"], simdt=w["simdt"], chunk=chunk,
+            with_asas=with_asas)
+        gnorm = float(torch.sqrt(sum((g * g).sum() for g in grads)))
+        bad = int(bad)
+        both = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"diff full width {w['n_ac']} aircraft in {w['nmax']} slots "
+            f"float32, {nsteps} steps of {w['simdt']:g} s, chunk {chunk}, "
+            f"with_asas={with_asas}: forward {fwd * 1e3:.1f} ms "
+            f"({fwd * 1e3 / nsteps:.3f} a step, peak {fwd_peak:.3f} GiB), "
+            f"forward+backward {both * 1e3:.1f} ms (ratio "
+            f"{both / fwd:.3f}, peak {peak:.3f} GiB), objective {acc!r} / "
+            f"{float(value)!r}, |grad| {gnorm:.6g}, guard word {bad} "
+            f"(forward {int(fbad)}); card {nvidia_smi()}")
+        if not (np.isfinite(acc) and np.isfinite(float(value))) \
+                or int(fbad) != -1:
+            raise AssertionError("diff full width: non-finite forward")
+
+
+def diff_phase(dev):
+    """Phase 12: the differentiable mode on the card: (a) the demo
+    through OPT, (b) the same with 4 restarts on the world axis, (c) the
+    gradient on the card against the CPU, (d) the rollout at full width.
+    No kernel runs on this path (the dense step is plain PyTorch): the
+    launch counts are set to 0 before it and must read 0 after."""
+    reset_launches()
+    t0 = time.perf_counter()
+    diff_opt_demo(dev)
+    log(f"diff (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    diff_opt_demo(dev, restarts=4)
+    log(f"diff (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    diff_card_vs_cpu(dev)
+    log(f"diff (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    diff_full_width(dev)
+    log(f"diff (d): {time.perf_counter() - t0:.1f} s")
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"diff phase launched kernels: {launched}")
+
+
 def sim_phase(dev):
     """Phase 10: the embedded ``Simulation`` driven through its stack
     (``sim_continental``, then ``sim_regional``); returns the kernel
@@ -2565,6 +2759,10 @@ def main():
     world_report = worlds_phase(dev, errs, regs)
     log(f"worlds_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after worlds_phase")
+    t0 = time.perf_counter()
+    diff_phase(dev)
+    log(f"diff_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after diff_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
     report += world_report

@@ -44,7 +44,7 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
     runs = []
 
-    def fake_update(state, cfg, block=512, impl="lax"):
+    def fake_update(state, cfg, block=512, impl="lax", smooth=None):
         runs.append(float(state.simt))
         return state, None
     monkeypatch.setattr(tasas, "update", fake_update)
@@ -69,9 +69,9 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
 def test_import_without_jax():
     """The package and every module of it (the chunk graphs, the ``obs``
-    instruments, and the Simulation with its stack, routes, navdb,
-    guard and multi-world batch among them) import with jax, flax and
-    bluesky_tpu unavailable."""
+    instruments, the Simulation with its stack, routes, navdb, guard
+    and multi-world batch, and the differentiable mode among them)
+    import with jax, flax and bluesky_tpu unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
@@ -91,7 +91,8 @@ def test_import_without_jax():
         "    'navdb.navdatabase', 'stack.argparser', 'stack.synthetic',\n"
         "    'stack.stack', 'stack.commands', 'simulation.pipeline',\n"
         "    'simulation.snapshot', 'simulation.sim', 'simulation.worlds',\n"
-        "    'fault.guard')}\n"
+        "    'fault.guard', 'diff', 'diff.smooth', 'diff.objectives',\n"
+        "    'diff.optimize', 'ops.ties')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"
@@ -117,6 +118,16 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
         tstate.state_from_numpy(tree)
     assert TTraffic(nmax=8, device="cpu").state.device.type == "cpu"
     assert Simulation(nmax=8, device="cpu").traf.state.device.type == "cpu"
+    from bluesky_tpu_torch.diff import optimize as topt
+    with pytest.raises(RuntimeError, match="CUDA"):
+        topt.conflict_scene(4)
+    offsets = {"lateral": np.zeros(4), "tshift": np.zeros(4)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        topt.OffsetParams.from_numpy(offsets)
+    traf, _ = topt.conflict_scene(4, device="cpu")
+    assert traf.state.device.type == "cpu"
+    assert topt.OffsetParams.from_numpy(offsets, "cpu").lateral.device.type \
+        == "cpu"
 
 
 @pytest.mark.parametrize("backend", ["dense", "tiled", "pallas", "sparse"])

@@ -213,3 +213,84 @@ def test_bundled_scenario(path, tmp_path, monkeypatch):
         tdatalog.reset()
     if "mc-batch" not in name:
         assert tsim.traf.ntraf > 0
+
+
+#: two head-on pairs with LNAV-direct routes to each other's start (the
+#: scenario of JAX ``tests/test_diff.py``'s OPT piece, legs of ±0.2 deg:
+#: the pairs meet at ~90 s)
+OPT_LINES = tuple(line for k in range(2) for line in (
+    f"CRE OA{k:02d} B744 {48.0 + 0.8 * k} 3.8 90 FL200 250",
+    f"CRE OB{k:02d} B744 {48.0 + 0.8 * k} 4.2 270 FL200 250",
+    f"ADDWPT OA{k:02d} {48.0 + 0.8 * k},4.2",
+    f"ADDWPT OB{k:02d} {48.0 + 0.8 * k},3.8"))
+_NUM = r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?"
+
+
+def _same_echo(jecho, techo):
+    """Echo lines equal but for the last printed digit of a number."""
+    import re
+    assert len(techo) == len(jecho)
+    for j, t in zip(jecho, techo):
+        assert re.sub(_NUM, "#", t) == re.sub(_NUM, "#", j), (t, j)
+        for a, b in zip(re.findall(_NUM, t), re.findall(_NUM, j)):
+            assert float(a) == pytest.approx(float(b), rel=1e-3, abs=1e-3), \
+                (t, j)
+
+
+def test_opt_and_grad_commands(monkeypatch):
+    """GRAD and OPT typed into both simulations on the same scene answer
+    alike (the objective, the gradient norm, the guard word; the descent
+    from JAX's initial draw and its hard-metric verification, here at
+    0.25 s), and OPT leaves the simulation held."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    import bluesky_tpu.settings as jset
+    import bluesky_tpu_torch.settings as tset
+    from bluesky_tpu_torch.diff import optimize as topt
+    for s in (jset, tset):
+        monkeypatch.setattr(s, "opt_verify_dt", 0.25)
+
+    def jax_draw(state, restarts=1, seed=0, init_noise=0.1):
+        # JAX optimize's PRNGKey draw, which torch cannot reproduce
+        n = state.ac.lat.shape[-1]
+        lat0 = init_noise * jax.random.normal(jax.random.PRNGKey(seed),
+                                              (n,), jnp.float64)
+        return topt.OffsetParams(torch.from_numpy(np.array(lat0)),
+                                 torch.zeros(n, dtype=torch.float64))
+    monkeypatch.setattr(topt, "init_offsets", jax_draw)
+    jsim, tsim = sim_pair()
+    for sim in (jsim, tsim):
+        sim_do(sim, *OPT_LINES)
+    for line in ("GRAD 100", "OPT 100,3,0.5"):
+        jecho, techo = sim_do(jsim, line), sim_do(tsim, line)
+        _same_echo(jecho, techo)
+        assert techo and techo[0].startswith(line.split()[0] + ":")
+        assert not any("ROADMAP" in e or "TRIP" in e for e in techo)
+    assert "hard LoS 4 -> " in techo[0]
+    assert tsim.state_flag == jsim.state_flag
+    assert tsim.traf.ntraf == 4
+
+
+def test_optimize_trajectories_guard_trip():
+    """A NaN latitude trips the forward guard word in the rollout: the
+    descent halts after its first iteration at the last finite offsets,
+    and the trip is logged with the action ``opt_halt``, as in JAX."""
+    jsim, tsim = sim_pair(nmax=4)
+    res = []
+    for sim in (jsim, tsim):
+        sim_do(sim, "CRE A1 B744 48 3.5 90 6000 200",
+               "CRE A2 B744 48 4.5 270 6000 200")
+    _poison(jsim, tsim, 0)
+    for sim in (jsim, tsim):
+        res.append(sim.optimize_trajectories(tend=20.0, iters=2, simdt=1.0,
+                                             chunk=10, verify_simdt=1.0))
+    (jr, tr) = res
+    assert tr.bad == jr.bad >= 0
+    assert tr.iters == jr.iters == 1
+    assert [t["action"] for t in tsim.guard.trips] == ["opt_halt"]
+    assert [(t["bad_step"], t["action"]) for t in tsim.guard.trips] \
+        == [(t["bad_step"], t["action"]) for t in jsim.guard.trips]
+    assert np.all(np.isfinite(tr.lateral_m))
+    assert np.all(np.isfinite(tr.tshift_s))
+    assert any("integrity-guard trip" in e for e in tsim.scr.echobuf)

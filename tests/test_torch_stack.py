@@ -190,3 +190,14 @@ def test_deferred_command(name):
     after = state_to_numpy(tsim.traf.state)
     assert all(np.array_equal(before[k], after[k]) for k in before)
     assert (tsim.cfg, tsim.traf.ids) == (cfg, ids)
+
+
+def test_opt_and_grad_are_not_deferred():
+    """OPT and GRAD left ``DEFERRED`` with the differentiable mode: they
+    are the JAX commands now, and answer as JAX's do without traffic."""
+    assert not {"OPT", "GRAD"} & set(DEFERRED)
+    jsim, tsim = sim_pair()
+    for line in ("OPT", "GRAD", "OPT 100,2"):
+        jecho, techo = sim_do(jsim, line), sim_do(tsim, line)
+        assert techo == jecho
+        assert not any("ROADMAP" in e for e in techo)

@@ -217,3 +217,52 @@ def assert_sims_equal(jsim, tsim, jecho, techo, **kw):
     assert (tsim.dtmult, tsim.state_flag) == (jsim.dtmult, jsim.state_flag)
     assert tsim.simt == jsim.simt
     assert_sim_states(jsim, tsim, **kw)
+
+
+# ------------------------------------------------- the differentiable mode
+
+_DIFF_SCENES = {}
+
+
+def diff_scene(n, leg_km=60.0):
+    """JAX's ``diff.optimize.conflict_scene(n, leg_km=...)`` in float64 as
+    ``(numpy tree, tree structure, AsasConfig)`` (made once per shape)."""
+    key = (n, leg_km)
+    if key not in _DIFF_SCENES:
+        import jax
+        import jax.numpy as jnp
+        from bluesky_tpu.diff import optimize as jopt
+        traf, acfg = jopt.conflict_scene(n, leg_km=leg_km, dtype=jnp.float64)
+        _DIFF_SCENES[key] = (jax_tree_to_numpy(traf.state),
+                             jax.tree_util.tree_structure(traf.state), acfg)
+    return _DIFF_SCENES[key]
+
+
+def diff_pair(n, leg_km=60.0):
+    """``diff_scene`` as a new JAX state and a new port state on the CPU,
+    bit-equal, with the JAX ``AsasConfig``."""
+    import jax
+    import jax.numpy as jnp
+    from bluesky_tpu_torch.core.state import state_from_numpy
+    tree, treedef, acfg = diff_scene(n, leg_km)
+    jstate = jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(v) for v in tree.values()])
+    return jstate, state_from_numpy(tree, device="cpu"), acfg
+
+
+def diff_params(n, seed, lat_sd=0.2, t_sd=0.05):
+    """Seeded offsets ``{"lateral", "tshift"}`` for ``n`` slots."""
+    rng = np.random.default_rng(seed)
+    return {"lateral": rng.normal(0.0, lat_sd, n),
+            "tshift": rng.normal(0.0, t_sd, n)}
+
+
+def diff_close(name, got, want, rtol):
+    """``got`` within ``rtol`` of ``want`` relative to ``want``'s largest
+    finite entry, with the non-finite entries in the same places."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.array_equal(np.isfinite(got), np.isfinite(want)), name
+    fin = np.isfinite(want)
+    scale = max(float(np.abs(want[fin]).max(initial=0.0)), 1e-300)
+    err = float(np.abs(got[fin] - want[fin]).max(initial=0.0))
+    assert err <= rtol * scale, (name, err, scale)
