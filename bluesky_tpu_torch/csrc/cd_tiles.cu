@@ -15,8 +15,9 @@
 //                                         of each row's candidate table
 // All run one per-pair body (cd_pallas._tile_pairs: factored haversine,
 // CPA, horizontal/vertical entry and exit times, conflict and LoS flags,
-// the resolver's displacement sums and a running top-KK of partner
-// candidates).  The resolver is the compile-time parameter RESO:
+// the resolver's displacement sums and a running top-K of partner
+// candidates, K the partner-table width, 1 <= K <= KMAX = 32).  The
+// resolver is the compile-time parameter RESO:
 //   * RESO_MVP: the MVP displacement of each conflict pair outside NORESO
 //     (cr_mvp.pair_contrib_trig) and its vertical solve time;
 //   * RESO_EBY: the Eby displacement of each conflict pair
@@ -35,7 +36,7 @@
 // evaluates the resume keep predicate, offers only kept conflict pairs as
 // candidates, and the row ends with the partner merge
 // (cd_pallas._merge_partners_block); without it (the last two) every
-// conflict pair is a candidate and only the accumulators and the top-KK
+// conflict pair is a candidate and only the accumulators and the top-K
 // are stored.
 //
 // Design.  One thread per ownship, a CTA of B <= 256 threads per work
@@ -72,26 +73,35 @@
 //   ascending order there too.  An overflow row's table is all sentinel:
 //   it has no sub-chunk and all its items are empty.
 // * Deterministic row merge (cd_merge_items).  Each item writes its 8
-//   accumulators (15 with the Swarm sums), its top-KK (tin, id) and, with
+//   accumulators (15 with the Swarm sums), its top-K (tin, id) and, with
 //   RESUME, its keep bits to
 //   scratch; a second kernel, one thread per ownship, folds a row's items
 //   in ascending item order (sums and counts add, tcpamax max, tsolv min,
-//   inconf and keep bits or, top-KK merged by (tin, id)) and, with RESUME,
+//   inconf and keep bits or, top-K merged by (tin, id)) and, with RESUME,
 //   runs the partner merge.  No float atomics: one input gives one output,
 //   bit for bit, from launch to launch.  A walk visits ids in ascending
 //   order, so its strict-'<' insert and the (tin, id) order of the merge
 //   are the same order: the Pallas tie order (smallest tin first, ties to
 //   the smaller id).
 // * Registers.  A pair walk keeps in registers only the ownship column and
-//   the 8 accumulators; the top-KK list, the old partners, the keep bits
+//   the 8 accumulators; the top-K list, the old partners, the keep bits
 //   and the ownship's gse, gsn and trk live in shared memory, one bank per
-//   thread (Side, 28 KB at B=256), and are touched only by a conflict pair
-//   or an old partner.
-//   The keep predicate runs only for those pairs (its result is read
-//   nowhere else), and the old-partner test is a per-tile mask of the
-//   partners inside the staged block.  __launch_bounds__(256, 4) holds the
-//   walkers to 64 registers, so 4 CTAs (32 warps) fit on an SM: 44 KB of
-//   shared memory each (45 KB with the staged ids).
+//   thread (Side), and are touched only by a conflict pair or an old
+//   partner.  The keep predicate runs only for those pairs (its result is
+//   read nowhere else), and the old-partner test is a per-tile mask of the
+//   partners inside the staged block.
+// * Partner width K.  Side holds (3K + 4) words a thread, in dynamic shared
+//   memory sized by the launch: 28 KB at K = 8 and B = 256, 52 KB at 16,
+//   100 KB at 32, past the 48 KB of static shared memory.  K = 8, the
+//   default of every path, is compiled as a constant (KT = 8: Side's rows
+//   at the fixed stride MAXB, every address a constant offset, the loops
+//   over K unrolled) under __launch_bounds__(256, 4): 64 registers, 4 CTAs
+//   (32 warps) an SM, 44 KB of shared memory each (45 KB with the staged
+//   ids).  Every other K takes the run-time form (KT = 0: K and the stride
+//   B read from the arguments) under __launch_bounds__(256, 3), 80
+//   registers; shared memory then allows 3 CTAs an SM at K = 16 and 1 at
+//   K = 32.  The keep bits of an ownship's old partners are one 32-bit
+//   word, which bounds K at KMAX = 32.
 //
 // Bound on the card: the pair math.  Each visited tile costs B*B pairs of
 // 168 f32 operations (the keep predicate adds 26 on the conflict and
@@ -104,7 +114,7 @@
 // the split walkers lose the rest is not measured (no instruction-level
 // profiler runs on the card); the serial per-pair chain of sqrt, rsqrt
 // and divisions at 32 warps per SM is the first suspect.  The merge
-// moves (8 + 2*KK + 1) words per ownship and item, and is bounded by
+// moves (8 + 2*K + 1) words per ownship and item, and is bounded by
 // bytes.
 //
 // Plain C interface (built with nvcc, loaded with ctypes); every entry
@@ -117,7 +127,8 @@ namespace {
 
 constexpr int NF = 16;        // slab rows (cd_pallas._FIELDS)
 constexpr int MAXB = 256;     // max block width
-constexpr int KK = 8;         // partner-table width K
+constexpr int K8 = 8;         // the default partner-table width K
+constexpr int KMAX = 32;      // widest K: the keep bits are one 32-bit word
 constexpr float BIG = 1e9f;
 constexpr int BIG_I = 1 << 30;
 constexpr int NACC = 8;       // accumulators of every form
@@ -149,6 +160,7 @@ constexpr float R2_SWARM = (float)((7.5 * 1852.0) * (7.5 * 1852.0));
 constexpr float DH_SWARM = (float)(1500.0 * 0.3048);
 
 struct Params {
+  int kk;                           // partner-table width K
   float rpz, r2, hpz, tlook;        // detection
   float rpz_m, hpz_m, tlook_m;      // MVP (margin-scaled zone)
   float rpz_resume;                 // resume-nav radius rpz * resofach
@@ -159,18 +171,18 @@ struct Params {
 struct Outs {
   float* acc;     // [8, NT]: inconf tcpamax sdve sdvn sdvv tsolv ncnt lcnt
                   // (then the NSW Swarm sums: [15, NT])
-  float* ctin;    // [nb, KK, B]
-  int* cidx;      // [nb, KK, B]
-  float* keep;    // [nb, KK, B]
-  int* merged;    // [nb, KK, B]
+  float* ctin;    // [nb, K, B]
+  int* cidx;      // [nb, K, B]
+  float* keep;    // [nb, K, B]
+  int* merged;    // [nb, K, B]
   float* active;  // [NT]
 };
 
 // Partials of the work items, item g = row * C + k of G = nb * C.
 struct Parts {
   float* acc;      // [8, G, B] ([15, G, B] with the Swarm sums)
-  float* ct;       // [KK, G, B]
-  int* ci;         // [KK, G, B]
+  float* ct;       // [K, G, B]
+  int* ci;         // [K, G, B]
   unsigned* keep;  // [G, B] keep bits (RESUME)
 };
 
@@ -179,15 +191,50 @@ struct Acc {
   float inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt;
 };
 
-// The rare-path per-ownship state, in shared memory: [k][thread], so the
-// threads of a warp touch 32 different banks.
+// The rare-path per-ownship state, in dynamic shared memory at base:
+// rows [k][thread] of stride S, so the threads of a warp touch 32
+// different banks.  In order: ct [K][S] the top-K entry times, ascending;
+// ci [K][S] their intruder ids; pold [K][S] the old partners (RESUME); keep
+// [S] the keep bits of the old partners (RESUME); gse, gsn, trk [S] the
+// ownship fields of the rare paths.  KT > 0 fixes K = KT and S = MAXB at
+// compile time; KT = 0 takes K = kr and S = sr (the launch's B).
+template <int KT>
 struct Side {
-  float ct[KK][MAXB];     // top-KK entry times, ascending
-  int ci[KK][MAXB];       // their intruder ids
-  int pold[KK][MAXB];     // old partners (RESUME)
-  unsigned keep[MAXB];    // keep bits of the old partners (RESUME)
-  float gse[MAXB], gsn[MAXB], trk[MAXB];  // ownship fields of the rare paths
+  float* base;
+  int kr, sr;
+  __device__ __forceinline__ int K() const { return KT ? KT : kr; }
+  __device__ __forceinline__ int S() const { return KT ? MAXB : sr; }
+  __device__ __forceinline__ float& ct(int k, int t) const {
+    return base[k * S() + t];
+  }
+  __device__ __forceinline__ int& ci(int k, int t) const {
+    return reinterpret_cast<int*>(base)[(K() + k) * S() + t];
+  }
+  __device__ __forceinline__ int& pold(int k, int t) const {
+    return reinterpret_cast<int*>(base)[(2 * K() + k) * S() + t];
+  }
+  __device__ __forceinline__ unsigned& keep(int t) const {
+    return reinterpret_cast<unsigned*>(base)[3 * K() * S() + t];
+  }
+  __device__ __forceinline__ float& gse(int t) const {
+    return base[(3 * K() + 1) * S() + t];
+  }
+  __device__ __forceinline__ float& gsn(int t) const {
+    return base[(3 * K() + 2) * S() + t];
+  }
+  __device__ __forceinline__ float& trk(int t) const {
+    return base[(3 * K() + 3) * S() + t];
+  }
+  // the first word past Side: the Swarm sums start there
+  __device__ __forceinline__ float* end() const {
+    return base + (3 * K() + 4) * S();
+  }
 };
+
+// Bytes of Side at width kk and stride S (cd_pallas.cta_shared_bytes).
+constexpr size_t side_bytes(int kk, int S) {
+  return (size_t)(3 * kk + 4) * S * sizeof(float);
+}
 
 // The reference divides by 6, 20 and 42; compiled, it multiplies by the
 // f32 reciprocals, and so does the plain PyTorch version.
@@ -299,53 +346,59 @@ __device__ __forceinline__ bool before(float tin, int id, float ct, int ci) {
   return tin < ct || (tin == ct && id < ci);
 }
 
-// Insert (tin, id) into thread t's top-KK list; false if it stays out.
-__device__ bool insert_cand(Side& sd, int t, float tin, int id) {
-  if (!before(tin, id, sd.ct[KK - 1][t], sd.ci[KK - 1][t])) return false;
-  int j = KK - 1;
-  for (; j > 0 && before(tin, id, sd.ct[j - 1][t], sd.ci[j - 1][t]); --j) {
-    sd.ct[j][t] = sd.ct[j - 1][t];
-    sd.ci[j][t] = sd.ci[j - 1][t];
+// Insert (tin, id) into thread t's top-K list; false if it stays out.
+template <int KT>
+__device__ bool insert_cand(const Side<KT>& sd, int t, float tin, int id) {
+  const int kk = sd.K();
+  if (!before(tin, id, sd.ct(kk - 1, t), sd.ci(kk - 1, t))) return false;
+  int j = kk - 1;
+  for (; j > 0 && before(tin, id, sd.ct(j - 1, t), sd.ci(j - 1, t)); --j) {
+    sd.ct(j, t) = sd.ct(j - 1, t);
+    sd.ci(j, t) = sd.ci(j - 1, t);
   }
-  sd.ct[j][t] = tin;
-  sd.ci[j][t] = id;
+  sd.ct(j, t) = tin;
+  sd.ci(j, t) = id;
   return true;
 }
 
 // The ownship column: in registers o, but for the three fields only the
 // MVP tail and the keep predicate read, which go to shared memory.
-__device__ __forceinline__ void own_begin(float* o, Side& sd,
+template <int KT>
+__device__ __forceinline__ void own_begin(float* o, const Side<KT>& sd,
                                           const float* packed, int i, int B,
                                           int t) {
 #pragma unroll
   for (int f = 0; f < NF; ++f) o[f] = packed[((size_t)i * NF + f) * B + t];
-  sd.gse[t] = o[F_GSE];
-  sd.gsn[t] = o[F_GSN];
-  sd.trk[t] = o[F_TRK];
+  sd.gse(t) = o[F_GSE];
+  sd.gsn(t) = o[F_GSN];
+  sd.trk(t) = o[F_TRK];
 }
 
-template <bool RESUME>
-__device__ __forceinline__ void side_begin(Side& sd, const int* pold, int i,
-                                           int B, int t) {
+template <bool RESUME, int KT>
+__device__ __forceinline__ void side_begin(const Side<KT>& sd,
+                                           const int* pold, int i, int B,
+                                           int t) {
+  const int kk = sd.K();
 #pragma unroll
-  for (int k = 0; k < KK; ++k) {
-    sd.ct[k][t] = BIG;
-    sd.ci[k][t] = BIG_I;
-    sd.pold[k][t] = RESUME ? pold[((size_t)i * KK + k) * B + t] : -1;
+  for (int k = 0; k < kk; ++k) {
+    sd.ct(k, t) = BIG;
+    sd.ci(k, t) = BIG_I;
+    sd.pold(k, t) = RESUME ? pold[((size_t)i * kk + k) * B + t] : -1;
   }
-  sd.keep[t] = 0u;
+  sd.keep(t) = 0u;
 }
 
 // Bits k of the old partners pold[k] inside intruder block jb.
-template <bool RESUME>
-__device__ __forceinline__ unsigned old_mask(const Side& sd, int t, int jb,
-                                             int B) {
+template <bool RESUME, int KT>
+__device__ __forceinline__ unsigned old_mask(const Side<KT>& sd, int t,
+                                             int jb, int B) {
   unsigned m = 0u;
   if constexpr (RESUME) {
     const int lo = jb * B;
+    const int kk = sd.K();
 #pragma unroll
-    for (int k = 0; k < KK; ++k) {
-      const int q = sd.pold[k][t];
+    for (int k = 0; k < kk; ++k) {
+      const int q = sd.pold(k, t);
       if (q >= lo && q < lo + B) m |= 1u << k;
     }
   }
@@ -357,11 +410,11 @@ __device__ __forceinline__ unsigned old_mask(const Side& sd, int t, int jb,
 // The intruder ids are the staged ids sid with IDS, else those of block
 // jb, jb*B + lane.  pmask: old_mask of this block.  sw: the Swarm sums,
 // [NSW][B] in shared memory (RESO_SWARM).
-template <bool RESUME, bool IDS, int RESO>
+template <bool RESUME, bool IDS, int RESO, int KT>
 __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
                                            int jb, int B, const float* o,
                                            int gid, unsigned pmask, Acc& a,
-                                           Side& sd, int tt,
+                                           const Side<KT>& sd, int tt,
                                            const Params& P, float* sw) {
   for (int t = 0; t < B; ++t) {
     const int gid_i = IDS ? sid[t] : jb * B + t;
@@ -423,7 +476,7 @@ __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
     if constexpr (RESO == RESO_SWARM) {
       // --- Swarm neighbour sums: cr_swarm.pair_weight ---
       if (dx * dx + dy * dy < R2_SWARM && fabsf(dalt) < DH_SWARM)
-        swarm_add(sw, B, tt, s[F_TRK][t] - sd.trk[tt], s[F_TR][t],
+        swarm_add(sw, B, tt, s[F_TRK][t] - sd.trk(tt), s[F_TR][t],
                   s[F_VS][t], dx, dy, s[F_ALT][t]);
     }
     if (swconfl) {
@@ -441,8 +494,8 @@ __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
         a.sdvv += dvv;
       } else if (!(s[F_NORESO][t] > 0.5f)) {
         // --- MVP pair contribution: cr_mvp.pair_contrib_trig ---
-        const float vrel_e = s[F_GSE][t] - sd.gse[tt];
-        const float vrel_n = s[F_GSN][t] - sd.gsn[tt];
+        const float vrel_e = s[F_GSE][t] - sd.gse(tt);
+        const float vrel_n = s[F_GSN][t] - sd.gsn(tt);
         const float drel_e = sinq * dist, drel_n = cosq * dist;
         float dcpa_e = drel_e + vrel_e * tcpa;
         float dcpa_n = drel_n + vrel_n * tcpa;
@@ -494,21 +547,22 @@ __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
     unsigned hit = 0u;
     for (unsigned m = pmask; m; m &= m - 1u) {
       const int k = __ffs(m) - 1;
-      if (sd.pold[k][tt] == gid_i) hit |= 1u << k;
+      if (sd.pold(k, tt) == gid_i) hit |= 1u << k;
     }
     if (!swconfl && !hit) continue;
     // --- resume-nav keep predicate: cr_mvp.resume_keep_core ---
-    const float vrel_e = s[F_GSE][t] - sd.gse[tt];
-    const float vrel_n = s[F_GSN][t] - sd.gsn[tt];
+    const float vrel_e = s[F_GSE][t] - sd.gse(tt);
+    const float vrel_n = s[F_GSN][t] - sd.gsn(tt);
     const float cos_half = sqrtf(fmaxf(0.5f + 0.5f * cos_sum, 0.0f));
     const float dist_e = REARTH * ((lon_i - o[F_LON]) * RAD) * cos_half;
     const float dist_n = REARTH * ((lat_i - o[F_LAT]) * RAD);
     const bool past_cpa = dist_e * vrel_e + dist_n * vrel_n > 0.0f;
     const float hdist = sqrtf(dist_e * dist_e + dist_n * dist_n);
     const bool keep = !past_cpa || (hdist < P.rpz)
-        || ((fabsf(sd.trk[tt] - s[F_TRK][t]) < 30.0f) && (hdist < P.rpz_resume));
+        || ((fabsf(sd.trk(tt) - s[F_TRK][t]) < 30.0f)
+            && (hdist < P.rpz_resume));
     if (keep) {
-      sd.keep[tt] |= hit;
+      sd.keep(tt) |= hit;
       if (swconfl) insert_cand(sd, tt, tinconf, gid_i);
     }
   }
@@ -539,13 +593,14 @@ __device__ __forceinline__ void stage_ids(float (*s)[MAXB], int* sid,
 }
 
 // The final stores of one ownship: the 8 accumulators, the Swarm sums sw
-// (RESO_SWARM) and the top-KK; with RESUME also the keep bits and
+// (RESO_SWARM) and the top-K; with RESUME also the keep bits and
 // cd_pallas._merge_partners_block (fresh candidates in urgency order,
 // then the kept old partners in slot order that are not fresh ones, the
-// first KK) and the engagement flag.
-template <bool RESUME, int RESO>
-__device__ void finish_row(const Acc& a, const float* sw, const Side& sd,
-                           const Outs& out, int i, int B, int t, size_t nt) {
+// first K) and the engagement flag.
+template <bool RESUME, int RESO, int KT>
+__device__ void finish_row(const Acc& a, const float* sw,
+                           const Side<KT>& sd, const Outs& out, int i, int B,
+                           int t, size_t nt) {
   const size_t g = (size_t)i * B + t;
   out.acc[0 * nt + g] = a.inconf;
   out.acc[1 * nt + g] = a.tcpamax;
@@ -559,28 +614,29 @@ __device__ void finish_row(const Acc& a, const float* sw, const Side& sd,
 #pragma unroll
     for (int k = 0; k < NSW; ++k) out.acc[(NACC + k) * nt + g] = sw[k];
   }
-  const size_t e0 = (size_t)i * KK * B + t;
+  const int kk = sd.K();
+  const size_t e0 = (size_t)i * kk * B + t;
 #pragma unroll
-  for (int k = 0; k < KK; ++k) {
-    out.ctin[e0 + (size_t)k * B] = sd.ct[k][t];
-    out.cidx[e0 + (size_t)k * B] = sd.ci[k][t];
+  for (int k = 0; k < kk; ++k) {
+    out.ctin[e0 + (size_t)k * B] = sd.ct(k, t);
+    out.cidx[e0 + (size_t)k * B] = sd.ci(k, t);
   }
   if constexpr (RESUME) {
-    const unsigned keep = sd.keep[t];
+    const unsigned keep = sd.keep(t);
     int n = 0;
-    for (int k = 0; k < KK; ++k) {
+    for (int k = 0; k < kk; ++k) {
       out.keep[e0 + (size_t)k * B] = (float)((keep >> k) & 1u);
-      if (sd.ct[k][t] < BIG) out.merged[e0 + (size_t)(n++) * B] = sd.ci[k][t];
+      if (sd.ct(k, t) < BIG) out.merged[e0 + (size_t)(n++) * B] = sd.ci(k, t);
     }
-    for (int k = 0; k < KK && n < KK; ++k) {
+    for (int k = 0; k < kk && n < kk; ++k) {
       if (!((keep >> k) & 1u)) continue;
-      const int q = sd.pold[k][t];
+      const int q = sd.pold(k, t);
       bool dup = false;
-      for (int m = 0; m < KK; ++m)
-        dup |= sd.ct[m][t] < BIG && sd.ci[m][t] == q;
+      for (int m = 0; m < kk; ++m)
+        dup |= sd.ct(m, t) < BIG && sd.ci(m, t) == q;
       if (!dup) out.merged[e0 + (size_t)(n++) * B] = q;
     }
-    for (int k = n; k < KK; ++k) out.merged[e0 + (size_t)k * B] = -1;
+    for (int k = n; k < kk; ++k) out.merged[e0 + (size_t)k * B] = -1;
     out.active[g] = n > 0 ? 1.0f : 0.0f;
   }
 }
@@ -591,10 +647,11 @@ __device__ void finish_row(const Acc& a, const float* sw, const Side& sd,
 // jb, staged from the slabs (cd_sched_tiles with RESUME, cd_full_grid,
 // and cd_sched_tiles on the overflow rows for _kernel_resume), or with
 // IDS the jb-th sub-chunk of B entries of the row's candidate table
-// cand[i, 0:c_cap], staged through its ids (cd_cand_items).  RESO_SWARM
-// launches with NSW * B floats of dynamic shared memory for its sums.
-template <bool RESUME, bool IDS, int RESO>
-__global__ void __launch_bounds__(MAXB, 4)
+// cand[i, 0:c_cap], staged through its ids (cd_cand_items).  Dynamic
+// shared memory holds Side (side_bytes), then with RESO_SWARM the NSW * B
+// floats of its sums.
+template <bool RESUME, bool IDS, int RESO, int KT>
+__global__ void __launch_bounds__(MAXB, KT ? 4 : 3)
 items_kernel(const float* __restrict__ packed, int B,
              const int* __restrict__ tiles, int W,
              const int* __restrict__ istart, const int* __restrict__ ilen,
@@ -606,8 +663,9 @@ items_kernel(const float* __restrict__ packed, int B,
                 "the candidate pass has no Swarm form");
   __shared__ float s[NF][MAXB];
   __shared__ int sid[IDS ? MAXB : 1];
-  __shared__ Side sd;
-  extern __shared__ float sw[];   // [NSW][B], RESO_SWARM only
+  extern __shared__ float dsm[];   // Side, then [NSW][B] (RESO_SWARM)
+  const Side<KT> sd{dsm, P.kk, B};
+  float* sw = sd.end();
   const int i = order[blockIdx.x / C];
   const size_t g = (size_t)i * C + blockIdx.x % C;
   const int len = ilen[g];
@@ -615,7 +673,7 @@ items_kernel(const float* __restrict__ packed, int B,
   const int t = threadIdx.x;
   float o[NF];
   own_begin(o, sd, packed, i, B, t);
-  side_begin<RESUME>(sd, pold, i, B, t);
+  side_begin<RESUME, KT>(sd, pold, i, B, t);
   if constexpr (RESO == RESO_SWARM) {
 #pragma unroll
     for (int k = 0; k < NSW; ++k) sw[k * B + t] = 0.0f;
@@ -632,9 +690,9 @@ items_kernel(const float* __restrict__ packed, int B,
       else
         stage(s, packed, jb, B, t);
       if (own_act)
-        tile_pairs<RESUME, IDS, RESO>(s, sid, jb, B, o, i * B + t,
-                                      old_mask<RESUME>(sd, t, jb, B), a, sd,
-                                      t, P, sw);
+        tile_pairs<RESUME, IDS, RESO, KT>(s, sid, jb, B, o, i * B + t,
+                                          old_mask<RESUME, KT>(sd, t, jb, B),
+                                          a, sd, t, P, sw);
     }
   }
   const size_t n = (size_t)gridDim.x * B, e = g * B + t;
@@ -650,23 +708,26 @@ items_kernel(const float* __restrict__ packed, int B,
 #pragma unroll
     for (int k = 0; k < NSW; ++k) pt.acc[(NACC + k) * n + e] = sw[k * B + t];
   }
+  const int kk = sd.K();
 #pragma unroll
-  for (int k = 0; k < KK; ++k) {
-    pt.ct[k * n + e] = sd.ct[k][t];
-    pt.ci[k * n + e] = sd.ci[k][t];
+  for (int k = 0; k < kk; ++k) {
+    pt.ct[k * n + e] = sd.ct(k, t);
+    pt.ci[k * n + e] = sd.ci(k, t);
   }
-  if constexpr (RESUME) pt.keep[e] = sd.keep[t];
+  if constexpr (RESUME) pt.keep[e] = sd.keep(t);
 }
 
 // cd_merge_items: ownship t of row block i folds the partials of its
 // row's non-empty items in ascending item order, then finishes the row.
-template <bool RESUME, int RESO>
+// Dynamic shared memory holds Side (side_bytes).
+template <bool RESUME, int RESO, int KT>
 __global__ void __launch_bounds__(MAXB)
-merge_kernel(int B, int C, const int* __restrict__ ilen,
+merge_kernel(int B, int C, int kk, const int* __restrict__ ilen,
              const int* __restrict__ pold, Parts pt, Outs out) {
-  __shared__ Side sd;
+  extern __shared__ float dsm[];
+  const Side<KT> sd{dsm, kk, B};
   const int i = blockIdx.x, t = threadIdx.x;
-  side_begin<RESUME>(sd, pold, i, B, t);
+  side_begin<RESUME, KT>(sd, pold, i, B, t);
   Acc a = acc_init();
   float sw[NSW] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const size_t n = (size_t)gridDim.x * C * B;
@@ -688,12 +749,13 @@ merge_kernel(int B, int C, const int* __restrict__ ilen,
       for (int q = 0; q < NSW; ++q) sw[q] += pt.acc[(NACC + q) * n + e];
     }
     // each item's list ascends, so its first entry that stays out ends it
-    for (int m = 0; m < KK; ++m)
+    for (int m = 0; m < sd.K(); ++m)
       if (!insert_cand(sd, t, pt.ct[m * n + e], pt.ci[m * n + e])) break;
     if constexpr (RESUME) keep |= pt.keep[e];
   }
-  sd.keep[t] = keep;
-  finish_row<RESUME, RESO>(a, sw, sd, out, i, B, t, (size_t)gridDim.x * B);
+  sd.keep(t) = keep;
+  finish_row<RESUME, RESO, KT>(a, sw, sd, out, i, B, t,
+                               (size_t)gridDim.x * B);
 }
 
 // cd_mask_items: row i's work items over the columns j with mask[i, j]
@@ -756,10 +818,11 @@ items_order_kernel(const int* __restrict__ ilen, int nb, int C,
   order[rank] = i;
 }
 
-Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
-                   float hpz_m, float tlook_m, float rpz_resume, double eby_s,
-                   double eby_s10) {
+Params make_params(int kk, float rpz, float r2, float hpz, float tlook,
+                   float rpz_m, float hpz_m, float tlook_m, float rpz_resume,
+                   double eby_s, double eby_s10) {
   Params p;
+  p.kk = kk;
   p.rpz = rpz; p.r2 = r2; p.hpz = hpz; p.tlook = tlook;
   p.rpz_m = rpz_m; p.hpz_m = hpz_m; p.tlook_m = tlook_m;
   p.rpz_resume = rpz_resume;
@@ -769,8 +832,9 @@ Params make_params(float rpz, float r2, float hpz, float tlook, float rpz_m,
 
 // Ask for the largest shared-memory carveout (once per kernel, at its
 // first launch), so that four 44 KB CTAs (52 KB with the Swarm sums) fit
-// on an SM beside the L1; the Swarm form also opts in to the dynamic
-// shared memory that takes it past the 48 KB of a default launch.
+// on an SM beside the L1 at K = 8, and opt in to the most dynamic shared
+// memory any launch of the kernel takes (the Swarm sums and a Side wider
+// than K = 8 go past the 48 KB of a default launch).
 template <typename K>
 void prefer_shared(K* kernel, int dyn) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -780,22 +844,43 @@ void prefer_shared(K* kernel, int dyn) {
                          dyn);
 }
 
-template <bool RESUME, bool IDS, int RESO>
+template <bool RESUME, bool IDS, int RESO, int KT>
 int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
                  const int* cand, int c_cap, const int* pold,
                  const Params& P, const Parts& pt, void* stream) {
-  if (B <= 0 || B > MAXB || C <= 0 || W <= 0 || (IDS && c_cap < W * B))
+  constexpr size_t sw_max = RESO == RESO_SWARM ? NSW * MAXB * sizeof(float)
+                                               : 0;
+  constexpr size_t dyn_max = side_bytes(KT ? KT : KMAX, MAXB) + sw_max;
+  static bool once = (prefer_shared(items_kernel<RESUME, IDS, RESO, KT>,
+                                    (int)dyn_max), true);
+  (void)once;
+  const size_t dyn = side_bytes(P.kk, KT ? MAXB : B)
+      + (RESO == RESO_SWARM ? (size_t)NSW * B * sizeof(float) : 0);
+  items_kernel<RESUME, IDS, RESO, KT>
+      <<<nb * C, B, dyn, (cudaStream_t)stream>>>(
+          packed, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
+          pt);
+  return (int)cudaGetLastError();
+}
+
+// launch_items in the constant K = 8 form or the run-time one.
+template <bool RESUME, bool IDS, int RESO>
+int launch_k(const float* packed, int nb, int B, const int* tiles, int W,
+             const int* istart, const int* ilen, const int* order, int C,
+             const int* cand, int c_cap, const int* pold, const Params& P,
+             const Parts& pt, void* stream) {
+  if (B <= 0 || B > MAXB || C <= 0 || W <= 0 || (IDS && c_cap < W * B)
+      || P.kk < 1 || P.kk > KMAX)
     return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
-  constexpr int dyn_max = RESO == RESO_SWARM ? NSW * MAXB * 4 : 0;
-  static bool once = (prefer_shared(items_kernel<RESUME, IDS, RESO>, dyn_max),
-                      true);
-  (void)once;
-  const size_t dyn = RESO == RESO_SWARM ? (size_t)NSW * B * sizeof(float) : 0;
-  items_kernel<RESUME, IDS, RESO><<<nb * C, B, dyn, (cudaStream_t)stream>>>(
-      packed, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P, pt);
-  return (int)cudaGetLastError();
+  if (P.kk == K8)
+    return launch_items<RESUME, IDS, RESO, K8>(
+        packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
+        P, pt, stream);
+  return launch_items<RESUME, IDS, RESO, 0>(
+      packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
+      pt, stream);
 }
 
 // launch_items in the resolver form reso (cd_pallas.RESO_CODE); the
@@ -808,16 +893,16 @@ int launch_reso(int reso, const float* packed, int nb, int B,
                 void* stream) {
   switch (reso) {
     case RESO_MVP:
-      return launch_items<RESUME, IDS, RESO_MVP>(
+      return launch_k<RESUME, IDS, RESO_MVP>(
           packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
           P, pt, stream);
     case RESO_EBY:
-      return launch_items<RESUME, IDS, RESO_EBY>(
+      return launch_k<RESUME, IDS, RESO_EBY>(
           packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
           P, pt, stream);
     case RESO_SWARM:
       if constexpr (!IDS)
-        return launch_items<RESUME, IDS, RESO_SWARM>(
+        return launch_k<RESUME, IDS, RESO_SWARM>(
             packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap,
             pold, P, pt, stream);
       return (int)cudaErrorInvalidValue;
@@ -826,24 +911,41 @@ int launch_reso(int reso, const float* packed, int nb, int B,
   }
 }
 
+template <bool RESUME, int RESO, int KT>
+void launch_merge_k(int nb, int B, int C, int kk, const int* ilen,
+                    const int* pold, const Parts& pt, const Outs& o,
+                    void* stream) {
+  static bool once = (prefer_shared(merge_kernel<RESUME, RESO, KT>,
+                                    (int)side_bytes(KT ? KT : KMAX, MAXB)),
+                      true);
+  (void)once;
+  merge_kernel<RESUME, RESO, KT>
+      <<<nb, B, side_bytes(kk, KT ? MAXB : B), (cudaStream_t)stream>>>(
+          B, C, kk, ilen, pold, pt, o);
+}
+
 template <bool RESUME, int RESO>
-void launch_merge(int nb, int B, int C, const int* ilen, const int* pold,
-                  const Parts& pt, const Outs& o, void* stream) {
-  merge_kernel<RESUME, RESO><<<nb, B, 0, (cudaStream_t)stream>>>(B, C, ilen,
-                                                                 pold, pt, o);
+void launch_merge(int nb, int B, int C, int kk, const int* ilen,
+                  const int* pold, const Parts& pt, const Outs& o,
+                  void* stream) {
+  if (kk == K8)
+    launch_merge_k<RESUME, RESO, K8>(nb, B, C, kk, ilen, pold, pt, o, stream);
+  else
+    launch_merge_k<RESUME, RESO, 0>(nb, B, C, kk, ilen, pold, pt, o, stream);
 }
 
 template <bool RESUME>
-int merge_reso(int reso, int nb, int B, int C, const int* ilen,
+int merge_reso(int reso, int nb, int B, int C, int kk, const int* ilen,
                const int* pold, const Parts& pt, const Outs& o,
                void* stream) {
   switch (reso) {
     case RESO_MVP:
     case RESO_EBY:   // the same accumulators as MVP
-      launch_merge<RESUME, RESO_MVP>(nb, B, C, ilen, pold, pt, o, stream);
+      launch_merge<RESUME, RESO_MVP>(nb, B, C, kk, ilen, pold, pt, o, stream);
       return 0;
     case RESO_SWARM:
-      launch_merge<RESUME, RESO_SWARM>(nb, B, C, ilen, pold, pt, o, stream);
+      launch_merge<RESUME, RESO_SWARM>(nb, B, C, kk, ilen, pold, pt, o,
+                                       stream);
       return 0;
     default:
       return (int)cudaErrorInvalidValue;
@@ -857,7 +959,8 @@ extern "C" {
 // The split walkers write the partials of their nb * C work items
 // (cd_pallas.work_items: tiles [nb, W], istart and ilen [nb, C], order
 // [nb]); cd_merge_items makes the outputs.  B <= 256; the partner tables
-// are K = 8 wide.  reso is the resolver form (RESO_MVP, RESO_EBY,
+// and top-K lists are kk wide, 1 <= kk <= 32 (pct and pci [kk, G, B]).
+// reso is the resolver form (RESO_MVP, RESO_EBY,
 // RESO_SWARM; pacc holds 8 accumulators a work item, 15 with RESO_SWARM),
 // eby_s and eby_s10 the Eby scale (read by RESO_EBY only).
 // cd_sched_tiles, with the partner table pold, serves both _sched_kernel
@@ -868,9 +971,9 @@ int cd_sched_tiles(const float* packed, int nb, int B, const int* tiles,
                    const int* order, int C, const int* pold, float rpz,
                    float r2, float hpz, float tlook, float rpz_m, float hpz_m,
                    float tlook_m, float rpz_resume, double eby_s,
-                   double eby_s10, int reso, float* pacc, float* pct,
-                   int* pci, unsigned* pkeep, void* stream) {
-  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                   double eby_s10, int reso, int kk, float* pacc,
+                   float* pct, int* pci, unsigned* pkeep, void* stream) {
+  Params P = make_params(kk, rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume, eby_s, eby_s10);
   return launch_reso<true, false>(reso, packed, nb, B, tiles, W, istart,
                                   ilen, order, C, nullptr, 0, pold, P,
@@ -882,9 +985,9 @@ int cd_full_grid(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
                  float rpz, float r2, float hpz, float tlook, float rpz_m,
                  float hpz_m, float tlook_m, float rpz_resume, double eby_s,
-                 double eby_s10, int reso, float* pacc, float* pct, int* pci,
-                 void* stream) {
-  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                 double eby_s10, int reso, int kk, float* pacc, float* pct,
+                 int* pci, void* stream) {
+  Params P = make_params(kk, rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume, eby_s, eby_s10);
   return launch_reso<false, false>(reso, packed, nb, B, tiles, W, istart,
                                    ilen, order, C, nullptr, 0, nullptr, P,
@@ -900,9 +1003,9 @@ int cd_cand_items(const float* packed, int nb, int B, const int* tiles,
                   const int* order, int C, const int* cand, int c_cap,
                   float rpz, float r2, float hpz, float tlook, float rpz_m,
                   float hpz_m, float tlook_m, float rpz_resume, double eby_s,
-                  double eby_s10, int reso, float* pacc, float* pct, int* pci,
-                  void* stream) {
-  Params P = make_params(rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
+                  double eby_s10, int reso, int kk, float* pacc, float* pct,
+                  int* pci, void* stream) {
+  Params P = make_params(kk, rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume, eby_s, eby_s10);
   return launch_reso<false, true>(reso, packed, nb, B, tiles, W, istart,
                                   ilen, order, C, cand, c_cap, nullptr, P,
@@ -927,20 +1030,22 @@ int cd_mask_items(const uint8_t* mask, int nb, int W, int C, int* tiles,
 // keep bits and the partner merge too, and all six outputs; without it
 // only acc, ctin and cidx.  reso is the walker's resolver form: with
 // RESO_SWARM pacc and acc hold the 7 Swarm sums after the 8 accumulators.
-int cd_merge_items(int nb, int B, int C, const int* ilen, const int* pold,
-                   const float* pacc, const float* pct, const int* pci,
-                   const unsigned* pkeep, float* acc, float* ctin, int* cidx,
-                   float* keep, int* merged, float* active, int reso,
-                   void* stream) {
-  if (B <= 0 || B > MAXB || C <= 0) return (int)cudaErrorInvalidValue;
+// kk is the walker's partner width.
+int cd_merge_items(int nb, int B, int C, int kk, const int* ilen,
+                   const int* pold, const float* pacc, const float* pct,
+                   const int* pci, const unsigned* pkeep, float* acc,
+                   float* ctin, int* cidx, float* keep, int* merged,
+                   float* active, int reso, void* stream) {
+  if (B <= 0 || B > MAXB || C <= 0 || kk < 1 || kk > KMAX)
+    return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
   Parts pt{const_cast<float*>(pacc), const_cast<float*>(pct),
            const_cast<int*>(pci), const_cast<unsigned*>(pkeep)};
   Outs o{acc, ctin, cidx, keep, merged, active};
-  const int rc = pold ? merge_reso<true>(reso, nb, B, C, ilen, pold, pt, o,
-                                         stream)
-                      : merge_reso<false>(reso, nb, B, C, ilen, nullptr, pt,
-                                          o, stream);
+  const int rc = pold ? merge_reso<true>(reso, nb, B, C, kk, ilen, pold, pt,
+                                         o, stream)
+                      : merge_reso<false>(reso, nb, B, C, kk, ilen, nullptr,
+                                          pt, o, stream);
   return rc ? rc : (int)cudaGetLastError();
 }
 

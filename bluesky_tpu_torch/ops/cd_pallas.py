@@ -31,8 +31,9 @@ parameter of the walker): ``"mvp"`` the MVP pair sums, ``"eby"`` the
 Eby pair sums (``cr_eby.pair_contrib``) on the TAS velocities of the
 ``tr`` slab row, ``"swarm"`` the MVP sums plus seven neighbour sums
 (``cr_swarm.pair_weight``, the CAS in the ``tr`` row) appended to the
-outputs.  The CUDA kernels take K = ``KK`` = 8 partners; the plain
-versions any K.
+outputs.  The CUDA kernels take a partner width K from 1 to ``MAX_K`` =
+32 (``KK`` = 8, the default of every path, compiled as a constant); the
+plain versions any K.
 
 The plain versions and the kernels visit a row's intruders in ascending
 slot id (tiles in ascending block order; candidate ids ascend within a
@@ -63,8 +64,15 @@ _BIG_I = 2 ** 30
 #: Candidate sub-block width: candidate ids come in runs of this many
 #: consecutive slots, one warp's contiguous load in ``cd_cand_items``.
 CAND_SUB = 32
-#: Partner-table width K (columns of ``partners_s``), fixed by the kernels.
+#: The default partner-table width K (columns of ``partners_s``), the
+#: kernels' constant form.
 KK = 8
+#: The widest K the kernels take: an ownship's keep bits of its old
+#: partners are one 32-bit word (ROADMAP B2).
+MAX_K = 32
+#: Static shared memory of a walker CTA: the [16, 256] f32 slab, and the
+#: staged ids of the candidate pass (one int otherwise).
+_STATIC_SMEM = _NF * 256 * 4
 #: Work items a row block's tiles are cut into at most (``work_items``):
 #: ``full_grid`` and ``cd_sched.sched_tiles``, ``full_grid_resume`` and
 #: ``cand_tiles``.  Each is the smallest of 4, 8 and 16 within one call's
@@ -437,10 +445,22 @@ def alloc_outputs(nb, kk, B, device, resume=True, nacc=8):
     return outs
 
 
+def cta_shared_bytes(kk, B, reso="mvp", ids=False):
+    """Shared memory of one walker CTA at partner width ``kk`` and block
+    ``B``: the staged slab (and ids), ``Side`` of ``cd_tiles.cu`` (the
+    top-K times and ids and the old partners, [kk] each, then the keep
+    bits, gse, gsn and trk: 3 kk + 4 words a thread, in rows of stride
+    256 in the constant K = ``KK`` form, B otherwise) and the Swarm
+    sums."""
+    return (_STATIC_SMEM + (256 if ids else 1) * 4
+            + (3 * kk + 4) * (256 if kk == KK else B) * 4
+            + (N_SWARM * B * 4 if reso == "swarm" else 0))
+
+
 def check_common(packed, pold=None, kk=KK, reso="mvp"):
     """Validate the slab and partner-table operands of a kernel launch:
-    the partner width must be ``KK`` (the kernels have no other; ROADMAP
-    B2) and ``reso`` a resolver form."""
+    the partner width K from 1 to ``MAX_K`` and ``reso`` a resolver
+    form."""
     from . import _cuda
     nb, nf, B = packed.shape
     if nf != _NF or not 0 < B <= 256:
@@ -451,12 +471,16 @@ def check_common(packed, pold=None, kk=KK, reso="mvp"):
                          f"{tuple(RESO_CODE)}")
     if pold is not None:
         kk = pold.shape[1]
-    if kk != KK:
-        raise ValueError(f"the CUDA tile kernels take K = {KK} partners, "
-                         f"not {kk} (ROADMAP.md B2)")
+    if not 1 <= kk <= MAX_K:
+        raise ValueError(
+            f"the CUDA tile kernels take 1 <= K <= {MAX_K} partners, not "
+            f"K = {kk}: the keep bits of an ownship's old partners are one "
+            f"32-bit word, and K = {kk} would take "
+            f"{cta_shared_bytes(kk, B, reso)} bytes of shared memory a CTA "
+            f"at B = {B} (ROADMAP.md B2)")
     _cuda.require(packed, torch.float32, (nb, _NF, B), "packed")
     if pold is not None:
-        _cuda.require(pold, torch.int32, (nb, KK, B), "pold")
+        _cuda.require(pold, torch.int32, (nb, kk, B), "pold")
     return nb, B
 
 
@@ -595,15 +619,18 @@ def merge_items_plain(parts, B, pold=None, reso="mvp", kk=KK):
 
 
 def walk_items(packed, items, p: TileParams, pold=None, cand=None,
-               reso="mvp"):
+               reso="mvp", kk=KK):
     """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
-    partner table ``pold``, ``cd_cand_items`` with the candidate table
-    ``cand`` (the tiles are its sub-chunks), ``cd_full_grid`` with
-    neither, in resolver form ``reso``.  Returns the items' partials
-    ``(acc [8|15, G, B], ct [KK, G, B], ci, keep [G, B] or None)``, G =
-    nb * C, for ``merge_items``."""
+    partner table ``pold`` (its width is K), ``cd_cand_items`` with the
+    candidate table ``cand`` (the tiles are its sub-chunks),
+    ``cd_full_grid`` with neither, in resolver form ``reso`` with top-K
+    lists ``kk`` wide.  Returns the items' partials ``(acc [8|15, G, B],
+    ct [K, G, B], ci, keep [G, B] or None)``, G = nb * C, for
+    ``merge_items``."""
     from . import _cuda
     nb, _, B = packed.shape
+    if pold is not None:
+        kk = pold.shape[1]
     C = items.length.shape[1]
     W = items.tiles.shape[1]
     for name, t, shape in (("tiles", items.tiles, (nb, W)),
@@ -615,12 +642,12 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
     dev = packed.device
     nacc = 8 + (N_SWARM if reso == "swarm" else 0)
     acc = torch.empty((nacc, G, B), dtype=torch.float32, device=dev)
-    ct = torch.empty((KK, G, B), dtype=torch.float32, device=dev)
-    ci = torch.empty((KK, G, B), dtype=torch.int32, device=dev)
+    ct = torch.empty((kk, G, B), dtype=torch.float32, device=dev)
+    ci = torch.empty((kk, G, B), dtype=torch.int32, device=dev)
     head = (packed.data_ptr(), nb, B, items.tiles.data_ptr(), W,
             items.start.data_ptr(), items.length.data_ptr(),
             items.order.data_ptr(), C)
-    tail = (*kernel_floats(p), RESO_CODE[reso])
+    tail = (*kernel_floats(p), RESO_CODE[reso], kk)
     lib = _cuda.load("cd_tiles.cu")
     stream = _cuda.stream_ptr(dev)
     keep = None
@@ -643,18 +670,20 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
 
 
 def merge_items(parts, items, B, pold=None, reso="mvp"):
-    """Launch ``cd_merge_items`` on the partials of ``walk_items``:
-    returns the 13 outputs with ``pold``, else the 10, each followed by
-    the ``N_SWARM`` swarm sums in the swarm form."""
+    """Launch ``cd_merge_items`` on the partials of ``walk_items`` (K the
+    width of their top-K lists): returns the 13 outputs with ``pold``,
+    else the 10, each followed by the ``N_SWARM`` swarm sums in the swarm
+    form."""
     from . import _cuda
     acc_p, ct, ci, keep_p = parts
     nb, C = items.length.shape
     resume = pold is not None
-    nacc = acc_p.shape[0]
-    outs = alloc_outputs(nb, KK, B, ct.device, resume=resume, nacc=nacc)
+    nacc, kk = acc_p.shape[0], ct.shape[0]
+    outs = alloc_outputs(nb, kk, B, ct.device, resume=resume, nacc=nacc)
     ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))
     rc = _cuda.load("cd_tiles.cu").cd_merge_items(
-        nb, B, C, items.length.data_ptr(), pold.data_ptr() if resume else 0,
+        nb, B, C, kk, items.length.data_ptr(),
+        pold.data_ptr() if resume else 0,
         acc_p.data_ptr(), ct.data_ptr(), ci.data_ptr(),
         keep_p.data_ptr() if resume else 0, *ptrs, RESO_CODE[reso],
         _cuda.stream_ptr(ct.device))
@@ -698,7 +727,7 @@ def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW,
     nb, B = check_common(packed, kk=kk, reso=reso)
     _cuda.require(reach, torch.bool, (nb, reach.shape[1]), "reach")
     items = reach_items(reach, per_row)
-    parts = walk_items(packed, items, p, reso=reso)
+    parts = walk_items(packed, items, p, reso=reso, kk=kk)
     outs = merge_items(parts, items, B, reso=reso)
     LAUNCHES[launch_key("cd_full_grid", reso)] += 1
     return outs
@@ -724,8 +753,8 @@ def cand_tiles(packed, cand, p: TileParams, per_row=CAND_ITEMS_PER_ROW,
                          f"multiple of the block {B}")
     _cuda.require(cand, torch.int32, (nb, c_cap), "cand")
     items = cand_items(cand, B, per_row)
-    outs = merge_items(walk_items(packed, items, p, cand=cand, reso=reso),
-                       items, B, reso=reso)
+    outs = merge_items(walk_items(packed, items, p, cand=cand, reso=reso,
+                                  kk=kk), items, B, reso=reso)
     LAUNCHES[launch_key("cd_cand_tiles", reso)] += 1
     return outs
 
@@ -919,7 +948,7 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     same either way.  ``reso`` is the tile body's resolver form, with
     ``extra_cols`` its ``tas`` (Eby) or ``cas`` (Swarm) column.  The
     partner candidates are the ``min(k_partners, block)`` most urgent;
-    the CUDA kernels take 8 only and raise for another width.  The mesh
+    the CUDA kernels take 1 to ``MAX_K`` and raise past it.  The mesh
     branch is not ported.
 
     Columns with a leading world axis [W, N] (and ``perm`` [W, N]) run W

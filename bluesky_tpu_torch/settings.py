@@ -31,6 +31,13 @@ guard_policy = "quarantine"       # "quarantine" | "rollback" | "halt"
 snap_ring_depth = 4               # rollback horizon = depth * dt sim-sec
 snap_ring_dt = 30.0               # [sim s] between ring captures (0 = off)
 
+# ----- durable runs (preemption-safe checkpoints)
+snapshot_autosave_dt = 0.0        # [sim s] between on-disk autosnapshots
+                                  # of the newest ring entry (0 = off)
+snapshot_autosave_path = ""       # "" -> <log_path>/autosave.snap
+preempt_snapshot_dir = ""         # "" -> log_path; preemption
+                                  # checkpoints land here
+
 # ----- observability
 trace_enabled = False             # flight recorder on at startup (TRACE)
 trace_ring_size = 4096            # bounded event ring per process

@@ -32,12 +32,19 @@ tagged ``LogRegistry``) and onto its trace spans, and the batch steps it
 through ``_plan_chunk`` and ``_apply_chunk_result`` around one stacked
 dispatch for every compatible world.
 
+Durable runs: ``autosave_dt`` (``settings.snapshot_autosave_dt``, off
+by default) persists the newest snapshot at chunk edges with the atomic
+checksummed writer, and ``request_preempt`` (a signal handler's call)
+makes ``run`` drain the chunk in flight, write a final checkpoint and
+pause (``handle_preempt``).
+
 Not ported here, each with its ROADMAP item: the shard and mesh modes
 (``set_shard``, the spatial refresh, mesh-epoch recovery; A9),
-the device-profiling hooks and plugins (A10), autosave, preemption and
-the network node (A6b).
+the device-profiling hooks and plugins (A10) and the network node
+(A6b).
 """
 import datetime
+import os
 import time
 from typing import Optional
 
@@ -396,6 +403,12 @@ class Simulation:
         self.snap_ring = SnapshotRing(depth=settings.snap_ring_depth,
                                       dt=settings.snap_ring_dt)
         self.guard = IntegrityGuard(self)
+        # Durable runs: the periodic on-disk autosnapshot (off by
+        # default: one atomic write per interval) and the preemption flag
+        # a signal handler raises; an embedded run checkpoints and pauses.
+        self.autosave_dt = float(settings.snapshot_autosave_dt)
+        self._autosave_t = -float("inf")
+        self.preempt_requested = False
         self.traf.delete_hooks.append(self.cond.delac)
         self.traf.permute_hooks.append(self.cond.permute)
         # Late import to avoid cycles; stack binds commands to this sim.
@@ -554,6 +567,10 @@ class Simulation:
         self.metrics.reset()
         self.snap_ring.clear()
         self.guard.reset()
+        self._autosave_t = -float("inf")
+        # a preemption notice raised before the RESET must not fire into
+        # the fresh sim
+        self.preempt_requested = False
         self.plotter.reset()
         return True
 
@@ -692,6 +709,66 @@ class Simulation:
                     last_refresh_simt=float(self._sort_simt),
                     inscan_refreshes=int(self._refresh_fired),
                     guard_trips=0)       # set by the spatial modes (A9)
+
+    # ----------------------------------------------------- preempt/autosave
+    def request_preempt(self):
+        """Raise the preemption flag (a signal handler's call): handled at
+        the next chunk edge, so the chunk in flight drains instead of
+        being torn."""
+        self.preempt_requested = True
+        return True
+
+    def handle_preempt(self):
+        """Answer a preemption notice: pause and write a final atomic
+        checksummed checkpoint, ``preempt-<tag>.snap`` in
+        ``settings.preempt_snapshot_dir`` (else the log path), the tag
+        the owning worker's (``host_tag``, else ``sim``) and, for a world
+        of a packed batch, its ``world_tag``.  Returns ``(path or None,
+        error or None)``."""
+        from .. import settings as _settings
+        from . import snapshot as snap
+        self.preempt_requested = False
+        d = _settings.preempt_snapshot_dir or _settings.log_path
+        tag = self.host_tag or "sim"
+        if self.world_tag:
+            # one file per world: the worlds of one process must not
+            # overwrite each other's checkpoints
+            tag = f"{tag}-{self.world_tag}"
+        path = os.path.join(d, f"preempt-{tag}.snap")
+        self.pause()
+        try:
+            os.makedirs(d, exist_ok=True)
+            snap.save(self, path)
+        except OSError as e:
+            self.scr.echo(f"preempt checkpoint FAILED: {e}")
+            return None, str(e)
+        self.scr.echo(f"preempted at simt={self.simt:.2f}: "
+                      f"checkpoint written to {path}")
+        return path, None
+
+    def _autosave_path(self):
+        from .. import settings as _settings
+        return _settings.snapshot_autosave_path \
+            or os.path.join(_settings.log_path, "autosave.snap")
+
+    def _autosave(self):
+        """Persist the newest snapshot-ring entry (or a fresh capture when
+        the ring holds none newer than the last autosave) atomically: the
+        on-disk checkpoint a preempted or killed process resumes from.  A
+        failed write is an echo, never an exception out of the loop."""
+        from . import snapshot as snap
+        blob = self.snap_ring.newest()
+        if blob is None or snap.blob_simt(blob) <= self._autosave_t:
+            blob = snap.state_blob(self)
+        path = self._autosave_path()
+        try:
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            snap.write_blob(blob, path)
+        except OSError as e:
+            self.scr.echo(f"autosnapshot failed: {e}")
+        self._autosave_t = self.simt
 
     def fastforward(self, nsec: Optional[float] = None):
         """FF [sec]: run at full speed [for nsec] (simulation.py:180-185)."""
@@ -932,9 +1009,14 @@ class Simulation:
             reasons.append("datalog")       # periodic logger samples
         if self.ffstop is not None and t_edge >= self.ffstop - 1e-9:
             reasons.append("ff-stop")       # _end_ff timing boundary
+        if self.preempt_requested:
+            reasons.append("preempt")       # drain + checkpoint next
         if self.guard.enabled and self.guard.policy == "halt":
             reasons.append("guard-halt")    # halt wants the tripped
             #                                 state frozen at its edge
+        if self.autosave_dt > 0 \
+                and t_edge - self._autosave_t >= self.autosave_dt - 1e-9:
+            reasons.append("autosave")      # on-disk persist reads state
         return reasons
 
     def _dispatch_chunk(self, state, chunk: int, keep: bool, simt: float):
@@ -1127,6 +1209,15 @@ class Simulation:
         if self.state_flag == OP and self.guard.enabled \
                 and self.guard.policy == "rollback":
             self.snap_ring.maybe_capture(self)
+
+        # Periodic on-disk autosnapshot (snapshot_autosave_dt, off by
+        # default): persist the newest ring entry, or a fresh capture,
+        # with the atomic checksummed writer, so a later preemption or
+        # kill resumes from here.
+        if self.autosave_dt > 0 and self.state_flag == OP \
+                and self.simt - self._autosave_t \
+                >= self.autosave_dt - 1e-9:
+            self._autosave()
         self._edge_retired(edge, t_ret0)
 
     def _finish_edge(self, edge, capture_state=None):
@@ -1366,6 +1457,10 @@ class Simulation:
                 # stop exactly at the horizon (ladder-quantized downstream)
                 mc = max(1, int(round(remaining / self.cfg.simdt)))
             alive = self.step(max_chunk=mc)
+            if self.preempt_requested:
+                # embedded-run preemption: checkpoint and pause here
+                self.handle_preempt()
+                break
             if not alive or self.state_flag in (HOLD, END):
                 if self.state_flag == HOLD and until_simt is not None \
                         and self.simt_planned < until_simt - 1e-9:

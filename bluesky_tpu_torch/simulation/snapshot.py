@@ -1,15 +1,42 @@
-"""In-memory state snapshots: the blob of the full state plus its host
-bookkeeping, and the snapshot ring the integrity guard rolls back to.
+"""State snapshots: the blob of the full state plus its host
+bookkeeping, the snapshot files of SNAPSHOT SAVE/LOAD, autosave and
+preemption, and the snapshot ring the integrity guard rolls back to.
 
-Port of ``bluesky_tpu/simulation/snapshot.py``, its in-memory half:
-``state_blob``, ``restore_blob`` and ``SnapshotRing``.  A blob holds
-every ``SimState`` tensor as a NumPy array (``core/state.state_to_numpy``
-layout, owned by the blob), the host slot tables (ids, types), per-slot
-routes, pending conditions and enough sim config to resume (simdt, ASAS
-config, cd backend).  Restore requires a Traffic with the same
-nmax/wmax.  The on-disk snapshot files (``save``, ``load``,
-``read_blob``, ``write_blob``) and the restore onto a device mesh are
-not ported (ROADMAP A6b, A9).
+Port of ``bluesky_tpu/simulation/snapshot.py``.  A blob holds every
+``SimState`` tensor as a NumPy array (``core/state.state_to_numpy``
+layout, ``{dotted.path: ndarray}``, owned by the blob), the host slot
+tables (ids, types), per-slot routes, pending conditions, the world tag
+of a packed world, the capturing shard layout (one device: mode
+``off``) and enough sim config to resume (simdt, ASAS config, cd
+backend).  Restore requires a Traffic with the same nmax/wmax; the
+partner tables keep the width the blob carries.  A blob of the live
+state also carries the spatial sort's clock (``sort``: the sim time of
+the last refresh and the backend it sorted for), so a restored sparse,
+pallas or tiled run keeps the captured layout until its next due
+refresh and resumes bit for bit; JAX's blob has no such key, and a
+restore without it re-sorts at the next chunk, as JAX does.  The
+restore onto a device mesh is not ported (ROADMAP A9).
+
+On-disk format v4, as the JAX package writes it:
+
+    BSTPUSNAP4\\n <sha256-hex>\\n <shard-layout json>\\n <pickled blob>
+
+written atomically — tmp file in the same directory, flush + fsync,
+``os.replace`` onto the final name — so a crash mid-save leaves at most
+a stale tmp file, never a torn file under the final name.  ``load``
+verifies the digest before unpickling, so a torn or bit-flipped file is
+a command error, never a restore.  v3 files (digest, no shard line) and
+plain-pickle v2 files keep loading; a v2 load is tagged ``unverified``,
+counted and recorded in the trace.
+
+Across the two packages: the JAX package pickles its state as its own
+``bluesky_tpu.core.state`` classes, the port as the flat dict.  Files
+are unpickled by ``_Unpickler``, which admits NumPy's array classes and
+maps any ``bluesky_tpu`` class to a stand-in that only collects its
+fields, never importing the JAX package; the collected tree is
+flattened to the flat dict, so the port loads JAX's v2-v4 files.  JAX's
+``load`` of a port file fails in its ``restore_blob``, which tree-maps
+the blob onto its own ``SimState`` (ROADMAP §C).
 
 ``SnapshotRing`` is a bounded ring of periodic captures the integrity
 guard (``fault/guard.py``) rolls back to when a chunk trips the in-chunk
@@ -19,14 +46,30 @@ stack/datalog state (``reset_traffic`` semantics, not the full
 it.
 """
 import collections
+import hashlib
+import io
+import json
+import os
+import pickle
 import time
 
 import numpy as np
+import torch
 
-from ..core.state import state_from_numpy, state_to_numpy
+from ..core.state import (SORT_PAD, _tree_map, state_from_numpy,
+                          state_to_numpy)
 
 FORMAT = 4
 COMPAT_FORMATS = (2, 3, 4)      # blob formats restore_blob accepts
+MAGIC3 = b"BSTPUSNAP3\n"        # v3 file header (v2 = bare pickle)
+MAGIC4 = b"BSTPUSNAP4\n"        # v4: + shard-layout header line
+
+
+def shard_meta(sim) -> dict:
+    """The sim's shard layout as plain-JSON metadata (it rides every blob
+    and the v4 file header).  The port runs on one device: mode
+    ``off``."""
+    return dict(mode="off", ndev=0, halo_blocks=0)
 
 
 def state_blob(sim, state=None) -> dict:
@@ -38,7 +81,8 @@ def state_blob(sim, state=None) -> dict:
     are read live — the pipeline only defers edges with no host-table
     mutations, so they match the passed state."""
     traf = sim.traf
-    if state is None:
+    live = state is None
+    if live:
         traf.flush()
         state = traf.state
     state_np = state_to_numpy(state)
@@ -51,14 +95,16 @@ def state_blob(sim, state=None) -> dict:
                       spd=list(r.spd), wtype=list(r.wtype),
                       flyby=list(r.flyby), iactwp=r.iactwp)
               for i, r in sim.routes.routes.items()}
-    return dict(
+    blob = dict(
         format=FORMAT,
         nmax=traf.nmax, wmax=traf.wmax,
         state=state_np,
         ids=list(traf.ids), types=list(traf.types),
         autoid=traf._autoid,
-        world="",
-        shard=dict(mode="off", ndev=0, halo_blocks=0),   # one device
+        # which world of a packed batch this blob captured (empty for a
+        # standalone sim): the per-world preemption checkpoints carry it
+        world=sim.world_tag,
+        shard=shard_meta(sim),
         cfg=dict(simdt=sim.cfg.simdt, cd_backend=sim.cfg.cd_backend,
                  asas=sim.cfg.asas._asdict()),
         dtmult=sim.dtmult,
@@ -72,6 +118,22 @@ def state_blob(sim, state=None) -> dict:
                   lastdif=np.asarray(sim.cond.lastdif),
                   cmd=list(sim.cond.cmd)),
     )
+    if live:
+        # the sort clock belongs to the live state only: a pipelined
+        # capture's state predates the refresh of the chunk in flight
+        blob["sort"] = dict(simt=float(sim._sort_simt),
+                            backend=sim._sort_backend)
+    return blob
+
+
+def _like(name, new, old):
+    """``new`` in the dtype of ``old``: tensors cast, host clocks as
+    ``old``'s NumPy scalar type; the rng seed as it is."""
+    if isinstance(new, torch.Tensor):
+        return new if new.dtype == old.dtype else new.to(old.dtype)
+    if isinstance(old, np.generic):
+        return type(old)(new)
+    return new
 
 
 def blob_simt(blob) -> float:
@@ -99,8 +161,35 @@ def restore_blob(sim, blob, full_reset: bool = True):
     else:
         sim.reset_traffic()
     traf = sim.traf
-    # Device state: the same layout (the same nmax and wmax, one device)
-    traf.state = state_from_numpy(blob["state"], device=traf.device)
+    # Device state: the same nmax and wmax, one device; each leaf in the
+    # running state's dtype (as JAX re-uploads with the current dtypes)
+    old = traf.state
+    traf.state = _tree_map(_like, state_from_numpy(blob["state"],
+                                                   device=traf.device), old)
+    # The sorted-space caches are keyed to the capturing layout: a blob
+    # whose partner table is not this layout's size, or that another
+    # shard layout captured, restarts them from the identity sort and an
+    # empty table (JAX snapshot.py:134-175).
+    asas = traf.state.asas
+    bshard = blob.get("shard")
+    cur = shard_meta(sim)
+    if asas.partners_s.shape[0] != traf.nmax + SORT_PAD or (
+            bshard is not None
+            and (bshard.get("ndev"), bshard.get("mode"), bshard.get("tiles"))
+            != (cur["ndev"], cur["mode"], cur.get("tiles"))):
+        kk = old.asas.partners_s.shape[1] \
+            if asas.partners_s.shape[0] != traf.nmax + SORT_PAD \
+            else asas.partners_s.shape[1]
+        dev = old.asas.partners_s.device
+        traf.state = traf.state.replace(asas=asas.replace(
+            sort_perm=torch.arange(traf.nmax, dtype=torch.int32, device=dev),
+            partners_s=torch.full((traf.nmax + SORT_PAD, kk), -1,
+                                  dtype=torch.int32, device=dev)))
+        sim._invalidate_sort()
+    elif blob.get("sort") is not None:
+        # the captured layout stays until its next due refresh
+        sim._sort_simt = float(blob["sort"]["simt"])
+        sim._sort_backend = blob["sort"]["backend"]
     traf.ids = list(blob["ids"])
     traf.types = list(blob["types"])
     traf._id2slot = {acid: i for i, acid in enumerate(traf.ids)
@@ -136,6 +225,196 @@ def restore_blob(sim, blob, full_reset: bool = True):
                   f"at simt={sim.simt:.2f}")
 
 
+def write_blob(blob, fname):
+    """Atomically persist a state blob: tmp file + fsync + rename.
+
+    The tmp file lives in the destination directory (``os.replace``
+    must not cross filesystems); any failure removes it, so the final
+    name only ever holds a complete, checksummed snapshot — a previous
+    good file survives a failed re-save untouched.  Raises ``OSError``
+    on disk-full/bad-path; callers degrade to a command error."""
+    payload = pickle.dumps(blob, protocol=pickle.HIGHEST_PROTOCOL)
+    digest = hashlib.sha256(payload).hexdigest().encode("ascii")
+    shard_line = json.dumps(
+        blob.get("shard") or dict(mode="off", ndev=0, halo_blocks=0),
+        sort_keys=True).encode("ascii")
+    tmp = f"{fname}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(MAGIC4 + digest + b"\n" + shard_line + b"\n" + payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+    except OSError:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    return fname
+
+
+def save(sim, fname):
+    """Write an atomic, checksummed snapshot of the complete simulation
+    state (format v4).  Raises ``OSError`` on disk-full/bad path — the
+    SNAPSHOT stack command degrades it to a command error."""
+    return write_blob(state_blob(sim), fname)
+
+
+def _split_v4(raw):
+    """Split a v4 byte stream into (digest, shard_meta, payload); raises
+    on a malformed header (caught by the callers)."""
+    digest_end = raw.index(b"\n", len(MAGIC4))
+    digest = raw[len(MAGIC4):digest_end].decode("ascii")
+    shard_end = raw.index(b"\n", digest_end + 1)
+    shard = json.loads(raw[digest_end + 1:shard_end].decode("ascii"))
+    if not isinstance(shard, dict):
+        raise ValueError("shard header is not a JSON object")
+    return digest, shard, raw[shard_end + 1:]
+
+
+def peek_shard(fname):
+    """A v4 snapshot's shard-layout header, without unpickling:
+    ``(shard_dict, None)`` for v4 files, ``(None, None)`` for v2/v3
+    (readable, layout unknown), ``(None, errmsg)`` for an unreadable or
+    malformed file."""
+    try:
+        with open(fname, "rb") as f:
+            head = f.read(64 * 1024)
+        if not head.startswith(MAGIC4):
+            return None, None
+        _, shard, _ = _split_v4(head)
+        return shard, None
+    except (OSError, ValueError, UnicodeDecodeError) as exc:
+        return None, (f"corrupt or truncated snapshot header "
+                      f"({type(exc).__name__}: {exc})")
+
+
+class _JaxNode:
+    """Stand-in for a ``bluesky_tpu`` state class in a JAX snapshot: it
+    only collects the fields pickle hands it."""
+
+    def __setstate__(self, state):
+        if isinstance(state, tuple):        # (dict, slots)
+            d, slots = state
+            state = {**(d or {}), **(slots or {})}
+        self.__dict__.update(state)
+
+
+#: The NumPy globals a snapshot's arrays and dtypes unpickle through
+#: (NumPy 1 and 2 module names).
+_NUMPY_GLOBALS = {
+    (m, n) for m in ("numpy", "numpy.core.multiarray",
+                     "numpy._core.multiarray", "numpy.core.numeric",
+                     "numpy._core.numeric")
+    for n in ("dtype", "ndarray", "_reconstruct", "_frombuffer", "scalar")}
+
+
+class _Unpickler(pickle.Unpickler):
+    """Admit NumPy's array classes and the JAX package's state classes
+    (as ``_JaxNode`` stand-ins, never imported); refuse every other
+    global."""
+
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        if module == "bluesky_tpu" or module.startswith("bluesky_tpu."):
+            return type(name, (_JaxNode,), {"__module__": module})
+        raise pickle.UnpicklingError(f"global {module}.{name} is not "
+                                     "allowed in a snapshot")
+
+
+def _flat_state(node, prefix=""):
+    """The ``state_to_numpy`` dict of a JAX state tree of ``_JaxNode``
+    stand-ins: ``{dotted.path: ndarray}``."""
+    out = {}
+    for k, v in vars(node).items():
+        if isinstance(v, _JaxNode):
+            out.update(_flat_state(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _unpickle(payload):
+    blob = _Unpickler(io.BytesIO(payload)).load()
+    if isinstance(blob, dict) and isinstance(blob.get("state"), _JaxNode):
+        blob["state"] = _flat_state(blob["state"])
+    return blob
+
+
+def read_blob(fname):
+    """Read and verify a snapshot file: ``(blob, None)`` or ``(None,
+    errmsg)``.  v3/v4 files are checksum-verified before unpickling, so
+    a bit-flipped payload that would still unpickle is rejected; v4
+    files also surface the shard-layout header into ``blob["shard"]``;
+    files without a magic are read as the v2 plain pickle, with no
+    integrity check, and tagged ``blob["unverified"]``."""
+    hdr_shard = None
+    unverified = None
+    try:
+        with open(fname, "rb") as f:
+            raw = f.read()
+        if raw.startswith(MAGIC4):
+            digest, hdr_shard, payload = _split_v4(raw)
+            if hashlib.sha256(payload).hexdigest() != digest:
+                return None, ("corrupt or truncated snapshot "
+                              "(checksum mismatch)")
+            blob = _unpickle(payload)
+        elif raw.startswith(MAGIC3):
+            header_end = raw.index(b"\n", len(MAGIC3))
+            digest = raw[len(MAGIC3):header_end].decode("ascii")
+            payload = raw[header_end + 1:]
+            if hashlib.sha256(payload).hexdigest() != digest:
+                return None, ("corrupt or truncated snapshot "
+                              "(checksum mismatch)")
+            blob = _unpickle(payload)
+        else:
+            blob = _unpickle(raw)           # v2: bare pickle, no digest
+            unverified = "legacy v2 plain pickle, no checksum"
+    except (OSError, EOFError, pickle.UnpicklingError, AttributeError,
+            MemoryError, ImportError, IndexError, KeyError, TypeError,
+            UnicodeDecodeError, ValueError) as exc:
+        return None, (f"corrupt or truncated snapshot "
+                      f"({type(exc).__name__}: {exc})")
+    if not isinstance(blob, dict) \
+            or blob.get("format") not in COMPAT_FORMATS:
+        return None, "unsupported snapshot format"
+    if hdr_shard is not None:
+        blob.setdefault("shard", hdr_shard)
+    if unverified:
+        blob["unverified"] = unverified
+    return blob, None
+
+
+def load(sim, fname):
+    """Restore a snapshot into the running simulation.  A truncated,
+    bit-flipped or corrupt file, or a state that does not fit this
+    sim's layout, returns a command error instead of raising out of the
+    stack."""
+    blob, err = read_blob(fname)
+    if blob is None:
+        return False, f"{fname}: {err}"
+    unverified = blob.get("unverified")
+    if unverified:
+        # a restore with no checksum is a silent-corruption blind spot:
+        # count it and record it in the trace
+        sim.obs.counter(
+            "snapshot_unverified",
+            help="snapshot restores with no checksum verification").inc()
+        sim.recorder.instant("snapshot_unverified", cat="fault",
+                             file=str(fname), why=str(unverified))
+    try:
+        ok, msg = restore_blob(sim, blob)
+    except (KeyError, TypeError, ValueError) as exc:
+        return False, (f"{fname}: snapshot does not fit this sim "
+                       f"({type(exc).__name__}: {exc})")
+    if ok and unverified:
+        msg += (f" [UNVERIFIED: {unverified} — SNAPSHOT SAVE rewrites "
+                f"it as v{FORMAT} with a digest]")
+    return ok, (f"Snapshot {fname} {msg}" if ok else f"{fname}: {msg}")
+
+
 class SnapshotRing:
     """Bounded in-memory ring of periodic state snapshots.
 
@@ -166,7 +445,7 @@ class SnapshotRing:
         in the kept post-chunk state and planned edge clock so the copy
         overlaps the in-flight chunk."""
         t0 = time.perf_counter()
-        with sim.recorder.span("snapshot_capture", world="",
+        with sim.recorder.span("snapshot_capture", world=sim.world_tag,
                                off_path=state is not None):
             self._ring.append(state_blob(sim, state=state))
         sim.obs.get("sim_snapshot_capture_ms").observe(

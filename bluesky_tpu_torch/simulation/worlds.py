@@ -26,9 +26,10 @@ group of one steps through its sim's own synchronous chunk.
 A world is complete when its sim leaves OP (scenario HOLD or END); the
 ``on_world_done`` callback reports it.  A guard trip under policy
 ``halt`` marks the world failed; ``quarantine`` and ``rollback`` worlds
-recover on their own and complete normally.  The port has no shard mode
-yet (ROADMAP A9), so no world is refused as sharded; checkpointing a
-pack on preemption waits for the network half (ROADMAP A6b).
+recover on their own and complete normally.  On preemption
+``handle_preempt`` checkpoints every active world to its own file,
+tagged with the world.  The port has no shard mode yet (ROADMAP A9), so
+no world is refused as sharded.
 """
 import time
 from typing import Callable, List, Optional, Tuple
@@ -226,16 +227,21 @@ class WorldBatch:
 
     # ------------------------------------------------------ preempt/echo
     def handle_preempt(self) -> dict:
-        """Preemption mid-pack: JAX checkpoints every active world to a
-        tagged file; the port's preemption checkpoints wait for the
-        network half (ROADMAP A6b), so this reports what was done and
-        checkpoints nothing."""
-        return {"worlds": self.nworlds,
+        """Preemption mid-pack: checkpoint every active world to its own
+        tagged file (``Simulation.handle_preempt`` names it with the
+        world's tag) and report what was already done, so that only the
+        unfinished pieces are run again."""
+        info = {"worlds": self.nworlds,
                 "done": [i for i, s in enumerate(self.status)
                          if s == "completed"],
-                "checkpoints": [],
-                "errors": ["WORLDS preempt checkpoints: not ported yet "
-                           "(ROADMAP A6b)"]}
+                "checkpoints": []}
+        for i in self.active:
+            path, err = self.sims[i].handle_preempt()
+            if path:
+                info["checkpoints"].append(path)
+            if err:
+                info.setdefault("errors", []).append(err)
+        return info
 
     def _echo(self, i: int, text: str):
         if self.on_echo is not None:

@@ -40,8 +40,6 @@ DEFERRED = {
               "SNAPTRUNC f | LIST", "Fault-injection harness (chaos testing)"),
     "PLUGINS": ("A10", "PLUGINS LIST or PLUGINS LOAD/REMOVE plugin",
                 "List, load or remove plugins"),
-    "SNAPSHOT": ("A6b", "SNAPSHOT SAVE/LOAD fname",
-                 "Save/restore a binary state snapshot"),
     "ADDNODES": ("A6b", "ADDNODES number",
                  "Add a simulation instance/node"),
     "HA": ("A6b", "HA [STATUS]", "Broker high availability"),
@@ -1213,6 +1211,31 @@ def register_all(stack):
                       + (": next dispatch compiles the refresh-carrying "
                          "chunk program" if changed and on else ""))
 
+    def snapshot(sub, fname=None):
+        """SNAPSHOT SAVE/LOAD fname: the binary state checkpoint
+        (``simulation/snapshot.py``, format v4)."""
+        import os
+        from ..simulation import snapshot as snap
+        s = str(sub).upper()
+        if fname is None:
+            return False, "SNAPSHOT SAVE/LOAD filename"
+        if not fname.lower().endswith(".snap"):
+            fname += ".snap"
+        if s == "SAVE":
+            # disk-full / bad path degrades to a command error instead
+            # of raising out of the stack, symmetric with LOAD; the
+            # atomic writer guarantees any previous good file survives
+            try:
+                out = snap.save(sim, fname)
+            except OSError as e:
+                return False, f"SNAPSHOT SAVE {fname}: {e}"
+            return True, f"Snapshot written to {out}"
+        if s == "LOAD":
+            if not os.path.isfile(fname):
+                return False, f"{fname}: not found"
+            return snap.load(sim, fname)
+        return False, "SNAPSHOT SAVE/LOAD filename"
+
     def fingerprintcmd(flag=None):
         """FINGERPRINT [ON/OFF]: device-side SDC state fingerprint — a
         cheap int32 bit-pattern fold over the guarded state leaves,
@@ -1536,6 +1559,8 @@ def register_all(stack):
         "SORTREFRESH": ["SORTREFRESH [ON/OFF]", "[txt]", sortrefreshcmd,
                         "In-scan sort refresh: stripe re-sort folded "
                         "into the compiled chunk (readback bare)"],
+        "SNAPSHOT": ["SNAPSHOT SAVE/LOAD fname", "txt,[word]", snapshot,
+                     "Save/restore a binary state snapshot"],
         "FINGERPRINT": ["FINGERPRINT [ON/OFF]", "[txt]", fingerprintcmd,
                         "Device-side SDC state fingerprint folded "
                         "through the compiled chunk scan "

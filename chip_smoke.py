@@ -122,6 +122,22 @@ Phases, in order; any failure exits non-zero before the last line:
     2,000 aircraft in 2,048 slots (float32, 400 steps of 1 s) without
     and with ASAS: forward and forward+backward ms, peak memory,
     gradient norm, with the card's name and power limit.
+13. partner width phase (``kwide_phase``): partner tables K = 16 wide
+    (``Traffic(k_partners=16)``, the path JAX's users take for denser
+    studies).  (a) every kernel form (K1, K2, K3 in MVP, Eby and Swarm;
+    K4 in MVP and Eby) at K = 16 and the MVP forms at K = 1, 3 and 32,
+    each against its plain version on the check shapes of phase 3;
+    (b) phases 4 and 5 at K = 16 and at K = 32: ``main_scene`` through
+    three 20-step chunks on sparse and pallas, the candidate-mode call,
+    the chunk rate, ASAS interval, peak memory and rows with more than 8
+    partners, each kernel timed, bounded and held to its plain version;
+    (c) ``regional_scene`` (10,000 in 10,240 slots) at K = 16 on sparse
+    and pallas under EBY, SWARM and SSD, with the Eby candidate call;
+    (d) one stacked worlds group at K = 16 (16 x 2,000 sparse MVP), each
+    world held to its solo run; (e) one ``snapshot.save`` and one
+    ``snapshot.load`` of a 100k K = 16 ``Simulation``: ms, bytes, and the
+    restored state bit for bit the saved one.  The kernels line lists the
+    K = 16 forms (and the K = 32 MVP forms) by ``kname``.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -212,13 +228,25 @@ def form_name(kernel, reso):
     return kernel if reso == "mvp" else f"{kernel}/{reso}"
 
 
+def kname(name, kk):
+    """The JSON name of a kernel form at partner width ``kk``: ``/k<kk>``
+    appended, nothing at the default K = 8."""
+    return name if kk == 8 else f"{name}/k{kk}"
+
+
 #: each form's walker, by a piece of its mangled name in the ``nvcc
-#: -Xptxas -v`` report (items_kernel<RESUME, IDS, RESO>)
+#: -Xptxas -v`` report (items_kernel<RESUME, IDS, RESO, KT>): the
+#: constant K = 8 form (KT = 8), and with ``/kwide`` the run-time form
+#: every other K takes (KT = 0)
 WALKERS = {
-    form_name(k, r): "items_kernelILb{}ELb{}ELi{}E".format(
+    form_name(k, r) + wide: "items_kernelILb{}ELb{}ELi{}ELi{}E".format(
         int(k in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume")),
-        int(k == "cd_pallas._kernel_cand"), RESOS.index(r))
-    for k, r in FORMS}
+        int(k == "cd_pallas._kernel_cand"), RESOS.index(r), kt)
+    for k, r in FORMS for wide, kt in (("", 8), ("/kwide", 0))}
+#: phase 13 (``kwide_phase``): every kernel form at partner width KWIDE,
+#: the MVP forms at KWIDE_MVP as well
+KWIDE = 16
+KWIDE_MVP = (1, 3, 32)
 #: candidate capacity of the pallas path's candidate-mode call
 CAND_CAP = 4096
 #: work items per row of the split checks, so that most rows split
@@ -551,91 +579,91 @@ def check_pallas_kernels(dev, errs):
                 f"({n_over} overflow rows) equals cand_cap=0")
 
 
-def check_resolver_kernels(dev, errs, scale=1):
-    """Phase 3, the Eby and Swarm forms: K1 and K3 on the continental
-    check (N=16,384), K2 on the regional clump (N=8,192, ``s_cap=2``, the
-    resumed interval) and K4 in the Eby form on the eight clusters at
-    ``cand_cap=4096``, each against its plain version of the same form as
-    ``check_split`` holds the MVP forms, with the TAS (Eby) or CAS (Swarm)
-    column of ``extra_col`` (fleet sizes divided by ``scale``)."""
+def check_width_kernels(dev, errs, kk, resos=RESOS, scale=1):
+    """The kernel forms of ``resos`` at partner width ``kk`` (phase 3:
+    the Eby and Swarm forms at K = 8; phase 13 (a): every form at
+    K = 16, the MVP forms at K = 1, 3 and 32), each against its plain
+    version of the same form as ``check_split`` holds them, with the TAS
+    (Eby) or CAS (Swarm) column of ``extra_col``: K1 and K3 on the
+    continental check (N=16,384), K2 on the resumed regional clump
+    (N=8,192, ``s_cap=2``, the partner table ``kk`` wide from the first
+    interval) and K4 on the eight clusters at ``cand_cap=4096`` (no
+    Swarm form), fleet sizes divided by ``scale``.  Flags, counts and
+    the candidate, keep and merged partner sets equal, sums within
+    ``cd_pallas.compare_outputs``'s tolerances."""
     import torch
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled, cr_mvp
     mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
                            tlookahead=300.0)
     p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp, 5 * NM * 1.05)
     pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp)
-    for reso in ("eby", "swarm"):
-        k1, k2, k3, k4 = (form_name(k, reso) for k in KERNELS)
-        # K1 and K3 on the continental fleet
-        c = columns(16384 // scale, "continental", seed=1)
+    n1, n2 = 16384 // scale, 8192 // scale
+    for reso in resos:
+        k1, k2, k3, k4 = (kname(form_name(k, reso), kk) for k in KERNELS)
+        c = columns(n1, "continental", seed=1)
         cols, col = cd_args(c, dev), extra_col(c, reso, dev)
-        n_tot = cd_sched.padded_size(16384 // scale, 256)
-        table = torch.full((n_tot, 8), -1, dtype=torch.int32, device=dev)
-        x = cd_sched.prepare(*cols, 5 * NM, 1000 * FT, 300.0, table,
-                             block=256, **reso_kw(reso, col))
-        e1, out1 = check_split(
-            f"{k1} continental", lambda **kw: cd_sched.sched_tiles(
-                x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso=reso, **kw),
-            cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax,
-                                       x.pold, p, reso))
+        n_tot = cd_sched.padded_size(n1, 256)
+        x = cd_sched.prepare(
+            *cols, 5 * NM, 1000 * FT, 300.0,
+            torch.full((n_tot, kk), -1, dtype=torch.int32, device=dev),
+            block=256, **reso_kw(reso, col))
+        e1 = check_split(k1, lambda **kw: cd_sched.sched_tiles(
+            x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso=reso, **kw),
+            cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax, x.pold,
+                                       p, reso))[0]
         perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8]).long()
         xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
-                               block=256, **reso_kw(reso, col[perm], False))
-        e3, out3 = check_split(
-            f"{k3} continental", lambda **kw: cd_pallas.full_grid(
-                xp.packed, xp.reach, pp, reso=reso, **kw),
-            cd_pallas.full_grid_plain(xp.packed, xp.reach, pp, reso))
-        errs[k1], errs[k3] = max(errs[k1], e1), max(errs[k3], e3)
-        more = (f", swarm neighbour pairs {float(out1[13].sum()):g} / "
-                f"{float(out3[10].sum()):g}") if reso == "swarm" else ""
-        log(f"check {reso} continental N={16384 // scale}: nconf "
-            f"{int(out1[6].sum())} / {int(out3[6].sum())}{more}, max abs "
-            f"err sched {e1:.3g}, full grid {e3:.3g}: match")
-        # K2 on the regional clump, the resumed interval
-        c = columns(8192 // scale, "regional", seed=1)
+                               block=256, **reso_kw(
+                                   reso, None if col is None else col[perm],
+                                   False))
+        e3 = check_split(k3, lambda **kw: cd_pallas.full_grid(
+            xp.packed, xp.reach, pp, reso=reso, kk=kk, **kw),
+            cd_pallas.full_grid_plain(xp.packed, xp.reach, pp, reso, kk))[0]
+        c = columns(n2, "regional", seed=1)
         col = extra_col(c, reso, dev)
-        n_tot = cd_sched.padded_size(8192 // scale, 256)
-        table = torch.full((n_tot, 8), -1, dtype=torch.int32, device=dev)
+        n_tot = cd_sched.padded_size(n2, 256)
+        table = torch.full((n_tot, kk), -1, dtype=torch.int32, device=dev)
         perm = None
         for t_ahead in (0.0, 20.0):
             x = cd_sched.prepare(*cd_args(c, dev, t_ahead), 5 * NM,
-                                 1000 * FT, 300.0, table, block=256,
-                                 s_cap=2, perm=perm, **reso_kw(reso, col))
+                                 1000 * FT, 300.0, table, block=256, s_cap=2,
+                                 perm=perm, **reso_kw(reso, col))
             perm = x.perm
             reach_f = x.reach & x.overflow[:, None]
-            want = cd_pallas.full_grid_resume_plain(x.packed, reach_f,
-                                                    x.pold, p, reso)
             if t_ahead:
-                e2, _ = check_split(
-                    f"{k2} regional", lambda **kw: cd_pallas.full_grid_resume(
-                        x.packed, reach_f, x.pold, p, reso=reso, **kw), want)
-                errs[k2] = max(errs[k2], e2)
-                log(f"check {reso} regional N={8192 // scale} t+20s: "
-                    f"overflow rows "
-                    f"{int(x.overflow.sum())}, overflow tiles "
-                    f"{int(reach_f.sum())}, max abs err resume {e2:.3g}: "
-                    f"match")
-            merged = cd_sched.run_kernels(x, p)
-            table = merged[11].transpose(1, 2).reshape(n_tot, 8).contiguous()
-        if reso == "swarm":
-            continue
-        # K4 (Eby) on the eight clusters
-        c = columns(16384 // scale, "clusters", seed=1)
-        cols, col = cd_args(c, dev), extra_col(c, reso, dev)
-        perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8]).long()
-        xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
-                               block=256, **reso_kw(reso, col[perm], False))
-        cand, row_over = cd_pallas.build_candidates(
-            xp.lat, xp.lon, xp.gs, xp.active, xp.nb, xp.block, CAND_CAP,
-            5 * NM, 300.0)
-        e4, _ = check_split(
-            f"{k4} clusters cap {CAND_CAP}", lambda **kw: cd_pallas.cand_tiles(
-                xp.packed, cand, pp, reso=reso, **kw),
-            cd_pallas.cand_tiles_plain(xp.packed, cand, pp, reso))
-        errs[k4] = max(errs[k4], e4)
-        log(f"check {reso} clusters N={16384 // scale} cap {CAND_CAP}: "
-            f"overflow rows "
-            f"{int(row_over.sum())} of {xp.nb}, max abs err {e4:.3g}: match")
+                e2 = check_split(k2, lambda **kw: cd_pallas.full_grid_resume(
+                    x.packed, reach_f, x.pold, p, reso=reso, **kw),
+                    cd_pallas.full_grid_resume_plain(x.packed, reach_f,
+                                                     x.pold, p, reso))[0]
+            table = cd_sched.run_kernels(x, p)[11].transpose(1, 2) \
+                .reshape(n_tot, kk).contiguous()
+        wide = int(((table >= 0).sum(1) > 8).sum())
+        more = ""
+        if reso != "swarm":
+            c = columns(n1, "clusters", seed=1)
+            cols, col = cd_args(c, dev), extra_col(c, reso, dev)
+            perm = cd_tiled.spatial_permutation(cols[0], cols[1],
+                                                cols[8]).long()
+            xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                                   block=256, **reso_kw(
+                                       reso, None if col is None
+                                       else col[perm], False))
+            cand, row_over = cd_pallas.build_candidates(
+                xp.lat, xp.lon, xp.gs, xp.active, xp.nb, xp.block, CAND_CAP,
+                5 * NM, 300.0)
+            e4 = check_split(k4, lambda **kw: cd_pallas.cand_tiles(
+                xp.packed, cand, pp, reso=reso, kk=kk, **kw),
+                cd_pallas.cand_tiles_plain(xp.packed, cand, pp, reso, kk))[0]
+            errs[k4] = max(errs.get(k4, 0.0), e4)
+            more = (f", K4 on the clusters at cap {CAND_CAP} ("
+                    f"{int(row_over.sum())} overflow rows of {xp.nb}) "
+                    f"{e4:.3g}")
+        for k, e in ((k1, e1), (k2, e2), (k3, e3)):
+            errs[k] = max(errs.get(k, 0.0), e)
+        log(f"check K={kk} {reso}: max abs err K1 {e1:.3g}, K3 {e3:.3g} "
+            f"(continental N={n1}), K2 {e2:.3g} (regional N={n2} t+20s, "
+            f"{int(x.overflow.sum())} overflow rows, {wide} rows with more "
+            f"than 8 partners){more}: match")
 
 
 def split_rows(items):
@@ -643,16 +671,18 @@ def split_rows(items):
     return int(((items.length > 0).sum(1) > 1).sum())
 
 
-def in_out_bytes(x, resume):
+def in_out_bytes(x, resume, kk=8):
     """Bytes a pass must move at least: the slabs (and the partner table)
-    read once, the outputs (with the Swarm sums in that form) written
-    once (every row block of a stack of worlds)."""
+    read once, the outputs (with the Swarm sums in that form; the top-K,
+    keep and merged tables ``kk`` wide) written once (every row block of
+    a stack of worlds)."""
     nb, B = x.packed.shape[0], x.block
     nacc = 8 + (7 if x.reso == "swarm" else 0)
     if resume:
+        kk = x.pold.shape[1]
         return ((x.packed.numel() + x.pold.numel()) * 4
-                + ((nacc + 1) * nb * B + 4 * nb * 8 * B) * 4)
-    return x.packed.numel() * 4 + (nacc * nb * B + 2 * nb * 8 * B) * 4
+                + ((nacc + 1) * nb * B + 4 * nb * kk * B) * 4)
+    return x.packed.numel() * 4 + (nacc * nb * B + 2 * nb * kk * B) * 4
 
 
 def segment_tiles(x):
@@ -735,17 +765,19 @@ def cuda_ms(fn, reps):
 
 
 def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse",
-               cd_block=256, reso_method="MVP"):
+               cd_block=256, reso_method="MVP", k_partners=8):
     """The main path's scene and configuration: ``n_ac`` aircraft of the
     continental geometry of ``__graft_entry__._build_state`` in ``nmax``
-    slots, built with the port's ``Traffic(pair_matrix=False)
-    .create/flush`` on ``dev`` (no [N, N] ``resopairs``: 10 GB at this
-    size), under ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)``
-    with the resolver ``reso_method``.  Returns ``(state, cfg)``."""
+    slots, built with the port's ``Traffic(pair_matrix=False,
+    k_partners=k_partners).create/flush`` on ``dev`` (no [N, N]
+    ``resopairs``: 10 GB at this size), under ``SimConfig(cd_backend=
+    cd_backend, cd_block=cd_block)`` with the resolver ``reso_method``.
+    Returns ``(state, cfg)``."""
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
     rng = np.random.default_rng(seed)
-    traf = Traffic(nmax=nmax, pair_matrix=False, device=dev)
+    traf = Traffic(nmax=nmax, pair_matrix=False, k_partners=k_partners,
+                   device=dev)
     lat = rng.uniform(35.0, 60.0, n_ac)
     lon = rng.uniform(-10.0, 30.0, n_ac)
     hdg = rng.uniform(0.0, 360.0, n_ac)
@@ -760,20 +792,20 @@ def main_scene(dev, n_ac=100_000, nmax=100_352, seed=0, cd_backend="sparse",
 
 def regional_scene(dev, n_ac=10_000, nmax=10_240, seed=0, cd_backend="dense",
                    cd_block=512, reso_method="MVP", dtype=None,
-                   pair_matrix=True):
+                   pair_matrix=True, k_partners=8):
     """The dense path's scene: ``n_ac`` aircraft in the 230 nm regional
     circle of ``columns`` (the JAX ``cd_tiled.py`` docstring calls 10,000
     there ~3x the density of the busiest real airspace) in ``nmax``
-    slots, built with ``Traffic(pair_matrix=pair_matrix)`` on ``dev``
-    (float32, or ``dtype``), under ``SimConfig(cd_backend=cd_backend,
-    cd_block=cd_block)`` with the resolver ``reso_method``.  Returns
-    ``(state, cfg)``."""
+    slots, built with ``Traffic(pair_matrix=pair_matrix, k_partners=
+    k_partners)`` on ``dev`` (float32, or ``dtype``), under
+    ``SimConfig(cd_backend=cd_backend, cd_block=cd_block)`` with the
+    resolver ``reso_method``.  Returns ``(state, cfg)``."""
     import torch
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.core.traffic import Traffic
     c = columns(n_ac, "regional", seed)
     traf = Traffic(nmax=nmax, pair_matrix=pair_matrix, device=dev,
-                   dtype=dtype or torch.float32)
+                   dtype=dtype or torch.float32, k_partners=k_partners)
     traf.create(n_ac, "B744", c["alt"], c["gs"], None, c["lat"], c["lon"],
                 c["trk"])
     traf.flush()
@@ -829,10 +861,20 @@ def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
     return state, cfg, chunk_s
 
 
+def wide_rows(state):
+    """Rows of the state's partner tables (the caller-space ``partners``
+    and the sparse backend's sorted-space ``partners_s``, the fuller of
+    the two) that hold more than 8 partners."""
+    a = state.asas
+    return max(int(((t >= 0).sum(-1) > 8).sum())
+               for t in (a.partners, a.partners_s))
+
+
 def check_run(backend, state, cfg, launches, chunk_s, n_ac):
     """Fail unless the run stayed finite, found conflicts and launched
-    each of its kernels; log its end-to-end numbers.  ``backend`` names
-    the run in the log and the failures."""
+    each of its kernels; log its end-to-end numbers (and past K = 8 the
+    rows with more than 8 partners).  ``backend`` names the run in the
+    log and the failures."""
     import torch
     from bluesky_tpu_torch.core import step as stepmod
     peak = torch.cuda.max_memory_allocated()
@@ -849,6 +891,10 @@ def check_run(backend, state, cfg, launches, chunk_s, n_ac):
         f"third chunk {n_ac * 20 / chunk_s[-1]:.4g}, ASAS intervals "
         f"{intervals:g}, nconf {nconf}, nlos {int(state.asas.nlos_cur)}, "
         f"launches {launches}, peak memory {peak / 2**30:.3f} GiB")
+    kk = state.asas.partners.shape[-1]
+    if kk != 8:
+        log(f"{backend}: partner tables {kk} wide, rows with more than 8 "
+            f"partners {wide_rows(state)}")
 
 
 def time_layers(backend, layers):
@@ -914,7 +960,9 @@ def report_kernels(runs, launches, errs, regs):
         log(f"{name}: {launches[name]} launches")
         kernel, _, reso = name.partition("/")
         reso = r.get("reso", reso)
-        walker = form_name(kernel, reso or "mvp")
+        kk = r.get("kk", 8)
+        walker = form_name(kernel, reso or "mvp") \
+            + ("" if kk == 8 else "/kwide")
         nreg, st, ld = regs.get(walker, (None, None, None))
         report.append(dict(
             name=name, route="cuda", source=KERNELS[kernel]["source"],
@@ -922,20 +970,22 @@ def report_kernels(runs, launches, errs, regs):
             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, resolver=reso or "mvp", registers=nreg,
+            library_ms=None, resolver=reso or "mvp", partners=kk,
+            registers=nreg,
             spill_store_bytes=st, spill_load_bytes=ld,
             **r.get("extra", {})))
     return report
 
 
 def item_extra(name, x, items, p, pold=None, cand=None, prefix="",
-               reso="mvp"):
+               reso="mvp", kk=8):
     """The JSON keys of a split walker on ``items`` of the operands ``x``
-    (``cd_pallas.walk_items`` arguments ``pold``, ``cand``, ``reso``): its
-    non-empty work items, its longest item in tiles and the ms of its row
-    merge alone, each key prefixed with ``prefix``.  Logs them."""
+    (``cd_pallas.walk_items`` arguments ``pold``, ``cand``, ``reso``,
+    ``kk``): its non-empty work items, its longest item in tiles and the
+    ms of its row merge alone, each key prefixed with ``prefix``.  Logs
+    them."""
     from bluesky_tpu_torch.ops import cd_pallas
-    parts = cd_pallas.walk_items(x.packed, items, p, pold, cand, reso)
+    parts = cd_pallas.walk_items(x.packed, items, p, pold, cand, reso, kk)
     extra = dict(items=int((items.length > 0).sum()),
                  max_tiles_per_item=int(items.length.max()),
                  merge_ms=cuda_ms(lambda: cd_pallas.merge_items(
@@ -946,27 +996,33 @@ def item_extra(name, x, items, p, pold=None, cand=None, prefix="",
     return {prefix + k: v for k, v in extra.items()}
 
 
-def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
+def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
+                kk=8):
     """Phase 4: the port's sparse step at 100k aircraft.  ``k2_regional``
-    (``check_kernels``) joins K2's JSON entry."""
+    (``check_kernels``) joins K2's JSON entry.  Phase 13 (b) runs it with
+    partner tables ``kk`` wide (the entries named by ``kname``), the ASAS
+    interval the only layer timed."""
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
 
-    state, cfg, chunk_s = drive(dev, "sparse", n_ac, nmax)
+    tag = "sparse" if kk == 8 else f"sparse K={kk}"
+    state, cfg, chunk_s = drive(dev, "sparse", n_ac, nmax, k_partners=kk)
     names = ("cd_sched._sched_kernel", "cd_pallas._kernel_resume")
-    launches = {k: v for k, v in launch_counts().items() if k in names}
-    check_run("sparse", state, cfg, launches, chunk_s, n_ac)
+    launches = {kname(k, kk): v for k, v in launch_counts().items()
+                if k in names}
+    check_run(tag, state, cfg, launches, chunk_s, n_ac)
 
     # The layers of a chunk on the stepped state, each timed on its own:
     # one ASAS interval, one sort refresh, one step without the CD.
     no_cd = cfg._replace(asas=cfg.asas._replace(swasas=False))
-    time_layers("sparse", {
-        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
-                                                   block=256, impl="sparse"),
-        "sort refresh": lambda: asas.refresh_spatial_sort(
-            state, cfg.asas, block=256, impl="sparse"),
-        "step without CD": lambda: stepmod.step(state, no_cd),
-    })
+    layers = {"ASAS interval": lambda: asas.update_tiled(
+        state, cfg.asas, block=256, impl="sparse")}
+    if kk == 8:
+        layers.update({
+            "sort refresh": lambda: asas.refresh_spatial_sort(
+                state, cfg.asas, block=256, impl="sparse"),
+            "step without CD": lambda: stepmod.step(state, no_cd)})
+    time_layers(tag, layers)
 
     # Each kernel, its plain version and its bound at the path's shapes:
     # the operands of the next interval of the stepped state.
@@ -989,7 +1045,7 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
     k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
     k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
     runs = {
-        "cd_sched._sched_kernel": dict(
+        kname("cd_sched._sched_kernel", kk): dict(
             kern=lambda **kw: cd_sched.sched_tiles(
                 x.packed, x.wst, x.wln, x.wmax, x.pold, p, **kw),
             plain=lambda: cd_sched.sched_tiles_plain(
@@ -997,11 +1053,11 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
             pairs=active_pairs(x, sched_tiles_of),
             keep=keep_pairs(x, sched_tiles_of, k1[6]),
             bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
-            tiles=int(ln.sum()),
-            extra=item_extra("cd_sched._sched_kernel", x,
+            tiles=int(ln.sum()), kk=kk, reso="mvp",
+            extra=item_extra(kname("cd_sched._sched_kernel", kk), x,
                              cd_sched.window_items(x.wst, x.wln, x.wmax, nb),
                              p, pold=x.pold)),
-        "cd_pallas._kernel_resume": dict(
+        kname("cd_pallas._kernel_resume", kk): dict(
             kern=lambda **kw: cd_pallas.full_grid_resume(
                 x.packed, reach_f, x.pold, p, **kw),
             plain=lambda: cd_pallas.full_grid_resume_plain(
@@ -1009,16 +1065,16 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352):
             pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
             keep=keep_pairs(x, lambda i: np.flatnonzero(rf[i]), k2[6]),
             bytes=in_out_bytes(x, True) + nb * nb, tiles=int(rf.sum()),
-            extra=dict(item_extra("cd_pallas._kernel_resume", x,
+            kk=kk, reso="mvp",
+            extra=dict(item_extra(kname("cd_pallas._kernel_resume", kk), x,
                                   cd_pallas.reach_items(reach_f), p,
                                   pold=x.pold), **k2_regional)),
     }
     per_row = ln.sum(1)
-    log(f"sparse: overflow rows {int(x.overflow.sum())}, scheduled tiles "
-        f"per interval {runs['cd_sched._sched_kernel']['tiles']} (per row "
-        f"block: mean {per_row.mean():.4g}, median {np.median(per_row):g}, "
-        f"max {per_row.max()}), overflow tiles per interval "
-        f"{runs['cd_pallas._kernel_resume']['tiles']}")
+    log(f"{tag}: overflow rows {int(x.overflow.sum())}, scheduled tiles "
+        f"per interval {int(ln.sum())} (per row block: mean "
+        f"{per_row.mean():.4g}, median {np.median(per_row):g}, max "
+        f"{per_row.max()}), overflow tiles per interval {int(rf.sum())}")
     return report_kernels(runs, launches, errs, regs)
 
 
@@ -1038,14 +1094,17 @@ def cand_pairs(x, cand):
     return int(pairs.sum())
 
 
-def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
+def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8):
     """Phase 5: the port's pallas step at 100k aircraft, then one
-    candidate-mode pass on the stepped state."""
+    candidate-mode pass on the stepped state.  Phase 13 (b) runs it with
+    partner tables ``kk`` wide (the entries named by ``kname``), without
+    the capacity sweep."""
     import torch
     from bluesky_tpu_torch.core import asas
     from bluesky_tpu_torch.ops import cd_pallas, cr_mvp
 
-    state, cfg, chunk_s = drive(dev, "pallas", n_ac, nmax)
+    tag = "pallas" if kk == 8 else f"pallas K={kk}"
+    state, cfg, chunk_s = drive(dev, "pallas", n_ac, nmax, k_partners=kk)
     ac, a = state.ac, state.asas
     c = cfg.asas
     mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
@@ -1055,36 +1114,38 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     args = (c.rpz, c.hpz, c.dtlookahead, mvp)
     t0 = time.perf_counter()
     rd_c = cd_pallas.detect_resolve_pallas(
-        *cols, *args, block=256, perm=a.sort_perm, cand_cap=CAND_CAP)
+        *cols, *args, block=256, k_partners=kk, perm=a.sort_perm,
+        cand_cap=CAND_CAP)
     torch.cuda.synchronize()
     cand_call_ms = (time.perf_counter() - t0) * 1e3
     names = ("cd_pallas._kernel", "cd_pallas._kernel_cand")
-    launches = {k: v for k, v in launch_counts().items() if k in names}
-    check_run("pallas", state, cfg, launches, chunk_s, n_ac)
+    launches = {kname(k, kk): v for k, v in launch_counts().items()
+                if k in names}
+    check_run(tag, state, cfg, launches, chunk_s, n_ac)
 
     rd_f = cd_pallas.detect_resolve_pallas(*cols, *args, block=256,
-                                           perm=a.sort_perm)
-    cd_pallas.compare_rows("pallas path cand_cap vs 0", rd_c, rd_f)
+                                           k_partners=kk, perm=a.sort_perm)
+    cd_pallas.compare_rows(f"{tag} path cand_cap vs 0", rd_c, rd_f)
     x, cand, row_over = pallas_operands(
         cols, a.sort_perm, dict(rpz=c.rpz, tlook=c.dtlookahead, cap=CAND_CAP))
-    log(f"pallas: detect_resolve_pallas(cand_cap={CAND_CAP}) "
+    log(f"{tag}: detect_resolve_pallas(cand_cap={CAND_CAP}) "
         f"{cand_call_ms:.4g} ms, overflow rows {int(row_over.sum())} of "
         f"{x.nb}, equals cand_cap=0 (nconf {int(rd_c.nconf)})")
     # the work items cut these rows; the longest once set K3's time
     per_row = x.reach.sum(1).float()
-    log(f"pallas: reachable tiles per row block: mean "
+    log(f"{tag}: reachable tiles per row block: mean "
         f"{float(per_row.mean()):.4g}, median {float(per_row.median()):g}, "
         f"max {int(per_row.max())}")
 
-    time_layers("pallas", {
-        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
-                                                   block=256, impl="pallas"),
-        "sort refresh": lambda: asas.refresh_spatial_sort(
-            state, cfg.asas, block=256, impl="pallas"),
-    })
+    layers = {"ASAS interval": lambda: asas.update_tiled(
+        state, cfg.asas, block=256, impl="pallas")}
+    if kk == 8:
+        layers["sort refresh"] = lambda: asas.refresh_spatial_sort(
+            state, cfg.asas, block=256, impl="pallas")
+    time_layers(tag, layers)
     # The candidate scheduler against the block grid on this state: the
     # detect call at capacities 0 (full grid) to 4 x CAND_CAP.
-    for cap in (0, CAND_CAP, 2 * CAND_CAP, 4 * CAND_CAP):
+    for cap in (0, CAND_CAP, 2 * CAND_CAP, 4 * CAND_CAP) if kk == 8 else ():
         over = pallas_operands(cols, a.sort_perm, dict(
             rpz=c.rpz, tlook=c.dtlookahead, cap=cap or CAND_CAP))[2]
         time_layers("pallas", {
@@ -1097,28 +1158,35 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
     rh = x.reach.cpu().numpy()
 
     def cand_run(cand, cap):
-        name = f"cd_pallas._kernel_cand at cand_cap={cap}"
+        name = kname(f"cd_pallas._kernel_cand at cand_cap={cap}", kk)
         return dict(
-            kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, **kw),
-            plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p),
+            kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, kk=kk,
+                                                   **kw),
+            plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p,
+                                                     kk=kk),
             pairs=cand_pairs(x, cand),
-            bytes=in_out_bytes(x, False) + cand.numel() * 4,
+            bytes=in_out_bytes(x, False, kk) + cand.numel() * 4,
             tiles=int(((cand < nb * B).sum(1) + B - 1).div(
-                B, rounding_mode="floor").sum()),
+                B, rounding_mode="floor").sum()), kk=kk, reso="mvp",
             extra=item_extra(name, x, cd_pallas.cand_items(cand, B), p,
-                             cand=cand))
+                             cand=cand, kk=kk))
 
     runs = {
-        "cd_pallas._kernel": dict(
-            kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p, **kw),
-            plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p),
+        kname("cd_pallas._kernel", kk): dict(
+            kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p,
+                                                  kk=kk, **kw),
+            plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p,
+                                                    kk=kk),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
-            bytes=in_out_bytes(x, False) + nb * nb, tiles=int(rh.sum()),
-            extra=item_extra("cd_pallas._kernel", x,
-                             cd_pallas.reach_items(x.reach), p)),
-        "cd_pallas._kernel_cand": cand_run(cand, CAND_CAP),
+            bytes=in_out_bytes(x, False, kk) + nb * nb, tiles=int(rh.sum()),
+            kk=kk, reso="mvp",
+            extra=item_extra(kname("cd_pallas._kernel", kk), x,
+                             cd_pallas.reach_items(x.reach), p, kk=kk)),
+        kname("cd_pallas._kernel_cand", kk): cand_run(cand, CAND_CAP),
     }
     report = report_kernels(runs, launches, errs, regs)
+    if kk != 8:
+        return report
     # At CAND_CAP most rows overflow and leave the candidate kernel after
     # one read; at 4 x CAND_CAP most rows fit, so this line times the
     # kernel's pair work against its bound.
@@ -1138,7 +1206,7 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352):
 
 
 def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
-                  nmax=100_352):
+                  nmax=100_352, kk=8, scene=main_scene, **scene_kw):
     """Phases 4-5 under ``method`` (EBY, SWARM or SSD): ``main_scene``
     under ``SimConfig(cd_backend=backend, cd_block=256)`` with that
     resolver, the sort refresh and 20 steps, three times (for pallas and EBY
@@ -1148,12 +1216,15 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
     Then, for EBY and SWARM, each kernel of the path in that form timed
     against its plain version and bound at the path's shapes, as phases
     4-5 time the MVP forms; SSD runs the MVP forms, timed there.  One
-    more interval runs with every host synchronisation an error."""
+    more interval runs with every host synchronisation an error.  Phase
+    13 (c) runs it on ``scene`` (``scene_kw`` to it) with partner tables
+    ``kk`` wide, the entries named by ``kname``."""
     import torch
     from bluesky_tpu_torch.core import asas
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
     reso = {"EBY": "eby", "SWARM": "swarm"}.get(method, "mvp")
-    state, cfg, chunk_s = drive(dev, backend, n_ac, nmax, reso_method=method)
+    state, cfg, chunk_s = drive(dev, backend, n_ac, nmax, scene=scene,
+                                reso_method=method, k_partners=kk, **scene_kw)
     ac, a = state.ac, state.asas
     c = cfg.asas
     mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
@@ -1167,12 +1238,14 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
         kernels += ("cd_pallas._kernel_cand",)
         cd_pallas.detect_resolve_pallas(
             *cols, c.rpz, c.hpz, c.dtlookahead, mvp, block=256,
-            perm=a.sort_perm, cand_cap=CAND_CAP, reso="eby",
+            k_partners=kk, perm=a.sort_perm, cand_cap=CAND_CAP, reso="eby",
             extra_cols={"tas": ac.tas})
         torch.cuda.synchronize()
-    names = [form_name(k, reso) for k in kernels]
-    launches = {k: v for k, v in launch_counts().items() if k in names}
-    tag = f"{backend} {method}"
+    forms = [form_name(k, reso) for k in kernels]
+    names = [kname(f, kk) for f in forms]
+    launches = {kname(k, kk): v for k, v in launch_counts().items()
+                if k in forms}
+    tag = f"{backend} {method}" + ("" if kk == 8 else f" K={kk} N={n_ac}")
     check_run(tag, state, cfg, launches, chunk_s, n_ac)
     time_layers(tag, {"ASAS interval": lambda: asas.update_tiled(
         state, c, block=256, impl=backend)})
@@ -1212,7 +1285,8 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
                     x.packed, x.wst, x.wln, x.wmax, x.pold, p, reso),
                 pairs=active_pairs(x, seg), keep=keep_pairs(x, seg, k1[6]),
                 bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
-                tiles=int(sum(len(seg(i)) for i in range(x.nb))),
+                tiles=int(sum(len(seg(i)) for i in range(x.nb))), kk=kk,
+                reso=reso,
                 extra=item_extra(names[0], x, cd_sched.window_items(
                     x.wst, x.wln, x.wmax, x.nb), p, pold=x.pold, reso=reso),
                 **form_work(reso, k1, 13)),
@@ -1224,7 +1298,7 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
                 pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
                 keep=keep_pairs(x, lambda i: np.flatnonzero(rf[i]), k2[6]),
                 bytes=in_out_bytes(x, True) + x.nb * x.nb,
-                tiles=int(rf.sum()),
+                tiles=int(rf.sum()), kk=kk, reso=reso,
                 extra=item_extra(names[1], x, cd_pallas.reach_items(reach_f),
                                  p, pold=x.pold, reso=reso),
                 **form_work(reso, k2, 13))}
@@ -1234,30 +1308,33 @@ def resolver_path(dev, errs, regs, backend, method, n_ac=100_000,
                                     cap=CAND_CAP), reso, col)
         p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
         rh = x.reach.cpu().numpy()
-        k3 = cd_pallas.full_grid(x.packed, x.reach, p, reso=reso)
+        k3 = cd_pallas.full_grid(x.packed, x.reach, p, reso=reso, kk=kk)
         runs = {names[0]: dict(
             kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p,
-                                                  reso=reso, **kw),
+                                                  reso=reso, kk=kk, **kw),
             plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p,
-                                                    reso),
+                                                    reso, kk),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
-            bytes=in_out_bytes(x, False) + x.nb * x.nb, tiles=int(rh.sum()),
+            bytes=in_out_bytes(x, False, kk) + x.nb * x.nb,
+            tiles=int(rh.sum()), kk=kk, reso=reso,
             extra=item_extra(names[0], x, cd_pallas.reach_items(x.reach), p,
-                             reso=reso),
+                             reso=reso, kk=kk),
             **form_work(reso, k3, 10))}
         if reso == "eby":
-            k4 = cd_pallas.cand_tiles(x.packed, cand, p, reso=reso)
+            k4 = cd_pallas.cand_tiles(x.packed, cand, p, reso=reso, kk=kk)
             runs[names[1]] = dict(
                 kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p,
-                                                       reso=reso, **kw),
+                                                       reso=reso, kk=kk,
+                                                       **kw),
                 plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p,
-                                                         reso),
+                                                         reso, kk),
                 pairs=cand_pairs(x, cand),
-                bytes=in_out_bytes(x, False) + cand.numel() * 4,
+                bytes=in_out_bytes(x, False, kk) + cand.numel() * 4,
                 tiles=int(((cand < x.nb * x.block).sum(1) + x.block - 1)
                           .div(x.block, rounding_mode="floor").sum()),
+                kk=kk, reso=reso,
                 extra=item_extra(names[1], x, cd_pallas.cand_items(
-                    cand, x.block), p, cand=cand, reso=reso),
+                    cand, x.block), p, cand=cand, reso=reso, kk=kk),
                 **form_work(reso, k4, 10))
     per_row = x.reach.sum(1).float()
     log(f"{tag}: reachable tiles per row block: mean "
@@ -2167,18 +2244,20 @@ WORLD_KERNELS = {"sparse": ("cd_sched._sched_kernel",
                  "pallas": ("cd_pallas._kernel",)}
 
 
-def world_scene(dev, worlds, n_ac, nmax, backend, reso="MVP"):
+def world_scene(dev, worlds, n_ac, nmax, backend, reso="MVP", kk=8):
     """``worlds`` worlds of ``regional_scene`` (world w from numpy seed
-    w), float32, ``Traffic(pair_matrix=backend == "dense")``, built on
-    the CPU (no launches) and stacked on ``dev``; the sort refresh is the
-    chunk's.  Returns ``(stacked state, cfg)``."""
+    w), float32, ``Traffic(pair_matrix=backend == "dense",
+    k_partners=kk)``, built on the CPU (no launches) and stacked on
+    ``dev``; the sort refresh is the chunk's.  Returns ``(stacked state,
+    cfg)``."""
     from bluesky_tpu_torch.core import graph, step as stepmod
     states = []
     for w in range(worlds):
         st, cfg = regional_scene("cpu", n_ac, nmax, seed=w,
                                  cd_backend=backend, cd_block=256,
                                  reso_method=reso,
-                                 pair_matrix=backend == "dense")
+                                 pair_matrix=backend == "dense",
+                                 k_partners=kk)
         states.append(st)
     ws = stepmod.stack_worlds(states)
     return graph.rebuild(ws, iter([t.to(dev) for _, t in
@@ -2239,20 +2318,22 @@ def compare_worlds(tag, got, want, backend):
     return same
 
 
-def worlds_batched_vs_solo(dev, backend, shape, reso="MVP"):
+def worlds_batched_vs_solo(dev, backend, shape, reso="MVP", kk=8):
     """Phase 11, one shape: ``CHUNKS`` chunks of the stacked worlds through
     ``run_steps_worlds_edge`` (counts set to 0 just before, read just
     after), then the same chunks on the same worlds one at a time through
     ``run_steps_edge``; every world held to its solo run
     (``compare_worlds``); ms per chunk, aggregate aircraft-steps/s,
     launches per ASAS interval, peak memory and host synchronisations of
-    a batched chunk.  Returns ``(stepped stack, cfg, batched launches)``."""
+    a batched chunk.  Partner tables ``kk`` wide (phase 13 (d)).  Returns
+    ``(stepped stack, cfg, batched launches)``."""
     import torch
     from bluesky_tpu_torch.core import graph, step as stepmod
     worlds, n_ac, nmax = shape
-    tag = f"worlds {backend} {reso} {worlds} x {n_ac}"
+    tag = f"worlds {backend} {reso} {worlds} x {n_ac}" \
+        + ("" if kk == 8 else f" K={kk}")
     t0 = time.perf_counter()
-    init, cfg = world_scene(dev, worlds, n_ac, nmax, backend, reso)
+    init, cfg = world_scene(dev, worlds, n_ac, nmax, backend, reso, kk)
     torch.cuda.synchronize()
     log(f"{tag}: built in {time.perf_counter() - t0:.2f} s")
     graph.clear()
@@ -2693,6 +2774,128 @@ def diff_phase(dev):
         raise AssertionError(f"diff phase launched kernels: {launched}")
 
 
+#: phase 13 (e): where the snapshot of the 100k state is written (a
+#: gitignored directory of the checkout; removed after the load)
+KWIDE_SNAP = os.path.join("output", "chip_smoke_kwide.snap")
+
+
+def snapshot_kwide(dev, n_ac=100_000, nmax=100_352, kk=KWIDE):
+    """Phase 13 (e): a ``Simulation`` on the card whose ``Traffic`` has no
+    [N, N] ``resopairs`` and partner tables ``kk`` wide, ``n_ac``
+    aircraft of ``main_scene``'s geometry created in it, CDMETHOD SPARSE,
+    ASAS ON and FF, run for 3 s; then one ``snapshot.save`` of its state
+    and one ``snapshot.load`` into a second such ``Simulation``: ms of
+    each and the file's bytes.  Fails unless the restored state is bit
+    for bit the saved one, with the same ids and sim time, and the
+    restored sim steps on."""
+    import torch
+    from bluesky_tpu_torch.core.state import state_to_numpy
+    from bluesky_tpu_torch.simulation import snapshot
+    from bluesky_tpu_torch.simulation.sim import Simulation
+
+    def make():
+        sim = Simulation(nmax=nmax, device=dev)
+        sim.traf.pair_matrix = False
+        sim.traf.k_partners = kk
+        sim.reset()
+        return sim
+
+    sim = make()
+    rng = np.random.default_rng(0)
+    sim.traf.create(n_ac, "B744", rng.uniform(3000.0, 11000.0, n_ac),
+                    rng.uniform(130.0, 240.0, n_ac), None,
+                    rng.uniform(35.0, 60.0, n_ac),
+                    rng.uniform(-10.0, 30.0, n_ac),
+                    rng.uniform(0.0, 360.0, n_ac))
+    sim.traf.flush()
+    sim_do(sim, "CDMETHOD SPARSE", "ASAS ON", "OP", "FF")
+    sim.run(until_simt=3.0)
+    torch.cuda.synchronize()
+    wide = wide_rows(sim.traf.state)
+    os.makedirs(os.path.dirname(KWIDE_SNAP), exist_ok=True)
+    t0 = time.perf_counter()
+    snapshot.save(sim, KWIDE_SNAP)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(KWIDE_SNAP)
+    other = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok, msg = snapshot.load(other, KWIDE_SNAP)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    os.remove(KWIDE_SNAP)
+    if not ok:
+        raise AssertionError(f"snapshot K={kk}: {msg}")
+    a, b = state_to_numpy(sim.traf.state), state_to_numpy(other.traf.state)
+    same = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+    if not (same and sim.traf.ids == other.traf.ids
+            and other.simt == sim.simt
+            and b["asas.partners_s"].shape[1] == kk):
+        raise AssertionError(f"snapshot K={kk}: the restored state differs")
+    other.op()
+    other.run(until_simt=other.simt + 1.0)
+    if not bool(torch.isfinite(other.traf.state.ac.lat).all()):
+        raise AssertionError(f"snapshot K={kk}: the restored sim went "
+                             "non-finite")
+    log(f"snapshot K={kk}: {n_ac} aircraft in {nmax} slots at simt "
+        f"{sim.simt:g} ({wide} rows with more than 8 partners, nconf "
+        f"{int(sim.traf.state.asas.nconf_cur)}): save {save_ms:.1f} ms, "
+        f"{size} bytes, load {load_ms:.1f} ms, restored state bit-equal "
+        f"({len(a)} tensors), {msg}; card {nvidia_smi()}")
+
+
+def kwide_phase(dev, errs, regs, scale=1):
+    """Phase 13: partner tables ``KWIDE`` = 16 wide (and the MVP forms at
+    ``KWIDE_MVP``): (a) every kernel form at K = 16 and the MVP forms at
+    K = 1, 3 and 32 against their plain versions on the check shapes
+    (``check_width_kernels``); (b) ``main_scene`` at K = 16 and, MVP only,
+    32 through ``sparse_path`` and ``pallas_path`` (three 20-step chunks
+    of ``run_steps_edge``, with the candidate-mode call), each kernel
+    timed and bounded; (c) ``regional_scene`` 10,000 in 10,240 slots at
+    K = 16, sparse and pallas under EBY, SWARM and SSD
+    (``resolver_path``; with pallas and EBY the candidate call); (d) one
+    stacked worlds group at K = 16 (16 x 2,000 sparse MVP), each world
+    held to its solo run; (e) ``snapshot_kwide``.  Returns the kernels
+    JSON entries of the K = 16 forms and the K = 32 MVP forms; fails
+    unless every K = 16 form was measured."""
+    report = []
+    t0 = time.perf_counter()
+    check_width_kernels(dev, errs, KWIDE, scale=scale)
+    for kk in KWIDE_MVP:
+        check_width_kernels(dev, errs, kk, ("mvp",), scale=scale)
+    log(f"kwide (a): {time.perf_counter() - t0:.1f} s")
+    for kk in (KWIDE, 32):
+        t0 = time.perf_counter()
+        report += sparse_path(dev, errs, regs, {}, 100_000 // scale,
+                              100_352 // scale, kk=kk)
+        report += pallas_path(dev, errs, regs, 100_000 // scale,
+                              100_352 // scale, kk=kk)
+        log(f"kwide (b) K={kk}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for backend in ("sparse", "pallas"):
+        for method in ("EBY", "SWARM", "SSD"):
+            report += resolver_path(dev, errs, regs, backend, method,
+                                    10_000 // scale, 10_240 // scale,
+                                    kk=KWIDE, scene=regional_scene,
+                                    cd_block=256, pair_matrix=False)
+    log(f"kwide (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worlds_batched_vs_solo(dev, "sparse", (max(2, 16 // scale), 2_000, 2_048),
+                           kk=KWIDE)
+    log(f"kwide (d): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    snapshot_kwide(dev, 100_000 // scale, 100_352 // scale)
+    log(f"kwide (e): {time.perf_counter() - t0:.1f} s")
+    missing = {kname(form_name(k, r), KWIDE) for k, r in FORMS} \
+        - {e["name"] for e in report}
+    if missing:
+        raise AssertionError(f"K={KWIDE} forms never measured: "
+                             f"{sorted(missing)}")
+    return report
+
+
 def sim_phase(dev):
     """Phase 10: the embedded ``Simulation`` driven through its stack
     (``sim_continental``, then ``sim_regional``); returns the kernel
@@ -2730,7 +2933,7 @@ def main():
     t0 = time.perf_counter()
     k2_regional = check_kernels(dev, errs)
     check_pallas_kernels(dev, errs)
-    check_resolver_kernels(dev, errs)
+    check_width_kernels(dev, errs, 8, ("eby", "swarm"))
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     report = []
     for path, more in ((sparse_path, (k2_regional,)), (pallas_path, ())):
@@ -2763,9 +2966,13 @@ def main():
     diff_phase(dev)
     log(f"diff_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after diff_phase")
+    t0 = time.perf_counter()
+    kwide_report = kwide_phase(dev, errs, regs)
+    log(f"kwide_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after kwide_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
-    report += world_report
+    report += world_report + kwide_report
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")

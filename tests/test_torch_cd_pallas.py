@@ -447,7 +447,9 @@ def test_k16_partners_match_jax():
     """Fault C1: ``Traffic(k_partners=16)`` on the pallas backend keeps up
     to 16 fresh partners a row, as JAX does (200 aircraft of the clump at
     one altitude, block 64, one refresh and one interval; JAX in interpret
-    mode).  On a CUDA tensor a width other than 8 raises."""
+    mode).  On a CUDA tensor K = 16 passes the checks of a kernel launch
+    (the kernels take 1 <= K <= 32), and a K past 32 raises, naming the
+    limit and the shared memory it would take."""
     from bluesky_tpu.core.traffic import Traffic as JTraffic
     from bluesky_tpu_torch.core import asas as tasas
     from bluesky_tpu_torch.core.traffic import Traffic as TTraffic
@@ -484,9 +486,14 @@ def test_k16_partners_match_jax():
     x = _sorted_inputs(columns(N, "regional"))
     p = cd_pallas.tile_params(RPZ, HPZ, TLOOK, _mvp(cr_mvp))
     packed = x.packed.as_subclass(OnCard)
-    with pytest.raises(ValueError, match="K = 8"):
-        cd_pallas.full_grid(packed, x.reach, p, kk=16)
-    with pytest.raises(ValueError, match="K = 8"):
+    pold = torch.full((x.nb, 16, x.block), -1,
+                      dtype=torch.int32).as_subclass(OnCard)
+    assert cd_pallas.check_common(packed, kk=16) == (x.nb, x.block)
+    assert cd_pallas.check_common(packed, pold) == (x.nb, x.block)
+    with pytest.raises(ValueError, match=r"1 <= K <= 32 .* K = 33 would "
+                                         r"take \d+ bytes of shared memory"):
+        cd_pallas.check_common(packed, kk=33)
+    with pytest.raises(ValueError, match="1 <= K <= 32"):
         cd_pallas.full_grid_resume(
-            packed, x.reach, torch.full((x.nb, 16, x.block), -1,
+            packed, x.reach, torch.full((x.nb, 40, x.block), -1,
                                         dtype=torch.int32), p)

@@ -341,3 +341,47 @@ def test_swarm_track_wrap_on_the_card(cuda):
     want = cd_pallas.full_grid_plain(x.packed, x.reach, p, "swarm")
     cd_pallas.compare_outputs("swarm track wrap", got, want)
     assert float(want[10].sum()) > 0
+
+
+@pytest.mark.parametrize("kk", [1, 3, 16, 32])
+def test_partner_width_kernels_match_plain(cuda, kk):
+    """Every walker at partner width ``kk`` (the run-time form of the
+    kernels; K = 8 is their constant form) against its plain version:
+    ``cd_sched_tiles`` and the overflow pass on the clump at ``s_cap=2``
+    with the K-wide table of a first interval, ``cd_full_grid`` in
+    Morton order and ``cd_cand_items`` on the clusters."""
+    n = 4096
+    n_tot = cd_sched.padded_size(n, 256)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp(), 5 * NM * 1.05)
+    pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, _mvp())
+    cols = _inputs("clump", n, cuda)
+    table = torch.full((n_tot, kk), -1, dtype=torch.int32, device=cuda)
+    x = cd_sched.prepare(*cols, 5 * NM, 1000 * FT, 300.0, table, block=256,
+                         s_cap=2)
+    table = cd_sched.run_kernels(x, p)[11].transpose(1, 2) \
+        .reshape(n_tot, kk).contiguous()
+    x = cd_sched.prepare(*cols, 5 * NM, 1000 * FT, 300.0, table, block=256,
+                         s_cap=2, perm=x.perm)
+    reach_f = x.reach & x.overflow[:, None]
+    assert int(x.overflow.sum()) > 0
+    cd_pallas.compare_outputs(
+        f"sched K={kk}",
+        cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p),
+        cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln, x.wmax, x.pold,
+                                   p))
+    cd_pallas.compare_outputs(
+        f"resume K={kk}",
+        cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p),
+        cd_pallas.full_grid_resume_plain(x.packed, reach_f, x.pold, p))
+    xs = _sorted(cols)
+    got = cd_pallas.full_grid(xs.packed, xs.reach, pp, kk=kk)
+    assert got[9].shape[1] == kk
+    cd_pallas.compare_outputs(
+        f"full grid K={kk}", got,
+        cd_pallas.full_grid_plain(xs.packed, xs.reach, pp, kk=kk))
+    xc = _sorted(_inputs("clusters", 8192, cuda))
+    cand, _ = cd_pallas.build_candidates(xc.lat, xc.lon, xc.gs, xc.active,
+                                         xc.nb, xc.block, 2048, 5 * NM, 300.0)
+    cd_pallas.compare_outputs(
+        f"cand tiles K={kk}", cd_pallas.cand_tiles(xc.packed, cand, pp, kk=kk),
+        cd_pallas.cand_tiles_plain(xc.packed, cand, pp, kk=kk))

@@ -7,7 +7,9 @@ lines and sim-time horizons (wall-clock pacing off), then holds the
 echo text, callsigns, types, host routes, configuration and state
 against each other (``torch_parity.assert_sims_equal``: ints, bools and
 partner sets equal, floats within 1e-9, the resolver commands within
-1e-7).  Files a case writes (SAVEIC) are compared too.
+1e-7).  Files a case writes are compared too: SAVEIC scenarios by
+their text, SNAPSHOT files by name only (each package pickles its own
+state classes; ``test_torch_snapshot.py`` holds what crosses).
 
 The command surface: the port registers every command name and synonym
 of the JAX package with the same usage text; the commands of
@@ -109,6 +111,11 @@ CASES = {
          "WORLDS ON", "WORLDS", "WORLDS MAX 32", "WORLDS"), 1.0,
         ("WORLDS MAX 0", "WORLDS MAX many", "WORLDS FOO", "WORLDS OFF",
          "WORLDS")],
+    # SNAPSHOT SAVE/LOAD: each package writes and restores its own file
+    "snapshot_save_load": [
+        ROUTE + ("ALT KL204 FL300",), 2.0, ("SNAPSHOT SAVE mysnap",), 3.0,
+        ("SNAPSHOT LOAD mysnap", "SNAPSHOT LOAD nosuch.snap", "SNAPSHOT",
+         "SNAPSHOT FOO mysnap", "LISTRTE KL204", "OP"), 4.0],
 }
 
 
@@ -154,8 +161,14 @@ def test_stack_case(case, tmp_path, monkeypatch):
     jfiles = sorted(p.name for p in (tmp_path / "jax").iterdir())
     assert sorted(p.name for p in (tmp_path / "port").iterdir()) == jfiles
     for f in jfiles:
+        if f.endswith(".snap"):
+            continue
         assert (tmp_path / "port" / f).read_text() \
             == (tmp_path / "jax" / f).read_text(), f
+    if case == "snapshot_save_load":
+        assert "Snapshot mysnap.snap restored: 1 aircraft at simt=2.00" \
+            in out["port"]
+        assert "nosuch.snap: not found" in out["port"]
     if case == "saveic":
         text = (tmp_path / "port" / "mysave.scn").read_text()
         assert "CRE KL204" in text and "ADDWPT KL204" in text \
