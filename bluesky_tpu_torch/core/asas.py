@@ -12,9 +12,16 @@ for the chunk runner, the Morton order of ``impl="pallas"`` and
 MVP plus the Swarm neighbour sums), resolve from the sums (SSD from the
 partner table), then resume-nav, in-kernel on the sorted-space table
 ``partners_s`` (sparse) or on the host side of the caller-space table
-``partners`` (pallas, lax).  The spatial/tiles shard modes are not
-ported yet (``ROADMAP.md`` §A).
+``partners`` (pallas, lax).  The shard modes (``update_tiled(mesh=...,
+shard_mode=...)``) have their refreshes here: ``refresh_spatial_shard``
+and ``refresh_tile_shard`` (stripe or tile sort, caller-slot
+re-bucketing onto the shards, partner remap and the halo-contract check;
+an overloaded stripe or tile, or reach past the halo or the pinned
+budgets, raises ``RuntimeError``), and their in-chunk forms
+``inscan_spatial_refresh`` and ``inscan_tile_refresh``, which skip a
+violating refresh and report it in a guard word instead.
 """
+import numpy as np
 from typing import NamedTuple
 
 import torch
@@ -281,6 +288,438 @@ def inscan_sparse_refresh(state: SimState, cfg: AsasConfig,
                                                  partners_s=partners_s))
 
 
+def _rebucket_callers(active, dest0, dev, n, n_tot, ndev, C):
+    """Caller-slot re-bucketing of the stripe and tile refreshes (a full
+    [n] bijection): shard d's caller rows ``[d * C, (d + 1) * C)`` get
+    exactly the active aircraft whose sorted slots d owns, packed in
+    sorted order; inactive rows fill the shards' tails.  Returns
+    ``(newslot [n], src [n], counts [ndev])``; ``counts <= C`` is the
+    occupancy contract the caller checks."""
+    device = active.device
+    aidx = torch.arange(n, dtype=torch.int64, device=device)
+    key = torch.where(active, dest0.long(), n_tot + aidx)
+    order = torch.argsort(key, stable=True)
+    act_o = active[order]
+    dev_o = dev[order].long()
+    oh = (dev_o[:, None] == torch.arange(ndev, device=device)[None, :]) \
+        & act_o[:, None]
+    counts = oh.sum(0)
+    rank_o = ((torch.cumsum(oh.long(), 0) - 1) * oh).sum(1)
+    slot_act_o = dev_o * C + rank_o
+    free = (aidx % C) >= counts[torch.clamp_max(aidx // C, ndev - 1)]
+    free_slots = torch.sort(torch.where(free, aidx,
+                                        torch.full_like(aidx, n))).values
+    n_act = active.sum()
+    inact_rank = torch.clamp(aidx - n_act, 0, n - 1)
+    newslot_o = torch.where(act_o, slot_act_o, free_slots[inact_rank])
+    newslot = torch.zeros(n, dtype=torch.int64, device=device) \
+        .scatter_(0, order, newslot_o)
+    # an overloaded shard's slots run past n: dropped, as JAX drops them
+    # (the caller refuses that layout)
+    src = torch.zeros(n + 1, dtype=torch.int64, device=device) \
+        .scatter_(0, torch.clamp(newslot, 0, n), aidx)[:n]
+    return newslot.to(torch.int32), src.to(torch.int32), \
+        counts.to(torch.int32)
+
+
+def _remap_partners_sorted(old_perm, partners_s, active, dest0, dest_sent,
+                           n, n_tot):
+    """Remap the sorted-space partner table from the old layout to the
+    new one (old slot -> old caller -> new slot), for the stripe and tile
+    refreshes; rows and partners that are inactive drop out."""
+    inv_old = cd_sched.slot_inverse(old_perm, n, n_tot)
+    pv = partners_s[:n_tot]
+    neg = torch.full_like(pv, -1)
+    caller_vals = torch.where(
+        pv >= 0, inv_old[torch.clamp(pv, 0, n_tot).long()], neg)
+    cv = torch.clamp(caller_vals, 0, n - 1).long()
+    new_vals = torch.where((caller_vals >= 0) & active[cv],
+                           dest0[cv].to(pv.dtype), neg)
+    row_ok = (old_perm < n_tot) & active
+    per_caller = torch.where(
+        row_ok[:, None],
+        new_vals[torch.clamp(old_perm, 0, n_tot - 1).long()],
+        torch.full_like(new_vals[:n], -1))
+    out = torch.full((n_tot + 1, pv.shape[1]), -1, dtype=torch.int32,
+                     device=pv.device)
+    out[torch.clamp(dest_sent, 0, n_tot).long()] = per_caller \
+        .to(torch.int32)
+    return out[:n_tot]
+
+
+def _swarm_reach(cfg: AsasConfig) -> float:
+    """The interval's horizontal reach floor: the Swarm neighbourhood
+    under RESO SWARM (``cd_sched`` widens the schedule so), else 0."""
+    if cfg.reso_on and cfg.reso_method.upper() == "SWARM":
+        return float(cr_swarm.R_SWARM)
+    return 0.0
+
+
+def _margin_reach(lat, lon, gs, active, dest_sent, nb, n_tot, block, cfg):
+    """The drift-margin widened block reachability of a new layout (no
+    vertical gating): what the halo and budget checks validate.  Returns
+    ``(reach_m [nb, nb], gsmax)``."""
+    plat, plon, pgs, pact = cd_sched.scatter_padded(
+        [lat, lon, gs, active.to(lat.dtype)], dest_sent, n_tot)
+    summ = cd_tiled.block_summaries(plat, plon, pgs, pact > 0.5, nb, block)
+    gsmax = torch.where(active, gs, torch.zeros_like(gs)).max()
+    margin_s = float(cfg.sort_every * cfg.dtasas)
+    reach_m = cd_tiled.reachability_from_summaries(
+        summ, summ, float(cfg.rpz), float(cfg.dtlookahead),
+        min_reach_m=_swarm_reach(cfg), margin_m=2.0 * gsmax * margin_s)
+    return reach_m, gsmax
+
+
+def _spatial_shard_refresh(lat, lon, gs, active, old_perm, partners_s, *,
+                           block, ndev, extra, halo, cfg):
+    """The spatial refresh's device part: stripe sort (padding spread),
+    caller-slot re-bucketing, partner remap and the halo check.
+
+    Returns ``(newslot, src, sort_perm_new, partners_new, stats)``:
+    old caller -> new caller slot, new -> old (the gather of every
+    [n]-leading leaf), new caller -> sorted slot (the sentinel ``n_tot``
+    on inactive rows), the remapped table and ``(counts [ndev], halo_ok,
+    halo_need, gsmax)`` (per-shard occupancy, whether the ``halo``-block
+    window covers every drift-margin widened reachable pair, and the
+    widest halo needed)."""
+    n = lat.shape[0]
+    nb = -(-n // block) + extra
+    n_tot = nb * block
+    nb_l = nb // ndev
+    S = nb_l * block
+    C = n // ndev
+    thresh = cd_sched.reach_threshold_m(gs, active, float(cfg.dtlookahead),
+                                        float(cfg.rpz))
+    dest0 = cd_sched.stripe_sort_dest(lat, lon, gs, active, thresh, block,
+                                      extra, spread_pad=True)
+    dev = torch.clamp_max(dest0 // S, ndev - 1)
+    newslot, src, counts = _rebucket_callers(active, dest0, dev, n, n_tot,
+                                             ndev, C)
+    dest_sent = torch.where(active, dest0, torch.full_like(dest0, n_tot))
+    sort_perm_new = dest_sent[src.long()]
+    partners_new = _remap_partners_sorted(old_perm, partners_s, active,
+                                          dest0, dest_sent, n, n_tot)
+    reach_m, gsmax = _margin_reach(lat, lon, gs, active, dest_sent, nb,
+                                   n_tot, block, cfg)
+    bi = torch.arange(nb, device=lat.device)
+    d_i = bi // nb_l
+    lo = d_i * nb_l - halo
+    hi = (d_i + 1) * nb_l + halo
+    outside = (bi[None, :] < lo[:, None]) | (bi[None, :] >= hi[:, None])
+    halo_ok = ~(reach_m & outside).any()
+    need = torch.clamp_min(torch.maximum(
+        (d_i * nb_l)[:, None] - bi[None, :],
+        bi[None, :] - ((d_i + 1) * nb_l)[:, None] + 1), 0)
+    halo_need = torch.where(reach_m, need, torch.zeros_like(need)).max()
+    return newslot, src, sort_perm_new, partners_new, \
+        (counts, halo_ok, halo_need, gsmax)
+
+
+def _permute_state(state: SimState, srcidx, newslot, sort_perm,
+                   partners_new):
+    """The state after a re-bucketing: every [n]-leading tensor gathered
+    by ``srcidx`` (new -> old caller slot), the caller-space partner ids
+    moved with their slots, the new sort and sorted-space table."""
+    from .state import _tree_map
+    n = state.nmax
+    src = srcidx.long()
+
+    def permute(name, leaf):
+        if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1 \
+                and leaf.shape[0] == n:
+            return leaf[src]
+        return leaf
+    new = _tree_map(permute, state)
+    p = new.asas.partners
+    p = torch.where(p >= 0, newslot[torch.clamp(p, 0, n - 1).long()]
+                    .to(p.dtype), p)
+    return new.replace(asas=new.asas.replace(
+        sort_perm=sort_perm.to(torch.int32), partners_s=partners_new,
+        partners=p))
+
+
+def _pad_table(partners_new, rows):
+    """The sorted-space table padded with empty rows to ``rows``."""
+    spad = rows - partners_new.shape[0]
+    if spad <= 0:
+        return partners_new
+    return torch.cat([partners_new, partners_new.new_full(
+        (spad, partners_new.shape[1]), -1)])
+
+
+def refresh_spatial_shard(state: SimState, cfg: AsasConfig, ndev: int,
+                          block: int = 256, halo_blocks: int = 0):
+    """Spatial-mode chunk-edge refresh: stripe sort, caller-slot
+    re-bucketing, partner remap and the halo-coverage check, then the
+    state permuted.  Returns ``(state, newslot, info)``: ``newslot`` the
+    old -> new caller slot map (numpy; the caller remaps its host tables,
+    ``Traffic.apply_slot_permutation``), ``info`` the per-shard occupancy,
+    the halo width pinned and needed and the layout.
+
+    Raises ``RuntimeError`` when a shard's stripes hold more aircraft than
+    its caller rows, or reach crosses more than the halo window even
+    after the drift margin; the caller falls back to ``replicate``.
+    ``halo_blocks`` 0 is AUTO: check against the widest window, then pin
+    1.25x the need (at least one shard's blocks)."""
+    ac = state.ac
+    n = ac.lat.shape[0]
+    block = min(block, 256)
+    extra, nb, nb_l, n_tot = cd_sched.spatial_layout(n, block, ndev)
+    if state.asas.partners_s.shape[0] < n_tot:
+        raise RuntimeError(
+            f"spatial refresh: partners_s holds "
+            f"{state.asas.partners_s.shape[0]} rows < n_tot={n_tot} — "
+            "enable spatial mode first (it resizes the sorted tables)")
+    halo_max = (ndev - 1) * nb_l
+    auto = not halo_blocks
+    halo = halo_max if auto else min(int(halo_blocks), halo_max)
+    newslot, srcidx, sort_perm, partners_new, stats = \
+        _spatial_shard_refresh(
+            ac.lat, ac.lon, ac.gs, ac.active, state.asas.sort_perm,
+            state.asas.partners_s[:n_tot], block=block, ndev=int(ndev),
+            extra=extra, halo=halo, cfg=cfg)
+    counts, halo_ok, halo_need, gsmax = stats
+    halo_need = int(halo_need)
+    if auto:
+        halo = min(max(nb_l, int(np.ceil(1.25 * halo_need))), halo_max)
+    counts = counts.cpu().numpy()
+    C = n // ndev
+    if counts.max() > C:
+        raise RuntimeError(
+            f"spatial refresh: stripe occupancy overflow — device "
+            f"{int(counts.argmax())} owns {int(counts.max())} aircraft "
+            f"> caller-shard capacity {C} (nmax/{ndev}). Raise nmax or "
+            "use SHARD REPLICATE for this geometry.")
+    if not bool(halo_ok):
+        raise RuntimeError(
+            f"spatial refresh: halo coverage violated — reachability "
+            f"(drift-margin widened) needs {halo_need} halo blocks "
+            f"> {halo} available per side. Use SHARD REPLICATE or fewer "
+            "devices for this geometry.")
+    partners_new = _pad_table(partners_new, state.asas.partners_s.shape[0])
+    new_state = _permute_state(state, srcidx, newslot, sort_perm,
+                               partners_new)
+    info = dict(counts=counts, occupancy=float(counts.max() / max(C, 1)),
+                halo_blocks=halo, halo_need=halo_need, gsmax=float(gsmax),
+                nb=nb, nb_local=nb_l, n_tot=n_tot, extra_blocks=extra,
+                halo_rows=2 * halo * block * ndev)
+    return new_state, newslot.cpu().numpy(), info
+
+
+def _tile_shard_refresh(lat, lon, gs, active, old_perm, partners_s, *,
+                        block, extra, tiles, budgets, cfg):
+    """The tile refresh's device part: tile-major sort, caller-slot
+    re-bucketing, partner remap and the corner-halo contract check: every
+    drift-margin widened reachable block pair stays inside the canonical
+    edge and corner neighbourhood (``cd_sched.tile_offsets``) and, with
+    ``budgets``, each offset's per-receiver import need fits its budget.
+    ``stats`` is ``(counts [ndev], halo_ok, budget_ok, needs [n_offs],
+    gsmax)``."""
+    n = lat.shape[0]
+    nb = -(-n // block) + extra
+    n_tot = nb * block
+    tR, tC = int(tiles[0]), int(tiles[1])
+    ndev = tR * tC
+    nb_t = nb // ndev
+    S = nb_t * block
+    C = n // ndev
+    thresh = cd_sched.reach_threshold_m(gs, active, float(cfg.dtlookahead),
+                                        float(cfg.rpz))
+    dest0 = cd_sched.tile_sort_dest(lat, lon, gs, active, thresh, block,
+                                    extra, (tR, tC))
+    dev = torch.clamp_max(dest0 // S, ndev - 1)
+    newslot, src, counts = _rebucket_callers(active, dest0, dev, n, n_tot,
+                                             ndev, C)
+    dest_sent = torch.where(active, dest0, torch.full_like(dest0, n_tot))
+    sort_perm_new = dest_sent[src.long()]
+    partners_new = _remap_partners_sorted(old_perm, partners_s, active,
+                                          dest0, dest_sent, n, n_tot)
+    reach_m, gsmax = _margin_reach(lat, lon, gs, active, dest_sent, nb,
+                                   n_tot, block, cfg)
+    # column need per receiving tile: any of its rows reaching column b
+    cn_t = reach_m.reshape(ndev, nb_t, nb).any(1).reshape(ndev, ndev, nb_t)
+    treach = cn_t.any(2)                                    # [recv, src]
+    offs = cd_sched.tile_offsets((tR, tC))
+    allowed = np.eye(ndev, dtype=bool)
+    for off in offs:
+        for u, v in cd_sched._offset_pairs((tR, tC), off):
+            allowed[v, u] = True               # v imports from sender u
+    halo_ok = ~(treach & ~torch.as_tensor(allowed, device=lat.device)).any()
+    needs = []
+    for off in offs:
+        uv = np.full(ndev, -1, np.int64)
+        for u, v in cd_sched._offset_pairs((tR, tC), off):
+            uv[v] = u
+        cnt = cn_t[torch.arange(ndev, device=lat.device),
+                   torch.as_tensor(np.maximum(uv, 0), device=lat.device)] \
+            .sum(-1, dtype=torch.int32)
+        needs.append(torch.where(torch.as_tensor(uv >= 0, device=lat.device),
+                                 cnt, torch.zeros_like(cnt)).max())
+    needs = torch.stack(needs) if needs else \
+        torch.zeros(0, dtype=torch.int32, device=lat.device)
+    budget_ok = (needs <= torch.as_tensor(budgets, dtype=needs.dtype,
+                                          device=needs.device)).all() \
+        if budgets else torch.ones((), dtype=torch.bool, device=lat.device)
+    return newslot, src, sort_perm_new, partners_new, \
+        (counts, halo_ok, budget_ok, needs, gsmax)
+
+
+def refresh_tile_shard(state: SimState, cfg: AsasConfig, tiles,
+                       block: int = 256, budgets=()):
+    """Tiles-mode chunk-edge refresh: tile-major sort, caller-slot
+    re-bucketing, partner remap and the corner-halo contract check, then
+    the state permuted; the lat x lon counterpart of
+    ``refresh_spatial_shard`` (same returns).  ``budgets`` () is AUTO:
+    pin each canonical offset's budget at 1.25x its measured need (at
+    least 4 blocks, at most the tile).
+
+    Raises ``RuntimeError`` on a tile holding more aircraft than its
+    caller rows, on reach escaping the edge and corner neighbourhood, or
+    on a pinned budget short of the measured need; the caller falls back
+    (tiles -> spatial -> replicate)."""
+    ac = state.ac
+    n = ac.lat.shape[0]
+    block = min(block, 256)
+    tR, tC = int(tiles[0]), int(tiles[1])
+    ndev = tR * tC
+    extra, nb, nb_t, n_tot = cd_sched.spatial_layout(n, block, ndev)
+    if state.asas.partners_s.shape[0] < n_tot:
+        raise RuntimeError(
+            f"tile refresh: partners_s holds "
+            f"{state.asas.partners_s.shape[0]} rows < n_tot={n_tot} — "
+            "enable tiles mode first (it resizes the sorted tables)")
+    auto = not budgets
+    budgets = tuple(int(b) for b in budgets) if budgets else ()
+    newslot, srcidx, sort_perm, partners_new, stats = _tile_shard_refresh(
+        ac.lat, ac.lon, ac.gs, ac.active, state.asas.sort_perm,
+        state.asas.partners_s[:n_tot], block=block, extra=extra,
+        tiles=(tR, tC), budgets=budgets, cfg=cfg)
+    counts, halo_ok, budget_ok, needs, gsmax = stats
+    counts = counts.cpu().numpy()
+    needs = needs.cpu().numpy()
+    C = n // ndev
+    if counts.max() > C:
+        t_bad = int(counts.argmax())
+        raise RuntimeError(
+            f"tile refresh: tile occupancy overflow — tile "
+            f"({t_bad // tC},{t_bad % tC}) owns {int(counts.max())} "
+            f"aircraft > caller-shard capacity {C} (nmax/{ndev}). Raise "
+            "nmax, use a different tile shape, or SHARD "
+            "SPATIAL/REPLICATE for this geometry.")
+    if not bool(halo_ok):
+        raise RuntimeError(
+            f"tile refresh: corner-halo contract violated — "
+            f"(drift-margin widened) reachability escapes the "
+            f"edge+corner neighbourhood of the {tR}x{tC} tile mesh. "
+            "Use SHARD SPATIAL/REPLICATE or fewer tiles for this "
+            "geometry.")
+    if not bool(budget_ok):
+        raise RuntimeError(
+            f"tile refresh: halo slab budget exceeded — measured "
+            f"per-offset import need {needs.tolist()} > pinned budgets "
+            f"{list(budgets)}. Re-run SHARD TILE {tR}x{tC} to re-pin, "
+            "or SHARD SPATIAL/REPLICATE for this geometry.")
+    if auto:
+        budgets = tuple(int(min(max(4, -(-int(nd) * 5 // 4)), nb_t))
+                        for nd in needs)
+    partners_new = _pad_table(partners_new, state.asas.partners_s.shape[0])
+    new_state = _permute_state(state, srcidx, newslot, sort_perm,
+                               partners_new)
+    offs = cd_sched.tile_offsets((tR, tC))
+    info = dict(counts=counts, occupancy=float(counts.max() / max(C, 1)),
+                tile_shape=(tR, tC), offsets=offs, budgets=budgets,
+                needs=needs.tolist(), gsmax=float(gsmax), nb=nb,
+                nb_local=nb_t, n_tot=n_tot, extra_blocks=extra,
+                halo_rows=int(sum(budgets)) * block * ndev)
+    return new_state, newslot.cpu().numpy(), info
+
+
+def _inscan_layout(state: SimState, block: int, what: str):
+    """``(nb, extra)`` of the layout the sorted-space table was sized to
+    (SHARD sized it to the shard-divisible padded layout)."""
+    n = state.ac.lat.shape[0]
+    n_tot = state.asas.partners_s.shape[0]
+    nb0 = -(-n // block)
+    if n_tot % block or n_tot // block <= nb0:
+        raise ValueError(
+            f"in-scan {what} refresh needs partners_s sized to the padded "
+            f"layout (got {n_tot} rows for n={n}, block={block}) — enable "
+            f"{what} mode via Simulation.set_shard first")
+    nb = n_tot // block
+    return nb, nb - nb0
+
+
+def _inscan_apply(state, ok, srcidx, newslot, sort_perm, partners_new):
+    """The in-chunk refresh's outcome, selected on the device (``ok`` a
+    0-d bool tensor, nothing read back): the permuted state and its
+    bijection when the contract held, else the state as it was and the
+    identity."""
+    from .state import _tree_map
+    new = _permute_state(state, srcidx, newslot, sort_perm, partners_new)
+    sel = lambda name, a, b: torch.where(ok, a, b) \
+        if isinstance(a, torch.Tensor) and a is not b else a
+    ident = torch.arange(state.nmax, dtype=torch.int32, device=state.device)
+    return _tree_map(sel, new, state), torch.where(ok, newslot, ident)
+
+
+def inscan_spatial_refresh(state: SimState, cfg: AsasConfig, ndev: int,
+                           block: int = 256, halo_blocks: int = 0):
+    """The spatial refresh as the chunk runner calls it between steps:
+    ``refresh_spatial_shard``'s device part and the state permutation,
+    with the ``RuntimeError`` replaced by a guard word.  Returns
+    ``(state, newslot, guard)``: ``guard`` bit 1 a stripe occupancy
+    overflow, bit 2 a halo-coverage violation; a violating refresh is
+    skipped (the old layout stays, ``newslot`` the identity), and the
+    host trips the fallback to replicate at the chunk edge.  ``newslot``
+    and ``guard`` (0-d int32) are device tensors: nothing is read
+    back."""
+    block = min(block, 256)
+    nb, extra = _inscan_layout(state, block, "spatial")
+    nb_l = nb // ndev
+    halo_max = (ndev - 1) * nb_l
+    halo = halo_max if not halo_blocks else min(int(halo_blocks), halo_max)
+    ac = state.ac
+    newslot, srcidx, sort_perm, partners_new, stats = \
+        _spatial_shard_refresh(
+            ac.lat, ac.lon, ac.gs, ac.active, state.asas.sort_perm,
+            state.asas.partners_s, block=block, ndev=int(ndev),
+            extra=extra, halo=halo, cfg=cfg)
+    counts, halo_ok, _need, _gsmax = stats
+    overflow = counts.max() > state.nmax // ndev
+    guard = overflow.to(torch.int32) | (~halo_ok).to(torch.int32) * 2
+    state, newslot = _inscan_apply(state, halo_ok & ~overflow, srcidx,
+                                   newslot, sort_perm, partners_new)
+    return state, newslot, guard
+
+
+def inscan_tile_refresh(state: SimState, cfg: AsasConfig, tiles,
+                        block: int = 256, budgets=()):
+    """The tile refresh as the chunk runner calls it (the tiles analogue
+    of ``inscan_spatial_refresh``): ``guard`` bit 2 a corner-halo or
+    budget violation, bit 4 a tile occupancy overflow."""
+    block = min(block, 256)
+    nb, extra = _inscan_layout(state, block, "tile")
+    tR, tC = int(tiles[0]), int(tiles[1])
+    ac = state.ac
+    newslot, srcidx, sort_perm, partners_new, stats = _tile_shard_refresh(
+        ac.lat, ac.lon, ac.gs, ac.active, state.asas.sort_perm,
+        state.asas.partners_s, block=block, extra=extra, tiles=(tR, tC),
+        budgets=tuple(int(b) for b in budgets) if budgets else (), cfg=cfg)
+    counts, halo_ok, budget_ok, _needs, _gsmax = stats
+    overflow = counts.max() > state.nmax // (tR * tC)
+    contract_ok = halo_ok & budget_ok
+    guard = overflow.to(torch.int32) * 4 | (~contract_ok).to(torch.int32) * 2
+    state, newslot = _inscan_apply(state, contract_ok & ~overflow, srcidx,
+                                   newslot, sort_perm, partners_new)
+    return state, newslot, guard
+
+
+def spatial_table_size(n, block=256, ndev=1):
+    """Rows of the sorted-space partner table in the spatial and tiles
+    modes: the shard-divisible padded layout exactly."""
+    return cd_sched.spatial_layout(n, block, ndev)[3]
+
+
 def _global_ids(t, size):
     """World-local ids ``t`` [W, m, K] (-1 empty) as ids of the W * m
     rows of the flattened worlds: world w's id i becomes ``w * size +
@@ -298,7 +737,9 @@ def _local_ids(t, nworlds, size):
 
 
 def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
-                 impl: str = "lax"):
+                 impl: str = "lax", mesh=None, mesh_axis: str = "ac",
+                 shard_mode: str = "replicate", halo_blocks: int = 0,
+                 tile_shape=None, tile_budgets=()):
     """One blockwise ASAS interval: detect with the resolver's pair sums,
     resolve from the sums, resume-nav.  ``impl="sparse"``: the
     segment-scheduled kernels with resume-nav in-kernel on the
@@ -313,6 +754,12 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
     EBY its own pair sums on TAS velocities, SWARM the MVP sums plus the
     seven neighbour sums (MVP first, then the blend).  Nothing here reads
     a value back to the host.  Returns ``(state, rd)``.
+
+    ``mesh`` (``parallel/sharding.py``) and the shard arguments pass to
+    the sparse interval (``cd_sched.detect_resolve_sched``: replicate,
+    spatial or tiles) and, for the replicate row split, to the pallas
+    one; the spatial and tiles modes key the padded layout off
+    ``partners_s``, which SHARD sized to the shard-divisible layout.
 
     A stacked state (``step.stack_worlds``) runs every world.  Sparse and
     pallas detect all worlds in one pass, each kernel launched once for
@@ -343,19 +790,36 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
     if impl == "pallas":
         out = cd_pallas.detect_resolve_pallas(
             *cols, block=block, k_partners=k, perm=asas.sort_perm,
-            extra_cols=extra, reso=kern_reso)
+            extra_cols=extra, reso=kern_reso, mesh=mesh,
+            mesh_axis=mesh_axis)
     elif impl == "lax":
         out = cd_tiled.detect_resolve_tiled(
             *cols, block=block, k_partners=k, perm=asas.sort_perm,
             extra_cols=extra, reso=kern_reso)
     else:
         block = min(block, 256)
-        n_tot = cd_sched.padded_size(n, block)
+        extra_eff = 32
+        if shard_mode in ("spatial", "tiles"):
+            n_tot = asas.partners_s.shape[-2]
+            nb0 = -(-n // block)
+            if n_tot % block or n_tot // block <= nb0:
+                raise ValueError(
+                    f"{shard_mode} mode needs partners_s sized to the "
+                    f"padded layout (got {n_tot} rows for n={n}, "
+                    f"block={block}) — enable it via "
+                    "Simulation.set_shard/SHARD SPATIAL|TILE")
+            extra_eff = n_tot // block - nb0
+        else:
+            n_tot = cd_sched.padded_size(n, block)
         out = cd_sched.detect_resolve_sched(
             *cols, partners=asas.partners_s[..., :n_tot, :],
             resume_rpz_m=cfg.rpz * cfg.resofach, block=block,
-            perm=asas.sort_perm, tas=ac.tas if kern_reso == "eby" else None,
-            cas=ac.cas if kern_reso == "swarm" else None, reso=kern_reso)
+            extra_blocks=extra_eff, perm=asas.sort_perm,
+            tas=ac.tas if kern_reso == "eby" else None,
+            cas=ac.cas if kern_reso == "swarm" else None, reso=kern_reso,
+            mesh=mesh, mesh_axis=mesh_axis, shard_mode=shard_mode,
+            halo_blocks=halo_blocks, tile_shape=tile_shape,
+            tile_budgets=tile_budgets)
     if kern_reso == "swarm":
         *out, swarm_sums = out
     if impl == "sparse":

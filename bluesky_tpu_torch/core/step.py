@@ -1,9 +1,10 @@
 """The simulation step and its chunk runners on tensors.
 
-Port of ``bluesky_tpu/core/step.py`` for the slice the port runs: one
-device, the four CD backends (``dense``, ``tiled``, ``pallas``,
-``sparse``), the resolvers MVP, EBY, SWARM and SSD, and the
-differentiable mode of the dense backend (``SimConfig.smooth``).
+Port of ``bluesky_tpu/core/step.py``: the four CD backends (``dense``,
+``tiled``, ``pallas``, ``sparse``), the resolvers MVP, EBY, SWARM and
+SSD, the differentiable mode of the dense backend (``SimConfig.smooth``)
+and the shard modes of the sparse backend on a single-process mesh
+(``cd_mesh``, ``cd_shard_mode``; ``parallel/sharding.py``).
 Pipeline order per step (reference traffic.py:383-423): atmosphere ->
 ADS-B -> FMS (gated) -> ASAS CD&R (gated) -> AP/ASAS arbitration ->
 performance update -> envelope limits -> airspeed -> groundspeed (wind)
@@ -51,9 +52,8 @@ from .state import (SimState, stack_worlds, unstack_worlds,  # noqa: F401
 
 
 class SimConfig(NamedTuple):
-    """Simulation configuration (the fields of the JAX ``SimConfig`` that
-    the port reads, with its defaults; the mesh and shard-mode options
-    are not ported).  ``cd_backend``: ``"dense"``
+    """Simulation configuration (the fields of the JAX ``SimConfig``, with
+    its defaults).  ``cd_backend``: ``"dense"``
     materialises [N, N] pair matrices (fine to ~16k aircraft; needs
     ``Traffic(pair_matrix=True)``), ``"tiled"`` streams [cd_block,
     cd_block] tiles with an [N, K] partner table, ``"pallas"`` is the
@@ -66,7 +66,17 @@ class SimConfig(NamedTuple):
     ``diff.smooth.SmoothConfig`` swaps the hard gates of the dense step
     for the relaxations of the differentiable rollout (``diff/``); None,
     the default and the only value the Simulation sets, is the serving
-    step bit for bit."""
+    step bit for bit.
+
+    The shard modes (``parallel/sharding.py``): ``cd_mesh`` a
+    ``sharding.Mesh`` (None: one device) whose ``cd_mesh_axis`` the
+    replicate and spatial modes split; ``cd_shard_mode`` ``"replicate"``
+    (row blocks interleaved over the shards against replicated columns;
+    sparse and pallas), ``"spatial"`` (shard-owned latitude stripes with
+    a halo of ``cd_halo_blocks`` blocks a side, 0 one shard's) or
+    ``"tiles"`` (lat x lon tiles of ``cd_tile_shape`` (R, C) with the
+    per-offset halo budgets ``cd_tile_budgets``, () unpinned); the last
+    two run on the sparse backend only."""
     simdt: float = 0.05          # [s] (reference simulation.py:15)
     fms_dt: float = autopilot.FMS_DT
     asas: AsasConfig = AsasConfig()
@@ -74,6 +84,12 @@ class SimConfig(NamedTuple):
     use_wind: bool = False
     cd_backend: str = "dense"
     cd_block: int = 512
+    cd_mesh: object = None
+    cd_mesh_axis: str = "ac"
+    cd_shard_mode: str = "replicate"
+    cd_halo_blocks: int = 0
+    cd_tile_shape: tuple = ()
+    cd_tile_budgets: tuple = ()
     smooth: object = None
     scanstats: bool = False
     inscan_refresh: bool = False
@@ -82,7 +98,7 @@ class SimConfig(NamedTuple):
 
 def check_config(cfg: SimConfig, state: SimState):
     """Raise for a configuration the port cannot run on ``state`` (the
-    one-device checks of the JAX step)."""
+    checks of the JAX step)."""
     if not cfg.asas.swasas:
         return
     if cfg.cd_backend not in ("dense", "tiled", "pallas", "sparse"):
@@ -95,6 +111,21 @@ def check_config(cfg: SimConfig, state: SimState):
             "CD&R path only: the tiled/pallas/sparse kernels carry integer "
             "partner tables that do not differentiate.  Use "
             "cd_backend='dense' (diff workloads run small-N).")
+    if cfg.cd_shard_mode not in ("replicate", "spatial", "tiles"):
+        raise ValueError(
+            f"Unknown SimConfig.cd_shard_mode {cfg.cd_shard_mode!r}; "
+            "expected 'replicate', 'spatial' or 'tiles'.")
+    if cfg.cd_shard_mode in ("spatial", "tiles") \
+            and cfg.cd_backend != "sparse":
+        raise ValueError(
+            f"cd_shard_mode='{cfg.cd_shard_mode}' is the sparse backend's "
+            "domain decomposition (stripes/tiles are a property of the "
+            "sorted schedule); use cd_backend='sparse'")
+    if cfg.cd_shard_mode == "tiles" and (
+            not cfg.cd_tile_shape or len(cfg.cd_tile_shape) != 2):
+        raise ValueError(
+            "cd_shard_mode='tiles' needs cd_tile_shape=(R, C) — set it "
+            "via Simulation.set_shard / SHARD TILE RxC")
     if cfg.cd_backend == "dense" and state.asas.resopairs.numel() == 0:
         raise ValueError(
             "State was allocated with pair_matrix=False (no [N,N] "
@@ -181,8 +212,13 @@ def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
             state, _cd = asasmod.update(state, cfg.asas, smooth=cfg.smooth)
         else:
             impl = asasmod.impl_for_backend(cfg.cd_backend)
-            state, _rd = asasmod.update_tiled(state, cfg.asas,
-                                              block=cfg.cd_block, impl=impl)
+            state, _rd = asasmod.update_tiled(
+                state, cfg.asas, block=cfg.cd_block, impl=impl,
+                mesh=cfg.cd_mesh, mesh_axis=cfg.cd_mesh_axis,
+                shard_mode=cfg.cd_shard_mode,
+                halo_blocks=cfg.cd_halo_blocks,
+                tile_shape=cfg.cd_tile_shape or None,
+                tile_budgets=cfg.cd_tile_budgets)
 
     # ---------- Pilot arbitration ----------
     if cfg.use_wind:
@@ -251,6 +287,18 @@ def step(state: SimState, cfg: SimConfig) -> SimState:
 # the branch when any world is, and a per-world select keeps the worlds
 # that are not due bit for bit.  Per-world clocks may differ, so worlds
 # at different sim times batch together.
+
+
+def check_worlds_config(cfg: SimConfig):
+    """World batching runs single-device configurations only: the shard
+    modes put per-shard structure on the aircraft axis of one world."""
+    if cfg.cd_mesh is not None \
+            or cfg.cd_shard_mode in ("spatial", "tiles"):
+        raise ValueError(
+            "world-batched stepping runs single-device per world: "
+            "cd_mesh must be None and cd_shard_mode != "
+            "'spatial'/'tiles' (pack refuses sharded pieces — see "
+            "WORLDS docs)")
 
 
 def next_clocks_worlds(clk, cfg: SimConfig):
@@ -343,6 +391,7 @@ def step_worlds(state: SimState, cfg: SimConfig) -> SimState:
     read).  World w of the result equals ``step`` of world w alone, bit
     for bit, noise included."""
     check_config(cfg, state)
+    check_worlds_config(cfg)
     fms, asas, clk = next_clocks_worlds(state, cfg)
     dev = state.device
     gens = seed_worlds([torch.Generator(device=dev) for _ in state.rng],
@@ -474,10 +523,14 @@ class RefreshPack(NamedTuple):
       ``sort_t0``.  The due gate is decided on the host, from the host
       clocks, like the FMS and ASAS gates.
     * ``count``: int32 refreshes fired in this chunk.
-    * ``guard``: int32 guard word (0: the spatial and tiles modes that set
-      it wait for ROADMAP A9).
-    * ``newslot``: the composed slot bijection of spatial refreshes;
-      empty ``[0]`` int32 on the single-device sparse backend.
+    * ``guard``: int32 guard word, the OR of bit 1 (a stripe holds more
+      aircraft than its shard's caller rows), bit 2 (halo coverage or a
+      tile budget violated) and bit 4 (a tile overloaded): a violating
+      refresh is skipped on the device and the host falls back at the
+      edge.
+    * ``newslot``: the composed old -> new caller slot bijection of the
+      chunk's spatial or tiles refreshes ([n] int32); empty ``[0]``
+      otherwise.  The host applies it to its slot tables once per chunk.
     """
     sort_t: np.floating
     count: torch.Tensor
@@ -513,31 +566,54 @@ def _run_chunk(state: SimState, cfg: SimConfig, nsteps: int, checked: bool,
     sort_t = np.full(np.shape(state.simt), -1.0, dt) if sort_t0 is None \
         else np.array(sort_t0, dtype=dt)
     count = np.zeros(np.shape(state.simt), np.int32)
-    refresh = lambda s: asasmod.inscan_sparse_refresh(
-        s, cfg.asas, block=min(cfg.cd_block, 256))
+    block = min(cfg.cd_block, 256)
+    refresh = lambda s: asasmod.inscan_sparse_refresh(s, cfg.asas,
+                                                      block=block)
+    shard = (not worlds) and cfg.cd_shard_mode in ("spatial", "tiles")
+    i32 = dict(dtype=torch.int32, device=state.device)
+    lead = np.shape(count)
+    guard = torch.zeros(lead, **i32)
+    newslot = torch.arange(state.nmax, **i32) if shard \
+        else torch.zeros(lead + (0,), **i32)
+
+    def shard_refresh(s):
+        """The spatial or tiles refresh; its bijection and guard bits
+        compose into the chunk's."""
+        nonlocal newslot, guard
+        if cfg.cd_shard_mode == "tiles":
+            s2, ns, gbits = asasmod.inscan_tile_refresh(
+                s, cfg.asas, cfg.cd_tile_shape, block=block,
+                budgets=cfg.cd_tile_budgets)
+        else:
+            s2, ns, gbits = asasmod.inscan_spatial_refresh(
+                s, cfg.asas, cfg.cd_mesh.shape[cfg.cd_mesh_axis],
+                block=block, halo_blocks=cfg.cd_halo_blocks)
+        newslot = ns[newslot.long()]
+        guard = guard | gbits
+        return s2
+
     for _ in range(nsteps):
         if inscan:
             simt = ex.state.simt
             due = refresh_due(simt, sort_t, cfg)
             if due.any():
+                # sort_t advances on a guarded (skipped) refresh too: the
+                # edge falls back anyway
                 sort_t = np.where(due, simt, sort_t).astype(dt)
                 count = count + due
                 if worlds:
                     mask = host_to_device(due, state.device)
                     ex.apply(lambda s: select_worlds(mask, refresh(s), s))
                 else:
-                    ex.apply(refresh)
+                    ex.apply(shard_refresh if shard else refresh)
         ex.step()
     state, carry, simt = ex.finish(keep)
     rpack = None
     if inscan:
-        i32 = dict(dtype=torch.int32, device=state.device)
-        lead = np.shape(count)
         rpack = RefreshPack(
             sort_t=sort_t if worlds else sort_t[()],
             count=host_to_device(count, state.device),
-            guard=torch.zeros(lead, **i32),
-            newslot=torch.zeros(lead + (0,), **i32))
+            guard=guard, newslot=newslot)
     return state, carry, simt, rpack
 
 

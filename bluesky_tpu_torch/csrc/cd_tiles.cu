@@ -13,6 +13,18 @@
 //                                         pallas backend)
 //   * ops/cd_pallas.py::_kernel_cand   <- cd_cand_items on the sub-chunks
 //                                         of each row's candidate table
+// cd_sched_tiles and cd_full_grid also come in the mesh forms of the
+// shard modes (ROADMAP B3, the compile-time flag MESH): the ownship rows
+// are the local row blocks of an own-row slab array, local row i being
+// global row row0 + i * rstride (the row subset of a shard: rstride D in
+// the replicate row split), and the intruder tiles are local blocks of
+// the column slab array, local block j being global block col0 + j (the
+// halo window of a spatial stripe), or gid[j] with a table (the present
+// set of a tile, ranked by global block id: _sched_kernel's gid_mode).
+// Slab reads keep the local indices; the pair exclusion, the partner ids
+// and the old-partner test use the global ones.  The row merge needs no
+// mesh form: the partials already hold global ids and it works on local
+// rows.
 // All run one per-pair body (cd_pallas._tile_pairs: factored haversine,
 // CPA, horizontal/vertical entry and exit times, conflict and LoS flags,
 // the resolver's displacement sums and a running top-K of partner
@@ -184,6 +196,15 @@ struct Parts {
   float* ct;       // [K, G, B]
   int* ci;         // [K, G, B]
   unsigned* keep;  // [G, B] keep bits (RESUME)
+};
+
+// The mesh form of a walk (MESH): own-row slabs and the local -> global
+// maps of rows and column blocks.
+struct Mesh {
+  const float* own;   // [nb, NF, B] own-row slabs (local rows)
+  int row0, rstride;  // local row i is global row row0 + i * rstride
+  int col0;           // local column block j is global block col0 + j,
+  const int* gid;     // or gid[j] when the table is given
 };
 
 // The hot per-ownship state of a walk, in registers.
@@ -649,18 +670,20 @@ __device__ void finish_row(const Acc& a, const float* sw,
 // IDS the jb-th sub-chunk of B entries of the row's candidate table
 // cand[i, 0:c_cap], staged through its ids (cd_cand_items).  Dynamic
 // shared memory holds Side (side_bytes), then with RESO_SWARM the NSW * B
-// floats of its sums.
-template <bool RESUME, bool IDS, int RESO, int KT>
+// floats of its sums.  With MESH the ownship column comes from M.own and
+// the ids are lifted to global ones (struct Mesh); without it M is unread.
+template <bool RESUME, bool IDS, int RESO, int KT, bool MESH>
 __global__ void __launch_bounds__(MAXB, KT ? 4 : 3)
 items_kernel(const float* __restrict__ packed, int B,
              const int* __restrict__ tiles, int W,
              const int* __restrict__ istart, const int* __restrict__ ilen,
              const int* __restrict__ order, int C,
              const int* __restrict__ cand, int c_cap,
-             const int* __restrict__ pold, Params P, Parts pt) {
+             const int* __restrict__ pold, Params P, Parts pt, Mesh M) {
   static_assert(!(RESUME && IDS), "the candidate pass has no partner table");
   static_assert(!(IDS && RESO == RESO_SWARM),
                 "the candidate pass has no Swarm form");
+  static_assert(!(IDS && MESH), "the candidate pass has no mesh form");
   __shared__ float s[NF][MAXB];
   __shared__ int sid[IDS ? MAXB : 1];
   extern __shared__ float dsm[];   // Side, then [NSW][B] (RESO_SWARM)
@@ -672,8 +695,9 @@ items_kernel(const float* __restrict__ packed, int B,
   if (len <= 0) return;
   const int t = threadIdx.x;
   float o[NF];
-  own_begin(o, sd, packed, i, B, t);
+  own_begin(o, sd, MESH ? M.own : packed, i, B, t);
   side_begin<RESUME, KT>(sd, pold, i, B, t);
+  const int gid = (MESH ? M.row0 + i * M.rstride : i) * B + t;
   if constexpr (RESO == RESO_SWARM) {
 #pragma unroll
     for (int k = 0; k < NSW; ++k) sw[k * B + t] = 0.0f;
@@ -689,9 +713,11 @@ items_kernel(const float* __restrict__ packed, int B,
                   gridDim.x / C * B, B, t);
       else
         stage(s, packed, jb, B, t);
+      // the tile's global block (the slab stays at its local jb)
+      const int jg = MESH ? (M.gid ? M.gid[jb] : M.col0 + jb) : jb;
       if (own_act)
-        tile_pairs<RESUME, IDS, RESO, KT>(s, sid, jb, B, o, i * B + t,
-                                          old_mask<RESUME, KT>(sd, t, jb, B),
+        tile_pairs<RESUME, IDS, RESO, KT>(s, sid, jg, B, o, gid,
+                                          old_mask<RESUME, KT>(sd, t, jg, B),
                                           a, sd, t, P, sw);
     }
   }
@@ -844,43 +870,57 @@ void prefer_shared(K* kernel, int dyn) {
                          dyn);
 }
 
-template <bool RESUME, bool IDS, int RESO, int KT>
+template <bool RESUME, bool IDS, int RESO, int KT, bool MESH>
 int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
                  const int* cand, int c_cap, const int* pold,
-                 const Params& P, const Parts& pt, void* stream) {
+                 const Params& P, const Parts& pt, const Mesh& M,
+                 void* stream) {
   constexpr size_t sw_max = RESO == RESO_SWARM ? NSW * MAXB * sizeof(float)
                                                : 0;
   constexpr size_t dyn_max = side_bytes(KT ? KT : KMAX, MAXB) + sw_max;
-  static bool once = (prefer_shared(items_kernel<RESUME, IDS, RESO, KT>,
-                                    (int)dyn_max), true);
+  static bool once = (
+      prefer_shared(items_kernel<RESUME, IDS, RESO, KT, MESH>, (int)dyn_max),
+      true);
   (void)once;
   const size_t dyn = side_bytes(P.kk, KT ? MAXB : B)
       + (RESO == RESO_SWARM ? (size_t)NSW * B * sizeof(float) : 0);
-  items_kernel<RESUME, IDS, RESO, KT>
+  items_kernel<RESUME, IDS, RESO, KT, MESH>
       <<<nb * C, B, dyn, (cudaStream_t)stream>>>(
           packed, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
-          pt);
+          pt, M);
   return (int)cudaGetLastError();
 }
 
-// launch_items in the constant K = 8 form or the run-time one.
+// launch_items in the constant K = 8 form or the run-time one, and in the
+// mesh form when M.own is given.
 template <bool RESUME, bool IDS, int RESO>
 int launch_k(const float* packed, int nb, int B, const int* tiles, int W,
              const int* istart, const int* ilen, const int* order, int C,
              const int* cand, int c_cap, const int* pold, const Params& P,
-             const Parts& pt, void* stream) {
+             const Parts& pt, const Mesh& M, void* stream) {
   if (B <= 0 || B > MAXB || C <= 0 || W <= 0 || (IDS && c_cap < W * B)
-      || P.kk < 1 || P.kk > KMAX)
+      || P.kk < 1 || P.kk > KMAX || (IDS && M.own) || (M.own && M.rstride < 1))
     return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
+  if constexpr (!IDS) {
+    if (M.own) {
+      if (P.kk == K8)
+        return launch_items<RESUME, IDS, RESO, K8, true>(
+            packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap,
+            pold, P, pt, M, stream);
+      return launch_items<RESUME, IDS, RESO, 0, true>(
+          packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
+          P, pt, M, stream);
+    }
+  }
   if (P.kk == K8)
-    return launch_items<RESUME, IDS, RESO, K8>(
+    return launch_items<RESUME, IDS, RESO, K8, false>(
         packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
-        P, pt, stream);
-  return launch_items<RESUME, IDS, RESO, 0>(
+        P, pt, M, stream);
+  return launch_items<RESUME, IDS, RESO, 0, false>(
       packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
-      pt, stream);
+      pt, M, stream);
 }
 
 // launch_items in the resolver form reso (cd_pallas.RESO_CODE); the
@@ -890,21 +930,21 @@ int launch_reso(int reso, const float* packed, int nb, int B,
                 const int* tiles, int W, const int* istart, const int* ilen,
                 const int* order, int C, const int* cand, int c_cap,
                 const int* pold, const Params& P, const Parts& pt,
-                void* stream) {
+                const Mesh& M, void* stream) {
   switch (reso) {
     case RESO_MVP:
       return launch_k<RESUME, IDS, RESO_MVP>(
           packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
-          P, pt, stream);
+          P, pt, M, stream);
     case RESO_EBY:
       return launch_k<RESUME, IDS, RESO_EBY>(
           packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
-          P, pt, stream);
+          P, pt, M, stream);
     case RESO_SWARM:
       if constexpr (!IDS)
         return launch_k<RESUME, IDS, RESO_SWARM>(
             packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap,
-            pold, P, pt, stream);
+            pold, P, pt, M, stream);
       return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
@@ -966,18 +1006,28 @@ extern "C" {
 // cd_sched_tiles, with the partner table pold, serves both _sched_kernel
 // (the segment blocks) and _kernel_resume (the reachable blocks of the
 // overflow rows).
+// cd_sched_tiles and cd_full_grid take the mesh form (struct Mesh) when
+// own is given: then nb counts the rows of own (and of pold and the
+// items), packed holds the column slabs the tiles index, local row i is
+// global row row0 + i * rstride (rstride >= 1), and local tile j global
+// block gid[j], or col0 + j when gid is null.  With own null the other
+// four are unread (the single-device form: own = packed, identity ids).
 int cd_sched_tiles(const float* packed, int nb, int B, const int* tiles,
                    int W, const int* istart, const int* ilen,
                    const int* order, int C, const int* pold, float rpz,
                    float r2, float hpz, float tlook, float rpz_m, float hpz_m,
                    float tlook_m, float rpz_resume, double eby_s,
                    double eby_s10, int reso, int kk, float* pacc,
-                   float* pct, int* pci, unsigned* pkeep, void* stream) {
+                   float* pct, int* pci, unsigned* pkeep, const float* own,
+                   int row0, int rstride, int col0, const int* gid,
+                   void* stream) {
   Params P = make_params(kk, rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume, eby_s, eby_s10);
   return launch_reso<true, false>(reso, packed, nb, B, tiles, W, istart,
                                   ilen, order, C, nullptr, 0, pold, P,
-                                  Parts{pacc, pct, pci, pkeep}, stream);
+                                  Parts{pacc, pct, pci, pkeep},
+                                  Mesh{own, row0, rstride, col0, gid},
+                                  stream);
 }
 
 // The reach-masked full grid without a partner table (rpz_resume unused).
@@ -986,12 +1036,15 @@ int cd_full_grid(const float* packed, int nb, int B, const int* tiles, int W,
                  float rpz, float r2, float hpz, float tlook, float rpz_m,
                  float hpz_m, float tlook_m, float rpz_resume, double eby_s,
                  double eby_s10, int reso, int kk, float* pacc, float* pct,
-                 int* pci, void* stream) {
+                 int* pci, const float* own, int row0, int rstride, int col0,
+                 const int* gid, void* stream) {
   Params P = make_params(kk, rpz, r2, hpz, tlook, rpz_m, hpz_m, tlook_m,
                          rpz_resume, eby_s, eby_s10);
   return launch_reso<false, false>(reso, packed, nb, B, tiles, W, istart,
                                    ilen, order, C, nullptr, 0, nullptr, P,
-                                   Parts{pacc, pct, pci, nullptr}, stream);
+                                   Parts{pacc, pct, pci, nullptr},
+                                   Mesh{own, row0, rstride, col0, gid},
+                                   stream);
 }
 
 // The candidate pass: a tile is a sub-chunk index of the row's candidate
@@ -1009,7 +1062,8 @@ int cd_cand_items(const float* packed, int nb, int B, const int* tiles,
                          rpz_resume, eby_s, eby_s10);
   return launch_reso<false, true>(reso, packed, nb, B, tiles, W, istart,
                                   ilen, order, C, cand, c_cap, nullptr, P,
-                                  Parts{pacc, pct, pci, nullptr}, stream);
+                                  Parts{pacc, pct, pci, nullptr},
+                                  Mesh{nullptr, 0, 1, 0, nullptr}, stream);
 }
 
 // The work items of a row mask [nb, W] (bool, one byte each): tiles

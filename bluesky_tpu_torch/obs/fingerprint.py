@@ -31,9 +31,9 @@ _M32 = 0xFFFFFFFF
 
 
 class FingerprintPack(NamedTuple):
-    """Per-chunk fingerprint accumulator: ``fp`` keeps ``[P]`` per-device
-    partial words (int64 holding uint32 values; P is 1, ``n_partials``),
-    ``steps`` counts the folds."""
+    """Per-chunk fingerprint accumulator: ``fp`` keeps ``[P]`` per-shard
+    partial words (int64 holding uint32 values; P the shard count,
+    ``n_partials``), ``steps`` counts the folds."""
     fp: torch.Tensor      # [P] int64 in [0, 2**32)
     steps: torch.Tensor   # [] int32
 

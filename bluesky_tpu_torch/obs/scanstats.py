@@ -8,8 +8,8 @@ next to the telemetry, with no host read inside the chunk.
 
 Every field is a sum, min, max or histogram fold, so one 20-step chunk's
 pack equals ``reduce_packs`` of twenty 1-step packs bit for bit.  The
-``[P]`` fields keep per-device partials; the port runs on one device, so
-``P`` is 1 (``n_partials``) until the mesh forms arrive (ROADMAP A9).
+``[P]`` fields keep per-shard partials: ``P`` is the shard count of the
+configuration's mesh (``n_partials``), 1 without one.
 ``drain`` feeds a retired pack into the ``obs/metrics.py`` registry.
 """
 from typing import NamedTuple
@@ -56,9 +56,23 @@ MIN_FIELDS = ("min_sep_m", "headroom_min_m")
 
 
 def n_partials(cfg, nmax: int) -> int:
-    """How many per-device partials the ``[P]`` folds keep: 1, since the
-    port runs on one device (JAX keeps one per device of ``cd_mesh``)."""
-    return 1
+    """How many per-shard partials the ``[P]`` folds keep: the size of
+    ``cfg.cd_mesh`` on ``cfg.cd_mesh_axis`` when it divides nmax (the
+    partials then align with the shards' caller rows), else 1.  A mesh
+    that does not divide nmax is refused (the shard preparations
+    guarantee it; only a hand-built config gets here)."""
+    mesh = cfg.cd_mesh
+    if mesh is None:
+        return 1
+    p = int(dict(mesh.shape).get(cfg.cd_mesh_axis, 1))
+    if p <= 1:
+        return 1
+    if nmax % p:
+        raise ValueError(
+            f"scanstats: nmax={nmax} is not divisible by the {p}-device "
+            "mesh — per-device partial folds need shard-aligned rows "
+            "(prepare_spatial guarantees this)")
+    return p
 
 
 def init(state, cfg) -> ScanStats:

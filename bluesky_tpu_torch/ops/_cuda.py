@@ -35,9 +35,9 @@ _p = ctypes.c_void_p
 SIGNATURES = {
     "cd_tiles.cu": {
         "cd_sched_tiles": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p]
-        + [_f] * 8 + [_d] * 2 + [_i, _i] + [_p] * 5,
+        + [_f] * 8 + [_d] * 2 + [_i, _i] + [_p] * 5 + [_i] * 3 + [_p] * 2,
         "cd_full_grid": [_p, _i, _i, _p, _i, _p, _p, _p, _i] + [_f] * 8
-        + [_d] * 2 + [_i, _i] + [_p] * 4,
+        + [_d] * 2 + [_i, _i] + [_p] * 4 + [_i] * 3 + [_p] * 2,
         "cd_cand_items": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p, _i]
         + [_f] * 8 + [_d] * 2 + [_i, _i] + [_p] * 4,
         "cd_merge_items": [_i, _i, _i, _i] + [_p] * 12 + [_i, _p],

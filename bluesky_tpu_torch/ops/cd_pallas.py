@@ -26,6 +26,15 @@ wrapper stands beside a plain PyTorch version of the same function:
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors.
 
+The walker's mesh forms (ROADMAP B3, ``MeshForm``) serve the shard modes
+of ``cd_sched.detect_resolve_sched`` and the replicate row split of
+``detect_resolve_pallas``: a row subset of the grid (own-row slabs, local
+row i global row ``row0 + i * rstride``; ``interleave_rows``), a halo
+window of the columns (local block j global block ``col0 + j``) or a
+present set with a global block table (``gid``).  Slabs are read at
+their local indices; pair exclusion, partner ids and the old-partner
+test use the global ones.
+
 The tile body has three resolver forms (``reso``, a compile-time
 parameter of the walker): ``"mvp"`` the MVP pair sums, ``"eby"`` the
 Eby pair sums (``cr_eby.pair_contrib``) on the TAS velocities of the
@@ -43,6 +52,7 @@ the smaller id, earlier tiles win across tiles).  Masked pairs
 (inactive, self) are left out instead of being pushed out of range with
 ``_BIG``.
 """
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -95,17 +105,54 @@ SWARM_SUMS = ("sw_w", "sw_cas", "sw_vs", "sw_dtrk", "sw_dx", "sw_dy",
               "sw_alt")
 
 
-def launch_key(name, reso):
+#: The mesh forms of the walker, by ``MeshForm.kind``.
+MESH_KINDS = ("rows", "col0", "gid")
+
+
+def launch_key(name, reso, kind=None):
     """The ``LAUNCHES`` key of kernel ``name`` in resolver form ``reso``
-    (the MVP form keeps the plain name)."""
-    return name if reso == "mvp" else f"{name}_{reso}"
+    (the MVP form keeps the plain name), and in mesh form ``kind``
+    (``MESH_KINDS``) after a slash."""
+    key = name if reso == "mvp" else f"{name}_{reso}"
+    return key if kind is None else f"{key}/{kind}"
 
 
-#: Launches of each CUDA kernel of this module in each resolver form
-#: since the last reset (plain versions and CPU calls do not count).
-LAUNCHES = {launch_key(k, r): 0 for k in ("cd_full_grid_resume",
-                                          "cd_full_grid", "cd_cand_tiles")
-            for r in RESO_CODE}
+#: Launches of each CUDA kernel of this module in each resolver form and
+#: mesh form since the last reset (plain versions and CPU calls do not
+#: count).
+LAUNCHES = {launch_key(k, r, m): 0
+            for k, kinds in (("cd_full_grid_resume", (None, "rows", "col0")),
+                             ("cd_full_grid", (None, "rows", "col0")),
+                             ("cd_cand_tiles", (None,)))
+            for r in RESO_CODE for m in kinds}
+
+
+class MeshForm(NamedTuple):
+    """The mesh form of a walk (``cd_tiles.cu`` struct Mesh): the ownship
+    rows are the row blocks of ``own`` [nbr, _NF, B], local row i being
+    global row ``row0 + i * rstride``; the tiles index the column slabs,
+    local block j being global block ``gid[j]`` ([ncols] int32 on the
+    slabs' device) or, without a table, ``col0 + j``.  Slot ids are
+    global: ``block * B + lane``."""
+    own: torch.Tensor
+    row0: int = 0
+    rstride: int = 1
+    col0: int = 0
+    gid: torch.Tensor = None
+
+    @property
+    def kind(self):
+        """``"gid"`` with a table, ``"rows"`` for a strided row subset
+        (the replicate split), else ``"col0"`` (a halo window)."""
+        if self.gid is not None:
+            return "gid"
+        return "rows" if self.rstride > 1 else "col0"
+
+    def col_blocks(self, ncols):
+        """[ncols] int64: the global block of each column slab (CPU)."""
+        if self.gid is not None:
+            return self.gid.cpu().long()
+        return torch.arange(ncols) + int(self.col0)
 
 
 class TileParams(NamedTuple):
@@ -298,27 +345,45 @@ def block_ids(tiles, B):
     return (tiles[:, None] * B + torch.arange(B)[None, :]).reshape(-1)
 
 
-def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK):
+def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK,
+               mesh: MeshForm = None):
     """Run ``row_block_plain`` for every row block.  ``ids_of_row(i)``
     gives row i's intruder slot ids in visiting order; id ``nb * B`` is
     the all-inactive sentinel column.  Returns the 13 outputs (10 when
     ``pold`` is None; the swarm form adds ``N_SWARM``) in the kernel's
     layout ([nb, 1|kk, B]).  A row without intruders gives the identity
     elements whatever its own slab and old partners (every pair is
-    masked), so the first such row's outputs serve the others."""
-    nb, _, B = packed.shape
+    masked), so the first such row's outputs serve the others.  With
+    ``mesh`` the rows are those of ``mesh.own`` and ``ids_of_row`` gives
+    local slot ids of the column slabs ``packed``, lifted to global ids
+    by the mesh form's maps."""
+    nc, _, B = packed.shape
+    own = packed if mesh is None else mesh.own
+    nb = own.shape[0]
     dev = packed.device
     lane = torch.arange(B, device=dev, dtype=torch.int64)
-    allf = torch.cat([packed.transpose(0, 1).reshape(_NF, nb * B),
+    allf = torch.cat([packed.transpose(0, 1).reshape(_NF, nc * B),
                       packed.new_zeros((_NF, 1))], 1)
+    lift = lambda ids: ids
+    row_gid = lambda i: i * B + lane
+    if mesh is not None:
+        gblk = mesh.col_blocks(nc).to(dev)
+
+        def lift(ids):
+            blk = ids // B
+            g = gblk[torch.clamp(blk, max=nc - 1)] * B + ids % B
+            return torch.where(blk < nc, g, ids)
+
+        row_gid = lambda i: (mesh.row0 + i * mesh.rstride) * B + lane
     rows, empty = [], None
     for i in range(nb):
         ids = torch.as_tensor(ids_of_row(i), device=dev).long()
         if ids.numel() == 0 and empty is not None:
             rows.append(empty)
             continue
-        rows.append(row_block_plain(packed[i], allf[:, ids], i * B + lane,
-                                    ids, None if pold is None else pold[i],
+        rows.append(row_block_plain(own[i], allf[:, ids], row_gid(i),
+                                    lift(ids),
+                                    None if pold is None else pold[i],
                                     p, reso, kk))
         if ids.numel() == 0:
             empty = rows[-1]
@@ -336,16 +401,31 @@ def world_base(rows, nbw, device=None):
     return torch.arange(rows, device=device) // nbw * nbw
 
 
-def _reach_rows(reach, B):
+def _reach_rows(reach, B, worlds=True):
     """Row i's intruder slot ids: the blocks j with ``reach[i, j]``, in
-    row i's world (``reach`` [W * nbw, nbw] for a stack of worlds)."""
+    row i's world (``reach`` [W * nbw, nbw] for a stack of worlds; with
+    ``worlds`` False the columns are the same for every row, the local
+    column blocks of a mesh form)."""
     reach_h = reach.cpu().numpy()
     nbw = reach_h.shape[1]
-    return lambda i: block_ids(np.flatnonzero(reach_h[i]) + i // nbw * nbw,
-                               B)
+    base = (lambda i: i // nbw * nbw) if worlds else (lambda i: 0)
+    return lambda i: block_ids(np.flatnonzero(reach_h[i]) + base(i), B)
 
 
-def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp"):
+def interleave_rows(nb, ndev):
+    """The replicate row split (JAX ``interleave_rows``): shard d owns
+    global row blocks d, d + D, 2D + d, ...  Returns ``(rows_l, nbrp,
+    rperm, rinv)``: row blocks per shard, the padded row count, the
+    permutation placing global row j * D + d at index d * rows_l + j,
+    and its inverse (numpy int64 arrays)."""
+    nbrp = -(-nb // ndev) * ndev
+    rows_l = nbrp // ndev
+    rperm = np.arange(nbrp).reshape(rows_l, ndev).T.reshape(-1)
+    return rows_l, nbrp, rperm, np.argsort(rperm)
+
+
+def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp",
+                           mesh: MeshForm = None):
     """Plain PyTorch version of the ``_kernel_resume`` pass: every row
     block i against every intruder block j with ``reach[i, j]``, in
     ascending j.  ``packed`` [nb, _NF, B] f32, ``reach`` [nb, nb] bool,
@@ -353,17 +433,23 @@ def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp"):
     swarm form).  A stack of W worlds of nbw row blocks each passes
     ``packed`` [W * nbw, _NF, B] and ``reach`` [W * nbw, nbw] (each row's
     reach in its own world); slot ids and ``pold`` are then global, world
-    w's slot s being ``w * nbw * B + s``."""
-    return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2]), p,
-                      reso)
+    w's slot s being ``w * nbw * B + s``.  With ``mesh`` (``MeshForm``)
+    the rows are ``mesh.own``'s and ``reach`` [nbr, ncols] indexes the
+    column slabs ``packed``; ``pold`` holds global ids."""
+    return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2],
+                                                mesh is None), p, reso,
+                      mesh=mesh)
 
 
-def full_grid_plain(packed, reach, p: TileParams, reso="mvp", kk=KK):
+def full_grid_plain(packed, reach, p: TileParams, reso="mvp", kk=KK,
+                    mesh: MeshForm = None):
     """Plain PyTorch version of the ``_kernel`` pass: the reach-masked
     full grid without a partner table, top-``kk`` candidates.  Returns
-    the 10 outputs (17 for the swarm form)."""
-    return rows_plain(packed, None, _reach_rows(reach, packed.shape[2]), p,
-                      reso, kk)
+    the 10 outputs (17 for the swarm form).  ``mesh`` as in
+    ``full_grid_resume_plain``."""
+    return rows_plain(packed, None, _reach_rows(reach, packed.shape[2],
+                                                mesh is None), p, reso, kk,
+                      mesh=mesh)
 
 
 def cand_tiles_plain(packed, cand, p: TileParams, reso="mvp", kk=KK):
@@ -561,11 +647,13 @@ def mask_items(mask, per_row, nbw=None):
     return items
 
 
-def reach_items(reach, per_row=ITEMS_PER_ROW):
+def reach_items(reach, per_row=ITEMS_PER_ROW, worlds=True):
     """``work_items`` of the reach-masked full grid: row i's tiles are the
     blocks j with ``reach[i, j]``, ascending, in row i's world for a
-    stack of worlds (``reach`` [W * nbw, nbw])."""
-    return mask_items(reach, per_row, nbw=reach.shape[1])
+    stack of worlds (``reach`` [W * nbw, nbw]); with ``worlds`` False
+    the columns of every row are the same slabs (a mesh form's local
+    column blocks)."""
+    return mask_items(reach, per_row, nbw=reach.shape[1] if worlds else None)
 
 
 def cand_items(cand, B, per_row=CAND_ITEMS_PER_ROW):
@@ -619,16 +707,19 @@ def merge_items_plain(parts, B, pold=None, reso="mvp", kk=KK):
 
 
 def walk_items(packed, items, p: TileParams, pold=None, cand=None,
-               reso="mvp", kk=KK):
+               reso="mvp", kk=KK, mesh: MeshForm = None):
     """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
     partner table ``pold`` (its width is K), ``cd_cand_items`` with the
     candidate table ``cand`` (the tiles are its sub-chunks),
     ``cd_full_grid`` with neither, in resolver form ``reso`` with top-K
-    lists ``kk`` wide.  Returns the items' partials ``(acc [8|15, G, B],
+    lists ``kk`` wide, and in the mesh form ``mesh`` (the first two
+    only: the rows are then ``mesh.own``'s, the tiles local blocks of
+    ``packed``).  Returns the items' partials ``(acc [8|15, G, B],
     ct [K, G, B], ci, keep [G, B] or None)``, G = nb * C, for
     ``merge_items``."""
     from . import _cuda
-    nb, _, B = packed.shape
+    _, _, B = packed.shape
+    nb = (packed if mesh is None else mesh.own).shape[0]
     if pold is not None:
         kk = pold.shape[1]
     C = items.length.shape[1]
@@ -650,23 +741,45 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
     tail = (*kernel_floats(p), RESO_CODE[reso], kk)
     lib = _cuda.load("cd_tiles.cu")
     stream = _cuda.stream_ptr(dev)
+    # the mesh form's arguments (struct Mesh); own null: one device
+    mform = (0, 0, 1, 0, 0) if mesh is None else (
+        mesh.own.data_ptr(), int(mesh.row0), int(mesh.rstride),
+        int(mesh.col0), 0 if mesh.gid is None else mesh.gid.data_ptr())
     keep = None
     if cand is not None:
+        if mesh is not None:
+            raise ValueError("the candidate pass has no mesh form")
         rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1], *tail,
                                acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
                                stream)
         _cuda.check(rc, "cd_cand_items")
     elif pold is None:
         rc = lib.cd_full_grid(*head, *tail, acc.data_ptr(), ct.data_ptr(),
-                              ci.data_ptr(), stream)
+                              ci.data_ptr(), *mform, stream)
         _cuda.check(rc, "cd_full_grid")
     else:
         keep = torch.empty((G, B), dtype=torch.int32, device=dev)
         rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *tail,
                                 acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
-                                keep.data_ptr(), stream)
+                                keep.data_ptr(), *mform, stream)
         _cuda.check(rc, "cd_sched_tiles")
     return acc, ct, ci, keep
+
+
+def check_mesh(packed, mesh: MeshForm, pold=None, kk=KK, reso="mvp"):
+    """Validate the operands of a mesh-form launch: the own-row slabs
+    and ``pold`` as ``check_common`` holds them, the column slabs
+    ``packed`` [ncols, _NF, B] and the table ``gid`` [ncols] int32.
+    Returns ``(nbr, ncols, B)``."""
+    from . import _cuda
+    nbr, B = check_common(mesh.own, pold, kk=kk, reso=reso)
+    ncols = packed.shape[0]
+    _cuda.require(packed, torch.float32, (ncols, _NF, B), "packed")
+    if mesh.gid is not None:
+        _cuda.require(mesh.gid, torch.int32, (ncols,), "gid")
+    if int(mesh.rstride) < 1:
+        raise ValueError(f"rstride must be >= 1, got {mesh.rstride}")
+    return nbr, ncols, B
 
 
 def merge_items(parts, items, B, pold=None, reso="mvp"):
@@ -693,43 +806,56 @@ def merge_items(parts, items, B, pold=None, reso="mvp"):
 
 
 def full_grid_resume(packed, reach, pold, p: TileParams,
-                     per_row=RESUME_ITEMS_PER_ROW, reso="mvp"):
+                     per_row=RESUME_ITEMS_PER_ROW, reso="mvp",
+                     mesh: MeshForm = None):
     """The sparse overflow-row fallback pass (``_kernel_resume``): the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors (see
     ``full_grid_resume_plain``).  On the card each row's reachable tiles
     are cut into at most ``per_row`` work items (``reach_items``), walked
     by ``cd_sched_tiles`` and folded, with the partner merge, by
     ``cd_merge_items``; the items of a row that ``reach`` leaves empty
-    exit at once.  Nothing waits for the device."""
+    exit at once.  Nothing waits for the device.  With ``mesh`` the row
+    subset or halo window of ``full_grid_pass`` (``MeshForm``; ``reach``
+    [nbr, ncols])."""
     if not packed.is_cuda:
-        return full_grid_resume_plain(packed, reach, pold, p, reso)
+        return full_grid_resume_plain(packed, reach, pold, p, reso, mesh)
     from . import _cuda
-    nb, B = check_common(packed, pold, reso=reso)
-    _cuda.require(reach, torch.bool, (nb, reach.shape[1]), "reach")
-    items = reach_items(reach, per_row)
-    outs = merge_items(walk_items(packed, items, p, pold, reso=reso), items,
-                       B, pold, reso)
-    LAUNCHES[launch_key("cd_full_grid_resume", reso)] += 1
+    if mesh is None:
+        nb, B = check_common(packed, pold, reso=reso)
+        ncols = reach.shape[1]
+    else:
+        nb, ncols, B = check_mesh(packed, mesh, pold, reso=reso)
+    _cuda.require(reach, torch.bool, (nb, ncols), "reach")
+    items = reach_items(reach, per_row, worlds=mesh is None)
+    outs = merge_items(walk_items(packed, items, p, pold, reso=reso,
+                                  mesh=mesh), items, B, pold, reso)
+    LAUNCHES[launch_key("cd_full_grid_resume", reso,
+                        None if mesh is None else mesh.kind)] += 1
     return outs
 
 
 def full_grid(packed, reach, p: TileParams, per_row=ITEMS_PER_ROW,
-              reso="mvp", kk=KK):
+              reso="mvp", kk=KK, mesh: MeshForm = None):
     """The reach-masked full-grid pass (``_kernel``): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors (see
     ``full_grid_plain``).  On the card each row's reachable tiles are cut
     into at most ``per_row`` work items (``reach_items``), walked by
     ``cd_full_grid`` and folded by ``cd_merge_items``; nothing waits for
-    the device."""
+    the device.  ``mesh`` as in ``full_grid_resume``."""
     if not packed.is_cuda:
-        return full_grid_plain(packed, reach, p, reso, kk)
+        return full_grid_plain(packed, reach, p, reso, kk, mesh)
     from . import _cuda
-    nb, B = check_common(packed, kk=kk, reso=reso)
-    _cuda.require(reach, torch.bool, (nb, reach.shape[1]), "reach")
-    items = reach_items(reach, per_row)
-    parts = walk_items(packed, items, p, reso=reso, kk=kk)
+    if mesh is None:
+        nb, B = check_common(packed, kk=kk, reso=reso)
+        ncols = reach.shape[1]
+    else:
+        nb, ncols, B = check_mesh(packed, mesh, kk=kk, reso=reso)
+    _cuda.require(reach, torch.bool, (nb, ncols), "reach")
+    items = reach_items(reach, per_row, worlds=mesh is None)
+    parts = walk_items(packed, items, p, reso=reso, kk=kk, mesh=mesh)
     outs = merge_items(parts, items, B, reso=reso)
-    LAUNCHES[launch_key("cd_full_grid", reso)] += 1
+    LAUNCHES[launch_key("cd_full_grid", reso,
+                        None if mesh is None else mesh.kind)] += 1
     return outs
 
 
@@ -908,7 +1034,46 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
                         worlds=int(np.prod(lead, dtype=np.int64)))
 
 
-def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK):
+def shard_devices(mesh):
+    """The devices of a single-process mesh in shard order (row-major over
+    its axes); a device may repeat."""
+    return [torch.device(d) for d in np.asarray(mesh.devices).ravel()]
+
+
+def on_device(dev):
+    """Make ``dev`` the current CUDA device for a shard's launches (the
+    kernels launch on the current stream of the tensors' device)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def full_grid_rows(x: PallasInputs, p: TileParams, devs, kk=KK):
+    """The replicate row split of the full grid (JAX ``run_full_sharded``):
+    shard d walks the row blocks d, d + D, ... (``interleave_rows``)
+    against the replicated slabs in the row-subset form, on its device
+    ``devs[d]``.  Returns the outputs in kernel layout."""
+    D = len(devs)
+    home = x.packed.device
+    outs = None
+    for d, dev in enumerate(devs):
+        rows = torch.arange(d, x.nb, D, device=home)
+        if rows.numel() == 0:
+            continue
+        with on_device(dev):
+            o = full_grid(x.packed.to(dev), x.reach[rows].to(dev), p,
+                          reso=x.reso, kk=kk,
+                          mesh=MeshForm(own=x.packed[rows].to(dev), row0=d,
+                                        rstride=D))
+        if outs is None:
+            outs = [a.new_empty((x.nb, *a.shape[1:]), device=home)
+                    for a in o]
+        for a, b in zip(outs, o):
+            a[rows] = b.to(home)
+    return outs
+
+
+def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK,
+                devs=None):
     """The pass of ``detect_resolve_pallas`` on prepared operands, in the
     resolver form ``x.reso`` with top-``kk`` candidates: the full grid,
     or with ``cand_cap > 0`` (rounded up to whole blocks) and at least 8
@@ -917,7 +1082,13 @@ def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK):
     row_over`` whether or not a row overflowed, so nothing waits for the
     device.  Returns the outputs in kernel layout.  A stack of worlds
     runs the full grid, one launch for all of them (candidate mode takes
-    one world)."""
+    one world).  With the devices ``devs`` of a mesh of more than one
+    shard the full grid's replicate row split runs instead
+    (``full_grid_rows``), as in JAX, whatever ``cand_cap``."""
+    if devs is not None and len(devs) > 1:
+        if x.worlds > 1:
+            raise ValueError("a stack of worlds takes no mesh")
+        return full_grid_rows(x, p, devs, kk)
     c_cap = -(-cand_cap // x.block) * x.block if cand_cap else 0
     if not (x.nb >= 8 and 0 < c_cap < x.nb * x.block):
         return full_grid(x.packed, x.reach, p, reso=x.reso, kk=kk)
@@ -936,7 +1107,8 @@ def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK):
 def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                           active, noreso, rpz, hpz, tlookahead, mvpcfg,
                           block=256, k_partners=KK, cand_cap=0, perm=None,
-                          extra_cols=None, reso="mvp"):
+                          extra_cols=None, reso="mvp", mesh=None,
+                          mesh_axis="ac"):
     """CD&R of the ``pallas`` backend; returns a ``RowConflictData`` in
     caller order (``topk_idx`` caller slots, -1 empty), and with
     ``reso="swarm"`` ``(rd, swarm_sums)``.  Always float32.
@@ -948,8 +1120,10 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     same either way.  ``reso`` is the tile body's resolver form, with
     ``extra_cols`` its ``tas`` (Eby) or ``cas`` (Swarm) column.  The
     partner candidates are the ``min(k_partners, block)`` most urgent;
-    the CUDA kernels take 1 to ``MAX_K`` and raise past it.  The mesh
-    branch is not ported.
+    the CUDA kernels take 1 to ``MAX_K`` and raise past it.  A ``mesh``
+    (``parallel/sharding.py``) of more than one shard on ``mesh_axis``
+    splits the full grid's rows over its devices (``full_grid_rows``);
+    the result is the same.
 
     Columns with a leading world axis [W, N] (and ``perm`` [W, N]) run W
     worlds in one pass, each kernel launched once for the stack; the
@@ -963,8 +1137,11 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                          f"{tuple(RESO_CODE)}")
     args = (lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, mvpcfg)
+    devs = None
+    if mesh is not None and dict(mesh.shape).get(mesh_axis, 1) > 1:
+        devs = shard_devices(mesh)
     kw = dict(block=block, k_partners=k_partners, cand_cap=cand_cap,
-              reso=reso)
+              reso=reso, devs=devs)
     if lat.shape[-1] > block:
         return cd_tiled.run_spatially_sorted(
             _detect_resolve_sorted, *args, perm=perm, extra_cols=extra_cols,
@@ -975,7 +1152,7 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
 def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                            active, noreso, rpz, hpz, tlookahead, mvpcfg,
                            block, k_partners, cand_cap, reso,
-                           extra_cols=None):
+                           extra_cols=None, devs=None):
     """``detect_resolve_pallas`` on columns already in the slot order the
     pass runs in; ``topk_idx`` holds slots of that order (of its own
     world, for a stack of worlds)."""
@@ -986,7 +1163,7 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                 reso=reso)
     kk = min(k_partners, x.block)
     outs = run_kernels(x, tile_params(rpz, hpz, tlookahead, mvpcfg),
-                       cand_cap, kk)
+                       cand_cap, kk, devs)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
      ctin, cidx) = outs[:10]
     nt = x.nb * x.block

@@ -1,6 +1,6 @@
 """Sparse segment-scheduled CD&R: near-physics-floor pair enumeration.
 
-Port of the single-device replicate path of ``bluesky_tpu/ops/cd_sched.py``:
+Port of ``bluesky_tpu/ops/cd_sched.py``:
 
 * **Stripe sort** (``stripe_sort_dest``): aircraft ordered by latitude
   stripe (stripe height >= the reach radius), longitude within the
@@ -26,26 +26,66 @@ only changes which provably conflict-free tiles are skipped.  Both
 kernels run in the resolver form of the interval (``reso``: MVP, Eby or
 Swarm, see ``cd_pallas``); Swarm widens the reachability to its
 neighbourhood.
+
+The shard modes (``detect_resolve_sched(mesh=..., shard_mode=...)``) run
+on a single-process mesh: a grid of torch devices, which may repeat one
+device (``parallel/sharding.py``).  JAX's collectives become explicit
+copies and sums in a fixed order of shards, so each mode's mesh result
+is bit-equal to its single-device reference:
+
+* ``replicate``: shard d walks the row blocks d, d + D, ... against the
+  replicated columns (the walker's row-subset form, ``rstride`` = D);
+* ``spatial``: shard d owns a contiguous latitude-stripe block range,
+  builds its slabs, summaries and windows locally, receives the halo
+  blocks of its neighbours, and walks its rows against the halo window
+  (the ``col0`` form);
+* ``tiles``: shard t owns tile t of the tile-major layout
+  (``tile_sort_dest``), receives the reach-selected blocks of its
+  edge and corner neighbours, and walks its rows against the present
+  set ranked by global block id (the ``gid`` table form).  Without a
+  mesh the same construction runs tile by tile on one device: the
+  single-device tiles reference.
+
+The host layout of these modes (``spatial_layout``, ``tile_offsets``,
+``tile_wire_blocks``, ``tile_sort_dest``) is plain tensor code.
 """
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import cd_pallas, cr_swarm
-from .cd_pallas import _BIG, _FIELDS, _NF, N_SWARM, TileParams, launch_key
+from . import cd_pallas, cd_tiled, cr_swarm
+from .cd_pallas import (_BIG, _BIG_I, _FIELDS, _NF, N_SWARM, MeshForm,
+                        TileParams, launch_key, on_device, shard_devices)
 from .cd_tiled import (RowConflictData, block_reachability, precompute_trig,
                        take, take_ids, take_rows)
 from . import geo
 
-#: Launches of the CUDA kernel in each resolver form since the last reset.
-LAUNCHES = {launch_key("cd_sched_tiles", r): 0 for r in cd_pallas.RESO_CODE}
+#: Launches of the CUDA kernel in each resolver form and mesh form since
+#: the last reset.
+LAUNCHES = {launch_key("cd_sched_tiles", r, m): 0
+            for r in cd_pallas.RESO_CODE
+            for m in (None,) + cd_pallas.MESH_KINDS}
 
 
 def padded_size(n, block=256, extra=32):
     """Total slots of the padded stripe-sorted layout for n aircraft."""
     block = min(block, 256)
     return (-(-n // block) + extra) * block
+
+
+def spatial_layout(n, block=256, ndev=1, extra=32):
+    """Padded-layout parameters of the spatial and tiles modes: the
+    extra-block count (at most ``extra``, at least 2) that makes the
+    padded block count divide into ``ndev`` shards.  Returns
+    ``(extra_eff, nb, nb_local, n_tot)``."""
+    block = min(block, 256)
+    nb0 = -(-n // block)
+    extra_eff = extra - ((nb0 + extra) % ndev)
+    if extra_eff < 2:
+        extra_eff += ndev
+    nb = nb0 + extra_eff
+    return extra_eff, nb, nb // ndev, nb * block
 
 
 def slot_inverse(perm, n, n_tot, fill=-1):
@@ -81,13 +121,18 @@ def reach_threshold_m(gs, active, tlookahead, rpz):
     return rpz + tlookahead * 2.0 * gsmax
 
 
-def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra):
+def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra,
+                     spread_pad=False):
     """Per-aircraft destination slots of the padded stripe-major layout
-    (altitude layering off, as the sparse refresh runs it).  Inactive
-    aircraft sort into the last stripe.  Divisions by constants are the
-    products with the reciprocal that compiled JAX computes.  Columns
-    with a leading world axis [W, n] (``thresh_m`` [W, 1]) sort each
-    world on its own."""
+    (altitude layering off, as every refresh of the JAX package runs
+    it).  Inactive aircraft sort into the last stripe.  Divisions by
+    constants are the products with the reciprocal that compiled JAX
+    computes.  Columns with a leading world axis [W, n] (``thresh_m``
+    [W, 1]) sort each world on its own.  ``spread_pad`` (the spatial
+    layout) spreads the free padding blocks between the stripes in
+    proportion to their cumulative active count, so that equal block
+    ranges hold about equal aircraft counts; the inactive stripe stays
+    at the end."""
     lead = lat.shape[:-1]
     n = lat.shape[-1]
     dev = lat.device
@@ -117,7 +162,17 @@ def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra):
                          device=dev).scatter_add_(-1, ss, torch.ones_like(ss))
     nblocks = (counts + block - 1) // block
     zero = torch.zeros((*lead, 1), dtype=counts.dtype, device=dev)
-    base = torch.cat([zero, torch.cumsum(nblocks, -1)[..., :-1]], -1) * block
+    base = torch.cat([zero, torch.cumsum(nblocks, -1)[..., :-1]], -1)
+    if spread_pad:
+        free = -(-n // block) + extra - nblocks.sum(-1, keepdim=True)
+        act_counts = counts.clone()
+        act_counts[..., extra - 1] = 0
+        cc = torch.cat([zero, torch.cumsum(act_counts, -1)[..., :-1]], -1)
+        n_act = torch.clamp_min(act_counts.sum(-1, keepdim=True), 1)
+        pad_before = free * cc // n_act
+        pad_before[..., extra - 1:] = free
+        base = base + pad_before
+    base = base * block
     first = torch.cat([zero, torch.cumsum(counts, -1)[..., :-1]], -1)
     rank = torch.arange(n, device=dev) - take(first, ss)
     dest = torch.zeros((*lead, n), dtype=torch.int32, device=dev)
@@ -126,13 +181,15 @@ def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra):
 
 def scatter_padded(arrs, dest, n_tot, neutral=0.0):
     """Place per-aircraft columns into the padded sorted layout (per
-    world, for columns with a leading world axis)."""
-    idx = dest.long()
+    world, for columns with a leading world axis).  A destination past
+    the layout (the sentinel ``n_tot`` of an inactive row in the spatial
+    and tiles layouts) is dropped, as JAX's scatter drops it."""
+    idx = torch.clamp(dest.long(), 0, n_tot)
     out = []
     for a in arrs:
-        z = torch.full((*a.shape[:-1], n_tot), neutral, dtype=a.dtype,
+        z = torch.full((*a.shape[:-1], n_tot + 1), neutral, dtype=a.dtype,
                        device=a.device)
-        out.append(z.scatter_(-1, idx, a))
+        out.append(z.scatter_(-1, idx, a)[..., :n_tot].contiguous())
     return out
 
 
@@ -166,40 +223,191 @@ def build_windows(reach, s_cap, wmax, pad_start):
     return st.to(torch.int32), ln.to(torch.int32), overflow
 
 
+def tile_offsets(tiles, hr=1, hc=1):
+    """Canonical neighbour offsets ``(dr, dc mod C)`` of the R x C tile
+    mesh: the edge and corner neighbours of the ``(2 hr + 1) x (2 hc +
+    1)`` block minus self, longitude wrapping and latitude not, offsets
+    that alias under the wrap kept once (a 4x2 mesh has 5, not 8)."""
+    R, C = int(tiles[0]), int(tiles[1])
+    offs, seen = [], set()
+    for dr in range(-hr, hr + 1):
+        if abs(dr) >= R and dr != 0:
+            continue                     # no (src, dst) pair exists
+        for dc in range(-hc, hc + 1):
+            key = (dr, dc % C)
+            if key == (0, 0) or key in seen:
+                continue                 # self (incl. wrap-to-self)
+            seen.add(key)
+            offs.append(key)
+    return tuple(offs)
+
+
+def _offset_pairs(tiles, off):
+    """The (sender, receiver) tile pairs of one canonical offset over the
+    row-major (lat, lon) tile order: longitude wraps, latitude clips
+    (an edge tile receives nothing: invalid columns)."""
+    R, C = int(tiles[0]), int(tiles[1])
+    dr, dcm = off
+    return [(r * C + c, (r + dr) * C + (c + dcm) % C)
+            for r in range(R) for c in range(C) if 0 <= r + dr < R]
+
+
+def tile_wire_blocks(tiles, budgets=None, nb_t=0):
+    """Worst-case received halo blocks per tile for the canonical offset
+    set: the sum of the per-offset budgets (each capped at ``nb_t`` when
+    given), or ``nb_t`` per offset when unpinned."""
+    offs = tile_offsets(tiles)
+    if budgets:
+        return int(sum(min(int(b), nb_t) if nb_t else int(b)
+                       for b in budgets))
+    return int(len(offs) * nb_t)
+
+
+def tile_sort_dest(lat, lon, gs, active, thresh_m, block, extra, tiles):
+    """Tile-major sort destinations of the 2-D lat x lon decomposition
+    (JAX ``tile_sort_dest``): tile ``t = r * C + c`` owns the slots
+    ``[t * S_t, (t + 1) * S_t)``, ``S_t = (nb // (R * C)) * block``.
+    Whole reach-height latitude stripes are grouped into R bands by
+    cumulative active count, and fixed 0.35 deg longitude cells of each
+    band into C chunks likewise; within a tile the aircraft pack by
+    (stripe, lon).  An over-dense stripe or cell can overflow its tile,
+    which the tile refresh refuses.  Inactive aircraft get the last
+    slot.  One world."""
+    R, C = int(tiles[0]), int(tiles[1])
+    D = R * C
+    n = lat.shape[0]
+    dev = lat.device
+    nb = -(-n // block) + extra
+    n_tot = nb * block
+    S_t = (nb // D) * block
+    act = active
+    big = torch.full((), 1e9, dtype=lat.dtype, device=dev)
+    any_act = act.any()
+    zero = torch.zeros((), dtype=lat.dtype, device=dev)
+    latmin = torch.where(any_act, torch.where(act, lat, big).min(), zero)
+    latmax = torch.where(any_act, torch.where(act, lat, -big).max(),
+                         torch.ones((), dtype=lat.dtype, device=dev))
+    span = torch.clamp_min(latmax - latmin, 1e-6)
+    h = torch.clamp_min(torch.maximum(
+        thresh_m * 1.05 * (1.0 / 110000.0),
+        span * (1.0 / (extra - 1))), 0.05)
+    s = torch.clamp(torch.floor((lat - latmin) / h), 0, extra - 2).long()
+    s = torch.where(act, s, torch.full_like(s, extra - 1))
+    acti = act.long()
+    # stripe -> band: count-proportional over whole stripes
+    sc = torch.zeros(extra, dtype=torch.int64, device=dev) \
+        .scatter_add_(0, s, acti)
+    csum = torch.cumsum(sc, 0) - sc
+    n_act = torch.clamp_min(acti.sum(), 1)
+    band_of = torch.clamp(((csum + sc // 2) * R) // n_act, 0, R - 1)
+    band = band_of[s]
+    # (band, cell) -> lon chunk: count-proportional over whole cells
+    ncell = 1024
+    cell = torch.clamp(((lon + 180.0) * (ncell / 360.0)).to(torch.int32),
+                       0, ncell - 1).long()
+    bc = torch.zeros(R * ncell, dtype=torch.int64, device=dev) \
+        .scatter_add_(0, band * ncell + cell, acti).reshape(R, ncell)
+    ccsum = torch.cumsum(bc, 1) - bc
+    btot = torch.clamp_min(bc.sum(1), 1)
+    chunk_of = torch.clamp(((ccsum + bc // 2) * C) // btot[:, None], 0,
+                           C - 1)
+    tile = band * C + chunk_of[band, cell]
+    # pack the actives contiguously per tile, (stripe, lon) within
+    qlon = torch.clamp((lon + 180.0) * (2 ** 19 / 360.0), 0,
+                       2 ** 19 - 1).to(torch.int32).long()
+    key = s * 2 ** 19 + qlon
+    tile_a = torch.where(act, tile, torch.full_like(tile, D))
+    order1 = torch.argsort(key, stable=True)
+    order = order1[torch.argsort(tile_a[order1], stable=True)]
+    ta_o = tile_a[order]
+    start = torch.searchsorted(ta_o, torch.arange(D + 1, device=dev),
+                               side="left")
+    rank_o = torch.arange(n, device=dev) - start[torch.clamp(ta_o, 0, D)]
+    dest_o = torch.where(ta_o < D,
+                         torch.clamp(ta_o * S_t + rank_o, 0, n_tot - 1),
+                         torch.full_like(ta_o, n_tot - 1))
+    dest = torch.zeros(n, dtype=torch.int32, device=dev)
+    return dest.scatter_(0, order, dest_o.to(torch.int32))
+
+
+def _tile_select(reach_any, budget, nb_t):
+    """Budget-capped export selection: the ascending local block ids of
+    the sender's blocks a receiver row can reach.  Returns ``(sidx
+    [budget] clipped ids, valid [budget])``."""
+    ar = torch.arange(nb_t, dtype=torch.int64, device=reach_any.device)
+    selkey = torch.where(reach_any, ar, torch.full_like(ar, nb_t))
+    sidx = torch.sort(selkey).values[:budget]
+    return torch.clamp(sidx, 0, nb_t - 1), sidx < nb_t
+
+
+def _tile_windows(reach_rows, gkey, nb, s_cap_t, wmax):
+    """Sort the present (own and received) column slabs by global block
+    id and build the tile's segment windows over them, shared by the
+    tiles mesh and the single-device tiles reference so that both visit
+    the same columns.  An overflow row gets a synthetic full-present
+    coverage (disjoint ``wmax``-block segments over every present slab)
+    instead of the full-grid fallback.  ``gkey`` [ncols]: the candidate
+    columns' global block ids, ``nb`` for an invalid one.  Returns
+    ``(order, gid_tab, wst, wln)``: the slab order, the global block id
+    of each slab (invalid ``nb``) and the windows."""
+    ncols = gkey.shape[0]
+    order = torch.argsort(gkey, stable=True)
+    gid_tab = gkey[order]
+    vcol = gid_tab < nb
+    reach_h = reach_rows[:, torch.clamp(gid_tab, 0, nb - 1)] & vcol[None, :]
+    st, ln, overflow = build_windows(reach_h, s_cap_t, wmax,
+                                     pad_start=ncols)
+    ist = torch.arange(s_cap_t, dtype=torch.int32,
+                       device=gkey.device) * wmax
+    fln = torch.clamp(ncols - ist, 0, wmax)
+    st = torch.where(overflow[:, None], torch.clamp_max(ist, ncols),
+                     torch.clamp(st, 0, ncols))
+    ln = torch.where(overflow[:, None], fln, ln)
+    return order, gid_tab.to(torch.int32), st.to(torch.int32), \
+        ln.to(torch.int32)
+
+
 def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
-                      reso="mvp", nbw=None):
+                      reso="mvp", nbw=None, mesh: MeshForm = None):
     """Plain PyTorch version of the ``_sched_kernel`` pass: row block i
     walks its segments ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))``
     in slot order, blocks past the grid skipped.  Returns the 13
     outputs, 20 in the swarm form (see ``cd_pallas.row_block_plain``).
     With ``nbw`` the rows are a stack of worlds of ``nbw`` blocks each:
     the segments hold world-local blocks, past ``nbw`` skipped, and the
-    slot ids and ``pold`` are global (``cd_pallas.full_grid_resume_plain``)."""
+    slot ids and ``pold`` are global (``cd_pallas.full_grid_resume_plain``).
+    With ``mesh`` (``cd_pallas.MeshForm``) the rows are ``mesh.own``'s
+    and the segments hold local blocks of the column slabs ``packed``,
+    lifted to global ids by the form's maps."""
     nb, _, B = packed.shape
     nbw = nb if nbw is None else nbw
     st = wst.cpu().numpy()
     ln = np.minimum(wln.cpu().numpy(), wmax)
+    base = (lambda i: i // nbw * nbw) if mesh is None else (lambda i: 0)
 
     def ids(i):
         t = [np.arange(b, b + k) for b, k in zip(st[i], ln[i]) if k > 0]
         t = np.concatenate(t) if t else np.zeros(0, np.int64)
-        return cd_pallas.block_ids(t[t < nbw] + i // nbw * nbw, B)
+        return cd_pallas.block_ids(t[t < nbw] + base(i), B)
 
-    return cd_pallas.rows_plain(packed, pold, ids, p, reso)
+    return cd_pallas.rows_plain(packed, pold, ids, p, reso, mesh=mesh)
 
 
-def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW):
+def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW,
+                 worlds=True):
     """``cd_pallas.work_items`` of the segment pass: row i's tiles are its
     segments' blocks ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))`` in
     segment order, blocks past the grid's ``nbc`` left out (ascending:
     ``build_windows`` gives disjoint segments in slot order).  A stack of
     worlds of ``nbc`` row blocks each ([W * nbc, s_cap] windows) offsets
-    each row's tiles by its world's first block."""
+    each row's tiles by its world's first block; with ``worlds`` False
+    (a mesh form's rows against ``nbc`` column slabs) nothing is
+    offset."""
     nb, s_cap = wst.shape
     t = torch.arange(wmax, dtype=torch.int64, device=wst.device)
     cand = wst.long()[:, :, None] + t
     valid = (t < torch.clamp(wln.long(), 0, wmax)[:, :, None]) & (cand < nbc)
-    if nb != nbc:
+    if worlds and nb != nbc:
         cand = cand + cd_pallas.world_base(nb, nbc, wst.device)[:, None, None]
     return cd_pallas.work_items(
         *cd_pallas.compact_rows(cand.reshape(nb, s_cap * wmax),
@@ -207,26 +415,36 @@ def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW):
 
 
 def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams,
-                per_row=cd_pallas.ITEMS_PER_ROW, reso="mvp", nbw=None):
+                per_row=cd_pallas.ITEMS_PER_ROW, reso="mvp", nbw=None,
+                mesh: MeshForm = None):
     """The segment pass: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see ``sched_tiles_plain``).  On the card each
     row's segment blocks are cut into at most ``per_row`` work items
     (``window_items``), walked by ``cd_sched_tiles`` and folded, with the
     partner merge, by ``cd_merge_items``; nothing waits for the device.
     A stack of worlds of ``nbw`` row blocks each is one launch of each
-    kernel for the whole stack."""
+    kernel for the whole stack.  ``mesh`` runs the walker's mesh form
+    (``cd_pallas.MeshForm``): the rows of ``mesh.own`` against the
+    column slabs ``packed``, whose local blocks the windows hold."""
     if not packed.is_cuda:
-        return sched_tiles_plain(packed, wst, wln, wmax, pold, p, reso, nbw)
+        return sched_tiles_plain(packed, wst, wln, wmax, pold, p, reso, nbw,
+                                 mesh)
     from . import _cuda
-    nb, B = cd_pallas.check_common(packed, pold, reso=reso)
+    if mesh is None:
+        nb, B = cd_pallas.check_common(packed, pold, reso=reso)
+        nbc = nb if nbw is None else nbw
+    else:
+        nb, nbc, B = cd_pallas.check_mesh(packed, mesh, pold, reso=reso)
     s_cap = wst.shape[1]
     _cuda.require(wst, torch.int32, (nb, s_cap), "wst")
     _cuda.require(wln, torch.int32, (nb, s_cap), "wln")
-    items = window_items(wst, wln, int(wmax), nb if nbw is None else nbw,
-                         per_row)
-    parts = cd_pallas.walk_items(packed, items, p, pold, reso=reso)
+    items = window_items(wst, wln, int(wmax), nbc, per_row,
+                         worlds=mesh is None)
+    parts = cd_pallas.walk_items(packed, items, p, pold, reso=reso,
+                                 mesh=mesh)
     outs = cd_pallas.merge_items(parts, items, B, pold, reso)
-    LAUNCHES[launch_key("cd_sched_tiles", reso)] += 1
+    LAUNCHES[launch_key("cd_sched_tiles", reso,
+                        None if mesh is None else mesh.kind)] += 1
     return outs
 
 
@@ -252,6 +470,40 @@ class SchedInputs(NamedTuple):
     worlds: int = 1
 
 
+def _columns(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
+             tas=None, cas=None, reso="mvp"):
+    """The float32 per-aircraft columns the slabs are built from, with
+    the resolver's ``tr`` row (``cd_pallas.tr_row``)."""
+    f = lambda a: a.to(torch.float32)
+    tr = cd_pallas.tr_row(gs, {k: v for k, v in (("tas", tas), ("cas", cas))
+                               if v is not None}, reso)
+    return {"lat": f(lat), "lon": f(lon), "trk": f(trk), "gs": f(gs),
+            "alt": f(alt), "vs": f(vs), "gse": f(gseast), "gsn": f(gsnorth),
+            "tr": f(tr), "active": f(active), "noreso": f(noreso)}
+
+
+def _pack(padded, block):
+    """The [nb, 16, B] slabs (``cd_pallas._FIELDS``) of padded columns
+    (stacked along the row-block axis for a leading world axis)."""
+    fields = precompute_trig(padded["lat"], padded["lon"])
+    trkrad = geo.radians(padded["trk"])
+    fields.update({
+        "u": padded["gs"] * torch.sin(trkrad),
+        "v": padded["gs"] * torch.cos(trkrad),
+        "alt": padded["alt"], "vs": padded["vs"], "gse": padded["gse"],
+        "gsn": padded["gsn"], "trk": padded["trk"], "tr": padded["tr"],
+        "active": padded["active"], "noreso": padded["noreso"]})
+    return torch.stack([fields[k] for k in _FIELDS]).reshape(
+        _NF, -1, block).transpose(0, 1).contiguous()
+
+
+def _reach_margins(reso):
+    """The horizontal and vertical reach floors of the resolver form: the
+    Swarm neighbourhood, else none."""
+    return ((cr_swarm.R_SWARM, cr_swarm.DH_SWARM) if reso == "swarm"
+            else (0.0, 0.0))
+
+
 def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, partners, block=256, s_cap=6, wmax=16,
             extra_blocks=32, perm=None, tas=None, cas=None,
@@ -263,40 +515,26 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
     (``cd_pallas.tr_row``); Swarm widens the reachability to its
     neighbourhood, horizontally and vertically.  Columns with a leading
     world axis [W, n] (``partners`` [W, n_tot, K] in world-local slots)
-    give the stacked operands of every world (``SchedInputs``)."""
+    give the stacked operands of every world (``SchedInputs``).  A
+    ``perm`` entry past the layout (the spatial and tiles layouts'
+    sentinel of an inactive row) leaves that row out."""
     lead = lat.shape[:-1]
     worlds = int(np.prod(lead, dtype=np.int64))
     n = lat.shape[-1]
-    dtype = torch.float32
     block = min(block, 256)
-    f = lambda a: a.to(dtype)
+    cols = _columns(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+                    noreso, tas, cas, reso)
     if perm is None:
-        thresh = reach_threshold_m(f(gs), active, float(tlookahead),
+        thresh = reach_threshold_m(cols["gs"], active, float(tlookahead),
                                    float(rpz))
-        perm = stripe_sort_dest(f(lat), f(lon), f(gs), active, thresh,
-                                block, extra_blocks)
+        perm = stripe_sort_dest(cols["lat"], cols["lon"], cols["gs"], active,
+                                thresh, block, extra_blocks)
     nb = -(-n // block) + extra_blocks
     n_tot = nb * block
-    cols = {"lat": lat, "lon": lon, "trk": trk, "gs": gs, "alt": alt,
-            "vs": vs, "gse": gseast, "gsn": gsnorth,
-            "tr": cd_pallas.tr_row(gs, {k: v for k, v in
-                                        (("tas", tas), ("cas", cas))
-                                        if v is not None}, reso),
-            "active": active, "noreso": noreso}
-    padded = dict(zip(cols, scatter_padded([f(v) for v in cols.values()],
-                                           perm, n_tot)))
-    fields = precompute_trig(padded["lat"], padded["lon"])
-    trkrad = geo.radians(padded["trk"])
-    fields.update({
-        "u": padded["gs"] * torch.sin(trkrad),
-        "v": padded["gs"] * torch.cos(trkrad),
-        "alt": padded["alt"], "vs": padded["vs"], "gse": padded["gse"],
-        "gsn": padded["gsn"], "trk": padded["trk"], "tr": padded["tr"],
-        "active": padded["active"], "noreso": padded["noreso"]})
-    packed = torch.stack([fields[k] for k in _FIELDS]).reshape(
-        _NF, -1, block).transpose(0, 1).contiguous()
-    swarm_m = ((cr_swarm.R_SWARM, cr_swarm.DH_SWARM) if reso == "swarm"
-               else (0.0, 0.0))
+    padded = dict(zip(cols, scatter_padded(list(cols.values()), perm,
+                                           n_tot)))
+    packed = _pack(padded, block)
+    swarm_m = _reach_margins(reso)
     reach = block_reachability(
         padded["lat"], padded["lon"], padded["gs"], padded["active"] > 0.5,
         nb, block, float(rpz), float(tlookahead), alt=padded["alt"],
@@ -304,9 +542,7 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
         min_vreach_m=swarm_m[1])
     reach = reach.reshape(-1, nb)
     st, ln, overflow = build_windows(reach, s_cap, wmax, pad_start=nb)
-    kk = partners.shape[-1]
-    pold = partners.reshape(-1, block, kk).transpose(1, 2) \
-        .to(torch.int32).contiguous()
+    pold = _kernel_partners(partners, block)
     if lead:
         pold = torch.where(pold >= 0, pold + slot_base(worlds, nb, n_tot,
                                                        pold.device), pold)
@@ -314,6 +550,13 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
                        wmax=wmax, overflow=overflow, reach=reach, pold=pold,
                        perm=perm, n=n, n_tot=n_tot, nb=nb, block=block,
                        reso=reso, worlds=worlds)
+
+
+def _kernel_partners(partners, block):
+    """The partner table [.., n_tot, K] in kernel layout [nb, K, B]."""
+    kk = partners.shape[-1]
+    return partners.reshape(-1, block, kk).transpose(1, 2) \
+        .to(torch.int32).contiguous()
 
 
 def slot_base(worlds, nb, n_tot, device):
@@ -336,50 +579,465 @@ def run_kernels(x: SchedInputs, p: TileParams):
     return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
 
 
+def _run_rows(intr, wst, wln, wmax, overflow, reach, pold, p, reso, mesh,
+              fallback=True):
+    """The segment pass in the mesh form ``mesh`` plus, with ``fallback``,
+    the overflow rows' full-grid pass over ``reach`` (local columns),
+    merged row-disjointly (``run_kernels`` of a row subset)."""
+    outs_s = sched_tiles(intr, wst, wln, wmax, pold, p, reso=reso,
+                         mesh=mesh)
+    if not fallback:
+        return list(outs_s)
+    outs_f = cd_pallas.full_grid_resume(intr, reach & overflow[:, None],
+                                        pold, p, reso=reso, mesh=mesh)
+    rsel = overflow[:, None, None]
+    return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
+
+
+def _backed_neutral(reso, device):
+    """The identity of each back-mapped row of a slot the schedule never
+    touched (inconf, tcpamax, the three sums, tsolv, active, then the
+    Swarm sums): what a sentinel row reads."""
+    vals = [0.0, 0.0, 0.0, 0.0, 0.0, _BIG, 0.0] \
+        + [0.0] * (N_SWARM if reso == "swarm" else 0)
+    return torch.tensor(vals, dtype=torch.float32, device=device)[:, None]
+
+
+def _back_rows(outs, reso):
+    """The per-ownship outputs that map back to caller rows: the six
+    reductions, the engagement flag and the Swarm sums."""
+    return list(outs[:6]) + list(outs[12:])
+
+
+def _local_backmap(outs, in_dev, dest_loc, S, kk, reso):
+    """One shard's masked back-map to its caller rows: rows whose slot is
+    not the shard's read the identities.  Returns ``(backed, topk_tin,
+    topk_raw, merged, nconf, nlos)``."""
+    stacked = torch.stack([o.reshape(S) for o in _back_rows(outs, reso)])
+    gsl = torch.clamp(dest_loc, 0, S - 1).long()
+    backed = torch.where(in_dev[None, :], stacked[:, gsl],
+                         _backed_neutral(reso, stacked.device))
+    tt = outs[8].transpose(1, 2).reshape(S, kk)[gsl]
+    ti = outs[9].transpose(1, 2).reshape(S, kk)[gsl]
+    tt = torch.where(in_dev[:, None], tt, torch.full_like(tt, _BIG))
+    ti = torch.where(in_dev[:, None], ti, torch.full_like(ti, _BIG_I))
+    count = lambda c: c.to(torch.int32).sum(dtype=torch.int32)
+    return backed, tt, ti, outs[11], count(outs[6]), count(outs[7])
+
+
+def _shard_locals(cols, perm, devs, S, block, C):
+    """Each shard's own slot range of the padded layout, built from its
+    caller rows only: ``in_dev`` and ``dest_loc`` (the shard-local slot,
+    ``S`` off the shard), the slabs and the block summaries."""
+    out = []
+    for d, dev in enumerate(devs):
+        with on_device(dev):
+            perm_l = perm[d * C:(d + 1) * C].to(dev)
+            base = d * S
+            in_dev = (perm_l >= base) & (perm_l < base + S)
+            dest_loc = torch.where(in_dev, perm_l - base,
+                                   torch.full_like(perm_l, S))
+            padded = dict(zip(cols, scatter_padded(
+                [v[d * C:(d + 1) * C].to(dev) for v in cols.values()],
+                dest_loc, S)))
+            nbl = S // block
+            summ = cd_tiled.block_summaries(
+                padded["lat"], padded["lon"], padded["gs"],
+                padded["active"] > 0.5, nbl, block, alt=padded["alt"],
+                vs=padded["vs"])
+            out.append(dict(dev=dev, in_dev=in_dev, dest_loc=dest_loc,
+                            packed=_pack(padded, block), summ=summ))
+    return out
+
+
+def _gather(shards, key, dev):
+    """The all-gather of the shards' block summaries, on ``dev``."""
+    return {k: torch.cat([s[key][k].to(dev) for s in shards])
+            for k in shards[0][key]}
+
+
+def _mesh_result(parts, home, n_tot, kk, reso):
+    """Join the shards' back-mapped results in shard order (the caller
+    axis and the padded row blocks are shard-major), the counts summed
+    in that order.  Returns ``(rd, partners_new, active[, swarm])``."""
+    cat = lambda j, dim=0: torch.cat([q[j].to(home) for q in parts], dim)
+    backed, topk_tin, ti_raw, merged = cat(0, 1), cat(1), cat(2), cat(3)
+    nconf, nlos = parts[0][4].to(home), parts[0][5].to(home)
+    for q in parts[1:]:
+        nconf = nconf + q[4].to(home)
+        nlos = nlos + q[5].to(home)
+    topk_idx = torch.where((topk_tin < _BIG) & (ti_raw < n_tot), ti_raw,
+                           torch.full_like(ti_raw, -1))
+    rd = RowConflictData(
+        inconf=backed[0] > 0.5, tcpamax=backed[1], sum_dve=backed[2],
+        sum_dvn=backed[3], sum_dvv=backed[4], tsolv=backed[5],
+        nconf=nconf, nlos=nlos, topk_idx=topk_idx, topk_tin=topk_tin)
+    partners_new = merged.transpose(1, 2).reshape(n_tot, kk)
+    if reso == "swarm":
+        return rd, partners_new, backed[6] > 0.5, tuple(backed[7:])
+    return rd, partners_new, backed[6] > 0.5
+
+
+def _spatial_mesh(cols, perm, pold, devs, n, nb, block, kk, s_cap, wmax,
+                  halo_blocks, p, reso, reach_kw):
+    """The spatial mesh interval (JAX ``detect_resolve_sched`` spatial
+    branch): shard d owns the stripe block range ``[d * nb_l, (d + 1) *
+    nb_l)``; its scatter, slabs, summaries, reachability rows and windows
+    come from its own caller rows, the summaries are gathered, the halo
+    blocks of the neighbours (``n_hops`` shards each side) are copied in,
+    and its rows walk the halo window in the ``col0`` form."""
+    D = len(devs)
+    nb_l = nb // D
+    S_l = nb_l * block
+    halo = int(halo_blocks) if halo_blocks else nb_l
+    halo = min(halo, (D - 1) * nb_l)
+    n_hops = -(-halo // nb_l)
+    nbh = nb_l + 2 * halo
+    shards = _shard_locals(cols, perm, devs, S_l, block, n // D)
+    parts = []
+    for d, sh in enumerate(shards):
+        dev = sh["dev"]
+        with on_device(dev):
+            reach_rows = cd_tiled.reachability_from_summaries(
+                sh["summ"], _gather(shards, "summ", dev), **reach_kw)
+            row0 = d * nb_l
+            col0 = row0 - halo
+            cg = col0 + torch.arange(nbh, device=dev)
+            vcol = (cg >= 0) & (cg < nb)
+            reach_h = reach_rows[:, torch.clamp(cg, 0, nb - 1)] \
+                & vcol[None, :]
+            st, ln, overflow = build_windows(reach_h, s_cap, wmax,
+                                             pad_start=nbh)
+            zeros = lambda m: sh["packed"].new_zeros((m, _NF, block))
+            lo, hi = [], []
+            for h in range(1, n_hops + 1):
+                take_n = halo - (h - 1) * nb_l if h == n_hops else nb_l
+                lo.insert(0, shards[d - h]["packed"][nb_l - take_n:].to(dev)
+                          if d - h >= 0 else zeros(take_n))
+                hi.append(shards[d + h]["packed"][:take_n].to(dev)
+                          if d + h < D else zeros(take_n))
+            intr = torch.cat(lo + [sh["packed"]] + hi)
+            outs = _run_rows(
+                intr, torch.clamp(st, 0, nbh), ln, wmax, overflow, reach_h,
+                pold[row0:row0 + nb_l].to(dev), p, reso,
+                MeshForm(own=sh["packed"], row0=row0, rstride=1, col0=col0))
+            parts.append(_local_backmap(outs, sh["in_dev"], sh["dest_loc"],
+                                        S_l, kk, reso))
+    return parts
+
+
+def _tile_config(tile_shape, tile_budgets, nb, s_cap, wmax):
+    """The tile mesh's shape, offsets, per-offset budgets (each capped at
+    the tile's ``nb_t`` blocks, the whole tile when unpinned) and the
+    segment cap of a tile's present set."""
+    tR, tC = int(tile_shape[0]), int(tile_shape[1])
+    offs = tile_offsets((tR, tC))
+    nb_t = nb // (tR * tC)
+    if tile_budgets:
+        if len(tile_budgets) != len(offs):
+            raise ValueError(
+                f"tile_budgets must carry one entry per canonical offset "
+                f"({len(offs)} for {tR}x{tC}); got {len(tile_budgets)}")
+        budgets = tuple(max(1, min(int(b), nb_t)) for b in tile_budgets)
+    else:
+        budgets = tuple(nb_t for _ in offs)
+    s_cap_t = max(s_cap, -(-(nb_t + sum(budgets)) // wmax))
+    return tR, tC, offs, nb_t, budgets, s_cap_t
+
+
+def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
+                reso, reach_kw):
+    """The tile mesh interval (JAX ``detect_resolve_sched`` tiles branch):
+    shard t owns tile t's block range; each sender ships, per canonical
+    offset, the budget-capped blocks its receiver's rows can reach
+    (``_tile_select`` on the gathered summaries), with their global ids,
+    and each receiver walks its present set ranked by global block id in
+    the ``gid`` form (``_tile_windows``; no full-grid fallback)."""
+    tR, tC, offs, nb_t, budgets, s_cap_t = tcfg
+    S_t = nb_t * block
+    shards = _shard_locals(cols, perm, devs, S_t, block, n // (tR * tC))
+    exports = {}
+    for o, (off, E) in enumerate(zip(offs, budgets)):
+        for u, v in _offset_pairs((tR, tC), off):
+            sh = shards[u]
+            dev = sh["dev"]
+            with on_device(dev):
+                summ_g = _gather(shards, "summ", dev)
+                summ_dst = {k: a[v * nb_t:(v + 1) * nb_t]
+                            for k, a in summ_g.items()}
+                reach_out = cd_tiled.reachability_from_summaries(
+                    summ_dst, sh["summ"], **reach_kw)
+                sidx, valid = _tile_select(reach_out.any(0), E, nb_t)
+                buf = torch.where(valid[:, None, None], sh["packed"][sidx],
+                                  torch.zeros((), device=dev))
+                gidp = torch.where(valid, u * nb_t + sidx + 1,
+                                   torch.zeros_like(sidx))
+                exports[o, v] = (buf, gidp)
+    parts = []
+    for t, sh in enumerate(shards):
+        dev = sh["dev"]
+        with on_device(dev):
+            reach_rows = cd_tiled.reachability_from_summaries(
+                sh["summ"], _gather(shards, "summ", dev), **reach_kw)
+            gparts = [t * nb_t + torch.arange(nb_t, device=dev)]
+            sparts = [sh["packed"]]
+            for o, E in enumerate(budgets):
+                if (o, t) in exports:
+                    rbuf, rgid = (a.to(dev) for a in exports[o, t])
+                else:          # an edge tile: the collective's zero fill
+                    rbuf = sh["packed"].new_zeros((E, _NF, block))
+                    rgid = torch.zeros(E, dtype=torch.int64, device=dev)
+                gparts.append(torch.where(rgid > 0, rgid - 1,
+                                          torch.full_like(rgid, nb)))
+                sparts.append(rbuf)
+            order, gid_tab, wst, wln = _tile_windows(
+                reach_rows, torch.cat(gparts), nb, s_cap_t, wmax)
+            outs = _run_rows(
+                torch.cat(sparts)[order], wst, wln, wmax, None, None,
+                pold[t * nb_t:(t + 1) * nb_t].to(dev), p, reso,
+                MeshForm(own=sh["packed"], row0=t * nb_t, gid=gid_tab),
+                fallback=False)
+            parts.append(_local_backmap(outs, sh["in_dev"], sh["dest_loc"],
+                                        S_t, kk, reso))
+    return parts
+
+
+def _tiles_reference(x: SchedInputs, p, tcfg):
+    """The single-device tiles reference (JAX ``detect_resolve_sched``
+    with ``shard_mode="tiles"`` and no mesh): tile by tile, the same
+    selection, present set, windows and gid form as the mesh, over the
+    global slabs.  Returns the outputs in kernel layout."""
+    tR, tC, offs, nb_t, budgets, s_cap_t = tcfg
+    nb, packed = x.nb, x.packed
+    dev = packed.device
+    chunks = []
+    for t in range(tR * tC):
+        r0t, c0t = divmod(t, tC)
+        rows = slice(t * nb_t, (t + 1) * nb_t)
+        rr = x.reach[rows]
+        reach_any = rr.any(0)
+        gparts = [t * nb_t + torch.arange(nb_t, device=dev)]
+        sparts = [packed[rows]]
+        for (dr, dcm), E in zip(offs, budgets):
+            ru, cu = r0t - dr, (c0t - dcm) % tC
+            if 0 <= ru < tR:
+                u = ru * tC + cu
+                sidx, valid = _tile_select(
+                    reach_any[u * nb_t:(u + 1) * nb_t], E, nb_t)
+                gparts.append(torch.where(valid, u * nb_t + sidx,
+                                          torch.full_like(sidx, nb)))
+                sparts.append(torch.where(valid[:, None, None],
+                                          packed[u * nb_t + sidx],
+                                          torch.zeros((), device=dev)))
+            else:
+                gparts.append(torch.full((E,), nb, dtype=torch.int64,
+                                         device=dev))
+                sparts.append(packed.new_zeros((E, _NF, x.block)))
+        order, gid_tab, wst, wln = _tile_windows(rr, torch.cat(gparts), nb,
+                                                 s_cap_t, x.wmax)
+        chunks.append(_run_rows(
+            torch.cat(sparts)[order], wst, wln, x.wmax, None, None,
+            x.pold[rows], p, x.reso,
+            MeshForm(own=packed[rows], row0=t * nb_t, gid=gid_tab),
+            fallback=False))
+    return [torch.cat(parts) for parts in zip(*chunks)]
+
+
+def _replicate_rows(x: SchedInputs, p, devs):
+    """The replicate row split (JAX ``detect_resolve_sched`` under a
+    mesh): shard d walks the row blocks d, d + D, ... against the
+    replicated column slabs, in the row-subset form (``rstride`` = D,
+    ``cd_pallas.interleave_rows``).  Returns the outputs in kernel
+    layout."""
+    D = len(devs)
+    home = x.packed.device
+    outs = None
+    for d, dev in enumerate(devs):
+        rows = torch.arange(d, x.nb, D, device=home)
+        if rows.numel() == 0:
+            continue
+        with on_device(dev):
+            o = _run_rows(
+                x.packed.to(dev), x.wst[rows].to(dev), x.wln[rows].to(dev),
+                x.wmax, x.overflow[rows].to(dev), x.reach[rows].to(dev),
+                x.pold[rows].to(dev), p, x.reso,
+                MeshForm(own=x.packed[rows].to(dev), row0=d, rstride=D))
+        if outs is None:
+            outs = [a.new_empty((x.nb, *a.shape[1:]), device=home)
+                    for a in o]
+        for a, b in zip(outs, o):
+            a[rows] = b.to(home)
+    return outs
+
+
+def _check_shard_args(n, nb, resume, mesh, mesh_axis, shard_mode,
+                     extra_blocks, tile_shape):
+    """The shard-mode checks of the JAX function.  Returns ``(ndev_sp,
+    mesh_tiles)``: the spatial mesh's shard count (0 without one) and
+    whether a tile mesh of ``tile_shape`` runs the interval."""
+    shape = dict(mesh.shape) if mesh is not None else {}
+    ndev_sp = shape[mesh_axis] if (shard_mode == "spatial"
+                                   and mesh_axis in shape) else 0
+    if shard_mode not in ("replicate", "spatial", "tiles"):
+        raise ValueError(f"Unknown shard_mode {shard_mode!r}; expected "
+                         "'replicate', 'spatial' or 'tiles'.")
+    if shard_mode == "spatial" and not resume:
+        raise ValueError(
+            "spatial shard mode requires the resume/partner-table path "
+            "(the production sparse backend always passes `partners`)")
+    if ndev_sp > 1 and nb % ndev_sp != 0:
+        raise ValueError(
+            f"spatial shard mode: padded block count nb={nb} must divide "
+            f"into {ndev_sp} devices — build the layout with "
+            f"cd_sched.spatial_layout (extra_blocks={extra_blocks})")
+    if ndev_sp > 1 and n % ndev_sp != 0:
+        raise ValueError(
+            f"spatial shard mode: nmax={n} must be divisible by the "
+            f"{ndev_sp}-device mesh")
+    mesh_tiles = False
+    if shard_mode == "tiles":
+        if not tile_shape or len(tuple(tile_shape)) != 2:
+            raise ValueError(
+                "tiles shard mode needs tile_shape=(R, C) — set "
+                "SimConfig.cd_tile_shape / SHARD TILE RxC")
+        tR, tC = int(tile_shape[0]), int(tile_shape[1])
+        tD = tR * tC
+        if not resume:
+            raise ValueError(
+                "tiles shard mode requires the resume/partner-table path "
+                "(the production sparse backend always passes `partners`)")
+        if nb % tD:
+            raise ValueError(
+                f"tiles shard mode: padded block count nb={nb} must divide "
+                f"into {tR}x{tC}={tD} tiles — build the layout with "
+                f"cd_sched.spatial_layout (extra_blocks={extra_blocks})")
+        mesh_tiles = tD > 1 and shape.get("lat") == tR \
+            and shape.get("lon") == tC
+        if mesh is not None and not mesh_tiles and tD > 1:
+            raise ValueError(
+                f"tiles shard mode needs a ('lat', 'lon') mesh of shape "
+                f"{tR}x{tC}; got axes {shape} — build it with "
+                "parallel.sharding.make_tile_mesh")
+        if mesh_tiles and n % tD:
+            raise ValueError(
+                f"tiles shard mode: nmax={n} must be divisible by the "
+                f"{tD}-device tile mesh")
+    return ndev_sp, mesh_tiles
+
+
 def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                          active, noreso, rpz, hpz, tlookahead, mvpcfg,
                          partners, resume_rpz_m, block=256, s_cap=6,
                          wmax=16, extra_blocks=32, perm=None, tas=None,
-                         cas=None, reso="mvp"):
+                         cas=None, reso="mvp", mesh=None, mesh_axis="ac",
+                         shard_mode="replicate", halo_blocks=0,
+                         tile_shape=None, tile_budgets=()):
     """Sparse-scheduled CD&R with in-kernel resume-nav (the production
-    form of the JAX function: ``partners`` given, one device).
+    form of the JAX function: ``partners`` given).
 
     ``perm`` is the cached ``stripe_sort_dest`` table (recomputed when
-    None); ``partners`` [n_tot, K] int32 is the sorted-space partner
-    table.  ``reso`` is the resolver form of the pair sums, with ``tas``
-    (Eby) or ``cas`` (Swarm).  Returns ``(rd, partners_new, active)``,
-    and with ``reso="swarm"`` ``(rd, partners_new, active, swarm_sums)``:
-    the per-ownship reductions in caller order (``rd.topk_*``
-    sorted-space ids), the merged sorted-space partner table, the
-    caller-space ASAS engagement flags and the seven neighbour sums in
-    caller order.  The small-N delegate to the full-grid kernel and the
-    mesh decompositions of the JAX function are not ported.
+    None; ``tile_sort_dest`` in the tiles mode); ``partners`` [n_tot, K]
+    int32 is the sorted-space partner table.  ``reso`` is the resolver
+    form of the pair sums, with ``tas`` (Eby) or ``cas`` (Swarm).
+    Returns ``(rd, partners_new, active)``, and with ``reso="swarm"``
+    ``(rd, partners_new, active, swarm_sums)``: the per-ownship
+    reductions in caller order (``rd.topk_*`` sorted-space ids), the
+    merged sorted-space partner table, the caller-space ASAS engagement
+    flags and the seven neighbour sums in caller order.  The small-N
+    delegate to the full-grid kernel of the JAX function is not ported.
+
+    ``mesh`` (a single-process mesh, ``parallel/sharding.py``) and
+    ``shard_mode`` pick the decomposition (module docstring): with a mesh
+    of more than one shard, ``"replicate"`` splits the rows, ``"spatial"``
+    runs the stripe mesh (``halo_blocks`` the window's half width, 0 one
+    shard's blocks) and ``"tiles"`` the tile mesh of ``tile_shape`` (R, C)
+    with the per-offset ``tile_budgets``.  Without a mesh ``"spatial"``
+    only switches the back-map to its sentinel-masked form and
+    ``"tiles"`` runs the single-device tiles reference.  Each mesh result
+    is bit-equal to its reference.  The spatial and tiles layouts
+    (``spatial_layout``) give inactive rows the sentinel slot ``n_tot``.
 
     Columns with a leading world axis [W, n] (``perm`` [W, n],
     ``partners`` [W, n_tot, K]) run W worlds in one interval, each kernel
     launched once for the stack; every result has the leading axis
-    (``nconf``/``nlos`` [W]) and world-local slot ids."""
+    (``nconf``/``nlos`` [W]) and world-local slot ids.  A stack of worlds
+    takes no mesh and no shard mode."""
+    lead = lat.shape[:-1]
+    n = lat.shape[-1]
+    block = min(block, 256)
+    nb = -(-n // block) + extra_blocks
+    n_tot = nb * block
+    kk = partners.shape[-1]
+    if lead and (mesh is not None or shard_mode != "replicate"):
+        raise ValueError("a stack of worlds runs single-device per world: "
+                         "no mesh and shard_mode 'replicate'")
+    ndev_sp, mesh_tiles = _check_shard_args(
+        n, nb, True, mesh, mesh_axis, shard_mode, extra_blocks, tile_shape)
+    p = cd_pallas.tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m)
+    if shard_mode == "tiles":
+        tcfg = _tile_config(tile_shape, tile_budgets, nb, s_cap, wmax)
+        if perm is None:
+            f32 = lambda a: a.to(torch.float32)
+            perm = tile_sort_dest(
+                f32(lat), f32(lon), f32(gs), active,
+                reach_threshold_m(f32(gs), active, float(tlookahead),
+                                  float(rpz)),
+                block, extra_blocks, tcfg[:2])
+    if ndev_sp > 1 or mesh_tiles:
+        swarm_m = _reach_margins(reso)
+        reach_kw = dict(rpz=float(rpz), tlookahead=float(tlookahead),
+                        hpz=float(hpz), min_reach_m=swarm_m[0],
+                        min_vreach_m=swarm_m[1])
+        cols = _columns(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+                        noreso, tas, cas, reso)
+        pold = _kernel_partners(partners, block)
+        devs = shard_devices(mesh)
+        if mesh_tiles:
+            parts = _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk,
+                                wmax, tcfg, p, reso, reach_kw)
+        else:
+            parts = _spatial_mesh(cols, perm, pold, devs, n, nb, block, kk,
+                                  s_cap, wmax, halo_blocks, p, reso,
+                                  reach_kw)
+        return _mesh_result(parts, lat.device, n_tot, kk, reso)
+
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                 noreso, rpz, hpz, tlookahead, partners, block=block,
                 s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
                 perm=perm, tas=tas, cas=cas, reso=reso)
-    p = cd_pallas.tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m)
-    outs = run_kernels(x, p)
+    if shard_mode == "tiles":
+        outs = _tiles_reference(x, p, tcfg)
+    elif mesh is not None and mesh.shape[mesh_axis] > 1:
+        outs = _replicate_rows(x, p, shard_devices(mesh))
+    else:
+        outs = run_kernels(x, p)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
      ctin, cidx) = outs[:10]
-    lead = lat.shape[:-1]
-    n_tot, kk, perm = x.n_tot, partners.shape[-1], x.perm.long()
-    stacked = torch.stack([o.reshape(*lead, n_tot) for o in
-                           (inconf, tcpamax, sdve, sdvn, sdvv, tsolv,
-                            *outs[12:])])
-    backed = take(stacked, perm.expand(stacked.shape[0], *perm.shape))
-    base = 0
-    if lead:        # the kernels' slot ids are global: back to the world's
-        base = slot_base(x.worlds, x.nb, n_tot, cidx.device)
-    rows = lambda a: take_rows(a.transpose(1, 2).reshape(*lead, n_tot, kk),
-                               perm)
-    topk_tin = rows(ctin)
-    topk_idx = rows(cidx - base)
+    perm = x.perm.long()
+    stacked = torch.stack([o.reshape(*lead, n_tot)
+                           for o in _back_rows(outs, reso)])
+    rows = lambda a: a.transpose(1, 2).reshape(*lead, n_tot, kk)
+    if shard_mode in ("spatial", "tiles"):
+        # the spatial and tiles layouts give inactive rows the sentinel
+        # slot n_tot: they read the identities, as the mesh's masked
+        # back-map gives them
+        pvalid = perm < n_tot
+        pc = torch.clamp(perm, 0, n_tot - 1)
+        backed = torch.where(pvalid[None, :], stacked[:, pc],
+                             _backed_neutral(reso, stacked.device))
+        topk_tin = torch.where(pvalid[:, None], rows(ctin)[pc],
+                               torch.full((), _BIG, device=ctin.device))
+        topk_idx = torch.where(pvalid[:, None], rows(cidx)[pc],
+                               torch.full((), _BIG_I, dtype=cidx.dtype,
+                                          device=cidx.device))
+        base = 0
+    else:
+        backed = take(stacked, perm.expand(stacked.shape[0], *perm.shape))
+        base = 0
+        if lead:    # the kernels' slot ids are global: back to the world's
+            base = slot_base(x.worlds, x.nb, n_tot, cidx.device)
+        topk_tin = take_rows(rows(ctin), perm)
+        topk_idx = take_rows(rows(cidx - base), perm)
     topk_idx = torch.where((topk_tin < _BIG) & (topk_idx < n_tot),
                            topk_idx, torch.full_like(topk_idx, -1))
     rd = RowConflictData(

@@ -267,9 +267,13 @@ def block_summaries(lat, lon, gs, active, nb, block, alt=None, vs=None):
 
 
 def reachability_from_summaries(row, col, rpz, tlookahead, hpz=None,
-                                min_reach_m=0.0, min_vreach_m=0.0):
+                                min_reach_m=0.0, min_vreach_m=0.0,
+                                margin_m=0.0):
     """[nbr, nbc] bool reachability between two summary sets ([W, nbr,
-    nbc] for summaries with a leading world axis)."""
+    nbc] for summaries with a leading world axis): a shard's own rows
+    against the gathered columns in the spatial and tiles modes.
+    ``margin_m`` widens the horizontal bound (the shard refreshes' drift
+    allowance)."""
     r = lambda x: x[..., :, None]          # row summaries down the rows
     c = lambda x: x[..., None, :]          # column summaries across
     latmin_r, latmax_r = row["latmin"], row["latmax"]
@@ -295,6 +299,8 @@ def reachability_from_summaries(row, col, rpz, tlookahead, hpz=None,
     dist_lb = torch.maximum(merid, zonal)
     thresh = rpz + tlookahead * (r(row["gsmax"]) + c(col["gsmax"]))
     thresh = torch.clamp_min(thresh, min_reach_m)
+    if torch.is_tensor(margin_m) or margin_m:
+        thresh = thresh + margin_m
     reach = dist_lb <= thresh * 1.05
     if hpz is not None and "altmin" in row:
         altgap = torch.clamp_min(torch.maximum(

@@ -38,10 +38,15 @@ checksummed writer, and ``request_preempt`` (a signal handler's call)
 makes ``run`` drain the chunk in flight, write a final checkpoint and
 pause (``handle_preempt``).
 
-Not ported here, each with its ROADMAP item: the shard and mesh modes
-(``set_shard``, the spatial refresh, mesh-epoch recovery; A9),
-the device-profiling hooks and plugins (A10) and the network node
-(A6b).
+Shard modes (``set_shard``, the SHARD command): the sparse backend's
+replicate, spatial and tiles decompositions on a single-process mesh
+(``parallel/sharding.py``) whose devices may repeat; the spatial and
+tiles refreshes re-bucket the caller slots at each due edge (or in the
+chunk) and a broken contract falls back tiles -> spatial -> replicate.
+
+Not ported here, each with its ROADMAP item: mesh-epoch recovery
+(``MeshGuard``; A9 step 2), the device-profiling hooks and plugins (A10)
+and the network node (A6b).
 """
 import datetime
 import os
@@ -295,7 +300,8 @@ class Simulation:
     def __init__(self, nmax: int = 1024, wmax: int = 32, dtype=None,
                  openap_path: Optional[str] = None, rng_seed: int = 0,
                  chunk_steps: Optional[int] = None,
-                 datalog_registry=None, device=None, world_tag: str = ""):
+                 datalog_registry=None, device=None, world_tag: str = "",
+                 pair_matrix: bool = True):
         # Multi-world identity (simulation/worlds.py): a non-empty tag
         # marks this sim as one world of a packed batch; it labels the
         # sim's trace spans (its log names carry it through its tagged
@@ -303,10 +309,12 @@ class Simulation:
         # names (set by the batch runner).
         self.world_tag = str(world_tag)
         self.host_tag = ""
+        # pair_matrix=False leaves out the dense backend's [N, N]
+        # resopairs (a blockwise backend's large fleets)
         self.traf = Traffic(nmax=nmax, wmax=wmax,
                             dtype=dtype or torch.float32,
                             openap_path=openap_path, rng_seed=rng_seed,
-                            device=device)
+                            pair_matrix=pair_matrix, device=device)
         self.routes = RouteManager(self.traf, wmax)
         self.scr = Screen()
         self.cfg = SimConfig()
@@ -411,6 +419,20 @@ class Simulation:
         self.preempt_requested = False
         self.traf.delete_hooks.append(self.cond.delac)
         self.traf.permute_hooks.append(self.cond.permute)
+        # Spatial and tiles modes: a freshly created aircraft has no
+        # sorted slot until the next refresh, so a creation forces the
+        # refresh at the next dispatch (in the same host edge as the
+        # flush: no chunk steps an aircraft CD cannot see).
+        self.traf.create_hooks.append(
+            lambda slots: self._invalidate_sort()
+            if self.shard_mode in ("spatial", "tiles") else None)
+        self._shard_fallback = False
+        # Shard modes (SHARD): 'off' | 'replicate' | 'spatial' | 'tiles'
+        self.shard_mode = "off"
+        self.shard_mesh = None
+        self.shard_stats = {}
+        self._mesh_refresh_ms = 0.0  # wall ms of the last shard refresh
+        self._refresh_guard = 0      # in-chunk refresh guard trips
         # Late import to avoid cycles; stack binds commands to this sim.
         from ..stack.stack import Stack
         self.stack = Stack(self)
@@ -559,6 +581,11 @@ class Simulation:
         self._fp_chain = 0
         self._fp_chunks = 0
         self._fp_steps = 0
+        # traf.reset rebuilt default-shape tables on the default device
+        self.shard_mode, self.shard_mesh = "off", None
+        self.shard_stats = {}
+        self._shard_fallback = False
+        self._mesh_refresh_ms = 0.0
         self.dtmult = 1.0
         self.ffmode = False
         self.stack.reset()
@@ -684,21 +711,41 @@ class Simulation:
 
     def _retire_refresh(self, edge):
         """Retire one edge's in-chunk RefreshPack: fold the refresh
-        bookkeeping back into host state (last-refresh time, counters).
-        Runs BEFORE the edge's other consumers.  No-op when the edge
-        carries no pack.  On one device the pack's slot permutation is
-        the identity and its guard word 0 (the spatial modes that set
-        them are ROADMAP A9)."""
+        bookkeeping back into host state (last-refresh time, counters),
+        apply the composed caller-slot bijection of the spatial and
+        tiles refreshes to the host tables exactly once, and trip the
+        fallback on a guard word.  Runs BEFORE the edge's other
+        consumers, so the host tables align with the pack's slot order.
+        No-op when the edge carries no pack."""
         pack = edge.refresh
         if pack is None:
             return
-        edge.refresh = None          # idempotent
+        edge.refresh = None          # idempotent: permute exactly once
         self._sort_simt = float(pack.sort_t)
         self._sort_backend = self.cfg.cd_backend
-        count = int(pack.count)
+        count, guard = int(pack.count), int(pack.guard)
         if count > 0:
             self._refresh_fired += count
             self.obs.counter("sim_inscan_refreshes").inc(count)
+            if pack.newslot.numel():
+                newslot = asnumpy(pack.newslot)
+                if not np.array_equal(newslot, np.arange(newslot.size)):
+                    self.traf.apply_slot_permutation(newslot)
+                    # an older published edge is in the old slot order
+                    self._last_edge = None
+        if guard != 0:
+            self._refresh_guard += 1
+            why = []
+            if guard & 1:
+                why.append("stripe occupancy overflow")
+            if guard & 2:
+                why.append("halo coverage/slab budget violated")
+            if guard & 4:
+                why.append("tile occupancy overflow")
+            self.scr.echo(f"SHARD {self.shard_mode.upper()} contract "
+                          "violated in-scan: " + ", ".join(why)
+                          + " (refresh skipped; falling back)")
+            self._shard_fallback = True
 
     def refresh_health(self):
         """The HEALTH ``sim`` sort-refresh readback: mode, due-gate
@@ -708,7 +755,177 @@ class Simulation:
                     active=self._inscan_refresh_active(),
                     last_refresh_simt=float(self._sort_simt),
                     inscan_refreshes=int(self._refresh_fired),
-                    guard_trips=0)       # set by the spatial modes (A9)
+                    guard_trips=int(self._refresh_guard))
+
+    # -------------------------------------------------------------- sharding
+    @staticmethod
+    def _default_tile_shape(ndev: int):
+        """Near-square R x C factorization of ``ndev`` with R >= C (more
+        latitude bands than longitude buckets): 8 -> 4x2, 4 -> 2x2,
+        6 -> 3x2; a prime gives ndev x 1."""
+        ndev = int(ndev)
+        c = int(np.sqrt(ndev))
+        while c > 1 and ndev % c:
+            c -= 1
+        return (ndev // max(c, 1), max(c, 1))
+
+    def _shard_ndev(self, default=0):
+        """Shards of the bound mesh (the 'ac' mesh or the tile mesh)."""
+        return int(self.shard_mesh.devices.size) if self.shard_mesh \
+            else int(default)
+
+    def _mesh_devs(self):
+        """The bound mesh's devices in shard order (a fallback re-forms
+        the mesh over them), or None without a mesh."""
+        if self.shard_mesh is None:
+            return None
+        return list(self.shard_mesh.devices.ravel())
+
+    def set_shard(self, mode: str, ndev: int = 0, halo_blocks: int = 0,
+                  devices=None, tiles=None):
+        """Select the shard mode: ``off`` | ``replicate`` | ``spatial`` |
+        ``tiles`` over the first ``ndev`` devices (0 = all) of
+        ``devices`` (default the visible GPUs, or one CPU for a sim on the
+        CPU; ``sharding.default_devices``).  The list may repeat a device:
+        ``devices=[torch.device("cuda:0")] * 4`` runs four shards on one
+        card.
+
+        ``replicate``: the state whole on the mesh's first device, the
+        sparse and pallas kernels' rows split over the shards against
+        replicated columns.  ``spatial`` (sparse backend): shard-owned
+        latitude stripes with a halo exchange; the aircraft are
+        re-bucketed into the owning shard's caller rows at every sort
+        refresh.  ``tiles`` (sparse backend): 2-D lat x lon tiles
+        (``tiles=(R, C)``, default a near-square factorization of
+        ndev) with the edge and corner exchange.  Switching modes
+        resets the engagement hysteresis (pairs re-detect at the next
+        interval).  Raises ``ValueError`` or ``RuntimeError`` for a mode
+        that cannot run, as JAX's."""
+        from ..parallel import sharding as shd
+        mode = str(mode).lower()
+        if mode not in ("off", "replicate", "spatial", "tiles"):
+            raise ValueError(f"SHARD {mode}: off/replicate/spatial/tiles")
+        self.drain_pipeline()
+        self.traf.flush()
+        if mode in ("spatial", "tiles") and self.cfg.cd_backend != "sparse":
+            raise ValueError(
+                f"SHARD {mode.upper()} needs the sparse backend "
+                "(stripes/tiles are a property of the sorted schedule) "
+                "— CDMETHOD SPARSE first")
+        # leave the previous mode's table layout
+        if self.shard_mode in ("spatial", "tiles") \
+                and mode not in ("spatial", "tiles"):
+            self.traf.state = shd.unprepare_spatial(self.traf.state)
+        if mode == "off":
+            self.shard_mode, self.shard_mesh = "off", None
+            self.cfg = self.cfg._replace(cd_mesh=None,
+                                         cd_shard_mode="replicate",
+                                         cd_tile_shape=(),
+                                         cd_tile_budgets=())
+            self._invalidate_sort()
+            return True
+        devs = list(devices) if devices is not None \
+            else shd.default_devices(self.traf.device)
+        ndev = ndev or len(devs)
+        if ndev > len(devs):
+            raise ValueError(f"SHARD: {ndev} devices requested, "
+                             f"{len(devs)} available")
+        if mode == "tiles":
+            if tiles is None:
+                cur = tuple(self.cfg.cd_tile_shape)
+                tiles = cur if len(cur) == 2 and cur[0] * cur[1] == ndev \
+                    else self._default_tile_shape(ndev)
+            tiles = (int(tiles[0]), int(tiles[1]))
+            if tiles[0] * tiles[1] != ndev:
+                raise ValueError(
+                    f"SHARD TILE {tiles[0]}x{tiles[1]} needs "
+                    f"{tiles[0] * tiles[1]} devices, asked for {ndev}")
+            mesh = shd.make_tile_mesh(tiles, devices=devs)
+        else:
+            mesh = shd.make_mesh(ndev, devices=devs)
+        home, sdev = shd.home_device(mesh), self.traf.device
+        if home.type != sdev.type or (home.index or 0) != (sdev.index or 0):
+            raise ValueError(
+                f"SHARD: the mesh's first device {home} must be the sim's "
+                f"device {sdev} (the state stays whole there)")
+        tile_budgets = ()
+        block = min(self.cfg.cd_block, 256)
+        if mode in ("spatial", "tiles"):
+            t0 = time.perf_counter()
+            if mode == "tiles":
+                state, newslot, info = shd.prepare_tiles(
+                    self.traf.state, mesh, self.cfg.asas, tiles=tiles,
+                    block=block)
+                tile_budgets = tuple(info["budgets"])
+            else:
+                state, newslot, info = shd.prepare_spatial(
+                    self.traf.state, mesh, self.cfg.asas, block=block,
+                    halo_blocks=halo_blocks)
+                # pin the (auto-sized) halo the refresh validated
+                halo_blocks = info["halo_blocks"]
+            self._mesh_refresh_ms = (time.perf_counter() - t0) * 1e3
+            self.traf.state = state
+            self.traf.apply_slot_permutation(newslot)
+            self.shard_stats = info
+            self._sort_simt = self.simt
+            self._sort_backend = "sparse"
+            self._sort_t_chain = None   # the host value is the fresh truth
+            self._last_edge = None      # slots moved: ACDATA cache stale
+        else:
+            self.traf.state = shd.shard_state(self.traf.state, mesh)
+            self._invalidate_sort()
+        self.shard_mode, self.shard_mesh = mode, mesh
+        self.cfg = self.cfg._replace(
+            cd_mesh=mesh, cd_mesh_axis="ac",
+            cd_shard_mode=mode if mode in ("spatial", "tiles")
+            else "replicate",
+            cd_halo_blocks=halo_blocks,
+            cd_tile_shape=tiles if mode == "tiles" else (),
+            cd_tile_budgets=tile_budgets)
+        return True
+
+    def _spatial_refresh(self, state):
+        """The spatial/tiles chunk-edge refresh: re-sort, caller-slot
+        re-bucketing and halo check, the host slot-table remap and the
+        stats for SHARD.  A broken contract schedules the fallback at the
+        next ``step()`` and steps this chunk on the old (still
+        margin-covered) layout."""
+        from ..core.asas import refresh_spatial_shard, refresh_tile_shard
+        t0 = time.perf_counter()
+        block = min(self.cfg.cd_block, 256)
+        try:
+            if self.shard_mode == "tiles":
+                state, newslot, info = refresh_tile_shard(
+                    state, self.cfg.asas, self.cfg.cd_tile_shape,
+                    block=block, budgets=self.cfg.cd_tile_budgets)
+            else:
+                state, newslot, info = refresh_spatial_shard(
+                    state, self.cfg.asas, self.shard_mesh.shape["ac"],
+                    block=block, halo_blocks=self.cfg.cd_halo_blocks)
+            self._mesh_refresh_ms = (time.perf_counter() - t0) * 1e3
+        except RuntimeError as e:
+            self.scr.echo(f"SHARD {self.shard_mode.upper()} contract "
+                          f"violated: {e}")
+            self._shard_fallback = True
+            return state
+        self.traf.apply_slot_permutation(newslot)
+        self.shard_stats = info
+        self._last_edge = None          # slots moved: ACDATA cache stale
+        return state
+
+    def mesh_health(self):
+        """The HEALTH ``mesh`` section: epoch, shard count, mode, last
+        shard-refresh wall ms, degradation state (epoch 0 and never
+        degraded: the recovery from a lost mesh is ROADMAP A9 step 2)."""
+        d = dict(epoch=0, devices=self._shard_ndev(),
+                 mode=str(self.shard_mode),
+                 last_refresh_ms=round(float(self._mesh_refresh_ms), 3),
+                 degraded=False)
+        if self.shard_mode == "tiles":
+            ts = tuple(self.cfg.cd_tile_shape)
+            d["tiles"] = f"{ts[0]}x{ts[1]}" if len(ts) == 2 else ""
+            d["tile_budgets"] = list(self.cfg.cd_tile_budgets)
+        return d
 
     # ----------------------------------------------------- preempt/autosave
     def request_preempt(self):
@@ -881,6 +1098,26 @@ class Simulation:
         it is.  Returns ``(chunk, simt)`` ready for dispatch, or
         ``None`` when this iteration is already handled without a chunk
         (HOLD, FF horizon reached, stack-only work)."""
+        if self._shard_fallback:
+            self._shard_fallback = False
+            nd = self._shard_ndev()
+            if self.shard_mode == "tiles":
+                # one rung at a time: stripes keep the O(N/D) schedule if
+                # their contract holds; only then the replicated floor
+                try:
+                    self.scr.echo("SHARD: falling back to SPATIAL "
+                                  f"({nd} devices)")
+                    self.set_shard("spatial", nd, devices=self._mesh_devs())
+                except (ValueError, RuntimeError) as e:
+                    self.scr.echo(f"SHARD: SPATIAL fallback failed ({e}); "
+                                  f"falling back to REPLICATE ({nd} "
+                                  "devices)")
+                    self.set_shard("replicate", nd,
+                                   devices=self._mesh_devs())
+            else:
+                self.scr.echo("SHARD: falling back to REPLICATE "
+                              f"({nd} devices)")
+                self.set_shard("replicate", nd, devices=self._mesh_devs())
         # Scenario commands due at current sim time (stack.checkfile).
         simt = self.simt_planned
         self.stack.checkfile(simt)
@@ -1017,6 +1254,10 @@ class Simulation:
         if self.autosave_dt > 0 \
                 and t_edge - self._autosave_t >= self.autosave_dt - 1e-9:
             reasons.append("autosave")      # on-disk persist reads state
+        if self.shard_mode in ("spatial", "tiles") \
+                and self._refresh_due(simt):
+            reasons.append("shard-refresh")  # the re-bucketing moves the
+            #                                  slots the pending edge uses
         return reasons
 
     def _dispatch_chunk(self, state, chunk: int, keep: bool, simt: float):
@@ -1070,35 +1311,43 @@ class Simulation:
         self._seq_dispatched = self._chunk_seq
         return self._chunk_seq
 
+    def _refresh_due(self, simt: float) -> bool:
+        """Whether the next dispatch runs the host-edge sort refresh: a
+        blockwise backend without the in-chunk refresh, and the cadence
+        elapsed, no sort yet, or a backend switch ('sparse' stores
+        stripe DESTINATIONS in sort_perm, the others a Morton
+        PERMUTATION: feeding one into the other scrambles the layout)."""
+        if self._inscan_refresh_active() \
+                or self.cfg.cd_backend not in ("tiled", "pallas", "sparse"):
+            return False
+        due = self.cfg.asas.sort_every * self.cfg.asas.dtasas
+        return (simt - self._sort_simt >= due or self._sort_simt < 0
+                or self._sort_backend != self.cfg.cd_backend)
+
     def _pre_dispatch_refresh(self, state, simt: float):
-        """The (due) chunk-edge spatial-sort refresh.  With the in-chunk
-        refresh active this is a NO-OP (the refresh rides the chunk and
-        retires via the RefreshPack)."""
-        if self._inscan_refresh_active():
-            return state
-        if self.cfg.cd_backend in ("tiled", "pallas", "sparse"):
-            due = self.cfg.asas.sort_every * self.cfg.asas.dtasas
-            # Also force a refresh when the backend changed: 'sparse'
-            # stores stripe DESTINATIONS in sort_perm, the others a
-            # Morton PERMUTATION — feeding one into the other scrambles
-            # the sorted layout.
-            if (simt - self._sort_simt >= due
-                    or self._sort_simt < 0
-                    or self._sort_backend != self.cfg.cd_backend):
-                t0 = time.perf_counter()
-                with self.recorder.span("sort_refresh",
-                                        backend=self.cfg.cd_backend,
-                                        world=self.world_tag):
+        """The (due) chunk-edge spatial-sort refresh (in the spatial and
+        tiles modes the shard refresh, ``_spatial_refresh``).  With the
+        in-chunk refresh active this is a NO-OP (the refresh rides the
+        chunk and retires via the RefreshPack)."""
+        if self._refresh_due(simt):
+            t0 = time.perf_counter()
+            with self.recorder.span("sort_refresh",
+                                    backend=self.cfg.cd_backend,
+                                    shard=self.shard_mode,
+                                    world=self.world_tag):
+                if self.shard_mode in ("spatial", "tiles"):
+                    state = self._spatial_refresh(state)
+                else:
                     from ..core.asas import impl_for_backend, \
                         refresh_spatial_sort
                     state = refresh_spatial_sort(
                         state, self.cfg.asas,
                         block=self.cfg.cd_block,
                         impl=impl_for_backend(self.cfg.cd_backend))
-                self.obs.get("sim_sort_refresh_ms").observe(
-                    (time.perf_counter() - t0) * 1e3)
-                self._sort_simt = simt
-                self._sort_backend = self.cfg.cd_backend
+            self.obs.get("sim_sort_refresh_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
+            self._sort_simt = simt
+            self._sort_backend = self.cfg.cd_backend
         return state
 
     def _fold_clock(self, t0: float, chunk: int) -> float:

@@ -67,9 +67,20 @@ MAGIC4 = b"BSTPUSNAP4\n"        # v4: + shard-layout header line
 
 def shard_meta(sim) -> dict:
     """The sim's shard layout as plain-JSON metadata (it rides every blob
-    and the v4 file header).  The port runs on one device: mode
-    ``off``."""
-    return dict(mode="off", ndev=0, halo_blocks=0)
+    and the v4 file header), so a restore onto another shard count or
+    mode is detected without unpickling: mode, shards, halo blocks and,
+    in the tiles mode, the tile shape and pinned budgets."""
+    mesh = getattr(sim, "shard_mesh", None)
+    cfg = getattr(sim, "cfg", None)
+    meta = dict(mode=str(getattr(sim, "shard_mode", "off")),
+                ndev=int(mesh.devices.size) if mesh is not None else 0,
+                halo_blocks=int(getattr(cfg, "cd_halo_blocks", 0) or 0))
+    if meta["mode"] == "tiles":
+        meta["tiles"] = [int(t) for t in
+                         tuple(getattr(cfg, "cd_tile_shape", ()) or ())]
+        meta["tile_budgets"] = [int(b) for b in
+                                getattr(cfg, "cd_tile_budgets", ())]
+    return meta
 
 
 def state_blob(sim, state=None) -> dict:
@@ -167,24 +178,34 @@ def restore_blob(sim, blob, full_reset: bool = True):
     traf.state = _tree_map(_like, state_from_numpy(blob["state"],
                                                    device=traf.device), old)
     # The sorted-space caches are keyed to the capturing layout: a blob
-    # whose partner table is not this layout's size, or that another
+    # whose partner table is not the running mode's size, or that another
     # shard layout captured, restarts them from the identity sort and an
-    # empty table (JAX snapshot.py:134-175).
+    # empty table of the running mode's size (JAX snapshot.py:156-200).
     asas = traf.state.asas
     bshard = blob.get("shard")
     cur = shard_meta(sim)
-    if asas.partners_s.shape[0] != traf.nmax + SORT_PAD or (
+    n_exp = traf.nmax + SORT_PAD
+    if cur["mode"] in ("spatial", "tiles") \
+            and getattr(sim, "shard_mesh", None) is not None:
+        from ..core.asas import spatial_table_size
+        n_exp = spatial_table_size(traf.nmax, min(sim.cfg.cd_block, 256),
+                                   cur["ndev"])
+    if asas.partners_s.shape[0] != n_exp or (
             bshard is not None
             and (bshard.get("ndev"), bshard.get("mode"), bshard.get("tiles"))
             != (cur["ndev"], cur["mode"], cur.get("tiles"))):
-        kk = old.asas.partners_s.shape[1] \
-            if asas.partners_s.shape[0] != traf.nmax + SORT_PAD \
-            else asas.partners_s.shape[1]
+        kk = asas.partners_s.shape[1] if asas.partners_s.shape[0] == n_exp \
+            else old.asas.partners_s.shape[1]
         dev = old.asas.partners_s.device
         traf.state = traf.state.replace(asas=asas.replace(
             sort_perm=torch.arange(traf.nmax, dtype=torch.int32, device=dev),
-            partners_s=torch.full((traf.nmax + SORT_PAD, kk), -1,
-                                  dtype=torch.int32, device=dev)))
+            partners_s=torch.full((n_exp, kk), -1, dtype=torch.int32,
+                                  device=dev)))
+        sim._invalidate_sort()
+    elif cur["mode"] != "off":
+        # under a mesh the restored layout is consistent, but its
+        # drift-margin clock is unknown: re-sort (re-bucket and
+        # re-validate) before the next chunk
         sim._invalidate_sort()
     elif blob.get("sort") is not None:
         # the captured layout stays until its next due refresh

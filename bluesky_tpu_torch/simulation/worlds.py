@@ -53,7 +53,9 @@ class WorldBatch:
         self.status: List[Optional[str]] = [None] * len(pieces)
         self.t0 = time.monotonic()
         self.stats = {"joint_dispatches": 0, "solo_dispatches": 0,
-                      "worlds_stepped": 0, "max_group": 0}
+                      "worlds_stepped": 0, "max_group": 0,
+                      "solo_sharded": 0}
+        self._solo_echoed = set()
         self.sims: List[Simulation] = []
         for i, (scentime, scencmd) in enumerate(pieces):
             tag = f"w{i:02d}"
@@ -123,10 +125,23 @@ class WorldBatch:
                 if sim.state_flag != OP:
                     self._finish(i)
                 continue
-            key = (sim.cfg, sim.guard.enabled, signature(sim.traf.state))
+            if sim.shard_mode != "off" or sim.cfg.cd_mesh is not None:
+                # the world axis composes with single-device configs
+                # only: a sharded world steps on its own, loudly
+                if i not in self._solo_echoed:
+                    self._solo_echoed.add(i)
+                    self.stats["solo_sharded"] += 1
+                    self._echo(i, f"WORLDS: world {i} runs shard_mode="
+                                  f"{sim.shard_mode} — stepping "
+                               "unbatched (world-batching composes "
+                               "with sharding later, not now)")
+                key = ("solo", i)
+            else:
+                key = (sim.cfg, sim.guard.enabled,
+                       signature(sim.traf.state))
             groups.setdefault(key, []).append((i, sim) + plan)
 
-        for (cfg, checked, _), members in groups.items():
+        for key, members in groups.items():
             if len(members) == 1:
                 i, sim, chunk, simt = members[0]
                 self.stats["solo_dispatches"] += 1
@@ -136,6 +151,7 @@ class WorldBatch:
                 self._drain_echo(i)
                 self._maybe_finish(i)
                 continue
+            cfg, checked, _ = key
             self._dispatch_group(cfg, checked, members)
         return not self.done
 

@@ -27,8 +27,6 @@ from .argparser import txt2alt, txt2spd
 #: Commands of subsystems not ported yet: name -> (ROADMAP item, usage,
 #: help), usage and help as the JAX package registers them.
 DEFERRED = {
-    "SHARD": ("A9", "SHARD [OFF | REPLICATE [n] | SPATIAL [n [halo]] | "
-              "TILE RxC]", "Multi-chip mode"),
     "PROFILE": ("A10", "PROFILE START [dir]/STOP/KERNELS [nsteps]/DEEP/"
                 "DEVICE [n] [dir]/TRACE [ON/OFF/DUMP]",
                 "Trace capture, per-kernel timings, device-trace windows "
@@ -1130,6 +1128,14 @@ def register_all(stack):
         health query needs the worker side of the network, ROADMAP
         A6b)."""
         ps = sim.pipe_stats
+        mh = sim.mesh_health()
+        mesh_line = ""
+        if mh["mode"] != "off" or mh["epoch"] > 0:
+            mesh_line = (f"\nmesh: epoch {mh['epoch']}, "
+                         f"{mh['devices']} device(s), mode {mh['mode']}"
+                         + (f" {mh['tiles']}" if mh.get("tiles") else "")
+                         + f", last refresh {mh['last_refresh_ms']:g} ms"
+                         + (" [DEGRADED]" if mh["degraded"] else ""))
         sh = sim.scan_health()
         sim_line = ""
         if sh.get("scanstats"):
@@ -1151,7 +1157,80 @@ def register_all(stack):
                       f"{sim._step_count} steps done, chunks "
                       f"{ps['pipelined_chunks']} pipelined/"
                       f"{ps['sync_chunks']} sync"
-                      + sim_line)
+                      + mesh_line + sim_line)
+
+    def shardcmd(mode=None, ndev=None, halo=None):
+        """SHARD [OFF | REPLICATE [n] | SPATIAL [n [halo]] | TILE RxC]:
+        the shard mode on a mesh of the visible devices (the GPUs, or one
+        CPU), with its readback when called bare."""
+        from ..parallel import sharding as shd
+        usage = ("SHARD [OFF | REPLICATE [n] | SPATIAL [n [halo]] | "
+                 "TILE RxC]")
+        if mode is None:
+            if sim.shard_mode == "off":
+                ndev = len(shd.default_devices(sim.traf.device))
+                return True, (f"SHARD OFF ({ndev} "
+                              f"device(s) visible; modes: REPLICATE, "
+                              "SPATIAL, TILE [sparse backend])")
+            nd = sim._shard_ndev()
+            msg = (f"SHARD {sim.shard_mode.upper()}: {nd} devices, "
+                   f"backend {sim.cfg.cd_backend}")
+            st = sim.shard_stats
+            if sim.shard_mode in ("spatial", "tiles") and st:
+                cnt = st.get("counts")
+                imb = (float(cnt.max()) / max(float(cnt.mean()), 1e-9)
+                       if cnt is not None and cnt.size else 0.0)
+            if sim.shard_mode == "spatial" and st:
+                msg += (
+                    f"; stripes {st['nb_local']} blocks/device "
+                    f"(nb={st['nb']}, extra={st['extra_blocks']}), "
+                    f"occupancy {st['occupancy']:.0%} of shard cap, "
+                    f"last-refresh imbalance {imb:.2f}x, "
+                    f"halo {st['halo_blocks']} blocks/side "
+                    f"(need {st['halo_need']}) = "
+                    f"{st['halo_rows']} exchanged rows/interval, "
+                    f"gsmax {st['gsmax']:.0f} m/s")
+            elif sim.shard_mode == "tiles" and st:
+                tr, tc = st["tile_shape"]
+                msg += (
+                    f"; tiles {tr}x{tc} lat x lon "
+                    f"({st['nb_local']} blocks/tile, nb={st['nb']}, "
+                    f"extra={st['extra_blocks']}), "
+                    f"occupancy {st['occupancy']:.0%} of shard cap, "
+                    f"last-refresh imbalance {imb:.2f}x, "
+                    f"halo budgets {tuple(st['budgets'])} blocks/offset "
+                    f"(need {tuple(st['needs'])}) = "
+                    f"{st['halo_rows']} exchanged rows/interval, "
+                    f"gsmax {st['gsmax']:.0f} m/s")
+            return True, msg
+        m = str(mode).upper()
+        if m in ("TILE", "TILES"):
+            tiles, nd = None, 0
+            if ndev is not None:
+                ts = str(ndev).lower()
+                try:
+                    if "x" in ts:
+                        r, c = ts.split("x", 1)
+                        tiles = (int(r), int(c))
+                        nd = tiles[0] * tiles[1]
+                    else:
+                        nd = int(float(ndev))
+                except ValueError:
+                    return False, usage
+            try:
+                sim.set_shard("tiles", nd, tiles=tiles)
+            except (ValueError, RuntimeError) as e:
+                return False, f"SHARD TILE: {e}"
+            return shardcmd()
+        if m not in ("OFF", "REPLICATE", "SPATIAL"):
+            return False, usage
+        try:
+            nd = int(float(ndev)) if ndev is not None else 0
+            hb = int(float(halo)) if halo is not None else 0
+            sim.set_shard(m.lower(), nd, halo_blocks=hb)
+        except (ValueError, RuntimeError) as e:
+            return False, f"SHARD {m}: {e}"
+        return shardcmd()
 
     def scanstatscmd(flag=None):
         """SCANSTATS [ON/OFF]: in-scan telemetry — per-step device-side
@@ -1553,6 +1632,12 @@ def register_all(stack):
         "HEALTH": ["HEALTH", "", healthcmd,
                    "Serving-fabric health: queue depth, worker "
                    "progress, hedges, drops"],
+        "SHARD": ["SHARD [OFF | REPLICATE [n] | SPATIAL [n [halo]] | "
+                  "TILE RxC]",
+                  "[txt,txt,txt]", shardcmd,
+                  "Multi-chip mode: replicated columns, spatial "
+                  "latitude stripes, or 2-D lat x lon tiles with "
+                  "corner-halo exchange (readback bare)"],
         "SCANSTATS": ["SCANSTATS [ON/OFF]", "[txt]", scanstatscmd,
                       "In-scan telemetry: per-step device-side stats "
                       "folded through the chunk scan (readback bare)"],

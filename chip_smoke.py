@@ -138,6 +138,25 @@ Phases, in order; any failure exits non-zero before the last line:
     ``snapshot.load`` of a 100k K = 16 ``Simulation``: ms, bytes, and the
     restored state bit for bit the saved one.  The kernels line lists the
     K = 16 forms (and the K = 32 MVP forms) by ``kname``.
+14. shard phase (``shard_phase``): the shard modes on ``SHARDS`` = 4
+    shards of the one card (a mesh that repeats ``cuda:0``).  (a) every
+    mesh form of the walker (``MESH_FORMS``: K1's row subset, ``col0``
+    halo window and gid table, K2's and K3's row subset and window) in
+    MVP, Eby and Swarm at K = 8 and MVP at K = 16 against its plain
+    version on the check shapes of phase 3, the row subsets also bit-equal
+    to the single-device launch's rows; (b) the 100k continental scene in
+    200,000 slots (2 x the fleet, as JAX's bench sizes the spatial and
+    tiles runs) in a ``Simulation``, CDMETHOD SPARSE, ``set_shard`` with
+    ``devices=[cuda:0] * 4`` in REPLICATE 4, SPATIAL 4 and TILE 2x2, and
+    CDMETHOD PALLAS in REPLICATE 4: 3 s of ``Simulation.run`` (FF) with
+    the launch counts set to 0 just before and read just after (each
+    mode's forms, ``SHARD_MODES``, launched), then 60 steps on the mesh
+    and on the single-device reference of the mode, every state tensor
+    bit-equal, the ASAS interval ms of both, the chunk rate and the peak
+    memory; (c) every mesh form timed, bounded and held to its plain
+    version at the shapes the main path gave it (the first call of each,
+    ``capture_mesh_calls``; K3's window, on no path, on the pallas
+    operands).  The kernels line lists the mesh forms by ``mesh_name``.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -235,14 +254,17 @@ def kname(name, kk):
 
 
 #: each form's walker, by a piece of its mangled name in the ``nvcc
-#: -Xptxas -v`` report (items_kernel<RESUME, IDS, RESO, KT>): the
+#: -Xptxas -v`` report (items_kernel<RESUME, IDS, RESO, KT, MESH>): the
 #: constant K = 8 form (KT = 8), and with ``/kwide`` the run-time form
-#: every other K takes (KT = 0)
+#: every other K takes (KT = 0); with ``/mesh`` the mesh form (MESH) of
+#: the shard modes
 WALKERS = {
-    form_name(k, r) + wide: "items_kernelILb{}ELb{}ELi{}ELi{}E".format(
+    form_name(k, r) + wide + mesh:
+    "items_kernelILb{}ELb{}ELi{}ELi{}ELb{}E".format(
         int(k in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume")),
-        int(k == "cd_pallas._kernel_cand"), RESOS.index(r), kt)
-    for k, r in FORMS for wide, kt in (("", 8), ("/kwide", 0))}
+        int(k == "cd_pallas._kernel_cand"), RESOS.index(r), kt, int(bool(mesh)))
+    for k, r in FORMS for wide, kt in (("", 8), ("/kwide", 0))
+    for mesh in ("", "/mesh") if not (mesh and k == "cd_pallas._kernel_cand")}
 #: phase 13 (``kwide_phase``): every kernel form at partner width KWIDE,
 #: the MVP forms at KWIDE_MVP as well
 KWIDE = 16
@@ -961,8 +983,8 @@ def report_kernels(runs, launches, errs, regs):
         kernel, _, reso = name.partition("/")
         reso = r.get("reso", reso)
         kk = r.get("kk", 8)
-        walker = form_name(kernel, reso or "mvp") \
-            + ("" if kk == 8 else "/kwide")
+        walker = r.get("walker", form_name(kernel, reso or "mvp")
+                       + ("" if kk == 8 else "/kwide"))
         nreg, st, ld = regs.get(walker, (None, None, None))
         report.append(dict(
             name=name, route="cuda", source=KERNELS[kernel]["source"],
@@ -2896,6 +2918,533 @@ def kwide_phase(dev, errs, regs, scale=1):
     return report
 
 
+#: phase 14 (``shard_phase``): the mesh forms of the walker (ROADMAP B3),
+#: by kernel and ``MeshForm.kind``, and the kernel forms each shard mode
+#: of the 100k scene launches (K3's row subset on the pallas backend's
+#: replicate split; its ``col0`` form is on no path: the JAX pallas
+#: backend has no spatial mode)
+MESH_FORMS = (("cd_sched._sched_kernel", "rows"),
+              ("cd_sched._sched_kernel", "col0"),
+              ("cd_sched._sched_kernel", "gid"),
+              ("cd_pallas._kernel_resume", "rows"),
+              ("cd_pallas._kernel_resume", "col0"),
+              ("cd_pallas._kernel", "rows"),
+              ("cd_pallas._kernel", "col0"))
+SHARD_MODES = {"replicate": (("cd_sched._sched_kernel", "rows"),
+                             ("cd_pallas._kernel_resume", "rows")),
+               "spatial": (("cd_sched._sched_kernel", "col0"),
+                           ("cd_pallas._kernel_resume", "col0")),
+               "tiles": (("cd_sched._sched_kernel", "gid"),),
+               "pallas replicate": (("cd_pallas._kernel", "rows"),)}
+#: shards of phase 14, all on the one card
+SHARDS = 4
+
+
+def mesh_name(kernel, reso, kind, kk=8):
+    """The JSON name of a mesh form: the kernel form's name, then
+    ``/rows``, ``/col0`` or ``/gid`` (and ``/k16`` past K = 8)."""
+    return kname(f"{form_name(kernel, reso)}/{kind}", kk)
+
+
+def mesh_launch_counts():
+    """The launch count of each MVP mesh form, by ``mesh_name``."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    wrapper = {"cd_sched._sched_kernel": (cd_sched, "cd_sched_tiles"),
+               "cd_pallas._kernel_resume": (cd_pallas, "cd_full_grid_resume"),
+               "cd_pallas._kernel": (cd_pallas, "cd_full_grid")}
+    return {mesh_name(k, "mvp", kind): wrapper[k][0].LAUNCHES[
+        cd_pallas.launch_key(wrapper[k][1], "mvp", kind)]
+        for k, kind in MESH_FORMS}
+
+
+def wider(pold, kk):
+    """A partner table ``pold`` [nb, 8, B] as ``kk`` wide, the new slots
+    empty (the same partners in a wider table)."""
+    import torch
+    pad = pold.new_full((pold.shape[0], kk - pold.shape[1], pold.shape[2]),
+                        -1)
+    return torch.cat([pold, pad], 1).contiguous()
+
+
+class MeshCall:
+    """One mesh-form call of a walker wrapper: ``fn`` (``sched_tiles``,
+    ``full_grid_resume`` or ``full_grid``) with its positional operands
+    and its keywords, the ``mesh`` among them; ``plain`` its plain
+    version; ``tiles(i)`` local row i's local column blocks.  ``run``
+    calls the wrapper (or with ``plain=True`` the plain version) in
+    resolver form ``reso`` at partner width ``kk``."""
+
+    def __init__(self, kernel, fn, plain, args, kw, tiles):
+        self.kernel, self.fn, self.plain = kernel, fn, plain
+        self.args, self.kw, self.tiles = list(args), dict(kw), tiles
+        self.mesh = kw["mesh"]
+
+    def _args(self, kk):
+        if self.kernel == "cd_pallas._kernel":
+            return self.args, dict(kk=kk)
+        a = list(self.args)
+        j = 4 if self.kernel == "cd_sched._sched_kernel" else 2
+        if kk != a[j].shape[1]:
+            a[j] = wider(a[j], kk)
+        return a, {}
+
+    def run(self, reso="mvp", kk=8, plain=False, **kw):
+        a, extra = self._args(kk)
+        if plain:
+            if self.kernel == "cd_pallas._kernel":
+                return self.plain(*a, reso=reso, kk=kk, mesh=self.mesh)
+            return self.plain(*a, reso=reso, mesh=self.mesh)
+        return self.fn(*a, reso=reso, mesh=self.mesh, **extra, **kw)
+
+    def pold(self, kk):
+        if self.kernel == "cd_pallas._kernel":
+            return None
+        return self._args(kk)[0][4 if self.kernel ==
+                                 "cd_sched._sched_kernel" else 2]
+
+    def intr(self):
+        return self.args[0]
+
+    def col_blocks(self):
+        return self.mesh.col_blocks(self.intr().shape[0]).numpy()
+
+    def pairs(self):
+        """Active pairs over the visited tiles, self pairs excluded."""
+        from bluesky_tpu_torch.ops.cd_pallas import _IDX
+        m = self.mesh
+        act = lambda t: (t[:, _IDX["active"], :] > 0.5).sum(1).cpu() \
+            .numpy().astype(np.int64)
+        ao, ai, gb = act(m.own), act(self.intr()), self.col_blocks()
+        total = 0
+        for i in range(m.own.shape[0]):
+            js = self.tiles(i)
+            g = m.row0 + i * m.rstride
+            total += int(ao[i] * ai[js].sum() - ao[i] * (gb[js] == g).sum())
+        return total
+
+    def keep(self, ncnt, kk):
+        """The keep predicate's pairs: the conflict pairs and the active
+        old partners that lie in a visited tile (errs high, as
+        ``keep_pairs``)."""
+        from bluesky_tpu_torch.ops.cd_pallas import _IDX
+        pold = self.pold(kk)
+        if pold is None:
+            return 0
+        m = self.mesh
+        B = m.own.shape[2]
+        act_o = (m.own[:, _IDX["active"], :] > 0.5).cpu().numpy()
+        q = pold.cpu().numpy()
+        gb = self.col_blocks()
+        lane = np.arange(B)
+        total = int(ncnt.double().sum())
+        for i in range(m.own.shape[0]):
+            g = m.row0 + i * m.rstride
+            ok = ((q[i] >= 0) & act_o[i][None, :] & (q[i] != g * B + lane)
+                  & np.isin(q[i] // B, gb[self.tiles(i)]))
+            total += int(ok.sum())
+        return total
+
+    def nbytes(self, reso, kk):
+        """Bytes the launch must move: the own-row and column slabs, the
+        windows or reach mask and the partner table read once, the
+        outputs written once."""
+        m = self.mesh
+        nb, B = m.own.shape[0], m.own.shape[2]
+        nacc = 8 + (7 if reso == "swarm" else 0)
+        index = self.args[1:3] if self.kernel == "cd_sched._sched_kernel" \
+            else self.args[1:2]
+        read = (m.own.numel() + self.intr().numel()) * 4 + sum(
+            t.numel() * t.element_size() for t in index)
+        pold = self.pold(kk)
+        if pold is None:
+            return read + (nacc * nb * B + 2 * nb * kk * B) * 4
+        return read + pold.numel() * 4 \
+            + ((nacc + 1) * nb * B + 4 * nb * kk * B) * 4
+
+
+def capture_mesh_calls(fn):
+    """Run ``fn()`` with the walker wrappers' mesh-form calls recorded:
+    ``{(kernel, kind): MeshCall}`` of the first call of each, and under
+    ``"pallas"`` the first pallas operands of a replicate split."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    seen = {}
+    orig = {"sched_tiles": (cd_sched, cd_sched.sched_tiles),
+            "full_grid_resume": (cd_pallas, cd_pallas.full_grid_resume),
+            "full_grid": (cd_pallas, cd_pallas.full_grid),
+            "full_grid_rows": (cd_pallas, cd_pallas.full_grid_rows)}
+    kernel = {"sched_tiles": "cd_sched._sched_kernel",
+              "full_grid_resume": "cd_pallas._kernel_resume",
+              "full_grid": "cd_pallas._kernel"}
+    plain = {"sched_tiles": cd_sched.sched_tiles_plain,
+             "full_grid_resume": cd_pallas.full_grid_resume_plain,
+             "full_grid": cd_pallas.full_grid_plain}
+
+    nops = {"sched_tiles": 6, "full_grid_resume": 4, "full_grid": 3}
+
+    def wrap(name, f):
+        def g(*a, **kw):
+            if name == "full_grid_rows":        # the pallas operands
+                seen.setdefault("pallas", a[0])
+                return f(*a, **kw)
+            m = kw.get("mesh")
+            if m is not None and (kernel[name], m.kind) not in seen:
+                ops = a[:nops[name]]
+                if name == "sched_tiles":     # packed, wst, wln, wmax, ...
+                    st = ops[1].cpu().numpy()
+                    ln = np.minimum(ops[2].cpu().numpy(), ops[3])
+                    nc = ops[0].shape[0]
+
+                    def tiles(i, st=st, ln=ln, nc=nc):
+                        t = np.concatenate(
+                            [np.arange(b, b + k) for b, k in zip(st[i], ln[i])]
+                            + [np.zeros(0, np.int64)])
+                        return t[t < nc]
+                else:                         # packed, reach, ...
+                    rh = ops[1].cpu().numpy()
+                    tiles = lambda i, rh=rh: np.flatnonzero(rh[i])
+                seen[kernel[name], m.kind] = MeshCall(
+                    kernel[name], f, plain[name], ops, dict(mesh=m), tiles)
+            return f(*a, **kw)
+        return g
+
+    for name, (mod, f) in orig.items():
+        setattr(mod, name, wrap(name, f))
+    try:
+        fn()
+    finally:
+        for name, (mod, f) in orig.items():
+            setattr(mod, name, f)
+    return seen
+
+
+def check_mesh_forms(dev, errs, reso, kk, scale=1):
+    """Phase 14 (a): every mesh form in resolver form ``reso`` at partner
+    width ``kk`` against its plain version on the check shapes
+    (``check_split``), with the TAS or CAS column of ``extra_col``: K1's
+    row subset (shard 1 of ``SHARDS``: rows 1, 1 + D, ...), halo window
+    (shard 1's contiguous rows against its neighbours' blocks, ``col0``)
+    and gid table (the same rows against the present set of the blocks
+    they reach, ranked by block id) on the continental check; K2's row
+    subset and window (the shard with the most overflow rows) on the
+    resumed regional clump; K3's on the continental check in Morton
+    order.  The row subset is also held
+    bit-equal to the same rows of the single-device launch."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled, cr_mvp
+    from bluesky_tpu_torch.ops.cd_pallas import MeshForm
+    mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                           tlookahead=300.0)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp, 5 * NM * 1.05)
+    pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp)
+    D = SHARDS
+    name = lambda k, kind: mesh_name(k, reso, kind, kk)
+
+    def hold(k, kind, kern, plain, whole=None, rows=None):
+        err, outs = check_split(name(k, kind), kern, plain)
+        if whole is not None:
+            for j, (a, b) in enumerate(zip(outs, whole)):
+                if not torch.equal(a, b[rows]):
+                    raise AssertionError(f"{name(k, kind)}: output {j} "
+                                         "differs from the single-device "
+                                         "launch's rows")
+        errs[name(k, kind)] = max(errs.get(name(k, kind), 0.0), err)
+        return err
+
+    def window(nb, d):
+        """Shard d's rows and its halo window of one shard's blocks a
+        side."""
+        nb_l = nb // D
+        r0, c0 = d * nb_l, max(0, (d - 1) * nb_l)
+        return r0, r0 + nb_l, c0, min(nb, (d + 2) * nb_l)
+
+    # K1 on the continental check
+    c = columns(16384 // scale, "continental", seed=1)
+    cols, col = cd_args(c, dev), extra_col(c, reso, dev)
+    n_tot = cd_sched.padded_size(len(c["lat"]), 256)
+    x = cd_sched.prepare(
+        *cols, 5 * NM, 1000 * FT, 300.0,
+        torch.full((n_tot, kk), -1, dtype=torch.int32, device=dev),
+        block=256, **reso_kw(reso, col))
+    rows = torch.arange(1, x.nb, D, device=dev)
+    form = MeshForm(own=x.packed[rows], row0=1, rstride=D)
+    args = (x.packed, x.wst[rows], x.wln[rows], x.wmax, x.pold[rows], p)
+    e = [hold("cd_sched._sched_kernel", "rows",
+              lambda **kw: cd_sched.sched_tiles(*args, reso=reso, mesh=form,
+                                                **kw),
+              cd_sched.sched_tiles_plain(*args, reso, mesh=form),
+              cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold,
+                                   p, reso=reso), rows)]
+    r0, r1, c0, c1 = window(x.nb, 1)
+    reach_h = x.reach[r0:r1, c0:c1].contiguous()
+    st, ln, _ = cd_sched.build_windows(reach_h, 6, x.wmax,
+                                       pad_start=c1 - c0)
+    form = MeshForm(own=x.packed[r0:r1], row0=r0, col0=c0)
+    args = (x.packed[c0:c1], torch.clamp(st, 0, c1 - c0), ln, x.wmax,
+            x.pold[r0:r1], p)
+    e.append(hold("cd_sched._sched_kernel", "col0",
+                  lambda **kw: cd_sched.sched_tiles(*args, reso=reso,
+                                                    mesh=form, **kw),
+                  cd_sched.sched_tiles_plain(*args, reso, mesh=form)))
+    rr = x.reach[r0:r1]
+    present = torch.nonzero(rr.any(0) | (torch.arange(
+        x.nb, device=dev) // (r1 - r0) == 1)).reshape(-1)
+    s_cap_t = max(6, -(-present.numel() // x.wmax))
+    order, gid_tab, wst, wln = cd_sched._tile_windows(rr, present, x.nb,
+                                                      s_cap_t, x.wmax)
+    form = MeshForm(own=x.packed[r0:r1], row0=r0, gid=gid_tab)
+    args = (x.packed[present[order]], wst, wln, x.wmax, x.pold[r0:r1], p)
+    e.append(hold("cd_sched._sched_kernel", "gid",
+                  lambda **kw: cd_sched.sched_tiles(*args, reso=reso,
+                                                    mesh=form, **kw),
+                  cd_sched.sched_tiles_plain(*args, reso, mesh=form)))
+    # K3 on the continental check in Morton order
+    perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8]).long()
+    xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0,
+                           block=256, **reso_kw(
+                               reso, None if col is None else col[perm],
+                               False))
+    rows = torch.arange(1, xp.nb, D, device=dev)
+    form = MeshForm(own=xp.packed[rows], row0=1, rstride=D)
+    e.append(hold("cd_pallas._kernel", "rows",
+                  lambda **kw: cd_pallas.full_grid(
+                      xp.packed, xp.reach[rows], pp, reso=reso, kk=kk,
+                      mesh=form, **kw),
+                  cd_pallas.full_grid_plain(xp.packed, xp.reach[rows], pp,
+                                            reso, kk, mesh=form),
+                  cd_pallas.full_grid(xp.packed, xp.reach, pp, reso=reso,
+                                      kk=kk), rows))
+    r0, r1, c0, c1 = window(xp.nb, 1)
+    form = MeshForm(own=xp.packed[r0:r1], row0=r0, col0=c0)
+    reach_h = xp.reach[r0:r1, c0:c1].contiguous()
+    e.append(hold("cd_pallas._kernel", "col0",
+                  lambda **kw: cd_pallas.full_grid(
+                      xp.packed[c0:c1], reach_h, pp, reso=reso, kk=kk,
+                      mesh=form, **kw),
+                  cd_pallas.full_grid_plain(xp.packed[c0:c1], reach_h, pp,
+                                            reso, kk, mesh=form)))
+    # K2 on the resumed regional clump
+    c = columns(8192 // scale, "regional", seed=1)
+    col = extra_col(c, reso, dev)
+    n_tot = cd_sched.padded_size(len(c["lat"]), 256)
+    table = torch.full((n_tot, kk), -1, dtype=torch.int32, device=dev)
+    perm = None
+    for t_ahead in (0.0, 20.0):
+        x = cd_sched.prepare(*cd_args(c, dev, t_ahead), 5 * NM, 1000 * FT,
+                             300.0, table, block=256, s_cap=2, perm=perm,
+                             **reso_kw(reso, col))
+        perm = x.perm
+        if not t_ahead:
+            table = cd_sched.run_kernels(x, p)[11].transpose(1, 2) \
+                .reshape(n_tot, kk).contiguous()
+    reach_f = x.reach & x.overflow[:, None]
+    rows = torch.arange(1, x.nb, D, device=dev)
+    form = MeshForm(own=x.packed[rows], row0=1, rstride=D)
+    e.append(hold("cd_pallas._kernel_resume", "rows",
+                  lambda **kw: cd_pallas.full_grid_resume(
+                      x.packed, reach_f[rows], x.pold[rows], p, reso=reso,
+                      mesh=form, **kw),
+                  cd_pallas.full_grid_resume_plain(
+                      x.packed, reach_f[rows], x.pold[rows], p, reso,
+                      mesh=form),
+                  cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p,
+                                             reso=reso), rows))
+    # the shard with the most overflow rows
+    d = int(x.overflow[:x.nb // D * D].reshape(D, -1).sum(1).argmax())
+    r0, r1, c0, c1 = window(x.nb, d)
+    form = MeshForm(own=x.packed[r0:r1], row0=r0, col0=c0)
+    args = (x.packed[c0:c1], reach_f[r0:r1, c0:c1].contiguous(),
+            x.pold[r0:r1], p)
+    e.append(hold("cd_pallas._kernel_resume", "col0",
+                  lambda **kw: cd_pallas.full_grid_resume(
+                      *args, reso=reso, mesh=form, **kw),
+                  cd_pallas.full_grid_resume_plain(*args, reso, mesh=form)))
+    log(f"check mesh forms K={kk} {reso}: max abs err K1 rows/col0/gid "
+        f"{e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}, K3 rows/col0 {e[3]:.3g}/"
+        f"{e[4]:.3g} (continental), K2 rows/col0 {e[5]:.3g}/{e[6]:.3g} "
+        f"(regional t+20s, {int(x.overflow.sum())} overflow rows, "
+        f"{int(reach_f[r0:r1, c0:c1].sum())} window tiles): match")
+
+
+def shard_scene(dev, mode, n_ac=100_000, nmax=200_000):
+    """The 100k continental scene in a ``Simulation`` on ``dev``
+    (``main_scene``'s geometry, ``nmax`` = 2 x ``n_ac`` as JAX's bench
+    sizes the spatial and tiles runs), CDMETHOD SPARSE (PALLAS for
+    ``"pallas replicate"``), then ``set_shard`` of ``mode`` with
+    ``devices=[dev] * SHARDS`` (TILE 2x2).  Returns the sim."""
+    import torch
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    rng = np.random.default_rng(0)
+    sim = Simulation(nmax=nmax, device=dev, pair_matrix=False)
+    sim_do(sim, "CDMETHOD PALLAS" if mode == "pallas replicate"
+           else "CDMETHOD SPARSE", "ASAS ON")
+    lat = rng.uniform(35.0, 60.0, n_ac)
+    lon = rng.uniform(-10.0, 30.0, n_ac)
+    hdg = rng.uniform(0.0, 360.0, n_ac)
+    alt = rng.uniform(3000.0, 11000.0, n_ac)
+    spd = rng.uniform(130.0, 240.0, n_ac)
+    sim.traf.create(n_ac, "B744", alt, spd, None, lat, lon, hdg)
+    sim.traf.flush()
+    t0 = time.perf_counter()
+    sim.set_shard(mode.split()[-1], SHARDS, devices=[dev] * SHARDS,
+                  tiles=(2, 2) if mode == "tiles" else None)
+    torch.cuda.synchronize()
+    log(f"shard {mode}: set_shard in {time.perf_counter() - t0:.2f} s, "
+        f"stats {sim.shard_stats}")
+    return sim
+
+
+def shard_mode_run(dev, mode, n_ac=100_000, nmax=200_000):
+    """Phase 14 (b) for one mode: ``shard_scene``, then 3 s of sim time
+    through ``Simulation.run`` (FF) with the launch counts set to 0 just
+    before and read just after (every form of ``SHARD_MODES[mode]``
+    launched, or the run fails); then from a copy of the run's state 60
+    steps (3 ASAS intervals) of ``run_steps`` on the mesh and 60 on the
+    single-device reference of the mode (the same config without the
+    mesh), every state tensor bit-equal; the ASAS interval ms of both,
+    the chunk rate and the peak memory.  Returns ``(launches, calls)``:
+    the mesh-form launches of the run and the first mesh-form call of
+    each kind (``capture_mesh_calls``), the main path's shapes."""
+    import torch
+    from bluesky_tpu_torch.core import asas, graph, step as stepmod
+    graph.clear()
+    torch.cuda.reset_peak_memory_stats()
+    sim = shard_scene(dev, mode, n_ac, nmax)
+    reset_launches()
+    sim_do(sim, "OP", "FF")
+    t0 = time.perf_counter()
+    calls = capture_mesh_calls(lambda: sim.run(until_simt=3.0))
+    sim.drain_pipeline()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mesh_launch_counts()
+    for k, kind in SHARD_MODES[mode]:
+        if launches[mesh_name(k, "mvp", kind)] < 1:
+            raise AssertionError(f"shard {mode}: Simulation.run never "
+                                 f"launched {mesh_name(k, 'mvp', kind)}")
+    check_sim_state(f"shard {mode}", sim)
+    log(f"shard {mode}: Simulation.run to simt {sim.simt:.2f} in "
+        f"{wall:.2f} s ({SHARDS} shards on {dev}), nconf "
+        f"{int(sim.traf.state.asas.nconf_cur)}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    cfg = sim.cfg
+    ref_cfg = cfg._replace(cd_mesh=None)
+    s0 = state_copy(sim.traf.state)
+    mesh_out = stepmod.run_steps(state_copy(s0), cfg, 3 * CHUNK)
+    mesh_out = state_copy(mesh_out)
+    ref_out = stepmod.run_steps(state_copy(s0), ref_cfg, 3 * CHUNK)
+    assert_same(f"shard {mode}: mesh against the single-device reference",
+                mesh_out, ref_out)
+    log(f"shard {mode}: 60 steps on the mesh bit-equal to the "
+        f"single-device reference (nconf {int(ref_out.asas.nconf_cur)}, "
+        f"engaged {int(ref_out.asas.active.sum())})")
+    impl = asas.impl_for_backend(cfg.cd_backend)
+    interval = lambda c: asas.update_tiled(
+        mesh_out, c.asas, block=c.cd_block, impl=impl, mesh=c.cd_mesh,
+        mesh_axis=c.cd_mesh_axis, shard_mode=c.cd_shard_mode,
+        halo_blocks=c.cd_halo_blocks, tile_shape=c.cd_tile_shape or None,
+        tile_budgets=c.cd_tile_budgets)
+    time_layers(f"shard {mode}", {
+        "ASAS interval on the mesh": lambda: interval(cfg),
+        "ASAS interval, single-device reference":
+            lambda: interval(ref_cfg)})
+    state, chunk_ms = mesh_out, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = stepmod.run_steps(state, cfg, CHUNK)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"shard {mode}: 20-step chunk ms {[round(m, 3) for m in chunk_ms]}"
+        f", aircraft-steps/s "
+        f"{[f'{n_ac * CHUNK / (m / 1e3):.4g}' for m in chunk_ms]}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+        f"{nvidia_smi()}")
+    del sim, state, mesh_out, ref_out, s0
+    graph.clear()
+    return launches, calls
+
+
+def mesh_runs(calls, launches):
+    """``report_kernels`` runs of every mesh form at the main path's
+    shapes: each captured call (``capture_mesh_calls``) in MVP, Eby and
+    Swarm at K = 8 and MVP at K = 16 (the Eby and Swarm forms and K = 16
+    on the MVP path's operands, the partner table widened by empty
+    slots), the launches those of the MVP path."""
+    runs = {}
+    for (k, kind), call in calls.items():
+        for reso, kk in (("mvp", 8), ("eby", 8), ("swarm", 8), ("mvp", 16)):
+            nm = mesh_name(k, reso, kind, kk)
+            outs = call.run(reso, kk)
+            nfix = 13 if call.pold(kk) is not None else 10
+            launches.setdefault(nm, 0)
+            mesh = call.mesh
+            runs[nm] = dict(
+                kern=lambda c=call, r=reso, q=kk, **kw: c.run(r, q, **kw),
+                plain=lambda c=call, r=reso, q=kk: c.run(r, q, plain=True),
+                pairs=call.pairs(), keep=call.keep(outs[6], kk),
+                bytes=call.nbytes(reso, kk),
+                tiles=int(sum(len(call.tiles(i))
+                              for i in range(mesh.own.shape[0]))),
+                kk=kk, reso=reso,
+                walker=form_name(k, reso) + ("" if kk == 8 else "/kwide")
+                + "/mesh",
+                extra=dict(mesh_form=kind, rows=int(mesh.own.shape[0]),
+                           cols=int(call.intr().shape[0]),
+                           rstride=int(mesh.rstride)),
+                **form_work(reso, outs, nfix))
+    return runs
+
+
+def shard_phase(dev, errs, regs, scale=1):
+    """Phase 14: the shard modes (ROADMAP A9 step 1, B3) on ``SHARDS``
+    shards of the one card.  (a) ``check_mesh_forms`` in MVP, Eby and
+    Swarm at K = 8 and MVP at K = 16; (b) ``shard_mode_run`` for SHARD
+    REPLICATE, SPATIAL and TILE 2x2 on the 100k continental sparse scene,
+    and the pallas backend's replicate split; every mesh form then timed,
+    bounded and held to its plain version at the main path's shapes.
+    Returns the kernels JSON entries of the mesh forms; fails unless
+    every form was measured."""
+    from bluesky_tpu_torch.ops import cd_pallas
+    t0 = time.perf_counter()
+    for reso in RESOS:
+        check_mesh_forms(dev, errs, reso, 8, scale)
+    check_mesh_forms(dev, errs, "mvp", KWIDE, scale)
+    log(f"shard (a): {time.perf_counter() - t0:.1f} s")
+    launches, calls = {}, {}
+    for mode in SHARD_MODES:
+        t0 = time.perf_counter()
+        n, c = shard_mode_run(dev, mode, 100_000 // scale, 200_000 // scale)
+        launches.update({k: v for k, v in n.items() if v})
+        calls.update({k: v for k, v in c.items() if k not in calls})
+        log(f"shard (b) {mode}: {time.perf_counter() - t0:.1f} s")
+        log_card(f"after shard {mode}")
+    for k, kind in MESH_FORMS:
+        launches.setdefault(mesh_name(k, "mvp", kind), 0)
+    # K3's halo window is on no path: its call on the pallas replicate
+    # path's operands (shard 1's contiguous rows against its neighbours'
+    # blocks)
+    x = calls.pop("pallas")
+    p = calls[("cd_pallas._kernel", "rows")].args[2]
+    nb_l = x.nb // SHARDS
+    r0, r1, c0, c1 = nb_l, 2 * nb_l, 0, min(x.nb, 3 * nb_l)
+    reach = x.reach[r0:r1, c0:c1].contiguous()
+    calls[("cd_pallas._kernel", "col0")] = MeshCall(
+        "cd_pallas._kernel", cd_pallas.full_grid, cd_pallas.full_grid_plain,
+        (x.packed[c0:c1], reach, p),
+        dict(mesh=cd_pallas.MeshForm(own=x.packed[r0:r1], row0=r0,
+                                     col0=c0)),
+        lambda i, rh=reach.cpu().numpy(): np.flatnonzero(rh[i]))
+    t0 = time.perf_counter()
+    report = report_kernels(mesh_runs(calls, launches), launches, errs, regs)
+    log(f"shard (c) timings: {time.perf_counter() - t0:.1f} s")
+    missing = {mesh_name(k, r, kind, kk) for k, kind in MESH_FORMS
+               for r, kk in (("mvp", 8), ("eby", 8), ("swarm", 8),
+                             ("mvp", KWIDE))} - {e["name"] for e in report}
+    if missing:
+        raise AssertionError(f"mesh forms never measured: {sorted(missing)}")
+    return report
+
+
 def sim_phase(dev):
     """Phase 10: the embedded ``Simulation`` driven through its stack
     (``sim_continental``, then ``sim_regional``); returns the kernel
@@ -2970,9 +3519,13 @@ def main():
     kwide_report = kwide_phase(dev, errs, regs)
     log(f"kwide_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after kwide_phase")
+    t0 = time.perf_counter()
+    shard_report = shard_phase(dev, errs, regs)
+    log(f"shard_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after shard_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
-    report += world_report + kwide_report
+    report += world_report + kwide_report + shard_report
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")

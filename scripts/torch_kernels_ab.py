@@ -4,15 +4,15 @@ against the same kernels of an earlier source, in one process on one
 card:
 
     mkdir -p _chipcheck
-    git show 3494b74:bluesky_tpu_torch/csrc/cd_tiles.cu \\
+    git show 86cb929:bluesky_tpu_torch/csrc/cd_tiles.cu \\
         > _chipcheck/parent_cd_tiles.cu
     python3 scripts/torch_kernels_ab.py _chipcheck/parent_cd_tiles.cu \\
         [--rounds 3]
 
-The earlier source must have the C interface of 3494b74, the walker
-with its resolver forms before the partner width K became an argument
-(``PARENT_SIGNATURES``: the entry points without ``kk``; its tables are
-8 wide).  It is built with the flags of
+The earlier source must have the C interface of 86cb929, the walker
+with its resolver forms and the partner width K before the mesh forms
+(``PARENT_SIGNATURES``: the entry points without the mesh arguments; its
+tables are 8 wide here).  It is built with the flags of
 ``ops/_cuda.py`` (its ``-Xptxas -v`` register lines are printed) into
 ``bluesky_tpu_torch/_build/``.  Both builds walk the same work items
 (``cd_mask_items`` and ``window_items`` of the current source).  The
@@ -48,15 +48,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 _f, _d, _i, _p = ctypes.c_float, ctypes.c_double, ctypes.c_int, \
     ctypes.c_void_p
-#: the C entry points of the walkers and the merge at 3494b74
+#: the C entry points of the walkers and the merge at 86cb929
 PARENT_SIGNATURES = {
     "cd_sched_tiles": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p]
-    + [_f] * 8 + [_d] * 2 + [_i] + [_p] * 5,
+    + [_f] * 8 + [_d] * 2 + [_i, _i] + [_p] * 5,
     "cd_full_grid": [_p, _i, _i, _p, _i, _p, _p, _p, _i] + [_f] * 8
-    + [_d] * 2 + [_i] + [_p] * 4,
+    + [_d] * 2 + [_i, _i] + [_p] * 4,
     "cd_cand_items": [_p, _i, _i, _p, _i, _p, _p, _p, _i, _p, _i]
-    + [_f] * 8 + [_d] * 2 + [_i] + [_p] * 4,
-    "cd_merge_items": [_i, _i, _i] + [_p] * 12 + [_i, _p],
+    + [_f] * 8 + [_d] * 2 + [_i, _i] + [_p] * 4,
+    "cd_merge_items": [_i, _i, _i, _i] + [_p] * 12 + [_i, _p],
 }
 
 
@@ -100,7 +100,7 @@ def parent_pass(lib, x, make_items, p, pold=None, cand=None):
     head = (x.packed.data_ptr(), nb, B, items.tiles.data_ptr(), W,
             items.start.data_ptr(), items.length.data_ptr(),
             items.order.data_ptr(), C)
-    floats = (*cd_pallas.kernel_floats(p), cd_pallas.RESO_CODE["mvp"])
+    floats = (*cd_pallas.kernel_floats(p), cd_pallas.RESO_CODE["mvp"], 8)
     stream = _cuda.stream_ptr(dev)
     if cand is not None:
         rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1],
@@ -117,7 +117,7 @@ def parent_pass(lib, x, make_items, p, pold=None, cand=None):
     outs = cd_pallas.alloc_outputs(nb, 8, B, dev, resume=pold is not None)
     ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))
     rc = lib.cd_merge_items(
-        nb, B, C, items.length.data_ptr(),
+        nb, B, C, 8, items.length.data_ptr(),
         0 if pold is None else pold.data_ptr(), acc.data_ptr(),
         ct.data_ptr(), ci.data_ptr(), 0 if pold is None else keep.data_ptr(),
         *ptrs, cd_pallas.RESO_CODE["mvp"], stream)

@@ -70,8 +70,9 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 def test_import_without_jax():
     """The package and every module of it (the chunk graphs, the ``obs``
     instruments, the Simulation with its stack, routes, navdb, guard
-    and multi-world batch, and the differentiable mode among them)
-    import with jax, flax and bluesky_tpu unavailable."""
+    and multi-world batch, the differentiable mode and the shard modes'
+    ``parallel.sharding`` among them) import with jax, flax and
+    bluesky_tpu unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
@@ -92,7 +93,7 @@ def test_import_without_jax():
         "    'stack.stack', 'stack.commands', 'simulation.pipeline',\n"
         "    'simulation.snapshot', 'simulation.sim', 'simulation.worlds',\n"
         "    'fault.guard', 'diff', 'diff.smooth', 'diff.objectives',\n"
-        "    'diff.optimize', 'ops.ties')}\n"
+        "    'diff.optimize', 'ops.ties', 'parallel', 'parallel.sharding')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"

@@ -385,3 +385,17 @@ def test_partner_width_kernels_match_plain(cuda, kk):
     cd_pallas.compare_outputs(
         f"cand tiles K={kk}", cd_pallas.cand_tiles(xc.packed, cand, pp, kk=kk),
         cd_pallas.cand_tiles_plain(xc.packed, cand, pp, kk=kk))
+
+
+@pytest.mark.parametrize("reso,kk", [("mvp", 8), ("eby", 8), ("swarm", 8),
+                                     ("mvp", 16)])
+def test_mesh_forms_match_plain(cuda, reso, kk):
+    """The walker's mesh forms (ROADMAP B3) against their plain versions
+    and the row subsets against the one-card launch's rows: K1's row
+    subset, ``col0`` window and gid table, K2's and K3's row subset and
+    window, on the check shapes of ``chip_smoke.check_mesh_forms``
+    (fleets divided by 4)."""
+    import chip_smoke
+    errs = {}
+    chip_smoke.check_mesh_forms(cuda, errs, reso, kk, scale=4)
+    assert len(errs) == 7
