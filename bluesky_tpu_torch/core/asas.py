@@ -360,7 +360,8 @@ def _margin_reach(lat, lon, gs, active, dest_sent, nb, n_tot, block, cfg):
     vertical gating): what the halo and budget checks validate.  Returns
     ``(reach_m [nb, nb], gsmax)``."""
     plat, plon, pgs, pact = cd_sched.scatter_padded(
-        [lat, lon, gs, active.to(lat.dtype)], dest_sent, n_tot)
+        [lat, lon, gs, active.to(lat.dtype)], dest_sent, n_tot,
+        sentinel=True)
     summ = cd_tiled.block_summaries(plat, plon, pgs, pact > 0.5, nb, block)
     gsmax = torch.where(active, gs, torch.zeros_like(gs)).max()
     margin_s = float(cfg.sort_every * cfg.dtasas)

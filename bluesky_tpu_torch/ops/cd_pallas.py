@@ -1047,29 +1047,38 @@ def on_device(dev):
         else contextlib.nullcontext()
 
 
-def full_grid_rows(x: PallasInputs, p: TileParams, devs, kk=KK):
-    """The replicate row split of the full grid (JAX ``run_full_sharded``):
-    shard d walks the row blocks d, d + D, ... (``interleave_rows``)
-    against the replicated slabs in the row-subset form, on its device
-    ``devs[d]``.  Returns the outputs in kernel layout."""
-    D = len(devs)
-    home = x.packed.device
+def split_rows(nb, devs, home, run):
+    """The replicate row split (JAX ``run_full_sharded``): shard d walks
+    the row blocks d, d + D, ... below ``nb`` (its part of
+    ``interleave_rows``, made on ``home`` so that nothing waits for a
+    host copy) on its device ``devs[d]``.  ``run(d, rows, dev)`` gives
+    shard d's outputs for the row blocks ``rows`` (int64 on ``home``);
+    returns them placed back in row order on ``home``, in kernel
+    layout."""
     outs = None
     for d, dev in enumerate(devs):
-        rows = torch.arange(d, x.nb, D, device=home)
+        rows = torch.arange(d, nb, len(devs), device=home)
         if rows.numel() == 0:
             continue
         with on_device(dev):
-            o = full_grid(x.packed.to(dev), x.reach[rows].to(dev), p,
-                          reso=x.reso, kk=kk,
-                          mesh=MeshForm(own=x.packed[rows].to(dev), row0=d,
-                                        rstride=D))
+            o = run(d, rows, dev)
         if outs is None:
-            outs = [a.new_empty((x.nb, *a.shape[1:]), device=home)
-                    for a in o]
+            outs = [a.new_empty((nb, *a.shape[1:]), device=home) for a in o]
         for a, b in zip(outs, o):
             a[rows] = b.to(home)
     return outs
+
+
+def full_grid_rows(x: PallasInputs, p: TileParams, devs, kk=KK):
+    """The replicate row split of the full grid (``split_rows``) against
+    the replicated slabs in the row-subset form.  Returns the outputs in
+    kernel layout."""
+    def run(d, rows, dev):
+        return full_grid(
+            x.packed.to(dev), x.reach[rows].to(dev), p, reso=x.reso, kk=kk,
+            mesh=MeshForm(own=x.packed[rows].to(dev), row0=d,
+                          rstride=len(devs)))
+    return split_rows(x.nb, devs, x.packed.device, run)
 
 
 def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK,

@@ -179,17 +179,19 @@ def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra,
     return dest.scatter_(-1, order, (take(base, ss) + rank).to(torch.int32))
 
 
-def scatter_padded(arrs, dest, n_tot, neutral=0.0):
+def scatter_padded(arrs, dest, n_tot, neutral=0.0, sentinel=False):
     """Place per-aircraft columns into the padded sorted layout (per
-    world, for columns with a leading world axis).  A destination past
-    the layout (the sentinel ``n_tot`` of an inactive row in the spatial
-    and tiles layouts) is dropped, as JAX's scatter drops it."""
-    idx = torch.clamp(dest.long(), 0, n_tot)
+    world, for columns with a leading world axis).  With ``sentinel`` a
+    destination ``n_tot`` (an inactive row of the spatial and tiles
+    layouts, or any past it) is dropped, as JAX's scatter drops it;
+    without, every destination must lie in the layout."""
+    idx = torch.clamp(dest.long(), 0, n_tot) if sentinel else dest.long()
     out = []
     for a in arrs:
-        z = torch.full((*a.shape[:-1], n_tot + 1), neutral, dtype=a.dtype,
-                       device=a.device)
-        out.append(z.scatter_(-1, idx, a)[..., :n_tot].contiguous())
+        z = torch.full((*a.shape[:-1], n_tot + sentinel), neutral,
+                       dtype=a.dtype, device=a.device)
+        z = z.scatter_(-1, idx, a)
+        out.append(z[..., :n_tot].contiguous() if sentinel else z)
     return out
 
 
@@ -507,7 +509,7 @@ def _reach_margins(reso):
 def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, partners, block=256, s_cap=6, wmax=16,
             extra_blocks=32, perm=None, tas=None, cas=None,
-            reso="mvp") -> SchedInputs:
+            reso="mvp", sentinel=False) -> SchedInputs:
     """Everything ``detect_resolve_sched`` hands the two kernels: the
     padded stripe-sorted slabs, the reachability, the segment windows and
     the partner table in kernel layout.  Always float32.  ``reso`` with
@@ -515,9 +517,10 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
     (``cd_pallas.tr_row``); Swarm widens the reachability to its
     neighbourhood, horizontally and vertically.  Columns with a leading
     world axis [W, n] (``partners`` [W, n_tot, K] in world-local slots)
-    give the stacked operands of every world (``SchedInputs``).  A
-    ``perm`` entry past the layout (the spatial and tiles layouts'
-    sentinel of an inactive row) leaves that row out."""
+    give the stacked operands of every world (``SchedInputs``).  With
+    ``sentinel`` a ``perm`` entry past the layout (the spatial and tiles
+    layouts' sentinel of an inactive row) leaves that row out
+    (``scatter_padded``)."""
     lead = lat.shape[:-1]
     worlds = int(np.prod(lead, dtype=np.int64))
     n = lat.shape[-1]
@@ -532,7 +535,7 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
     nb = -(-n // block) + extra_blocks
     n_tot = nb * block
     padded = dict(zip(cols, scatter_padded(list(cols.values()), perm,
-                                           n_tot)))
+                                           n_tot, sentinel=sentinel)))
     packed = _pack(padded, block)
     swarm_m = _reach_margins(reso)
     reach = block_reachability(
@@ -639,7 +642,7 @@ def _shard_locals(cols, perm, devs, S, block, C):
                                    torch.full_like(perm_l, S))
             padded = dict(zip(cols, scatter_padded(
                 [v[d * C:(d + 1) * C].to(dev) for v in cols.values()],
-                dest_loc, S)))
+                dest_loc, S, sentinel=True)))
             nbl = S // block
             summ = cd_tiled.block_summaries(
                 padded["lat"], padded["lon"], padded["gs"],
@@ -650,10 +653,16 @@ def _shard_locals(cols, perm, devs, S, block, C):
     return out
 
 
-def _gather(shards, key, dev):
-    """The all-gather of the shards' block summaries, on ``dev``."""
-    return {k: torch.cat([s[key][k].to(dev) for s in shards])
-            for k in shards[0][key]}
+def _gather(shards, key):
+    """The all-gather of the shards' block summaries: one copy on each
+    device of the mesh, returned for each shard in shard order."""
+    got = {}
+    for s in shards:
+        if str(s["dev"]) not in got:
+            got[str(s["dev"])] = {
+                k: torch.cat([t[key][k].to(s["dev"]) for t in shards])
+                for k in shards[0][key]}
+    return [got[str(s["dev"])] for s in shards]
 
 
 def _mesh_result(parts, home, n_tot, kk, reso):
@@ -695,11 +704,11 @@ def _spatial_mesh(cols, perm, pold, devs, n, nb, block, kk, s_cap, wmax,
     nbh = nb_l + 2 * halo
     shards = _shard_locals(cols, perm, devs, S_l, block, n // D)
     parts = []
-    for d, sh in enumerate(shards):
+    for d, (sh, summ_g) in enumerate(zip(shards, _gather(shards, "summ"))):
         dev = sh["dev"]
         with on_device(dev):
             reach_rows = cd_tiled.reachability_from_summaries(
-                sh["summ"], _gather(shards, "summ", dev), **reach_kw)
+                sh["summ"], summ_g, **reach_kw)
             row0 = d * nb_l
             col0 = row0 - halo
             cg = col0 + torch.arange(nbh, device=dev)
@@ -750,24 +759,27 @@ def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
     """The tile mesh interval (JAX ``detect_resolve_sched`` tiles branch):
     shard t owns tile t's block range; each sender ships, per canonical
     offset, the budget-capped blocks its receiver's rows can reach
-    (``_tile_select`` on the gathered summaries), with their global ids,
+    (``_tile_select`` on the receiver's reachability rows, from the
+    summaries gathered once a device), with their global ids,
     and each receiver walks its present set ranked by global block id in
     the ``gid`` form (``_tile_windows``; no full-grid fallback)."""
     tR, tC, offs, nb_t, budgets, s_cap_t = tcfg
     S_t = nb_t * block
     shards = _shard_locals(cols, perm, devs, S_t, block, n // (tR * tC))
+    reach_rows = []
+    for sh, summ_g in zip(shards, _gather(shards, "summ")):
+        with on_device(sh["dev"]):
+            reach_rows.append(cd_tiled.reachability_from_summaries(
+                sh["summ"], summ_g, **reach_kw))
     exports = {}
     for o, (off, E) in enumerate(zip(offs, budgets)):
         for u, v in _offset_pairs((tR, tC), off):
             sh = shards[u]
             dev = sh["dev"]
             with on_device(dev):
-                summ_g = _gather(shards, "summ", dev)
-                summ_dst = {k: a[v * nb_t:(v + 1) * nb_t]
-                            for k, a in summ_g.items()}
-                reach_out = cd_tiled.reachability_from_summaries(
-                    summ_dst, sh["summ"], **reach_kw)
-                sidx, valid = _tile_select(reach_out.any(0), E, nb_t)
+                # the sender's blocks that the receiver's rows reach
+                reach_out = reach_rows[v][:, u * nb_t:(u + 1) * nb_t]
+                sidx, valid = _tile_select(reach_out.any(0).to(dev), E, nb_t)
                 buf = torch.where(valid[:, None, None], sh["packed"][sidx],
                                   torch.zeros((), device=dev))
                 gidp = torch.where(valid, u * nb_t + sidx + 1,
@@ -777,8 +789,6 @@ def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
     for t, sh in enumerate(shards):
         dev = sh["dev"]
         with on_device(dev):
-            reach_rows = cd_tiled.reachability_from_summaries(
-                sh["summ"], _gather(shards, "summ", dev), **reach_kw)
             gparts = [t * nb_t + torch.arange(nb_t, device=dev)]
             sparts = [sh["packed"]]
             for o, E in enumerate(budgets):
@@ -791,7 +801,7 @@ def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
                                           torch.full_like(rgid, nb)))
                 sparts.append(rbuf)
             order, gid_tab, wst, wln = _tile_windows(
-                reach_rows, torch.cat(gparts), nb, s_cap_t, wmax)
+                reach_rows[t], torch.cat(gparts), nb, s_cap_t, wmax)
             outs = _run_rows(
                 torch.cat(sparts)[order], wst, wln, wmax, None, None,
                 pold[t * nb_t:(t + 1) * nb_t].to(dev), p, reso,
@@ -845,29 +855,16 @@ def _tiles_reference(x: SchedInputs, p, tcfg):
 
 def _replicate_rows(x: SchedInputs, p, devs):
     """The replicate row split (JAX ``detect_resolve_sched`` under a
-    mesh): shard d walks the row blocks d, d + D, ... against the
-    replicated column slabs, in the row-subset form (``rstride`` = D,
-    ``cd_pallas.interleave_rows``).  Returns the outputs in kernel
-    layout."""
-    D = len(devs)
-    home = x.packed.device
-    outs = None
-    for d, dev in enumerate(devs):
-        rows = torch.arange(d, x.nb, D, device=home)
-        if rows.numel() == 0:
-            continue
-        with on_device(dev):
-            o = _run_rows(
-                x.packed.to(dev), x.wst[rows].to(dev), x.wln[rows].to(dev),
-                x.wmax, x.overflow[rows].to(dev), x.reach[rows].to(dev),
-                x.pold[rows].to(dev), p, x.reso,
-                MeshForm(own=x.packed[rows].to(dev), row0=d, rstride=D))
-        if outs is None:
-            outs = [a.new_empty((x.nb, *a.shape[1:]), device=home)
-                    for a in o]
-        for a, b in zip(outs, o):
-            a[rows] = b.to(home)
-    return outs
+    mesh, ``cd_pallas.split_rows``): shard d walks the row blocks d,
+    d + D, ... against the replicated column slabs in the row-subset form
+    (``rstride`` = D).  Returns the outputs in kernel layout."""
+    def run(d, rows, dev):
+        return _run_rows(
+            x.packed.to(dev), x.wst[rows].to(dev), x.wln[rows].to(dev),
+            x.wmax, x.overflow[rows].to(dev), x.reach[rows].to(dev),
+            x.pold[rows].to(dev), p, x.reso,
+            MeshForm(own=x.packed[rows].to(dev), row0=d, rstride=len(devs)))
+    return cd_pallas.split_rows(x.nb, devs, x.packed.device, run)
 
 
 def _check_shard_args(n, nb, resume, mesh, mesh_axis, shard_mode,
@@ -1004,7 +1001,8 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                 noreso, rpz, hpz, tlookahead, partners, block=block,
                 s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
-                perm=perm, tas=tas, cas=cas, reso=reso)
+                perm=perm, tas=tas, cas=cas, reso=reso,
+                sentinel=shard_mode in ("spatial", "tiles"))
     if shard_mode == "tiles":
         outs = _tiles_reference(x, p, tcfg)
     elif mesh is not None and mesh.shape[mesh_axis] > 1:

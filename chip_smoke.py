@@ -3045,15 +3045,22 @@ class MeshCall:
         return total
 
     def nbytes(self, reso, kk):
-        """Bytes the launch must move: the own-row and column slabs, the
-        windows or reach mask and the partner table read once, the
-        outputs written once."""
+        """Bytes the launch must move: the slab of every block it reads
+        once (the own rows and the column blocks of the visited tiles, a
+        block in both counted once, by its global id), the windows or
+        reach mask and the partner table read once, the outputs written
+        once."""
         m = self.mesh
         nb, B = m.own.shape[0], m.own.shape[2]
         nacc = 8 + (7 if reso == "swarm" else 0)
         index = self.args[1:3] if self.kernel == "cd_sched._sched_kernel" \
             else self.args[1:2]
-        read = (m.own.numel() + self.intr().numel()) * 4 + sum(
+        gb = self.col_blocks()
+        blocks = set(m.row0 + np.arange(nb) * m.rstride)
+        for i in range(nb):
+            blocks.update(gb[self.tiles(i)].tolist())
+        slab = m.own.shape[1] * B * 4
+        read = len(blocks) * slab + sum(
             t.numel() * t.element_size() for t in index)
         pold = self.pold(kk)
         if pold is None:

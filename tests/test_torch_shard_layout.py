@@ -2,7 +2,8 @@
 (``bluesky_tpu_torch``) against the JAX package on the same numpy-seeded
 inputs: ``cd_sched.spatial_layout``, ``tile_offsets`` (1x2, 2x2, 4x2),
 ``tile_wire_blocks``, ``tile_sort_dest``, ``_tile_windows``,
-``cd_pallas.interleave_rows``, and ``core/asas.refresh_spatial_shard`` /
+``scatter_padded``'s sentinel drop, ``cd_pallas.interleave_rows`` (and
+``split_rows`` over it), and ``core/asas.refresh_spatial_shard`` /
 ``refresh_tile_shard`` through ``parallel/sharding.prepare_spatial`` /
 ``prepare_tiles`` (new caller slots, sort, sorted-space partner table,
 budgets and the stats).  Every int is bit-equal.  The overload refusals
@@ -59,11 +60,47 @@ def test_tile_offsets_and_wire_blocks(tiles, nb_t, budgets):
 
 @pytest.mark.parametrize("nb,ndev", [(36, 4), (37, 4), (40, 8), (5, 2)])
 def test_interleave_rows(nb, ndev):
+    """The row interleave equals JAX's, and ``split_rows`` hands shard d
+    its part of it and puts every row's outputs back in place."""
     got = cd_pallas.interleave_rows(nb, ndev)
     want = jpallas.interleave_rows(nb, ndev)
     assert got[:2] == want[:2]
     for a, b in zip(got[2:], want[2:]):
         np.testing.assert_array_equal(a, b)
+    rows_l, _, rperm, _ = got
+    seen = {}
+
+    def run(d, rows, dev):
+        seen[d] = rows.numpy()
+        return [rows[:, None] * 10 + d]
+    out = cd_pallas.split_rows(nb, [CPU] * ndev, CPU, run)[0]
+    for d in range(ndev):
+        part = rperm[d * rows_l:(d + 1) * rows_l]
+        np.testing.assert_array_equal(seen.get(d, part[:0]),
+                                      part[part < nb])
+    np.testing.assert_array_equal(out[:, 0].numpy(),
+                                  np.arange(nb) * 10 + np.arange(nb) % ndev)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scatter_padded_sentinel(seed):
+    """With ``sentinel`` a destination ``n_tot`` (an inactive row of the
+    spatial and tiles layouts) is dropped, as JAX's scatter drops it;
+    without, a destination past the layout raises."""
+    rng = np.random.default_rng(seed)
+    n, n_tot = 40, 64
+    dest = rng.permutation(n_tot)[:n]
+    dest[rng.random(n) < 0.3] = n_tot
+    vals = rng.standard_normal(n).astype(np.float32)
+    want = jsched.scatter_padded([jnp.asarray(vals)], jnp.asarray(dest),
+                                 n_tot)[0]
+    got = cd_sched.scatter_padded([torch.from_numpy(vals)],
+                                  torch.from_numpy(dest), n_tot,
+                                  sentinel=True)[0]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(RuntimeError):
+        cd_sched.scatter_padded([torch.from_numpy(vals)],
+                                torch.from_numpy(dest), n_tot)
 
 
 def _fleet(n, seed, geom="continental"):
