@@ -1,0 +1,233 @@
+"""Entry point / mode dispatch of the port (port of
+``bluesky_tpu/__main__.py``; parity: BlueSky.py:28-119).
+
+Modes:
+  --sim                    run one sim worker node (behind a server)
+  --detached               run an embedded sim with no networking
+  --import-navdata DIR     import a reference-format navdata tree
+  --headless / --client    the server and the console client: not in
+                           the port yet (ROADMAP A6c); a JAX server
+                           (python -m bluesky_tpu --headless) serves
+                           torch workers
+  --web                    the browser radar: not in the port yet
+                           (ROADMAP A10.7)
+
+The sim runs on ``settings.device``: CUDA unless a config file sets
+``device = 'cpu'``; without CUDA and without that key the worker raises
+instead of running on the CPU.  ``--sim`` needs pyzmq and msgpack;
+``--detached`` needs neither.
+
+Example, a torch worker behind a JAX server on the CPU:
+  python -m bluesky_tpu --headless &
+  python -m bluesky_tpu_torch --sim --config-file cpu.cfg
+  (cpu.cfg holds the line: device = 'cpu')
+"""
+import argparse
+import os
+import sys
+
+from . import settings
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="bluesky_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--headless", action="store_true",
+                      help="server + workers, no UI (not ported: "
+                           "ROADMAP A6c)")
+    mode.add_argument("--sim", action="store_true", help="one sim worker")
+    mode.add_argument("--detached", action="store_true",
+                      help="embedded sim, no networking")
+    mode.add_argument("--client", action="store_true",
+                      help="console client (not ported: ROADMAP A6c)")
+    mode.add_argument("--web", action="store_true",
+                      help="embedded sim + live browser radar UI (not "
+                           "ported: ROADMAP A10.7)")
+    parser.add_argument("--config-file", default="", help="settings file")
+    parser.add_argument("--scenfile", default="", help="startup scenario")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--event-port", type=int, default=None)
+    parser.add_argument("--stream-port", type=int, default=None)
+    parser.add_argument("--discoverable", action="store_true")
+    parser.add_argument("--web-port", type=int, default=8080,
+                        help="port for --web mode")
+    parser.add_argument("--attach", action="store_true",
+                        help="with --web: attach the browser UI to a "
+                             "running server (GuiClient mirror) instead "
+                             "of embedding a sim; --host/--event-port/"
+                             "--stream-port select the server")
+    parser.add_argument("--node-id", default="",
+                        help="hex worker id assigned by the spawning "
+                             "server (crash tracking)")
+    parser.add_argument("--upstream", default="",
+                        help="chain this server under another: host:port "
+                             "of the upstream server's client event port")
+    parser.add_argument("--standby", action="store_true",
+                        help="broker HA: start the server as a warm "
+                             "standby that tails the shared journal "
+                             "(point --resume-batch at the leader's "
+                             "journal) and takes over leadership "
+                             "automatically when the leader's lease "
+                             "goes stale")
+    parser.add_argument("--resume-batch", default="", metavar="JOURNAL",
+                        help="replay a BATCH journal (JSONL WAL) from a "
+                             "crashed/preempted server: completed pieces "
+                             "are not re-run, in-flight pieces are "
+                             "requeued, quarantine decisions persist; "
+                             "new records append to the same journal")
+    parser.add_argument("--import-navdata", default="", metavar="DIR",
+                        help="import a reference-format navdata directory "
+                             "(fix.dat/nav.dat/airports.dat/awy.dat/fir/"
+                             "apt.zip) into the local cache and exit; the "
+                             "imported set is used automatically whenever "
+                             "no navdata directory is configured")
+    parser.add_argument("--dest", default="",
+                        help="with --import-navdata: destination directory "
+                             "(default: <cache>/navdata)")
+    args = parser.parse_args(argv)
+    if args.attach and not args.web:
+        parser.error("--attach only applies to --web "
+                     "(use: bluesky-tpu --web --attach [--host H])")
+
+    settings.init(args.config_file)
+
+    if args.import_navdata:
+        return run_import_navdata(args)
+    if args.sim:
+        return run_sim(args)
+    if args.detached:
+        return run_detached(args)
+    if args.web:
+        return _not_ported("--web", "A10.7",
+                           "the browser radar (ui/web.py)")
+    if args.client:
+        return _not_ported("--client", "A6c", "the console client")
+    return _not_ported("--headless" if args.headless else "the default "
+                       "mode (--headless)", "A6c",
+                       "the server broker; run `python -m bluesky_tpu "
+                       "--headless` and attach torch workers with --sim")
+
+
+def _not_ported(what, item, detail):
+    print(f"bluesky_tpu_torch: {what} is not ported yet (ROADMAP {item}: "
+          f"{detail})", file=sys.stderr)
+    return 2
+
+
+def run_import_navdata(args):
+    """Import a reference-format navdata tree into the local cache
+    (source format per the reference navdatabase/load_navdata_txt.py —
+    see navdb/loaders.py).
+
+    Copies the recognized sources to ``--dest`` (default
+    settings.imported_navdata_path), parses them once to warm the
+    pickle cache, and prints what was loaded.  settings picks the
+    imported tree up automatically when no navdata directory is
+    configured."""
+    import shutil
+    from .navdb.loaders import load_navdata
+
+    src = args.import_navdata
+    if not os.path.isdir(src):
+        print(f"--import-navdata: {src!r} is not a directory",
+              file=sys.stderr)
+        return 1
+    names = ("fix.dat", "nav.dat", "airports.dat", "awy.dat",
+             "icao-countries.dat", "apt.zip")
+    present = [n for n in names if os.path.isfile(os.path.join(src, n))]
+    has_fir = os.path.isdir(os.path.join(src, "fir"))
+    if not present and not has_fir:
+        print(f"--import-navdata: no recognized navdata files under "
+              f"{src!r} (expected any of {', '.join(names)} or fir/)",
+              file=sys.stderr)
+        return 1
+
+    dest = args.dest or settings.imported_navdata_path
+    os.makedirs(dest, exist_ok=True)
+    # A re-import REPLACES the previous one: recognized files/dirs the
+    # new source does not provide are removed, so the destination is
+    # always a faithful copy of ONE source.
+    for n in names:
+        if n not in present and os.path.isfile(os.path.join(dest, n)):
+            os.remove(os.path.join(dest, n))
+            print(f"  removed stale {n}")
+    if os.path.isdir(os.path.join(dest, "fir")):
+        shutil.rmtree(os.path.join(dest, "fir"))
+        if not has_fir:
+            print("  removed stale fir/")
+    for n in present:
+        shutil.copy2(os.path.join(src, n), os.path.join(dest, n))
+        print(f"  copied {n}")
+    if has_fir:
+        shutil.copytree(os.path.join(src, "fir"),
+                        os.path.join(dest, "fir"))
+        print("  copied fir/")
+
+    data = load_navdata(dest, cache_path=settings.cache_path)
+    print(f"imported navdata -> {dest}: "
+          f"{len(data['wpid'])} waypoints, {len(data['aptid'])} airports, "
+          f"{len(data['awid'])} airway legs, {len(data['firs'])} FIRs, "
+          f"{len(data.get('rwythresholds', {}))} airports with runway "
+          "thresholds (cache warmed)")
+    if dest != settings.imported_navdata_path:
+        print(f"note: set `navdata_path = {dest!r}` in your settings file "
+              "to use a non-default destination")
+    return 0
+
+
+def _start_telnet(sim):
+    """Raw-TCP stack bridge on settings.telnet_port (the reference's
+    StackTelnetServer, enabled for sim nodes; tools/network.py:151-184);
+    ``telnet_port = 0`` turns it off."""
+    if not settings.telnet_port:
+        return
+    from .network.tcpserver import StackTelnetServer
+    try:
+        sim.telnet = StackTelnetServer(sim, port=settings.telnet_port)
+        sim.telnet.start()
+        print(f"Telnet stack bridge on port {sim.telnet.port}")
+    except OSError as e:
+        print(f"Telnet bridge not started: {e}")
+        sim.telnet = None
+
+
+def _serve(node, args):
+    """Start the bridge, load the scenario, run the node's loop; stop
+    the bridge when the loop ends."""
+    _start_telnet(node.sim)
+    try:
+        if args.scenfile:
+            node.sim.stack.ic(args.scenfile)
+        node.run()
+    finally:
+        if node.sim.telnet is not None:
+            node.sim.telnet.stop()
+            node.sim.telnet = None
+    return 0
+
+
+def run_sim(args):
+    try:
+        import msgpack  # noqa: F401
+        import zmq  # noqa: F401
+    except ImportError as e:
+        print(f"--sim needs pyzmq and msgpack ({e}); `--detached` runs "
+              "without them", file=sys.stderr)
+        return 2
+    from .simulation.simnode import SimNode
+    node = SimNode(event_port=args.event_port,
+                   stream_port=args.stream_port,
+                   node_id=bytes.fromhex(args.node_id)
+                   if args.node_id else None)
+    return _serve(node, args)
+
+
+def run_detached(args):
+    from .simulation.simnode import DetachedSimNode
+    return _serve(DetachedSimNode(), args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -44,9 +44,16 @@ replicate, spatial and tiles decompositions on a single-process mesh
 tiles refreshes re-bucket the caller slots at each due edge (or in the
 chunk) and a broken contract falls back tiles -> spatial -> replicate.
 
+A networked worker (``simulation/simnode.py``) wraps the sim: it sets
+``node`` and a streaming ``scr`` (``simulation/screenio.py``), and may
+attach a raw-TCP stack bridge as ``telnet``
+(``network/tcpserver.StackTelnetServer``), pumped at the start of every
+host iteration.  ``mesh_epoch`` and ``mesh_events`` are the node's view
+of the mesh epochs (always epoch 0 and no event here).
+
 Not ported here, each with its ROADMAP item: mesh-epoch recovery
-(``MeshGuard``; A9 step 2), the device-profiling hooks and plugins (A10)
-and the network node (A6b).
+(``MeshGuard``; A9 step 2), the device-profiling hooks and plugins
+(A10).
 """
 import datetime
 import os
@@ -404,6 +411,7 @@ class Simulation:
         self.plotter = Plotter(self)
         from ..core.metrics import Metrics
         self.metrics = Metrics(self)
+        self.telnet = None            # StackTelnetServer when enabled
         # Fault tolerance: periodic in-memory snapshot ring + the
         # state-integrity guard responding to in-chunk finite trips.
         from .snapshot import SnapshotRing
@@ -432,6 +440,10 @@ class Simulation:
         self.shard_mesh = None
         self.shard_stats = {}
         self._mesh_refresh_ms = 0.0  # wall ms of the last shard refresh
+        # Mesh epochs, as the node reads them (the recovery that moves
+        # them is ROADMAP A9 step 2)
+        self.mesh_epoch = 0
+        self.mesh_events = []        # pending MESHLOST notices (simnode)
         self._refresh_guard = 0      # in-chunk refresh guard trips
         # Late import to avoid cycles; stack binds commands to this sim.
         from ..stack.stack import Stack
@@ -585,6 +597,8 @@ class Simulation:
         self.shard_mode, self.shard_mesh = "off", None
         self.shard_stats = {}
         self._shard_fallback = False
+        self.mesh_epoch = 0
+        self.mesh_events = []
         self._mesh_refresh_ms = 0.0
         self.dtmult = 1.0
         self.ffmode = False
@@ -917,7 +931,7 @@ class Simulation:
         """The HEALTH ``mesh`` section: epoch, shard count, mode, last
         shard-refresh wall ms, degradation state (epoch 0 and never
         degraded: the recovery from a lost mesh is ROADMAP A9 step 2)."""
-        d = dict(epoch=0, devices=self._shard_ndev(),
+        d = dict(epoch=int(self.mesh_epoch), devices=self._shard_ndev(),
                  mode=str(self.shard_mode),
                  last_refresh_ms=round(float(self._mesh_refresh_ms), 3),
                  degraded=False)
@@ -939,14 +953,16 @@ class Simulation:
         """Answer a preemption notice: pause and write a final atomic
         checksummed checkpoint, ``preempt-<tag>.snap`` in
         ``settings.preempt_snapshot_dir`` (else the log path), the tag
-        the owning worker's (``host_tag``, else ``sim``) and, for a world
-        of a packed batch, its ``world_tag``.  Returns ``(path or None,
+        the owning node's id (8 hex digits), else the owning worker's
+        ``host_tag``, else ``sim``, and, for a world of a packed batch,
+        its ``world_tag``.  Returns ``(path or None,
         error or None)``."""
         from .. import settings as _settings
         from . import snapshot as snap
         self.preempt_requested = False
         d = _settings.preempt_snapshot_dir or _settings.log_path
-        tag = self.host_tag or "sim"
+        tag = getattr(getattr(self, "node", None), "node_id",
+                      b"").hex()[:8] or self.host_tag or "sim"
         if self.world_tag:
             # one file per world: the worlds of one process must not
             # overwrite each other's checkpoints
@@ -1118,6 +1134,9 @@ class Simulation:
                 self.scr.echo("SHARD: falling back to REPLICATE "
                               f"({nd} devices)")
                 self.set_shard("replicate", nd, devices=self._mesh_devs())
+        # External TCP/telnet command lines (network/tcpserver.py)
+        if self.telnet is not None:
+            self.telnet.pump()
         # Scenario commands due at current sim time (stack.checkfile).
         simt = self.simt_planned
         self.stack.checkfile(simt)

@@ -14,6 +14,13 @@ batched ``Traffic.flush`` path instead.
 The commands of subsystems the port does not have yet (``DEFERRED``) are
 registered with the JAX usage text; each answers False with an echo
 naming its ROADMAP item and changes nothing.
+
+On a networked worker (``simulation/simnode.SimNode``: the sim's
+``node`` has an ``event_io`` socket) the serving-fabric commands send
+their query or setting to the server as an event, and the worker echoes
+the server's reply when it arrives: ADDNODES, METRICS DUMP, TRACE DUMP,
+HEALTH, OPT's OPTRESULT, WORLDS, MITIGATE, SDC and HA.  On a detached
+sim each answers locally with the JAX package's text.
 """
 import numpy as np
 import torch
@@ -38,13 +45,6 @@ DEFERRED = {
               "SNAPTRUNC f | LIST", "Fault-injection harness (chaos testing)"),
     "PLUGINS": ("A10", "PLUGINS LIST or PLUGINS LOAD/REMOVE plugin",
                 "List, load or remove plugins"),
-    "ADDNODES": ("A6b", "ADDNODES number",
-                 "Add a simulation instance/node"),
-    "HA": ("A6b", "HA [STATUS]", "Broker high availability"),
-    "MITIGATE": ("A6b", "MITIGATE [ON/OFF/STATUS]",
-                 "Self-healing serving policy engine"),
-    "SDC": ("A6b", "SDC [ON/OFF/STATUS | AUDIT rate]",
-            "Silent-data-corruption defense"),
     "SCREENSHOT": ("A10", "SCREENSHOT [fname.svg]",
                    "Render the radar picture to an SVG file"),
 }
@@ -66,6 +66,14 @@ def register_all(stack):
 
     def acname(idx):
         return traf.ids[idx] or f"#{idx}"
+
+    def server_node():
+        """The sim's node when it is networked (it has an event socket
+        to a server), else None."""
+        node = getattr(sim, "node", None)
+        if node is not None and getattr(node, "event_io", None) is not None:
+            return node
+        return None
 
     # ------------------------------------------------------- a/c commands
     def cre(acid, actype, pos, hdg=None, alt=None, spd=None):
@@ -968,8 +976,16 @@ def register_all(stack):
 
     def metricscmd(flag=None, dt=None):
         """Bare/OFF/1/2 keep the reference sector-metrics behavior;
-        METRICS DUMP reads the sim's telemetry registry."""
+        METRICS DUMP reads the sim's telemetry registry, plus
+        (networked) the server's broker and fleet registries, which
+        arrive as a METRICS event."""
         if flag is not None and str(flag).upper() == "DUMP":
+            node = server_node()
+            if node is not None:
+                node.send_event(b"METRICS", None)  # -> server registries
+                return True, ("sim registry:\n" + sim.obs.text()
+                              + "\n(server+fleet registries requested "
+                                "— echoed when the reply arrives)")
             return True, "sim registry:\n" + sim.obs.text()
         return sim.metrics.toggle(flag, dt)
 
@@ -991,6 +1007,9 @@ def register_all(stack):
                           f"({len(rec)} buffered events kept)")
         if s == "DUMP":
             path = rec.dump(reason="manual", proc="sim")
+            node = server_node()
+            if node is not None:
+                node.send_event(b"TRACE", None)  # server dumps its ring
             if path is None:
                 return True, "TRACE DUMP: ring is empty, nothing written"
             return True, f"Trace written to {path}"
@@ -1036,9 +1055,25 @@ def register_all(stack):
         return True, (f"Chunk set to {n} steps "
                       f"(={n * sim.simdt:.2f} s sim){note}")
 
+    def addnodes(n):
+        """ADDNODES n: a server spawns n more workers (``sim.addnodes``
+        when the embedder provides one, else the ADDNODES event of a
+        networked worker)."""
+        fn = getattr(sim, "addnodes", None)
+        if fn is not None:
+            fn(int(n))
+            return True
+        node = server_node()
+        if node is not None:
+            node.send_event(b"ADDNODES", int(n))  # empty route -> server
+            return True, f"ADDNODES {int(n)} requested from the server"
+        # informative no-op, not a syntax error
+        return True, "ADDNODES: no server attached (headless sim)"
+
     def batchcmd(fname):
-        """BATCH scenario: farmed out by a server; a headless sim has
-        none (the network half is ROADMAP A6b)."""
+        """BATCH scenario: the sim's ``batch`` (a networked worker
+        uploads the scenario to its server, which farms the pieces out);
+        a headless sim has none."""
         fn = getattr(sim, "batch", None)
         if fn is None:
             return True, "BATCH: no server attached (headless sim)"
@@ -1050,14 +1085,20 @@ def register_all(stack):
         per-aircraft lateral-waypoint/time offsets with gradients from
         torch.autograd through the checkpointed smooth rollout, verified
         against the hard LoS metric; the sim then HOLDs.  Defaults from
-        the settings.opt_* knobs.  (The networked OPTRESULT report of a
-        BATCH piece is ROADMAP A6b.)"""
+        the settings.opt_* knobs.  On a networked worker the result
+        (optimized offsets and objective trace) is reported upstream as
+        an OPTRESULT event the server journals against the in-flight
+        BATCH piece; the sim then HOLDs, completing the piece."""
         if traf.ntraf == 0:
             return False, "OPT: no traffic to optimize"
         try:
             res = sim.optimize_trajectories(tend, iters, lr, restarts)
         except (ValueError, RuntimeError) as e:
             return False, f"OPT: {e}"
+        node = server_node()
+        if node is not None:
+            slots = np.flatnonzero(asnumpy(st().ac.active)).tolist()
+            node.send_event(b"OPTRESULT", res.to_payload(traf.ids, slots))
         sim.pause()      # leave OP: a BATCH piece completes here
         ok = res.bad == -1
         return ok, (
@@ -1096,11 +1137,16 @@ def register_all(stack):
     def worldscmd(arg=None, val=None):
         """WORLDS [ON/OFF | MAX n]: multi-world BATCH packing, pieces
         packed into world-batches stepped as one stacked dispatch
-        (``simulation/worlds.py``).  On a detached sim bare WORLDS reads
-        the local settings a server would inherit; ON/OFF and MAX n set
-        them."""
+        (``simulation/worlds.py``).  Bare WORLDS reads the server's
+        packing state and counters back (networked) or the local
+        settings a server would inherit (detached); ON/OFF and MAX n set
+        them, and send them to the server when networked."""
         from .. import settings as _settings
+        node = server_node()
         if arg is None:
+            if node is not None:
+                node.send_event(b"WORLDS", None)  # empty route -> server
+                return True, "WORLDS requested from the server"
             return True, (
                 f"detached sim: WORLDS packing "
                 f"{'ON' if getattr(_settings, 'world_pack', False) else 'OFF'}"
@@ -1111,6 +1157,9 @@ def register_all(stack):
         if a in ("ON", "OFF", "TRUE", "FALSE", "1", "0"):
             on = a in ("ON", "TRUE", "1")
             _settings.world_pack = on
+            if node is not None:
+                node.send_event(b"WORLDS", {"pack": on})
+                return True, f"WORLDS packing {'ON' if on else 'OFF'} sent"
             return True, f"WORLDS packing {'ON' if on else 'OFF'}"
         if a == "MAX":
             try:
@@ -1120,13 +1169,105 @@ def register_all(stack):
             if n < 1:
                 return False, f"WORLDS MAX: need n >= 1, got {n}"
             _settings.world_batch_max = n
+            if node is not None:
+                node.send_event(b"WORLDS", {"max": n})
+                return True, f"WORLDS max {n} pieces/dispatch sent"
             return True, f"WORLDS max {n} pieces/dispatch"
         return False, "WORLDS [ON/OFF | MAX n]"
 
+    def mitigatecmd(arg=None):
+        """MITIGATE [ON/OFF/STATUS]: the server's self-healing policy
+        engine.  Bare MITIGATE / MITIGATE STATUS reads the engine state
+        back from the server (networked) or reports the local settings
+        default a server would inherit (detached)."""
+        from .. import settings as _settings
+        node = server_node()
+        a = str(arg).upper() if arg is not None else ""
+        if a in ("", "STATUS"):
+            if node is not None:
+                node.send_event(b"MITIGATE", None)  # empty route -> server
+                return True, "MITIGATE status requested from the server"
+            return True, (
+                f"detached sim: mitigation "
+                f"{'ON' if getattr(_settings, 'mitigate_enabled', False) else 'OFF'}"
+                " (settings.mitigate_enabled; a server inherits this)")
+        if a in ("ON", "OFF", "TRUE", "FALSE", "1", "0"):
+            on = a in ("ON", "TRUE", "1")
+            _settings.mitigate_enabled = on
+            if node is not None:
+                node.send_event(b"MITIGATE", {"enabled": on})
+                return True, f"MITIGATE {'ON' if on else 'OFF'} sent"
+            return True, f"MITIGATE {'ON' if on else 'OFF'}"
+        return False, "MITIGATE [ON/OFF/STATUS]"
+
+    def sdccmd(arg=None, val=None):
+        """SDC [ON/OFF/STATUS | AUDIT rate]: the server's
+        silent-data-corruption defense (fingerprints of redundant
+        executions compared on completion).  Bare SDC / SDC STATUS reads
+        the defense state back from the server (networked) or reports
+        the local settings a server would inherit (detached)."""
+        from .. import settings as _settings
+        node = server_node()
+        a = str(arg).upper() if arg is not None else ""
+        if a in ("", "STATUS"):
+            if node is not None:
+                node.send_event(b"SDC", None)  # empty route -> server
+                return True, "SDC status requested from the server"
+            return True, (
+                f"detached sim: SDC "
+                f"{'ON' if getattr(_settings, 'sdc_enabled', False) else 'OFF'}"
+                f", audit rate "
+                f"{getattr(_settings, 'sdc_audit_rate', 0.0):g} "
+                "(settings.sdc_enabled / settings.sdc_audit_rate; a "
+                "server inherits these)")
+        if a in ("ON", "OFF", "TRUE", "FALSE", "1", "0"):
+            on = a in ("ON", "TRUE", "1")
+            _settings.sdc_enabled = on
+            if node is not None:
+                node.send_event(b"SDC", {"enabled": on})
+                return True, f"SDC {'ON' if on else 'OFF'} sent"
+            return True, f"SDC {'ON' if on else 'OFF'}"
+        if a == "AUDIT":
+            try:
+                rate = max(0.0, float(val))
+            except (TypeError, ValueError):
+                return False, "SDC AUDIT rate: need a fraction 0..1"
+            _settings.sdc_audit_rate = rate
+            if node is not None:
+                node.send_event(b"SDC", {"audit_rate": rate})
+                return True, f"SDC audit rate {rate:g} sent"
+            return True, f"SDC audit rate {rate:g}"
+        return False, "SDC [ON/OFF/STATUS | AUDIT rate]"
+
+    def hacmd(arg=None):
+        """HA [STATUS]: broker high availability (a warm-standby server
+        takes over when the leader's lease goes stale).  Bare HA / HA
+        STATUS reads the lease state back from the server (networked) or
+        reports the local settings a server would inherit (detached)."""
+        from .. import settings as _settings
+        node = server_node()
+        a = str(arg).upper() if arg is not None else ""
+        if a in ("", "STATUS"):
+            if node is not None:
+                node.send_event(b"HA", None)  # empty route -> server
+                return True, "HA status requested from the server"
+            return True, (
+                f"detached sim: HA standby "
+                f"{'ON' if getattr(_settings, 'ha_standby', False) else 'OFF'}"
+                f", lease ttl "
+                f"{getattr(_settings, 'ha_lease_ttl', 10.0):g} s "
+                "(settings.ha_standby / settings.ha_lease_ttl; a "
+                "server inherits these)")
+        return False, "HA [STATUS]"
+
     def healthcmd():
-        """HEALTH: the detached sim's local state (the serving fabric's
-        health query needs the worker side of the network, ROADMAP
-        A6b)."""
+        """HEALTH: serving-fabric introspection.  On a networked worker
+        the server is queried and its reply echoed when it arrives; a
+        detached sim reports its local state."""
+        node = server_node()
+        if node is not None:
+            node.send_event(b"HEALTH", None)   # empty route -> server
+            return True, "HEALTH requested from the server"
         ps = sim.pipe_stats
         mh = sim.mesh_health()
         mesh_line = ""
@@ -1624,8 +1765,21 @@ def register_all(stack):
         "TRACE": ["TRACE [ON/OFF/DUMP]", "[txt]", tracecmd,
                   "Flight recorder: bounded span ring dumped as "
                   "Perfetto trace JSON (readback bare)"],
+        "ADDNODES": ["ADDNODES number", "int", addnodes,
+                     "Add a simulation instance/node"],
         "BATCH": ["BATCH filename", "string", batchcmd,
                   "Start a scenario file as batch simulation"],
+        "MITIGATE": ["MITIGATE [ON/OFF/STATUS]", "[txt]", mitigatecmd,
+                     "Self-healing serving: signal->actuator policy "
+                     "engine behind rate limits, backoff and a budget "
+                     "(readback bare)"],
+        "SDC": ["SDC [ON/OFF/STATUS | AUDIT rate]", "[txt,txt]", sdccmd,
+                "Silent-data-corruption defense: redundant-execution "
+                "fingerprint voting + worker quarantine "
+                "(readback bare)"],
+        "HA": ["HA [STATUS]", "[txt]", hacmd,
+               "Broker high availability: warm-standby lease state, "
+               "epoch, takeover/adoption counters (readback bare)"],
         "WORLDS": ["WORLDS [ON/OFF | MAX n]", "[txt,txt]", worldscmd,
                    "Multi-world BATCH packing: world-batch size + "
                    "per-bucket packing on/off (readback bare)"],

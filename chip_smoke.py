@@ -157,6 +157,23 @@ Phases, in order; any failure exits non-zero before the last line:
     version at the shapes the main path gave it (the first call of each,
     ``capture_mesh_calls``; K3's window, on no path, on the pallas
     operands).  The kernels line lists the mesh forms by ``mesh_name``.
+15. entry phase (``entry_phase``): the worker entry points.  (a) the
+    command line in-process, ``bluesky_tpu_torch.__main__.main(
+    ["--detached", "--scenfile", scn])`` with no config file (so the
+    default device, CUDA): a scenario of CDMETHOD SPARSE, ASAS ON, the
+    continental view, SEED 1, MCRE 1000 B744, OP and FF, then at 30 s
+    SNAPSHOT SAVE and QUIT; exit 0, the snapshot at 1,000 aircraft and
+    simt 30 (within one 0.05 s step), the state on ``cuda``, K1 launched, the telnet bridge's
+    thread gone after QUIT.  (b) ``DetachedSimNode(nmax=SIM_NMAX)`` fed
+    phase 10's continental session as STACKCMD events (SEED 1, MCRE
+    100000), stepped with ``node.step()`` (ScreenIO streaming SIMINFO
+    and ACDATA) for 10 fast-time chunks, ``node.streams`` drained after
+    each, then 3 chunks under CDMETHOD PALLAS: ms per chunk against
+    phase 10's embedded rate, ms and bytes per ACDATA frame (from the
+    chunk edge and from the live state), the streams' bytes buffered a
+    chunk, K1, K2 and K3 launched (the ``entry_launches`` of the kernels
+    line); then an embedded ``Simulation`` given the same commands, seed
+    and chunk count, every state tensor bit-equal to the node's.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -169,6 +186,7 @@ phase 3 and after each later phase.  It prints one JSON line describing
 every kernel, then the ``nvidia-smi`` name and power limit, then the
 result line ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import os
 import re
@@ -1978,6 +1996,10 @@ def check_sim_state(tag, sim):
         raise AssertionError(f"sim {tag}: no conflicts detected")
 
 
+#: phase 10's embedded rates, which phase 15 compares with
+SIM_RATES = {}
+
+
 def sim_continental(dev):
     """The 100k continental session through the stack: CDMETHOD SPARSE,
     ASAS ON, the view, MCRE 100000 B744, OP, five ASAS intervals and
@@ -2019,6 +2041,7 @@ def sim_continental(dev):
     sim_do(sim, "CHUNKSTEPS PIPELINE ON")
     log(f"sim continental: pipelined {1e3 * wall_p / len(piped):.4g} ms "
         f"per chunk against {1e3 * wall_s / len(sync):.4g} ms synchronous")
+    SIM_RATES["sparse pipelined ms per 20 steps"] = 1e3 * wall_p / len(piped)
     wall, busy, nk, calls = profile_chunk(
         lambda: (sim.step(max_chunk=CHUNK), sim.drain_pipeline()))
     log(f"sim continental: profiled chunk {wall:.3f} ms wall, {busy:.3f} "
@@ -3452,6 +3475,211 @@ def shard_phase(dev, errs, regs, scale=1):
     return report
 
 
+# ------------------------------------------------------------ entry phase
+ENTRY_N = 1000          # under DetachedSimNode()'s default 1024 slots
+ENTRY_SESSION = ("CDMETHOD SPARSE", "ASAS ON") + SIM_VIEW + ("SEED 1",)
+ENTRY_CHUNKS, ENTRY_PALLAS_CHUNKS = 10, 3
+
+
+def entry_cli(dev):
+    """Phase 15 (a): ``python -m bluesky_tpu_torch --detached --scenfile``
+    in-process, with no config file: the run reaches QUIT with exit 0 on
+    ``dev``, its SNAPSHOT holds ``ENTRY_N`` aircraft at simt 30, K1 ran
+    and the telnet bridge's thread is gone."""
+    import threading
+    from bluesky_tpu_torch import __main__ as tmain
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.simulation import simnode, snapshot
+    graph.clear()
+    d = os.path.join("output", "chip_smoke_entry")
+    os.makedirs(d, exist_ok=True)
+    snap, scn = os.path.join(d, "end.snap"), os.path.join(d, "entry.scn")
+    if os.path.exists(snap):
+        os.remove(snap)
+    with open(scn, "w") as f:
+        # OP before FF: a sim in INIT starts (OP) when its first
+        # aircraft appear, and OP ends fast-time
+        for line in ENTRY_SESSION + (f"MCRE {ENTRY_N} B744", "OP", "FF"):
+            f.write(f"00:00:00.00>{line}\n")
+        f.write(f"00:00:30.00>SNAPSHOT SAVE {snap}\n00:00:30.00>QUIT\n")
+    made = []
+
+    class Recorded(simnode.DetachedSimNode):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    threads0 = set(threading.enumerate())
+    reset_launches()
+    orig, simnode.DetachedSimNode = simnode.DetachedSimNode, Recorded
+    t0 = time.perf_counter()
+    try:
+        rc = tmain.main(["--detached", "--scenfile", scn])
+    finally:
+        simnode.DetachedSimNode = orig
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    (node,) = made
+    blob, err = snapshot.read_blob(snap)
+    if rc != 0 or err is not None:
+        raise AssertionError(f"entry --detached: rc {rc}, snapshot {err}")
+    ntraf = sum(1 for i in blob["ids"] if i)
+    simt = snapshot.blob_simt(blob)
+    dev_of = node.sim.traf.state.device.type
+    left = [t.name for t in set(threading.enumerate()) - threads0]
+    log(f"entry --detached: rc {rc} in {wall:.2f} s, state on {dev_of}, "
+        f"snapshot ntraf {ntraf} simt {simt:g}, sim state "
+        f"{node.sim.state_flag}, K1 launches "
+        f"{launches['cd_sched._sched_kernel']}, threads left {left}")
+    # the trigger fires at the first step edge at or past 30 s of the
+    # float32 clock: within one step of it
+    if ntraf != ENTRY_N or not 30.0 - 1e-4 <= simt <= 30.05 + 1e-4:
+        raise AssertionError(f"entry --detached: snapshot ntraf {ntraf} "
+                             f"simt {simt}")
+    if dev_of != dev.type:
+        raise AssertionError(f"entry --detached ran on {dev_of}")
+    if launches["cd_sched._sched_kernel"] < 1:
+        raise AssertionError("entry --detached never launched K1")
+    if left:
+        raise AssertionError(f"entry --detached left threads {left}")
+    del node, made
+    gc.collect()
+    graph.clear()
+
+
+def frame_bytes(data):
+    """Payload bytes of a stream frame: its arrays' bytes and its
+    strings' characters (the wire adds msgpack's few bytes a field)."""
+    n = 0
+    for v in data.values():
+        if isinstance(v, np.ndarray):
+            n += v.nbytes
+        elif isinstance(v, list):
+            n += sum(len(x) if isinstance(x, str) else 8 for x in v)
+        else:
+            n += 8
+    return n
+
+
+def entry_session(sim_like, step):
+    """Type the continental session into ``sim_like`` (a node's
+    STACKCMD events or a Simulation's stack), step ``ENTRY_CHUNKS``
+    fast-time chunks, switch to CDMETHOD PALLAS, step
+    ``ENTRY_PALLAS_CHUNKS`` more.  ``step`` runs one chunk and returns
+    its row of numbers."""
+    for line in ENTRY_SESSION + (f"MCRE {SIM_N} B744", "OP", "FF"):
+        sim_like(line)
+    rows = [step() for _ in range(ENTRY_CHUNKS)]
+    sim_like("CDMETHOD PALLAS")
+    rows += [step() for _ in range(ENTRY_PALLAS_CHUNKS)]
+    return rows
+
+
+def entry_node(dev):
+    """Phase 15 (b): the 100k continental session in a
+    ``DetachedSimNode``, ScreenIO streaming; then the same commands in
+    an embedded ``Simulation``, held bit for bit.  Returns the node
+    session's kernel launches."""
+    import torch
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    from bluesky_tpu_torch.simulation.simnode import DetachedSimNode
+    graph.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    node = DetachedSimNode(nmax=SIM_NMAX)
+    if node.sim.traf.device.type != dev.type:
+        raise AssertionError(f"DetachedSimNode() runs on "
+                             f"{node.sim.traf.device}")
+    reset_launches()
+
+    def node_step():
+        t1 = time.perf_counter()
+        s0 = node.sim.simt_planned
+        node.step()
+        wall = (time.perf_counter() - t1) * 1e3
+        frames = [(n, d) for n, d in node.streams]
+        node.streams.clear()
+        return dict(wall_ms=wall, sim_s=node.sim.simt_planned - s0,
+                    frames=[n.decode() for n, _ in frames],
+                    buffered=sum(frame_bytes(d) for _, d in frames))
+    rows = entry_session(
+        lambda line: node.event(b"STACKCMD", {"cmd": line}, []), node_step)
+    node.sim.drain_pipeline()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    wall = time.perf_counter() - t0
+    check_sim_state("entry node pallas", node.sim)
+    for tag, part in (("sparse", rows[1:ENTRY_CHUNKS]),
+                      ("pallas", rows[ENTRY_CHUNKS + 1:])):
+        ms = sum(r["wall_ms"] for r in part)
+        steps = sum(r["sim_s"] for r in part) / 0.05
+        log(f"entry node {tag} MVP: {len(part)} chunks after the first, "
+            f"{ms / (steps / CHUNK):.4g} ms per {CHUNK} steps with "
+            f"ScreenIO ({SIM_N * steps / (ms / 1e3):.4g} aircraft-steps/s"
+            f"); phase 10 embedded pipelined "
+            f"{SIM_RATES.get('sparse pipelined ms per 20 steps', float('nan')):.4g}"
+            f" ms per {CHUNK} steps")
+    log(f"entry node: per chunk wall ms "
+        f"{[round(r['wall_ms'], 1) for r in rows]}, sim s "
+        f"{[round(r['sim_s'], 2) for r in rows]}, frames "
+        f"{[r['frames'] for r in rows]}, stream bytes buffered a chunk "
+        f"{[r['buffered'] for r in rows]}")
+    # ACDATA at full width: from the retired edge, then the live state
+    scr = node.sim.scr
+    for source in ("edge", "live"):
+        ms = []
+        for _ in range(3):
+            if source == "live":
+                node.sim._last_edge = None
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            scr.send_aircraft_data()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            (name, data), = node.streams
+            node.streams.clear()
+        log(f"entry node: ACDATA frame from the {source} "
+            f"{[round(m, 3) for m in ms]} ms, {frame_bytes(data)} payload "
+            f"bytes, {len(data['id'])} aircraft, nconf {data['nconf_cur']}")
+    log(f"entry node: {wall:.1f} s, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for form in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume",
+                 "cd_pallas._kernel"):
+        if launches[form] < 1:
+            raise AssertionError(f"the entry node never launched {form}")
+    # the embedded Simulation on the same commands
+    node_state = state_copy(node.sim.traf.state)
+    node_simt = node.sim.simt
+    del node, scr
+    gc.collect()                # the node and its sim refer to each other
+    graph.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sim = Simulation(nmax=SIM_NMAX, device=dev)
+    entry_session(sim.stack.stack, lambda: sim.step())
+    sim.drain_pipeline()
+    torch.cuda.synchronize()
+    if sim.simt != node_simt:
+        raise AssertionError(f"entry: node simt {node_simt} != embedded "
+                             f"{sim.simt}")
+    assert_same("entry node against the embedded Simulation", node_state,
+                sim.traf.state)
+    log(f"entry node: bit-equal to the embedded Simulation at simt "
+        f"{sim.simt:g} ({time.perf_counter() - t0:.1f} s)")
+    del sim, node_state
+    gc.collect()
+    graph.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def entry_phase(dev):
+    """Phase 15: the command line, then the full-width node; returns
+    the node session's kernel launches."""
+    entry_cli(dev)
+    return entry_node(dev)
+
+
 def sim_phase(dev):
     """Phase 10: the embedded ``Simulation`` driven through its stack
     (``sim_continental``, then ``sim_regional``); returns the kernel
@@ -3530,9 +3758,15 @@ def main():
     shard_report = shard_phase(dev, errs, regs)
     log(f"shard_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after shard_phase")
+    t0 = time.perf_counter()
+    entry_launches = entry_phase(dev)
+    log(f"entry_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after entry_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
     report += world_report + kwide_report + shard_report
+    for entry in report:
+        entry["entry_launches"] = entry_launches.get(entry["name"], 0)
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")

@@ -70,8 +70,9 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 def test_import_without_jax():
     """The package and every module of it (the chunk graphs, the ``obs``
     instruments, the Simulation with its stack, routes, navdb, guard
-    and multi-world batch, the differentiable mode and the shard modes'
-    ``parallel.sharding`` among them) import with jax, flax and
+    and multi-world batch, the differentiable mode, the shard modes'
+    ``parallel.sharding``, the worker's ``network`` modules, ScreenIO,
+    the sim nodes and ``__main__`` among them) import with jax, flax and
     bluesky_tpu unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -93,10 +94,48 @@ def test_import_without_jax():
         "    'stack.stack', 'stack.commands', 'simulation.pipeline',\n"
         "    'simulation.snapshot', 'simulation.sim', 'simulation.worlds',\n"
         "    'fault.guard', 'diff', 'diff.smooth', 'diff.objectives',\n"
-        "    'diff.optimize', 'ops.ties', 'parallel', 'parallel.sharding')}\n"
+        "    'diff.optimize', 'ops.ties', 'parallel', 'parallel.sharding',\n"
+        "    'settings', '__main__', 'network', 'network.common',\n"
+        "    'network.npcodec', 'network.detached', 'network.node',\n"
+        "    'network.node_mt', 'network.discovery', 'network.tcpserver',\n"
+        "    'simulation.screenio', 'simulation.simnode')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_detached_path_imports_without_zmq_or_msgpack():
+    """The detached worker's modules (``simulation.simnode`` for
+    ``DetachedSimNode``, ``simulation.screenio``, ``__main__``,
+    ``network`` with ``common``, ``detached`` and ``tcpserver``) import
+    with zmq and msgpack blocked as well, as on a machine without them;
+    the networked modules then fail to import, naming what they lack."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'flax', 'bluesky_tpu', 'zmq', 'msgpack'):\n"
+        "    sys.modules[m] = None\n"
+        "for m in ('simulation.simnode', 'simulation.screenio', "
+        "'__main__', 'network', 'network.common', 'network.detached', "
+        "'network.tcpserver', 'settings'):\n"
+        "    importlib.import_module('bluesky_tpu_torch.' + m)\n"
+        "from bluesky_tpu_torch.simulation.simnode import DetachedSimNode\n"
+        "for m in ('network.node', 'network.node_mt', 'network.npcodec', "
+        "'network.discovery'):\n"
+        "    try:\n"
+        "        importlib.import_module('bluesky_tpu_torch.' + m)\n"
+        "    except ImportError as e:\n"
+        "        assert 'zmq' in str(e) or 'msgpack' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'bluesky_tpu', 'zmq', 'msgpack') "
+        "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -119,6 +158,13 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
         tstate.state_from_numpy(tree)
     assert TTraffic(nmax=8, device="cpu").state.device.type == "cpu"
     assert Simulation(nmax=8, device="cpu").traf.state.device.type == "cpu"
+    from bluesky_tpu_torch import settings
+    from bluesky_tpu_torch.simulation.simnode import DetachedSimNode
+    assert settings.device is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DetachedSimNode(nmax=8)
+    monkeypatch.setattr(settings, "device", "cpu")
+    assert DetachedSimNode(nmax=8).sim.traf.state.device.type == "cpu"
     from bluesky_tpu_torch.diff import optimize as topt
     with pytest.raises(RuntimeError, match="CUDA"):
         topt.conflict_scene(4)

@@ -205,6 +205,40 @@ def test_deferred_command(name):
     assert (tsim.cfg, tsim.traf.ids) == (cfg, ids)
 
 
+#: the worker-side commands of the serving fabric, each with the lines
+#: a user types on a detached sim
+WORKER_CMDS = {
+    "ADDNODES": ("ADDNODES 2", "ADDNODES"),
+    "HA": ("HA", "HA STATUS", "HA ON"),
+    "MITIGATE": ("MITIGATE", "MITIGATE ON", "MITIGATE STATUS",
+                 "MITIGATE OFF", "MITIGATE X"),
+    "SDC": ("SDC", "SDC ON", "SDC AUDIT 0.25", "SDC STATUS", "SDC AUDIT",
+            "SDC OFF", "SDC X"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WORKER_CMDS))
+def test_worker_commands_answer_as_jax_detached(name, monkeypatch):
+    """ADDNODES, HA, MITIGATE and SDC left ``DEFERRED`` with the worker
+    side of the network: on a detached sim each answers with the JAX
+    package's text and sets the same settings."""
+    from bluesky_tpu import settings as jsettings
+    from bluesky_tpu_torch import settings as tsettings
+    assert name not in DEFERRED
+    keys = ("mitigate_enabled", "sdc_enabled", "sdc_audit_rate",
+            "ha_standby", "ha_lease_ttl")
+    for mod in (jsettings, tsettings):
+        for k in keys:
+            monkeypatch.setattr(mod, k, getattr(mod, k))
+    jsim, tsim = sim_pair()
+    for line in WORKER_CMDS[name]:
+        jecho, techo = sim_do(jsim, line), sim_do(tsim, line)
+        assert techo == jecho, line
+        assert not any("ROADMAP" in e for e in techo)
+        for k in keys:
+            assert getattr(tsettings, k) == getattr(jsettings, k), (line, k)
+
+
 def test_opt_and_grad_are_not_deferred():
     """OPT and GRAD left ``DEFERRED`` with the differentiable mode: they
     are the JAX commands now, and answer as JAX's do without traffic."""
