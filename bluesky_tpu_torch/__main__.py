@@ -2,25 +2,29 @@
 ``bluesky_tpu/__main__.py``; parity: BlueSky.py:28-119).
 
 Modes:
-  --sim                    run one sim worker node (behind a server)
+  (default) / --headless   start a Server broker that spawns sim workers
+  --sim                    run one sim worker node (spawned by the server)
   --detached               run an embedded sim with no networking
+  --client                 interactive console client (text UI)
   --import-navdata DIR     import a reference-format navdata tree
-  --headless / --client    the server and the console client: not in
-                           the port yet (ROADMAP A6c); a JAX server
-                           (python -m bluesky_tpu --headless) serves
-                           torch workers
   --web                    the browser radar: not in the port yet
                            (ROADMAP A10.7)
 
 The sim runs on ``settings.device``: CUDA unless a config file sets
 ``device = 'cpu'``; without CUDA and without that key the worker raises
-instead of running on the CPU.  ``--sim`` needs pyzmq and msgpack;
+instead of running on the CPU.  The server passes its ``--config-file``
+to every worker it spawns, so the workers follow the server's device.
+``--sim``, the server and ``--client`` need pyzmq and msgpack;
 ``--detached`` needs neither.
 
-Example, a torch worker behind a JAX server on the CPU:
-  python -m bluesky_tpu --headless &
-  python -m bluesky_tpu_torch --sim --config-file cpu.cfg
-  (cpu.cfg holds the line: device = 'cpu')
+Example headless session on the card:
+  python -m bluesky_tpu_torch --headless &
+  python -m bluesky_tpu_torch --client
+  > CRE KL204 B744 52 4 90 FL200 250
+  > OP
+
+On the CPU, start the server with ``--config-file cpu.cfg``, where
+cpu.cfg holds the line ``device = 'cpu'``.
 """
 import argparse
 import os
@@ -35,13 +39,12 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--headless", action="store_true",
-                      help="server + workers, no UI (not ported: "
-                           "ROADMAP A6c)")
+                      help="server + workers, no UI")
     mode.add_argument("--sim", action="store_true", help="one sim worker")
     mode.add_argument("--detached", action="store_true",
                       help="embedded sim, no networking")
     mode.add_argument("--client", action="store_true",
-                      help="console client (not ported: ROADMAP A6c)")
+                      help="console client")
     mode.add_argument("--web", action="store_true",
                       help="embedded sim + live browser radar UI (not "
                            "ported: ROADMAP A10.7)")
@@ -103,11 +106,8 @@ def main(argv=None):
         return _not_ported("--web", "A10.7",
                            "the browser radar (ui/web.py)")
     if args.client:
-        return _not_ported("--client", "A6c", "the console client")
-    return _not_ported("--headless" if args.headless else "the default "
-                       "mode (--headless)", "A6c",
-                       "the server broker; run `python -m bluesky_tpu "
-                       "--headless` and attach torch workers with --sim")
+        return run_client(args)
+    return run_server(args)
 
 
 def _not_ported(what, item, detail):
@@ -208,25 +208,151 @@ def _serve(node, args):
     return 0
 
 
-def run_sim(args):
+def _need_zmq(what):
+    """None when pyzmq and msgpack import, else the message naming them
+    (the networked modes need both; ``--detached`` neither)."""
     try:
         import msgpack  # noqa: F401
         import zmq  # noqa: F401
     except ImportError as e:
-        print(f"--sim needs pyzmq and msgpack ({e}); `--detached` runs "
-              "without them", file=sys.stderr)
+        return (f"{what} needs pyzmq and msgpack ({e}); `--detached` "
+                "runs without them")
+    return None
+
+
+def run_server(args):
+    import signal
+
+    why = _need_zmq("the server")
+    if why:
+        print(why, file=sys.stderr)
+        return 2
+    from .network.server import Server
+    # Port: the config file's port keys reach the server (JAX's binds
+    # its worker-facing and discovery ports at the package defaults
+    # whatever the settings say); with no such keys they are the same
+    # defaults, and --event-port / --stream-port still win
+    ports = {k: getattr(settings, f"{k}_port") for k in
+             ("event", "stream", "wevent", "wstream", "discovery")}
+    if args.event_port:
+        ports["event"] = args.event_port
+    if args.stream_port:
+        ports["stream"] = args.stream_port
+    upstream = None
+    if args.upstream:
+        host, _, port = args.upstream.rpartition(":")
+        upstream = (host or "127.0.0.1", int(port))
+    server = Server(headless=True, discoverable=args.discoverable,
+                    ports=ports, max_nnodes=settings.max_nnodes,
+                    upstream=upstream,
+                    resume_journal=args.resume_batch or None,
+                    ha_role="standby" if args.standby else None)
+    role = f" [{server.ha_role}]" if server.ha_role else ""
+    print(f"bluesky_tpu_torch server{role}: clients on "
+          f"{server.ports['event']}/{server.ports['stream']}, workers on "
+          f"{server.ports['wevent']}/{server.ports['wstream']}")
+    if server.journal:
+        print(f"bluesky_tpu_torch server: BATCH journal at "
+              f"{server.journal.path}")
+    # preemption-safe shutdown: SIGTERM (scheduler reclaim) drains the
+    # broker loop, QUITs the workers, journals the clean-exit marker
+    # and leaves — the journal then resumes the sweep on the next start
+    signal.signal(signal.SIGTERM, lambda signum, frame: server.stop())
+    server.start()
+    server.addnodes(1)
+    try:
+        # timed-join loop, not a bare join(): an unbounded join can sit
+        # in an uninterruptible wait and starve the SIGTERM handler —
+        # waking every second guarantees prompt preemption shutdown
+        while server.is_alive():
+            server.join(timeout=1.0)
+    except KeyboardInterrupt:
+        server.stop()
+        server.join(timeout=5)
+    return 0
+
+
+def run_sim(args):
+    why = _need_zmq("--sim")
+    if why:
+        print(why, file=sys.stderr)
         return 2
     from .simulation.simnode import SimNode
     node = SimNode(event_port=args.event_port,
                    stream_port=args.stream_port,
                    node_id=bytes.fromhex(args.node_id)
                    if args.node_id else None)
-    return _serve(node, args)
+    try:
+        return _serve(node, args)
+    finally:
+        _log_launches(node)
+
+
+def _log_launches(node):
+    """Port: a worker's last log line names the CUDA kernel launches of
+    its process (``ops.cd_sched.LAUNCHES``, ``ops.cd_pallas.LAUNCHES``,
+    the forms launched at least once), so the operator of a spawned
+    fleet sees which kernels its pieces ran."""
+    import json
+    from .ops import cd_pallas, cd_sched
+    launched = {k: v for counts in (cd_sched.LAUNCHES, cd_pallas.LAUNCHES)
+                for k, v in counts.items() if v}
+    print(f"bluesky_tpu_torch worker {node.node_id.hex()}: kernel "
+          f"launches {json.dumps(launched, sort_keys=True)}", flush=True)
 
 
 def run_detached(args):
     from .simulation.simnode import DetachedSimNode
     return _serve(DetachedSimNode(), args)
+
+
+def run_client(args):
+    """Minimal text console: lines -> STACKCMD, ECHO/SIMINFO printed."""
+    why = _need_zmq("--client")
+    if why:
+        print(why, file=sys.stderr)
+        return 2
+    from .network.client import Client
+    client = Client()
+    client.connect(host=args.host,
+                   event_port=args.event_port or settings.event_port,
+                   stream_port=args.stream_port or settings.stream_port)
+    client.subscribe(b"SIMINFO")
+
+    def on_event(name, data, sender):
+        if name in (b"ECHO", b"HEALTH", b"HA"):
+            print(data.get("text", data) if isinstance(data, dict)
+                  else data)
+        elif name == b"BATCHREJECTED":
+            d = data or {}
+            print(f"BATCH rejected: queue {d.get('queue_depth', '?')}/"
+                  f"{d.get('limit', '?')} full — retry in "
+                  f"{d.get('retry_after', '?')} s")
+    client.event_received.connect(on_event)
+    print(f"connected to {client.host_id.hex()}; "
+          f"{len(client.nodes)} node(s). Ctrl-D to quit.")
+    try:
+        while True:
+            client.receive(10)
+            line = input("> ").strip()
+            if not line:
+                continue
+            if line.upper() in ("QUIT", "EXIT", "BYE"):
+                break
+            if line.upper() == "HEALTH":
+                # fabric-level introspection is answered by the SERVER,
+                # not the active sim node
+                client.request_health()
+            else:
+                client.stack(line)
+            # give the reply a moment to arrive
+            for _ in range(20):
+                if client.receive(25):
+                    break
+    except (EOFError, KeyboardInterrupt):
+        pass
+    client.close()
+    return 0
 
 
 if __name__ == "__main__":

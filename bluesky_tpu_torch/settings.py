@@ -6,10 +6,13 @@ from the JAX package), and JAX's two-level scheme: a config file
 value`` file, each value read with ``ast.literal_eval``; unknown keys are
 kept so that modules registering defaults later still pick them up.
 
-One key JAX lacks: ``device``, the port's device policy at the command
-line.  ``None`` (the default) is ``bluesky_tpu_torch.resolve_device``'s:
-CUDA, or an error when there is none; ``device = 'cpu'`` in a config
-file runs the worker on the CPU.
+Two keys JAX lacks.  ``device``, the port's device policy at the
+command line: ``None`` (the default) is
+``bluesky_tpu_torch.resolve_device``'s, CUDA or an error when there is
+none; ``device = 'cpu'`` in a config file runs the worker on the CPU.
+``config_file``, set by ``init``: the absolute path of the file loaded,
+which the server hands to the workers it spawns (``--config-file``), so
+they run on the server's device.
 
 Every path is relative to the working directory: the port reads and
 writes nothing outside its checkout.  Without a ``data/performance``
@@ -47,15 +50,55 @@ ref_scenario_path = ""            # a second scenario library, searched
 device = None                     # the worker's torch device (None:
                                   # CUDA, or an error without one)
 
-# ----- network: a worker's server-facing event and stream ports
+config_file = ""                  # the config file init() loaded
+                                  # (absolute; "" = none)
+
+# ----- network: the server's client-facing ports, the worker-facing
+# ports a worker connects to, and the discovery port
+event_port = DEFAULT_PORTS["event"]
+stream_port = DEFAULT_PORTS["stream"]
 wevent_port = DEFAULT_PORTS["wevent"]
 wstream_port = DEFAULT_PORTS["wstream"]
+discovery_port = DEFAULT_PORTS["discovery"]
+max_nnodes = os.cpu_count() or 1  # workers a server spawns at most
 telnet_port = 8888                # raw-TCP stack bridge of --sim and
                                   # --detached (0 = off)
 node_watchdog_warn = 30.0         # [s] event-loop silence before warning
 node_watchdog_kill = 0.0          # [s] silence before exit(70); 0 = never
 stream_sndhwm = 1000              # [msgs] send buffer bound of a node's
-                                  # stream socket (drops, never blocks)
+                                  # and the server's stream sockets
+                                  # (drops, never blocks)
+connect_backoff_base = 0.25       # [s] first client connect retry delay
+connect_backoff_cap = 4.0         # [s] backoff ceiling (jitter on top)
+
+# ----- the server's BATCH farm (network/server.py): circuit breaker,
+# heartbeats, stragglers and hedging, admission control
+batch_max_crashes = 3             # consecutive worker losses before a
+                                  # BATCH piece is circuit-broken
+quarantine_report_cap = 64        # BATCHQUARANTINE replay history kept
+                                  # for late-joining clients
+hb_busy_multiplier = 10.0         # [x hb_timeout] PING-silence budget for
+                                  # a worker mid-BATCH / in OP (a first
+                                  # kernel build or a long chunk blocks
+                                  # its event loop)
+straggler_timeout = 30.0          # [s] fresh heartbeats but no sim-time/
+                                  # chunk advance on an in-flight piece
+                                  # before it is hedged (0 = never)
+hedge_enabled = True              # speculative straggler re-dispatch
+hedge_rate_factor = 0.2           # also hedge when a worker's progress
+                                  # rate < factor * fleet median
+perf_slo_factor = 0.0             # journal a perf_regression record when
+                                  # a worker's FF rate drops below
+                                  # factor * fleet median (0 = off)
+batch_queue_max = 4096            # pending BATCH pieces before a
+                                  # submission gets BATCHREJECTED
+                                  # (0 = unbounded)
+batch_retry_after = 5.0           # [s] BATCHREJECTED retry hint when no
+                                  # drain-rate estimate exists yet
+batch_journal_fsync = True        # fsync each BATCH journal record (WAL
+                                  # durability vs append latency)
+journal_warn_bytes = 67108864     # [bytes] HEALTH warns when the BATCH
+                                  # journal grows past this (0 = never)
 
 # ----- fault tolerance
 guard_enabled = True              # in-chunk isfinite integrity guard
@@ -105,14 +148,43 @@ world_pack = False                # pack compatible BATCH pieces into
                                   # (WORLDS stack command at runtime)
 world_batch_max = 8               # max pieces per world-batch dispatch
 
-# ----- serving-fabric switches a server inherits (the WORLDS, MITIGATE,
-# SDC and HA commands read and set them on a detached sim)
+# ----- self-healing serving (network/mitigate.py; the MITIGATE
+# command): every action passes a per-action token bucket, a
+# per-target exponential backoff and a global budget; off, the engine
+# is inert
 mitigate_enabled = False          # closed-loop mitigation on the server
+mitigate_budget = 64              # lifetime cap on degrading actions
+                                  # (0 = unbounded); restores are free
+mitigate_rate = 4                 # token-bucket capacity per action ...
+mitigate_rate_window = 60.0       # ... refilled over this window [s]
+mitigate_backoff_base = 5.0       # [s] first per-(action,target) delay
+mitigate_backoff_cap = 300.0      # [s] exponential-backoff ceiling
+mitigate_shed_hi = 0.8            # shed load (tighten batch_queue_max)
+                                  # past this fraction of the limit ...
+mitigate_shed_lo = 0.3            # ... restore below this fraction
+mitigate_shed_factor = 0.5        # shed limit = factor x the configured
+mitigate_mem_budget = 0           # [bytes] fleet live-bytes budget
+                                  # (0 = off)
+mitigate_mem_hi = 0.9             # re-pack (shrink world_batch_max)
+                                  # past this fraction of the budget ...
+mitigate_mem_lo = 0.6             # ... restore below this fraction
+mitigate_repack_factor = 0.5      # re-pack width = factor x configured
+
+# ----- silent-data-corruption defense (the server compares the
+# fingerprints of redundant executions; the SDC command)
 sdc_enabled = False               # server-side fingerprint comparison
 sdc_audit_rate = 0.0              # fraction of FF pieces shadow re-run
+
+# ----- broker HA (network/ha.py): a warm standby tails the journal and
+# takes the lease when the leader's goes stale
 ha_standby = False                # start a server as a warm standby
 ha_lease_ttl = 10.0               # [wall s] leader silence before the
                                   # standby may take the lease
+ha_poll_dt = 1.0                  # [wall s] lease renewal (leader) /
+                                  # lease+journal polling (standby)
+ha_fence_strict = True            # replay drops a deposed leader's
+                                  # stale-epoch completions from the
+                                  # queue math
 
 _overrides = {}                   # file values for late-registered keys
 
@@ -122,6 +194,7 @@ def init(cfgfile: str = "") -> bool:
     if not cfgfile or not os.path.isfile(cfgfile):
         return False
     mod = sys.modules[__name__]
+    mod.config_file = os.path.abspath(cfgfile)
     with open(cfgfile) as f:
         for line in f:
             line = line.strip()

@@ -23,25 +23,15 @@ detached class never loads them.
 Both take the Simulation's keyword arguments; ``device`` defaults to
 ``settings.device`` (None: CUDA, or an error without one).
 """
-import hashlib
-import json
-
 from .. import settings
 from ..network import detached
+from ..network.journal import BatchJournal
 from .sim import Simulation, HOLD, OP, END
 from .screenio import ScreenIO
 
-
-def piece_key(piece) -> str:
-    """Content-addressed id of a BATCH piece ``(scentime, scencmd)``,
-    stable across restarts: the JAX package's
-    ``network/journal.BatchJournal.piece_key``, by which a server adopts
-    a worker's running piece after a failover."""
-    scentime, scencmd = piece
-    blob = json.dumps([[float(t) for t in scentime],
-                       [str(c) for c in scencmd]],
-                      separators=(",", ":"))
-    return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:16]
+# content-addressed id of a BATCH piece, by which a server adopts a
+# worker's running piece after a failover: the journal's, the one copy
+piece_key = BatchJournal.piece_key
 
 
 def _make_simnode_class(base, name):
@@ -165,7 +155,7 @@ def _make_simnode_class(base, name):
         # --------------------------------------------------------- heartbeat
         def register_payload(self):
             """REGISTER payload: the in-flight solo BATCH piece, keyed
-            by content (``piece_key``) — what lets the
+            by content (network/journal.py piece_key) — what lets the
             post-failover leader adopt this worker's running piece
             instead of requeueing a second copy (server._ha_adopt)."""
             if self._batch_piece is None:

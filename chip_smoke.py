@@ -113,8 +113,9 @@ Phases, in order; any failure exits non-zero before the last line:
     dense step (``bluesky_tpu_torch/diff``; no kernel runs on this path,
     and the launch counts must read 0 after it).  (a) 25 head-on pairs
     (``conflict_scene(50)``) in a float64 ``Simulation`` on the card, ``OPT
-    100,10,0.5`` typed into its stack: the guard clean, hard LoS before
-    and none after, the objective falling, the wall seconds of each
+    100,6,0.5`` typed into its stack (6 iterations: cut from 10 to make
+    room for phase 16; both reach no hard LoS): the guard clean, hard
+    LoS before and none after, the objective falling, the wall seconds of each
     descent iteration; (b) the same with 4 restarts on the world axis;
     (c) ``value_and_grad_once`` on ``conflict_scene(8)`` in float64 on
     the card against the CPU, ASAS out of the loop and in it (value and
@@ -174,6 +175,32 @@ Phases, in order; any failure exits non-zero before the last line:
     chunk, K1, K2 and K3 launched (the ``entry_launches`` of the kernels
     line); then an embedded ``Simulation`` given the same commands, seed
     and chunk count, every state tensor bit-equal to the node's.
+16. fabric phase (``fabric_phase``): the port's own server on the card,
+    ``python -m bluesky_tpu_torch --headless --config-file cfg`` in its
+    own process group, the config on free ports with ``telnet_port = 0``
+    and no ``device`` key (so the spawned workers, ``python -m
+    bluesky_tpu_torch --sim`` with the same config, run on CUDA), the
+    port's ``Client`` attached.  (a) ``max_nnodes = 2``: ``BATCH`` of 4
+    pieces (ASAS ON, CDMETHOD SPARSE three times and PALLAS once, a 4 x
+    4 deg regional view, SEED k, MCRE 1000 B744, OP, FF; at 60 s
+    SNAPSHOT SAVE and HOLD): two workers spawned and registered, each
+    piece completed exactly once in the journal and none crashed, each
+    snapshot bit-equal to an embedded ``Simulation`` given the same
+    lines; spawn-to-REGISTER seconds, device memory per process
+    (``nvidia-smi --query-compute-apps``), sim-s per wall-s of each
+    piece against its embedded run.  (b) ``world_pack = True``,
+    ``world_batch_max = 8``, ``max_nnodes = 1``: 8 SPARSE pieces of 500
+    aircraft in one WORLDS pack (one dispatch, each piece completed
+    once, each bit-equal to its solo embedded run).  (c) a 100k
+    continental ``SimNode`` of this process on the (b) server's worker
+    ports, ACDATA through the broker to a SUB socket for 3 fast-time
+    chunks: ms from publish to receipt and wire bytes of each frame.
+    Each server is stopped with SIGTERM: exit 0, its journal's last
+    record the clean-exit ``shutdown``, no process of its group left.
+    The workers' K1, K2 and K3 launches come from their last log line
+    (``__main__._log_launches``): the ``fabric_launches`` of the kernels
+    line, the (a) workers' on the MVP forms, the pack worker's on the
+    ``/worlds`` forms.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -861,15 +888,25 @@ def reset_launches():
             k[name] = 0
 
 
+#: the wrapper of each kernel, whose ``LAUNCHES`` key it counts under
+WRAPPERS = {"cd_sched._sched_kernel": "cd_sched_tiles",
+            "cd_pallas._kernel_resume": "cd_full_grid_resume",
+            "cd_pallas._kernel": "cd_full_grid",
+            "cd_pallas._kernel_cand": "cd_cand_tiles"}
+
+
+def launch_keys():
+    """``{LAUNCHES key: form_name}`` of every form of ``FORMS``."""
+    from bluesky_tpu_torch.ops import cd_pallas
+    return {cd_pallas.launch_key(WRAPPERS[k], r): form_name(k, r)
+            for k, r in FORMS}
+
+
 def launch_counts():
     """The launch count of each kernel form, by ``form_name``."""
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched
-    wrapper = {"cd_sched._sched_kernel": (cd_sched, "cd_sched_tiles"),
-               "cd_pallas._kernel_resume": (cd_pallas, "cd_full_grid_resume"),
-               "cd_pallas._kernel": (cd_pallas, "cd_full_grid"),
-               "cd_pallas._kernel_cand": (cd_pallas, "cd_cand_tiles")}
-    return {form_name(k, r): wrapper[k][0].LAUNCHES[
-        cd_pallas.launch_key(wrapper[k][1], r)] for k, r in FORMS}
+    counts = dict(cd_pallas.LAUNCHES, **cd_sched.LAUNCHES)
+    return {name: counts[key] for key, name in launch_keys().items()}
 
 
 def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
@@ -2646,7 +2683,7 @@ def worlds_phase(dev, errs, regs, scale=1):
 #: card-against-CPU check's scene and horizon; the full-width rollout
 #: (the dense worlds shape of the worlds phase) and its chunks without
 #: and with ASAS in the loop (50 does not fit in 80 GB with ASAS)
-DIFF_DEMO_N, DIFF_DEMO_LEG_KM, DIFF_DEMO_OPT = 50, 20.0, (100.0, 10, 0.5)
+DIFF_DEMO_N, DIFF_DEMO_LEG_KM, DIFF_DEMO_OPT = 50, 20.0, (100.0, 6, 0.5)
 DIFF_CHECK_N, DIFF_CHECK_TEND = 8, 100.0
 DIFF_CHECK_RTOL = 1e-9
 DIFF_WIDE = dict(n_ac=2000, nmax=2048, tend=400.0, simdt=1.0,
@@ -3673,6 +3710,469 @@ def entry_node(dev):
     return launches
 
 
+# ----------------------------------------------------------- fabric phase
+#: phase 16: the BATCH pieces' regional view (4 x 4 deg around 52.6 N
+#: 5.4 E), their fleet (under the spawned worker's default 1,024 slots,
+#: the JAX package's ``Simulation()`` default: no setting sizes a
+#: spawned worker), the sim time of their snapshot, the WORLDS pack's
+#: pieces and fleet, and the ACDATA frames timed on the wire
+FABRIC_VIEW = ("PAN 52.6 5.4", "ZOOM 0.5")
+FABRIC_N, FABRIC_T = 1000, 60.0
+FABRIC_METHODS = ("SPARSE", "SPARSE", "PALLAS", "SPARSE")
+FABRIC_PACK, FABRIC_PACK_N = 8, 500
+FABRIC_FRAMES = 3
+FABRIC_DIR = os.path.join("output", "chip_smoke_fabric")
+#: a worker's last log line (``__main__._log_launches``)
+_WORKER_LAUNCHES = re.compile(
+    r"bluesky_tpu_torch worker ([0-9a-f]+): kernel launches (\{.*\})")
+
+
+def free_ports(n):
+    """``n`` free localhost TCP ports."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def fabric_piece(k, n_ac, method, snap, tsnap):
+    """BATCH piece ``k``: ASAS ON, CDMETHOD ``method``, the regional
+    view, SEED k, MCRE ``n_ac`` B744, OP, FF; at ``tsnap`` SNAPSHOT SAVE
+    ``snap`` and HOLD (the HOLD completes the piece)."""
+    lines = [f"SCEN P{k}", "ASAS ON", f"CDMETHOD {method}", *FABRIC_VIEW,
+             f"SEED {k}", f"MCRE {n_ac} B744", "OP", "FF",
+             f"SNAPSHOT SAVE {snap}", "HOLD"]
+    return [0.0] * (len(lines) - 2) + [tsnap, tsnap], lines
+
+
+def write_scenario(path, pieces):
+    with open(path, "w") as f:
+        for times, lines in pieces:
+            for t, line in zip(times, lines):
+                f.write(f"{int(t) // 3600:02d}:{int(t) // 60 % 60:02d}:"
+                        f"{t % 60:05.2f}>{line}\n")
+
+
+def fabric_embedded(dev, piece, snap):
+    """``piece`` in an embedded ``Simulation`` as a worker runs a BATCH
+    piece (reset, the scenario, OP, steps until it leaves OP), its
+    snapshot to ``snap``; returns the wall seconds from OP to HOLD."""
+    import torch
+    from bluesky_tpu_torch.simulation.sim import OP, Simulation
+    times, lines = piece
+    lines = [f"SNAPSHOT SAVE {snap}" if ln.startswith("SNAPSHOT SAVE")
+             else ln for ln in lines]
+    sim = Simulation(nmax=1024, device=dev)
+    sim.reset()
+    sim.stack.set_scendata(list(times), lines)
+    sim.op()
+    t0 = time.perf_counter()
+    for _ in range(10 ** 6):
+        if sim.state_flag != OP:
+            break
+        sim.step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_snapshot(tag, path_a, path_b):
+    """The two snapshot files hold the same fleet: every state array bit
+    for bit, the ids, types, routes and conditions equal."""
+    from bluesky_tpu_torch.simulation import snapshot
+    (a, ea), (b, eb) = snapshot.read_blob(path_a), snapshot.read_blob(path_b)
+    if ea or eb:
+        raise AssertionError(f"{tag}: snapshot {ea or eb}")
+    sa, sb = a["state"], b["state"]
+    bad = [k for k in sa if k not in sb or sa[k].dtype != sb[k].dtype
+           or sa[k].shape != sb[k].shape
+           or sa[k].tobytes() != sb[k].tobytes()]
+    bad += [k for k in ("ids", "types", "routes", "autoid") if a[k] != b[k]]
+    if bad or sa.keys() != sb.keys():
+        raise AssertionError(f"{tag}: the worker's snapshot differs from "
+                             f"the embedded run's in {bad[:8]}")
+    return snapshot.blob_simt(a), sum(1 for i in a["ids"] if i)
+
+
+class FabricServer:
+    """``python -m bluesky_tpu_torch --headless --config-file cfg`` in its
+    own process group, on free ports, its journal and log under
+    ``FABRIC_DIR/tag``, with the port's ``Client`` connected."""
+
+    def __init__(self, tag, dev, **keys):
+        from bluesky_tpu_torch.network.client import Client
+        self.dir = os.path.abspath(os.path.join(FABRIC_DIR, tag))
+        os.makedirs(self.dir, exist_ok=True)
+        ev, st, wev, wst, disc = free_ports(5)
+        self.ports = dict(event=ev, stream=st, wevent=wev, wstream=wst)
+        keys = dict(event_port=ev, stream_port=st, wevent_port=wev,
+                    wstream_port=wst, discovery_port=disc, telnet_port=0,
+                    log_path=self.dir, **keys)
+        if dev.type == "cpu":
+            keys["device"] = "cpu"      # a CPU rehearsal of the phase
+        self.cfg = os.path.join(self.dir, "fabric.cfg")
+        with open(self.cfg, "w") as f:
+            f.writelines(f"{k} = {v!r}\n" for k, v in keys.items())
+        self.log = os.path.join(self.dir, "server.log")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "bluesky_tpu_torch", "--headless",
+                 "--config-file", self.cfg], stdout=out,
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                start_new_session=True)
+        self.client = Client()
+        self.client.connect(event_port=ev, stream_port=st, timeout=60.0)
+        self.records = []               # (first seen, record)
+
+    def text(self):
+        with open(self.log) as f:
+            return f.read()
+
+    def journal(self):
+        names = [n for n in os.listdir(self.dir) if n.endswith(".jsonl")]
+        return os.path.join(self.dir, names[0]) if names else None
+
+    def poll(self):
+        """Pump the client; stamp the journal records new since the last
+        poll; fail if the server died."""
+        self.client.receive(10)
+        if self.proc.poll() is not None:
+            raise AssertionError(f"fabric server exited "
+                                 f"{self.proc.returncode}:\n{self.text()}")
+        path = self.journal()
+        if path is None:
+            return
+        now = time.perf_counter()
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for line in lines[len(self.records):]:
+            try:
+                self.records.append((now, json.loads(line)))
+            except json.JSONDecodeError:
+                break                   # a line still being written
+
+    def wait(self, cond, what, timeout):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            self.poll()
+            if cond():
+                return time.perf_counter()
+            time.sleep(0.01)
+        raise AssertionError(f"fabric: {what} not within {timeout} s:\n"
+                             f"{self.text()[-4000:]}")
+
+    def piece_times(self):
+        """{piece key: (dispatched, completed) first-seen stamps}."""
+        out = {}
+        for t, r in self.records:
+            if r.get("rec") in ("dispatched", "completed"):
+                out.setdefault(r["key"], {}).setdefault(r["rec"], t)
+        return {k: (v.get("dispatched"), v.get("completed"))
+                for k, v in out.items()}
+
+    def health(self):
+        self.client.last_health = None
+        self.client.request_health()
+        self.wait(lambda: self.client.last_health is not None, "HEALTH", 30)
+        return self.client.last_health
+
+    def stop(self):
+        """SIGTERM: exit 0, the clean-exit marker last in the journal, no
+        process of its group alive.  Returns each worker's kernel
+        launches from its last log line."""
+        import signal
+        self.client.close()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            raise AssertionError("fabric server ignored SIGTERM")
+        left = True
+        for _ in range(100):
+            try:
+                os.killpg(self.proc.pid, 0)
+            except ProcessLookupError:
+                left = False
+                break
+            time.sleep(0.1)
+        if left:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        with open(self.journal()) as f:
+            last = json.loads(f.read().splitlines()[-1])
+        text = self.text()
+        launches = {wid: json.loads(blob) for wid, blob in
+                    _WORKER_LAUNCHES.findall(text)}
+        log(f"fabric server {os.path.basename(self.dir)}: SIGTERM -> exit "
+            f"{rc}, last journal record {last.get('rec')!r}, processes of "
+            f"its group left: {left}; worker launches {launches}")
+        if rc != 0 or last.get("rec") != "shutdown" or left:
+            raise AssertionError(f"fabric server shutdown:\n{text[-4000:]}")
+        return launches
+
+
+def compute_apps():
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` lines."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()] \
+        or [f"(none listed; rc {out.returncode} {out.stderr.strip()})"]
+
+
+def fabric_launches(per_worker, suffix=""):
+    """The workers' launches summed by kernels-line name (+ ``suffix``)."""
+    names, out = launch_keys(), {}
+    for counts in per_worker.values():
+        for key, n in counts.items():
+            name = names[key] + suffix
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def fabric_batch(dev, n_ac=FABRIC_N, tsnap=FABRIC_T):
+    """Phase 16 (a): the port's server (``--headless``, no ``device``
+    key: CUDA) with ``max_nnodes = 2`` spawns two workers; a 4-piece
+    BATCH (three SPARSE, one PALLAS) completes each piece exactly once;
+    each piece's snapshot bit-equal to an embedded ``Simulation`` on the
+    same lines; the workers' K1, K2 and K3 launches from their logs."""
+    from bluesky_tpu_torch.network.journal import BatchJournal
+    d = os.path.abspath(os.path.join(FABRIC_DIR, "batch"))
+    pieces = [fabric_piece(k, n_ac, m, os.path.join(d, f"piece_{k}.snap"),
+                           tsnap) for k, m in enumerate(FABRIC_METHODS)]
+    srv = FabricServer("batch", dev, max_nnodes=2)
+    try:
+        t_reg1 = srv.wait(lambda: len(srv.client.nodes) == 1,
+                          "the first worker's REGISTER", 180)
+        # the second worker before the BATCH, so that both take pieces
+        # (a 1,000-aircraft piece takes less than a worker's start)
+        t_add = time.perf_counter()
+        srv.client.send_event(b"ADDNODES", 1, target=b"")
+        t_reg2 = srv.wait(lambda: len(srv.client.nodes) == 2,
+                          "the second worker's REGISTER", 180)
+        scn = os.path.join(d, "batch.scn")
+        write_scenario(scn, pieces)
+        srv.client.stack(f"BATCH {scn}")
+        apps = compute_apps() if dev.type == "cuda" else []
+        srv.wait(lambda: sum(1 for _, r in srv.records
+                             if r.get("rec") == "completed") >= len(pieces),
+                 "the BATCH", 600)
+        apps_end = compute_apps() if dev.type == "cuda" else []
+        times = srv.piece_times()
+        recs = [r for _, r in srv.records]
+    finally:
+        launches = srv.stop()
+    log(f"fabric batch: spawn -> REGISTER {t_reg1 - srv.t0:.2f} s for the "
+        f"first worker (from the server's start), {t_reg2 - t_add:.2f} s "
+        f"for the second (from ADDNODES); device memory per process "
+        f"{apps} (both workers up), {apps_end} (after the batch)")
+    keys = [BatchJournal.piece_key(p) for p in pieces]
+    done = [r["key"] for r in recs if r.get("rec") == "completed"]
+    crashed = [r for r in recs if r.get("rec") in ("crashed", "quarantined")]
+    if sorted(done) != sorted(keys) or crashed or len(launches) != 2 \
+            or len({r["worker"] for r in recs
+                    if r.get("rec") == "completed"}) != 2:
+        raise AssertionError(f"fabric batch: completed {done}, pieces "
+                             f"{keys}, crashed {crashed}, workers "
+                             f"{list(launches)}")
+    for k, (piece, key) in enumerate(zip(pieces, keys)):
+        t_disp, t_done = times[key]
+        snap = os.path.join(d, f"embedded_{k}.snap")
+        wall = fabric_embedded(dev, piece, snap)
+        simt, ntraf = same_snapshot(f"fabric piece {k}", piece[1][-2]
+                                    .split(" ", 2)[2], snap)
+        log(f"fabric piece {k} ({FABRIC_METHODS[k]}): {ntraf} aircraft, "
+            f"snapshot at simt {simt:g} bit-equal to the embedded run; "
+            f"worker {tsnap / (t_done - t_disp):.4g} sim-s per wall-s "
+            f"(dispatch to completion, {t_done - t_disp:.2f} s: the "
+            f"scenario lines, graph captures and the journal included), "
+            f"embedded {tsnap / wall:.4g} ({wall:.2f} s from OP)")
+    got = fabric_launches(launches)
+    if dev.type == "cuda":
+        for form in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume",
+                     "cd_pallas._kernel"):
+            if not got.get(form):
+                raise AssertionError(f"fabric batch: the workers never "
+                                     f"launched {form}: {launches}")
+    return got
+
+
+def fabric_worlds_wire(dev, pack=FABRIC_PACK, n_ac=FABRIC_PACK_N,
+                       tsnap=FABRIC_T, wire_n=None, wire_nmax=None):
+    """Phase 16 (b) and (c).  (b) a server with ``world_pack = True``,
+    ``world_batch_max = 8`` and ``max_nnodes = 1``: ``pack`` SPARSE
+    pieces of ``n_ac`` in one WORLDS pack on its one worker, one pack
+    dispatch, each piece completed once and bit-equal to its solo
+    embedded run.  (c) a 100k continental ``SimNode`` of this process on
+    the same server's worker ports, ACDATA through the broker to a raw
+    SUB socket for ``FABRIC_FRAMES`` fast-time chunks: ms from publish
+    to receipt and bytes of each frame.  Returns the pack worker's
+    launches by ``/worlds`` name."""
+    import threading
+    import torch
+    import zmq
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.network.journal import BatchJournal
+    from bluesky_tpu_torch.network.npcodec import packb, unpackb
+    from bluesky_tpu_torch.simulation.simnode import SimNode
+    wire_n = SIM_N if wire_n is None else wire_n
+    wire_nmax = SIM_NMAX if wire_nmax is None else wire_nmax
+    d = os.path.abspath(os.path.join(FABRIC_DIR, "worlds"))
+    pieces = [fabric_piece(100 + k, n_ac, "SPARSE",
+                           os.path.join(d, f"piece_{k}.snap"), tsnap)
+              for k in range(pack)]
+    srv = FabricServer("worlds", dev, max_nnodes=1, world_pack=True,
+                       world_batch_max=8)
+    node = thread = sub = None
+    try:
+        t_reg = srv.wait(lambda: len(srv.client.nodes) == 1,
+                         "the worker's REGISTER", 180)
+        (worker,) = list(srv.client.nodes)
+        scn = os.path.join(d, "worlds.scn")
+        write_scenario(scn, pieces)
+        srv.client.stack(f"BATCH {scn}")
+        srv.wait(lambda: sum(1 for _, r in srv.records
+                             if r.get("rec") == "completed") >= pack,
+                 "the WORLDS pack", 600)
+        apps = compute_apps() if dev.type == "cuda" else []
+        h = srv.health()
+        times = srv.piece_times()
+        recs = [r for _, r in srv.records]
+        disp = [r for r in recs if r.get("rec") == "dispatched"]
+        log(f"fabric worlds: spawn -> REGISTER {t_reg - srv.t0:.2f} s; "
+            f"HEALTH worlds {h['worlds']}; dispatched records "
+            f"{[(r.get('world'), r.get('pack')) for r in disp]}; device "
+            f"memory per process {apps}")
+        keys = [BatchJournal.piece_key(p) for p in pieces]
+        done = [r["key"] for r in recs if r.get("rec") == "completed"]
+        if h["worlds"]["world_batches"] != 1 \
+                or h["worlds"]["packed_pieces"] != pack \
+                or sorted(done) != sorted(keys) \
+                or sorted(r.get("world") for r in disp) != list(range(pack)) \
+                or {r["worker"] for r in disp} != {worker.hex()}:
+            raise AssertionError(f"fabric worlds: not one pack of {pack} "
+                                 f"completed once: {recs}")
+        t0 = min(t for t, _ in times.values())
+        t1 = max(t for _, t in times.values())
+        walls = []
+        for k, piece in enumerate(pieces):
+            snap = os.path.join(d, f"embedded_{k}.snap")
+            walls.append(fabric_embedded(dev, piece, snap))
+            same_snapshot(f"fabric world {k}", piece[1][-2].split(" ", 2)[2],
+                          snap)
+        log(f"fabric worlds: every piece's snapshot bit-equal to its solo "
+            f"embedded run; the pack {pack * tsnap / (t1 - t0):.4g} sim-s "
+            f"per wall-s ({t1 - t0:.2f} s from its dispatch to its last "
+            f"completion), solo {[round(tsnap / w, 4) for w in walls]}")
+
+        # (c) the wire: a 100k node of this process behind the server
+        graph.clear()
+        node = SimNode(event_port=srv.ports["wevent"],
+                       stream_port=srv.ports["wstream"], nmax=wire_nmax,
+                       device=dev)
+        sent = {}                   # simt -> [(publish stamp, bytes)]
+
+        def send_stream(name, data, node=node):
+            payload = packb(data)
+            t = time.perf_counter()
+            node.stream_out.send_multipart([name + node.node_id, payload])
+            if name == b"ACDATA":
+                sent.setdefault(float(data["simt"]), []).append(
+                    (t, len(payload)))
+        node.send_stream = send_stream
+        thread = threading.Thread(target=node.run, daemon=True)
+        thread.start()
+        srv.wait(lambda: node.node_id in srv.client.nodes,
+                 "the wire node's REGISTER", 60)
+        sub = zmq.Context.instance().socket(zmq.SUB)
+        sub.setsockopt(zmq.LINGER, 0)
+        sub.setsockopt(zmq.RCVHWM, 0)
+        sub.connect(f"tcp://127.0.0.1:{srv.ports['stream']}")
+        sub.setsockopt(zmq.SUBSCRIBE, b"ACDATA" + node.node_id)
+        time.sleep(0.5)
+        srv.client.actnode(node.node_id)
+        for line in ("CDMETHOD SPARSE", "ASAS ON") + SIM_VIEW + (
+                "SEED 1", f"MCRE {wire_n} B744", "OP", "FF"):
+            srv.client.stack(line)
+        got = []
+        t0 = time.perf_counter()
+        while len(got) < FABRIC_FRAMES + 1:
+            srv.poll()
+            if sub.poll(10):
+                frames = sub.recv_multipart()
+                t = time.perf_counter()
+                data = unpackb(frames[1])
+                # a frame's publish stamp: the first unmatched one of its
+                # sim time (PUB/SUB keeps the order)
+                simt = float(data["simt"])
+                t_pub, n_pub = sent[simt].pop(0)
+                if len(data["id"]) == wire_n:
+                    got.append(((t - t_pub) * 1e3, len(frames[1]), n_pub,
+                                (time.perf_counter() - t) * 1e3, simt))
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("fabric wire: no ACDATA frames")
+        srv.client.stack("HOLD")
+        rows = got
+        log(f"fabric wire: {wire_n} aircraft ACDATA through the server "
+            f"(ms publish -> receipt, wire payload bytes, unpack ms, sim "
+            f"time): {[tuple(round(x, 3) for x in r) for r in rows]}; the "
+            f"server's stream drops "
+            f"{srv.health().get('stream_drops')}")
+        if not rows or any(n != m for _, n, m, _, _ in rows):
+            raise AssertionError(f"fabric wire: frames {got}, sent {sent}")
+        node.quit()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("fabric wire: the node did not quit")
+        if dev.type == "cuda":
+            check_sim_state("fabric wire", node.sim)
+    finally:
+        if sub is not None:
+            sub.close()
+        if node is not None and thread is not None and thread.is_alive():
+            node.quit()
+            thread.join(timeout=60)
+        launches = srv.stop()
+        del node
+        gc.collect()
+        graph.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    got = fabric_launches(launches, "/worlds")
+    if dev.type == "cuda":
+        for form in WORLD_KERNELS["sparse"]:
+            if not got.get(form + "/worlds"):
+                raise AssertionError(f"fabric worlds: the worker never "
+                                     f"launched {form}: {launches}")
+    return got
+
+
+def fabric_phase(dev):
+    """Phase 16: the port's own server on the card (``fabric_batch``, then
+    ``fabric_worlds_wire``); returns the workers' kernel launches by
+    kernels-line name."""
+    import shutil
+    shutil.rmtree(FABRIC_DIR, ignore_errors=True)
+    os.makedirs(os.path.join(FABRIC_DIR, "batch"))
+    os.makedirs(os.path.join(FABRIC_DIR, "worlds"))
+    t0 = time.perf_counter()
+    launches = fabric_batch(dev)
+    log(f"fabric (a): {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}")
+    t0 = time.perf_counter()
+    launches.update(fabric_worlds_wire(dev))
+    log(f"fabric (b), (c): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def entry_phase(dev):
     """Phase 15: the command line, then the full-width node; returns
     the node session's kernel launches."""
@@ -3762,11 +4262,16 @@ def main():
     entry_launches = entry_phase(dev)
     log(f"entry_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after entry_phase")
+    t0 = time.perf_counter()
+    fabric = fabric_phase(dev)
+    log(f"fabric_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after fabric_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
     report += world_report + kwide_report + shard_report
     for entry in report:
         entry["entry_launches"] = entry_launches.get(entry["name"], 0)
+        entry["fabric_launches"] = fabric.get(entry["name"], 0)
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")

@@ -7,6 +7,12 @@
   blocked.
 * Entry points called without ``device`` raise when no CUDA device
   exists instead of running on the CPU.
+* The server side (``network.server``, ``client``, ``journal``, ``ha``,
+  ``mitigate``) imports with ``jax`` and ``bluesky_tpu`` blocked, and
+  ``journal``, ``ha`` and ``mitigate`` with ``zmq`` and ``msgpack``
+  blocked too.  A worker spawned by a server whose config has no
+  ``device`` key exits non-zero on a host without CUDA, and the server
+  reports it dead; it never runs on the CPU.
 """
 import subprocess
 import sys
@@ -208,3 +214,75 @@ def test_unported_backends_raise(backend):
             tstep.step(no_pairs, cfg)
     else:
         tstep.step(no_pairs, cfg)
+
+
+def test_server_side_imports_without_jax():
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "for m in ('server', 'client', 'journal', 'ha', 'mitigate'):\n"
+        "    importlib.import_module('bluesky_tpu_torch.network.' + m)\n"
+        "from bluesky_tpu_torch.network import packb, unpackb\n"
+        "assert unpackb(packb({'a': 1})) == {'a': 1}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
+        "    del sys.modules[m]\n"
+        "for m in list(sys.modules):\n"
+        "    if m.startswith(('bluesky_tpu_torch', 'zmq', 'msgpack')):\n"
+        "        del sys.modules[m]\n"
+        "for m in ('jax', 'flax', 'bluesky_tpu', 'zmq', 'msgpack'):\n"
+        "    sys.modules[m] = None\n"
+        "for m in ('journal', 'ha', 'mitigate'):\n"
+        "    importlib.import_module('bluesky_tpu_torch.network.' + m)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_spawned_worker_without_device_is_counted_dead(tmp_path):
+    """A server whose config file has no ``device`` key spawns a worker
+    that asks for CUDA; on this host it raises and exits non-zero before
+    it registers, and the server reports the death.  No worker runs on
+    the CPU."""
+    import os
+    import signal
+    import time
+    if torch.cuda.is_available():
+        pytest.skip("the host has CUDA: the worker would run there")
+    from tests.test_network import free_ports
+    ev, st, wev, wst, disc = free_ports(5)
+    cfg = tmp_path / "nodevice.cfg"
+    cfg.write_text(
+        f"telnet_port = 0\nevent_port = {ev}\nstream_port = {st}\n"
+        f"wevent_port = {wev}\nwstream_port = {wst}\n"
+        f"discovery_port = {disc}\nmax_nnodes = 1\n"
+        f"log_path = {str(tmp_path / 'log')!r}\n")
+    log = tmp_path / "server.log"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=repo)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bluesky_tpu_torch", "--headless",
+             "--config-file", str(cfg)], stdout=out,
+            stderr=subprocess.STDOUT, cwd=repo, env=env,
+            start_new_session=True)
+    try:
+        t0 = time.monotonic()
+        while "died before registering" not in log.read_text() \
+                and time.monotonic() - t0 < 90 and proc.poll() is None:
+            time.sleep(0.2)
+        text = log.read_text()
+        assert "died before registering (exit 1)" in text, text
+        assert "RuntimeError" in text and "CUDA" in text, text
+        assert "kernel launches" not in text
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+            proc.wait(timeout=30)

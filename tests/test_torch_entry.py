@@ -7,13 +7,18 @@ settings, on the CPU.
   time and fleet the scenario gives; without that key and without CUDA
   it raises instead of running on the CPU.
 * ``--help`` lists every mode; ``--attach`` without ``--web`` exits 2
-  with the JAX package's message; ``--headless``, ``--client``, ``--web``
-  and the default mode refuse, naming their ROADMAP item; ``--sim``
-  without pyzmq fails naming it.
+  with the JAX package's message; ``--web`` refuses, naming its ROADMAP
+  item; ``--sim`` without pyzmq fails naming it.
+* ``--headless`` and the default mode start the port's server in a
+  subprocess on the config file's ports; it spawns a torch worker with
+  the same config file (a CPU worker here), and SIGTERM stops both with
+  exit 0, the worker naming its kernel launches as it leaves.
+  ``--client`` sends a stdin line to a worker and prints its ECHO.
 * ``DetachedSimNode`` and ``__main__`` import with ``zmq`` and
-  ``msgpack`` blocked (the card machine has neither).
+  ``msgpack`` blocked (a machine may have neither).
 * ``settings.init`` and ``set_variable_defaults`` give JAX's values on
-  the same file.
+  the same file, and ``init`` records the file it loaded; every key the
+  server side reads has JAX's default.
 * The detached worker's telnet bridge starts on a free port and stops
   with the loop.
 """
@@ -118,10 +123,7 @@ def test_attach_requires_web():
     assert "--attach only applies to --web" in err
 
 
-@pytest.mark.parametrize("argv,item", [(["--headless"], "A6c"),
-                                       (["--client"], "A6c"),
-                                       (["--web"], "A10.7"),
-                                       ([], "A6c")])
+@pytest.mark.parametrize("argv,item", [(["--web"], "A10.7")])
 def test_unported_modes_refuse(argv, item):
     rc, out, err = _main(argv)
     assert rc == 2
@@ -310,3 +312,143 @@ def test_import_navdata_refuses_as_jax(tmp_path, case):
     assert rc == jrc == 1
     assert err == se.getvalue() and out == ""
     assert not dest.exists()
+
+
+# ------------------------------------------------- the server and client
+SERVER_KEYS = ("max_nnodes", "batch_max_crashes", "batch_journal_fsync",
+               "batch_queue_max", "batch_retry_after",
+               "connect_backoff_base", "connect_backoff_cap",
+               "straggler_timeout", "hedge_enabled", "hedge_rate_factor",
+               "hb_busy_multiplier", "perf_slo_factor",
+               "quarantine_report_cap", "journal_warn_bytes",
+               "ha_standby", "ha_lease_ttl", "ha_poll_dt",
+               "ha_fence_strict", "world_pack", "world_batch_max",
+               "mitigate_enabled", "mitigate_budget", "mitigate_rate",
+               "mitigate_rate_window", "mitigate_backoff_base",
+               "mitigate_backoff_cap", "mitigate_shed_hi",
+               "mitigate_shed_lo", "mitigate_shed_factor",
+               "mitigate_mem_budget", "mitigate_mem_hi", "mitigate_mem_lo",
+               "mitigate_repack_factor", "sdc_enabled", "sdc_audit_rate",
+               "stream_sndhwm", "event_port", "stream_port",
+               "wevent_port", "wstream_port", "discovery_port")
+
+
+def test_server_settings_match_jax():
+    """Every key the server, journal, HA, mitigation engine and client
+    read has JAX's default."""
+    from bluesky_tpu import settings as js
+    from bluesky_tpu_torch import settings as ts
+    for k in SERVER_KEYS:
+        assert getattr(ts, k) == getattr(js, k), k
+
+
+def test_init_records_the_config_file(tmp_path, both_settings):
+    js, ts = both_settings
+    cfg = tmp_path / "settings.cfg"
+    cfg.write_text(CFG)
+    assert ts.config_file == ""
+    assert ts.init(str(cfg)) is True
+    assert ts.config_file == str(cfg) and os.path.isabs(ts.config_file)
+    assert "config_file" not in ts._overrides
+
+
+def _fabric_cfg(tmp_path, **extra):
+    from tests.test_network import free_ports
+    ev, st, wev, wst, disc = free_ports(5)
+    keys = dict(device="cpu", telnet_port=0, event_port=ev, stream_port=st,
+                wevent_port=wev, wstream_port=wst, discovery_port=disc,
+                log_path=str(tmp_path / "log"), max_nnodes=1, **extra)
+    cfg = tmp_path / "fabric.cfg"
+    cfg.write_text("".join(f"{k} = {v!r}\n" for k, v in keys.items()))
+    return str(cfg), keys
+
+
+def _wait_log(path, text, proc, timeout):
+    import time
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if text in path.read_text():
+            return True
+        if proc.poll() is not None:
+            break
+        time.sleep(0.1)
+    return text in path.read_text()
+
+
+@pytest.mark.parametrize("mode", [["--headless"], []],
+                         ids=["headless", "default"])
+def test_server_modes_spawn_a_worker_and_stop_on_sigterm(tmp_path, mode):
+    import signal
+    from bluesky_tpu_torch.network.client import Client
+    from tests.test_network import wait_for
+    cfg, keys = _fabric_cfg(tmp_path)
+    log = tmp_path / "server.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bluesky_tpu_torch", *mode,
+             "--config-file", cfg], stdout=out, stderr=subprocess.STDOUT,
+            cwd=REPO, env=_env(PYTHONUNBUFFERED="1"),
+            start_new_session=True)
+    client = Client()
+    try:
+        assert _wait_log(log, "bluesky_tpu_torch server: clients on",
+                         proc, 60), log.read_text()
+        assert f"clients on {keys['event_port']}/{keys['stream_port']}, " \
+            f"workers on {keys['wevent_port']}/{keys['wstream_port']}" \
+            in log.read_text()
+        client.connect(event_port=keys["event_port"],
+                       stream_port=keys["stream_port"], timeout=10.0)
+        assert wait_for(lambda: (client.receive(10),
+                                 len(client.nodes) == 1)[1], timeout=120), \
+            log.read_text()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, log.read_text()
+        text = log.read_text()
+        (node,) = client.nodes
+        assert f"worker {node.hex()}: kernel launches {{}}" in text, text
+    finally:
+        client.close()
+        if proc.poll() is None:
+            os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+            proc.wait(timeout=30)
+
+
+def test_client_console_prints_the_echo(tmp_path, monkeypatch):
+    """``--client`` on a torch server with a torch worker: a stdin line
+    goes to the worker's stack and its ECHO is printed; EOF ends the
+    console with exit 0."""
+    import threading
+    import time
+    from bluesky_tpu_torch.network.server import Server
+    from bluesky_tpu_torch.simulation.simnode import SimNode
+    from tests.test_network import free_ports, wait_for
+    ev, st, wev, wst = free_ports(4)
+    server = Server(headless=True, spawn_workers=False, journal_path="",
+                    ports=dict(event=ev, stream=st, wevent=wev,
+                               wstream=wst))
+    server.start()
+    node = thread = None
+    try:
+        time.sleep(0.2)
+        node = SimNode(event_port=wev, stream_port=wst, nmax=8,
+                       device="cpu")
+        thread = threading.Thread(target=node.run, daemon=True)
+        thread.start()
+        assert wait_for(lambda: len(server.workers) == 1, timeout=10)
+        # blank lines after the command keep the console receiving
+        # (10 ms a line) until the echo is in
+        out = subprocess.run(
+            [sys.executable, "-m", "bluesky_tpu_torch", "--client",
+             "--event-port", str(ev), "--stream-port", str(st)],
+            input="ECHO hello console\n" + "\n" * 300, capture_output=True,
+            text=True, timeout=120, cwd=REPO, env=_env())
+        assert out.returncode == 0, out.stderr
+        assert "connected to " + server.server_id.hex() in out.stdout
+        assert "1 node(s)" in out.stdout
+        assert "hello console" in out.stdout, out.stdout
+    finally:
+        if node is not None:
+            node.quit()
+            thread.join(timeout=10)
+        server.stop()
+        server.join(timeout=5)

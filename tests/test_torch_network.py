@@ -191,6 +191,10 @@ def fabric(request):
         thread.start()
         client.connect(event_port=ev, stream_port=st, timeout=5.0)
         assert wait_for(lambda: client.receive(10) or len(client.nodes) > 0)
+        # the server names the node to the client before the node has
+        # applied the REGISTER reply (an MTNode applies it on its sim
+        # thread's next process_events): wait for the handshake too
+        assert wait_for(lambda: node.host_id == server.server_id)
         yield server, node, client
     finally:
         if node is not None:
