@@ -292,13 +292,18 @@ def _log_launches(node):
     """Port: a worker's last log line names the CUDA kernel launches of
     its process (``ops.cd_sched.LAUNCHES``, ``ops.cd_pallas.LAUNCHES``,
     the forms launched at least once), so the operator of a spawned
-    fleet sees which kernels its pieces ran."""
+    fleet sees which kernels its pieces ran.  The line goes out in one
+    write: spawned workers share the server's output, and an unbuffered
+    ``print`` writes its text and its newline apart, so two workers
+    leaving together could interleave their lines."""
     import json
     from .ops import cd_pallas, cd_sched
     launched = {k: v for counts in (cd_sched.LAUNCHES, cd_pallas.LAUNCHES)
                 for k, v in counts.items() if v}
-    print(f"bluesky_tpu_torch worker {node.node_id.hex()}: kernel "
-          f"launches {json.dumps(launched, sort_keys=True)}", flush=True)
+    sys.stdout.write(f"bluesky_tpu_torch worker {node.node_id.hex()}: "
+                     f"kernel launches {json.dumps(launched, sort_keys=True)}"
+                     "\n")
+    sys.stdout.flush()
 
 
 def run_detached(args):

@@ -111,6 +111,29 @@ class IntegrityGuard:
         sim.recorder.auto_dump("guard_trip")
         return rec
 
+    def mesh_trip(self, action: str, **extra):
+        """Record a structured mesh-epoch event (``mesh_lost`` /
+        ``resharded``) in the trip log.  Unlike ``trip`` this does not
+        touch aircraft state: the mesh recovery
+        (``simulation/sim._handle_mesh_lost``) owns the response; the
+        guard gives the event the same audit trail (``guard.trips`` and
+        FAULTLOG) as every other fault class."""
+        sim = self.sim
+        rec = dict(simt=float(sim.simt_planned), bad_step=-1,
+                   chunk=int(sim._step_count), ids=[],
+                   action=str(action), source="mesh_guard", **extra)
+        self.trips.append(rec)
+        if self.logger.active:
+            self.logger.log(sim, ["-"], [str(action)])
+        # the mesh_lost / resharded pair brackets the recovery on the
+        # flight recorder's timeline
+        sim.obs.counter("sim_mesh_trips").inc()
+        tags = {k: v for k, v in extra.items()
+                if isinstance(v, (int, float, str, bool, list))}
+        sim.recorder.instant(str(action), world=sim.world_tag, **tags)
+        sim.recorder.auto_dump("mesh_trip")
+        return rec
+
     def _delete_slots(self, slots):
         if slots:
             self.sim.traf.delete(list(slots))

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from . import cd_tiled, cr_eby, cr_mvp, cr_swarm, geo
+from ..parallel.dist import allgather_shards, process_index, spans_ranks
 from .cd_tiled import (RowConflictData, TRIG_FIELDS, block_reachability,
                        precompute_trig, tile_geometry)
 
@@ -1035,9 +1036,17 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
 
 
 def shard_devices(mesh):
-    """The devices of a single-process mesh in shard order (row-major over
-    its axes); a device may repeat."""
+    """The devices of a mesh in shard order (row-major over its axes); a
+    device may repeat."""
     return [torch.device(d) for d in np.asarray(mesh.devices).ravel()]
+
+
+def mesh_shards(mesh):
+    """``(devices, ranks, guard)`` of a mesh: its devices in shard order
+    (``shard_devices``), the process that owns each shard and the
+    ``MeshGuard`` its joins across processes wait through (or None)."""
+    return (shard_devices(mesh), [int(r) for r in mesh.ranks.ravel()],
+            mesh.guard)
 
 
 def on_device(dev):
@@ -1047,42 +1056,71 @@ def on_device(dev):
         else contextlib.nullcontext()
 
 
-def split_rows(nb, devs, home, run):
+def split_rows(nb, devs, home, run, ranks=None, guard=None):
     """The replicate row split (JAX ``run_full_sharded``): shard d walks
     the row blocks d, d + D, ... below ``nb`` (its part of
     ``interleave_rows``, made on ``home`` so that nothing waits for a
     host copy) on its device ``devs[d]``.  ``run(d, rows, dev)`` gives
     shard d's outputs for the row blocks ``rows`` (int64 on ``home``);
     returns them placed back in row order on ``home``, in kernel
-    layout."""
-    outs = None
+    layout.  With ``ranks`` (the owner of each shard) spanning processes
+    this process runs only its own shards and the outputs of every shard
+    are all-gathered, each padded to ``ceil(nb / D)`` rows
+    (``parallel/dist.allgather_shards``, waiting through ``guard``); every
+    process must own a shard below ``nb``."""
+    D = len(devs)
+    me = process_index()
+    ranks = [me] * D if ranks is None else list(ranks)
+    across = spans_ranks(ranks)
+    if across and any(ranks.index(q) >= nb for q in set(ranks)):
+        raise ValueError(f"{nb} row blocks leave a process of the {D}-shard "
+                         "mesh without rows")
+    rmax = -(-nb // D)
+    local = {}
     for d, dev in enumerate(devs):
-        rows = torch.arange(d, nb, len(devs), device=home)
-        if rows.numel() == 0:
+        rows = torch.arange(d, nb, D, device=home)
+        if rows.numel() == 0 or ranks[d] != me:
             continue
         with on_device(dev):
             o = run(d, rows, dev)
+        if across:
+            o = [torch.cat([a.to(home), a.new_zeros(
+                (rmax - a.shape[0], *a.shape[1:]), device=home)])
+                for a in o]
+        local[d] = o
+    if across:
+        # a shard past the last row block sends zeros of its peers' shape
+        like = next(iter(local.values()))
+        for d in range(D):
+            if ranks[d] == me and d not in local:
+                local[d] = [torch.zeros_like(a) for a in like]
+        local = allgather_shards(local, ranks, home, guard)
+    outs = None
+    for d in sorted(local):
+        rows = torch.arange(d, nb, D, device=home)
+        o = local[d]
         if outs is None:
             outs = [a.new_empty((nb, *a.shape[1:]), device=home) for a in o]
         for a, b in zip(outs, o):
-            a[rows] = b.to(home)
+            a[rows] = b[:rows.numel()].to(home)
     return outs
 
 
-def full_grid_rows(x: PallasInputs, p: TileParams, devs, kk=KK):
-    """The replicate row split of the full grid (``split_rows``) against
-    the replicated slabs in the row-subset form.  Returns the outputs in
-    kernel layout."""
+def full_grid_rows(x: PallasInputs, p: TileParams, devs, kk=KK,
+                   ranks=None, guard=None):
+    """The replicate row split of the full grid (``split_rows``, over the
+    shards' ``ranks``) against the replicated slabs in the row-subset
+    form.  Returns the outputs in kernel layout."""
     def run(d, rows, dev):
         return full_grid(
             x.packed.to(dev), x.reach[rows].to(dev), p, reso=x.reso, kk=kk,
             mesh=MeshForm(own=x.packed[rows].to(dev), row0=d,
                           rstride=len(devs)))
-    return split_rows(x.nb, devs, x.packed.device, run)
+    return split_rows(x.nb, devs, x.packed.device, run, ranks, guard)
 
 
 def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK,
-                devs=None):
+                devs=None, ranks=None, guard=None):
     """The pass of ``detect_resolve_pallas`` on prepared operands, in the
     resolver form ``x.reso`` with top-``kk`` candidates: the full grid,
     or with ``cand_cap > 0`` (rounded up to whole blocks) and at least 8
@@ -1093,11 +1131,12 @@ def run_kernels(x: PallasInputs, p: TileParams, cand_cap=0, kk=KK,
     runs the full grid, one launch for all of them (candidate mode takes
     one world).  With the devices ``devs`` of a mesh of more than one
     shard the full grid's replicate row split runs instead
-    (``full_grid_rows``), as in JAX, whatever ``cand_cap``."""
+    (``full_grid_rows``, over the shards' ``ranks``), as in JAX, whatever
+    ``cand_cap``."""
     if devs is not None and len(devs) > 1:
         if x.worlds > 1:
             raise ValueError("a stack of worlds takes no mesh")
-        return full_grid_rows(x, p, devs, kk)
+        return full_grid_rows(x, p, devs, kk, ranks, guard)
     c_cap = -(-cand_cap // x.block) * x.block if cand_cap else 0
     if not (x.nb >= 8 and 0 < c_cap < x.nb * x.block):
         return full_grid(x.packed, x.reach, p, reso=x.reso, kk=kk)
@@ -1146,11 +1185,11 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                          f"{tuple(RESO_CODE)}")
     args = (lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, mvpcfg)
-    devs = None
+    shards = (None, None, None)
     if mesh is not None and dict(mesh.shape).get(mesh_axis, 1) > 1:
-        devs = shard_devices(mesh)
+        shards = mesh_shards(mesh)
     kw = dict(block=block, k_partners=k_partners, cand_cap=cand_cap,
-              reso=reso, devs=devs)
+              reso=reso, shards=shards)
     if lat.shape[-1] > block:
         return cd_tiled.run_spatially_sorted(
             _detect_resolve_sorted, *args, perm=perm, extra_cols=extra_cols,
@@ -1161,7 +1200,7 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
 def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                            active, noreso, rpz, hpz, tlookahead, mvpcfg,
                            block, k_partners, cand_cap, reso,
-                           extra_cols=None, devs=None):
+                           extra_cols=None, shards=(None, None, None)):
     """``detect_resolve_pallas`` on columns already in the slot order the
     pass runs in; ``topk_idx`` holds slots of that order (of its own
     world, for a stack of worlds)."""
@@ -1172,7 +1211,7 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                 reso=reso)
     kk = min(k_partners, x.block)
     outs = run_kernels(x, tile_params(rpz, hpz, tlookahead, mvpcfg),
-                       cand_cap, kk, devs)
+                       cand_cap, kk, *shards)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
      ctin, cidx) = outs[:10]
     nt = x.nb * x.block

@@ -56,10 +56,11 @@ import torch
 
 from . import cd_pallas, cd_tiled, cr_swarm
 from .cd_pallas import (_BIG, _BIG_I, _FIELDS, _NF, N_SWARM, MeshForm,
-                        TileParams, launch_key, on_device, shard_devices)
+                        TileParams, launch_key, mesh_shards, on_device)
 from .cd_tiled import (RowConflictData, block_reachability, precompute_trig,
                        take, take_ids, take_rows)
 from . import geo
+from ..parallel.dist import allgather_shards, process_index, spans_ranks
 
 #: Launches of the CUDA kernel in each resolver form and mesh form since
 #: the last reset.
@@ -628,12 +629,21 @@ def _local_backmap(outs, in_dev, dest_loc, S, kk, reso):
     return backed, tt, ti, outs[11], count(outs[6]), count(outs[7])
 
 
-def _shard_locals(cols, perm, devs, S, block, C):
+def _shard_locals(cols, perm, shards, S, block, C):
     """Each shard's own slot range of the padded layout, built from its
     caller rows only: ``in_dev`` and ``dest_loc`` (the shard-local slot,
-    ``S`` off the shard), the slabs and the block summaries."""
+    ``S`` off the shard), the slabs and the block summaries, and ``own``:
+    whether this process walks the shard.  Every process builds every
+    shard from the replicated columns (the halo and tile exchanges read
+    the neighbours' slabs), those of the shards other processes own on
+    its own first shard's device."""
+    devs, ranks, _ = shards
+    me = process_index()
+    home = devs[ranks.index(me)]
     out = []
     for d, dev in enumerate(devs):
+        own = ranks[d] == me
+        dev = dev if own else home
         with on_device(dev):
             perm_l = perm[d * C:(d + 1) * C].to(dev)
             base = d * S
@@ -648,27 +658,36 @@ def _shard_locals(cols, perm, devs, S, block, C):
                 padded["lat"], padded["lon"], padded["gs"],
                 padded["active"] > 0.5, nbl, block, alt=padded["alt"],
                 vs=padded["vs"])
-            out.append(dict(dev=dev, in_dev=in_dev, dest_loc=dest_loc,
-                            packed=_pack(padded, block), summ=summ))
+            out.append(dict(dev=dev, own=own, in_dev=in_dev,
+                            dest_loc=dest_loc, packed=_pack(padded, block),
+                            summ=summ))
     return out
 
 
 def _gather(shards, key):
     """The all-gather of the shards' block summaries: one copy on each
-    device of the mesh, returned for each shard in shard order."""
+    device of the mesh, returned for each shard this process owns in
+    shard order (None for the others)."""
     got = {}
     for s in shards:
-        if str(s["dev"]) not in got:
+        if s["own"] and str(s["dev"]) not in got:
             got[str(s["dev"])] = {
                 k: torch.cat([t[key][k].to(s["dev"]) for t in shards])
                 for k in shards[0][key]}
-    return [got[str(s["dev"])] for s in shards]
+    return [got[str(s["dev"])] if s["own"] else None for s in shards]
 
 
-def _mesh_result(parts, home, n_tot, kk, reso):
+def _mesh_result(parts, home, n_tot, kk, reso, shards):
     """Join the shards' back-mapped results in shard order (the caller
     axis and the padded row blocks are shard-major), the counts summed
-    in that order.  Returns ``(rd, partners_new, active[, swarm])``."""
+    in that order; across processes each rank's parts (None for the
+    shards it does not own) are all-gathered first.  Returns ``(rd,
+    partners_new, active[, swarm])``."""
+    devs, ranks, guard = shards
+    if spans_ranks(ranks):
+        got = allgather_shards({d: list(q) for d, q in enumerate(parts)
+                                if q is not None}, ranks, home, guard)
+        parts = [got[d] for d in range(len(parts))]
     cat = lambda j, dim=0: torch.cat([q[j].to(home) for q in parts], dim)
     backed, topk_tin, ti_raw, merged = cat(0, 1), cat(1), cat(2), cat(3)
     nconf, nlos = parts[0][4].to(home), parts[0][5].to(home)
@@ -687,24 +706,28 @@ def _mesh_result(parts, home, n_tot, kk, reso):
     return rd, partners_new, backed[6] > 0.5
 
 
-def _spatial_mesh(cols, perm, pold, devs, n, nb, block, kk, s_cap, wmax,
+def _spatial_mesh(cols, perm, pold, shards, n, nb, block, kk, s_cap, wmax,
                   halo_blocks, p, reso, reach_kw):
     """The spatial mesh interval (JAX ``detect_resolve_sched`` spatial
     branch): shard d owns the stripe block range ``[d * nb_l, (d + 1) *
     nb_l)``; its scatter, slabs, summaries, reachability rows and windows
     come from its own caller rows, the summaries are gathered, the halo
     blocks of the neighbours (``n_hops`` shards each side) are copied in,
-    and its rows walk the halo window in the ``col0`` form."""
-    D = len(devs)
+    and its rows walk the halo window in the ``col0`` form.  Returns one
+    part per shard, None for the shards other processes own."""
+    D = len(shards[0])
     nb_l = nb // D
     S_l = nb_l * block
     halo = int(halo_blocks) if halo_blocks else nb_l
     halo = min(halo, (D - 1) * nb_l)
     n_hops = -(-halo // nb_l)
     nbh = nb_l + 2 * halo
-    shards = _shard_locals(cols, perm, devs, S_l, block, n // D)
+    locs = _shard_locals(cols, perm, shards, S_l, block, n // D)
     parts = []
-    for d, (sh, summ_g) in enumerate(zip(shards, _gather(shards, "summ"))):
+    for d, (sh, summ_g) in enumerate(zip(locs, _gather(locs, "summ"))):
+        if summ_g is None:
+            parts.append(None)
+            continue
         dev = sh["dev"]
         with on_device(dev):
             reach_rows = cd_tiled.reachability_from_summaries(
@@ -721,9 +744,9 @@ def _spatial_mesh(cols, perm, pold, devs, n, nb, block, kk, s_cap, wmax,
             lo, hi = [], []
             for h in range(1, n_hops + 1):
                 take_n = halo - (h - 1) * nb_l if h == n_hops else nb_l
-                lo.insert(0, shards[d - h]["packed"][nb_l - take_n:].to(dev)
+                lo.insert(0, locs[d - h]["packed"][nb_l - take_n:].to(dev)
                           if d - h >= 0 else zeros(take_n))
-                hi.append(shards[d + h]["packed"][:take_n].to(dev)
+                hi.append(locs[d + h]["packed"][:take_n].to(dev)
                           if d + h < D else zeros(take_n))
             intr = torch.cat(lo + [sh["packed"]] + hi)
             outs = _run_rows(
@@ -754,7 +777,7 @@ def _tile_config(tile_shape, tile_budgets, nb, s_cap, wmax):
     return tR, tC, offs, nb_t, budgets, s_cap_t
 
 
-def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
+def _tiles_mesh(cols, perm, pold, shards, n, nb, block, kk, wmax, tcfg, p,
                 reso, reach_kw):
     """The tile mesh interval (JAX ``detect_resolve_sched`` tiles branch):
     shard t owns tile t's block range; each sender ships, per canonical
@@ -762,19 +785,26 @@ def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
     (``_tile_select`` on the receiver's reachability rows, from the
     summaries gathered once a device), with their global ids,
     and each receiver walks its present set ranked by global block id in
-    the ``gid`` form (``_tile_windows``; no full-grid fallback)."""
+    the ``gid`` form (``_tile_windows``; no full-grid fallback).  A
+    process builds the exports its own shards receive.  Returns one part
+    per shard, None for the shards other processes own."""
     tR, tC, offs, nb_t, budgets, s_cap_t = tcfg
     S_t = nb_t * block
-    shards = _shard_locals(cols, perm, devs, S_t, block, n // (tR * tC))
+    locs = _shard_locals(cols, perm, shards, S_t, block, n // (tR * tC))
     reach_rows = []
-    for sh, summ_g in zip(shards, _gather(shards, "summ")):
+    for sh, summ_g in zip(locs, _gather(locs, "summ")):
+        if summ_g is None:
+            reach_rows.append(None)
+            continue
         with on_device(sh["dev"]):
             reach_rows.append(cd_tiled.reachability_from_summaries(
                 sh["summ"], summ_g, **reach_kw))
     exports = {}
     for o, (off, E) in enumerate(zip(offs, budgets)):
         for u, v in _offset_pairs((tR, tC), off):
-            sh = shards[u]
+            if reach_rows[v] is None:
+                continue
+            sh = locs[u]
             dev = sh["dev"]
             with on_device(dev):
                 # the sender's blocks that the receiver's rows reach
@@ -786,7 +816,10 @@ def _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk, wmax, tcfg, p,
                                    torch.zeros_like(sidx))
                 exports[o, v] = (buf, gidp)
     parts = []
-    for t, sh in enumerate(shards):
+    for t, sh in enumerate(locs):
+        if reach_rows[t] is None:
+            parts.append(None)
+            continue
         dev = sh["dev"]
         with on_device(dev):
             gparts = [t * nb_t + torch.arange(nb_t, device=dev)]
@@ -853,18 +886,22 @@ def _tiles_reference(x: SchedInputs, p, tcfg):
     return [torch.cat(parts) for parts in zip(*chunks)]
 
 
-def _replicate_rows(x: SchedInputs, p, devs):
+def _replicate_rows(x: SchedInputs, p, shards):
     """The replicate row split (JAX ``detect_resolve_sched`` under a
     mesh, ``cd_pallas.split_rows``): shard d walks the row blocks d,
     d + D, ... against the replicated column slabs in the row-subset form
-    (``rstride`` = D).  Returns the outputs in kernel layout."""
+    (``rstride`` = D); across processes each rank walks its own shards
+    and the rows are all-gathered.  Returns the outputs in kernel
+    layout."""
+    devs, ranks, guard = shards
     def run(d, rows, dev):
         return _run_rows(
             x.packed.to(dev), x.wst[rows].to(dev), x.wln[rows].to(dev),
             x.wmax, x.overflow[rows].to(dev), x.reach[rows].to(dev),
             x.pold[rows].to(dev), p, x.reso,
             MeshForm(own=x.packed[rows].to(dev), row0=d, rstride=len(devs)))
-    return cd_pallas.split_rows(x.nb, devs, x.packed.device, run)
+    return cd_pallas.split_rows(x.nb, devs, x.packed.device, run, ranks,
+                                guard)
 
 
 def _check_shard_args(n, nb, resume, mesh, mesh_axis, shard_mode,
@@ -988,15 +1025,15 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
         cols = _columns(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                         noreso, tas, cas, reso)
         pold = _kernel_partners(partners, block)
-        devs = shard_devices(mesh)
+        shards = mesh_shards(mesh)
         if mesh_tiles:
-            parts = _tiles_mesh(cols, perm, pold, devs, n, nb, block, kk,
+            parts = _tiles_mesh(cols, perm, pold, shards, n, nb, block, kk,
                                 wmax, tcfg, p, reso, reach_kw)
         else:
-            parts = _spatial_mesh(cols, perm, pold, devs, n, nb, block, kk,
-                                  s_cap, wmax, halo_blocks, p, reso,
+            parts = _spatial_mesh(cols, perm, pold, shards, n, nb, block,
+                                  kk, s_cap, wmax, halo_blocks, p, reso,
                                   reach_kw)
-        return _mesh_result(parts, lat.device, n_tot, kk, reso)
+        return _mesh_result(parts, lat.device, n_tot, kk, reso, shards)
 
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                 noreso, rpz, hpz, tlookahead, partners, block=block,
@@ -1006,7 +1043,7 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     if shard_mode == "tiles":
         outs = _tiles_reference(x, p, tcfg)
     elif mesh is not None and mesh.shape[mesh_axis] > 1:
-        outs = _replicate_rows(x, p, shard_devices(mesh))
+        outs = _replicate_rows(x, p, mesh_shards(mesh))
     else:
         outs = run_kernels(x, p)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,

@@ -1,2 +1,3 @@
-"""Device-mesh parallelism: the shard modes of the sparse backend on a
-single-process mesh (``sharding``)."""
+"""Device-mesh parallelism: the shard modes of the sparse backend, mesh
+epochs and the ensemble mesh (``sharding``), and the joins of a job of
+several processes on ``torch.distributed`` (``dist``)."""

@@ -105,6 +105,21 @@ guard_enabled = True              # in-chunk isfinite integrity guard
 guard_policy = "quarantine"       # "quarantine" | "rollback" | "halt"
 snap_ring_depth = 4               # rollback horizon = depth * dt sim-sec
 snap_ring_dt = 30.0               # [sim s] between ring captures (0 = off)
+fault_seed = 0                    # RNG seed for the FAULT injectors
+
+# ----- mesh-epoch recovery: losing a group of shards ends the mesh
+# epoch, not the run; the survivors re-form a smaller mesh and resume
+# from the last checksummed snapshot
+mesh_guard_enabled = True         # MeshGuard dead-group check at every
+                                  # chunk dispatch of a sharded sim
+mesh_dispatch_timeout = 0.0       # [wall s] collective-wait budget;
+                                  # exceeding it with stale peer
+                                  # heartbeats trips mesh_lost (0 = wait
+                                  # without a budget)
+mesh_heartbeat_dir = ""           # shared dir for cross-process mesh
+                                  # heartbeat stamps ("" = off)
+mesh_heartbeat_timeout = 10.0     # [wall s] peer stamp staleness before
+                                  # the peer counts as dead
 
 # ----- durable runs (preemption-safe checkpoints)
 snapshot_autosave_dt = 0.0        # [sim s] between on-disk autosnapshots

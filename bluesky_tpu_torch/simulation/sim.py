@@ -48,12 +48,23 @@ A networked worker (``simulation/simnode.py``) wraps the sim: it sets
 ``node`` and a streaming ``scr`` (``simulation/screenio.py``), and may
 attach a raw-TCP stack bridge as ``telnet``
 (``network/tcpserver.StackTelnetServer``), pumped at the start of every
-host iteration.  ``mesh_epoch`` and ``mesh_events`` are the node's view
-of the mesh epochs (always epoch 0 and no event here).
+host iteration.
 
-Not ported here, each with its ROADMAP item: mesh-epoch recovery
-(``MeshGuard``; A9 step 2), the device-profiling hooks and plugins
-(A10).
+Mesh epochs: a sharded run is a sequence of epochs (a set of shards, a
+layout, the snapshot it started from).  ``mesh_guard``
+(``parallel/sharding.MeshGuard``, from the ``settings.mesh_*`` keys) is
+checked at every chunk dispatch; losing a group of shards (FAULT
+MESHKILL) ends the epoch, not the run: ``_handle_mesh_lost`` restores
+the newest ring snapshot (else the autosave) onto a smaller mesh of the
+survivors, degrading tiles -> spatial -> replicate -> one device, and
+queues a MESHLOST notice in ``mesh_events`` for the owning node.  The
+recovery runs on single-process meshes (one card, or the CPU); a job of
+several processes detects a dead peer through the guard's
+``guarded_ready`` (``scripts/torch_multihost.py``), and NCCL across
+several cards is not measured.
+
+Not ported here, each with its ROADMAP item: the device-profiling hooks
+and plugins (A10).
 """
 import datetime
 import os
@@ -364,6 +375,8 @@ class Simulation:
         self._fp_chain = 0           # running piece-chain fold (32-bit)
         self._fp_chunks = 0          # chunks folded into the chain
         self._fp_steps = 0           # steps folded into the chain
+        self._fp_corrupt_mask = 0    # FAULT BITFLIP PAYLOAD: XORed into
+        #                              every shipped fingerprint word
         # Observability: a per-sim metrics registry + the per-process
         # flight recorder.  pipe_stats is a view over the registry.
         self.obs = obs_metrics.Registry()
@@ -375,6 +388,8 @@ class Simulation:
                          help="integrity-guard trips (all policies)")
         self.obs.counter("sim_inscan_refreshes",
                          help="sort refreshes fired inside chunks")
+        self.obs.counter("sim_mesh_trips",
+                         help="mesh-epoch events (mesh_lost+resharded)")
         _h = self.obs.histogram
         _h("sim_chunk_latency_ms",
            help="chunk dispatch -> edge retirement wall ms")
@@ -425,6 +440,14 @@ class Simulation:
         self.autosave_dt = float(settings.snapshot_autosave_dt)
         self._autosave_t = -float("inf")
         self.preempt_requested = False
+        # FAULT STRAGGLE (fault/injectors.straggle): the merely-slow /
+        # stuck-but-alive worker.  Both survive RESET on purpose: they
+        # model the host, not the scenario.
+        self.straggle_factor = 0.0    # extra wall-s owed per sim-s
+        self.straggle_stall = False   # freeze progress, keep loop alive
+        self._straggle_debt = 0.0     # owed throttle sleep, paid in
+        #                               small slices so the node loop
+        #                               keeps pumping heartbeats
         self.traf.delete_hooks.append(self.cond.delac)
         self.traf.permute_hooks.append(self.cond.permute)
         # Spatial and tiles modes: a freshly created aircraft has no
@@ -440,10 +463,19 @@ class Simulation:
         self.shard_mesh = None
         self.shard_stats = {}
         self._mesh_refresh_ms = 0.0  # wall ms of the last shard refresh
-        # Mesh epochs, as the node reads them (the recovery that moves
-        # them is ROADMAP A9 step 2)
+        # Mesh epochs: the MeshGuard is consulted at every chunk
+        # dispatch; losing a group of shards ends the epoch (a mesh_lost
+        # trip, the snapshot re-sharded onto the survivors in
+        # _handle_mesh_lost), not the run.
+        from ..parallel.sharding import MeshGuard
         self.mesh_epoch = 0
+        self.mesh_degraded = False
         self.mesh_events = []        # pending MESHLOST notices (simnode)
+        self.mesh_guard_enabled = bool(settings.mesh_guard_enabled)
+        self.mesh_guard = MeshGuard(
+            heartbeat_dir=settings.mesh_heartbeat_dir or None,
+            timeout=float(settings.mesh_dispatch_timeout),
+            hb_timeout=float(settings.mesh_heartbeat_timeout))
         self._refresh_guard = 0      # in-chunk refresh guard trips
         # Late import to avoid cycles; stack binds commands to this sim.
         from ..stack.stack import Stack
@@ -593,11 +625,16 @@ class Simulation:
         self._fp_chain = 0
         self._fp_chunks = 0
         self._fp_steps = 0
+        self._fp_corrupt_mask = 0
         # traf.reset rebuilt default-shape tables on the default device
         self.shard_mode, self.shard_mesh = "off", None
         self.shard_stats = {}
         self._shard_fallback = False
+        # a new scenario starts a fresh mesh-epoch history
+        self.mesh_guard.set_mesh(None)
+        self.mesh_guard.epoch = 0
         self.mesh_epoch = 0
+        self.mesh_degraded = False
         self.mesh_events = []
         self._mesh_refresh_ms = 0.0
         self.dtmult = 1.0
@@ -656,12 +693,14 @@ class Simulation:
 
     def fp_summary(self):
         """The fingerprint summary of the running chain, or None before
-        any chunk folded."""
+        any chunk folded.  A FAULT BITFLIP PAYLOAD mask corrupts every
+        shipped word until the next RESET (the wire-corruption model: the
+        stepped state and the device fold stay untouched)."""
         if not self.cfg.fingerprint or self._fp_chunks == 0:
             return None
         from ..obs import fingerprint as fpmod
-        return fpmod.summarize(self._fp_chain, self._fp_chunks,
-                               self._fp_steps)
+        word = (self._fp_chain ^ self._fp_corrupt_mask) & 0xFFFFFFFF
+        return fpmod.summarize(word, self._fp_chunks, self._fp_steps)
 
     def _drain_fingerprint(self, edge) -> None:
         """Retire one edge's FingerprintPack (host arrays) into the
@@ -832,6 +871,7 @@ class Simulation:
             self.traf.state = shd.unprepare_spatial(self.traf.state)
         if mode == "off":
             self.shard_mode, self.shard_mesh = "off", None
+            self.mesh_guard.set_mesh(None)
             self.cfg = self.cfg._replace(cd_mesh=None,
                                          cd_shard_mode="replicate",
                                          cd_tile_shape=(),
@@ -889,6 +929,7 @@ class Simulation:
             self.traf.state = shd.shard_state(self.traf.state, mesh)
             self._invalidate_sort()
         self.shard_mode, self.shard_mesh = mode, mesh
+        self.mesh_guard.set_mesh(mesh)
         self.cfg = self.cfg._replace(
             cd_mesh=mesh, cd_mesh_axis="ac",
             cd_shard_mode=mode if mode in ("spatial", "tiles")
@@ -927,14 +968,125 @@ class Simulation:
         self._last_edge = None          # slots moved: ACDATA cache stale
         return state
 
+    # ------------------------------------------------- mesh-epoch recovery
+    def _handle_mesh_lost(self, err):
+        """End the current mesh epoch after a lost group of shards and
+        form the next one (JAX ``Simulation._handle_mesh_lost``).
+
+        Record a ``mesh_lost`` trip in the guard's trip log; void the
+        in-flight edge (it rode the dead mesh); take the restore point,
+        the newest ring entry, else the on-disk autosave (its shard
+        header read before anything is unpickled); leave the dead mesh;
+        restore; form a smaller mesh of the survivors, degrading tiles ->
+        spatial -> replicate -> one device until a layout holds; record
+        the ``resharded`` trip, move to the next epoch and queue a
+        MESHLOST notice for the owning node.  A restore onto another
+        shard count resets the sorted-space caches
+        (``snapshot.restore_blob``)."""
+        from . import snapshot as snap
+        old_epoch = self.mesh_epoch
+        old_mode = self.shard_mode
+        old_nd = self._shard_ndev()
+        lost = list(getattr(err, "lost_groups", ()))
+        survivors = list(getattr(err, "survivors", ()) or [])
+        # the in-flight chunk rode the dead mesh: its edge is void
+        if self._pending_edge is not None:
+            self.recorder.instant(
+                "chunk_voided", seq=self._pending_edge.seq,
+                chunk=self._pending_edge.chunk, epoch=old_epoch,
+                world=self.world_tag)
+        self._pending_edge = None
+        self._last_edge = None
+        self.scr.echo(f"MESH LOST (epoch {old_epoch}): {err}")
+        self.guard.mesh_trip("mesh_lost", epoch=old_epoch,
+                             lost_groups=lost, ndev=old_nd,
+                             mode=old_mode, error=str(err))
+        blob = self.snap_ring.newest()
+        src = "ring"
+        if blob is None:
+            path = self._autosave_path()
+            if os.path.isfile(path):
+                hdr, herr = snap.peek_shard(path)
+                if herr:
+                    self.scr.echo(f"mesh recovery: autosave header "
+                                  f"unusable ({herr})")
+                else:
+                    if hdr is not None and hdr.get("ndev", 0) != old_nd:
+                        self.scr.echo(
+                            "mesh recovery: autosave captured on a "
+                            f"{hdr.get('ndev')}-device "
+                            f"{hdr.get('mode')} mesh — re-shard will "
+                            "re-sort/re-bucket")
+                    blob, rerr = snap.read_blob(path)
+                    src = path
+                    if blob is None:
+                        self.scr.echo(f"mesh recovery: autosave "
+                                      f"unusable ({rerr})")
+        # epoch teardown: leave the dead mesh (the state stays on the
+        # sim's device, the spatial tables unsized)
+        try:
+            self.set_shard("off")
+        except (ValueError, RuntimeError) as e:  # pragma: no cover
+            self.scr.echo(f"mesh teardown failed: {e}")
+        restored = False
+        if blob is not None:
+            ok, msg = snap.restore_blob(self, blob, full_reset=False)
+            restored = bool(ok)
+            self.scr.echo(f"mesh recovery: {msg}" if ok else
+                          f"mesh recovery restore FAILED: {msg}")
+        else:
+            self.scr.echo("mesh recovery: no checksummed snapshot — "
+                          "re-sharding the live state")
+        nd = len(survivors)
+        new_mode = "off"
+        if nd >= 1:
+            if old_mode == "tiles":
+                chain = ["tiles", "spatial", "replicate"]
+            elif old_mode == "replicate":
+                chain = ["replicate"]
+            else:
+                chain = [old_mode, "replicate"]
+            for m in chain:
+                try:
+                    self.set_shard(m, nd, devices=survivors)
+                    new_mode = m
+                    break
+                except (ValueError, RuntimeError) as e:
+                    self.scr.echo(f"mesh recovery: SHARD "
+                                  f"{m.upper()} {nd} failed ({e})")
+        nd_now = self._shard_ndev(default=1)
+        self.mesh_epoch = old_epoch + 1
+        self.mesh_guard.epoch = self.mesh_epoch
+        self.mesh_degraded = (new_mode != old_mode) or (nd_now < old_nd)
+        self.guard.mesh_trip("resharded", epoch=self.mesh_epoch,
+                             mode=new_mode, ndev=int(nd_now),
+                             restored=restored,
+                             restore_src=(src if blob is not None
+                                          else None))
+        self.scr.echo(
+            f"MESH EPOCH {self.mesh_epoch}: "
+            f"{new_mode.upper() if new_mode != 'off' else 'SINGLE-CHIP'}"
+            f" on {nd_now} device(s)"
+            + (" [degraded]" if self.mesh_degraded else "")
+            + (f", restored from {src}" if restored else
+               ", continuing on live state"))
+        # the notice for the owning node -> server (MESHLOST): a
+        # recovered epoch keeps its piece in flight (audit records only)
+        self.mesh_events.append(dict(
+            recovered=True, epoch=self.mesh_epoch,
+            prev_epoch=old_epoch, lost_groups=lost,
+            mode=new_mode, ndev=int(nd_now),
+            prev_mode=old_mode, prev_ndev=int(old_nd),
+            degraded=bool(self.mesh_degraded), restored=restored,
+            simt=float(self.simt_planned)))
+
     def mesh_health(self):
         """The HEALTH ``mesh`` section: epoch, shard count, mode, last
-        shard-refresh wall ms, degradation state (epoch 0 and never
-        degraded: the recovery from a lost mesh is ROADMAP A9 step 2)."""
+        shard-refresh wall ms, degradation state."""
         d = dict(epoch=int(self.mesh_epoch), devices=self._shard_ndev(),
                  mode=str(self.shard_mode),
                  last_refresh_ms=round(float(self._mesh_refresh_ms), 3),
-                 degraded=False)
+                 degraded=bool(self.mesh_degraded))
         if self.shard_mode == "tiles":
             ts = tuple(self.cfg.cd_tile_shape)
             d["tiles"] = f"{ts[0]}x{ts[1]}" if len(ts) == 2 else ""
@@ -1095,16 +1247,21 @@ class Simulation:
         if plan is None:
             return True
         chunk, simt = plan
-        reasons = self._sync_reasons(simt, chunk)
-        if reasons:
-            self._retire_edge(reasons[0])
-            # every co-occurring cause counts
-            sync_hist = self.pipe_stats["sync_reasons"]
-            for r in reasons:
-                sync_hist[r] = sync_hist.get(r, 0) + 1
-            self._step_sync(chunk, self.simt)
-        else:
-            self._step_pipelined(chunk, simt)
+        from ..parallel.sharding import MeshLostError
+        try:
+            reasons = self._sync_reasons(simt, chunk)
+            if reasons:
+                self._retire_edge(reasons[0])
+                # every co-occurring cause counts
+                sync_hist = self.pipe_stats["sync_reasons"]
+                for r in reasons:
+                    sync_hist[r] = sync_hist.get(r, 0) + 1
+                self._step_sync(chunk, self.simt)
+            else:
+                self._step_pipelined(chunk, simt)
+        except MeshLostError as e:
+            # a group of shards died: end the mesh epoch, not the run
+            self._handle_mesh_lost(e)
         self._after_chunk()
         return True
 
@@ -1154,6 +1311,22 @@ class Simulation:
 
         if self.state_flag != OP:
             self._retire_edge("hold")
+            return None
+
+        # FAULT STRAGGLE STALL: skip the device chunk; simt freezes while
+        # the host loop keeps pumping events, so progress heartbeats flow
+        # with a flat simt (what the server's straggler detector hedges)
+        if self.straggle_stall:
+            time.sleep(0.02)
+            return None
+
+        # FAULT STRAGGLE <factor>: pay the throttle debt in small slices,
+        # one per host iteration, so the slow worker keeps heartbeating
+        # (a chunk-sized sleep would make it look dead, not slow)
+        if self._straggle_debt > 0:
+            pay = min(self._straggle_debt, 0.05)
+            self._straggle_debt -= pay
+            time.sleep(pay)
             return None
 
         # Benchmark bookkeeping
@@ -1298,7 +1471,15 @@ class Simulation:
                 (t0 - self._last_dispatch_end) * 1e3)
         seq = self._next_seq()
         with rec.span("chunk_dispatch", seq=seq, chunk=chunk, simt=simt,
-                      world=self.world_tag):
+                      world=self.world_tag, epoch=self.mesh_epoch):
+            # the mesh-epoch precheck: a dead group of shards (FAULT
+            # MESHKILL) surfaces BEFORE the chunk is enqueued onto the
+            # dead mesh, as a MeshLostError that step() hands to
+            # _handle_mesh_lost
+            if self.shard_mesh is not None and self.mesh_guard_enabled:
+                with rec.span("mesh_check", seq=seq, epoch=self.mesh_epoch,
+                              world=self.world_tag):
+                    self.mesh_guard.check()
             state = self._pre_dispatch_refresh(state, simt)
             from ..core.step import run_steps_edge, run_steps_edge_keep
             runner = run_steps_edge_keep if keep else run_steps_edge
@@ -1386,19 +1567,24 @@ class Simulation:
         chunk runs on the device."""
         pend = self._pending_edge
         ring = self.snap_ring
-        # Will retiring the pending edge capture a rollback restore
-        # point?  Then this dispatch must NOT donate its input: it is
-        # exactly the post-chunk state that goes into the ring.
+        # Will retiring the pending edge capture a restore point?  Then
+        # this dispatch must NOT donate its input: it is exactly the
+        # post-chunk state that goes into the ring.  The captures feed
+        # the rollback policy AND the mesh-epoch recovery: under a mesh
+        # the ring keeps filling whatever the guard policy, or a lost
+        # group would leave nothing to re-shard from.
         capture_due = (ring.dt > 0
                        and simt - ring.t_last >= ring.dt - 1e-9)
         capture_now = (pend is not None and capture_due
-                       and self.guard.enabled
-                       and self.guard.policy == "rollback")
+                       and ((self.guard.enabled
+                             and self.guard.policy == "rollback")
+                            or self.shard_mode != "off"))
         state_in = self.traf.state
         new_state, telem, sstats, rpack, fpack = self._dispatch_chunk(
             state_in, chunk, keep=capture_now, simt=simt)
         self.traf.state = new_state
         self._step_count += chunk
+        self._straggle_charge(chunk)
         self._simt_next = self._fold_clock(simt, chunk)
         self._pending_edge = ChunkEdge(telem, chunk,
                                        simt_planned=self._simt_next,
@@ -1428,6 +1614,7 @@ class Simulation:
         ``_step_sync``."""
         self.traf.state = state
         self._step_count += chunk
+        self._straggle_charge(chunk)
         if seq is None:
             seq = self._seq_dispatched
         edge = ChunkEdge(telem, chunk,      # device clock, no prediction
@@ -1471,11 +1658,12 @@ class Simulation:
 
         # Periodic snapshot-ring capture: the post-chunk state is
         # verified finite when the guard is on, so ring entries are
-        # always healthy restore points.  Only the rollback policy
-        # consumes the ring, and a capture is a full device->host copy
-        # of the state, so other policies do not pay for it.
-        if self.state_flag == OP and self.guard.enabled \
-                and self.guard.policy == "rollback":
+        # always healthy restore points.  The rollback policy and the
+        # mesh-epoch recovery consume the ring, and a capture is a full
+        # device->host copy of the state, so other runs do not pay it.
+        if self.state_flag == OP and (
+                (self.guard.enabled and self.guard.policy == "rollback")
+                or self.shard_mode != "off"):
             self.snap_ring.maybe_capture(self)
 
         # Periodic on-disk autosnapshot (snapshot_autosave_dt, off by
@@ -1487,6 +1675,13 @@ class Simulation:
                 >= self.autosave_dt - 1e-9:
             self._autosave()
         self._edge_retired(edge, t_ret0)
+
+    def _straggle_charge(self, chunk: int):
+        """FAULT STRAGGLE <factor>: each simulated second owes ``factor``
+        extra wall seconds, paid in slices by ``_plan_chunk``."""
+        if self.straggle_factor > 0:
+            self._straggle_debt += \
+                chunk * self.cfg.simdt * self.straggle_factor
 
     def _finish_edge(self, edge, capture_state=None):
         """Retire one DEFERRED chunk edge: poll the guard word (the
@@ -1587,8 +1782,9 @@ class Simulation:
             # The retired edge state IS the live state again (nothing
             # was dispatched after it), so a due ring capture can use
             # the classic path at this sync boundary.
-            if self.state_flag == OP and self.guard.enabled \
-                    and self.guard.policy == "rollback":
+            if self.state_flag == OP and (
+                    (self.guard.enabled and self.guard.policy == "rollback")
+                    or self.shard_mode != "off"):
                 self.snap_ring.maybe_capture(self)
         finally:
             self._retiring = False

@@ -14,8 +14,10 @@ state also carries the spatial sort's clock (``sort``: the sim time of
 the last refresh and the backend it sorted for), so a restored sparse,
 pallas or tiled run keeps the captured layout until its next due
 refresh and resumes bit for bit; JAX's blob has no such key, and a
-restore without it re-sorts at the next chunk, as JAX does.  The
-restore onto a device mesh is not ported (ROADMAP A9).
+restore without it re-sorts at the next chunk, as JAX does.  A restore
+onto another shard layout restarts the sorted-space caches; the
+mesh-epoch recovery (``Simulation._handle_mesh_lost``) restores the
+ring's newest blob onto the surviving shards that way.
 
 On-disk format v4, as the JAX package writes it:
 

@@ -38,11 +38,6 @@ DEFERRED = {
                 "DEVICE [n] [dir]/TRACE [ON/OFF/DUMP]",
                 "Trace capture, per-kernel timings, device-trace windows "
                 "and the flight recorder"),
-    "FAULT": ("A10", "FAULT NAN/INF [acid] | BITFLIP [STATE|PAYLOAD] | "
-              "GUARD ../RING .. | DROP/DUP/DELAY p | NETOFF | STALL s | "
-              "STRAGGLE f/STALL/OFF | KILL | KILLSERVER [s] | PREEMPT [s] "
-              "| MESHKILL [g] | PARTITION [OFF] | LOADSPIKE n [rate] | "
-              "SNAPTRUNC f | LIST", "Fault-injection harness (chaos testing)"),
     "PLUGINS": ("A10", "PLUGINS LIST or PLUGINS LOAD/REMOVE plugin",
                 "List, load or remove plugins"),
     "SCREENSHOT": ("A10", "SCREENSHOT [fname.svg]",
@@ -1260,6 +1255,14 @@ def register_all(stack):
                 "server inherits these)")
         return False, "HA [STATUS]"
 
+    def faultcmd(*args):
+        """FAULT: the chaos-injection harness (fault/harness.py): poison
+        the state with NaN/Inf or a bit flip, set the guard policy,
+        degrade the event transport, stall/kill/straggle the worker, kill
+        a device group of the mesh, truncate snapshots."""
+        from ..fault import harness
+        return harness.fault_command(sim, *args)
+
     def healthcmd():
         """HEALTH: serving-fabric introspection.  On a networked worker
         the server is queried and its reply echoed when it arrives; a
@@ -1783,6 +1786,14 @@ def register_all(stack):
         "WORLDS": ["WORLDS [ON/OFF | MAX n]", "[txt,txt]", worldscmd,
                    "Multi-world BATCH packing: world-batch size + "
                    "per-bucket packing on/off (readback bare)"],
+        "FAULT": ["FAULT NAN/INF [acid] | BITFLIP [STATE|PAYLOAD] | "
+                  "GUARD ../RING .. | DROP/DUP/"
+                  "DELAY p | NETOFF | STALL s | STRAGGLE f/STALL/OFF | "
+                  "KILL | KILLSERVER [s] | PREEMPT [s] | MESHKILL [g] "
+                  "| PARTITION [OFF] "
+                  "| LOADSPIKE n [rate] | SNAPTRUNC f | LIST",
+                  "[word,...]", faultcmd,
+                  "Fault-injection harness (chaos testing)"],
         "HEALTH": ["HEALTH", "", healthcmd,
                    "Serving-fabric health: queue depth, worker "
                    "progress, hedges, drops"],

@@ -87,14 +87,15 @@ Phases, in order; any failure exits non-zero before the last line:
     (their counts are the ``sim_launches`` of the kernels line).  Then
     10,000 aircraft of the regional view through the same command
     script on the card and on the CPU (plain versions), float64, under
-    CDMETHOD DENSE, SPARSE and PALLAS for two ASAS intervals each, held
+    CDMETHOD DENSE for one ASAS interval (the CPU's float64 dense half
+    took 95 s for two), then SPARSE and PALLAS for two each, held
     against each other after every interval (``compare_sims``), each
     interval's CD from the same inputs.
-11. worlds phase (``worlds_phase``): world-batched stepping.  Sparse and
-    pallas (MVP) on 256 worlds of 500 aircraft of the regional geometry
-    (world w from numpy seed w) in 512 slots each, sparse EBY on 16
-    worlds of 10,000 in 10,240 slots, dense on 16 worlds of 2,000 in
-    2,048: three chunks (sort refresh and 20 steps) of the stack through
+11. worlds phase (``worlds_phase``, at ``WORLDS_SCALE``): world-batched
+    stepping.  Sparse and pallas (MVP) on 128 worlds of 500 aircraft of
+    the regional geometry (world w from numpy seed w) in 512 slots each,
+    sparse EBY on 8 worlds of 10,000 in 10,240 slots, dense on 8 worlds
+    of 2,000 in 2,048 (each world count half the shape's, for time): three chunks (sort refresh and 20 steps) of the stack through
     ``run_steps_worlds_edge``, with the launch counts set to 0 just
     before and read just after (each kernel once per ASAS interval for
     the whole group, or the run fails), and the host syncs of a stacked
@@ -105,7 +106,7 @@ Phases, in order; any failure exits non-zero before the last line:
     launches per interval and peak memory of both.  The world-group
     launches of K1 and K2 (sparse) and K3 (pallas) are held against their
     plain versions on the stacked operands and timed with their bounds:
-    the ``/worlds`` entries of the kernels line.  Then 64 BATCH pieces of
+    the ``/worlds`` entries of the kernels line.  Then 8 BATCH pieces of
     500 aircraft (CRE lines from numpy seeds, CDMETHOD SPARSE, ASAS ON,
     FF 60, the guard on) through ``WorldBatch.run()``, four of them held
     to solo ``Simulation``s.
@@ -113,14 +114,15 @@ Phases, in order; any failure exits non-zero before the last line:
     dense step (``bluesky_tpu_torch/diff``; no kernel runs on this path,
     and the launch counts must read 0 after it).  (a) 25 head-on pairs
     (``conflict_scene(50)``) in a float64 ``Simulation`` on the card, ``OPT
-    100,6,0.5`` typed into its stack (6 iterations: cut from 10 to make
-    room for phase 16; both reach no hard LoS): the guard clean, hard
+    100,4,0.5`` typed into its stack (4 iterations, cut from 10 for
+    time: both reach no hard LoS, where 3 leave 6 pairs in float64 on
+    the CPU): the guard clean, hard
     LoS before and none after, the objective falling, the wall seconds of each
     descent iteration; (b) the same with 4 restarts on the world axis;
     (c) ``value_and_grad_once`` on ``conflict_scene(8)`` in float64 on
     the card against the CPU, ASAS out of the loop and in it (value and
     gradient within 1e-9, equal guard words); (d) the rollout of
-    2,000 aircraft in 2,048 slots (float32, 400 steps of 1 s) without
+    2,000 aircraft in 2,048 slots (float32, 100 steps of 1 s; 400 until it was cut for time) without
     and with ASAS: forward and forward+backward ms, peak memory,
     gradient norm, with the card's name and power limit.
 13. partner width phase (``kwide_phase``): partner tables K = 16 wide
@@ -201,6 +203,34 @@ Phases, in order; any failure exits non-zero before the last line:
     (``__main__._log_launches``): the ``fabric_launches`` of the kernels
     line, the (a) workers' on the MVP forms, the pack worker's on the
     ``/worlds`` forms.
+17. mesh-epoch phase (``epoch_phase``; ROADMAP A9 step 2): on
+    ``main_scene``'s 100,000 aircraft in 200,000 slots, (a) SHARD
+    REPLICATE 4 on 4 x the card under SPARSE and then PALLAS, the
+    snapshot ring every simulated second, FAULT MESHKILL 1: the trip log
+    ``mesh_lost``, ``resharded``, epoch 1 on 2 shards, the state 3 s
+    later bit-equal to a fresh ``Simulation`` restored from the same ring
+    blob on a 2-shard mesh, the ms from the trip to the first re-sharded
+    chunk; (b) the same on TILE 2x2 (the survivors re-form the first
+    layout of tiles -> spatial -> replicate that holds on 2 shards); (c)
+    two ``scripts/torch_multihost.py`` processes on the card
+    (``init_multihost(backend="gloo")``, each rank owning 2 of the 4
+    shards), REPLICATE under SPARSE and PALLAS, SPATIAL and TILE 2x2, 3
+    chunks of 20 steps each, each rank bit-equal to the single-process
+    4-shard mesh, the fingerprints
+    compared at every chunk edge, chunk ms, bytes and collectives per
+    rank per interval, the backend printed (NCCL not measured on one
+    card); (d) ``ensemble_step_fn`` on an 8 x card ``("ens",)`` mesh of
+    8 x 10,000 ``regional_scene`` sparse replicas (seeds 0-7), each
+    bit-equal to its solo run, aggregate aircraft-steps/s against one at
+    a time; (e) (c)'s replicate job with rank 1 SIGKILLed after 2
+    chunks: rank 0's ``MeshGuard.guarded_ready`` raises
+    ``MeshLostError`` naming rank 1 within the dispatch and heartbeat
+    budgets, and rank 0's resumed run from its last snapshot on its own
+    2 shards is bit-equal to a fresh run from that snapshot; its chunk
+    ms with the guard on the joins are logged beside (c)'s without.  The
+    launches of (a)-(b), (c) (both ranks) and (d) are the
+    ``meshkill_launches``, ``multihost_launches`` and
+    ``ensemble_launches`` of the kernels line.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -213,6 +243,7 @@ phase 3 and after each later phase.  It prints one JSON line describing
 every kernel, then the ``nvidia-smi`` name and power limit, then the
 result line ``{"ok": true, "device": {...}}``.
 """
+import faulthandler
 import gc
 import json
 import os
@@ -222,6 +253,12 @@ import sys
 import time
 
 import numpy as np
+
+#: when the script started (``log_card`` reports the seconds since)
+T_START = time.perf_counter()
+#: seconds after which the script dumps every thread's stack to standard
+#: error (the check stops it at 1,200 s)
+STACKS_AFTER_S = 1100
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 #: outside the tensor cores.  The float32 rate counts a fused
@@ -332,10 +369,14 @@ def nvidia_smi(fields="name,power.limit"):
 
 
 def log_card(when):
-    """One line of the card's power, clocks and temperature."""
+    """One line of the card's power, clocks and temperature; and one line
+    on standard error of the seconds since the script started, so that a
+    run cut at its time limit shows how far it got."""
     fields = ("name,power.limit,power.draw,clocks.sm,clocks.max.sm,"
               "temperature.gpu")
     log(f"nvidia-smi {when} ({fields}): {nvidia_smi(fields)}")
+    print(f"chip_smoke: {when}, {time.perf_counter() - T_START:.1f} s "
+          "since the start", file=sys.stderr, flush=True)
 
 
 def kernel_registers(report):
@@ -1951,6 +1992,9 @@ SIM_BOX = (35.0, 60.0, -2.5, 22.5)
 REG_N, REG_NMAX = 10_000, 10_240
 REG_VIEW = ("PAN 52.6 5.4", f"ZOOM {1 / 3.8!r}")
 REG_BOX = (52.6 - 3.8, 52.6 + 3.8, 5.4 - 3.8, 5.4 + 3.8)
+#: ASAS intervals of the regional session by CD method (dense one: its
+#: float64 [N, N] interval on the CPU takes ~45 s)
+REG_INTERVALS = {"dense": 1, "sparse": 2, "pallas": 2}
 
 
 def sim_do(sim, *lines):
@@ -2270,8 +2314,8 @@ def compare_sims(tag, backend, card, cpu, pre):
 def sim_regional(dev):
     """The 10k regional session through the stack on the card and on the
     CPU (the plain versions), float64: the view, MCRE 10000, ASAS ON,
-    OP, FF, then CDMETHOD DENSE, SPARSE and PALLAS for two ASAS
-    intervals each.  Each interval starts from the same inputs: both
+    OP, FF, then CDMETHOD DENSE for ``REG_INTERVALS["dense"]`` ASAS
+    intervals, SPARSE and PALLAS for two each.  Each interval starts from the same inputs: both
     step to the ASAS step, the CPU takes the card's state, both finish
     the second, and ``compare_sims`` holds them against each other."""
     import torch
@@ -2285,11 +2329,11 @@ def sim_regional(dev):
     for sim in (card, cpu):
         sim_view(sim, REG_VIEW, REG_BOX)
         sim_do(sim, f"MCRE {REG_N} B744", "ASAS ON", "OP", "FF")
-    for backend in ("dense", "sparse", "pallas"):
+    for backend, intervals in REG_INTERVALS.items():
         t1 = time.perf_counter()
         for sim in (card, cpu):
             sim_do(sim, f"CDMETHOD {backend.upper()}")
-        for k in (1, 2):
+        for k in range(1, intervals + 1):
             t_end = card.simt + 1.0
             for sim in (card, cpu):
                 st = sim.traf.state
@@ -2303,8 +2347,8 @@ def sim_regional(dev):
                 sim.run(until_simt=t_end)
             compare_sims(f"regional {backend} interval {k}", backend, card,
                          cpu, pre)
-        log(f"sim regional {backend}: two ASAS intervals on the card and "
-            f"the CPU in {time.perf_counter() - t1:.1f} s")
+        log(f"sim regional {backend}: {intervals} ASAS interval(s) on the "
+            f"card and the CPU in {time.perf_counter() - t1:.1f} s")
     check_sim_state("regional", card)
     log(f"sim regional: {time.perf_counter() - t0:.1f} s")
     del card, cpu
@@ -2320,6 +2364,10 @@ def sim_regional(dev):
 WORLDS_MVP = (256, 500, 512)
 WORLDS_EBY = (16, 10_000, 10_240)
 WORLDS_DENSE = (16, 2_000, 2_048)
+#: the world counts the script runs are the shapes' divided by this (the
+#: solo loop of 256 worlds took 11 s a chunk, the 16-piece WorldBatch 35 s
+#: of scenario lines)
+WORLDS_SCALE = 2
 #: the world-axis forms of the kernels, by the kernel of each backend
 WORLD_KERNELS = {"sparse": ("cd_sched._sched_kernel",
                             "cd_pallas._kernel_resume"),
@@ -2670,7 +2718,7 @@ def worlds_phase(dev, errs, regs, scale=1):
     worlds_batched_vs_solo(dev, "dense", shrink(WORLDS_DENSE))
     log(f"worlds dense: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    worldbatch_phase(dev, pieces=max(2, 64 // scale))
+    worldbatch_phase(dev, pieces=max(2, 16 // scale))
     log(f"worldbatch: {time.perf_counter() - t0:.1f} s")
     return report
 
@@ -2683,10 +2731,10 @@ def worlds_phase(dev, errs, regs, scale=1):
 #: card-against-CPU check's scene and horizon; the full-width rollout
 #: (the dense worlds shape of the worlds phase) and its chunks without
 #: and with ASAS in the loop (50 does not fit in 80 GB with ASAS)
-DIFF_DEMO_N, DIFF_DEMO_LEG_KM, DIFF_DEMO_OPT = 50, 20.0, (100.0, 6, 0.5)
+DIFF_DEMO_N, DIFF_DEMO_LEG_KM, DIFF_DEMO_OPT = 50, 20.0, (100.0, 4, 0.5)
 DIFF_CHECK_N, DIFF_CHECK_TEND = 8, 100.0
 DIFF_CHECK_RTOL = 1e-9
-DIFF_WIDE = dict(n_ac=2000, nmax=2048, tend=400.0, simdt=1.0,
+DIFF_WIDE = dict(n_ac=2000, nmax=2048, tend=100.0, simdt=1.0,
                  chunk=(50, 25))
 
 _OPT_ECHO = re.compile(
@@ -2783,7 +2831,7 @@ def diff_card_vs_cpu(dev):
 def diff_full_width(dev):
     """Phase 12 (d): the rollout at the full width of the dense worlds
     shape, ``regional_scene(n_ac=2000, nmax=2048)`` in float32, tend
-    400 s at simdt 1, ASAS out of the loop (chunks of 50) and in it
+    100 s at simdt 1, ASAS out of the loop (chunks of 50) and in it
     (chunks of 25: about 40 saved [2048, 2048] tensors a step, so 50
     steps need about 90 GiB): the forward alone (no gradient) and
     forward+backward (``value_and_grad_once``) timed, with the peak
@@ -3515,7 +3563,7 @@ def shard_phase(dev, errs, regs, scale=1):
 # ------------------------------------------------------------ entry phase
 ENTRY_N = 1000          # under DetachedSimNode()'s default 1024 slots
 ENTRY_SESSION = ("CDMETHOD SPARSE", "ASAS ON") + SIM_VIEW + ("SEED 1",)
-ENTRY_CHUNKS, ENTRY_PALLAS_CHUNKS = 10, 3
+ENTRY_CHUNKS, ENTRY_PALLAS_CHUNKS = 6, 3
 
 
 def entry_cli(dev):
@@ -3724,7 +3772,7 @@ FABRIC_FRAMES = 3
 FABRIC_DIR = os.path.join("output", "chip_smoke_fabric")
 #: a worker's last log line (``__main__._log_launches``)
 _WORKER_LAUNCHES = re.compile(
-    r"bluesky_tpu_torch worker ([0-9a-f]+): kernel launches (\{.*\})")
+    r"bluesky_tpu_torch worker ([0-9a-f]+): kernel launches (\{[^{}]*\})")
 
 
 def free_ports(n):
@@ -4190,6 +4238,391 @@ def sim_phase(dev):
     return launches
 
 
+
+# ------------------------------------------------------- mesh-epoch phase
+#: phase 17's shards on the one card, ensemble replicas and their size,
+#: the killed-peer budgets [s]
+EPOCH_SHARDS = 4
+ENS_REPLICAS, ENS_N, ENS_NMAX = 8, 10_000, 10_240
+MH_TIMEOUT, MH_HB = 60.0, 10.0
+#: the modes of (c), in the order the ranks run them
+MH_MODES = ("replicate", "pallas", "spatial", "tiles")
+
+
+def launches_by_name(counts=None):
+    """Launch counts by kernels-line name: every form of ``FORMS`` and
+    every MVP mesh form (``mesh_name``), from ``counts`` (a dict of
+    ``LAUNCHES`` keys, e.g. a worker's) or this process's."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    counts = counts if counts is not None else dict(cd_pallas.LAUNCHES,
+                                                    **cd_sched.LAUNCHES)
+    out = {}
+    for key, name in launch_keys().items():
+        out[name] = counts.get(key, 0)
+    for k, kind in MESH_FORMS:
+        wrapper = {"cd_sched._sched_kernel": "cd_sched_tiles",
+                   "cd_pallas._kernel_resume": "cd_full_grid_resume",
+                   "cd_pallas._kernel": "cd_full_grid"}[k]
+        out[mesh_name(k, "mvp", kind)] = counts.get(
+            cd_pallas.launch_key(wrapper, "mvp", kind), 0)
+    return out
+
+
+def add_counts(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def meshkill_case(dev, mode, n_ac=100_000, nmax=200_000):
+    """Phase 17 (a)/(b) for one mode: ``shard_scene`` on ``EPOCH_SHARDS``
+    shards of the card, the snapshot ring every simulated second and the
+    pipeline off, 3 s of FF; FAULT MESHKILL 1; the tripping ``step``
+    (mesh_lost, the ring blob restored onto the 2 survivors) and the
+    first re-sharded chunk timed together; then 3 s more.  Checks the
+    trip log, epoch 1 on 2 shards, and the state bit-equal to a fresh
+    ``Simulation`` restored from the same ring blob onto a 2-shard mesh
+    of the mode the recovery formed and run the same way.  Returns the
+    launches of the run by name."""
+    import torch
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.simulation import snapshot as snapmod
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    graph.clear()
+    sim = shard_scene(dev, mode, n_ac, nmax)
+    sim.pipeline_enabled = False
+    sim.snap_ring.dt = 1.0
+    reset_launches()
+    sim_do(sim, "OP", "FF")
+    sim.run(until_simt=3.0)
+    blob = sim.snap_ring.newest()
+    if blob is None:
+        raise AssertionError(f"meshkill {mode}: the ring holds no snapshot")
+    t_blob = snapmod.blob_simt(blob)
+    echo = sim_do(sim, "FAULT MESHKILL 1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step(max_chunk=CHUNK)           # trips at the dispatch, re-shards
+    sim.step(max_chunk=CHUNK)           # the first chunk on the survivors
+    torch.cuda.synchronize()
+    trip_ms = (time.perf_counter() - t0) * 1e3
+    sim.run(until_simt=t_blob + 3.0)
+    sim.drain_pipeline()
+    torch.cuda.synchronize()
+    launches = launches_by_name()
+    actions = [t["action"] for t in sim.guard.trips]
+    new_mode, nd = sim.shard_mode, sim._shard_ndev()
+    if actions != ["mesh_lost", "resharded"] or sim.mesh_epoch != 1 \
+            or nd != EPOCH_SHARDS // 2 or not sim.mesh_health()["degraded"]:
+        raise AssertionError(f"meshkill {mode}: trips {actions}, epoch "
+                             f"{sim.mesh_epoch}, {nd} shards, "
+                             f"{sim.mesh_health()}")
+    (ev,) = sim.mesh_events
+    check_sim_state(f"meshkill {mode}", sim)
+    echoes = [e for e in sim.scr.echobuf if "MESH" in e]
+    sim.scr.echobuf[:] = []
+    tiles = tuple(sim.cfg.cd_tile_shape) if new_mode == "tiles" else None
+    fresh = Simulation(nmax=nmax, device=dev, pair_matrix=False)
+    fresh.pipeline_enabled = False
+    ok, msg = snapmod.restore_blob(fresh, blob, full_reset=False)
+    if not ok:
+        raise AssertionError(f"meshkill {mode}: fresh restore: {msg}")
+    fresh.set_shard(new_mode, nd, devices=[dev] * nd, tiles=tiles)
+    sim_do(fresh, "OP", "FF")
+    fresh.step(max_chunk=CHUNK)
+    fresh.run(until_simt=t_blob + 3.0)
+    fresh.drain_pipeline()
+    assert_same(f"meshkill {mode}: against a fresh {new_mode} {nd} run "
+                "from the same blob", sim.traf.state, fresh.traf.state)
+    log(f"meshkill {mode}: {echo[-1]}; {' | '.join(echoes)}; trip to the "
+        f"first re-sharded chunk {trip_ms:.1f} ms; now {new_mode.upper()} "
+        f"{nd}" + (f" {tiles[0]}x{tiles[1]}" if tiles else "")
+        + f", epoch {sim.mesh_epoch}; MESHLOST notice {ev}; state at simt "
+        f"{sim.simt:.2f} bit-equal to a fresh {new_mode} {nd} run from the "
+        f"ring blob of simt {t_blob:.2f}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del sim, fresh
+    graph.clear()
+    return launches
+
+
+def start_ranks(dev, workdir, state_path, *extra):
+    """Two ``scripts/torch_multihost.py`` ranks on ``dev``'s kind of
+    device (the card), gloo."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_ports(1)[0]
+    env = dict(os.environ, PYTHONPATH=here)
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(here, "scripts", "torch_multihost.py"),
+         "--rank", str(r), "--world", "2", "--port", str(port),
+         "--state", state_path, "--out", workdir, "--device", dev.type,
+         "--backend", "gloo", "--shards", str(EPOCH_SHARDS), *extra],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+
+
+def stop_ranks(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def one_process_run(dev, path, mode, chunks=3):
+    """The single-process ``EPOCH_SHARDS``-shard mesh of (c): the same
+    entry and chunks as the ranks.  Returns ``(state, chunk ms)``."""
+    import torch
+    from bluesky_tpu_torch.parallel import sharding
+    from scripts.torch_multihost import enter, load, make_mesh
+    mesh = make_mesh(mode, dev, EPOCH_SHARDS, 1)
+    state, cfg = enter(load(path, dev), mesh, mode)
+    run = sharding.sharded_step_fn(mesh, cfg, nsteps=CHUNK)
+    ms = []
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run(state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, ms
+
+
+def multihost_phase(dev, workdir, n_ac=100_000, nmax=200_000):
+    """Phase 17 (c): two processes on the one card
+    (``init_multihost(backend="gloo")``, each rank owning 2 of the 4
+    shards), SHARD REPLICATE under SPARSE and PALLAS, then SPATIAL, then
+    TILE 2x2, 3 chunks of 20 steps each on ``main_scene`` in 200,000
+    slots: each rank's state bit-equal to the single-process 4-shard
+    mesh, the ranks' fingerprints compared at every chunk edge (a
+    mismatch fails the rank).  Returns the scene's npz path, the ranks'
+    launches by name and rank 0's REPLICATE chunk ms."""
+    from bluesky_tpu_torch.core.state import state_to_numpy
+    from scripts.torch_multihost import load
+    state, _ = main_scene(dev, n_ac, nmax)
+    path = os.path.join(workdir, "scene.npz")
+    np.savez(path, **state_to_numpy(state))
+    del state
+    t0 = time.perf_counter()
+    procs = start_ranks(dev, workdir, path, "--mode", ",".join(MH_MODES),
+                        "--steps", str(CHUNK), "--chunks", "3")
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        stop_ranks(procs)
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost rank {r} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    launches = {}
+    infos = []
+    for r in (0, 1):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+        add_counts(launches, launches_by_name(infos[-1]["launches"]))
+    for mode in MH_MODES:
+        want, ms1 = one_process_run(dev, path, mode)
+        for r in (0, 1):
+            got = load(os.path.join(workdir, f"rank{r}-{mode}.npz"), dev)
+            assert_same(f"multihost {mode}: rank {r} against the "
+                        "single-process 4-shard mesh", got, want)
+        rows = [info["chunks"][mode] for info in infos]
+        log(f"multihost {mode}: 2 processes x 2 shards on {dev}, backend "
+            f"{infos[0]['backend']} (CUDA joins staged through pinned host "
+            f"memory: {infos[0]['staged']}; NCCL not measured on one card); "
+            f"bit-equal to one process; chunk ms rank 0 "
+            f"{[round(c['ms'], 2) for c in rows[0]]}, rank 1 "
+            f"{[round(c['ms'], 2) for c in rows[1]]}, one process "
+            f"{[round(m, 2) for m in ms1]}; per rank per interval (one "
+            f"ASAS interval a 20-step chunk): bytes from its peer "
+            f"{[c['bytes'] for c in rows[0]]}, staged "
+            f"{[c['staged_bytes'] for c in rows[0]]}, collectives "
+            f"{[c['calls'] for c in rows[0]]}")
+    log(f"multihost: {len(MH_MODES)} modes in {wall:.1f} s wall (two process "
+        f"starts included), launches "
+        f"{  {k: v for k, v in launches.items() if v} }")
+    return path, launches, [c["ms"] for c in infos[0]["chunks"]["replicate"]]
+
+
+def killed_peer_phase(dev, workdir, path, unguarded_ms):
+    """Phase 17 (e): (c)'s replicate job with a MeshGuard on its joins
+    (``MH_TIMEOUT`` s collective budget, ``MH_HB`` s heartbeats); rank 1
+    SIGKILLed after 2 chunks.  Rank 0 must raise ``MeshLostError`` naming
+    rank 1 within ``MH_TIMEOUT + MH_HB`` s of the kill and resume from
+    its last snapshot on its own 2 shards for 3 chunks, bit-equal to a
+    fresh 2-shard run from that snapshot here.  Logs rank 0's guarded
+    chunk ms beside (c)'s unguarded ones (``unguarded_ms``)."""
+    import signal
+    import torch
+    from bluesky_tpu_torch.parallel import sharding
+    from scripts.torch_multihost import enter, load
+    kdir = os.path.join(workdir, "killed")
+    os.makedirs(kdir)
+    procs = start_ranks(dev, kdir, path, "--steps", str(CHUNK), "--hb",
+                        os.path.join(kdir, "hb"), "--timeout",
+                        str(MH_TIMEOUT), "--hb-timeout", str(MH_HB),
+                        "--resume-chunks", "3")
+    progress = os.path.join(kdir, "progress")
+
+    def chunks():
+        try:
+            with open(progress) as f:
+                return int(f.read())
+        except (OSError, ValueError):
+            return 0
+    try:
+        deadline = time.monotonic() + 120
+        while chunks() < 2:
+            for p in procs:
+                if p.poll() is not None:
+                    raise AssertionError("killed peer: a rank left early:\n"
+                                         + p.communicate()[0][-6000:])
+            if time.monotonic() > deadline:
+                raise AssertionError("killed peer: the job never progressed")
+            time.sleep(0.05)
+        os.kill(procs[1].pid, signal.SIGKILL)
+        t_kill = time.time()
+        out0 = procs[0].communicate(timeout=MH_TIMEOUT + MH_HB + 120)[0]
+    finally:
+        stop_ranks(procs)
+    if procs[0].returncode != 0:
+        raise AssertionError(f"killed peer: rank 0 exited "
+                             f"{procs[0].returncode}:\n{out0[-6000:]}")
+    with open(os.path.join(kdir, "meshlost.json")) as f:
+        lost = json.load(f)
+    detect = lost["time"] - t_kill
+    if lost["lost"] != [1] or detect > MH_TIMEOUT + MH_HB:
+        raise AssertionError(f"killed peer: {lost}, {detect:.2f} s after "
+                             "the kill")
+    snap = load(os.path.join(kdir, "snap.npz"), dev)
+    t_snap = float(snap.simt)
+    mesh = sharding.make_mesh(devices=[dev] * (EPOCH_SHARDS // 2))
+    state, cfg = enter(snap, mesh, "replicate")
+    run = sharding.sharded_step_fn(mesh, cfg, nsteps=CHUNK)
+    for _ in range(3):
+        state = run(state)
+    torch.cuda.synchronize()
+    assert_same("killed peer: rank 0's resumed run against a fresh 2-shard "
+                "run from the same snapshot",
+                load(os.path.join(kdir, "resumed.npz"), dev), state)
+    log(f"killed peer: rank 1 SIGKILLed after {lost['chunks']} chunks; rank "
+        f"0 raised MeshLostError {detect:.2f} s later (budget "
+        f"{MH_TIMEOUT + MH_HB:g} s): {lost['error'][:300]}; survivors "
+        f"{lost['survivors']}; resumed from simt {t_snap:.2f} on 2 shards, "
+        "bit-equal to a fresh run from that snapshot; rank 0's chunk ms "
+        f"with the guard on its joins {[round(m, 2) for m in lost['ms']]} "
+        f"against (c)'s without {[round(m, 2) for m in unguarded_ms]}")
+
+
+def ensemble_phase(dev):
+    """Phase 17 (d): ``ensemble_step_fn`` on an ``ENS_REPLICAS`` x card
+    ``("ens",)`` mesh of ``regional_scene`` sparse replicas (seeds 0-7,
+    the sort refresh in the chunk), 3 chunks of 20 steps, each replica
+    bit-equal to its solo ``run_steps``; aggregate aircraft-steps/s of the
+    ensemble against the replicas one at a time.  Returns the launches of
+    the ensemble run by name."""
+    import torch
+    from bluesky_tpu_torch.core import graph, step as stepmod
+    from bluesky_tpu_torch.core.state import world_slice
+    from bluesky_tpu_torch.parallel import sharding
+    graph.clear()
+    states, cfg = [], None
+    for s in range(ENS_REPLICAS):
+        st, cfg = regional_scene(dev, ENS_N, ENS_NMAX, seed=s,
+                                 cd_backend="sparse", cd_block=256,
+                                 pair_matrix=False)
+        states.append(st)
+    cfg = cfg._replace(inscan_refresh=True)
+    mesh = sharding.make_ensemble_mesh(devices=[dev] * ENS_REPLICAS)
+    run = sharding.ensemble_step_fn(mesh, cfg, nsteps=CHUNK)
+    stacked = sharding.stack_replicas([state_copy(s) for s in states])
+    reset_launches()
+    ens_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked = run(stacked)
+        torch.cuda.synchronize()
+        ens_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launches_by_name()
+    solo_ms = []
+    for r, st in enumerate(states):
+        st = state_copy(st)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = stepmod.run_steps(st, cfg, CHUNK)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        solo_ms.append(ms)
+        assert_same(f"ensemble replica {r} against its solo run",
+                    world_slice(stacked, r), st)
+    rate = lambda ms: ENS_REPLICAS * ENS_N * CHUNK / (ms / 1e3)
+    solo_chunk = [sum(m[i] for m in solo_ms) for i in range(3)]
+    log(f"ensemble: {ENS_REPLICAS} x {ENS_N} sparse replicas on an "
+        f"{ENS_REPLICAS} x {dev} ('ens',) mesh, each bit-equal to its solo "
+        f"run; 20-step chunk ms {[round(m, 2) for m in ens_ms]} "
+        f"(aggregate aircraft-steps/s {[f'{rate(m):.4g}' for m in ens_ms]}) "
+        f"against one at a time {[round(m, 2) for m in solo_chunk]} "
+        f"({[f'{rate(m):.4g}' for m in solo_chunk]}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del stacked, states
+    graph.clear()
+    return launches
+
+
+def epoch_phase(dev):
+    """Phase 17: mesh epochs, several processes and the ensemble
+    (ROADMAP A9 step 2): (a) MESHKILL on REPLICATE 4 under SPARSE and
+    PALLAS, (b) on TILE 2x2, (c) two processes on the card, (d) the
+    ensemble, (e) the killed peer.  Returns ``{column: {name:
+    launches}}`` for the kernels line."""
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "output"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="phase17-",
+                               dir=os.path.join(here, "output"))
+    cols = dict(meshkill_launches={}, multihost_launches={},
+                ensemble_launches={})
+    try:
+        for mode in ("replicate", "pallas replicate", "tiles"):
+            t0 = time.perf_counter()
+            add_counts(cols["meshkill_launches"], meshkill_case(dev, mode))
+            log(f"epoch (a/b) {mode}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        path, n, unguarded_ms = multihost_phase(dev, workdir)
+        cols["multihost_launches"] = n
+        log(f"epoch (c): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cols["ensemble_launches"] = ensemble_phase(dev)
+        log(f"epoch (d): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        killed_peer_phase(dev, workdir, path, unguarded_ms)
+        log(f"epoch (e): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for form in (("cd_sched._sched_kernel", "rows"),
+                 ("cd_pallas._kernel_resume", "rows"),
+                 ("cd_pallas._kernel", "rows"),
+                 ("cd_sched._sched_kernel", "gid")):
+        if cols["meshkill_launches"].get(mesh_name(form[0], "mvp",
+                                                   form[1]), 0) < 1:
+            raise AssertionError(f"epoch: MESHKILL runs never launched "
+                                 f"{mesh_name(form[0], 'mvp', form[1])}")
+    for form in (("cd_sched._sched_kernel", "rows"),
+                 ("cd_pallas._kernel", "rows"),
+                 ("cd_sched._sched_kernel", "col0"),
+                 ("cd_sched._sched_kernel", "gid")):
+        if cols["multihost_launches"].get(mesh_name(form[0], "mvp",
+                                                    form[1]), 0) < 1:
+            raise AssertionError(f"epoch: the ranks never launched "
+                                 f"{mesh_name(form[0], 'mvp', form[1])}")
+    if cols["ensemble_launches"].get("cd_sched._sched_kernel", 0) < 1:
+        raise AssertionError("epoch: the ensemble never launched K1")
+    return cols
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4199,6 +4632,9 @@ def main():
     from bluesky_tpu_torch.ops import _cuda
 
     dev = torch.device("cuda")
+    # a run still going near the 1,200 s limit prints where each of its
+    # threads is, to standard error
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -4243,7 +4679,7 @@ def main():
     log(f"sim_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after sim_phase")
     t0 = time.perf_counter()
-    world_report = worlds_phase(dev, errs, regs)
+    world_report = worlds_phase(dev, errs, regs, scale=WORLDS_SCALE)
     log(f"worlds_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after worlds_phase")
     t0 = time.perf_counter()
@@ -4266,12 +4702,18 @@ def main():
     fabric = fabric_phase(dev)
     log(f"fabric_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after fabric_phase")
+    t0 = time.perf_counter()
+    epoch = epoch_phase(dev)
+    log(f"epoch_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after epoch_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
     report += world_report + kwide_report + shard_report
     for entry in report:
         entry["entry_launches"] = entry_launches.get(entry["name"], 0)
         entry["fabric_launches"] = fabric.get(entry["name"], 0)
+        for col, counts in epoch.items():
+            entry[col] = counts.get(entry["name"], 0)
     missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")
