@@ -48,10 +48,13 @@ same way.  Each world draws its noise from a generator of its own, all
 of them registered with the graphs and reseeded before every step.
 """
 import dataclasses
+import threading
+import time
 
 import torch
 
 from . import step as stepmod
+from ..obs import devprof
 
 #: the chunk executors by key; per device, the shared graph memory pool,
 #: the side stream of the warm-ups and captures, and every graph captured
@@ -59,12 +62,39 @@ from . import step as stepmod
 #: have all been destroyed, so they live until ``clear``)
 _CHUNKS = {}
 _POOLS = {}
+#: this thread's count of new chunk executors (``misses``); the keys the
+#: CPU's eager chunks have run under (``eager_lookup``)
+_LOOKUPS = threading.local()
+_EAGER = set()
 
 
 def clear():
     """Drop every captured graph and static buffer."""
     _CHUNKS.clear()
     _POOLS.clear()
+    _EAGER.clear()
+
+
+def misses() -> int:
+    """The chunk executors this thread has made anew (each captures its
+    graphs on its first steps): a dispatch that raised the count was a
+    compile miss, one that left it a hit (the compile telemetry,
+    ``obs/devprof``)."""
+    return getattr(_LOOKUPS, "misses", 0)
+
+
+def _miss():
+    _LOOKUPS.misses = misses() + 1
+
+
+def eager_lookup(state, cfg, checked: bool, keep: bool):
+    """The CPU's eager chunk captures nothing; its first chunk under a
+    key counts as the miss a card would take there, so the compile
+    telemetry reads the same on both."""
+    key = chunk_key(state, cfg, checked, keep)
+    if key not in _EAGER:
+        _EAGER.add(key)
+        _miss()
 
 
 def leaves(obj, prefix=""):
@@ -142,7 +172,9 @@ def _capture(body, device, gen):
             g.register_generator_state(one)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
+        t0 = time.perf_counter()
         body()
+        t1 = time.perf_counter()
         g.capture_begin(pool=pool)
         try:
             body()
@@ -150,6 +182,8 @@ def _capture(body, device, gen):
             g.capture_end()
     cur.wait_stream(side)
     graphs.append(g)
+    devprof.compile_event("capture_warmup", (t1 - t0) * 1e3)
+    devprof.compile_event("capture", (time.perf_counter() - t1) * 1e3)
     return g.replay
 
 
@@ -274,6 +308,11 @@ class ChunkGraphs:
         return state, carry, self.simt.clone()
 
 
+def chunk_key(state, cfg, checked: bool, keep: bool):
+    """The key of a chunk's executor (and of its captured graphs)."""
+    return (cfg, checked, keep, state.device, signature(state))
+
+
 def chunk(state, cfg, checked: bool, keep: bool) -> ChunkGraphs:
     """The executor of one chunk of ``state`` under ``cfg``, its buffers
     loaded.  The buffers of a returned state are reused only when that
@@ -285,9 +324,10 @@ def chunk(state, cfg, checked: bool, keep: bool) -> ChunkGraphs:
     the state is not copied, and the executor it came from is dropped.
     ``keep`` chunks own buffers of their own and return copies, so they
     write neither their input nor a state returned before."""
-    key = (cfg, checked, keep, state.device, signature(state))
+    key = chunk_key(state, cfg, checked, keep)
     ex = _CHUNKS.get(key)
     if ex is None or (ex.lent and not ex.owns(state)):
+        _miss()
         lender = None if keep else _lender(state, key)
         ex = _CHUNKS[key] = ChunkGraphs(
             state, cfg, checked,

@@ -498,9 +498,10 @@ def executor(state: SimState, cfg: SimConfig, checked: bool = False,
     otherwise.  Its ``step()`` advances one step with the folds,
     ``state`` is the current state and ``finish(keep)`` ends the chunk
     (``(state, carry, simt)``)."""
+    from . import graph
     if _graphed(state):
-        from . import graph
         return graph.chunk(state, cfg, checked, keep)
+    graph.eager_lookup(state, cfg, checked, keep)
     return _EagerChunk(state, cfg, checked)
 
 

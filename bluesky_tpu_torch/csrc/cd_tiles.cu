@@ -1005,7 +1005,9 @@ extern "C" {
 // eby_s and eby_s10 the Eby scale (read by RESO_EBY only).
 // cd_sched_tiles, with the partner table pold, serves both _sched_kernel
 // (the segment blocks) and _kernel_resume (the reachable blocks of the
-// overflow rows).
+// overflow rows).  _sched_kernel's no-resume form (rpz_m=None: no
+// partner table, no keep bits) is cd_full_grid over the segment blocks
+// (cd_sched.window_items).
 // cd_sched_tiles and cd_full_grid take the mesh form (struct Mesh) when
 // own is given: then nb counts the rows of own (and of pold and the
 // items), packed holds the column slabs the tiles index, local row i is

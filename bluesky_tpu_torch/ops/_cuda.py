@@ -13,6 +13,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -76,15 +77,17 @@ def _start_build(source: str, verbose: bool = False):
            "-o", tmp, os.path.join(CSRC, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish_build(source: str, job) -> str:
-    proc, tmp, out = job
+    from ..obs import devprof
+    proc, tmp, out, t0 = job
     _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{err}")
     os.replace(tmp, out)
+    devprof.compile_event("build", (time.perf_counter() - t0) * 1e3)
     return err
 
 

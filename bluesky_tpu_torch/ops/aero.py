@@ -1,8 +1,8 @@
 """ISA atmosphere and airspeed conversions on tensors.
 
 Port of ``bluesky_tpu/ops/aero.py`` (reference ``bluesky/tools/aero.py``
-vectorized ``v*`` family): two-layer ISA, CAS/TAS/EAS/Mach conversions
-and the crossover-aware ``vcasormach``.  Elementwise, any float dtype.
+vectorized ``v*`` family): two-layer ISA, CAS/TAS/EAS/Mach conversions,
+the crossover-aware ``vcasormach`` and the crossover altitude.  Elementwise, any float dtype.
 """
 import math
 
@@ -114,6 +114,19 @@ def vcasormach2tas(spd, h):
     """TAS from a CAS-or-Mach command value (|spd| < 1 => Mach)."""
     return torch.where(torch.abs(spd) < 1.0, vmach2tas(spd, h),
                        vcas2tas(spd, h))
+
+
+def crossoveralt(cas, mach):
+    """Crossover altitude [m] where the CAS ``cas`` [m/s] and the Mach
+    ``mach`` give the same speed: the standard ISA relation in the
+    troposphere (JAX ``ops/aero.py``)."""
+    # impact pressure ratio at sea level for the CAS
+    dp = (1.0 + gamma1 * (cas / a0) ** 2) ** gamma2 - 1.0
+    # the pressure ratio at which that impact pressure gives the Mach
+    pratio = dp / ((1.0 + gamma1 * mach * mach) ** gamma2 - 1.0)
+    # invert the tropospheric pressure law p/p0 = (T/T0)^(-g/(beta R))
+    texp = -beta * R / g0
+    return T0 / beta * (pratio ** texp - 1.0)
 
 
 def host_scalar(fn, *args):

@@ -712,9 +712,10 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
     """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
     partner table ``pold`` (its width is K), ``cd_cand_items`` with the
     candidate table ``cand`` (the tiles are its sub-chunks),
-    ``cd_full_grid`` with neither, in resolver form ``reso`` with top-K
-    lists ``kk`` wide, and in the mesh form ``mesh`` (the first two
-    only: the rows are then ``mesh.own``'s, the tiles local blocks of
+    ``cd_full_grid`` with neither (also the no-resume segment pass of
+    ``cd_sched.sched_tiles``), in resolver form ``reso`` with top-K
+    lists ``kk`` wide, and in the mesh form ``mesh`` (not the candidate
+    pass: the rows are then ``mesh.own``'s, the tiles local blocks of
     ``packed``).  Returns the items' partials ``(acc [8|15, G, B],
     ct [K, G, B], ci, keep [G, B] or None)``, G = nb * C, for
     ``merge_items``."""
@@ -1156,14 +1157,16 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                           active, noreso, rpz, hpz, tlookahead, mvpcfg,
                           block=256, k_partners=KK, cand_cap=0, perm=None,
                           extra_cols=None, reso="mvp", mesh=None,
-                          mesh_axis="ac"):
+                          mesh_axis="ac", spatial_sort=True):
     """CD&R of the ``pallas`` backend; returns a ``RowConflictData`` in
     caller order (``topk_idx`` caller slots, -1 empty), and with
     ``reso="swarm"`` ``(rd, swarm_sums)``.  Always float32.
 
     With more slots than ``block`` the pass runs in Morton-sorted slot
     space (``cd_tiled.run_spatially_sorted``, ``perm`` a cached sorted ->
-    caller permutation, recomputed when None).  ``cand_cap > 0`` turns on
+    caller permutation, recomputed when None); ``spatial_sort=False``
+    runs it in caller order (``perm`` unread), as JAX's does: the
+    reachability then skips only what the caller's order leaves apart.  ``cand_cap > 0`` turns on
     the candidate-list scheduler (see ``run_kernels``); the result is the
     same either way.  ``reso`` is the tile body's resolver form, with
     ``extra_cols`` its ``tas`` (Eby) or ``cas`` (Swarm) column.  The
@@ -1190,7 +1193,7 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
         shards = mesh_shards(mesh)
     kw = dict(block=block, k_partners=k_partners, cand_cap=cand_cap,
               reso=reso, shards=shards)
-    if lat.shape[-1] > block:
+    if spatial_sort and lat.shape[-1] > block:
         return cd_tiled.run_spatially_sorted(
             _detect_resolve_sorted, *args, perm=perm, extra_cols=extra_cols,
             **kw)

@@ -62,11 +62,18 @@ from .cd_tiled import (RowConflictData, block_reachability, precompute_trig,
 from . import geo
 from ..parallel.dist import allgather_shards, process_index, spans_ranks
 
+#: The ``LAUNCHES`` name of the segment pass's no-resume form (JAX
+#: ``_sched_kernel`` with ``rpz_m=None``: no partner table), the C entry
+#: ``cd_sched_tiles`` with a null ``pold``.
+NORESUME = "cd_sched_tiles_noresume"
 #: Launches of the CUDA kernel in each resolver form and mesh form since
-#: the last reset.
-LAUNCHES = {launch_key("cd_sched_tiles", r, m): 0
-            for r in cd_pallas.RESO_CODE
-            for m in (None,) + cd_pallas.MESH_KINDS}
+#: the last reset, and of its no-resume form (one device or the
+#: replicate row split).
+LAUNCHES = {**{launch_key("cd_sched_tiles", r, m): 0
+               for r in cd_pallas.RESO_CODE
+               for m in (None,) + cd_pallas.MESH_KINDS},
+            **{launch_key(NORESUME, r, m): 0
+               for r in cd_pallas.RESO_CODE for m in (None, "rows")}}
 
 
 def padded_size(n, block=256, extra=32):
@@ -122,30 +129,83 @@ def reach_threshold_m(gs, active, tlookahead, rpz):
     return rpz + tlookahead * 2.0 * gsmax
 
 
+#: Vertical speed [m/s] past which an aircraft sorts into the climber
+#: bucket of its stripe under the altitude layering (JAX ``_CLIMB_VS``).
+_CLIMB_VS = 1.0
+
+
+def _masked_range(a, act, fill_lo, fill_hi):
+    """``(min, max)`` of ``a`` over the active entries of each world
+    ([..., 1]), ``fill_lo`` / ``fill_hi`` for a world with none."""
+    big = torch.full((), 1e9, dtype=a.dtype, device=a.device)
+    any_act = act.any(-1, keepdim=True)
+    lo = torch.where(any_act, torch.where(act, a, big).amin(-1, keepdim=True),
+                     torch.full((), fill_lo, dtype=a.dtype, device=a.device))
+    hi = torch.where(any_act, torch.where(act, a, -big).amax(-1, keepdim=True),
+                     torch.full((), fill_hi, dtype=a.dtype, device=a.device))
+    return lo, hi
+
+
+def _auto_layers(lat, lon, alt, active, thresh_m):
+    """The altitude-layer count of ``n_layers="auto"`` (JAX
+    ``_auto_layers``), decided on the device: the mean count of
+    reachable neighbours over the active bounding box; above 3000 (the
+    horizontal windows saturated, as on the 230 nm circle at 100k)
+    about one layer per 500 m of the active altitude range, at most 16,
+    else 0.  [..., 1] int32."""
+    act = active
+    n_act = act.sum(-1, keepdim=True)
+
+    def ptp(a):
+        lo, hi = _masked_range(a, act, 0.0, 0.0)
+        return hi - lo
+    dlat_km = torch.clamp_min(ptp(lat), 0.3) * 111.0
+    abslat = _masked_range(torch.abs(lat), act, 0.0, 0.0)[1]
+    coslat = torch.clamp_min(torch.cos(geo.radians(abslat)), 0.05)
+    dlon_km = torch.clamp_min(ptp(lon), 0.3) * 111.0 * coslat
+    reach_km = thresh_m / 1000.0
+    nbrs = n_act.to(lat.dtype) * np.pi * reach_km ** 2 / (dlat_km * dlon_km)
+    l0 = torch.clamp(ptp(alt) / 500.0, 0, 16).to(torch.int32)
+    use = (nbrs > 3000.0) & (l0 >= 2) & (n_act > 0)
+    return torch.where(use, l0, torch.zeros_like(l0))
+
+
+def _layers(alt, vs, active, nl):
+    """Each aircraft's altitude layer within its stripe (JAX
+    ``_stripe_sort_dest_impl``): ``nl`` equal bands of the active
+    altitude range, the climbers and descenders (``|vs| > _CLIMB_VS``)
+    in band ``nl``; 0 everywhere when ``nl`` is 0."""
+    amin, amax = _masked_range(alt, active, 0.0, 1.0)
+    lh = torch.clamp_min((amax - amin) / torch.clamp_min(nl, 1), 1.0)
+    layer = torch.minimum(torch.clamp_min(torch.floor((alt - amin) / lh), 0),
+                          torch.clamp_min(nl - 1, 0)).to(torch.int32)
+    layer = torch.where(torch.abs(vs) > _CLIMB_VS, nl.expand_as(layer), layer)
+    return torch.where(nl > 0, layer, torch.zeros_like(layer))
+
+
 def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra,
-                     spread_pad=False):
-    """Per-aircraft destination slots of the padded stripe-major layout
-    (altitude layering off, as every refresh of the JAX package runs
-    it).  Inactive aircraft sort into the last stripe.  Divisions by
-    constants are the products with the reciprocal that compiled JAX
-    computes.  Columns with a leading world axis [W, n] (``thresh_m``
-    [W, 1]) sort each world on its own.  ``spread_pad`` (the spatial
-    layout) spreads the free padding blocks between the stripes in
-    proportion to their cumulative active count, so that equal block
-    ranges hold about equal aircraft counts; the inactive stripe stays
-    at the end."""
+                     alt=None, vs=None, n_layers=0, spread_pad=False):
+    """Per-aircraft destination slots of the padded stripe-major layout.
+    Inactive aircraft sort into the last stripe.  Divisions by constants
+    are the products with the reciprocal that compiled JAX computes.
+    Columns with a leading world axis [W, n] (``thresh_m`` [W, 1]) sort
+    each world on its own.
+
+    With ``alt`` and ``vs`` and ``n_layers`` > 0 (or ``"auto"``: the
+    count of ``_auto_layers``, decided on the device) the aircraft of
+    each stripe are sub-ordered by altitude band, climbers in a band of
+    their own, then by longitude, so that blocks are homogeneous in
+    altitude and the vertical term of the reachability skips whole
+    bands; every refresh of the serving path keeps ``n_layers=0``, as
+    JAX's does.  ``spread_pad`` (the spatial layout) spreads the free
+    padding blocks between the stripes in proportion to their
+    cumulative active count, so that equal block ranges hold about equal
+    aircraft counts; the inactive stripe stays at the end."""
     lead = lat.shape[:-1]
     n = lat.shape[-1]
     dev = lat.device
     act = active
-    big = torch.full((), 1e9, dtype=lat.dtype, device=dev)
-    any_act = act.any(-1, keepdim=True)
-    latmin = torch.where(any_act,
-                         torch.where(act, lat, big).amin(-1, keepdim=True),
-                         torch.zeros((), dtype=lat.dtype, device=dev))
-    latmax = torch.where(any_act,
-                         torch.where(act, lat, -big).amax(-1, keepdim=True),
-                         torch.ones((), dtype=lat.dtype, device=dev))
+    latmin, latmax = _masked_range(lat, act, 0.0, 1.0)
     span = torch.clamp_min(latmax - latmin, 1e-6)
     h = torch.clamp_min(torch.maximum(
         thresh_m * 1.05 * (1.0 / 110000.0),
@@ -154,7 +214,15 @@ def stripe_sort_dest(lat, lon, gs, active, thresh_m, block, extra,
         .to(torch.int32)
     s = torch.where(act, s, torch.full_like(s, extra - 1))
     qlon = torch.clamp((lon + 180.0) * (2 ** 19 / 360.0), 0, 2 ** 19 - 1)
-    key = s * (2 ** 19) + qlon.to(torch.int32)
+    if alt is None or (n_layers != "auto" and int(n_layers) == 0):
+        key = s.long() * (2 ** 19) + qlon.to(torch.int32)
+    else:
+        nl = _auto_layers(lat, lon, alt, act, thresh_m) \
+            if n_layers == "auto" else torch.full(
+                (*lead, 1), int(n_layers), dtype=torch.int32, device=dev)
+        layer = _layers(alt, vs, act, nl)
+        key = (s.long() * (nl.long() + 1) + layer) * (2 ** 19) \
+            + qlon.to(torch.int32)
     order = torch.argsort(key, dim=-1, stable=True)    # sorted -> original
     ss = take(s, order).long()
     # a count by scatter_add, not bincount: on the card bincount reads
@@ -266,7 +334,8 @@ def tile_wire_blocks(tiles, budgets=None, nb_t=0):
     return int(len(offs) * nb_t)
 
 
-def tile_sort_dest(lat, lon, gs, active, thresh_m, block, extra, tiles):
+def tile_sort_dest(lat, lon, gs, active, thresh_m, block, extra, tiles,
+                   alt=None, vs=None):
     """Tile-major sort destinations of the 2-D lat x lon decomposition
     (JAX ``tile_sort_dest``): tile ``t = r * C + c`` owns the slots
     ``[t * S_t, (t + 1) * S_t)``, ``S_t = (nb // (R * C)) * block``.
@@ -275,7 +344,8 @@ def tile_sort_dest(lat, lon, gs, active, thresh_m, block, extra, tiles):
     band into C chunks likewise; within a tile the aircraft pack by
     (stripe, lon).  An over-dense stripe or cell can overflow its tile,
     which the tile refresh refuses.  Inactive aircraft get the last
-    slot.  One world."""
+    slot.  One world.  ``alt`` and ``vs`` are taken and unread, as in
+    JAX (the tile layout has no altitude layering)."""
     R, C = int(tiles[0]), int(tiles[1])
     D = R * C
     n = lat.shape[0]
@@ -371,11 +441,14 @@ def _tile_windows(reach_rows, gkey, nb, s_cap_t, wmax):
 
 
 def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
-                      reso="mvp", nbw=None, mesh: MeshForm = None):
+                      reso="mvp", nbw=None, mesh: MeshForm = None,
+                      kk=cd_pallas.KK):
     """Plain PyTorch version of the ``_sched_kernel`` pass: row block i
     walks its segments ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))``
     in slot order, blocks past the grid skipped.  Returns the 13
-    outputs, 20 in the swarm form (see ``cd_pallas.row_block_plain``).
+    outputs, 20 in the swarm form (see ``cd_pallas.row_block_plain``);
+    with ``pold`` None the no-resume form (``rpz_m=None``): the 10
+    outputs (17) with top-``kk`` candidates.
     With ``nbw`` the rows are a stack of worlds of ``nbw`` blocks each:
     the segments hold world-local blocks, past ``nbw`` skipped, and the
     slot ids and ``pold`` are global (``cd_pallas.full_grid_resume_plain``).
@@ -393,7 +466,7 @@ def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
         t = np.concatenate(t) if t else np.zeros(0, np.int64)
         return cd_pallas.block_ids(t[t < nbw] + base(i), B)
 
-    return cd_pallas.rows_plain(packed, pold, ids, p, reso, mesh=mesh)
+    return cd_pallas.rows_plain(packed, pold, ids, p, reso, kk, mesh=mesh)
 
 
 def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW,
@@ -419,34 +492,38 @@ def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW,
 
 def sched_tiles(packed, wst, wln, wmax, pold, p: TileParams,
                 per_row=cd_pallas.ITEMS_PER_ROW, reso="mvp", nbw=None,
-                mesh: MeshForm = None):
+                mesh: MeshForm = None, kk=cd_pallas.KK):
     """The segment pass: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see ``sched_tiles_plain``).  On the card each
     row's segment blocks are cut into at most ``per_row`` work items
     (``window_items``), walked by ``cd_sched_tiles`` and folded, with the
     partner merge, by ``cd_merge_items``; nothing waits for the device.
+    With ``pold`` None both run their no-resume form (no partner table,
+    top-``kk`` candidates: the 10 outputs, 17 in the swarm form).
     A stack of worlds of ``nbw`` row blocks each is one launch of each
     kernel for the whole stack.  ``mesh`` runs the walker's mesh form
     (``cd_pallas.MeshForm``): the rows of ``mesh.own`` against the
     column slabs ``packed``, whose local blocks the windows hold."""
     if not packed.is_cuda:
         return sched_tiles_plain(packed, wst, wln, wmax, pold, p, reso, nbw,
-                                 mesh)
+                                 mesh, kk)
     from . import _cuda
     if mesh is None:
-        nb, B = cd_pallas.check_common(packed, pold, reso=reso)
+        nb, B = cd_pallas.check_common(packed, pold, kk=kk, reso=reso)
         nbc = nb if nbw is None else nbw
     else:
-        nb, nbc, B = cd_pallas.check_mesh(packed, mesh, pold, reso=reso)
+        nb, nbc, B = cd_pallas.check_mesh(packed, mesh, pold, kk=kk,
+                                          reso=reso)
     s_cap = wst.shape[1]
     _cuda.require(wst, torch.int32, (nb, s_cap), "wst")
     _cuda.require(wln, torch.int32, (nb, s_cap), "wln")
     items = window_items(wst, wln, int(wmax), nbc, per_row,
                          worlds=mesh is None)
-    parts = cd_pallas.walk_items(packed, items, p, pold, reso=reso,
+    parts = cd_pallas.walk_items(packed, items, p, pold, reso=reso, kk=kk,
                                  mesh=mesh)
     outs = cd_pallas.merge_items(parts, items, B, pold, reso)
-    LAUNCHES[launch_key("cd_sched_tiles", reso,
+    LAUNCHES[launch_key("cd_sched_tiles" if pold is not None
+                        else NORESUME, reso,
                         None if mesh is None else mesh.kind)] += 1
     return outs
 
@@ -463,7 +540,8 @@ class SchedInputs(NamedTuple):
     wmax: int                 # blocks per segment at most
     overflow: torch.Tensor    # [W * nb] bool rows left to the full grid
     reach: torch.Tensor       # [W * nb, nb] bool block reachability
-    pold: torch.Tensor        # [W * nb, kk, B] int32 old partners
+    pold: torch.Tensor        # [W * nb, kk, B] int32 old partners, or
+    #                           None (the no-resume form)
     perm: torch.Tensor        # [(W,) n] int32 caller slot -> padded slot
     n: int
     n_tot: int                # padded slots per world
@@ -471,6 +549,7 @@ class SchedInputs(NamedTuple):
     block: int
     reso: str = "mvp"         # the tile body's resolver form
     worlds: int = 1
+    kk: int = cd_pallas.KK    # partner width (top-K of the no-resume form)
 
 
 def _columns(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
@@ -510,7 +589,7 @@ def _reach_margins(reso):
 def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
             rpz, hpz, tlookahead, partners, block=256, s_cap=6, wmax=16,
             extra_blocks=32, perm=None, tas=None, cas=None,
-            reso="mvp", sentinel=False) -> SchedInputs:
+            reso="mvp", sentinel=False, kk=cd_pallas.KK) -> SchedInputs:
     """Everything ``detect_resolve_sched`` hands the two kernels: the
     padded stripe-sorted slabs, the reachability, the segment windows and
     the partner table in kernel layout.  Always float32.  ``reso`` with
@@ -521,7 +600,8 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
     give the stacked operands of every world (``SchedInputs``).  With
     ``sentinel`` a ``perm`` entry past the layout (the spatial and tiles
     layouts' sentinel of an inactive row) leaves that row out
-    (``scatter_padded``)."""
+    (``scatter_padded``).  ``partners`` None gives the operands of the
+    no-resume form (``pold`` None, top-``kk`` candidates)."""
     lead = lat.shape[:-1]
     worlds = int(np.prod(lead, dtype=np.int64))
     n = lat.shape[-1]
@@ -546,14 +626,17 @@ def prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso,
         min_vreach_m=swarm_m[1])
     reach = reach.reshape(-1, nb)
     st, ln, overflow = build_windows(reach, s_cap, wmax, pad_start=nb)
-    pold = _kernel_partners(partners, block)
-    if lead:
-        pold = torch.where(pold >= 0, pold + slot_base(worlds, nb, n_tot,
-                                                       pold.device), pold)
+    pold = None
+    if partners is not None:
+        kk = partners.shape[-1]
+        pold = _kernel_partners(partners, block)
+        if lead:
+            pold = torch.where(pold >= 0, pold + slot_base(
+                worlds, nb, n_tot, pold.device), pold)
     return SchedInputs(packed=packed, wst=torch.clamp(st, 0, nb), wln=ln,
                        wmax=wmax, overflow=overflow, reach=reach, pold=pold,
                        perm=perm, n=n, n_tot=n_tot, nb=nb, block=block,
-                       reso=reso, worlds=worlds)
+                       reso=reso, worlds=worlds, kk=kk)
 
 
 def _kernel_partners(partners, block):
@@ -570,30 +653,40 @@ def slot_base(worlds, nb, n_tot, device):
             // nb * n_tot)[:, None, None]
 
 
+def _overflow_pass(packed, reach_f, pold, p, reso, kk, mesh=None):
+    """The overflow rows' full-grid pass over ``reach_f``: K2
+    (``full_grid_resume``) with the partner table, K3 (``full_grid``,
+    JAX ``full_grid_pass`` without ``pold``) in the no-resume form."""
+    if pold is None:
+        return cd_pallas.full_grid(packed, reach_f, p, reso=reso, kk=kk,
+                                   mesh=mesh)
+    return cd_pallas.full_grid_resume(packed, reach_f, pold, p, reso=reso,
+                                      mesh=mesh)
+
+
 def run_kernels(x: SchedInputs, p: TileParams):
     """The segment pass plus the overflow fallback in the resolver form
     ``x.reso``, merged row-disjointly (the 13 outputs in kernel layout,
-    20 in the swarm form)."""
+    20 in the swarm form; 10 and 17 in the no-resume form)."""
     outs_s = sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p,
-                         reso=x.reso, nbw=x.nb)
-    reach_f = x.reach & x.overflow[:, None]
-    outs_f = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p,
-                                        reso=x.reso)
+                         reso=x.reso, nbw=x.nb, kk=x.kk)
+    outs_f = _overflow_pass(x.packed, x.reach & x.overflow[:, None], x.pold,
+                            p, x.reso, x.kk)
     rsel = x.overflow[:, None, None]
     return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
 
 
 def _run_rows(intr, wst, wln, wmax, overflow, reach, pold, p, reso, mesh,
-              fallback=True):
+              fallback=True, kk=cd_pallas.KK):
     """The segment pass in the mesh form ``mesh`` plus, with ``fallback``,
     the overflow rows' full-grid pass over ``reach`` (local columns),
     merged row-disjointly (``run_kernels`` of a row subset)."""
     outs_s = sched_tiles(intr, wst, wln, wmax, pold, p, reso=reso,
-                         mesh=mesh)
+                         mesh=mesh, kk=kk)
     if not fallback:
         return list(outs_s)
-    outs_f = cd_pallas.full_grid_resume(intr, reach & overflow[:, None],
-                                        pold, p, reso=reso, mesh=mesh)
+    outs_f = _overflow_pass(intr, reach & overflow[:, None], pold, p, reso,
+                            kk, mesh)
     rsel = overflow[:, None, None]
     return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
 
@@ -607,17 +700,18 @@ def _backed_neutral(reso, device):
     return torch.tensor(vals, dtype=torch.float32, device=device)[:, None]
 
 
-def _back_rows(outs, reso):
+def _back_rows(outs, resume=True):
     """The per-ownship outputs that map back to caller rows: the six
-    reductions, the engagement flag and the Swarm sums."""
-    return list(outs[:6]) + list(outs[12:])
+    reductions, the engagement flag (``resume``: not in the no-resume
+    form) and the Swarm sums."""
+    return list(outs[:6]) + list(outs[12 if resume else 10:])
 
 
 def _local_backmap(outs, in_dev, dest_loc, S, kk, reso):
     """One shard's masked back-map to its caller rows: rows whose slot is
     not the shard's read the identities.  Returns ``(backed, topk_tin,
     topk_raw, merged, nconf, nlos)``."""
-    stacked = torch.stack([o.reshape(S) for o in _back_rows(outs, reso)])
+    stacked = torch.stack([o.reshape(S) for o in _back_rows(outs)])
     gsl = torch.clamp(dest_loc, 0, S - 1).long()
     backed = torch.where(in_dev[None, :], stacked[:, gsl],
                          _backed_neutral(reso, stacked.device))
@@ -898,8 +992,9 @@ def _replicate_rows(x: SchedInputs, p, shards):
         return _run_rows(
             x.packed.to(dev), x.wst[rows].to(dev), x.wln[rows].to(dev),
             x.wmax, x.overflow[rows].to(dev), x.reach[rows].to(dev),
-            x.pold[rows].to(dev), p, x.reso,
-            MeshForm(own=x.packed[rows].to(dev), row0=d, rstride=len(devs)))
+            None if x.pold is None else x.pold[rows].to(dev), p, x.reso,
+            MeshForm(own=x.packed[rows].to(dev), row0=d, rstride=len(devs)),
+            kk=x.kk)
     return cd_pallas.split_rows(x.nb, devs, x.packed.device, run, ranks,
                                 guard)
 
@@ -959,26 +1054,56 @@ def _check_shard_args(n, nb, resume, mesh, mesh_axis, shard_mode,
     return ndev_sp, mesh_tiles
 
 
+def _small_fleet(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+                 noreso, rpz, hpz, tlookahead, mvpcfg, block, k_partners,
+                 tas, cas, reso):
+    """The hand-off of a fleet of at most ``2 * block`` aircraft without
+    a partner table (JAX ``detect_resolve_sched``: "too small to
+    schedule"): ``cd_pallas.detect_resolve_pallas`` with the resolver
+    column, the TAS for Eby, the CAS (else the ground speed) for
+    Swarm."""
+    extra = None
+    if tas is not None:
+        extra = {"tas": tas}
+    if reso == "swarm":
+        extra = {"cas": gs if cas is None else cas}
+    return cd_pallas.detect_resolve_pallas(
+        lat, lon, trk, gs, alt, vs, gseast, gsnorth, active, noreso, rpz,
+        hpz, tlookahead, mvpcfg, block=block, k_partners=k_partners,
+        reso=reso, extra_cols=extra)
+
+
 def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                          active, noreso, rpz, hpz, tlookahead, mvpcfg,
-                         partners, resume_rpz_m, block=256, s_cap=6,
-                         wmax=16, extra_blocks=32, perm=None, tas=None,
-                         cas=None, reso="mvp", mesh=None, mesh_axis="ac",
-                         shard_mode="replicate", halo_blocks=0,
-                         tile_shape=None, tile_budgets=()):
-    """Sparse-scheduled CD&R with in-kernel resume-nav (the production
-    form of the JAX function: ``partners`` given).
+                         partners=None, resume_rpz_m=0.0, block=256,
+                         s_cap=6, wmax=16, extra_blocks=32, perm=None,
+                         tas=None, cas=None, reso="mvp", mesh=None,
+                         mesh_axis="ac", shard_mode="replicate",
+                         halo_blocks=0, tile_shape=None, tile_budgets=(),
+                         k_partners=cd_pallas.KK):
+    """Sparse-scheduled CD&R (JAX ``detect_resolve_sched``).
 
     ``perm`` is the cached ``stripe_sort_dest`` table (recomputed when
-    None; ``tile_sort_dest`` in the tiles mode); ``partners`` [n_tot, K]
-    int32 is the sorted-space partner table.  ``reso`` is the resolver
-    form of the pair sums, with ``tas`` (Eby) or ``cas`` (Swarm).
-    Returns ``(rd, partners_new, active)``, and with ``reso="swarm"``
+    None; ``tile_sort_dest`` in the tiles mode).  ``reso`` is the
+    resolver form of the pair sums, with ``tas`` (Eby) or ``cas``
+    (Swarm).
+
+    With ``partners`` [n_tot, K] int32, the sorted-space partner table,
+    the kernels run in-kernel resume-nav (the production form), and the
+    result is ``(rd, partners_new, active)``, with ``reso="swarm"``
     ``(rd, partners_new, active, swarm_sums)``: the per-ownship
     reductions in caller order (``rd.topk_*`` sorted-space ids), the
     merged sorted-space partner table, the caller-space ASAS engagement
-    flags and the seven neighbour sums in caller order.  The small-N
-    delegate to the full-grid kernel of the JAX function is not ported.
+    flags and the seven neighbour sums in caller order.
+
+    Without ``partners`` (``resume_rpz_m`` unread) the no-resume form
+    runs: a fleet of at most ``2 * block`` aircraft goes to
+    ``cd_pallas.detect_resolve_pallas`` (``_small_fleet``), a larger one
+    through the segment pass without a partner table and the overflow
+    rows' full grid (K3's body), and the result is ``rd``, or ``(rd,
+    swarm_sums)``, with ``rd.topk_idx`` in caller slots (top
+    ``k_partners``).  It takes no leading world axis, and the spatial
+    and tiles modes refuse it, as JAX's does.
 
     ``mesh`` (a single-process mesh, ``parallel/sharding.py``) and
     ``shard_mode`` pick the decomposition (module docstring): with a mesh
@@ -999,14 +1124,23 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     lead = lat.shape[:-1]
     n = lat.shape[-1]
     block = min(block, 256)
+    resume = partners is not None
+    if not resume:
+        if lead:
+            raise ValueError("detect_resolve_sched without partners takes "
+                             "one world (no leading axis), as JAX's")
+        if n <= 2 * block:
+            return _small_fleet(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
+                                active, noreso, rpz, hpz, tlookahead, mvpcfg,
+                                block, k_partners, tas, cas, reso)
     nb = -(-n // block) + extra_blocks
     n_tot = nb * block
-    kk = partners.shape[-1]
+    kk = partners.shape[-1] if resume else k_partners
     if lead and (mesh is not None or shard_mode != "replicate"):
         raise ValueError("a stack of worlds runs single-device per world: "
                          "no mesh and shard_mode 'replicate'")
     ndev_sp, mesh_tiles = _check_shard_args(
-        n, nb, True, mesh, mesh_axis, shard_mode, extra_blocks, tile_shape)
+        n, nb, resume, mesh, mesh_axis, shard_mode, extra_blocks, tile_shape)
     p = cd_pallas.tile_params(rpz, hpz, tlookahead, mvpcfg, resume_rpz_m)
     if shard_mode == "tiles":
         tcfg = _tile_config(tile_shape, tile_budgets, nb, s_cap, wmax)
@@ -1039,7 +1173,7 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                 noreso, rpz, hpz, tlookahead, partners, block=block,
                 s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
                 perm=perm, tas=tas, cas=cas, reso=reso,
-                sentinel=shard_mode in ("spatial", "tiles"))
+                sentinel=shard_mode in ("spatial", "tiles"), kk=kk)
     if shard_mode == "tiles":
         outs = _tiles_reference(x, p, tcfg)
     elif mesh is not None and mesh.shape[mesh_axis] > 1:
@@ -1050,7 +1184,7 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
      ctin, cidx) = outs[:10]
     perm = x.perm.long()
     stacked = torch.stack([o.reshape(*lead, n_tot)
-                           for o in _back_rows(outs, reso)])
+                           for o in _back_rows(outs, resume)])
     rows = lambda a: a.transpose(1, 2).reshape(*lead, n_tot, kk)
     if shard_mode in ("spatial", "tiles"):
         # the spatial and tiles layouts give inactive rows the sentinel
@@ -1073,6 +1207,11 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
             base = slot_base(x.worlds, x.nb, n_tot, cidx.device)
         topk_tin = take_rows(rows(ctin), perm)
         topk_idx = take_rows(rows(cidx - base), perm)
+    if not resume:
+        # sorted-space candidate ids to caller slots (the sentinel fill n
+        # for an empty slot)
+        topk_idx = take_ids(slot_inverse(perm, n, n_tot, fill=n),
+                            torch.clamp(topk_idx, 0, n_tot).long())
     topk_idx = torch.where((topk_tin < _BIG) & (topk_idx < n_tot),
                            topk_idx, torch.full_like(topk_idx, -1))
     rd = RowConflictData(
@@ -1086,10 +1225,13 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
         nlos=lcnt.to(torch.int32).reshape(*lead, -1).sum(-1,
                                                          dtype=torch.int32),
         topk_idx=topk_idx, topk_tin=topk_tin)
+    nfix = 7 if resume else 6
+    sw = tuple(backed[nfix:nfix + N_SWARM]) if reso == "swarm" else None
+    if not resume:
+        return (rd, sw) if sw is not None else rd
     merged = outs[11]
     merged = torch.where(merged >= 0, merged - base, merged)
     partners_new = merged.transpose(1, 2).reshape(*lead, n_tot, kk)
-    if reso == "swarm":
-        return rd, partners_new, backed[6] > 0.5, \
-            tuple(backed[7:7 + N_SWARM])
+    if sw is not None:
+        return rd, partners_new, backed[6] > 0.5, sw
     return rd, partners_new, backed[6] > 0.5

@@ -1,8 +1,9 @@
-"""WGS-84 geodesy on tensors: the part of ``bluesky_tpu/ops/geo.py`` the
-simulation uses (local radius, the haversine bearing/distance of the
-autopilot, the all-pairs matrices of dense conflict detection with the
-reference's radius-at-sum quirk, the dead-reckoning ``qdrpos``, and the
-wrapped flat-earth distance of the area and metrics code)."""
+"""WGS-84 geodesy on tensors: port of ``bluesky_tpu/ops/geo.py`` (local
+radius and gravity, the haversine bearing/distance of the autopilot, the
+all-pairs matrices of dense conflict detection with the reference's
+radius-at-sum quirk, the dead-reckoning ``qdrpos``, the reference's fast
+flat-earth ``kwik*`` family and the wrapped flat-earth distance of the
+area and metrics code)."""
 import math
 
 import numpy as np
@@ -129,6 +130,67 @@ def qdrpos(latd1, lond1, qdr, dist):
     lon2 = lon1 + torch.atan2(torch.sin(qdrr) * torch.sin(dr) * torch.cos(lat1),
                               torch.cos(dr) - torch.sin(lat1) * torch.sin(lat2))
     return degrees(lat2), degrees(lon2)
+
+
+def wgsg(latd):
+    """WGS-84 gravity [m/s2] at latitude latd [deg] (reference
+    geo.py:251-260)."""
+    geq = 9.7803
+    e2 = 6.694e-3
+    k = 0.001932
+    sinlat = torch.sin(radians(latd))
+    return geq * (1.0 + k * sinlat * sinlat) / torch.sqrt(
+        1.0 - e2 * sinlat * sinlat)
+
+
+def _kwik(lata, lona, latb, lonb):
+    """``(dlat, dlon, cos of the mean latitude)`` in radians of the flat
+    earth of the ``kwik*`` family (reference geo.py:288-382), the
+    longitude difference unwrapped as the reference takes it."""
+    dlat = radians(latb - lata)
+    dlon = radians(lonb - lona)
+    cavelat = torch.cos(radians(lata + latb) * 0.5)
+    return dlat, dlon, cavelat
+
+
+def kwikdist(lata, lona, latb, lonb):
+    """Fast flat-earth distance [nm] (reference geo.py:288-305; wrong
+    across the antimeridian, as the reference is: ``kwikdist_wrapped``
+    is the fix)."""
+    dlat, dlon, cavelat = _kwik(lata, lona, latb, lonb)
+    dangle = torch.sqrt(dlat * dlat + dlon * dlon * cavelat * cavelat)
+    return REARTH * dangle / nm
+
+
+def kwikdist_matrix(lata, lona, latb, lonb):
+    """All-pairs fast distance [nm]: row i from a[i], column j to b[j]."""
+    return kwikdist(lata[:, None], lona[:, None], latb[None, :],
+                    lonb[None, :])
+
+
+def kwikqdrdist(lata, lona, latb, lonb):
+    """Fast flat-earth bearing [deg, 0..360) and distance [m] (the
+    reference returns metres here, unlike ``kwikdist``; geo.py:330-344)."""
+    dlat, dlon, cavelat = _kwik(lata, lona, latb, lonb)
+    dangle = torch.sqrt(dlat * dlat + dlon * dlon * cavelat * cavelat)
+    qdr = torch.remainder(degrees(torch.atan2(dlon * cavelat, dlat)), 360.0)
+    return qdr, REARTH * dangle
+
+
+def kwikqdrdist_matrix(lata, lona, latb, lonb):
+    """All-pairs fast bearing [deg] and distance [m]."""
+    return kwikqdrdist(lata[:, None], lona[:, None], latb[None, :],
+                       lonb[None, :])
+
+
+def kwikpos(latd1, lond1, qdr, dist):
+    """Fast flat-earth position projection, ``dist`` in [nm] (reference
+    geo.py:365-382)."""
+    dx = dist * torch.sin(radians(qdr))
+    dy = dist * torch.cos(radians(qdr))
+    dlat = dy / 60.0
+    dlon = dx / torch.clamp_min(60.0 * torch.cos(radians(latd1)), 0.01)
+    return latd1 + dlat, lond1 + dlon
 
 
 def kwikdist_wrapped(lata, lona, latb, lonb):

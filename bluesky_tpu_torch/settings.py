@@ -141,6 +141,18 @@ inscan_refresh = False            # in-chunk sparse sort refresh
 fingerprint = False               # in-chunk state fingerprint
                                   # (FINGERPRINT)
 
+# ----- device observability (obs/devprof.py; PROFILE)
+devprof_compile_telemetry = True  # capture/build duration histograms and
+                                  # the dispatch cache hit/miss counters
+                                  # against the chunk ladder (host-side
+                                  # bookkeeping only)
+devprof_mem_dt = 0.0              # [wall s] least interval between
+                                  # live/peak byte samples at chunk edges
+                                  # (0 = off)
+devprof_donation_check = False    # after a donating dispatch, count the
+                                  # input tensors the chunk did not take
+                                  # over (debug only)
+
 # ----- differentiable simulation (diff/; the OPT and GRAD commands):
 # the optimizer's defaults, which the command's arguments override
 opt_tend = 600.0                  # [sim s] optimization rollout horizon

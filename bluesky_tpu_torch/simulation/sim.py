@@ -77,6 +77,7 @@ import torch
 from ..core.route import RouteManager
 from ..core.step import SimConfig
 from ..core.traffic import Traffic
+from ..obs import devprof as obs_devprof
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..utils import asnumpy
@@ -406,6 +407,12 @@ class Simulation:
         self._chunk_seq = 0          # host-side dispatch sequence tag
         self._seq_dispatched = 0     # tag of the newest dispatch
         self._last_dispatch_end = None   # wall stamp: dispatch-gap series
+        # Device observability (obs/devprof.py): compile telemetry,
+        # memory watermarks and PROFILE DEVICE windows; every hook returns
+        # on attribute checks when its feature is off.
+        self.devprof = obs_devprof.DevProf(
+            self.obs, self.recorder, ladder=self.CHUNK_LADDER,
+            state_fn=lambda: self.traf.state)
         self.dtmult = 1.0
         self.ffmode = False
         self.ffstop: Optional[float] = None
@@ -1416,8 +1423,10 @@ class Simulation:
                 and self.simt_planned >= self.ffstop - 1e-9:
             self._end_ff()
         # rate-limited Prometheus text dump (metrics_export_path knob;
-        # no-op when unset)
+        # no-op when unset) and the throttled memory sample
+        # (devprof_mem_dt knob; off by default)
         self.obs.maybe_export()
+        self.devprof.sample_memory()
 
     # ------------------------------------------------- chunk dispatch/edges
     def _sync_reasons(self, simt: float, chunk: int):
@@ -1480,14 +1489,38 @@ class Simulation:
                 with rec.span("mesh_check", seq=seq, epoch=self.mesh_epoch,
                               world=self.world_tag):
                     self.mesh_guard.check()
+            dp = self.devprof
+            win = dp.begin_chunk(seq)
+            t_h0 = time.perf_counter() if win else 0.0
             state = self._pre_dispatch_refresh(state, simt)
+            halo_s = (time.perf_counter() - t_h0) if win else 0.0
+            from ..core import graph
             from ..core.step import run_steps_edge, run_steps_edge_keep
             runner = run_steps_edge_keep if keep else run_steps_edge
             inscan = self._inscan_refresh_active()
             sort_t0 = self._sort_t0_for_dispatch(state) if inscan \
                 else None
+            if win:
+                dp.fence(state.device)
+                t_c0 = time.perf_counter()
+            misses = graph.misses()
             out = runner(state, self.cfg, chunk,
                          checked=self.guard.enabled, sort_t0=sort_t0)
+            if win:
+                # the compute section needs the device fence: the few
+                # windowed chunks serialize the pipeline (PROFILE DEVICE)
+                dp.fence(state.device)
+                dp.note_chunk(seq, chunk,
+                              (time.perf_counter() - t_c0) * 1e3,
+                              halo_s * 1e3)
+                if not keep:
+                    dp.check_donation(state, out[0])
+            # the graph pool made a new executor: a compile miss
+            dp.note_dispatch(
+                ("edge_keep" if keep else "edge")
+                + ("+checked" if self.guard.enabled else ""),
+                chunk, self.traf.nmax, self._shard_ndev(default=1),
+                graph.misses() > misses)
         self._last_dispatch_end = time.perf_counter()
         # Normalized return: the runner's output arity follows the cfg
         # flags (core/step._edge: stats before refresh before
@@ -1741,6 +1774,7 @@ class Simulation:
         now = time.perf_counter()
         self.obs.get("sim_chunk_latency_ms").observe(
             (now - edge.t_dispatch) * 1e3)
+        self.devprof.note_edge(edge.seq, (now - t_ret0) * 1e3)
         rec = self.recorder
         if rec.enabled:
             rec.complete("chunk_edge", rec.wall_us(t_ret0),

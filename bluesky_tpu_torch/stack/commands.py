@@ -34,10 +34,6 @@ from .argparser import txt2alt, txt2spd
 #: Commands of subsystems not ported yet: name -> (ROADMAP item, usage,
 #: help), usage and help as the JAX package registers them.
 DEFERRED = {
-    "PROFILE": ("A10", "PROFILE START [dir]/STOP/KERNELS [nsteps]/DEEP/"
-                "DEVICE [n] [dir]/TRACE [ON/OFF/DUMP]",
-                "Trace capture, per-kernel timings, device-trace windows "
-                "and the flight recorder"),
     "PLUGINS": ("A10", "PLUGINS LIST or PLUGINS LOAD/REMOVE plugin",
                 "List, load or remove plugins"),
     "SCREENSHOT": ("A10", "SCREENSHOT [fname.svg]",
@@ -1263,6 +1259,57 @@ def register_all(stack):
         from ..fault import harness
         return harness.fault_command(sim, *args)
 
+    def profile(sub=None, arg=None, arg2=None):
+        """PROFILE START [dir] / STOP / KERNELS [nsteps] / DEEP / DEVICE
+        [n] [dir] / TRACE ...: a torch.profiler trace, the per-kernel
+        timing reports (utils/profiler.py), a device-trace window over
+        the next n chunks (obs/devprof.py), and TRACE, the flight
+        recorder command."""
+        from ..utils import profiler
+        s = (sub or "KERNELS").upper()
+        if s == "START":
+            try:
+                logdir = profiler.start_trace(arg or "output/torch-trace")
+            except RuntimeError as e:
+                return False, f"PROFILE START: {e}"
+            return True, f"torch.profiler trace capturing to {logdir}"
+        if s == "STOP":
+            try:
+                path = profiler.stop_trace()
+            except RuntimeError as e:
+                return False, f"PROFILE STOP: {e}"
+            return True, f"torch.profiler trace stopped, written to {path}"
+        if s == "TRACE":
+            return tracecmd(arg)
+        if s == "DEVICE":
+            if sim.devprof.window_active:
+                return False, ("PROFILE DEVICE: a window is already "
+                               "active")
+            try:
+                n = int(float(arg)) if arg else 1
+            except (TypeError, ValueError):
+                return False, "PROFILE DEVICE [n_chunks] [dir]"
+            if n < 1:
+                return False, f"PROFILE DEVICE: need n >= 1, got {n}"
+            logdir = sim.devprof.request_window(n, arg2)
+            node = server_node()
+            if node is not None:
+                # the server journals the window (an audit record)
+                node.send_event(b"DEVPROF", {"dir": logdir, "chunks": n})
+            return True, (f"PROFILE DEVICE: tracing the next {n} "
+                          f"chunk(s) to {logdir}")
+        if s == "KERNELS":
+            if traf.ntraf == 0:
+                return False, "PROFILE KERNELS: no traffic"
+            nsteps = int(float(arg)) if arg else 50
+            return True, profiler.report(sim, nsteps)
+        if s == "DEEP":
+            if traf.ntraf == 0:
+                return False, "PROFILE DEEP: no traffic"
+            return True, profiler.deep_report(sim)
+        return False, ("PROFILE START [dir] / STOP / KERNELS [nsteps] "
+                       "/ DEEP / DEVICE [n] [dir] / TRACE [ON/OFF/DUMP]")
+
     def healthcmd():
         """HEALTH: serving-fabric introspection.  On a networked worker
         the server is queried and its reply echoed when it arrives; a
@@ -1301,7 +1348,8 @@ def register_all(stack):
                       f"{sim._step_count} steps done, chunks "
                       f"{ps['pipelined_chunks']} pipelined/"
                       f"{ps['sync_chunks']} sync"
-                      + mesh_line + sim_line)
+                      + mesh_line + sim_line
+                      + f"\ncompiles: {sim.devprof.compile_summary()}")
 
     def shardcmd(mode=None, ndev=None, halo=None):
         """SHARD [OFF | REPLICATE [n] | SPATIAL [n [halo]] | TILE RxC]:
@@ -1765,6 +1813,11 @@ def register_all(stack):
                     "Sector metrics: 1=CoCa cell occupancy, "
                     "2=HB conflict-geometry complexity; DUMP reads "
                     "the telemetry registry (sim + server + fleet)"],
+        "PROFILE": ["PROFILE START [dir]/STOP/KERNELS [nsteps]/DEEP/"
+                    "DEVICE [n] [dir]/TRACE [ON/OFF/DUMP]",
+                    "[txt,word,word]", profile,
+                    "torch.profiler trace capture, per-kernel timings, "
+                    "device-trace windows and the flight recorder"],
         "TRACE": ["TRACE [ON/OFF/DUMP]", "[txt]", tracecmd,
                   "Flight recorder: bounded span ring dumped as "
                   "Perfetto trace JSON (readback bare)"],

@@ -231,6 +231,26 @@ Phases, in order; any failure exits non-zero before the last line:
     launches of (a)-(b), (c) (both ranks) and (d) are the
     ``meshkill_launches``, ``multihost_launches`` and
     ``ensemble_launches`` of the kernels line.
+18. no-partner phase (``noresume_phase``, after phase 5's resolver
+    paths; ROADMAP A10.1 and B4): ``cd_sched.detect_resolve_sched``
+    without a partner table (JAX's CD-only sparse form) on
+    ``main_scene``'s 100,000 aircraft (block 256, K = 8) and on the
+    regional clump (8,192 aircraft, ``s_cap=2``: overflow rows with real
+    tiles), in MVP, Eby and Swarm, the launch counts set to 0 just
+    before and read just after: K1's no-resume form (``cd_full_grid``
+    over the segment blocks) and K3 on the overflow rows launched,
+    nothing else; the clump's whole pass held to its plain versions on
+    the card; a 500-aircraft call bit-equal to ``detect_resolve_pallas``
+    (the hand-off of at most two blocks); each form timed and bounded
+    (K1 at 100k, K3 on the clump): the ``/noresume`` and ``/overflow``
+    entries of the kernels line.
+
+Phase 10 ends with the profiling of the 100k Simulation
+(``profile_phase``, ROADMAP A10.5): under CDMETHOD SPARSE the host syncs
+of two chunks with devprof off and with the memory sample at every edge
+(equal; ``devprof_live_bytes_total`` above 0), ``PROFILE DEVICE 2`` (the
+trace file's size and its top device ops), the syncs once more (equal),
+and ``PROFILE KERNELS 20``.
 
 Every ``run_steps`` of phases 4-8 runs graphed chunks (``core/graph.py``).
 
@@ -238,7 +258,7 @@ Every kernel also logs its work items, longest item and the time of its
 row merge alone (K2 on the clump as well, K4 at both capacities); every
 walker's registers and spills (each resolver form, ``WALKERS``) come
 from the ``-Xptxas -v`` report of the build.  The run fails if a kernel
-form of ``FORMS`` was never measured.  The card's power draw, clocks and temperature are logged before
+form of ``FORMS`` or of phase 18 was never measured.  The card's power draw, clocks and temperature are logged before
 phase 3 and after each later phase.  It prints one JSON line describing
 every kernel, then the ``nvidia-smi`` name and power limit, then the
 result line ``{"ok": true, "device": {...}}``.
@@ -1099,9 +1119,9 @@ def item_extra(name, x, items, p, pold=None, cand=None, prefix="",
                reso="mvp", kk=8):
     """The JSON keys of a split walker on ``items`` of the operands ``x``
     (``cd_pallas.walk_items`` arguments ``pold``, ``cand``, ``reso``,
-    ``kk``): its non-empty work items, its longest item in tiles and the
-    ms of its row merge alone, each key prefixed with ``prefix``.  Logs
-    them."""
+    ``kk``): its non-empty work items, its longest item in
+    tiles and the ms of its row merge alone, each key prefixed with
+    ``prefix``.  Logs them."""
     from bluesky_tpu_torch.ops import cd_pallas
     parts = cd_pallas.walk_items(x.packed, items, p, pold, cand, reso, kk)
     extra = dict(items=int((items.length > 0).sum()),
@@ -2081,6 +2101,111 @@ def check_sim_state(tag, sim):
 SIM_RATES = {}
 
 
+#: phase 10 (c), the profiling of the 100k Simulation: the PROFILE DEVICE
+#: window's chunks and directory
+PROFILE_CHUNKS = 2
+PROFILE_DIR = os.path.join("output", "chip_smoke_devprof")
+
+
+def top_device_ops(trace, n=5):
+    """``[(name, total device ms, count)]`` of the ``n`` device ops with
+    the most time in a ``torch.profiler`` Chrome trace file."""
+    with open(trace) as fh:
+        events = json.load(fh)
+    events = events.get("traceEvents", events) \
+        if isinstance(events, dict) else events
+    tot = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            ms, k = tot.get(e["name"], (0.0, 0))
+            tot[e["name"]] = (ms + float(e.get("dur", 0.0)) / 1e3, k + 1)
+    return sorted(((k, ms, c) for k, (ms, c) in tot.items()),
+                  key=lambda r: -r[1])[:n]
+
+
+def profile_phase(sim):
+    """Phase 10 (c): PROFILE on the 100k Simulation, under CDMETHOD SPARSE
+    and RESO MVP.  The host syncs of two chunks with every devprof
+    feature off; the wall ms of pipelined chunks with the compile
+    telemetry off and on (logged); then the syncs with the memory sample at every chunk edge
+    (``devprof_mem_dt``), which must be equal and leave
+    ``devprof_live_bytes_total`` above 0; ``PROFILE DEVICE`` over
+    ``PROFILE_CHUNKS`` chunks, whose Chrome trace must be written (its
+    size and top device ops logged), then the syncs of two chunks once
+    more, equal again; and ``PROFILE KERNELS 20``, its report logged.
+    The devprof counters of the session are logged too."""
+    import shutil
+    from bluesky_tpu_torch import settings
+    t0 = time.perf_counter()
+    sim_do(sim, "CDMETHOD SPARSE", "RESO MVP")
+    sim_chunks(sim, 2)                     # this configuration's captures
+    syncs = lambda rows: [r["syncs"] for r in rows]
+    off = syncs(sim_chunks(sim, 2, syncs=True))
+    # the compile telemetry's hook (on by default) against none: the
+    # host ms per pipelined chunk, off, on, off, on
+    walls, tel0 = {False: [], True: []}, settings.devprof_compile_telemetry
+    try:
+        for tel in (False, True, False, True):
+            settings.devprof_compile_telemetry = tel
+            walls[tel] += [r["wall_ms"] for r in sim_chunks(sim, 3)]
+    finally:
+        settings.devprof_compile_telemetry = tel0
+    old = settings.devprof_mem_dt
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    settings.devprof_mem_dt = 1e-6
+    try:
+        on = syncs(sim_chunks(sim, 2, syncs=True))
+        live = sim.obs.get("devprof_live_bytes_total")
+        if live is None or live.value <= 0:
+            raise AssertionError("profile: devprof_live_bytes_total is not "
+                                 "above 0 with the memory sample on")
+        sim_do(sim, f"PROFILE DEVICE {PROFILE_CHUNKS} {PROFILE_DIR}")
+        n0 = len(sim.devprof.windows)
+        win_rows = sim_chunks(sim, PROFILE_CHUNKS + 2)
+        sim.drain_pipeline()
+        if sim.devprof.window_active or len(sim.devprof.windows) != n0 + 1:
+            raise AssertionError("profile: the PROFILE DEVICE window did not "
+                                 "close after its chunks")
+        win = sim.devprof.windows[-1]
+        if not win["trace"] or not os.path.isfile(win["trace"]):
+            raise AssertionError(f"profile: no trace file in {PROFILE_DIR}")
+        size = os.path.getsize(win["trace"])
+        top = top_device_ops(win["trace"])
+        if not top:
+            raise AssertionError("profile: the trace holds no device op")
+        after = syncs(sim_chunks(sim, 2, syncs=True))
+    finally:
+        settings.devprof_mem_dt = old
+    if not off == on == after:
+        raise AssertionError(f"profile: host syncs per chunk {off} with "
+                             f"devprof off, {on} with the memory sample, "
+                             f"{after} after the window")
+    kern = sim_do(sim, "PROFILE KERNELS 20")
+    log("profile: wall ms per pipelined chunk, compile telemetry off "
+        f"{[round(w, 3) for w in walls[False]]} (mean "
+        f"{np.mean(walls[False]):.3f}), on {[round(w, 3) for w in walls[True]]}"
+        f" (mean {np.mean(walls[True]):.3f})")
+    log(f"profile: host syncs per chunk {off} off, {on} with the memory "
+        f"sample, {after} after the window (equal); devprof_live_bytes_total"
+        f" {int(live.value)}, watermarks {sim.devprof.watermarks()}")
+    log(f"profile: PROFILE DEVICE {PROFILE_CHUNKS}: trace {win['trace']} "
+        f"{size} bytes, window {win['wall_s']} s, chunk wall ms "
+        f"{[round(r['wall_ms'], 3) for r in win_rows]}, per chunk "
+        f"{ {q: {k: v for k, v in c.items() if k != 't0'} for q, c in win['chunks'].items()} }")
+    log("profile: top device ops (name, ms, count): "
+        + "; ".join(f"{k[:80]} {ms:.3f} {c}" for k, ms, c in top))
+    log("profile: PROFILE KERNELS 20:\n" + "\n".join(kern))
+    log(f"profile: {sim.devprof.compile_summary()}; compile histograms "
+        + ", ".join(f"{h} {sim.obs.get(h).count} x "
+                    f"{sim.obs.get(h).mean:.1f} ms"
+                    for h in ("devprof_compile_trace_ms",
+                                     "devprof_compile_lower_ms")
+                    if sim.obs.get(h) is not None)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+
+
 def sim_continental(dev):
     """The 100k continental session through the stack: CDMETHOD SPARSE,
     ASAS ON, the view, MCRE 100000 B744, OP, five ASAS intervals and
@@ -2171,6 +2296,7 @@ def sim_continental(dev):
         f" sync, sync reasons {dict(ps['sync_reasons'].items())}, peak "
         f"device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_phase(sim)
     del sim, state
     graph.clear()
     return launches
@@ -4623,6 +4749,164 @@ def epoch_phase(dev):
     return cols
 
 
+#: the no-partner sparse path (phase 18): the clump's fleet and segment
+#: cap (``check_kernels``' regional check: overflow rows with real tiles)
+#: and the fleet of the hand-off to the full grid (at most 2 * 256)
+NORES_CLUMP = (8192, 2)
+NORES_SMALL = 500
+
+
+def nores_name(kernel, reso):
+    """The JSON name of a no-partner form: K1's no-resume form
+    (``/noresume``) and K3 on its overflow rows (``/overflow``)."""
+    tail = "noresume" if kernel == "cd_sched._sched_kernel" else "overflow"
+    return f"{form_name(kernel, reso)}/{tail}"
+
+
+def nores_runs(x, p, reso, tag):
+    """``measure``'s entries of K1's no-resume form on the segment blocks
+    and of K3 on the overflow rows of the no-partner operands ``x``."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    reach_f = x.reach & x.overflow[:, None]
+    rf = reach_f.cpu().numpy()
+    seg = segment_tiles(x)
+    k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, None, p,
+                              reso=reso)
+    k3 = cd_pallas.full_grid(x.packed, reach_f, p, reso=reso)
+    walker = form_name("cd_pallas._kernel", reso)
+    return {
+        nores_name("cd_sched._sched_kernel", reso): dict(
+            kern=lambda **kw: cd_sched.sched_tiles(
+                x.packed, x.wst, x.wln, x.wmax, None, p, reso=reso, **kw),
+            plain=lambda: cd_sched.sched_tiles_plain(
+                x.packed, x.wst, x.wln, x.wmax, None, p, reso),
+            pairs=active_pairs(x, seg),
+            bytes=in_out_bytes(x, False) + 2 * x.wst.numel() * 4,
+            tiles=int(sum(len(seg(i)) for i in range(x.nb))), reso=reso,
+            walker=walker,
+            extra=dict(item_extra(
+                f"K1 no-resume {reso} {tag}", x, cd_sched.window_items(
+                    x.wst, x.wln, x.wmax, x.nb), p, reso=reso),
+                overflow_rows=int(x.overflow.sum())),
+            **form_work(reso, k1, 10)),
+        nores_name("cd_pallas._kernel", reso): dict(
+            kern=lambda **kw: cd_pallas.full_grid(x.packed, reach_f, p,
+                                                  reso=reso, **kw),
+            plain=lambda: cd_pallas.full_grid_plain(x.packed, reach_f, p,
+                                                    reso),
+            pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
+            bytes=in_out_bytes(x, False) + x.nb * x.nb,
+            tiles=int(rf.sum()), reso=reso, walker=walker,
+            extra=dict(item_extra(f"K3 overflow {reso} {tag}", x,
+                                  cd_pallas.reach_items(reach_f), p,
+                                  reso=reso),
+                       overflow_rows=int(x.overflow.sum())),
+            **form_work(reso, k3, 10))}
+
+
+def noresume_phase(dev, errs, regs, n_ac=100_000, nmax=100_352):
+    """Phase 18: the sparse CD without a partner table
+    (``detect_resolve_sched(partners=None)``, JAX's CD-only sparse form):
+    the main path's 100k continental scene (``main_scene``, block 256,
+    K = 8) and the regional clump (``NORES_CLUMP``: overflow rows, so K3
+    runs on real tiles), under MVP, EBY and SWARM, with the launch counts
+    set to 0 just before and read just after: K1's no-resume form and K3
+    on the overflow rows each launched, nothing else; the clump's whole
+    pass (``cd_sched.run_kernels``) held to its plain versions on the
+    same card operands (``cd_pallas.compare_outputs``), and the hand-off
+    of ``NORES_SMALL`` aircraft bit-equal to ``detect_resolve_pallas``.
+    Then each form timed against its plain version and bounded: K1 at
+    the 100k shapes, K3 at the clump's, where it has tiles.  Returns the
+    kernels JSON entries."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+    state, cfg = main_scene(dev, n_ac, nmax)
+    ac, a, c = state.ac, state.asas, cfg.asas
+    mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
+                           tlookahead=c.dtlookahead)
+    p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp)
+    cd_tail = (c.rpz, c.hpz, c.dtlookahead, mvp)
+    main_cols = [ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+                 ac.gsnorth, ac.active, a.noreso]
+    ncl, s_cap = NORES_CLUMP
+    clump = columns(ncl, "regional", seed=1)
+    small = columns(NORES_SMALL, "regional", seed=2)
+    report = []
+    for reso in RESOS:
+        main_col = {"eby": ac.tas, "swarm": ac.cas}.get(reso)
+        clump_col = extra_col(clump, reso, dev)
+        keys = {nores_name("cd_sched._sched_kernel", reso):
+                cd_pallas.launch_key(cd_sched.NORESUME, reso),
+                nores_name("cd_pallas._kernel", reso):
+                cd_pallas.launch_key("cd_full_grid", reso)}
+        reset_launches()
+        t0 = time.perf_counter()
+        rd = cd_sched.detect_resolve_sched(
+            *main_cols, *cd_tail, block=256, **reso_kw(reso, main_col))
+        rd_c = cd_sched.detect_resolve_sched(
+            *cd_args(clump, dev), *cd_tail, block=256, s_cap=s_cap,
+            **reso_kw(reso, clump_col))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(cd_sched.LAUNCHES, **cd_pallas.LAUNCHES)
+        launches = {name: counts[key] for name, key in keys.items()}
+        for name, n in launches.items():
+            if n < 1:
+                raise AssertionError(f"no-partner path never launched {name}")
+        others = {k: v for k, v in counts.items()
+                  if v and k not in keys.values()}
+        if others:
+            raise AssertionError(f"no-partner path launched {others}")
+        rd0 = rd[0] if reso == "swarm" else rd
+        x = cd_sched.prepare(*main_cols, c.rpz, c.hpz, c.dtlookahead, None,
+                             block=256, **reso_kw(reso, main_col))
+        xc = cd_sched.prepare(*cd_args(clump, dev), c.rpz, c.hpz,
+                              c.dtlookahead, None, block=256, s_cap=s_cap,
+                              **reso_kw(reso, clump_col))
+        # the whole no-partner pass on the clump's card operands (K1 and
+        # K3 merged row-disjointly) against its plain versions there
+        reach_f = xc.reach & xc.overflow[:, None]
+        want = [torch.where(xc.overflow[:, None, None], f, s_) for f, s_ in
+                zip(cd_pallas.full_grid_plain(xc.packed, reach_f, p, reso),
+                    cd_sched.sched_tiles_plain(xc.packed, xc.wst, xc.wln,
+                                               xc.wmax, None, p, reso))]
+        err = cd_pallas.compare_outputs(
+            f"no-partner pass {reso} clump", cd_sched.run_kernels(xc, p),
+            want)
+        # the hand-off: bit-equal to detect_resolve_pallas's own call
+        sm_col = extra_col(small, reso, dev)
+        hand = cd_sched.detect_resolve_sched(
+            *cd_args(small, dev), *cd_tail, block=256,
+            **reso_kw(reso, sm_col))
+        direct = cd_pallas.detect_resolve_pallas(
+            *cd_args(small, dev), *cd_tail, block=256, reso=reso,
+            extra_cols=None if sm_col is None else
+            {"tas" if reso == "eby" else "cas": sm_col})
+        if reso == "swarm":
+            hand, direct = hand[0], direct[0]
+        for k in hand._fields:
+            if not torch.equal(getattr(hand, k), getattr(direct, k)):
+                raise AssertionError(f"no-partner hand-off {reso}: {k} "
+                                     "differs from detect_resolve_pallas")
+        log(f"noresume {reso}: the 100k interval and the clump in "
+            f"{wall:.1f} ms; 100k nconf {int(rd0.nconf)}, nlos "
+            f"{int(rd0.nlos)}; the clump's pass (N={ncl}, s_cap={s_cap}) "
+            f"matches its plain versions (max abs err {err:.3g}); the "
+            f"{NORES_SMALL}-aircraft hand-off is detect_resolve_pallas's; "
+            f"launches {launches}")
+        if not int((xc.reach & xc.overflow[:, None]).sum()):
+            raise AssertionError("noresume: the clump has no overflow tile")
+        runs = nores_runs(x, p, reso, "100k")
+        k3 = nores_name("cd_pallas._kernel", reso)
+        runs[k3] = nores_runs(xc, p, reso, f"clump N={ncl}")[k3]
+        log(f"noresume {reso}: 100k overflow rows {int(x.overflow.sum())}; "
+            f"clump overflow rows {int(xc.overflow.sum())} of {xc.nb}, "
+            f"overflow tiles {int((xc.reach & xc.overflow[:, None]).sum())}")
+        report += report_kernels(runs, launches, errs, regs)
+    del state
+    return report
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4668,6 +4952,10 @@ def main():
             log(f"resolver_path {backend} {method}: "
                 f"{time.perf_counter() - t0:.1f} s")
         log_card(f"after the {backend} resolver paths")
+    t0 = time.perf_counter()
+    nores_report = noresume_phase(dev, errs, regs)
+    log(f"noresume_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after noresume_phase")
     for path in (dense_path, dense_resolvers, tiled_path, check_dense_tiled,
                  check_dense_tiled_resolvers, graph_phase):
         t0 = time.perf_counter()
@@ -4708,13 +4996,16 @@ def main():
     log_card("after epoch_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
-    report += world_report + kwide_report + shard_report
+    report += world_report + kwide_report + shard_report + nores_report
     for entry in report:
         entry["entry_launches"] = entry_launches.get(entry["name"], 0)
         entry["fabric_launches"] = fabric.get(entry["name"], 0)
         for col, counts in epoch.items():
             entry[col] = counts.get(entry["name"], 0)
-    missing = {form_name(k, r) for k, r in FORMS} - {e["name"] for e in report}
+    missing = ({form_name(k, r) for k, r in FORMS}
+               | {nores_name(k, r) for r in RESOS
+                  for k in ("cd_sched._sched_kernel", "cd_pallas._kernel")}) \
+        - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")
 

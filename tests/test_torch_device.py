@@ -75,7 +75,8 @@ def test_host_gates_follow_the_jax_step(dtype, monkeypatch):
 
 def test_import_without_jax():
     """The package and every module of it (the chunk graphs, the ``obs``
-    instruments, the Simulation with its stack, routes, navdb, guard
+    instruments and ``obs.devprof``, ``utils.profiler``, the sparse
+    and pallas CD, the Simulation with its stack, routes, navdb, guard
     and multi-world batch, the differentiable mode, the shard modes'
     ``parallel.sharding``, the worker's ``network`` modules, ScreenIO,
     the sim nodes and ``__main__`` among them) import with jax, flax and
@@ -93,6 +94,8 @@ def test_import_without_jax():
         "    'ops.cd', 'ops.hostgeo', 'core.trails', 'core.traffic',\n"
         "    'core.graph', 'core.route', 'core.conditional', 'core.metrics',\n"
         "    'obs.scanstats', 'obs.fingerprint', 'obs.metrics', 'obs.trace',\n"
+        "    'obs.devprof', 'utils.profiler', 'ops.geo', 'ops.aero',\n"
+        "    'ops.cd_sched', 'ops.cd_pallas',\n"
         "    'utils.units', 'utils.signalslot', 'utils.timer',\n"
         "    'utils.areafilter', 'utils.datalog', 'utils.plotter',\n"
         "    'navdb', 'navdb.builtin_data', 'navdb.loaders',\n"
