@@ -46,7 +46,8 @@ class Traffic:
             cand = os.path.join(settings.perf_path, "OpenAP")
             if os.path.isdir(os.path.join(cand, "fixwing")):
                 openap_path = cand
-        self.coeffdb = perf_coeffs.CoeffDB(openap_path, model=model)
+        self.coeffdb = perf_coeffs.CoeffDB(openap_path, model=model,
+                                           perf_path=settings.perf_path)
         self.area = area  # default creation area (lat0, lat1, lon0, lon1)
         self._rng = np.random.default_rng(rng_seed)
         self.ids: List[Optional[str]] = [None] * nmax

@@ -2,8 +2,10 @@
 
 Port of ``bluesky_tpu/models/perf_coeffs.py``: the BUILTIN tables, the
 stdlib OpenAP directory parser and ``CoeffDB`` are host-side and copied
-as they are; ``empty_perf_arrays`` allocates tensors.  ``CoeffDB`` here
-reads the OpenAP layout only (the BS/BADA loaders are not ported).
+as they are; ``empty_perf_arrays`` allocates tensors.  ``CoeffDB``
+reads the OpenAP layout, the BS XML database (``<perf_path>/BS``,
+``models/coeff_bs.py``) or BADA (``<perf_path>/BADA``,
+``models/coeff_bada.py``) as ``settings.performance_model`` says.
 """
 import csv
 import json
@@ -187,22 +189,37 @@ def load_openap_dir(path: str) -> Dict[str, dict]:
 
 
 class CoeffDB:
-    """Merged coefficient database: BUILTIN overridden by OpenAP data.
+    """Merged coefficient database: BUILTIN overridden by model data.
 
-    ``model`` is kept for the settings contract; only 'openap' is read
-    here (the BS and BADA loaders are not ported yet).  Unknown types
-    fall back to 'NA' (the reference's default-type behaviour).
+    ``model`` selects the source (reference traffic.py:39-52 switch):
+    'openap' loads the OpenAP directory; 'bs'/'legacy' loads the BS
+    conceptual-design XML database mapped onto the generic columns
+    (models/coeff_bs.py bs_to_generic); 'bada' loads proprietary BADA
+    OPF/APF data when present.  Unknown types fall back to 'NA'
+    (the reference's default-B744 behavior, perfbs.py:115-121).
     """
 
     def __init__(self, openap_path: Optional[str] = None,
-                 model: str = "openap"):
+                 model: str = "openap", perf_path: Optional[str] = None):
         self.table = dict(BUILTIN)
         self.model = model
-        if model != "openap":
-            raise NotImplementedError(
-                f"performance model {model!r}: only 'openap' is ported "
-                "(ROADMAP.md A10, long tail)")
-        if openap_path:
+        self.bada_synonyms, self.bada_coeffs = {}, {}
+        if model in ("bs", "legacy") and perf_path:
+            from . import coeff_bs
+            bsdir = os.path.join(perf_path, "BS")
+            self.table.update({t: coeff_bs.bs_to_generic(d)
+                               for t, d in
+                               coeff_bs.load_bs_dir(bsdir).items()})
+        elif model == "bada" and perf_path:
+            from . import coeff_bada
+            syn, coeffs = coeff_bada.load_bada_dir(
+                os.path.join(perf_path, "BADA"))
+            self.bada_synonyms, self.bada_coeffs = syn, coeffs
+            for code in syn:
+                d = coeff_bada.get_coefficients(syn, coeffs, code)
+                if d is not None:
+                    self.table[code.upper()] = coeff_bada.bada_to_generic(d)
+        elif openap_path:
             loaded = load_openap_dir(openap_path)
             if not loaded:
                 print(f"perf: no coefficient data at {openap_path} — "

@@ -46,6 +46,9 @@ log_path = "output"
 scenario_path = "scenario"
 ref_scenario_path = ""            # a second scenario library, searched
                                   # after scenario_path ("" = none)
+plugin_path = "plugins"           # plugin files beside the shipped ones
+enabled_plugins = ["datafeed"]    # loaded by every Simulation (a name
+                                  # that is not found is skipped)
 
 device = None                     # the worker's torch device (None:
                                   # CUDA, or an error without one)

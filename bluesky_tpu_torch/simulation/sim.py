@@ -63,8 +63,16 @@ several processes detects a dead peer through the guard's
 ``guarded_ready`` (``scripts/torch_multihost.py``), and NCCL across
 several cards is not measured.
 
-Not ported here, each with its ROADMAP item: the device-profiling hooks
-and plugins (A10).
+Plugins (``plugins/``, the PLUGINS command; ``settings.enabled_plugins``
+load at construction): their hooks run at chunk edges.  The chunk is
+clamped to the smallest plugin interval, a due ``preupdate`` retires
+the pipelined edge before it runs, a due ``update`` makes its edge
+synchronous (sync reason ``plugin``), and with no hook due the
+pipelined chunks run on.
+
+Not ported here, each with its ROADMAP item: the radar and web front
+ends and their stack surface (A10.7: ``ui/``, SCREENSHOT), and what
+comes after it in ROADMAP A10.
 """
 import datetime
 import os
@@ -487,6 +495,12 @@ class Simulation:
         # Late import to avoid cycles; stack binds commands to this sim.
         from ..stack.stack import Stack
         self.stack = Stack(self)
+        # Plugin system (discovery + hook scheduling at chunk edges);
+        # enabled_plugins from settings are best-effort (plugin.py:103-105).
+        from ..plugins import PluginManager
+        self.plugins = PluginManager(self)
+        for pname in settings.enabled_plugins:
+            self.plugins.load(pname.upper())
         # Periodic loggers (reference traffic.py:86-89 defaults: SNAPLOG/
         # INSTLOG/SKYLOG) + their auto-registered stack commands, in
         # this sim's own registry.
@@ -656,6 +670,9 @@ class Simulation:
         # a preemption notice raised before the RESET must not fire into
         # the fresh sim
         self.preempt_requested = False
+        # After stack.reset: plugin reset hooks may stack commands (e.g.
+        # TRAFGEN redraws its spawn circle) that must survive the reset.
+        self.plugins.reset()
         self.plotter.reset()
         return True
 
@@ -1370,6 +1387,10 @@ class Simulation:
         if self.traf.trails.active:
             c = max(1, int(round(self.traf.trails.dt / self.cfg.simdt)))
             dtclamp = c if dtclamp is None else min(dtclamp, c)
+        plugdt = self.plugins.min_dt()
+        if plugdt is not None:
+            c = max(1, int(round(plugdt / self.cfg.simdt)))
+            dtclamp = c if dtclamp is None else min(dtclamp, c)
         if self.plotter.plots:
             pdt = min(p.dt for p in self.plotter.plots)
             c = max(1, int(round(pdt / self.cfg.simdt)))
@@ -1415,6 +1436,18 @@ class Simulation:
         if self.syst < 0:
             self.syst = time.perf_counter()
         self.syst += chunk * self.cfg.simdt / max(self.dtmult, 1e-9)
+
+        # Plugin preupdate hooks fire before the device chunk
+        # (simulation.py:83); they may read/mutate state, so a due hook
+        # retires the deferred edge first
+        if self.plugins.has_due(simt):
+            self._retire_edge("plugin")
+            self.plugins.preupdate(simt)
+            self.traf.flush()   # preupdate hooks may have queued aircraft
+            # plugin hooks may mutate traffic DIRECTLY (traf.delete/
+            # create) without a stack command, so the ACDATA edge cache
+            # cannot be trusted past them
+            self._last_edge = None
         return chunk, simt
 
     def _after_chunk(self):
@@ -1443,6 +1476,8 @@ class Simulation:
             reasons.append("runway")        # landing chain reads state
         if self.plotter.plots:
             reasons.append("plot")          # PLOT samples live attrs
+        if self.plugins.has_due(t_edge):
+            reasons.append("plugin")        # update hook at the edge
         if self.datalog.any_due(t_edge):
             reasons.append("datalog")       # periodic logger samples
         if self.ffstop is not None and t_edge >= self.ffstop - 1e-9:
@@ -1676,9 +1711,12 @@ class Simulation:
             self._drain_scanstats(edge)
             self._drain_fingerprint(edge)
 
-        # Chunk-edge subsystems: conditional triggers, trails, loggers
-        # (the reference runs these per 0.05 s step,
+        plugins_due = self.plugins.has_due(self.simt)
+
+        # Chunk-edge subsystems: plugin updates, conditional triggers,
+        # trails, loggers (the reference runs these per 0.05 s step,
         # simulation.py:110-116; here they sample the chunk-edge state)
+        self.plugins.update(self.simt)
         self.traf.flush()
         self.cond.update()
         self._check_runway_landings()
@@ -1688,6 +1726,9 @@ class Simulation:
             # inactive trails only re-anchor, and TRAIL ON anchors anew
             self.traf.trails.update(self.simt)
         self.datalog.postupdate(self)
+        if plugins_due:
+            # plugin hooks can mutate traffic directly, past the cache
+            self._last_edge = None
 
         # Periodic snapshot-ring capture: the post-chunk state is
         # verified finite when the guard is on, so ring entries are

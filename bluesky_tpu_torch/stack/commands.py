@@ -34,9 +34,7 @@ from .argparser import txt2alt, txt2spd
 #: Commands of subsystems not ported yet: name -> (ROADMAP item, usage,
 #: help), usage and help as the JAX package registers them.
 DEFERRED = {
-    "PLUGINS": ("A10", "PLUGINS LIST or PLUGINS LOAD/REMOVE plugin",
-                "List, load or remove plugins"),
-    "SCREENSHOT": ("A10", "SCREENSHOT [fname.svg]",
+    "SCREENSHOT": ("A10.7", "SCREENSHOT [fname.svg]",
                    "Render the radar picture to an SVG file"),
 }
 
@@ -1870,6 +1868,11 @@ def register_all(stack):
                         "(readback bare)"],
         "ZOOM": ["ZOOM IN/OUT or factor", "txt", zoom,
                  "Zoom display in/out"],
+        "PLUGINS": ["PLUGINS LIST or PLUGINS LOAD/REMOVE plugin",
+                    "[txt,txt]",
+                    lambda cmd=None, name=None: sim.plugins.manage(
+                        cmd or "LIST", name or ""),
+                    "List, load or remove plugins"],
     })
     stack.append_commands({
         name: [usage, "[string,...]", _deferred(name, item), helptxt]

@@ -106,10 +106,10 @@ Phases, in order; any failure exits non-zero before the last line:
     launches per interval and peak memory of both.  The world-group
     launches of K1 and K2 (sparse) and K3 (pallas) are held against their
     plain versions on the stacked operands and timed with their bounds:
-    the ``/worlds`` entries of the kernels line.  Then 8 BATCH pieces of
+    the ``/worlds`` entries of the kernels line.  Then 4 BATCH pieces of
     500 aircraft (CRE lines from numpy seeds, CDMETHOD SPARSE, ASAS ON,
-    FF 60, the guard on) through ``WorldBatch.run()``, four of them held
-    to solo ``Simulation``s.
+    FF 60, the guard on) through ``WorldBatch.run()`` (8 until phase 19
+    came), each held to a solo ``Simulation``.
 12. differentiable phase (``diff_phase``): gradients through the smooth
     dense step (``bluesky_tpu_torch/diff``; no kernel runs on this path,
     and the launch counts must read 0 after it).  (a) 25 head-on pairs
@@ -244,6 +244,31 @@ Phases, in order; any failure exits non-zero before the last line:
     (the hand-off of at most two blocks); each form timed and bounded
     (K1 at 100k, K3 on the clump): the ``/noresume`` and ``/overflow``
     entries of the kernels line.
+19. plugins phase (``plugins_phase``; ROADMAP A10.2-A10.4): (a) the
+    synthetic BADA and BS files of ``models/synthetic.py`` (the ones the
+    CPU tests read) under ``performance_model`` "bada" and "bs": a
+    10,000-aircraft ``regional_scene`` Simulation of their types under
+    SPARSE (block 256, no pair matrix), every ``PerfArrays`` column on
+    the card bit-equal to a CPU ``Traffic`` of the same types, 3 chunks,
+    K1/K2 launched; ``ops/perf_legacy`` and ``ops/perf_bada`` on 100,000
+    float32 rows on the card against float64 on the CPU within
+    ``PERF_RTOL``, phase codes and flags equal (``perf_rows``' grids keep
+    every threshold out of float32 rounding); (b) the same fleet 30
+    sim-s without plugins and 30 with AREA, SECTORCOUNT, GEOVECTOR and
+    TRAFGEN, every hook at 1 s: sim-s per wall-s of each, the host syncs
+    per pipelined chunk without plugins ([0, 0]), the ``plugin`` sync
+    reasons, graph captures and compile misses after warm-up (0), host
+    ms per hook call; at every edge AREA deleted only aircraft outside
+    its box, SECTORCOUNT's count equals a recount of the card's
+    positions, TRAFGEN created what its Poisson draws asked for; (c)
+    PLUGINS LOAD ENSEMBLE and ENSEMBLE 8 10 500 on 2,000 regional
+    aircraft in 2,048 slots, each replica bit-equal to a solo
+    ``run_steps`` from the same jittered start, aggregate aircraft-steps/s;
+    (d) ``scenario/sample.so6`` converted, IC'd into a 1,024-slot
+    Simulation and flown 200 sim-s (its last flight starts at 180 s):
+    every flight created.  The launches of (b) and (c) are the
+    ``plugin_launches`` and ``plugin_ensemble_launches`` of the kernels
+    line.
 
 Phase 10 ends with the profiling of the 100k Simulation
 (``profile_phase``, ROADMAP A10.5): under CDMETHOD SPARSE the host syncs
@@ -2844,7 +2869,7 @@ def worlds_phase(dev, errs, regs, scale=1):
     worlds_batched_vs_solo(dev, "dense", shrink(WORLDS_DENSE))
     log(f"worlds dense: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    worldbatch_phase(dev, pieces=max(2, 16 // scale))
+    worldbatch_phase(dev, pieces=max(2, 8 // scale))
     log(f"worldbatch: {time.perf_counter() - t0:.1f} s")
     return report
 
@@ -4907,6 +4932,461 @@ def noresume_phase(dev, errs, regs, n_ac=100_000, nmax=100_352):
     return report
 
 
+# ------------------------------------------------------ plugins phase
+#: phase 19: the regional fleets of (a) and (b), (c)'s ensemble scene,
+#: (d)'s Simulation and the rows of the performance kernels
+PLUG_N, PLUG_NMAX = 10_000, 10_240
+PLUG_TYPES = ("A320", "B744", "AT72", "E190")
+PLUG_T = 30
+PLUG_BOX = (51.0, 3.0, 54.2, 7.8)            # AREA's box (lat, lon)
+PLUG_SECTOR = (52.2, 4.8, 53.0, 6.0)         # SECTORCOUNT's box
+PLUG_FLOW = 7200.0                           # TRAFGEN source [a/c per h]
+ENS19 = (8, 10.0, 500.0, 2_000, 2_048)       # reps, tend, spread, n, nmax
+SO6_NMAX, SO6_T = 1_024, 200.0
+PERF_ROWS = 100_000
+#: the float32 bound of the performance kernels against float64 (the
+#: CPU tests hold float64 to rel 1e-12): rel 1e-5 of each value plus
+#: 1e-5 of its column's largest magnitude (cancellations near zero)
+PERF_RTOL = 1e-5
+
+
+def plugin_sim(dev, n_ac, nmax, types=("B744",), seed=0):
+    """A ``Simulation`` on ``dev`` (float32, no [N, N] pair matrix) with
+    ``regional_scene``'s ``n_ac`` aircraft created through its Traffic
+    facade, types cycling through ``types``; then CDMETHOD SPARSE (block
+    256), ASAS ON, OP, FF.  Returns ``(sim, types of the slots)``."""
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    sim = Simulation(nmax=nmax, device=dev, pair_matrix=False)
+    c = columns(n_ac, "regional", seed)
+    tlist = [types[i % len(types)] for i in range(n_ac)]
+    sim.traf.create(n_ac, tlist, c["alt"], c["gs"], None, c["lat"],
+                    c["lon"], c["trk"])
+    sim.traf.flush()
+    sim_do(sim, "CDMETHOD SPARSE", "ASAS ON", "OP", "FF")
+    sim.cfg = sim.cfg._replace(cd_block=256)
+    return sim, tlist
+
+
+def perf_rows(n, seed):
+    """Inputs of the performance kernels on grids that float32 holds
+    exactly and no threshold of the kernels comes within float32 rounding
+    of (1/64 steps, whole numbers above 2**17, altitudes half a foot off
+    whole feet): alt, gs, delalt, cas,
+    the five minimum speeds, swhdgsel, the engine masks and the BADA and
+    limit columns, float64 numpy."""
+    rng = np.random.default_rng(seed)
+    q = lambda a, b: np.round(rng.uniform(a, b, n) * 64.0) / 64.0
+    whole = lambda a, b: np.round(rng.uniform(a, b, n))
+    ft = 0.3048
+    alt = (np.round(rng.uniform(0.0, 40000.0, n)) + 0.5) * ft
+    alt[rng.random(n) < 0.1] = 0.0
+    delalt = np.round(rng.uniform(-3000.0, 3000.0, n)) * ft
+    delalt[rng.random(n) < 0.2] = 0.0
+    alt, delalt = (np.float64(np.float32(x)) for x in (alt, delalt))
+    eng = rng.integers(0, 3, n)
+    climb = rng.random(n) < 0.4
+    descent = ~climb & (rng.random(n) < 0.5)
+    maxthr = whole(80000.0, 250000.0)
+    return dict(
+        alt=alt, gs=q(0.0, 260.0), delalt=delalt, cas=q(50.0, 200.0),
+        vm=[q(40.0, 90.0) for _ in range(5)], swhdgsel=rng.random(n) < 0.5,
+        jet=eng == 0, turbo=eng == 1, piston=eng == 2, climb=climb,
+        descent=descent, lvl=~climb & ~descent,
+        phase=rng.integers(1, 7, n), mach=q(0.2, 0.95), mmo=q(0.7, 0.9),
+        abco=rng.random(n) < 0.5, delspd=rng.choice([-5.0, 0.0, 5.0], n),
+        desspd=q(40.0, 220.0), to_spd=q(60.0, 90.0), vmin=q(45.0, 80.0),
+        vmo=q(150.0, 200.0), hmaxact=whole(9000.0, 13000.0),
+        desalt=whole(0.0, 14000.0), desvs=rng.choice([-5.0, 0.0, 8.0], n),
+        maxthr=maxthr, thr=np.round(maxthr * rng.uniform(0.3, 1.2, n)),
+        drag=whole(20000.0, 90000.0), tas=q(5.0, 250.0),
+        mass=whole(40000.0, 200000.0), esf=q(0.3, 1.7),
+        ctc=(q(1e5, 3e5), q(3e4, 6e4), rng.uniform(1e-11, 1e-10, n)),
+        ctdes=(q(0.02, 0.05), q(0.8, 1.0), q(0.1, 0.2), q(0.2, 0.4)),
+        hpdes=whole(2000.0, 3000.0), cf=(q(0.2, 1.0), q(100.0, 2000.0),
+                                         q(5.0, 20.0), whole(30000.0, 90000.0),
+                                         q(0.85, 1.0)),
+        cred=q(0.0, 0.25), mmin=whole(35000.0, 40000.0),
+        mmax=whole(72000.0, 80000.0))
+
+
+def perf_kernel_calls(r, to):
+    """Every performance kernel on the rows ``r`` converted by ``to``:
+    ``{name: output tuple}``."""
+    from bluesky_tpu_torch.ops import perf_bada as pb, perf_legacy as pl
+    t = {k: (to(v) if isinstance(v, np.ndarray) else
+             [to(x) for x in v] if isinstance(v, (list, tuple)) else v)
+         for k, v in r.items()}
+    bphase = np.radians([15.0, 35.0, 35.0, 35.0, 15.0, 15.0])
+    zero = to(np.zeros(len(r["alt"])))
+    out = {}
+    for bada in (False, True):
+        out[f"phases bada={bada}"] = pl.phases(
+            t["alt"], t["gs"], t["delalt"], t["cas"], *t["vm"], zero,
+            bphase, t["swhdgsel"], bada)
+    out["esf"] = (pl.esf(t["abco"], ~t["abco"], t["alt"], t["mach"],
+                         t["climb"], t["descent"], t["delspd"]),)
+    out["calclimits"] = pl.calclimits(
+        t["desspd"], t["gs"], t["to_spd"], t["vmin"], t["vmo"], t["mmo"],
+        t["mach"], t["alt"], t["hmaxact"], t["desalt"], t["desvs"],
+        t["maxthr"], t["thr"], t["drag"], t["tas"], t["mass"], t["esf"],
+        t["phase"])
+    eng = (t["jet"], t["turbo"], t["piston"])
+    out["max_climb_thrust"] = (pb.max_climb_thrust(
+        t["alt"], t["tas"], *eng, *t["ctc"]),)
+    out["thrust"] = pb.thrust(t["phase"], t["climb"], t["descent"],
+                              t["lvl"], t["alt"], t["tas"], t["drag"], *eng,
+                              *t["ctc"], *t["ctdes"], t["hpdes"])
+    out["reduced_climb_power"] = (pb.reduced_climb_power(
+        t["alt"], t["hmaxact"], t["climb"], t["cred"], t["mass"],
+        t["mmin"], t["mmax"]),)
+    out["fuelflow"] = pb.fuelflow(t["phase"], t["alt"], t["tas"], t["thr"],
+                                  *eng, *t["cf"])
+    return out
+
+
+def perf_kernels_check(dev, n=None):
+    """Phase 19 (a), second half: ``ops/perf_legacy`` and
+    ``ops/perf_bada`` on ``n`` float32 rows on the card against float64
+    on the CPU (``perf_rows``): floats within ``PERF_RTOL``, phase codes
+    and flags equal except ``limspd_flag`` where the float64 speed limit
+    lies within 1e-3 m/s of its 0.1 m/s dead band."""
+    import torch
+    from bluesky_tpu_torch.ops import aero
+    n = n or PERF_ROWS
+    r = perf_rows(n, 19)
+    ref = perf_kernel_calls(r, torch.from_numpy)
+    t0 = time.perf_counter()
+    got = perf_kernel_calls(r, lambda a: torch.from_numpy(
+        a.astype(np.float32) if a.dtype == np.float64 else a).to(dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    lim = aero.vmach2cas(torch.from_numpy(r["mmo"] - 0.01),
+                         torch.from_numpy(r["alt"])).numpy()
+    edge = (r["mach"] > r["mmo"]) \
+        & (np.abs(np.abs(r["desspd"] - lim) - 0.1) < 1e-3)
+    worst = 0.0
+    for name, want in ref.items():
+        for k, (w, g) in enumerate(zip(want, got[name])):
+            w, g = w.numpy(), g.cpu().numpy()
+            if w.dtype == np.float64:
+                if g.dtype != np.float32:
+                    raise AssertionError(f"perf {name}[{k}]: {g.dtype}")
+                d = np.abs(g.astype(np.float64) - w)
+                tol = PERF_RTOL * (np.abs(w) + np.abs(w).max())
+                if not (d <= tol).all():
+                    i = int(np.argmax(d - tol))
+                    raise AssertionError(
+                        f"perf {name}[{k}] row {i}: {g[i]} against {w[i]}")
+                worst = max(worst, float((d / (np.abs(w).max() or 1)).max()))
+            else:
+                keep = ~edge if (name, k) == ("calclimits", 1) else \
+                    np.ones(n, bool)
+                if not np.array_equal(g[keep], w[keep]):
+                    raise AssertionError(f"perf {name}[{k}]: flags differ")
+    phases = set(ref["phases bada=False"][0].numpy().tolist())
+    if not set(range(1, 7)) <= phases:
+        raise AssertionError(f"perf rows cover phases {sorted(phases)}")
+    log(f"plugins (a): perf_legacy and perf_bada on {n} float32 rows on the "
+        f"card in {ms:.2f} ms (first call) match float64 on the CPU: phase "
+        f"codes and flags equal ({int(edge.sum())} limspd rows in the dead "
+        f"band's float32 margin left out), largest error "
+        f"{worst:.3g} of the column's magnitude")
+
+
+def perf_model_runs(dev, root):
+    """Phase 19 (a): under ``performance_model`` "bada" and then "bs"
+    (``settings.perf_path`` the synthetic tree ``root``), a
+    ``plugin_sim`` of the data's types: every ``PerfArrays`` column on
+    the card bit-equal to a CPU ``Traffic`` created with the same types,
+    3 chunks, the chunk rate and K1/K2 launches."""
+    from bluesky_tpu_torch import settings
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.core.traffic import Traffic
+    saved = (settings.performance_model, settings.perf_path)
+    settings.perf_path = root
+    try:
+        for model in ("bada", "bs"):
+            settings.performance_model = model
+            graph.clear()
+            sim, tlist = plugin_sim(dev, PLUG_N, PLUG_NMAX, PLUG_TYPES)
+            cpu = Traffic(nmax=PLUG_NMAX, pair_matrix=False, device="cpu")
+            c = columns(PLUG_N, "regional", 0)
+            cpu.create(PLUG_N, tlist, c["alt"], c["gs"], None, c["lat"],
+                       c["lon"], c["trk"])
+            cpu.flush()
+            bad = [k for (k, x), (_, y) in zip(
+                graph.leaves(sim.traf.state.perf),
+                graph.leaves(cpu.state.perf)) if not bits_equal(x.cpu(), y)]
+            if bad or sim.traf.coeffdb.model != model:
+                raise AssertionError(f"perf {model}: card columns differ "
+                                     f"from the CPU's in {bad}")
+            mass = sorted({round(float(m), 1) for m in
+                           sim.traf.state.perf.mass[:4].cpu()})
+            reset_launches()
+            rows = sim_chunks(sim, 3)
+            sim.drain_pipeline()
+            check_sim_state(f"perf {model}", sim)
+            launches = {k: v for k, v in launch_counts().items() if v}
+            log_chunks(f"plugins (a) {model}", rows, PLUG_N)
+            log(f"plugins (a) {model}: PerfArrays bit-equal to the CPU's "
+                f"({len(graph.leaves(cpu.state.perf))} columns; slot masses "
+                f"{mass} kg), launches {launches}")
+            for form in ("cd_sched._sched_kernel",
+                         "cd_pallas._kernel_resume"):
+                if launches.get(form, 0) < 1:
+                    raise AssertionError(f"perf {model}: never launched "
+                                         f"{form}")
+            del sim, cpu
+    finally:
+        settings.performance_model, settings.perf_path = saved
+        graph.clear()
+
+
+def plugin_session(dev):
+    """Phase 19 (b): ``plugin_sim``'s fleet for ``PLUG_T`` sim-s without
+    plugins, then ``PLUG_T`` more with AREA, SECTORCOUNT, GEOVECTOR and
+    TRAFGEN loaded, every hook at 1 s.  At each of their edges: the
+    aircraft AREA deleted were all outside its box there (none inside
+    was), SECTORCOUNT's count is a recount of the card's positions, and
+    TRAFGEN created what its Poisson draws asked for.  Returns the
+    launches of the plugin run by name."""
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.plugins import host_arrays
+    graph.clear()
+    sim, _ = plugin_sim(dev, PLUG_N, PLUG_NMAX)
+    sim_chunks(sim, 2)                          # warm-up
+    reset_launches()
+    plain = sim_chunks(sim, PLUG_T)
+    plain_launch = launch_counts()
+    syncs = [r["syncs"] for r in sim_chunks(sim, 2, syncs=True)]
+    if syncs != [0, 0]:
+        raise AssertionError(f"plugins (b): host syncs without plugins "
+                             f"{syncs}")
+    (a0, o0, a1, o1), (s0, t0_, s1, t1_) = PLUG_BOX, PLUG_SECTOR
+    sim_do(sim, "PLUGINS LOAD AREA", f"BOX EXP {a0} {o0} {a1} {o1}",
+           "AREA EXP", "PLUGINS LOAD SECTORCOUNT",
+           f"BOX S1 {s0} {t0_} {s1} {t1_}", "SECTORCOUNT ADD S1",
+           "PLUGINS LOAD GEOVECTOR", "GEOVECTOR S1 250 300",
+           "PLUGINS LOAD TRAFGEN", "TRAFGEN CIRCLE 52.6 5.4 200",
+           f"TRAFGEN SRC SEGM90 FLOW {PLUG_FLOW:g}", "OP", "FF")
+    pm = sim.plugins
+    for funs in (pm.preupdate_funs, pm.update_funs):
+        for fun in funs.values():               # every hook at 1 s
+            fun[0], fun[1] = sim.simt + 1.0, 1.0
+    area = pm.update_funs["AREA"][2].__self__
+    sector = pm.update_funs["SECTORCOUNT"][2].__self__
+    gen = pm.update_funs["TRAFGEN"][2].__self__
+    seen = dict(area=0, deleted=0, sector=0, draws=0, created=0)
+    hook_ms = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        fn()
+        hook_ms[name] = hook_ms.get(name, 0.0) \
+            + (time.perf_counter() - t) * 1e3
+
+    def area_update():
+        ac = sim.traf.state.ac
+        lat, lon, act = host_arrays(ac.lat, ac.lon, ac.active)
+        before = {i: s for s, i in enumerate(sim.traf.ids) if i}
+        timed("AREA", orig_area)
+        gone = [s for i, s in before.items() if sim.traf.id2idx(i) < 0]
+        inside = (lat >= a0) & (lat <= a1) & (lon >= o0) & (lon <= o1)
+        if any(inside[s] or not act[s] for s in gone):
+            raise AssertionError("plugins (b): AREA deleted an aircraft "
+                                 "inside its box")
+        seen["area"] += 1
+        seen["deleted"] += len(gone)
+
+    def sector_update():
+        timed("SECTORCOUNT", orig_sector)
+        ac = sim.traf.state.ac
+        n = int(((ac.lat >= s0) & (ac.lat <= s1) & (ac.lon >= t0_)
+                 & (ac.lon <= t1_) & ac.active).sum())
+        if n != len(sector.previnside[0]):
+            raise AssertionError(f"plugins (b): SECTORCOUNT {len(sector.previnside[0])}"
+                                 f" against a recount of {n}")
+        seen["sector"] += 1
+
+    def spawn_count(obj, dt):
+        k = orig_spawn(obj, dt)
+        seen["draws"] += k
+        return k
+
+    orig_area, orig_sector, orig_spawn = area.update, sector.update, \
+        gen._spawn_count
+    pm.update_funs["AREA"][2] = area_update
+    pm.update_funs["SECTORCOUNT"][2] = sector_update
+    for funs, name in ((pm.preupdate_funs, "GEOVECTOR"),
+                       (pm.update_funs, "TRAFGEN")):
+        funs[name][2] = (lambda n, f: lambda: timed(n, f))(
+            name, funs[name][2])
+    gen._spawn_count = spawn_count
+    sim.traf.create_hooks.append(
+        lambda slots: seen.__setitem__("created",
+                                       seen["created"] + len(slots)))
+    sim_chunks(sim, 2)                          # warm-up
+    cap0 = captures()
+    miss = lambda: sum(int(sim.obs.get(k).value) for k in (
+        "devprof_cache_misses_ladder", "devprof_cache_misses_offladder"))
+    m0 = miss()
+    reasons = sim.pipe_stats["sync_reasons"]
+    p0 = reasons.get("plugin", 0)
+    reset_launches()
+    seen.update(area=0, deleted=0, sector=0, draws=0, created=0)
+    hook_ms.clear()
+    rows = sim_chunks(sim, PLUG_T)
+    sim.drain_pipeline()
+    launches = launch_counts()
+    check_sim_state("plugins (b)", sim)
+    caps, misses = captures() - cap0, miss() - m0
+    mean = PLUG_FLOW * PLUG_T / 3600.0
+    if seen["created"] != seen["draws"] or \
+            abs(seen["draws"] - mean) > 5 * mean ** 0.5:
+        raise AssertionError(f"plugins (b): TRAFGEN created {seen['created']}"
+                             f" for draws {seen['draws']} (flow mean {mean})")
+    if seen["area"] < PLUG_T - 1 or seen["sector"] < PLUG_T // 2 \
+            or not seen["deleted"]:
+        raise AssertionError(f"plugins (b): hooks ran {seen}")
+    if caps or misses:
+        raise AssertionError(f"plugins (b): {caps} graph captures and "
+                             f"{misses} compile misses after warm-up")
+    w_plain = log_chunks("plugins (b) without plugins", plain, PLUG_N)
+    w_plug = log_chunks("plugins (b) AREA+SECTORCOUNT+GEOVECTOR+TRAFGEN "
+                        "at 1 s", rows, PLUG_N)
+    log(f"plugins (b): {PLUG_T / w_plain:.4g} sim-s per wall-s without "
+        f"plugins against {PLUG_T / w_plug:.4g} with; host syncs per "
+        f"pipelined chunk without plugins {syncs}; plugin syncs "
+        f"{reasons.get('plugin', 0) - p0}; graph captures {caps} and "
+        f"compile misses {misses} after warm-up; AREA deleted "
+        f"{seen['deleted']} (all outside its box), SECTORCOUNT recounted "
+        f"{seen['sector']} times, TRAFGEN created {seen['created']} (flow "
+        f"mean {mean:g}); host ms per hook call "
+        f"{ {k: round(v / PLUG_T, 3) for k, v in hook_ms.items()} }; "
+        f"launches without "
+        f"{ {k: v for k, v in plain_launch.items() if v} }, with "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for form in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume"):
+        if launches[form] < 1:
+            raise AssertionError(f"plugins (b): never launched {form}")
+    del sim
+    graph.clear()
+    return launches
+
+
+def ensemble_command(dev):
+    """Phase 19 (c): PLUGINS LOAD ENSEMBLE and ENSEMBLE 8 10 500 on a
+    2,000-aircraft regional SPARSE scene in 2,048 slots; each replica's
+    end state bit-equal to a solo ``run_steps`` from the same jittered
+    start (``Ensemble.jitter`` again with the run's number).  Returns the
+    launches of the ENSEMBLE command by name."""
+    import torch
+    from bluesky_tpu_torch.core import graph, step as stepmod
+    from bluesky_tpu_torch.core.state import world_slice
+    nrep, tend, spread, n_ac, nmax = ENS19
+    graph.clear()
+    sim, _ = plugin_sim(dev, n_ac, nmax)
+    sim_chunks(sim, 2)
+    sim.drain_pipeline()
+    sim_do(sim, "PLUGINS LOAD ENSEMBLE")
+    base = state_copy(sim.traf.state)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    echo = sim_do(sim, f"ENSEMBLE {nrep} {tend:g} {spread:g}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ens = sim.stack.cmddict["ENSEMBLE"][2].__self__
+    final = state_copy(ens.final)
+    start = ens.jitter(base, nrep, spread, ens._runs)
+    cfg = ens.config()
+    nsteps = int(round(tend / cfg.simdt))
+    plan = [20] * (nsteps // 20) + ([nsteps % 20] if nsteps % 20 else [])
+    for r in range(nrep):
+        st = state_copy(world_slice(start, r))
+        for k in plan:
+            st = stepmod.run_steps(st, cfg, k)
+        assert_same(f"ENSEMBLE replica {r} against its solo run",
+                    world_slice(final, r), st)
+    log(f"plugins (c): ENSEMBLE {nrep} {tend:g} {spread:g} on {n_ac} "
+        f"aircraft in {nmax} slots: {wall:.3f} s, "
+        f"{nrep * n_ac * nsteps / wall:.4g} aggregate aircraft-steps/s; "
+        f"each replica bit-equal to its solo run; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; reply "
+        f"{echo[0].splitlines()[0]!r}")
+    for form in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume"):
+        if launches[form] < 1:
+            raise AssertionError(f"plugins (c): ENSEMBLE never launched "
+                                 f"{form}")
+    del sim, base, final, start
+    graph.clear()
+    return launches
+
+
+def so6_run(dev, workdir):
+    """Phase 19 (d): ``scenario/sample.so6`` converted, IC'd into a
+    ``SO6_NMAX``-slot Simulation on the card and run ``SO6_T`` sim-s (its
+    last flight starts 180 s after its first): every flight of the file
+    created, the fleet finite."""
+    from bluesky_tpu_torch.core import step as stepmod
+    from bluesky_tpu_torch.simulation.sim import Simulation
+    from bluesky_tpu_torch.utils import so6
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "scenario", "sample.so6")) as f:
+        scn = so6.convert(f.readlines())
+    path = os.path.join(workdir, "sample.scn")
+    with open(path, "w") as f:
+        f.write("\n".join(scn) + "\n")
+    flights = {line.split()[1] for line in scn if ">CRE " in line}
+    sim = Simulation(nmax=SO6_NMAX, device=dev)
+    t0 = time.perf_counter()
+    sim_do(sim, f"IC {path}", "OP", f"FF {SO6_T:g}")
+    sim.run(until_simt=SO6_T)
+    sim.drain_pipeline()
+    got = {i for i in sim.traf.ids if i}
+    if got != flights or not bool(stepmod.state_finite(sim.traf.state)):
+        raise AssertionError(f"plugins (d): SO6 flights {sorted(flights)},"
+                             f" created {sorted(got)}")
+    log(f"plugins (d): sample.so6 -> {len(scn)} scenario lines, "
+        f"{len(flights)} flights all created and flown {SO6_T:g} sim-s in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def plugins_phase(dev):
+    """Phase 19: plugins and performance models (ROADMAP A10.2-A10.4).
+    Returns ``{column: {name: launches}}`` for the kernels line."""
+    import shutil
+    import tempfile
+    from bluesky_tpu_torch import settings
+    from bluesky_tpu_torch.models import synthetic
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "output"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="phase19-",
+                               dir=os.path.join(here, "output"))
+    log_path, settings.log_path = settings.log_path, workdir   # FLSTLOG..
+    cols = {}
+    try:
+        t0 = time.perf_counter()
+        perf_model_runs(dev, synthetic.write_perf_tree(
+            os.path.join(workdir, "performance")))
+        perf_kernels_check(dev)
+        log(f"plugins (a): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cols["plugin_launches"] = plugin_session(dev)
+        log(f"plugins (b): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cols["plugin_ensemble_launches"] = ensemble_command(dev)
+        log(f"plugins (c): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        so6_run(dev, workdir)
+        log(f"plugins (d): {time.perf_counter() - t0:.1f} s")
+    finally:
+        settings.log_path = log_path
+        shutil.rmtree(workdir, ignore_errors=True)
+    return cols
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4994,6 +5474,10 @@ def main():
     epoch = epoch_phase(dev)
     log(f"epoch_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after epoch_phase")
+    t0 = time.perf_counter()
+    epoch.update(plugins_phase(dev))
+    log(f"plugins_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after plugins_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
     report += world_report + kwide_report + shard_report + nores_report

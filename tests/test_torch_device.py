@@ -79,7 +79,8 @@ def test_import_without_jax():
     and pallas CD, the Simulation with its stack, routes, navdb, guard
     and multi-world batch, the differentiable mode, the shard modes'
     ``parallel.sharding``, the worker's ``network`` modules, ScreenIO,
-    the sim nodes and ``__main__`` among them) import with jax, flax and
+    the sim nodes and ``__main__``, the SO6 converter, the BS and BADA
+    models and every plugin file among them) import with jax, flax and
     bluesky_tpu unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -107,7 +108,13 @@ def test_import_without_jax():
         "    'settings', '__main__', 'network', 'network.common',\n"
         "    'network.npcodec', 'network.detached', 'network.node',\n"
         "    'network.node_mt', 'network.discovery', 'network.tcpserver',\n"
-        "    'simulation.screenio', 'simulation.simnode')}\n"
+        "    'simulation.screenio', 'simulation.simnode', 'utils.so6',\n"
+        "    'models.fwparser', 'models.coeff_bada', 'models.coeff_bs',\n"
+        "    'models.synthetic', 'ops.perf_legacy', 'ops.perf_bada',\n"
+        "    'plugins', 'plugins.example', 'plugins.area',\n"
+        "    'plugins.sectorcount', 'plugins.geovector', 'plugins.trafgen',\n"
+        "    'plugins.ilsgate', 'plugins.stackcheck', 'plugins.ensemble',\n"
+        "    'plugins.opensky', 'plugins.adsbfeed', 'plugins.windgfs')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"

@@ -205,6 +205,24 @@ def test_deferred_command(name):
     assert (tsim.cfg, tsim.traf.ids) == (cfg, ids)
 
 
+def test_plugins_left_deferred():
+    """PLUGINS left ``DEFERRED`` with the plugin system: it answers as
+    the JAX package's does, listing the shipped plugins, loading and
+    removing one."""
+    assert "PLUGINS" not in DEFERRED
+    jsim, tsim = sim_pair()
+    for line in ("PLUGINS", "PLUGINS LIST", "PLUGINS LOAD EXAMPLE",
+                 "MYFUN ON", "PLUGINS LIST", "PLUGINS REMOVE EXAMPLE",
+                 "PLUGINS LOAD NOSUCH"):
+        jecho, techo = sim_do(jsim, line), sim_do(tsim, line)
+        assert techo == jecho, line
+        assert not any("ROADMAP" in e for e in techo)
+    listed = sim_do(tsim, "PLUGINS LIST")[0]
+    for name in ("AREA", "TRAFGEN", "ENSEMBLE", "STACKCHECK", "WINDGFS"):
+        assert name in listed
+    assert "MYFUN" not in tsim.stack.cmddict
+
+
 #: the worker-side commands of the serving fabric, each with the lines
 #: a user types on a detached sim
 WORKER_CMDS = {
