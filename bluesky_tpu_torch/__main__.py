@@ -7,8 +7,9 @@ Modes:
   --detached               run an embedded sim with no networking
   --client                 interactive console client (text UI)
   --import-navdata DIR     import a reference-format navdata tree
-  --web                    the browser radar: not in the port yet
-                           (ROADMAP A10.7)
+  --web                    embedded sim + live browser radar UI
+  --web --attach           the browser radar of a running server
+                           (GuiClient mirror)
 
 The sim runs on ``settings.device``: CUDA unless a config file sets
 ``device = 'cpu'``; without CUDA and without that key the worker raises
@@ -25,6 +26,12 @@ Example headless session on the card:
 
 On the CPU, start the server with ``--config-file cpu.cfg``, where
 cpu.cfg holds the line ``device = 'cpu'``.
+
+Browser radar on the card (open http://127.0.0.1:8080/):
+  python -m bluesky_tpu_torch --web [--web-port 8080] [--scenfile X]
+  python -m bluesky_tpu_torch --web --attach      (beside --headless)
+``--web`` runs its own Simulation (on the CPU with ``--config-file
+cpu.cfg``); ``--web --attach`` needs pyzmq and msgpack.
 """
 import argparse
 import os
@@ -46,8 +53,7 @@ def main(argv=None):
     mode.add_argument("--client", action="store_true",
                       help="console client")
     mode.add_argument("--web", action="store_true",
-                      help="embedded sim + live browser radar UI (not "
-                           "ported: ROADMAP A10.7)")
+                      help="embedded sim + live browser radar UI")
     parser.add_argument("--config-file", default="", help="settings file")
     parser.add_argument("--scenfile", default="", help="startup scenario")
     parser.add_argument("--host", default="127.0.0.1")
@@ -103,17 +109,10 @@ def main(argv=None):
     if args.detached:
         return run_detached(args)
     if args.web:
-        return _not_ported("--web", "A10.7",
-                           "the browser radar (ui/web.py)")
+        return run_web(args)
     if args.client:
         return run_client(args)
     return run_server(args)
-
-
-def _not_ported(what, item, detail):
-    print(f"bluesky_tpu_torch: {what} is not ported yet (ROADMAP {item}: "
-          f"{detail})", file=sys.stderr)
-    return 2
 
 
 def run_import_navdata(args):
@@ -309,6 +308,55 @@ def _log_launches(node):
 def run_detached(args):
     from .simulation.simnode import DetachedSimNode
     return _serve(DetachedSimNode(), args)
+
+
+def run_web(args):
+    """Live browser radar (ui/web.py): an embedded sim on
+    ``settings.device`` by default, or — with --attach — a GuiClient
+    mirror of a running server (the same split as the reference's
+    embedded pygame vs networked Qt radar)."""
+    if args.attach:
+        why = _need_zmq("--web --attach")
+        if why:
+            print(why, file=sys.stderr)
+            return 2
+        import time
+        from .network.guiclient import GuiClient
+        from .ui.web import ClientBackend, WebUI
+        client = GuiClient()
+        client.connect(host=args.host,
+                       event_port=args.event_port or settings.event_port,
+                       stream_port=args.stream_port
+                       or settings.stream_port)
+        backend = ClientBackend(client, pumped=True)
+        backend.pump()           # seed the frame cache pre-serving
+        ui = WebUI(backend, host="127.0.0.1",
+                   port=args.web_port).start()
+        print(f"bluesky_tpu_torch web UI (attached to {args.host}) on "
+              f"http://{ui.host}:{ui.port}/", flush=True)
+        try:
+            while True:
+                backend.pump()               # drain streams/events
+                time.sleep(0.02)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            ui.stop()
+            client.close()
+        return 0
+    from .simulation.sim import Simulation
+    from .ui.web import serve_sim
+    sim = Simulation(device=settings.device)
+    _start_telnet(sim)
+    try:
+        if args.scenfile:
+            sim.stack.ic(args.scenfile)
+        serve_sim(sim, host=args.host, port=args.web_port)
+    finally:
+        if sim.telnet is not None:
+            sim.telnet.stop()
+            sim.telnet = None
+    return 0
 
 
 def run_client(args):

@@ -151,6 +151,9 @@ class _PipeStatsView:
     _COUNTERS = {"pipelined_chunks": "sim_chunks_pipelined",
                  "sync_chunks": "sim_chunks_sync",
                  "deferred_trips": "sim_deferred_trips"}
+    #: counters made on their first count only (0 until then), so a sim
+    #: that never counts them keeps its registry as it was
+    _LAZY = {"render_errors": "ui_render_errors"}    # ui/web.py pump
 
     def __init__(self, reg):
         self._reg = reg
@@ -161,10 +164,13 @@ class _PipeStatsView:
     def __getitem__(self, k):
         if k == "sync_reasons":
             return self._reasons
+        if k in self._LAZY:
+            m = self._reg.get(self._LAZY[k])
+            return 0 if m is None else int(m.value)
         return int(self._reg.counter(self._COUNTERS[k]).value)
 
     def __setitem__(self, k, v):
-        self._reg.counter(self._COUNTERS[k])._set(v)
+        self._reg.counter({**self._COUNTERS, **self._LAZY}[k])._set(v)
 
     def get(self, k, default=None):
         try:
@@ -173,13 +179,13 @@ class _PipeStatsView:
             return default
 
     def keys(self):
-        return list(self._COUNTERS) + ["sync_reasons"]
+        return list(self._COUNTERS) + list(self._LAZY) + ["sync_reasons"]
 
     def items(self):
         return [(k, self[k]) for k in self.keys()]
 
     def __contains__(self, k):
-        return k in self._COUNTERS or k == "sync_reasons"
+        return k in self._COUNTERS or k in self._LAZY or k == "sync_reasons"
 
     def __repr__(self):
         return repr({k: (dict(v.items())

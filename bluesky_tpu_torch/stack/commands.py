@@ -11,10 +11,6 @@ state's tensors, in place — these run at command cadence
 (human/scenario rate), not step rate; bulk creation goes through the
 batched ``Traffic.flush`` path instead.
 
-The commands of subsystems the port does not have yet (``DEFERRED``) are
-registered with the JAX usage text; each answers False with an echo
-naming its ROADMAP item and changes nothing.
-
 On a networked worker (``simulation/simnode.SimNode``: the sim's
 ``node`` has an ``event_io`` socket) the serving-fabric commands send
 their query or setting to the server as an event, and the worker echoes
@@ -30,16 +26,6 @@ from ..core import wind as windmod
 from . import synthetic
 from ..utils import asnumpy
 from .argparser import txt2alt, txt2spd
-
-#: Commands of subsystems not ported yet: name -> (ROADMAP item, usage,
-#: help), usage and help as the JAX package registers them.
-DEFERRED = {
-    "SCREENSHOT": ("A10.7", "SCREENSHOT [fname.svg]",
-                   "Render the radar picture to an SVG file"),
-}
-
-#: ADS-B range of the SSD disc's intruders (reference SSD.py:110)
-_ADSB_MAX_M = 65.0 * 1852.0
 
 
 def register_all(stack):
@@ -963,6 +949,19 @@ def register_all(stack):
     def tmx():
         return True, "TMX command not (yet?) implemented."
 
+    def screenshot(fname=None):
+        """SCREENSHOT [fname]: SVG radar render of the current state
+        (ui/radar.py — the headless RadarWidget)."""
+        import os as _os
+        from .. import settings as _settings
+        from ..ui import radar
+        if fname is None:
+            _os.makedirs(_settings.log_path, exist_ok=True)
+            fname = _os.path.join(_settings.log_path,
+                                  f"radar_{sim.simt:08.1f}.svg")
+        radar.render_sim(sim, fname)
+        return True, f"Radar snapshot written to {fname}"
+
     def metricscmd(flag=None, dt=None):
         """Bare/OFF/1/2 keep the reference sector-metrics behavior;
         METRICS DUMP reads the sim's telemetry registry, plus
@@ -1559,17 +1558,20 @@ def register_all(stack):
                 # toggle DEselected the disc: no occupancy report (it
                 # would imply the disc is still active)
                 return True, f"{a}: SSD disc deselected"
+            from ..plugins import host_arrays
+            from ..ui import radar
             ac = st().ac
             c = sim.cfg.asas
             i = traf.id2idx(a)
-            conf = _ssd_disc(
-                i, asnumpy(ac.lat), asnumpy(ac.lon), asnumpy(ac.gseast),
-                asnumpy(ac.gsnorth), asnumpy(ac.active), c.vmin, c.vmax,
-                c.rpz_m, c.dtlookahead)
+            lat, lon, gse, gsn, act, inc = host_arrays(
+                ac.lat, ac.lon, ac.gseast, ac.gsnorth, ac.active,
+                st().asas.inconf)
+            conf = radar.ssd_disc(i, lat, lon, gse, gsn, act, c.vmin,
+                                  c.vmax, c.rpz_m, c.dtlookahead)
         else:
             return True, f"SSD: {' '.join(words)}"
         occ = 100.0 * float(np.mean(conf))
-        inconf = bool(st().asas.inconf[i])
+        inconf = bool(inc[i])
         return True, (f"{acname(i)}: SSD disc selected; "
                       f"{'IN CONFLICT' if inconf else 'clear'}; "
                       f"{occ:.0f}% of the velocity envelope blocked")
@@ -1837,6 +1839,8 @@ def register_all(stack):
         "WORLDS": ["WORLDS [ON/OFF | MAX n]", "[txt,txt]", worldscmd,
                    "Multi-world BATCH packing: world-batch size + "
                    "per-bucket packing on/off (readback bare)"],
+        "SCREENSHOT": ["SCREENSHOT [fname.svg]", "[word]", screenshot,
+                       "Render the radar picture to an SVG file"],
         "FAULT": ["FAULT NAN/INF [acid] | BITFLIP [STATE|PAYLOAD] | "
                   "GUARD ../RING .. | DROP/DUP/"
                   "DELAY p | NETOFF | STALL s | STRAGGLE f/STALL/OFF | "
@@ -1874,9 +1878,6 @@ def register_all(stack):
                         cmd or "LIST", name or ""),
                     "List, load or remove plugins"],
     })
-    stack.append_commands({
-        name: [usage, "[string,...]", _deferred(name, item), helptxt]
-        for name, (item, usage, helptxt) in DEFERRED.items()})
 
     # Synonyms (reference stack.py:44-115 subset)
     stack.append_synonyms({
@@ -1907,58 +1908,3 @@ def register_all(stack):
         "METRIC": "METRICS",
     })
 
-
-def _deferred(name, item):
-    """The command function of a subsystem not ported yet: answers
-    False, names its ROADMAP item, changes nothing."""
-    def fn(*args):
-        return False, (f"{name}: not available in bluesky_tpu_torch yet "
-                       f"(ROADMAP {item})")
-    return fn
-
-
-def _ssd_disc(i, lat, lon, gseast, gsnorth, active, vmin, vmax, rpz_m,
-              tlookahead, ntrk=36, nspd=5):
-    """Sample ownship ``i``'s solution space: conf [ntrk, nspd] bool
-    (a copy of the JAX package's ``ui/radar.ssd_disc``).
-
-    Cell (t, s) covers track sector t of the annulus ring s between
-    vmin and vmax; True = that candidate velocity conflicts with at
-    least one intruder within ADS-B range (the cr_ssd CPA predicate,
-    NumPy edition)."""
-    from ..ops import hostgeo
-    lat = np.asarray(lat, float)
-    lon = np.asarray(lon, float)
-    mask = np.asarray(active, bool).copy()
-    mask[i] = False
-    idx = np.flatnonzero(mask)
-    trk_c = (np.arange(ntrk) + 0.5) * (360.0 / ntrk)
-    spd_c = vmin + (np.arange(nspd) + 0.5) * ((vmax - vmin) / nspd)
-    cve = (spd_c[None, :] * np.sin(np.radians(trk_c))[:, None]).ravel()
-    cvn = (spd_c[None, :] * np.cos(np.radians(trk_c))[:, None]).ravel()
-    if len(idx) == 0:
-        return np.zeros((ntrk, nspd), bool)
-    qdr, dist_nm = hostgeo.qdrdist(
-        np.full(len(idx), lat[i]), np.full(len(idx), lon[i]),
-        lat[idx], lon[idx])
-    dist = np.asarray(dist_nm, float) * 1852.0
-    near = dist < _ADSB_MAX_M
-    if not near.any():
-        return np.zeros((ntrk, nspd), bool)
-    qdr = np.asarray(qdr, float)[near]
-    dist = dist[near]
-    dx = dist * np.sin(np.radians(qdr))        # ownship -> intruder east
-    dy = dist * np.cos(np.radians(qdr))
-    ge = np.asarray(gseast, float)[idx][near]
-    gn = np.asarray(gsnorth, float)[idx][near]
-    # w = v_j - u_candidate (StateBasedCD.py:39-40 convention)
-    wve = ge[None, :] - cve[:, None]           # [C, M]
-    wvn = gn[None, :] - cvn[:, None]
-    dv2 = np.maximum(wve * wve + wvn * wvn, 1e-6)
-    tcpa = -(wve * dx[None, :] + wvn * dy[None, :]) / dv2
-    dcpa2 = (dx * dx + dy * dy)[None, :] - tcpa * tcpa * dv2
-    r2 = rpz_m * rpz_m
-    dtin = np.sqrt(np.maximum(0.0, r2 - dcpa2) / dv2)
-    conf = (dcpa2 < r2) & (tcpa + dtin > 0.0) \
-        & (tcpa - dtin < tlookahead)
-    return np.any(conf, axis=1).reshape(ntrk, nspd)

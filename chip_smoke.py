@@ -122,7 +122,8 @@ Phases, in order; any failure exits non-zero before the last line:
     (c) ``value_and_grad_once`` on ``conflict_scene(8)`` in float64 on
     the card against the CPU, ASAS out of the loop and in it (value and
     gradient within 1e-9, equal guard words); (d) the rollout of
-    2,000 aircraft in 2,048 slots (float32, 100 steps of 1 s; 400 until it was cut for time) without
+    2,000 aircraft in 2,048 slots (float32, 50 steps of 1 s; 400, then
+    100 until it was cut for time) without
     and with ASAS: forward and forward+backward ms, peak memory,
     gradient norm, with the card's name and power limit.
 13. partner width phase (``kwide_phase``): partner tables K = 16 wide
@@ -269,6 +270,29 @@ Phases, in order; any failure exits non-zero before the last line:
     every flight created.  The launches of (b) and (c) are the
     ``plugin_launches`` and ``plugin_ensemble_launches`` of the kernels
     line.
+20. UI phase (``ui_phase``; ROADMAP A10.7, A10.9): (a) the web session:
+    ``plugin_sim``'s 10,000 regional aircraft in 10,240 slots (SPARSE,
+    block 256, no pair matrix) served by ``ui.web.serve_sim(sim,
+    run=False)`` on a free loopback port, the script's own loop pumping
+    the backend and stepping ``UI_T`` sim-s of FF without a viewer and
+    ``UI_T`` more with a ``urllib`` viewer thread pulling ``/frame.svg``
+    at ``UI_FPS``: sim-s per wall-s of each, pipelined and synchronous
+    chunks with their sync reasons, host syncs per iteration with and
+    without a render (``count_syncs``), render ms and SVG bytes per
+    frame; then a CRE posted to ``/cmd`` is in the next frame, a click
+    at an aircraft's position on an empty line gives its callsign, and
+    SSD CONFLICTS and ND give one frame each (discs drawn, the ND
+    served).  (b) SCREENSHOT on phase 10's 100,000-aircraft Simulation
+    (``screenshot_100k``, before its profiling): ms and bytes of the
+    file, which parses as XML with one glyph per live aircraft.  (c)
+    the attached mirror on phase 16 (c)'s fabric: a ``GuiClient`` on the
+    server's ports takes the 100k wire node's ACDATA, and ``render_svg``
+    of its ``nodeData`` gives one glyph per aircraft.  (d) the host
+    geodesy core: ``ops.hostgeo.compiled`` True (built with the host
+    compiler), ``UI_GEO_PAIRS`` pairs of qdrdist, qdrpos and kwikqdrdist
+    through the C path and the NumPy path, equal within 1e-12 relative
+    (1e-9 absolute for coinciding pairs), ms of each.  The UI launches
+    no kernel of its own.
 
 Phase 10 ends with the profiling of the 100k Simulation
 (``profile_phase``, ROADMAP A10.5): under CDMETHOD SPARSE the host syncs
@@ -295,6 +319,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2314,6 +2339,7 @@ def sim_continental(dev):
                  "cd_pallas._kernel/eby"):
         if launches[form] < 1:
             raise AssertionError(f"Simulation.run never launched {form}")
+    screenshot_100k(sim)
     ps = sim.pipe_stats
     log(f"sim continental: {time.perf_counter() - t0:.1f} s, simt "
         f"{sim.simt:.2f}, ASAS intervals {float(sim.traf.state.asas_tnext):g}"
@@ -2885,7 +2911,7 @@ def worlds_phase(dev, errs, regs, scale=1):
 DIFF_DEMO_N, DIFF_DEMO_LEG_KM, DIFF_DEMO_OPT = 50, 20.0, (100.0, 4, 0.5)
 DIFF_CHECK_N, DIFF_CHECK_TEND = 8, 100.0
 DIFF_CHECK_RTOL = 1e-9
-DIFF_WIDE = dict(n_ac=2000, nmax=2048, tend=100.0, simdt=1.0,
+DIFF_WIDE = dict(n_ac=2000, nmax=2048, tend=50.0, simdt=1.0,
                  chunk=(50, 25))
 
 _OPT_ECHO = re.compile(
@@ -2982,7 +3008,7 @@ def diff_card_vs_cpu(dev):
 def diff_full_width(dev):
     """Phase 12 (d): the rollout at the full width of the dense worlds
     shape, ``regional_scene(n_ac=2000, nmax=2048)`` in float32, tend
-    100 s at simdt 1, ASAS out of the loop (chunks of 50) and in it
+    50 s at simdt 1, ASAS out of the loop (chunks of 50) and in it
     (chunks of 25: about 40 saved [2048, 2048] tensors a step, so 50
     steps need about 90 GiB): the forward alone (no gradient) and
     forward+backward (``value_and_grad_once``) timed, with the peak
@@ -4318,6 +4344,7 @@ def fabric_worlds_wire(dev, pack=FABRIC_PACK, n_ac=FABRIC_PACK_N,
                                 (time.perf_counter() - t) * 1e3, simt))
             if time.perf_counter() - t0 > 300:
                 raise AssertionError("fabric wire: no ACDATA frames")
+        attached_mirror(srv, node.node_id, wire_n)
         srv.client.stack("HOLD")
         rows = got
         log(f"fabric wire: {wire_n} aircraft ACDATA through the server "
@@ -5387,6 +5414,340 @@ def plugins_phase(dev):
     return cols
 
 
+#: phase 20 (``ui_phase``): the sim seconds of each web run, the viewer's
+#: pull rate, the geodesy pairs; what (b) and (c) measured in phases 10
+#: and 16 (``UI_RESULTS``)
+UI_T = 30
+UI_FPS = 4.0
+UI_GEO_PAIRS = 1_000_000
+UI_GEO_RTOL, UI_GEO_ATOL = 1e-12, 1e-9
+UI_RESULTS = {}
+
+
+def svg_glyphs(svg, parse=True):
+    """Aircraft glyphs of a radar picture: the ``<g data-acid=...>``
+    groups that are not SSD discs.  With ``parse`` the SVG must parse
+    as XML; without, the chevrons' ``rotate(...)" data-acid=`` are
+    counted in the text."""
+    if not parse:
+        return svg.count(')" data-acid=')
+    import xml.etree.ElementTree as ET
+    root = ET.fromstring(svg)
+    return sum(1 for g in root.iter("{http://www.w3.org/2000/svg}g")
+               if "data-acid" in g.attrib and "class" not in g.attrib)
+
+
+def screenshot_100k(sim):
+    """Phase 20 (b): SCREENSHOT on phase 10's 100k Simulation: ms and
+    bytes of the file, one glyph per live aircraft."""
+    path = os.path.abspath(os.path.join("output", "chip_smoke_radar.svg"))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    sim_do(sim, f"SCREENSHOT {path}")
+    ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(path)
+    t1 = time.perf_counter()
+    with open(path) as f:
+        glyphs = svg_glyphs(f.read())
+    parse_ms = (time.perf_counter() - t1) * 1e3
+    os.remove(path)
+    if glyphs != sim.traf.ntraf:
+        raise AssertionError(f"SCREENSHOT: {glyphs} glyphs for "
+                             f"{sim.traf.ntraf} aircraft")
+    UI_RESULTS["screenshot"] = dict(ms=ms, bytes=size, glyphs=glyphs)
+    log(f"ui (b): SCREENSHOT of {glyphs} aircraft in {ms:.1f} ms, "
+        f"{size} bytes, parsed as XML in {parse_ms:.1f} ms")
+
+
+def attached_mirror(srv, node_id, n_ac, timeout=120):
+    """Phase 20 (c): a ``GuiClient`` on phase 16 (c)'s server takes the
+    wire node's ACDATA; ``render_svg`` of its ``nodeData`` gives one
+    glyph per aircraft."""
+    from bluesky_tpu_torch.network.guiclient import GuiClient
+    gui = GuiClient()
+    try:
+        t0 = time.perf_counter()
+        gui.connect(event_port=srv.ports["event"],
+                    stream_port=srv.ports["stream"], timeout=60.0)
+        nd = gui.get_nodedata(node_id)
+        while len(nd.acdata.get("id", [])) != n_ac:
+            srv.poll()
+            gui.receive(10)
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError("ui (c): no full ACDATA frame in the "
+                                     "GuiClient mirror")
+        wait = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        svg = gui.render_svg(nodeid=node_id)
+        ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        gui.close()
+    glyphs = svg_glyphs(svg, parse=False)
+    if glyphs != n_ac:
+        raise AssertionError(f"ui (c): the mirror drew {glyphs} of {n_ac}")
+    UI_RESULTS["mirror"] = dict(ms=ms, bytes=len(svg), glyphs=glyphs,
+                                wait_s=wait)
+    log(f"ui (c): GuiClient mirror of the wire node: first full frame "
+        f"{wait:.2f} s after connect, render_svg {ms:.1f} ms, "
+        f"{len(svg)} bytes, {glyphs} glyphs")
+
+
+class Viewer(threading.Thread):
+    """A browser stand-in: pulls ``/frame.svg`` at ``fps`` until
+    stopped; keeps (ms, bytes) of each pull."""
+
+    def __init__(self, port, fps):
+        super().__init__(daemon=True)
+        self.url = f"http://127.0.0.1:{port}/frame.svg"
+        self.period = 1.0 / fps
+        self.halt = threading.Event()
+        self.pulls = []
+
+    def run(self):
+        import urllib.request
+        t_next = time.perf_counter()
+        while not self.halt.is_set():
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(self.url, timeout=30) as r:
+                n = len(r.read())
+            self.pulls.append(((time.perf_counter() - t0) * 1e3, n))
+            t_next += self.period
+            self.halt.wait(max(0.0, t_next - time.perf_counter()))
+
+
+def web_run(sim, backend, t_sim):
+    """The serve loop for ``t_sim`` sim-s: pump, then one chunk.  Returns
+    (wall s, pipelined chunks, sync chunks, sync reasons)."""
+    ps = sim.pipe_stats
+    p0, s0 = ps["pipelined_chunks"], ps["sync_chunks"]
+    r0 = dict(ps["sync_reasons"].items())
+    t_end = sim.simt_planned + t_sim
+    t0 = time.perf_counter()
+    while sim.simt_planned < t_end - 1e-9:
+        backend.pump()
+        sim.step(max_chunk=CHUNK)
+    sim.drain_pipeline()
+    wall = time.perf_counter() - t0
+    reasons = {k: v - r0.get(k, 0) for k, v in ps["sync_reasons"].items()
+               if v - r0.get(k, 0)}
+    return wall, ps["pipelined_chunks"] - p0, ps["sync_chunks"] - s0, \
+        reasons
+
+
+def web_syncs(sim, backend, n):
+    """Host syncs of ``n`` loop iterations, split by whether the
+    iteration rendered a frame: ([syncs without], [syncs with])."""
+    out = ([], [])
+    for _ in range(n):
+        r0 = backend._last_render
+        k = count_syncs(lambda: (backend.pump(),
+                                 sim.step(max_chunk=CHUNK)))
+        out[backend._last_render != r0].append(k)
+    return out
+
+
+def served(backend, fn):
+    """``fn()`` on a client thread while this thread pumps the backend
+    (no stepping), as the serve loop would between chunks."""
+    box = {}
+    t = threading.Thread(target=lambda: box.setdefault("out", fn()),
+                         daemon=True)
+    t.start()
+    t0 = time.perf_counter()
+    while t.is_alive():
+        backend.pump()
+        t.join(0.005)
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError("ui (a): a request never came back")
+    if "out" not in box:
+        raise AssertionError("ui (a): a request failed")
+    return box["out"]
+
+
+def web_session(dev):
+    """Phase 20 (a): the 10k regional Simulation behind ``serve_sim``."""
+    import contextlib
+    import urllib.request
+    from bluesky_tpu_torch.core import graph
+    from bluesky_tpu_torch.plugins import host_arrays
+    from bluesky_tpu_torch.ui.radar import SSD_MAX_DISCS
+    from bluesky_tpu_torch.ui.web import serve_sim
+    graph.clear()
+    sim, _ = plugin_sim(dev, PLUG_N, PLUG_NMAX)
+    (port,) = free_ports(1)
+    with contextlib.redirect_stdout(sys.stderr):
+        ui = serve_sim(sim, port=port, fps=UI_FPS, run=False)
+    backend = ui.backend
+    renders = []
+    real = backend._render
+
+    def timed_render():
+        t = time.perf_counter()
+        out = real()
+        renders.append(((time.perf_counter() - t) * 1e3, len(out[0])))
+        return out
+    backend._render = timed_render
+    base = f"http://127.0.0.1:{port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.read().decode()
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=body.encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.read().decode()
+    viewer = None
+    try:
+        sim_chunks(sim, 2)                          # warm-up (captures)
+        cap0 = captures()
+        plain = web_run(sim, backend, UI_T)
+        syn_plain = web_syncs(sim, backend, 8)
+        n_plain = len(renders)
+        viewer = Viewer(port, UI_FPS)
+        viewer.start()
+        view = web_run(sim, backend, UI_T)
+        syn_view = web_syncs(sim, backend, 16)
+        viewer.halt.set()
+        viewer.join(timeout=60)
+        frames = renders[n_plain:]
+        log(f"ui (a): {PLUG_N} aircraft, {UI_T} sim-s: without a viewer "
+            f"{UI_T / plain[0]:.4g} sim-s per wall-s ({plain[1]} pipelined"
+            f" / {plain[2]} sync chunks, reasons {plain[3]}, renders "
+            f"{n_plain}); with the viewer at {UI_FPS:g} Hz "
+            f"{UI_T / view[0]:.4g} ({view[1]} / {view[2]}, reasons "
+            f"{view[3]}, {len(viewer.pulls)} pulls); host syncs per "
+            f"iteration without a render {syn_plain[0] + syn_view[0]}, "
+            f"with one {syn_plain[1] + syn_view[1]}; per frame render ms "
+            f"{[round(m, 2) for m, _ in frames]}, SVG bytes "
+            f"{[b for _, b in frames]}; pull ms "
+            f"{[round(m, 2) for m, _ in viewer.pulls]}; graph captures "
+            f"after warm-up {captures() - cap0}")
+        if not frames or syn_plain[0] and max(syn_plain[0]) > 0:
+            raise AssertionError(f"ui (a): renders {frames}, syncs "
+                                 f"{syn_plain}")
+        # a posted CRE is in the next frame
+        served(backend, lambda: post("/cmd", "CRE UI1 B744 52.6 5.4 90 "
+                                     "FL300 250"))
+        if 'data-acid="UI1"' not in served(backend,
+                                           lambda: get("/frame.svg")):
+            raise AssertionError("ui (a): the posted CRE is not in the "
+                                 "next frame")
+        # a click at an aircraft's position on an empty line
+        ac = sim.traf.state.ac
+        lat, lon, act = host_arrays(ac.lat, ac.lon, ac.active)
+        slot = int(np.flatnonzero(act)[17])
+        click = json.loads(served(backend, lambda: post(
+            "/click", json.dumps({"line": "", "lat": float(lat[slot]),
+                                  "lon": float(lon[slot])}))))
+        if click["todisplay"] != sim.traf.ids[slot] + " ":
+            raise AssertionError(f"ui (a): click gave {click}, want "
+                                 f"{sim.traf.ids[slot]}")
+        n0 = len(renders)
+        served(backend, lambda: post("/cmd", "SSD CONFLICTS"))
+        svg = served(backend, lambda: get("/frame.svg"))
+        discs = svg.count('class="ssd"')
+        act, inconf = host_arrays(ac.active, sim.traf.state.asas.inconf)
+        nconf = int((act & inconf).sum())
+        served(backend, lambda: post("/cmd", f"ND {sim.traf.ids[slot]}"))
+        nd = served(backend, lambda: get("/nd.svg"))
+        served(backend, lambda: post("/cmd", "SSD OFF"))
+        log(f"ui (a): the posted CRE in the next frame; a click at "
+            f"{sim.traf.ids[slot]}'s position gave {click['todisplay']!r};"
+            f" SSD CONFLICTS frame {discs} discs ({nconf} aircraft in "
+            f"conflict), ND frame {len(nd)} "
+            f"bytes; render ms / bytes of those frames "
+            f"{[(round(m, 2), b) for m, b in renders[n0:]]}")
+        if discs != min(nconf, SSD_MAX_DISCS) or "<svg" not in nd:
+            raise AssertionError(f"ui (a): SSD discs {discs}, ND {nd[:80]}")
+        if sim.pipe_stats["render_errors"]:
+            raise AssertionError(f"ui (a): {sim.pipe_stats['render_errors']}"
+                                 f" renders failed (logged on stderr)")
+        UI_RESULTS["web"] = dict(plain=UI_T / plain[0], view=UI_T / view[0],
+                                 frames=frames, syncs=(syn_plain, syn_view))
+    finally:
+        if viewer is not None:
+            viewer.halt.set()
+        ui.stop()
+        del sim
+        graph.clear()
+
+
+def geo_pairs(n, seed=20):
+    """``n`` pairs of points, the first thousand coinciding, a tenth
+    across the antimeridian, and bearings and distances for qdrpos."""
+    rng = np.random.default_rng(seed)
+    lat1, lat2 = rng.uniform(-85, 85, n), rng.uniform(-85, 85, n)
+    lon1, lon2 = rng.uniform(-180, 180, n), rng.uniform(-180, 180, n)
+    near = rng.random(n) < 0.5                  # regional pairs
+    lat2[near] = np.clip(lat1[near] + rng.normal(0, 1, near.sum()), -89, 89)
+    lon2[near] = lon1[near] + rng.normal(0, 1.5, near.sum())
+    lat2[:1000], lon2[:1000] = lat1[:1000], lon1[:1000]
+    return (lat1, lon1, lat2, lon2, rng.uniform(0, 360, n),
+            rng.uniform(0, 500, n))
+
+
+def geo_check(name, got, want, same):
+    for g, w in zip(got, want):
+        d = np.abs(g - w)
+        ok = (d <= UI_GEO_RTOL * np.abs(w)) | (same & (d <= UI_GEO_ATOL))
+        if not ok.all():
+            raise AssertionError(f"ui (d): {name} C against NumPy: "
+                                 f"{int((~ok).sum())} pairs off, worst "
+                                 f"{float(d[~ok].max())}")
+
+
+def hostgeo_phase():
+    """Phase 20 (d): the host geodesy core, C against NumPy."""
+    from bluesky_tpu_torch.ops import hostgeo
+    t0 = time.perf_counter()
+    if not hostgeo.compiled:
+        raise AssertionError(f"ui (d): hostgeo not compiled: "
+                             f"{hostgeo.status}")
+    build_s = time.perf_counter() - t0
+    lat1, lon1, lat2, lon2, qdr, dist = geo_pairs(UI_GEO_PAIRS)
+    same = (lat1 == lat2) & (lon1 == lon2)
+    calls = {"qdrdist": lambda: hostgeo.qdrdist(lat1, lon1, lat2, lon2),
+             "qdrpos": lambda: hostgeo.qdrpos(lat1, lon1, qdr, dist),
+             "kwikqdrdist": lambda: hostgeo.kwikqdrdist(lat1, lon1, lat2,
+                                                       lon2)}
+    ms, out = {}, {}
+    try:
+        for path in ("C", "NumPy", "C", "NumPy"):
+            hostgeo.compiled = path == "C"
+            for name, fn in calls.items():
+                t1 = time.perf_counter()
+                out[name, path] = fn()
+                ms.setdefault((name, path), []).append(
+                    (time.perf_counter() - t1) * 1e3)
+    finally:
+        hostgeo.compiled = True
+    for name in calls:
+        geo_check(name, out[name, "C"], out[name, "NumPy"],
+                  same if name != "qdrpos" else np.zeros_like(same))
+    UI_RESULTS["geo"] = ms
+    log(f"ui (d): hostgeo {hostgeo.status} (first use {build_s:.2f} s); "
+        f"{UI_GEO_PAIRS} pairs, C and NumPy equal within {UI_GEO_RTOL:g} "
+        f"relative; ms (two rounds) "
+        + ", ".join(f"{n} {p} {[round(m, 2) for m in v]}"
+                    for (n, p), v in ms.items()))
+
+
+def ui_phase(dev):
+    """Phase 20: the radar and browser UI; (b) and (c) ran in phases 10
+    and 16."""
+    for part in ("screenshot", "mirror"):
+        if part not in UI_RESULTS:
+            raise AssertionError(f"ui: part {part} never ran")
+    t0 = time.perf_counter()
+    web_session(dev)
+    log(f"ui (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hostgeo_phase()
+    log(f"ui (d): {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5478,6 +5839,10 @@ def main():
     epoch.update(plugins_phase(dev))
     log(f"plugins_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after plugins_phase")
+    t0 = time.perf_counter()
+    ui_phase(dev)
+    log(f"ui_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after ui_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
     report += world_report + kwide_report + shard_report + nores_report

@@ -80,8 +80,9 @@ def test_import_without_jax():
     and multi-world batch, the differentiable mode, the shard modes'
     ``parallel.sharding``, the worker's ``network`` modules, ScreenIO,
     the sim nodes and ``__main__``, the SO6 converter, the BS and BADA
-    models and every plugin file among them) import with jax, flax and
-    bluesky_tpu unavailable."""
+    models and every plugin file among them, the radar, the browser UI
+    and the GUI client mirror) import with jax, flax and bluesky_tpu
+    unavailable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'bluesky_tpu'):\n"
@@ -114,7 +115,9 @@ def test_import_without_jax():
         "    'plugins', 'plugins.example', 'plugins.area',\n"
         "    'plugins.sectorcount', 'plugins.geovector', 'plugins.trafgen',\n"
         "    'plugins.ilsgate', 'plugins.stackcheck', 'plugins.ensemble',\n"
-        "    'plugins.opensky', 'plugins.adsbfeed', 'plugins.windgfs')}\n"
+        "    'plugins.opensky', 'plugins.adsbfeed', 'plugins.windgfs',\n"
+        "    'ui', 'ui.palette', 'ui.polytools', 'ui.console', 'ui.radar',\n"
+        "    'ui.radarclick', 'ui.web', 'network.guiclient')}\n"
         "assert need <= seen, need - seen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'bluesky_tpu') and sys.modules[m] is not None]\n"

@@ -18,6 +18,10 @@ profiler.py``, the PROFILE command; ROADMAP A10.5), after JAX's
   ``devprof_chunk`` events with the pinned fields, and two observations
   of each chunk histogram; a second request is refused while one is
   open; a bad count is refused; the echoes of PROFILE are JAX's.
+* The report: ``scripts/torch_devprof_report.py`` on the recorder dump
+  and the Chrome trace of a ``PROFILE DEVICE 2`` window prints one
+  table row per ``devprof_chunk`` event and merges both families on
+  one time axis.
 * The off path: with every feature off the hooks change nothing, and a
   run with the telemetry and the memory sample on is bit-equal to one
   with both off.
@@ -29,6 +33,7 @@ import glob
 import json
 import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -45,6 +50,8 @@ from bluesky_tpu_torch.parallel import sharding
 from bluesky_tpu_torch.simulation.sim import Simulation
 
 from torch_parity import no_pacing, sim_pair
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture()
@@ -310,6 +317,57 @@ def test_profile_start_stop_kernels_and_deep(sim, tmp_path):
         assert "spatial_permutation" in deep and "device memory" in deep
         probes = ("cd_sweep", "cd_all_inactive", "cd_unsorted", "mvp_tail")
         assert all((p in deep) == (method != "dense") for p in probes), deep
+
+
+def test_devprof_report_merges_both_families(sim, tmp_path, monkeypatch):
+    """``scripts/torch_devprof_report.py`` on the recorder dump and the
+    Chrome trace of a CPU ``PROFILE DEVICE 2``: the printed table has
+    one row per ``devprof_chunk`` event with its numbers, and the merged
+    JSON holds the recorder's events and the profiler's, the profiler's
+    moved onto the recorder's axis (inside the window's span)."""
+    monkeypatch.setattr(settings, "trace_dir", str(tmp_path))
+    rec = get_recorder()
+    rec.clear()
+    rec.enable()
+    _fleet(sim)
+    devdir = str(tmp_path / "devprof")
+    do(sim, "OP", f"PROFILE DEVICE 2 {devdir}")
+    try:
+        sim.run(until_simt=sim.simt + 4 * sim.chunk_steps * sim.simdt)
+        sim.drain_pipeline()
+    finally:
+        sim.devprof.abort_window()
+    dump = do(sim, "TRACE DUMP").split("written to ")[1].strip()
+    merged = str(tmp_path / "merged.json")
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "torch_devprof_report.py"),
+         dump, "--profile-dir", devdir, "-o", merged],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    head = lines.index(next(ln for ln in lines if ln.split()[:2]
+                            == ["seq", "chunk"]))
+    rows = [ln.split() for ln in lines[head + 2:]]
+    chunks = sorted((e for e in rec._ring if e["name"] == "devprof_chunk"),
+                    key=lambda e: e["args"]["seq"])
+    assert len(rows) == len(chunks) == 2
+    for row, ev in zip(rows, chunks):
+        a = ev["args"]
+        tot = a["compute_ms"] + a["halo_ms"] + a["edge_ms"]
+        assert row == [str(a["seq"]), str(a["chunk"]),
+                       f"{a['compute_ms']:.2f}", f"{a['halo_ms']:.2f}",
+                       f"{a['edge_ms']:.2f}",
+                       f"{100.0 * a['compute_ms'] / tot:.1f}%"]
+    with open(merged) as fh:
+        doc = json.load(fh)
+    evs = doc["traceEvents"]
+    assert sum(e.get("name") == "devprof_chunk" for e in evs) == 2
+    span = next(e for e in evs if e.get("name") == "device_profile")
+    ops = [e["ts"] for e in evs if e.get("cat") == "cpu_op"]
+    assert ops and span["ts"] <= min(ops) and max(ops) \
+        <= span["ts"] + span["dur"]
+    assert doc["metadata"]["sources"][0] == dump
 
 
 # -------------------------------------------------------------- off path

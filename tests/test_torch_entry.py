@@ -7,8 +7,10 @@ settings, on the CPU.
   time and fleet the scenario gives; without that key and without CUDA
   it raises instead of running on the CPU.
 * ``--help`` lists every mode; ``--attach`` without ``--web`` exits 2
-  with the JAX package's message; ``--web`` refuses, naming its ROADMAP
-  item; ``--sim`` without pyzmq fails naming it.
+  with the JAX package's message; ``--web`` with a CPU config file
+  serves the radar in a subprocess and stops on SIGINT, and without
+  that key and without CUDA raises; ``--sim`` without pyzmq fails
+  naming it.
 * ``--headless`` and the default mode start the port's server in a
   subprocess on the config file's ports; it spawns a torch worker with
   the same config file (a CPU worker here), and SIGTERM stops both with
@@ -123,11 +125,65 @@ def test_attach_requires_web():
     assert "--attach only applies to --web" in err
 
 
-@pytest.mark.parametrize("argv,item", [(["--web"], "A10.7")])
-def test_unported_modes_refuse(argv, item):
-    rc, out, err = _main(argv)
-    assert rc == 2
-    assert f"ROADMAP {item}" in err and "not ported" in err
+def test_web_serves_the_radar_and_stops_on_sigint(tmp_path):
+    """``--web --config-file cpu.cfg --scenfile scn`` in a subprocess
+    serves ``/`` and the scenario's radar frame, runs a posted command,
+    and SIGINT stops it with exit 0."""
+    import json
+    import signal
+    import time
+    import urllib.request
+    from tests.test_network import free_ports
+    (port,) = free_ports(1)
+    cfg = tmp_path / "cpu.cfg"
+    cfg.write_text("device = 'cpu'\ntelnet_port = 0\n")
+    scn = tmp_path / "web.scn"
+    scn.write_text("00:00:00.00>CRE KL1 B744 52 4 90 FL200 250\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bluesky_tpu_torch", "--web", "--web-port",
+         str(port), "--config-file", str(cfg), "--scenfile", str(scn)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_env(PYTHONUNBUFFERED="1"), cwd=tmp_path)
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as r:
+            return r.read().decode()
+    try:
+        t0, page = time.monotonic(), ""
+        while "EventSource" not in page and time.monotonic() - t0 < 120:
+            try:
+                page = get("/")
+            except OSError:
+                time.sleep(0.05)
+        assert "EventSource" in page
+        while 'data-acid="KL1"' not in get("/frame.svg"):
+            assert time.monotonic() - t0 < 120
+            time.sleep(0.05)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/complete", data=b"SCREENS",
+            method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            assert json.loads(r.read())["line"] == "SCREENSHOT "
+    finally:
+        proc.send_signal(signal.SIGINT)
+        out = proc.communicate(timeout=60)[0]
+    assert proc.returncode == 0, out[-2000:]
+    assert f"web UI on http://127.0.0.1:{port}/" in out
+
+
+def test_web_without_cuda_or_device_raises(tmp_path):
+    """No config file: ``--web``'s Simulation asks for CUDA, which this
+    machine lacks, and raises instead of serving a CPU sim."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "from bluesky_tpu_torch.__main__ import main\n"
+            "sys.exit(main(['--web', '--web-port', '0']))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=tmp_path)
+    assert out.returncode != 0
+    assert "RuntimeError" in out.stderr and "CUDA" in out.stderr
+    assert "web UI on" not in out.stdout
 
 
 BLOCKED = ("import sys\n"

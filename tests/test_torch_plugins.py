@@ -37,7 +37,7 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread)
-from torch_parity import jax_tree_to_numpy, partner_sets, sim_do, sim_pair
+from torch_parity import jax_tree_to_numpy, partner_sets, sim_do
 from bluesky_tpu.plugins import BUILTIN_PATH as JPATH
 from bluesky_tpu.plugins import check_plugin as jcheck
 from bluesky_tpu_torch.core.state import state_to_numpy
@@ -49,7 +49,16 @@ CPU = torch.device("cpu")
 
 @pytest.fixture(scope="module")
 def pair():
-    return sim_pair(nmax=64)
+    """Each sim with a datalog registry of its own: a standalone sim
+    shares its package's process-wide one, where loggers that other test
+    files' plugins defined (AREA's FLSTLOG) would add their commands."""
+    from bluesky_tpu.simulation.sim import Simulation as JSim
+    from bluesky_tpu.utils.datalog import LogRegistry as JReg
+    from bluesky_tpu_torch.simulation.sim import Simulation as TSim
+    from bluesky_tpu_torch.utils.datalog import LogRegistry as TReg
+    return (JSim(nmax=64, dtype=jnp.float64, datalog_registry=JReg()),
+            TSim(nmax=64, dtype=torch.float64, device=CPU,
+                 datalog_registry=TReg()))
 
 
 @pytest.fixture(autouse=True)

@@ -12,17 +12,13 @@ their text, SNAPSHOT files by name only (each package pickles its own
 state classes; ``test_torch_snapshot.py`` holds what crosses).
 
 The command surface: the port registers every command name and synonym
-of the JAX package with the same usage text; the commands of
-subsystems it does not have yet answer False with an echo naming their
-ROADMAP item and leave the state and configuration as they were.
+of the JAX package with the same usage text, and defers none: SCREENSHOT,
+the last deferred command, writes the radar SVG JAX writes.
 """
-import numpy as np
 import pytest
 
-from bluesky_tpu_torch.core.state import state_to_numpy
-from bluesky_tpu_torch.stack.commands import DEFERRED
-
-from torch_parity import assert_sims_equal, no_pacing, sim_do, sim_pair
+from torch_parity import (assert_sims_equal, assert_svg_close, no_pacing,
+                          sim_do, sim_pair)
 
 
 @pytest.fixture(autouse=True)
@@ -185,31 +181,32 @@ def test_command_surface():
         assert tst.cmddict[name][0] == entry[0], name
 
 
-@pytest.mark.parametrize("name", sorted(DEFERRED))
-def test_deferred_command(name):
-    """A deferred command answers False (its usage follows the echo),
-    names itself and its ROADMAP item, and changes nothing."""
-    _, tsim = sim_pair()
-    sim_do(tsim, "SYN SUPER 4", "ASAS ON")
-    tsim.run(until_simt=1.0)
-    before = {k: np.array(v, copy=True)
-              for k, v in state_to_numpy(tsim.traf.state).items()}
-    cfg, ids = tsim.cfg, list(tsim.traf.ids)
-    item, usage, _ = DEFERRED[name]
-    for line in (name, f"{name} ON 2"):
-        echo = sim_do(tsim, line)
-        assert echo == [f"{name}: not available in bluesky_tpu_torch yet "
-                        f"(ROADMAP {item})", f"Usage: {usage}"]
-    after = state_to_numpy(tsim.traf.state)
-    assert all(np.array_equal(before[k], after[k]) for k in before)
-    assert (tsim.cfg, tsim.traf.ids) == (cfg, ids)
+def test_screenshot_is_not_deferred(tmp_path):
+    """SCREENSHOT, the last deferred command, is ported with the radar:
+    it writes the SVG the JAX package writes, on the same scenario, and
+    answers with JAX's text."""
+    jsim, tsim = sim_pair()
+    files = []
+    for tag, sim in (("jax", jsim), ("port", tsim)):
+        sim_do(sim, *ROUTE, "BOX SECT 51 3 53 5", "POS KL204", "SSD KL204",
+               "TRAIL ON 1", "OP")
+        sim.run(until_simt=3.0)
+        fname = str(tmp_path / f"{tag}.svg")
+        files.append((sim_do(sim, f"SCREENSHOT {fname}"), fname))
+    (jecho, jname), (techo, tname) = files
+    assert techo == [f"Radar snapshot written to {tname}"]
+    assert jecho == [f"Radar snapshot written to {jname}"]
+    with open(tname) as f, open(jname) as g:
+        got, want = f.read(), g.read()
+    assert 'data-acid="KL204"' in got and "SECT" in got \
+        and 'class="ssd"' in got
+    assert_svg_close(got, want)
 
 
 def test_plugins_left_deferred():
     """PLUGINS left ``DEFERRED`` with the plugin system: it answers as
     the JAX package's does, listing the shipped plugins, loading and
     removing one."""
-    assert "PLUGINS" not in DEFERRED
     jsim, tsim = sim_pair()
     for line in ("PLUGINS", "PLUGINS LIST", "PLUGINS LOAD EXAMPLE",
                  "MYFUN ON", "PLUGINS LIST", "PLUGINS REMOVE EXAMPLE",
@@ -242,7 +239,6 @@ def test_worker_commands_answer_as_jax_detached(name, monkeypatch):
     package's text and sets the same settings."""
     from bluesky_tpu import settings as jsettings
     from bluesky_tpu_torch import settings as tsettings
-    assert name not in DEFERRED
     keys = ("mitigate_enabled", "sdc_enabled", "sdc_audit_rate",
             "ha_standby", "ha_lease_ttl")
     for mod in (jsettings, tsettings):
@@ -260,7 +256,6 @@ def test_worker_commands_answer_as_jax_detached(name, monkeypatch):
 def test_opt_and_grad_are_not_deferred():
     """OPT and GRAD left ``DEFERRED`` with the differentiable mode: they
     are the JAX commands now, and answer as JAX's do without traffic."""
-    assert not {"OPT", "GRAD"} & set(DEFERRED)
     jsim, tsim = sim_pair()
     for line in ("OPT", "GRAD", "OPT 100,2"):
         jecho, techo = sim_do(jsim, line), sim_do(tsim, line)

@@ -16,6 +16,8 @@ eight), while under the test runner's six workers eight spinning
 OpenMP threads a worker oversubscribe the cores (the same file: 1024 s
 in the full run; the whole run 1049 s against 345 s with one thread).
 """
+import re
+
 import numpy as np
 import torch
 
@@ -266,3 +268,22 @@ def diff_close(name, got, want, rtol):
     scale = max(float(np.abs(want[fin]).max(initial=0.0)), 1e-300)
     err = float(np.abs(got[fin] - want[fin]).max(initial=0.0))
     assert err <= rtol * scale, (name, err, scale)
+
+
+# -------------------------------------------------------------- the pictures
+_NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?")
+
+
+def assert_svg_close(got, want, tol=1e-9):
+    """Two pictures (SVG text) equal, or, where the float text differs,
+    every number within ``tol`` (relative above 1): the text between
+    the numbers is equal and the numbers pair up."""
+    if got == want:
+        return
+    assert _NUMBER.split(got) == _NUMBER.split(want), "the text differs"
+    gn = [float(x) for x in _NUMBER.findall(got)]
+    wn = [float(x) for x in _NUMBER.findall(want)]
+    assert len(gn) == len(wn)
+    bad = [(g, w) for g, w in zip(gn, wn)
+           if abs(g - w) > tol * max(1.0, abs(w))]
+    assert not bad, bad[:8]
