@@ -28,8 +28,8 @@
 // All run one per-pair body (cd_pallas._tile_pairs: factored haversine,
 // CPA, horizontal/vertical entry and exit times, conflict and LoS flags,
 // the resolver's displacement sums and a running top-K of partner
-// candidates, K the partner-table width, 1 <= K <= KMAX = 32).  The
-// resolver is the compile-time parameter RESO:
+// candidates, K the partner-table width, any K >= 1).  The resolver is
+// the compile-time parameter RESO:
 //   * RESO_MVP: the MVP displacement of each conflict pair outside NORESO
 //     (cr_mvp.pair_contrib_trig) and its vertical solve time;
 //   * RESO_EBY: the Eby displacement of each conflict pair
@@ -109,11 +109,32 @@
 //   at the fixed stride MAXB, every address a constant offset, the loops
 //   over K unrolled) under __launch_bounds__(256, 4): 64 registers, 4 CTAs
 //   (32 warps) an SM, 44 KB of shared memory each (45 KB with the staged
-//   ids).  Every other K takes the run-time form (KT = 0: K and the stride
-//   B read from the arguments) under __launch_bounds__(256, 3), 80
-//   registers; shared memory then allows 3 CTAs an SM at K = 16 and 1 at
-//   K = 32.  The keep bits of an ownship's old partners are one 32-bit
-//   word, which bounds K at KMAX = 32.
+//   ids).  Every other K up to KWORD = 32 takes the run-time form (KT = 0:
+//   K and the stride B read from the arguments) under
+//   __launch_bounds__(256, 3), 80 registers; shared memory then allows 3
+//   CTAs an SM at K = 16 and 1 at K = 32.  Up to K = 32 the keep bits of
+//   an ownship's old partners are one 32-bit word.
+// * Wide partner tables (K > 32: the wide form, KT = KT_WIDE).  In the
+//   layout above Side would pass the 227 KB a CTA may hold from about
+//   K = 67 at B = 256, and the keep bits would take more than one word.
+//   Of the two ways out, keeping the top-K list and the old partners in
+//   global memory, or splitting a row block's ownships over several CTAs
+//   so that each one's Side fits, this form takes the first: it leaves no
+//   limit on K but device memory, and keeps one CTA per work item, so no
+//   tile is staged twice.  The cost falls where the walk is rare: a
+//   conflict pair inserts into its item's own rows of the partials pct
+//   and pci ([K, G, B], which the merge reads anyway; the row merge uses
+//   its outputs ctin and cidx as the list), and the old partners are read
+//   where the caller passed them (pold [nb, K, B]), K coalesced loads a
+//   tile to build the tile's old-partner mask (up to the thread's last
+//   old partner).  Side then holds only KW = ceil(K / 32) keep words, KW
+//   words of that mask, two counts (the old partners' extent and the
+//   list's length, so an insert moves only the entries it passes) and
+//   gse, gsn and trk: (2 KW + 5) words a thread, 9 KB at K = 64 and
+//   B = 256.  The
+//   walker's keep partials are [G, KW, B] (KW = 1: the [G, B] of the
+//   narrower forms).  The tie order is the same: a list in global memory
+//   takes the same inserts.  Built under __launch_bounds__(256, 3).
 //
 // Bound on the card: the pair math.  Each visited tile costs B*B pairs of
 // 168 f32 operations (the keep predicate adds 26 on the conflict and
@@ -140,7 +161,8 @@ namespace {
 constexpr int NF = 16;        // slab rows (cd_pallas._FIELDS)
 constexpr int MAXB = 256;     // max block width
 constexpr int K8 = 8;         // the default partner-table width K
-constexpr int KMAX = 32;      // widest K: the keep bits are one 32-bit word
+constexpr int KWORD = 32;     // widest K of one keep word (KT = 8 and 0)
+constexpr int KT_WIDE = -1;   // the form of K > KWORD (KW keep words)
 constexpr float BIG = 1e9f;
 constexpr int BIG_I = 1 << 30;
 constexpr int NACC = 8;       // accumulators of every form
@@ -219,42 +241,96 @@ struct Acc {
 // [S] the keep bits of the old partners (RESUME); gse, gsn, trk [S] the
 // ownship fields of the rare paths.  KT > 0 fixes K = KT and S = MAXB at
 // compile time; KT = 0 takes K = kr and S = sr (the launch's B).
+// KT = KT_WIDE (K = kr > KWORD, S = sr): ct and ci in global memory, entry
+// (k, t) at gct[k * gs + t] and gci[k * gs + t]; the old partners read in
+// place, gpold[k * S + t]; in shared memory keep [KW][S], the old-partner
+// mask of the staged tile pm [KW][S] (bit b of word w: partner 32 w + b),
+// kn [S] one past the last old partner (pold[kn..K) are all -1, so the
+// per-tile mask reads no further), kc [S] the entries the top-K list
+// holds (an insert then shifts only those, not all K), then gse, gsn,
+// trk [S].
 template <int KT>
 struct Side {
+  static constexpr bool WIDE = KT < 0;
   float* base;
   int kr, sr;
-  __device__ __forceinline__ int K() const { return KT ? KT : kr; }
-  __device__ __forceinline__ int S() const { return KT ? MAXB : sr; }
+  float* gct = nullptr;   // the wide form's global rows
+  int* gci = nullptr;
+  size_t gs = 0;
+  int* gpold = nullptr;
+  __device__ __forceinline__ int K() const { return KT > 0 ? KT : kr; }
+  __device__ __forceinline__ int S() const { return KT > 0 ? MAXB : sr; }
+  // keep words a thread
+  __device__ __forceinline__ int KW() const {
+    return WIDE ? (kr + KWORD - 1) / KWORD : 1;
+  }
   __device__ __forceinline__ float& ct(int k, int t) const {
+    if constexpr (WIDE) return gct[k * gs + t];
     return base[k * S() + t];
   }
   __device__ __forceinline__ int& ci(int k, int t) const {
+    if constexpr (WIDE) return gci[k * gs + t];
     return reinterpret_cast<int*>(base)[(K() + k) * S() + t];
   }
   __device__ __forceinline__ int& pold(int k, int t) const {
+    if constexpr (WIDE) return gpold[k * S() + t];
     return reinterpret_cast<int*>(base)[(2 * K() + k) * S() + t];
   }
-  __device__ __forceinline__ unsigned& keep(int t) const {
+  // keep word w (always word 0 outside the wide form)
+  __device__ __forceinline__ unsigned& keep(int t, int w = 0) const {
+    if constexpr (WIDE) return reinterpret_cast<unsigned*>(base)[w * S() + t];
     return reinterpret_cast<unsigned*>(base)[3 * K() * S() + t];
   }
+  __device__ __forceinline__ unsigned& pm(int w, int t) const {
+    return reinterpret_cast<unsigned*>(base)[(KW() + w) * S() + t];
+  }
+  __device__ __forceinline__ int& kn(int t) const {
+    return reinterpret_cast<int*>(base)[2 * KW() * S() + t];
+  }
+  __device__ __forceinline__ int& kc(int t) const {
+    return reinterpret_cast<int*>(base)[(2 * KW() + 1) * S() + t];
+  }
+  // the first row past the top-K list, old partners and keep words (and
+  // the wide form's mask words and counts)
+  __device__ __forceinline__ int rows() const {
+    return WIDE ? 2 * KW() + 2 : 3 * K() + 1;
+  }
   __device__ __forceinline__ float& gse(int t) const {
-    return base[(3 * K() + 1) * S() + t];
+    return base[rows() * S() + t];
   }
   __device__ __forceinline__ float& gsn(int t) const {
-    return base[(3 * K() + 2) * S() + t];
+    return base[(rows() + 1) * S() + t];
   }
   __device__ __forceinline__ float& trk(int t) const {
-    return base[(3 * K() + 3) * S() + t];
+    return base[(rows() + 2) * S() + t];
   }
   // the first word past Side: the Swarm sums start there
   __device__ __forceinline__ float* end() const {
-    return base + (3 * K() + 4) * S();
+    return base + (rows() + 3) * S();
   }
 };
 
+// Side at dynamic shared memory dsm, width kk, stride S; in the wide form
+// with its global rows: the top-K list at ct and ci, row stride gs, and
+// the old partners at pold.
+template <int KT>
+__device__ __forceinline__ Side<KT> side_at(float* dsm, int kk, int S,
+                                            float* ct, int* ci, size_t gs,
+                                            const int* pold) {
+  Side<KT> sd{dsm, kk, S};
+  if constexpr (Side<KT>::WIDE) {
+    sd.gct = ct;
+    sd.gci = ci;
+    sd.gs = gs;
+    sd.gpold = const_cast<int*>(pold);
+  }
+  return sd;
+}
+
 // Bytes of Side at width kk and stride S (cd_pallas.cta_shared_bytes).
 constexpr size_t side_bytes(int kk, int S) {
-  return (size_t)(3 * kk + 4) * S * sizeof(float);
+  return (size_t)(kk > KWORD ? 2 * ((kk + KWORD - 1) / KWORD) + 5
+                             : 3 * kk + 4) * S * sizeof(float);
 }
 
 // The reference divides by 6, 20 and 42; compiled, it multiplies by the
@@ -368,11 +444,25 @@ __device__ __forceinline__ bool before(float tin, int id, float ct, int ci) {
 }
 
 // Insert (tin, id) into thread t's top-K list; false if it stays out.
+// The wide form starts at the list's end, kc entries in (the empty slots
+// past it are (BIG, BIG_I)), so an insert moves only the entries it
+// passes.
 template <int KT>
 __device__ bool insert_cand(const Side<KT>& sd, int t, float tin, int id) {
   const int kk = sd.K();
-  if (!before(tin, id, sd.ct(kk - 1, t), sd.ci(kk - 1, t))) return false;
   int j = kk - 1;
+  if constexpr (Side<KT>::WIDE) {
+    const int n = sd.kc(t);
+    if (!before(tin, id, n < kk ? BIG : sd.ct(j, t),
+                n < kk ? BIG_I : sd.ci(j, t)))
+      return false;
+    if (n < kk) {
+      j = n;
+      sd.kc(t) = n + 1;
+    }
+  } else {
+    if (!before(tin, id, sd.ct(kk - 1, t), sd.ci(kk - 1, t))) return false;
+  }
   for (; j > 0 && before(tin, id, sd.ct(j - 1, t), sd.ci(j - 1, t)); --j) {
     sd.ct(j, t) = sd.ct(j - 1, t);
     sd.ci(j, t) = sd.ci(j - 1, t);
@@ -400,16 +490,25 @@ __device__ __forceinline__ void side_begin(const Side<KT>& sd,
                                            const int* pold, int i, int B,
                                            int t) {
   const int kk = sd.K();
+  int kn = 0;
 #pragma unroll
   for (int k = 0; k < kk; ++k) {
     sd.ct(k, t) = BIG;
     sd.ci(k, t) = BIG_I;
-    sd.pold(k, t) = RESUME ? pold[((size_t)i * kk + k) * B + t] : -1;
+    if constexpr (!Side<KT>::WIDE)   // the wide form reads pold in place
+      sd.pold(k, t) = RESUME ? pold[((size_t)i * kk + k) * B + t] : -1;
+    else if (RESUME && sd.pold(k, t) >= 0)
+      kn = k + 1;
   }
-  sd.keep(t) = 0u;
+  for (int w = 0; w < sd.KW(); ++w) sd.keep(t, w) = 0u;
+  if constexpr (Side<KT>::WIDE) {
+    sd.kn(t) = kn;
+    sd.kc(t) = 0;
+  }
 }
 
-// Bits k of the old partners pold[k] inside intruder block jb.
+// Bits k of the old partners pold[k] inside intruder block jb.  The wide
+// form writes them to its KW mask words pm and returns their or.
 template <bool RESUME, int KT>
 __device__ __forceinline__ unsigned old_mask(const Side<KT>& sd, int t,
                                              int jb, int B) {
@@ -417,13 +516,45 @@ __device__ __forceinline__ unsigned old_mask(const Side<KT>& sd, int t,
   if constexpr (RESUME) {
     const int lo = jb * B;
     const int kk = sd.K();
+    if constexpr (Side<KT>::WIDE) {
+      const int kn = sd.kn(t);
+      for (int w = 0; w < sd.KW(); ++w) {
+        unsigned mw = 0u;
+        for (int b = 0; b < KWORD && w * KWORD + b < kn; ++b) {
+          const int q = sd.pold(w * KWORD + b, t);
+          if (q >= lo && q < lo + B) mw |= 1u << b;
+        }
+        sd.pm(w, t) = mw;
+        m |= mw;
+      }
+    } else {
 #pragma unroll
-    for (int k = 0; k < kk; ++k) {
-      const int q = sd.pold(k, t);
-      if (q >= lo && q < lo + B) m |= 1u << k;
+      for (int k = 0; k < kk; ++k) {
+        const int q = sd.pold(k, t);
+        if (q >= lo && q < lo + B) m |= 1u << k;
+      }
     }
   }
   return m;
+}
+
+// The wide form's old-partner test of intruder gid against the staged
+// tile's mask words: without set, whether it is an old partner; with set,
+// its keep bits are set too.  Not inlined: only a tile that holds an old
+// partner calls it.
+template <int KT>
+__device__ __noinline__ bool old_hits(const Side<KT>& sd, int t, int gid,
+                                      bool set) {
+  bool any = false;
+  for (int w = 0; w < sd.KW(); ++w)
+    for (unsigned m = sd.pm(w, t); m; m &= m - 1u) {
+      const int b = __ffs(m) - 1;
+      if (sd.pold(w * KWORD + b, t) != gid) continue;
+      if (!set) return true;
+      sd.keep(t, w) |= 1u << b;
+      any = true;
+    }
+  return any;
 }
 
 // One ownship (column o, slot id gid) against one staged intruder slab
@@ -566,9 +697,13 @@ __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
     // The old partners this intruder is; the keep predicate is read only
     // for them and for a conflict pair.
     unsigned hit = 0u;
-    for (unsigned m = pmask; m; m &= m - 1u) {
-      const int k = __ffs(m) - 1;
-      if (sd.pold(k, tt) == gid_i) hit |= 1u << k;
+    if constexpr (Side<KT>::WIDE) {
+      hit = pmask && old_hits(sd, tt, gid_i, false);
+    } else {
+      for (unsigned m = pmask; m; m &= m - 1u) {
+        const int k = __ffs(m) - 1;
+        if (sd.pold(k, tt) == gid_i) hit |= 1u << k;
+      }
     }
     if (!swconfl && !hit) continue;
     // --- resume-nav keep predicate: cr_mvp.resume_keep_core ---
@@ -583,7 +718,11 @@ __device__ __forceinline__ void tile_pairs(float (*s)[MAXB], const int* sid,
         || ((fabsf(sd.trk(tt) - s[F_TRK][t]) < 30.0f)
             && (hdist < P.rpz_resume));
     if (keep) {
-      sd.keep(tt) |= hit;
+      if constexpr (Side<KT>::WIDE) {
+        if (hit) old_hits(sd, tt, gid_i, true);
+      } else {
+        sd.keep(tt) |= hit;
+      }
       if (swconfl) insert_cand(sd, tt, tinconf, gid_i);
     }
   }
@@ -637,20 +776,28 @@ __device__ void finish_row(const Acc& a, const float* sw,
   }
   const int kk = sd.K();
   const size_t e0 = (size_t)i * kk * B + t;
+  if constexpr (!Side<KT>::WIDE) {   // the wide form's list is ctin, cidx
 #pragma unroll
-  for (int k = 0; k < kk; ++k) {
-    out.ctin[e0 + (size_t)k * B] = sd.ct(k, t);
-    out.cidx[e0 + (size_t)k * B] = sd.ci(k, t);
+    for (int k = 0; k < kk; ++k) {
+      out.ctin[e0 + (size_t)k * B] = sd.ct(k, t);
+      out.cidx[e0 + (size_t)k * B] = sd.ci(k, t);
+    }
   }
   if constexpr (RESUME) {
     const unsigned keep = sd.keep(t);
+    // keep bit k: of the one word, or of word k / 32 in the wide form
+    auto kept = [&](int k) -> unsigned {
+      if constexpr (Side<KT>::WIDE)
+        return (sd.keep(t, k / KWORD) >> (k % KWORD)) & 1u;
+      return (keep >> k) & 1u;
+    };
     int n = 0;
     for (int k = 0; k < kk; ++k) {
-      out.keep[e0 + (size_t)k * B] = (float)((keep >> k) & 1u);
+      out.keep[e0 + (size_t)k * B] = (float)kept(k);
       if (sd.ct(k, t) < BIG) out.merged[e0 + (size_t)(n++) * B] = sd.ci(k, t);
     }
     for (int k = 0; k < kk && n < kk; ++k) {
-      if (!((keep >> k) & 1u)) continue;
+      if (!kept(k)) continue;
       const int q = sd.pold(k, t);
       bool dup = false;
       for (int m = 0; m < kk; ++m)
@@ -673,7 +820,7 @@ __device__ void finish_row(const Acc& a, const float* sw,
 // floats of its sums.  With MESH the ownship column comes from M.own and
 // the ids are lifted to global ones (struct Mesh); without it M is unread.
 template <bool RESUME, bool IDS, int RESO, int KT, bool MESH>
-__global__ void __launch_bounds__(MAXB, KT ? 4 : 3)
+__global__ void __launch_bounds__(MAXB, KT > 0 ? 4 : 3)
 items_kernel(const float* __restrict__ packed, int B,
              const int* __restrict__ tiles, int W,
              const int* __restrict__ istart, const int* __restrict__ ilen,
@@ -687,10 +834,14 @@ items_kernel(const float* __restrict__ packed, int B,
   __shared__ float s[NF][MAXB];
   __shared__ int sid[IDS ? MAXB : 1];
   extern __shared__ float dsm[];   // Side, then [NSW][B] (RESO_SWARM)
-  const Side<KT> sd{dsm, P.kk, B};
-  float* sw = sd.end();
   const int i = order[blockIdx.x / C];
   const size_t g = (size_t)i * C + blockIdx.x % C;
+  const size_t n = (size_t)gridDim.x * B;
+  // the wide form's top-K list: this item's rows of the partials
+  const Side<KT> sd = side_at<KT>(
+      dsm, P.kk, B, pt.ct + g * B, pt.ci + g * B, n,
+      RESUME ? pold + (size_t)i * P.kk * B : nullptr);
+  float* sw = sd.end();
   const int len = ilen[g];
   if (len <= 0) return;
   const int t = threadIdx.x;
@@ -721,7 +872,7 @@ items_kernel(const float* __restrict__ packed, int B,
                                           a, sd, t, P, sw);
     }
   }
-  const size_t n = (size_t)gridDim.x * B, e = g * B + t;
+  const size_t e = g * B + t;
   pt.acc[0 * n + e] = a.inconf;
   pt.acc[1 * n + e] = a.tcpamax;
   pt.acc[2 * n + e] = a.sdve;
@@ -735,24 +886,33 @@ items_kernel(const float* __restrict__ packed, int B,
     for (int k = 0; k < NSW; ++k) pt.acc[(NACC + k) * n + e] = sw[k * B + t];
   }
   const int kk = sd.K();
+  if constexpr (Side<KT>::WIDE) {   // the list is in place; KW keep words
+    if constexpr (RESUME)
+      for (int w = 0; w < sd.KW(); ++w)
+        pt.keep[(g * sd.KW() + w) * B + t] = sd.keep(t, w);
+  } else {
 #pragma unroll
-  for (int k = 0; k < kk; ++k) {
-    pt.ct[k * n + e] = sd.ct(k, t);
-    pt.ci[k * n + e] = sd.ci(k, t);
+    for (int k = 0; k < kk; ++k) {
+      pt.ct[k * n + e] = sd.ct(k, t);
+      pt.ci[k * n + e] = sd.ci(k, t);
+    }
+    if constexpr (RESUME) pt.keep[e] = sd.keep(t);
   }
-  if constexpr (RESUME) pt.keep[e] = sd.keep(t);
 }
 
 // cd_merge_items: ownship t of row block i folds the partials of its
 // row's non-empty items in ascending item order, then finishes the row.
-// Dynamic shared memory holds Side (side_bytes).
+// Dynamic shared memory holds Side (side_bytes); the wide form's list is
+// the row's outputs ctin and cidx.
 template <bool RESUME, int RESO, int KT>
 __global__ void __launch_bounds__(MAXB)
 merge_kernel(int B, int C, int kk, const int* __restrict__ ilen,
              const int* __restrict__ pold, Parts pt, Outs out) {
   extern __shared__ float dsm[];
-  const Side<KT> sd{dsm, kk, B};
   const int i = blockIdx.x, t = threadIdx.x;
+  const size_t r0 = (size_t)i * kk * B;
+  const Side<KT> sd = side_at<KT>(dsm, kk, B, out.ctin + r0, out.cidx + r0,
+                                  B, RESUME ? pold + r0 : nullptr);
   side_begin<RESUME, KT>(sd, pold, i, B, t);
   Acc a = acc_init();
   float sw[NSW] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -777,9 +937,16 @@ merge_kernel(int B, int C, int kk, const int* __restrict__ ilen,
     // each item's list ascends, so its first entry that stays out ends it
     for (int m = 0; m < sd.K(); ++m)
       if (!insert_cand(sd, t, pt.ct[m * n + e], pt.ci[m * n + e])) break;
-    if constexpr (RESUME) keep |= pt.keep[e];
+    if constexpr (RESUME) {
+      if constexpr (Side<KT>::WIDE) {
+        for (int w = 0; w < sd.KW(); ++w)
+          sd.keep(t, w) |= pt.keep[(g * sd.KW() + w) * B + t];
+      } else {
+        keep |= pt.keep[e];
+      }
+    }
   }
-  sd.keep(t) = keep;
+  if constexpr (!Side<KT>::WIDE) sd.keep(t) = keep;
   finish_row<RESUME, RESO, KT>(a, sw, sd, out, i, B, t,
                                (size_t)gridDim.x * B);
 }
@@ -870,6 +1037,19 @@ void prefer_shared(K* kernel, int dyn) {
                          dyn);
 }
 
+// prefer_shared for a launch of dyn bytes, once per kernel for the forms
+// whose largest Side is known at compile time (KT = 8 and 0: max_dyn), at
+// each new largest dyn for the wide form, whose Side grows with K.  opted
+// is the kernel's own record of what it opted in to.
+template <int KT, typename K>
+void opt_in(K* kernel, size_t dyn, size_t max_dyn, size_t& opted) {
+  const size_t want = KT == KT_WIDE ? dyn : max_dyn;
+  if (want > opted) {
+    prefer_shared(kernel, (int)want);
+    opted = want;
+  }
+}
+
 template <bool RESUME, bool IDS, int RESO, int KT, bool MESH>
 int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
                  const int* istart, const int* ilen, const int* order, int C,
@@ -878,13 +1058,11 @@ int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
                  void* stream) {
   constexpr size_t sw_max = RESO == RESO_SWARM ? NSW * MAXB * sizeof(float)
                                                : 0;
-  constexpr size_t dyn_max = side_bytes(KT ? KT : KMAX, MAXB) + sw_max;
-  static bool once = (
-      prefer_shared(items_kernel<RESUME, IDS, RESO, KT, MESH>, (int)dyn_max),
-      true);
-  (void)once;
-  const size_t dyn = side_bytes(P.kk, KT ? MAXB : B)
+  const size_t dyn = side_bytes(P.kk, KT > 0 ? MAXB : B)
       + (RESO == RESO_SWARM ? (size_t)NSW * B * sizeof(float) : 0);
+  static size_t opted = 0;
+  opt_in<KT>(items_kernel<RESUME, IDS, RESO, KT, MESH>, dyn,
+             side_bytes(KT ? KT : KWORD, MAXB) + sw_max, opted);
   items_kernel<RESUME, IDS, RESO, KT, MESH>
       <<<nb * C, B, dyn, (cudaStream_t)stream>>>(
           packed, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
@@ -892,39 +1070,47 @@ int launch_items(const float* packed, int nb, int B, const int* tiles, int W,
   return (int)cudaGetLastError();
 }
 
-// launch_items in the constant K = 8 form or the run-time one, and in the
-// mesh form when M.own is given.
+// launch_items in the form of the width P.kk: the constant K = 8 form,
+// the run-time form up to KWORD or the wide form past it.
+template <bool RESUME, bool IDS, int RESO, bool MESH>
+int launch_kt(const float* packed, int nb, int B, const int* tiles, int W,
+              const int* istart, const int* ilen, const int* order, int C,
+              const int* cand, int c_cap, const int* pold, const Params& P,
+              const Parts& pt, const Mesh& M, void* stream) {
+  if (P.kk == K8)
+    return launch_items<RESUME, IDS, RESO, K8, MESH>(
+        packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
+        P, pt, M, stream);
+  if (P.kk <= KWORD)
+    return launch_items<RESUME, IDS, RESO, 0, MESH>(
+        packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
+        P, pt, M, stream);
+  return launch_items<RESUME, IDS, RESO, KT_WIDE, MESH>(
+      packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
+      pt, M, stream);
+}
+
+// launch_kt in the mesh form when M.own is given.
 template <bool RESUME, bool IDS, int RESO>
 int launch_k(const float* packed, int nb, int B, const int* tiles, int W,
              const int* istart, const int* ilen, const int* order, int C,
              const int* cand, int c_cap, const int* pold, const Params& P,
              const Parts& pt, const Mesh& M, void* stream) {
   if (B <= 0 || B > MAXB || C <= 0 || W <= 0 || (IDS && c_cap < W * B)
-      || P.kk < 1 || P.kk > KMAX || (IDS && M.own) || (M.own && M.rstride < 1))
+      || P.kk < 1 || (IDS && M.own) || (M.own && M.rstride < 1))
     return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
   if constexpr (!IDS) {
-    if (M.own) {
-      if (P.kk == K8)
-        return launch_items<RESUME, IDS, RESO, K8, true>(
-            packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap,
-            pold, P, pt, M, stream);
-      return launch_items<RESUME, IDS, RESO, 0, true>(
+    if (M.own)
+      return launch_kt<RESUME, IDS, RESO, true>(
           packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
           P, pt, M, stream);
-    }
   }
-  if (P.kk == K8)
-    return launch_items<RESUME, IDS, RESO, K8, false>(
-        packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold,
-        P, pt, M, stream);
-  return launch_items<RESUME, IDS, RESO, 0, false>(
+  return launch_kt<RESUME, IDS, RESO, false>(
       packed, nb, B, tiles, W, istart, ilen, order, C, cand, c_cap, pold, P,
       pt, M, stream);
 }
 
-// launch_items in the resolver form reso (cd_pallas.RESO_CODE); the
-// candidate pass (IDS) has no Swarm form.
 template <bool RESUME, bool IDS>
 int launch_reso(int reso, const float* packed, int nb, int B,
                 const int* tiles, int W, const int* istart, const int* ilen,
@@ -955,13 +1141,12 @@ template <bool RESUME, int RESO, int KT>
 void launch_merge_k(int nb, int B, int C, int kk, const int* ilen,
                     const int* pold, const Parts& pt, const Outs& o,
                     void* stream) {
-  static bool once = (prefer_shared(merge_kernel<RESUME, RESO, KT>,
-                                    (int)side_bytes(KT ? KT : KMAX, MAXB)),
-                      true);
-  (void)once;
-  merge_kernel<RESUME, RESO, KT>
-      <<<nb, B, side_bytes(kk, KT ? MAXB : B), (cudaStream_t)stream>>>(
-          B, C, kk, ilen, pold, pt, o);
+  const size_t dyn = side_bytes(kk, KT > 0 ? MAXB : B);
+  static size_t opted = 0;
+  opt_in<KT>(merge_kernel<RESUME, RESO, KT>, dyn,
+             side_bytes(KT ? KT : KWORD, MAXB), opted);
+  merge_kernel<RESUME, RESO, KT><<<nb, B, dyn, (cudaStream_t)stream>>>(
+      B, C, kk, ilen, pold, pt, o);
 }
 
 template <bool RESUME, int RESO>
@@ -970,8 +1155,11 @@ void launch_merge(int nb, int B, int C, int kk, const int* ilen,
                   void* stream) {
   if (kk == K8)
     launch_merge_k<RESUME, RESO, K8>(nb, B, C, kk, ilen, pold, pt, o, stream);
-  else
+  else if (kk <= KWORD)
     launch_merge_k<RESUME, RESO, 0>(nb, B, C, kk, ilen, pold, pt, o, stream);
+  else
+    launch_merge_k<RESUME, RESO, KT_WIDE>(nb, B, C, kk, ilen, pold, pt, o,
+                                          stream);
 }
 
 template <bool RESUME>
@@ -999,7 +1187,8 @@ extern "C" {
 // The split walkers write the partials of their nb * C work items
 // (cd_pallas.work_items: tiles [nb, W], istart and ilen [nb, C], order
 // [nb]); cd_merge_items makes the outputs.  B <= 256; the partner tables
-// and top-K lists are kk wide, 1 <= kk <= 32 (pct and pci [kk, G, B]).
+// and top-K lists are kk wide, any kk >= 1 (pct and pci [kk, G, B]; pkeep
+// [G, ceil(kk / 32), B]).
 // reso is the resolver form (RESO_MVP, RESO_EBY,
 // RESO_SWARM; pacc holds 8 accumulators a work item, 15 with RESO_SWARM),
 // eby_s and eby_s10 the Eby scale (read by RESO_EBY only).
@@ -1092,7 +1281,7 @@ int cd_merge_items(int nb, int B, int C, int kk, const int* ilen,
                    const int* pci, const unsigned* pkeep, float* acc,
                    float* ctin, int* cidx, float* keep, int* merged,
                    float* active, int reso, void* stream) {
-  if (B <= 0 || B > MAXB || C <= 0 || kk < 1 || kk > KMAX)
+  if (B <= 0 || B > MAXB || C <= 0 || kk < 1)
     return (int)cudaErrorInvalidValue;
   if (nb <= 0) return 0;
   Parts pt{const_cast<float*>(pacc), const_cast<float*>(pct),

@@ -40,9 +40,12 @@ parameter of the walker): ``"mvp"`` the MVP pair sums, ``"eby"`` the
 Eby pair sums (``cr_eby.pair_contrib``) on the TAS velocities of the
 ``tr`` slab row, ``"swarm"`` the MVP sums plus seven neighbour sums
 (``cr_swarm.pair_weight``, the CAS in the ``tr`` row) appended to the
-outputs.  The CUDA kernels take a partner width K from 1 to ``MAX_K`` =
-32 (``KK`` = 8, the default of every path, compiled as a constant); the
-plain versions any K.
+outputs.  The CUDA kernels and the plain versions take any partner width
+K >= 1: ``KK`` = 8, the default of every path, is compiled as a constant,
+K up to ``KWORD`` = 32 takes the run-time form, and a wider K the wide
+form (the top-K lists in device memory, ``KW`` keep words an ownship).
+The only limit is memory, which ``check_common`` and ``walk_items``
+check in bytes.
 
 The plain versions and the kernels visit a row's intruders in ascending
 slot id (tiles in ascending block order; candidate ids ascend within a
@@ -78,9 +81,11 @@ CAND_SUB = 32
 #: The default partner-table width K (columns of ``partners_s``), the
 #: kernels' constant form.
 KK = 8
-#: The widest K the kernels take: an ownship's keep bits of its old
-#: partners are one 32-bit word (ROADMAP B2).
-MAX_K = 32
+#: The widest K whose keep bits are one 32-bit word an ownship: the
+#: kernels' narrow forms; a wider K takes the wide form.
+KWORD = 32
+#: Shared memory a CTA may hold on the card (H100: 227 KB).
+MAX_CTA_SHARED = 232_448
 #: Static shared memory of a walker CTA: the [16, 256] f32 slab, and the
 #: staged ids of the candidate pass (one int otherwise).
 _STATIC_SMEM = _NF * 256 * 4
@@ -532,22 +537,31 @@ def alloc_outputs(nb, kk, B, device, resume=True, nacc=8):
     return outs
 
 
+def keep_words(kk):
+    """32-bit keep words an ownship holds at partner width ``kk``."""
+    return -(-kk // KWORD)
+
+
 def cta_shared_bytes(kk, B, reso="mvp", ids=False):
     """Shared memory of one walker CTA at partner width ``kk`` and block
-    ``B``: the staged slab (and ids), ``Side`` of ``cd_tiles.cu`` (the
-    top-K times and ids and the old partners, [kk] each, then the keep
-    bits, gse, gsn and trk: 3 kk + 4 words a thread, in rows of stride
-    256 in the constant K = ``KK`` form, B otherwise) and the Swarm
-    sums."""
+    ``B``: the staged slab (and ids), ``Side`` of ``cd_tiles.cu`` and the
+    Swarm sums.  ``Side`` holds, up to K = ``KWORD``, the top-K times and
+    ids and the old partners, [kk] each, then the keep bits, gse, gsn and
+    trk: 3 kk + 4 words a thread, in rows of stride 256 in the constant
+    K = ``KK`` form, B otherwise; in the wide form only the ``KW`` keep
+    words, ``KW`` words of the tile's old-partner mask, two counts and
+    gse, gsn, trk: 2 KW + 5 words a thread (the top-K lists live in
+    device memory)."""
+    words = 2 * keep_words(kk) + 5 if kk > KWORD else 3 * kk + 4
     return (_STATIC_SMEM + (256 if ids else 1) * 4
-            + (3 * kk + 4) * (256 if kk == KK else B) * 4
+            + words * (256 if kk == KK else B) * 4
             + (N_SWARM * B * 4 if reso == "swarm" else 0))
 
 
 def check_common(packed, pold=None, kk=KK, reso="mvp"):
     """Validate the slab and partner-table operands of a kernel launch:
-    the partner width K from 1 to ``MAX_K`` and ``reso`` a resolver
-    form."""
+    the partner width K >= 1 with a CTA's shared memory within
+    ``MAX_CTA_SHARED`` bytes, and ``reso`` a resolver form."""
     from . import _cuda
     nb, nf, B = packed.shape
     if nf != _NF or not 0 < B <= 256:
@@ -558,13 +572,13 @@ def check_common(packed, pold=None, kk=KK, reso="mvp"):
                          f"{tuple(RESO_CODE)}")
     if pold is not None:
         kk = pold.shape[1]
-    if not 1 <= kk <= MAX_K:
+    if kk < 1:
+        raise ValueError(f"the partner width K must be >= 1, not {kk}")
+    smem = cta_shared_bytes(kk, B, reso, ids=True)
+    if smem > MAX_CTA_SHARED:
         raise ValueError(
-            f"the CUDA tile kernels take 1 <= K <= {MAX_K} partners, not "
-            f"K = {kk}: the keep bits of an ownship's old partners are one "
-            f"32-bit word, and K = {kk} would take "
-            f"{cta_shared_bytes(kk, B, reso)} bytes of shared memory a CTA "
-            f"at B = {B} (ROADMAP.md B2)")
+            f"K = {kk} partners at B = {B} take {smem} bytes of shared "
+            f"memory a CTA, past the {MAX_CTA_SHARED} a CTA may hold")
     _cuda.require(packed, torch.float32, (nb, _NF, B), "packed")
     if pold is not None:
         _cuda.require(pold, torch.int32, (nb, kk, B), "pold")
@@ -707,6 +721,19 @@ def merge_items_plain(parts, B, pold=None, reso="mvp", kk=KK):
     return outs
 
 
+def alloc_or_raise(what, nbytes, make):
+    """``make()``, the allocation of a launch's buffers, which take
+    ``nbytes`` bytes; where the device has no room for them a
+    ``ValueError`` naming the bytes.  Nothing is asked of the device
+    beforehand: a ``torch.cuda.mem_get_info`` a launch costs about a
+    millisecond on the card (PERF.md §6)."""
+    try:
+        return make()
+    except torch.cuda.OutOfMemoryError as e:
+        raise ValueError(f"{what} take {nbytes} bytes, more than the "
+                         f"device has free") from e
+
+
 def walk_items(packed, items, p: TileParams, pold=None, cand=None,
                reso="mvp", kk=KK, mesh: MeshForm = None):
     """Launch a split walker on ``items``: ``cd_sched_tiles`` with the
@@ -717,8 +744,9 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
     lists ``kk`` wide, and in the mesh form ``mesh`` (not the candidate
     pass: the rows are then ``mesh.own``'s, the tiles local blocks of
     ``packed``).  Returns the items' partials ``(acc [8|15, G, B],
-    ct [K, G, B], ci, keep [G, B] or None)``, G = nb * C, for
-    ``merge_items``."""
+    ct [K, G, B], ci, keep [G, KW, B] or None)``, G = nb * C, KW =
+    ``keep_words(K)``, for ``merge_items``.  Raises naming the bytes
+    when these partials do not fit on the device (``alloc_or_raise``)."""
     from . import _cuda
     _, _, B = packed.shape
     nb = (packed if mesh is None else mesh.own).shape[0]
@@ -734,9 +762,16 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
     G = nb * C
     dev = packed.device
     nacc = 8 + (N_SWARM if reso == "swarm" else 0)
-    acc = torch.empty((nacc, G, B), dtype=torch.float32, device=dev)
-    ct = torch.empty((kk, G, B), dtype=torch.float32, device=dev)
-    ci = torch.empty((kk, G, B), dtype=torch.int32, device=dev)
+    kw = keep_words(kk) if pold is not None else 0
+    f32 = dict(dtype=torch.float32, device=dev)
+    acc, ct, ci, keep = alloc_or_raise(
+        f"the partials of {G} work items at K = {kk}",
+        4 * G * B * (nacc + 2 * kk + kw),
+        lambda: (torch.empty((nacc, G, B), **f32),
+                 torch.empty((kk, G, B), **f32),
+                 torch.empty((kk, G, B), dtype=torch.int32, device=dev),
+                 torch.empty((G, kw, B), dtype=torch.int32, device=dev)
+                 if kw else None))
     head = (packed.data_ptr(), nb, B, items.tiles.data_ptr(), W,
             items.start.data_ptr(), items.length.data_ptr(),
             items.order.data_ptr(), C)
@@ -747,7 +782,6 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
     mform = (0, 0, 1, 0, 0) if mesh is None else (
         mesh.own.data_ptr(), int(mesh.row0), int(mesh.rstride),
         int(mesh.col0), 0 if mesh.gid is None else mesh.gid.data_ptr())
-    keep = None
     if cand is not None:
         if mesh is not None:
             raise ValueError("the candidate pass has no mesh form")
@@ -760,7 +794,6 @@ def walk_items(packed, items, p: TileParams, pold=None, cand=None,
                               ci.data_ptr(), *mform, stream)
         _cuda.check(rc, "cd_full_grid")
     else:
-        keep = torch.empty((G, B), dtype=torch.int32, device=dev)
         rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *tail,
                                 acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
                                 keep.data_ptr(), *mform, stream)
@@ -794,7 +827,11 @@ def merge_items(parts, items, B, pold=None, reso="mvp"):
     nb, C = items.length.shape
     resume = pold is not None
     nacc, kk = acc_p.shape[0], ct.shape[0]
-    outs = alloc_outputs(nb, kk, B, ct.device, resume=resume, nacc=nacc)
+    outs = alloc_or_raise(
+        f"the outputs of {nb} row blocks at K = {kk}",
+        4 * nb * B * (nacc + 2 * kk + (2 * kk + 1 if resume else 0)),
+        lambda: alloc_outputs(nb, kk, B, ct.device, resume=resume,
+                              nacc=nacc))
     ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))
     rc = _cuda.load("cd_tiles.cu").cd_merge_items(
         nb, B, C, kk, items.length.data_ptr(),
@@ -1170,8 +1207,9 @@ def detect_resolve_pallas(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     the candidate-list scheduler (see ``run_kernels``); the result is the
     same either way.  ``reso`` is the tile body's resolver form, with
     ``extra_cols`` its ``tas`` (Eby) or ``cas`` (Swarm) column.  The
-    partner candidates are the ``min(k_partners, block)`` most urgent;
-    the CUDA kernels take 1 to ``MAX_K`` and raise past it.  A ``mesh``
+    partner candidates are the ``k_partners`` most urgent, as JAX's
+    (the tiled backend alone keeps ``min(k_partners, block)``), at any
+    width the device's memory holds.  A ``mesh``
     (``parallel/sharding.py``) of more than one shard on ``mesh_axis``
     splits the full grid's rows over its devices (``full_grid_rows``);
     the result is the same.
@@ -1212,7 +1250,7 @@ def _detect_resolve_sorted(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
                 noreso, rpz, tlookahead, block=block, extra_cols=extra_cols,
                 reso=reso)
-    kk = min(k_partners, x.block)
+    kk = k_partners
     outs = run_kernels(x, tile_params(rpz, hpz, tlookahead, mvpcfg),
                        cand_cap, kk, *shards)
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,

@@ -1094,7 +1094,9 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
     ``(rd, partners_new, active, swarm_sums)``: the per-ownship
     reductions in caller order (``rd.topk_*`` sorted-space ids), the
     merged sorted-space partner table, the caller-space ASAS engagement
-    flags and the seven neighbour sums in caller order.
+    flags and the seven neighbour sums in caller order.  K may be any
+    width the device's memory holds: past 32 the walker and the merge run
+    their wide form (``cd_pallas``).
 
     Without ``partners`` (``resume_rpz_m`` unread) the no-resume form
     runs: a fleet of at most ``2 * block`` aircraft goes to

@@ -126,22 +126,32 @@ Phases, in order; any failure exits non-zero before the last line:
     100 until it was cut for time) without
     and with ASAS: forward and forward+backward ms, peak memory,
     gradient norm, with the card's name and power limit.
-13. partner width phase (``kwide_phase``): partner tables K = 16 wide
-    (``Traffic(k_partners=16)``, the path JAX's users take for denser
-    studies).  (a) every kernel form (K1, K2, K3 in MVP, Eby and Swarm;
-    K4 in MVP and Eby) at K = 16 and the MVP forms at K = 1, 3 and 32,
-    each against its plain version on the check shapes of phase 3;
-    (b) phases 4 and 5 at K = 16 and at K = 32: ``main_scene`` through
-    three 20-step chunks on sparse and pallas, the candidate-mode call,
-    the chunk rate, ASAS interval, peak memory and rows with more than 8
-    partners, each kernel timed, bounded and held to its plain version;
-    (c) ``regional_scene`` (10,000 in 10,240 slots) at K = 16 on sparse
-    and pallas under EBY, SWARM and SSD, with the Eby candidate call;
-    (d) one stacked worlds group at K = 16 (16 x 2,000 sparse MVP), each
-    world held to its solo run; (e) one ``snapshot.save`` and one
-    ``snapshot.load`` of a 100k K = 16 ``Simulation``: ms, bytes, and the
-    restored state bit for bit the saved one.  The kernels line lists the
-    K = 16 forms (and the K = 32 MVP forms) by ``kname``.
+13. partner width phase (``kwide_phase``): partner tables K = 16 and
+    K = 64 wide (``Traffic(k_partners=K)``, the path JAX's users take for
+    denser studies; past K = 32 the walker and the merge run their wide
+    form, the top-K lists in device memory).  (a) every kernel form (K1,
+    K2, K3 in MVP, Eby and Swarm; K4 in MVP and Eby) at K = 16 and 64 and
+    the MVP forms at K = 1, 3, 32, 33 and 128, each against its plain
+    version on the check shapes of phase 3, the MVP and Eby forms at
+    K = 64 and the MVP forms at 33 and 128 also on a clump of 700
+    aircraft within 0.36 deg (block 64; rows with more than 32
+    partners), and the three mesh forms
+    (``rows``, ``col0``, ``gid``) at K = 64 MVP as phase 14 (a) checks
+    them; (b) phases 4 and 5 at K = 16 and at K = 64: ``main_scene``
+    through three 20-step chunks on sparse and pallas, the
+    candidate-mode call, the chunk rate, ASAS interval, peak memory and
+    rows with more than 8 (and 32) partners, each kernel timed, bounded
+    and held to its plain version, and at K = 64 also K1-K4 at K = 33
+    and 128 on the same operands (the partner table cut or widened by
+    empty slots; 0 launches: off the path); (c) ``regional_scene``
+    (10,000 in 10,240 slots) at K = 64 on sparse and pallas under EBY,
+    SWARM and SSD, with the Eby candidate call; (d) one stacked worlds
+    group at K = 64 (16 x 2,000 sparse MVP), each world held to its solo
+    run; (e) one ``snapshot.save`` and one ``snapshot.load`` of a 100k
+    K = 64 ``Simulation``: ms, bytes, and the restored state bit for bit
+    the saved one.  Each part logs its seconds.  The kernels line lists
+    the K = 16, 33, 64 and 128 forms by ``kname``; the phase fails if a
+    K = 64 form goes unmeasured.
 14. shard phase (``shard_phase``): the shard modes on ``SHARDS`` = 4
     shards of the one card (a mesh that repeats ``cuda:0``).  (a) every
     mesh form of the walker (``MESH_FORMS``: K1's row subset, ``col0``
@@ -405,22 +415,32 @@ def kname(name, kk):
     return name if kk == 8 else f"{name}/k{kk}"
 
 
+def walker_width(kk):
+    """The suffix of a walker's K form in ``WALKERS``: none for the
+    constant K = 8 form, ``/kwide`` for the run-time form up to K = 32,
+    ``/wide`` for the wide form past it."""
+    return "" if kk == 8 else "/kwide" if kk <= 32 else "/wide"
+
+
 #: each form's walker, by a piece of its mangled name in the ``nvcc
 #: -Xptxas -v`` report (items_kernel<RESUME, IDS, RESO, KT, MESH>): the
-#: constant K = 8 form (KT = 8), and with ``/kwide`` the run-time form
-#: every other K takes (KT = 0); with ``/mesh`` the mesh form (MESH) of
+#: constant K = 8 form (KT = 8), with ``/kwide`` the run-time form of
+#: the other K up to 32 (KT = 0), with ``/wide`` the form of K > 32 (KT =
+#: KT_WIDE = -1, mangled ``n1``); with ``/mesh`` the mesh form (MESH) of
 #: the shard modes
 WALKERS = {
-    form_name(k, r) + wide + mesh:
+    form_name(k, r) + walker_width(kk) + mesh:
     "items_kernelILb{}ELb{}ELi{}ELi{}ELb{}E".format(
         int(k in ("cd_sched._sched_kernel", "cd_pallas._kernel_resume")),
         int(k == "cd_pallas._kernel_cand"), RESOS.index(r), kt, int(bool(mesh)))
-    for k, r in FORMS for wide, kt in (("", 8), ("/kwide", 0))
+    for k, r in FORMS for kk, kt in ((8, 8), (16, 0), (64, "n1"))
     for mesh in ("", "/mesh") if not (mesh and k == "cd_pallas._kernel_cand")}
-#: phase 13 (``kwide_phase``): every kernel form at partner width KWIDE,
-#: the MVP forms at KWIDE_MVP as well
+#: phase 13 (``kwide_phase``): every kernel form at partner widths KWIDE
+#: and KWIDER (the wide form), the MVP forms at KWIDE_MVP as well (33
+#: and 128 also timed on the K = 64 path's operands)
 KWIDE = 16
-KWIDE_MVP = (1, 3, 32)
+KWIDER = 64
+KWIDE_MVP = (1, 3, 32, 33, 128)
 #: candidate capacity of the pallas path's candidate-mode call
 CAND_CAP = 4096
 #: work items per row of the split checks, so that most rows split
@@ -465,9 +485,10 @@ def kernel_registers(report):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"\d([a-z_]+_kernel)((?:I?L[bi]\d+E)*)", name)
-            flags = [("true" if v == "1" else "false") if t == "b" else v
-                     for t, v in re.findall(r"L([bi])(\d+)E", k.group(2))]
+            k = re.search(r"\d([a-z_]+_kernel)((?:I?L[bi]n?\d+E)*)", name)
+            flags = [("true" if v == "1" else "false") if t == "b"
+                     else v.replace("n", "-")
+                     for t, v in re.findall(r"L([bi])(n?\d+)E", k.group(2))]
             short = k.group(1) + (f"<{', '.join(flags)}>" if flags else "")
             log(f"registers: {short}: {m.group(1)}, spill stores/loads "
                 f"{spill[0]}/{spill[1]} bytes")
@@ -844,6 +865,93 @@ def check_width_kernels(dev, errs, kk, resos=RESOS, scale=1):
             f"than 8 partners){more}: match")
 
 
+def dense_clump(n=700, seed=3, radius=0.36):
+    """The CD inputs of ``n`` aircraft within ``radius`` deg of 52.6 N
+    5.4 E at 9,500 m +- 300, from a numpy seed: at block 64 hundreds of
+    rows conflict with more than 32 others (the drawn-in clump of
+    ``tests/test_torch_kwide.py``, denser)."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    r = radius * np.sqrt(rng.random(n))
+    return dict(lat=52.6 + r * np.cos(ang), lon=5.4 + r * np.sin(ang) / 0.6,
+                trk=rng.uniform(0.0, 360.0, n), gs=rng.uniform(130.0, 240.0, n),
+                alt=9500.0 + rng.uniform(-300.0, 300.0, n),
+                vs=rng.uniform(-2.0, 2.0, n), active=rng.random(n) > 0.05)
+
+
+def check_dense_kernels(dev, errs, kk, reso="mvp", B=64):
+    """Phase 13 (a): every kernel of ``reso`` at partner width ``kk`` on
+    ``dense_clump`` (block ``B``), where rows hold more than 32
+    partners: K1 and K2 (K2 on every row's reachable blocks, so every old
+    partner is tested) on the second interval with the first interval's
+    ``kk``-wide table, K3 in Morton order and K4 at a capacity of four
+    blocks, each against its plain version as ``check_split`` holds
+    them.  Fails unless some merged row holds more than 32 partners
+    when ``kk`` > 32."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled, cr_mvp
+    mvp = cr_mvp.MVPConfig(rpz_m=5 * NM * 1.05, hpz_m=1000 * FT * 1.05,
+                           tlookahead=300.0)
+    p = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp, 5 * NM * 1.05)
+    pp = cd_pallas.tile_params(5 * NM, 1000 * FT, 300.0, mvp)
+    c = dense_clump()
+    col = extra_col(c, reso, dev)
+    n = len(c["lat"])
+    n_tot = cd_sched.padded_size(n, B)
+    table = torch.full((n_tot, kk), -1, dtype=torch.int32, device=dev)
+    x = None
+    for t_ahead in (0.0, 20.0):
+        x = cd_sched.prepare(*cd_args(c, dev, t_ahead), 5 * NM, 1000 * FT,
+                             300.0, table, block=B, s_cap=2,
+                             perm=None if x is None else x.perm,
+                             **reso_kw(reso, col))
+        if not t_ahead:
+            table = cd_sched.run_kernels(x, p)[11].transpose(1, 2) \
+                .reshape(n_tot, kk).contiguous()
+    name = lambda k: f"{kname(form_name(k, reso), kk)} dense clump"
+    e1 = check_split(name("cd_sched._sched_kernel"), lambda **kw:
+                     cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
+                                          x.pold, p, reso=reso, **kw),
+                     cd_sched.sched_tiles_plain(x.packed, x.wst, x.wln,
+                                                x.wmax, x.pold, p, reso))[0]
+    e2, o2 = check_split(name("cd_pallas._kernel_resume"), lambda **kw:
+                         cd_pallas.full_grid_resume(x.packed, x.reach,
+                                                    x.pold, p, reso=reso,
+                                                    **kw),
+                         cd_pallas.full_grid_resume_plain(
+                             x.packed, x.reach, x.pold, p, reso))
+    wide = int(((o2[11] >= 0).sum(1) > 32).sum())
+    cols = cd_args(c, dev)
+    perm = cd_tiled.spatial_permutation(cols[0], cols[1], cols[8]).long()
+    xp = cd_pallas.prepare(*[a[perm] for a in cols], 5 * NM, 300.0, block=B,
+                           **reso_kw(reso, None if col is None else col[perm],
+                                     False))
+    e3 = check_split(name("cd_pallas._kernel"), lambda **kw:
+                     cd_pallas.full_grid(xp.packed, xp.reach, pp, reso=reso,
+                                         kk=kk, **kw),
+                     cd_pallas.full_grid_plain(xp.packed, xp.reach, pp, reso,
+                                               kk))[0]
+    e4 = 0.0
+    if reso != "swarm":
+        cand, _ = cd_pallas.build_candidates(
+            xp.lat, xp.lon, xp.gs, xp.active, xp.nb, xp.block, 4 * B,
+            5 * NM, 300.0)
+        e4 = check_split(name("cd_pallas._kernel_cand"), lambda **kw:
+                         cd_pallas.cand_tiles(xp.packed, cand, pp, reso=reso,
+                                              kk=kk, **kw),
+                         cd_pallas.cand_tiles_plain(xp.packed, cand, pp, reso,
+                                                    kk))[0]
+    for k, e in zip(KERNELS, (e1, e2, e3, e4)):
+        errs[kname(form_name(k, reso), kk)] = max(
+            errs.get(kname(form_name(k, reso), kk), 0.0), e)
+    log(f"check K={kk} {reso} dense clump (N={n}, B={B}): max abs err K1 "
+        f"{e1:.3g}, K2 {e2:.3g}, K3 {e3:.3g}, K4 {e4:.3g}; rows with more "
+        f"than 32 merged partners {wide}, old partners "
+        f"{int((x.pold >= 0).sum())}, kept {int(o2[10].sum())}: match")
+    if kk > 32 and not wide:
+        raise AssertionError(f"dense clump K={kk}: no row past 32 partners")
+
+
 def split_rows(items):
     """Rows of a ``WorkItems`` cut into more than one item."""
     return int(((items.length > 0).sum(1) > 1).sum())
@@ -1049,12 +1157,12 @@ def drive(dev, backend, n_ac, nmax, scene=main_scene, **kw):
     return state, cfg, chunk_s
 
 
-def wide_rows(state):
+def wide_rows(state, more=8):
     """Rows of the state's partner tables (the caller-space ``partners``
     and the sparse backend's sorted-space ``partners_s``, the fuller of
-    the two) that hold more than 8 partners."""
+    the two) that hold more than ``more`` partners."""
     a = state.asas
-    return max(int(((t >= 0).sum(-1) > 8).sum())
+    return max(int(((t >= 0).sum(-1) > more).sum())
                for t in (a.partners, a.partners_s))
 
 
@@ -1082,7 +1190,8 @@ def check_run(backend, state, cfg, launches, chunk_s, n_ac):
     kk = state.asas.partners.shape[-1]
     if kk != 8:
         log(f"{backend}: partner tables {kk} wide, rows with more than 8 "
-            f"partners {wide_rows(state)}")
+            f"partners {wide_rows(state)}"
+            + (f", more than 32 {wide_rows(state, 32)}" if kk > 32 else ""))
 
 
 def time_layers(backend, layers):
@@ -1150,7 +1259,7 @@ def report_kernels(runs, launches, errs, regs):
         reso = r.get("reso", reso)
         kk = r.get("kk", 8)
         walker = r.get("walker", form_name(kernel, reso or "mvp")
-                       + ("" if kk == 8 else "/kwide"))
+                       + walker_width(kk))
         nreg, st, ld = regs.get(walker, (None, None, None))
         report.append(dict(
             name=name, route="cuda", source=KERNELS[kernel]["source"],
@@ -1185,11 +1294,13 @@ def item_extra(name, x, items, p, pold=None, cand=None, prefix="",
 
 
 def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
-                kk=8):
+                kk=8, more=()):
     """Phase 4: the port's sparse step at 100k aircraft.  ``k2_regional``
     (``check_kernels``) joins K2's JSON entry.  Phase 13 (b) runs it with
     partner tables ``kk`` wide (the entries named by ``kname``), the ASAS
-    interval the only layer timed."""
+    interval the only layer timed, and times K1 and K2 at each width of
+    ``more`` as well, on the same operands with the partner table cut or
+    widened by empty slots (off the path: 0 launches)."""
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
 
@@ -1258,6 +1369,36 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
                                   cd_pallas.reach_items(reach_f), p,
                                   pold=x.pold), **k2_regional)),
     }
+    for q in more:
+        xq = x._replace(pold=(x.pold[:, :q] if q <= kk
+                              else wider(x.pold, q)).contiguous())
+        q1 = cd_sched.sched_tiles(xq.packed, xq.wst, xq.wln, xq.wmax,
+                                  xq.pold, p)
+        q2 = cd_pallas.full_grid_resume(xq.packed, reach_f, xq.pold, p)
+        n1, n2 = (kname(k, q) for k in names)
+        launches.update({n1: 0, n2: 0})
+        runs[n1] = dict(
+            kern=lambda xq=xq, **kw: cd_sched.sched_tiles(
+                xq.packed, xq.wst, xq.wln, xq.wmax, xq.pold, p, **kw),
+            plain=lambda xq=xq: cd_sched.sched_tiles_plain(
+                xq.packed, xq.wst, xq.wln, xq.wmax, xq.pold, p),
+            pairs=runs[kname(names[0], kk)]["pairs"],
+            keep=keep_pairs(xq, sched_tiles_of, q1[6]),
+            bytes=in_out_bytes(xq, True) + 2 * x.wst.numel() * 4,
+            tiles=int(ln.sum()), kk=q, reso="mvp",
+            extra=item_extra(n1, xq, cd_sched.window_items(
+                x.wst, x.wln, x.wmax, nb), p, pold=xq.pold))
+        runs[n2] = dict(
+            kern=lambda xq=xq, **kw: cd_pallas.full_grid_resume(
+                xq.packed, reach_f, xq.pold, p, **kw),
+            plain=lambda xq=xq: cd_pallas.full_grid_resume_plain(
+                xq.packed, reach_f, xq.pold, p),
+            pairs=runs[kname(names[1], kk)]["pairs"],
+            keep=keep_pairs(xq, lambda i: np.flatnonzero(rf[i]), q2[6]),
+            bytes=in_out_bytes(xq, True) + nb * nb, tiles=int(rf.sum()),
+            kk=q, reso="mvp",
+            extra=item_extra(n2, xq, cd_pallas.reach_items(reach_f), p,
+                             pold=xq.pold))
     per_row = ln.sum(1)
     log(f"{tag}: overflow rows {int(x.overflow.sum())}, scheduled tiles "
         f"per interval {int(ln.sum())} (per row block: mean "
@@ -1282,11 +1423,13 @@ def cand_pairs(x, cand):
     return int(pairs.sum())
 
 
-def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8):
+def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8,
+                more=()):
     """Phase 5: the port's pallas step at 100k aircraft, then one
     candidate-mode pass on the stepped state.  Phase 13 (b) runs it with
     partner tables ``kk`` wide (the entries named by ``kname``), without
-    the capacity sweep."""
+    the capacity sweep, and times K3 and K4 at each width of ``more`` as
+    well, on the same operands (off the path: 0 launches)."""
     import torch
     from bluesky_tpu_torch.core import asas
     from bluesky_tpu_torch.ops import cd_pallas, cr_mvp
@@ -1345,7 +1488,7 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8):
     nb, B = x.nb, x.block
     rh = x.reach.cpu().numpy()
 
-    def cand_run(cand, cap):
+    def cand_run(cand, cap, kk=kk):
         name = kname(f"cd_pallas._kernel_cand at cand_cap={cap}", kk)
         return dict(
             kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, kk=kk,
@@ -1372,6 +1515,19 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8):
                              cd_pallas.reach_items(x.reach), p, kk=kk)),
         kname("cd_pallas._kernel_cand", kk): cand_run(cand, CAND_CAP),
     }
+    for q in more:
+        n3, n4 = (kname(k, q) for k in names)
+        launches.update({n3: 0, n4: 0})
+        runs[n3] = dict(
+            kern=lambda q=q, **kw: cd_pallas.full_grid(x.packed, x.reach, p,
+                                                       kk=q, **kw),
+            plain=lambda q=q: cd_pallas.full_grid_plain(x.packed, x.reach, p,
+                                                        kk=q),
+            pairs=runs[kname(names[0], kk)]["pairs"],
+            bytes=in_out_bytes(x, False, q) + nb * nb, tiles=int(rh.sum()),
+            kk=q, reso="mvp",
+            extra=item_extra(n3, x, cd_pallas.reach_items(x.reach), p, kk=q))
+        runs[n4] = cand_run(cand, CAND_CAP, q)
     report = report_kernels(runs, launches, errs, regs)
     if kk != 8:
         return report
@@ -3086,7 +3242,7 @@ def diff_phase(dev):
 KWIDE_SNAP = os.path.join("output", "chip_smoke_kwide.snap")
 
 
-def snapshot_kwide(dev, n_ac=100_000, nmax=100_352, kk=KWIDE):
+def snapshot_kwide(dev, n_ac=100_000, nmax=100_352, kk=KWIDER):
     """Phase 13 (e): a ``Simulation`` on the card whose ``Traffic`` has no
     [N, N] ``resopairs`` and partner tables ``kk`` wide, ``n_ac``
     aircraft of ``main_scene``'s geometry created in it, CDMETHOD SPARSE,
@@ -3154,51 +3310,64 @@ def snapshot_kwide(dev, n_ac=100_000, nmax=100_352, kk=KWIDE):
 
 
 def kwide_phase(dev, errs, regs, scale=1):
-    """Phase 13: partner tables ``KWIDE`` = 16 wide (and the MVP forms at
-    ``KWIDE_MVP``): (a) every kernel form at K = 16 and the MVP forms at
-    K = 1, 3 and 32 against their plain versions on the check shapes
-    (``check_width_kernels``); (b) ``main_scene`` at K = 16 and, MVP only,
-    32 through ``sparse_path`` and ``pallas_path`` (three 20-step chunks
-    of ``run_steps_edge``, with the candidate-mode call), each kernel
-    timed and bounded; (c) ``regional_scene`` 10,000 in 10,240 slots at
-    K = 16, sparse and pallas under EBY, SWARM and SSD
-    (``resolver_path``; with pallas and EBY the candidate call); (d) one
-    stacked worlds group at K = 16 (16 x 2,000 sparse MVP), each world
-    held to its solo run; (e) ``snapshot_kwide``.  Returns the kernels
-    JSON entries of the K = 16 forms and the K = 32 MVP forms; fails
-    unless every K = 16 form was measured."""
+    """Phase 13: partner tables ``KWIDE`` = 16 and ``KWIDER`` = 64 wide
+    (the wide form past 32), and the MVP forms at ``KWIDE_MVP``: (a)
+    every kernel form at K = 16 and 64 and the MVP forms at K = 1, 3, 32,
+    33 and 128 against their plain versions on the check shapes
+    (``check_width_kernels``), the MVP and Eby forms at K = 64 and the
+    MVP forms at 33 and 128 on ``dense_clump``, where rows hold more than
+    32 partners (``check_dense_kernels``; not Swarm: its neighbour sums
+    over rows of hundreds of neighbours there miss ``compare_outputs``' rtol by
+    float32 order at any K, as the g++ rehearsal of the kernels showed at
+    K = 8), and the three mesh forms at K = 64 MVP
+    (``check_mesh_forms``); (b) ``main_scene`` at K = 16 and 64 through
+    ``sparse_path`` and ``pallas_path`` (three 20-step chunks, with the
+    candidate-mode call), each kernel timed and bounded, at K = 64 also
+    K1-K4 at K = 33 and 128 on the path's operands; (c)
+    ``regional_scene`` 10,000 in 10,240 slots at K = 64, sparse and
+    pallas under EBY, SWARM and SSD (``resolver_path``; with pallas and
+    EBY the candidate call); (d) one stacked worlds group at K = 64 (16 x
+    2,000 sparse MVP), each world held to its solo run; (e)
+    ``snapshot_kwide`` at K = 64.  Logs each part's seconds.  Returns the
+    kernels JSON entries; fails unless every K = 64 form was measured."""
     report = []
     t0 = time.perf_counter()
-    check_width_kernels(dev, errs, KWIDE, scale=scale)
+    for kk in (KWIDE, KWIDER):
+        check_width_kernels(dev, errs, kk, scale=scale)
     for kk in KWIDE_MVP:
         check_width_kernels(dev, errs, kk, ("mvp",), scale=scale)
+    for reso, kk in (("mvp", KWIDER), ("eby", KWIDER), ("mvp", 33),
+                     ("mvp", 128)):
+        check_dense_kernels(dev, errs, kk, reso)
+    check_mesh_forms(dev, errs, "mvp", KWIDER, scale)
     log(f"kwide (a): {time.perf_counter() - t0:.1f} s")
-    for kk in (KWIDE, 32):
+    for kk in (KWIDE, KWIDER):
         t0 = time.perf_counter()
+        more = tuple(q for q in KWIDE_MVP if q > 32) if kk == KWIDER else ()
         report += sparse_path(dev, errs, regs, {}, 100_000 // scale,
-                              100_352 // scale, kk=kk)
+                              100_352 // scale, kk=kk, more=more)
         report += pallas_path(dev, errs, regs, 100_000 // scale,
-                              100_352 // scale, kk=kk)
+                              100_352 // scale, kk=kk, more=more)
         log(f"kwide (b) K={kk}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for backend in ("sparse", "pallas"):
         for method in ("EBY", "SWARM", "SSD"):
             report += resolver_path(dev, errs, regs, backend, method,
                                     10_000 // scale, 10_240 // scale,
-                                    kk=KWIDE, scene=regional_scene,
+                                    kk=KWIDER, scene=regional_scene,
                                     cd_block=256, pair_matrix=False)
     log(f"kwide (c): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     worlds_batched_vs_solo(dev, "sparse", (max(2, 16 // scale), 2_000, 2_048),
-                           kk=KWIDE)
+                           kk=KWIDER)
     log(f"kwide (d): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    snapshot_kwide(dev, 100_000 // scale, 100_352 // scale)
+    snapshot_kwide(dev, 100_000 // scale, 100_352 // scale, kk=KWIDER)
     log(f"kwide (e): {time.perf_counter() - t0:.1f} s")
-    missing = {kname(form_name(k, r), KWIDE) for k, r in FORMS} \
+    missing = {kname(form_name(k, r), KWIDER) for k, r in FORMS} \
         - {e["name"] for e in report}
     if missing:
-        raise AssertionError(f"K={KWIDE} forms never measured: "
+        raise AssertionError(f"K={KWIDER} forms never measured: "
                              f"{sorted(missing)}")
     return report
 
@@ -3678,8 +3847,7 @@ def mesh_runs(calls, launches):
                 tiles=int(sum(len(call.tiles(i))
                               for i in range(mesh.own.shape[0]))),
                 kk=kk, reso=reso,
-                walker=form_name(k, reso) + ("" if kk == 8 else "/kwide")
-                + "/mesh",
+                walker=form_name(k, reso) + walker_width(kk) + "/mesh",
                 extra=dict(mesh_form=kind, rows=int(mesh.own.shape[0]),
                            cols=int(call.intr().shape[0]),
                            rstride=int(mesh.rstride)),

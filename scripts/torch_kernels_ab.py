@@ -11,8 +11,10 @@ card:
 
 The earlier source must have the C interface of 86cb929, the walker
 with its resolver forms and the partner width K before the mesh forms
-(``PARENT_SIGNATURES``: the entry points without the mesh arguments; its
-tables are 8 wide here).  It is built with the flags of
+(``PARENT_SIGNATURES``: the entry points without the mesh arguments), or
+the interface with the mesh arguments (``_cuda.SIGNATURES``; told apart
+by its ``rstride`` argument), so any commit from 86cb929 on serves as
+the parent; its tables are 8 wide here.  It is built with the flags of
 ``ops/_cuda.py`` (its ``-Xptxas -v`` register lines are printed) into
 ``bluesky_tpu_torch/_build/``.  Both builds walk the same work items
 (``cd_mask_items`` and ``window_items`` of the current source).  The
@@ -62,10 +64,13 @@ PARENT_SIGNATURES = {
 
 def build_parent(source):
     """Compile ``source`` like ``_cuda.build``; returns the loaded
-    library."""
+    library, with ``mesh`` True when its walkers take the mesh
+    arguments."""
     from bluesky_tpu_torch.ops import _cuda
     with open(source, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+        text = fh.read()
+        digest = hashlib.sha256(text).hexdigest()[:12]
+    mesh = b"int rstride" in text
     os.makedirs(_cuda.BUILD, exist_ok=True)
     out = os.path.join(_cuda.BUILD, f"libcd_tiles_ab_{digest}.so")
     res = subprocess.run([_cuda.nvcc_path(), *_cuda.ARCH, *_cuda.FLAGS,
@@ -77,9 +82,11 @@ def build_parent(source):
         if re.search(r"entry function|Used \d+ registers|spill", line):
             print(f"parent build: {line.strip()[:160]}")
     lib = ctypes.CDLL(out)
-    for name, argtypes in PARENT_SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
+    sigs = _cuda.SIGNATURES["cd_tiles.cu"] if mesh else PARENT_SIGNATURES
+    for name in PARENT_SIGNATURES:
+        getattr(lib, name).argtypes = sigs[name]
         getattr(lib, name).restype = ctypes.c_int
+    lib.mesh = mesh
     return lib
 
 
@@ -102,17 +109,18 @@ def parent_pass(lib, x, make_items, p, pold=None, cand=None):
             items.order.data_ptr(), C)
     floats = (*cd_pallas.kernel_floats(p), cd_pallas.RESO_CODE["mvp"], 8)
     stream = _cuda.stream_ptr(dev)
+    mform = (0, 0, 1, 0, 0) if lib.mesh else ()   # the single-device form
     if cand is not None:
         rc = lib.cd_cand_items(*head, cand.data_ptr(), cand.shape[1],
                                *floats, acc.data_ptr(), ct.data_ptr(),
                                ci.data_ptr(), stream)
     elif pold is None:
         rc = lib.cd_full_grid(*head, *floats, acc.data_ptr(), ct.data_ptr(),
-                              ci.data_ptr(), stream)
+                              ci.data_ptr(), *mform, stream)
     else:
         rc = lib.cd_sched_tiles(*head, pold.data_ptr(), *floats,
                                 acc.data_ptr(), ct.data_ptr(), ci.data_ptr(),
-                                keep.data_ptr(), stream)
+                                keep.data_ptr(), *mform, stream)
     _cuda.check(rc, "parent walker")
     outs = cd_pallas.alloc_outputs(nb, 8, B, dev, resume=pold is not None)
     ptrs = [t.data_ptr() for t in outs] + [0] * (6 - len(outs))

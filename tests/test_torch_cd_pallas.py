@@ -447,9 +447,10 @@ def test_k16_partners_match_jax():
     """Fault C1: ``Traffic(k_partners=16)`` on the pallas backend keeps up
     to 16 fresh partners a row, as JAX does (200 aircraft of the clump at
     one altitude, block 64, one refresh and one interval; JAX in interpret
-    mode).  On a CUDA tensor K = 16 passes the checks of a kernel launch
-    (the kernels take 1 <= K <= 32), and a K past 32 raises, naming the
-    limit and the shared memory it would take."""
+    mode).  On a CUDA tensor K = 16 passes the checks of a kernel launch,
+    and so do K = 33 and 128 (the wide form: no fixed K is
+    refused); a K whose CTA would pass the shared memory a CTA may hold
+    raises, naming the bytes it would take."""
     from bluesky_tpu.core.traffic import Traffic as JTraffic
     from bluesky_tpu_torch.core import asas as tasas
     from bluesky_tpu_torch.core.traffic import Traffic as TTraffic
@@ -490,10 +491,15 @@ def test_k16_partners_match_jax():
                       dtype=torch.int32).as_subclass(OnCard)
     assert cd_pallas.check_common(packed, kk=16) == (x.nb, x.block)
     assert cd_pallas.check_common(packed, pold) == (x.nb, x.block)
-    with pytest.raises(ValueError, match=r"1 <= K <= 32 .* K = 33 would "
-                                         r"take \d+ bytes of shared memory"):
-        cd_pallas.check_common(packed, kk=33)
-    with pytest.raises(ValueError, match="1 <= K <= 32"):
+    for kk in (33, 128):
+        assert cd_pallas.check_common(packed, kk=kk) == (x.nb, x.block)
+    smem = cd_pallas.cta_shared_bytes(20000, x.block, ids=True)
+    assert smem > cd_pallas.MAX_CTA_SHARED
+    with pytest.raises(ValueError, match=f"K = 20000 partners at B = "
+                                         f"{x.block} take {smem} bytes of "
+                                         f"shared memory"):
+        cd_pallas.check_common(packed, kk=20000)
+    with pytest.raises(ValueError, match=r"K = 20000 .* \d+ bytes"):
         cd_pallas.full_grid_resume(
-            packed, x.reach, torch.full((x.nb, 40, x.block), -1,
+            packed, x.reach, torch.full((x.nb, 20000, x.block), -1,
                                         dtype=torch.int32), p)

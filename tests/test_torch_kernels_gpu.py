@@ -343,10 +343,11 @@ def test_swarm_track_wrap_on_the_card(cuda):
     assert float(want[10].sum()) > 0
 
 
-@pytest.mark.parametrize("kk", [1, 3, 16, 32])
+@pytest.mark.parametrize("kk", [1, 3, 16, 32, 33, 64, 128])
 def test_partner_width_kernels_match_plain(cuda, kk):
     """Every walker at partner width ``kk`` (the run-time form of the
-    kernels; K = 8 is their constant form) against its plain version:
+    kernels up to K = 32, the wide form past it; K = 8 is their constant
+    form) against its plain version:
     ``cd_sched_tiles`` and the overflow pass on the clump at ``s_cap=2``
     with the K-wide table of a first interval, ``cd_full_grid`` in
     Morton order and ``cd_cand_items`` on the clusters."""
@@ -388,7 +389,7 @@ def test_partner_width_kernels_match_plain(cuda, kk):
 
 
 @pytest.mark.parametrize("reso,kk", [("mvp", 8), ("eby", 8), ("swarm", 8),
-                                     ("mvp", 16)])
+                                     ("mvp", 16), ("mvp", 64)])
 def test_mesh_forms_match_plain(cuda, reso, kk):
     """The walker's mesh forms (ROADMAP B3) against their plain versions
     and the row subsets against the one-card launch's rows: K1's row
