@@ -152,8 +152,7 @@ class Traffic:
                                    ("lat", "lon", "hdg", "alt", "spd"))
         n = len(ids)
         slots = self._free_slots(n)
-        for k, (i, t) in enumerate(zip(ids, types)):
-            s = int(slots[k])
+        for s, i, t in zip(slots.tolist(), ids, types):
             self.ids[s] = i
             self.types[s] = t
             self._id2slot[i] = s
@@ -197,16 +196,16 @@ class Traffic:
                               gs=tas, lastupdate=np.zeros(n)).items():
             put(getattr(st.adsb, name), val)
 
-        # Performance coefficients per type (perfoap.py:49-113)
-        cols = {}
-        by_type = {}
-        for t in types:
-            if t not in by_type:
-                by_type[t] = perf_coeffs.slot_values(self.coeffdb.get(t))
-            for name, v in by_type[t].items():
-                cols.setdefault(name, []).append(v)
-        for name, v in cols.items():
-            put(getattr(st.perf, name), v)
+        # Performance coefficients per type (perfoap.py:49-113): each
+        # column is its types' values indexed by every aircraft's type, the
+        # array a list of the per-aircraft values would give (that list
+        # took ~30 appends an aircraft, most of a million-aircraft flush)
+        uniq = {t: k for k, t in enumerate(dict.fromkeys(types))}
+        vals = [perf_coeffs.slot_values(self.coeffdb.get(t)) for t in uniq]
+        which = np.fromiter((uniq[t] for t in types), dtype=np.intp, count=n)
+        for name in vals[0]:
+            put(getattr(st.perf, name),
+                np.asarray([v[name] for v in vals])[which])
 
         put(st.route.nwp, 0)
         put(st.route.iactwp, -1)

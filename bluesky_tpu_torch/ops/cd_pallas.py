@@ -197,28 +197,16 @@ def _rdiv(c, t):
     return torch.div(torch.full((), c, dtype=t.dtype, device=t.device), t)
 
 
-def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams,
-                    reso="mvp", kk=KK):
-    """One ownship row block against its visited intruders.
-
-    ``own`` [_NF, B] ownship slab; ``intr`` [_NF, M] the visited
-    intruders in visiting order with their slot ids ``gid_int`` [M];
-    ``gid_own`` [B]; ``pold`` [kk, B] the old partner table (sorted-space
-    ids, -1 empty) or None.  With ``pold`` this is the resume body
-    (``_kernel_resume``: keep predicate, fresh candidates filtered by it,
-    partner merge) and returns 13 per-row outputs: eight [B]
-    accumulators, ctin/cidx/keep/merged [kk, B] and active [B].  Without
-    it this is the ``_kernel`` body (every conflict pair a candidate) and
-    returns the first 10; ``kk`` is then the top-K width.  ``reso``
-    picks the resolver form; ``"swarm"`` appends the ``N_SWARM``
-    neighbour sums [B]."""
-    kk = kk if pold is None else pold.shape[0]
-    if intr.shape[1] < kk:
-        # pad with inactive intruders so every reduction and the top-kk
-        # have at least kk rows to work on
-        pad = kk - intr.shape[1]
-        intr = torch.cat([intr, intr.new_zeros((_NF, pad))], 1)
-        gid_int = torch.cat([gid_int, gid_int.new_full((pad,), _BIG_I)])
+def conflict_terms(own, intr, gid_own, gid_int, p: TileParams):
+    """The conflict geometry of the tile body (``row_block_plain``) for
+    every pair of the ownships ``own`` [_NF, B] and the intruders
+    ``intr`` [_NF, M] (slot ids ``gid_own`` [B], ``gid_int`` [M]), in
+    the slabs' dtype: a dict of [M, B] tensors, among them the
+    compared quantities ``dcpa2`` (against ``rpz**2``), ``tinconf``,
+    ``toutconf`` (against each other, 0 and the lookahead), ``dist`` and
+    ``dalt``, the terms of the window (``tcpa``, ``rvrel``, the vertical
+    crossing times ``tcrosshi``/``tcrosslo``), and the flags
+    ``pairmask``, ``swconfl`` and ``swlos``."""
     o = lambda k: own[_IDX[k]][None, :]                  # [1, B]
     i = lambda k: intr[_IDX[k]][:, None]                 # [M, 1]
     pairmask = ((o("active") > 0.5) & (i("active") > 0.5)
@@ -252,6 +240,42 @@ def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams,
     swconfl = (swhor & (tinconf <= toutconf) & (toutconf > 0.0)
                & (tinconf < p.tlookahead) & pairmask)
     swlos = (dist < p.rpz) & (torch.abs(dalt) < p.hpz) & pairmask
+    return dict(pairmask=pairmask, dist=dist, sinq=sinq, cosq=cosq, dx=dx,
+                dy=dy, rvrel=rvrel, tcpa=tcpa, dcpa2=dcpa2,
+                tcrosshi=tcrosshi, tcrosslo=tcrosslo, tinconf=tinconf,
+                toutconf=toutconf, dalt=dalt, vrel_v=vrel_v, swhor=swhor,
+                swconfl=swconfl, swlos=swlos)
+
+
+def row_block_plain(own, intr, gid_own, gid_int, pold, p: TileParams,
+                    reso="mvp", kk=KK):
+    """One ownship row block against its visited intruders.
+
+    ``own`` [_NF, B] ownship slab; ``intr`` [_NF, M] the visited
+    intruders in visiting order with their slot ids ``gid_int`` [M];
+    ``gid_own`` [B]; ``pold`` [kk, B] the old partner table (sorted-space
+    ids, -1 empty) or None.  With ``pold`` this is the resume body
+    (``_kernel_resume``: keep predicate, fresh candidates filtered by it,
+    partner merge) and returns 13 per-row outputs: eight [B]
+    accumulators, ctin/cidx/keep/merged [kk, B] and active [B].  Without
+    it this is the ``_kernel`` body (every conflict pair a candidate) and
+    returns the first 10; ``kk`` is then the top-K width.  ``reso``
+    picks the resolver form; ``"swarm"`` appends the ``N_SWARM``
+    neighbour sums [B]."""
+    kk = kk if pold is None else pold.shape[0]
+    if intr.shape[1] < kk:
+        # pad with inactive intruders so every reduction and the top-kk
+        # have at least kk rows to work on
+        pad = kk - intr.shape[1]
+        intr = torch.cat([intr, intr.new_zeros((_NF, pad))], 1)
+        gid_int = torch.cat([gid_int, gid_int.new_full((pad,), _BIG_I)])
+    o = lambda k: own[_IDX[k]][None, :]                  # [1, B]
+    i = lambda k: intr[_IDX[k]][:, None]                 # [M, 1]
+    c = conflict_terms(own, intr, gid_own, gid_int, p)
+    (pairmask, dist, sinq, cosq, dx, dy, tcpa, tinconf, dalt, vrel_v,
+     swconfl, swlos) = (c[k] for k in (
+         "pairmask", "dist", "sinq", "cosq", "dx", "dy", "tcpa", "tinconf",
+         "dalt", "vrel_v", "swconfl", "swlos"))
     vrel_e = i("gse") - o("gse")
     vrel_n = i("gsn") - o("gsn")
 
@@ -352,8 +376,10 @@ def block_ids(tiles, B):
 
 
 def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK,
-               mesh: MeshForm = None):
-    """Run ``row_block_plain`` for every row block.  ``ids_of_row(i)``
+               mesh: MeshForm = None, rows=None):
+    """Run ``row_block_plain`` for every row block, or for the row blocks
+    ``rows`` (a sequence of row ids; the outputs then hold those rows, in
+    that order: a sampled hold of a large grid).  ``ids_of_row(i)``
     gives row i's intruder slot ids in visiting order; id ``nb * B`` is
     the all-inactive sentinel column.  Returns the 13 outputs (10 when
     ``pold`` is None; the swarm form adds ``N_SWARM``) in the kernel's
@@ -381,19 +407,19 @@ def rows_plain(packed, pold, ids_of_row, p: TileParams, reso="mvp", kk=KK,
             return torch.where(blk < nc, g, ids)
 
         row_gid = lambda i: (mesh.row0 + i * mesh.rstride) * B + lane
-    rows, empty = [], None
-    for i in range(nb):
+    outs, empty = [], None
+    for i in range(nb) if rows is None else (int(r) for r in rows):
         ids = torch.as_tensor(ids_of_row(i), device=dev).long()
         if ids.numel() == 0 and empty is not None:
-            rows.append(empty)
+            outs.append(empty)
             continue
-        rows.append(row_block_plain(own[i], allf[:, ids], row_gid(i),
+        outs.append(row_block_plain(own[i], allf[:, ids], row_gid(i),
                                     lift(ids),
                                     None if pold is None else pold[i],
                                     p, reso, kk))
         if ids.numel() == 0:
-            empty = rows[-1]
-    outs = [torch.stack(parts) for parts in zip(*rows)]
+            empty = outs[-1]
+    outs = [torch.stack(parts) for parts in zip(*outs)]
     nfix = 10 if pold is None else 13
     for j in list(range(8)) + ([12] if pold is not None else []) \
             + list(range(nfix, len(outs))):
@@ -431,7 +457,7 @@ def interleave_rows(nb, ndev):
 
 
 def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp",
-                           mesh: MeshForm = None):
+                           mesh: MeshForm = None, rows=None):
     """Plain PyTorch version of the ``_kernel_resume`` pass: every row
     block i against every intruder block j with ``reach[i, j]``, in
     ascending j.  ``packed`` [nb, _NF, B] f32, ``reach`` [nb, nb] bool,
@@ -441,29 +467,33 @@ def full_grid_resume_plain(packed, reach, pold, p: TileParams, reso="mvp",
     reach in its own world); slot ids and ``pold`` are then global, world
     w's slot s being ``w * nbw * B + s``.  With ``mesh`` (``MeshForm``)
     the rows are ``mesh.own``'s and ``reach`` [nbr, ncols] indexes the
-    column slabs ``packed``; ``pold`` holds global ids."""
+    column slabs ``packed``; ``pold`` holds global ids.  ``rows`` as in
+    ``rows_plain``."""
     return rows_plain(packed, pold, _reach_rows(reach, packed.shape[2],
                                                 mesh is None), p, reso,
-                      mesh=mesh)
+                      mesh=mesh, rows=rows)
 
 
 def full_grid_plain(packed, reach, p: TileParams, reso="mvp", kk=KK,
-                    mesh: MeshForm = None):
+                    mesh: MeshForm = None, rows=None):
     """Plain PyTorch version of the ``_kernel`` pass: the reach-masked
     full grid without a partner table, top-``kk`` candidates.  Returns
-    the 10 outputs (17 for the swarm form).  ``mesh`` as in
+    the 10 outputs (17 for the swarm form).  ``mesh`` and ``rows`` as in
     ``full_grid_resume_plain``."""
     return rows_plain(packed, None, _reach_rows(reach, packed.shape[2],
                                                 mesh is None), p, reso, kk,
-                      mesh=mesh)
+                      mesh=mesh, rows=rows)
 
 
-def cand_tiles_plain(packed, cand, p: TileParams, reso="mvp", kk=KK):
+def cand_tiles_plain(packed, cand, p: TileParams, reso="mvp", kk=KK,
+                     rows=None):
     """Plain PyTorch version of the ``_kernel_cand`` pass: row block i
     against the aircraft of its candidate table ``cand[i]`` ([nb, c_cap]
     int32 slot ids, ascending, sentinel ``nb * B`` inactive).  Returns
-    the 10 outputs; no swarm form (Swarm with candidates raises)."""
-    return rows_plain(packed, None, lambda i: cand[i], p, reso, kk)
+    the 10 outputs; no swarm form (Swarm with candidates raises).
+    ``rows`` as in ``rows_plain``."""
+    return rows_plain(packed, None, lambda i: cand[i], p, reso, kk,
+                      rows=rows)
 
 
 def compare_outputs(name, got, want):

@@ -442,7 +442,7 @@ def _tile_windows(reach_rows, gkey, nb, s_cap_t, wmax):
 
 def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
                       reso="mvp", nbw=None, mesh: MeshForm = None,
-                      kk=cd_pallas.KK):
+                      kk=cd_pallas.KK, rows=None):
     """Plain PyTorch version of the ``_sched_kernel`` pass: row block i
     walks its segments ``[wst[i, s], wst[i, s] + min(wln[i, s], wmax))``
     in slot order, blocks past the grid skipped.  Returns the 13
@@ -454,7 +454,8 @@ def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
     slot ids and ``pold`` are global (``cd_pallas.full_grid_resume_plain``).
     With ``mesh`` (``cd_pallas.MeshForm``) the rows are ``mesh.own``'s
     and the segments hold local blocks of the column slabs ``packed``,
-    lifted to global ids by the form's maps."""
+    lifted to global ids by the form's maps.  ``rows`` gives the outputs
+    of those row blocks only (``cd_pallas.rows_plain``)."""
     nb, _, B = packed.shape
     nbw = nb if nbw is None else nbw
     st = wst.cpu().numpy()
@@ -466,7 +467,8 @@ def sched_tiles_plain(packed, wst, wln, wmax, pold, p: TileParams,
         t = np.concatenate(t) if t else np.zeros(0, np.int64)
         return cd_pallas.block_ids(t[t < nbw] + base(i), B)
 
-    return cd_pallas.rows_plain(packed, pold, ids, p, reso, kk, mesh=mesh)
+    return cd_pallas.rows_plain(packed, pold, ids, p, reso, kk, mesh=mesh,
+                                rows=rows)
 
 
 def window_items(wst, wln, wmax, nbc, per_row=cd_pallas.ITEMS_PER_ROW,

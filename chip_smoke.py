@@ -106,10 +106,10 @@ Phases, in order; any failure exits non-zero before the last line:
     launches per interval and peak memory of both.  The world-group
     launches of K1 and K2 (sparse) and K3 (pallas) are held against their
     plain versions on the stacked operands and timed with their bounds:
-    the ``/worlds`` entries of the kernels line.  Then 4 BATCH pieces of
+    the ``/worlds`` entries of the kernels line.  Then 2 BATCH pieces of
     500 aircraft (CRE lines from numpy seeds, CDMETHOD SPARSE, ASAS ON,
     FF 60, the guard on) through ``WorldBatch.run()`` (8 until phase 19
-    came), each held to a solo ``Simulation``.
+    came, 4 until phase 21 came), each held to a solo ``Simulation``.
 12. differentiable phase (``diff_phase``): gradients through the smooth
     dense step (``bluesky_tpu_torch/diff``; no kernel runs on this path,
     and the launch counts must read 0 after it).  (a) 25 head-on pairs
@@ -141,9 +141,11 @@ Phases, in order; any failure exits non-zero before the last line:
     through three 20-step chunks on sparse and pallas, the
     candidate-mode call, the chunk rate, ASAS interval, peak memory and
     rows with more than 8 (and 32) partners, each kernel timed, bounded
-    and held to its plain version, and at K = 64 also K1-K4 at K = 33
-    and 128 on the same operands (the partner table cut or widened by
-    empty slots; 0 launches: off the path); (c) ``regional_scene``
+    and held to its plain version on sampled row blocks
+    (``sampled_holds``; whole grids until phase 21 came), and at K = 64
+    also K1-K4 at K = 33 and 128 on the same operands (the partner table
+    cut or widened by empty slots; 0 launches: off the path); (c)
+    ``regional_scene``
     (10,000 in 10,240 slots) at K = 64 on sparse and pallas under EBY,
     SWARM and SSD, with the Eby candidate call; (d) one stacked worlds
     group at K = 64 (16 x 2,000 sparse MVP), each world held to its solo
@@ -303,6 +305,38 @@ Phases, in order; any failure exits non-zero before the last line:
     through the C path and the NumPy path, equal within 1e-12 relative
     (1e-9 absolute for coinciding pairs), ms of each.  The UI launches
     no kernel of its own.
+
+21. scale phase (``scale_phase``): the JAX package's largest fleets, as
+    its ``bench.py`` makes them (``bench_columns``: numpy seed 0, B744,
+    the draws in its order) and drives them (``bench.run_one``: the sort
+    refresh, then a chunk of ``run_steps``; here 20-step chunks through
+    ``run_steps_edge``), block 256, MVP, K = 8, ``Traffic(pair_matrix=
+    False)``.  (a) ``global_scene``: 1,000,000 aircraft worldwide
+    (area-uniform to +-70 deg, every longitude) in 1,000,000 slots under
+    SPARSE: a warm-up chunk and three timed ones with the launch counts
+    set to 0 just before and read just after (``scale_chunks``: the last
+    chunk's ms and aircraft-steps/s, peak memory, the graph captures'
+    ms), the ASAS interval and the sort refresh timed alone; (b) the
+    same stepped state under PALLAS, the same way; (c) on the stepped
+    sparse state's next interval: the sparse and pallas CD equal in
+    flags, ``nconf``, ``nlos`` and every ownship's conflict and LoS
+    counts; those counts of ``WITNESS_OWN`` sampled ownships (the
+    ``SCALE_LAST`` highest sparse slots and caller slots among them)
+    against a float64 brute force over the whole fleet on the card
+    (``witness_counts``: the tile body's pair math, every difference
+    covered by pairs within ``WITNESS_MARGIN`` of a threshold, counted
+    and logged); each launched form (K1 and K2 sparse, K3 pallas, and K3
+    on the sparse overflow rows if there are any) held against its plain
+    version on sampled row blocks (``sample_rows``: the last
+    ``SCALE_LAST`` occupied or overflow row blocks, which hold the
+    largest offsets, and ``SCALE_RANDOM`` drawn ones), timed whole and
+    bounded; (d) ``bench_scene`` of the regional draws: 100,000 aircraft
+    in the 230 nm circle in 100,352 slots under SPARSE: a warm-up chunk and two
+    timed ones, the interval timed alone, K1, K2 and (off the path) K3
+    on the overflow rows held on sampled rows, timed and bounded; it
+    fails without overflow rows.  The kernels line lists these forms
+    with ``/scale_global``, ``/scale_regional`` and ``_overflow``
+    (``SCALE_FORMS``), each with its path's numbers (``path_*``).
 
 Phase 10 ends with the profiling of the 100k Simulation
 (``profile_phase``, ROADMAP A10.5): under CDMETHOD SPARSE the host syncs
@@ -1217,7 +1251,9 @@ def measure(name, r):
     ``tiles``; for the Eby form the conflict pairs ``eby`` (the Eby
     body's float32 and float64 counts each), for the Swarm form
     ``swarm=True`` (``SWARM_PAIR_FLOPS`` on every pair) and the
-    ``neighbours`` (``SWARM_NEIGHBOUR_FLOPS`` each).  Logs one line;
+    ``neighbours`` (``SWARM_NEIGHBOUR_FLOPS`` each); ``time``, when
+    given, is what is timed instead of ``kern`` (a sampled hold's whole
+    launch, ``sampled_run``).  Logs one line;
     returns the largest float difference, ms per launch, plain ms, bytes
     ms and operations ms."""
     import torch
@@ -1227,7 +1263,7 @@ def measure(name, r):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = check_split(f"{name} main path", r["kern"], want)[0]
-    ms = cuda_ms(r["kern"], 5)
+    ms = cuda_ms(r.get("time", r["kern"]), 5)
     t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
     ops = (r["pairs"] * PAIR_FLOPS + r.get("keep", 0) * KEEP_FLOPS
            + r.get("eby", 0) * EBY_F32_FLOPS
@@ -1300,7 +1336,8 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
     partner tables ``kk`` wide (the entries named by ``kname``), the ASAS
     interval the only layer timed, and times K1 and K2 at each width of
     ``more`` as well, on the same operands with the partner table cut or
-    widened by empty slots (off the path: 0 launches)."""
+    widened by empty slots (off the path: 0 launches); there the holds
+    run on sampled row blocks (``sampled_holds``)."""
     from bluesky_tpu_torch.core import asas, step as stepmod
     from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
 
@@ -1347,8 +1384,8 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
         kname("cd_sched._sched_kernel", kk): dict(
             kern=lambda **kw: cd_sched.sched_tiles(
                 x.packed, x.wst, x.wln, x.wmax, x.pold, p, **kw),
-            plain=lambda: cd_sched.sched_tiles_plain(
-                x.packed, x.wst, x.wln, x.wmax, x.pold, p),
+            plain=lambda rows=None: cd_sched.sched_tiles_plain(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p, rows=rows),
             pairs=active_pairs(x, sched_tiles_of),
             keep=keep_pairs(x, sched_tiles_of, k1[6]),
             bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
@@ -1359,8 +1396,8 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
         kname("cd_pallas._kernel_resume", kk): dict(
             kern=lambda **kw: cd_pallas.full_grid_resume(
                 x.packed, reach_f, x.pold, p, **kw),
-            plain=lambda: cd_pallas.full_grid_resume_plain(
-                x.packed, reach_f, x.pold, p),
+            plain=lambda rows=None: cd_pallas.full_grid_resume_plain(
+                x.packed, reach_f, x.pold, p, rows=rows),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rf[i])),
             keep=keep_pairs(x, lambda i: np.flatnonzero(rf[i]), k2[6]),
             bytes=in_out_bytes(x, True) + nb * nb, tiles=int(rf.sum()),
@@ -1380,8 +1417,8 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
         runs[n1] = dict(
             kern=lambda xq=xq, **kw: cd_sched.sched_tiles(
                 xq.packed, xq.wst, xq.wln, xq.wmax, xq.pold, p, **kw),
-            plain=lambda xq=xq: cd_sched.sched_tiles_plain(
-                xq.packed, xq.wst, xq.wln, xq.wmax, xq.pold, p),
+            plain=lambda xq=xq, rows=None: cd_sched.sched_tiles_plain(
+                xq.packed, xq.wst, xq.wln, xq.wmax, xq.pold, p, rows=rows),
             pairs=runs[kname(names[0], kk)]["pairs"],
             keep=keep_pairs(xq, sched_tiles_of, q1[6]),
             bytes=in_out_bytes(xq, True) + 2 * x.wst.numel() * 4,
@@ -1391,8 +1428,8 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
         runs[n2] = dict(
             kern=lambda xq=xq, **kw: cd_pallas.full_grid_resume(
                 xq.packed, reach_f, xq.pold, p, **kw),
-            plain=lambda xq=xq: cd_pallas.full_grid_resume_plain(
-                xq.packed, reach_f, xq.pold, p),
+            plain=lambda xq=xq, rows=None: cd_pallas.full_grid_resume_plain(
+                xq.packed, reach_f, xq.pold, p, rows=rows),
             pairs=runs[kname(names[1], kk)]["pairs"],
             keep=keep_pairs(xq, lambda i: np.flatnonzero(rf[i]), q2[6]),
             bytes=in_out_bytes(xq, True) + nb * nb, tiles=int(rf.sum()),
@@ -1404,7 +1441,8 @@ def sparse_path(dev, errs, regs, k2_regional, n_ac=100_000, nmax=100_352,
         f"per interval {int(ln.sum())} (per row block: mean "
         f"{per_row.mean():.4g}, median {np.median(per_row):g}, max "
         f"{per_row.max()}), overflow tiles per interval {int(rf.sum())}")
-    return report_kernels(runs, launches, errs, regs)
+    return report_kernels(runs if kk == 8 else sampled_holds(x, runs),
+                          launches, errs, regs)
 
 
 def cand_pairs(x, cand):
@@ -1429,7 +1467,8 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8,
     candidate-mode pass on the stepped state.  Phase 13 (b) runs it with
     partner tables ``kk`` wide (the entries named by ``kname``), without
     the capacity sweep, and times K3 and K4 at each width of ``more`` as
-    well, on the same operands (off the path: 0 launches)."""
+    well, on the same operands (off the path: 0 launches); there the
+    holds run on sampled row blocks (``sampled_holds``)."""
     import torch
     from bluesky_tpu_torch.core import asas
     from bluesky_tpu_torch.ops import cd_pallas, cr_mvp
@@ -1493,8 +1532,8 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8,
         return dict(
             kern=lambda **kw: cd_pallas.cand_tiles(x.packed, cand, p, kk=kk,
                                                    **kw),
-            plain=lambda: cd_pallas.cand_tiles_plain(x.packed, cand, p,
-                                                     kk=kk),
+            plain=lambda rows=None: cd_pallas.cand_tiles_plain(
+                x.packed, cand, p, kk=kk, rows=rows),
             pairs=cand_pairs(x, cand),
             bytes=in_out_bytes(x, False, kk) + cand.numel() * 4,
             tiles=int(((cand < nb * B).sum(1) + B - 1).div(
@@ -1506,8 +1545,8 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8,
         kname("cd_pallas._kernel", kk): dict(
             kern=lambda **kw: cd_pallas.full_grid(x.packed, x.reach, p,
                                                   kk=kk, **kw),
-            plain=lambda: cd_pallas.full_grid_plain(x.packed, x.reach, p,
-                                                    kk=kk),
+            plain=lambda rows=None: cd_pallas.full_grid_plain(
+                x.packed, x.reach, p, kk=kk, rows=rows),
             pairs=active_pairs(x, lambda i: np.flatnonzero(rh[i])),
             bytes=in_out_bytes(x, False, kk) + nb * nb, tiles=int(rh.sum()),
             kk=kk, reso="mvp",
@@ -1521,16 +1560,16 @@ def pallas_path(dev, errs, regs, n_ac=100_000, nmax=100_352, kk=8,
         runs[n3] = dict(
             kern=lambda q=q, **kw: cd_pallas.full_grid(x.packed, x.reach, p,
                                                        kk=q, **kw),
-            plain=lambda q=q: cd_pallas.full_grid_plain(x.packed, x.reach, p,
-                                                        kk=q),
+            plain=lambda q=q, rows=None: cd_pallas.full_grid_plain(
+                x.packed, x.reach, p, kk=q, rows=rows),
             pairs=runs[kname(names[0], kk)]["pairs"],
             bytes=in_out_bytes(x, False, q) + nb * nb, tiles=int(rh.sum()),
             kk=q, reso="mvp",
             extra=item_extra(n3, x, cd_pallas.reach_items(x.reach), p, kk=q))
         runs[n4] = cand_run(cand, CAND_CAP, q)
-    report = report_kernels(runs, launches, errs, regs)
     if kk != 8:
-        return report
+        return report_kernels(sampled_holds(x, runs), launches, errs, regs)
+    report = report_kernels(runs, launches, errs, regs)
     # At CAND_CAP most rows overflow and leave the candidate kernel after
     # one read; at 4 x CAND_CAP most rows fit, so this line times the
     # kernel's pair work against its bound.
@@ -3051,7 +3090,7 @@ def worlds_phase(dev, errs, regs, scale=1):
     worlds_batched_vs_solo(dev, "dense", shrink(WORLDS_DENSE))
     log(f"worlds dense: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    worldbatch_phase(dev, pieces=max(2, 8 // scale))
+    worldbatch_phase(dev, pieces=max(2, 4 // scale))
     log(f"worldbatch: {time.perf_counter() - t0:.1f} s")
     return report
 
@@ -3322,8 +3361,9 @@ def kwide_phase(dev, errs, regs, scale=1):
     K = 8), and the three mesh forms at K = 64 MVP
     (``check_mesh_forms``); (b) ``main_scene`` at K = 16 and 64 through
     ``sparse_path`` and ``pallas_path`` (three 20-step chunks, with the
-    candidate-mode call), each kernel timed and bounded, at K = 64 also
-    K1-K4 at K = 33 and 128 on the path's operands; (c)
+    candidate-mode call), each kernel timed and bounded and held on
+    sampled row blocks (``sampled_holds``), at K = 64 also K1-K4 at K = 33
+    and 128 on the path's operands; (c)
     ``regional_scene`` 10,000 in 10,240 slots at K = 64, sparse and
     pallas under EBY, SWARM and SSD (``resolver_path``; with pallas and
     EBY the candidate call); (d) one stacked worlds group at K = 64 (16 x
@@ -5916,6 +5956,561 @@ def ui_phase(dev):
     log(f"ui (d): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------- scale phase
+#: phase 21 (``scale_phase``): the JAX package's largest fleets, as its
+#: ``bench.py`` ``detail()`` makes them: ``SCALE_GLOBAL`` aircraft
+#: worldwide in as many slots (sparse and pallas), ``SCALE_REGIONAL``
+#: aircraft in the 230 nm circle in its slots (sparse)
+SCALE_GLOBAL = 1_000_000
+SCALE_REGIONAL = (100_000, 100_352)
+#: the kernel forms the scale phase must measure (the kernels line): each
+#: form its paths launch, and K3 on the regional overflow rows (off the
+#: path); K3 on the global sparse overflow rows joins them when there
+#: is an overflow row
+SCALE_FORMS = ("cd_sched._sched_kernel/scale_global",
+               "cd_pallas._kernel_resume/scale_global",
+               "cd_pallas._kernel/scale_global",
+               "cd_sched._sched_kernel/scale_regional",
+               "cd_pallas._kernel_resume/scale_regional",
+               "cd_pallas._kernel/scale_regional_overflow")
+#: the sampled row blocks of a plain hold: the last ``SCALE_LAST``
+#: occupied row blocks (the largest slot offsets) and ``SCALE_RANDOM``
+#: more drawn from numpy seed 0 among the occupied ones
+SCALE_LAST = 64
+SCALE_RANDOM = 64
+#: the float64 witness: sampled ownships (the ``SCALE_LAST`` highest
+#: sparse slots and the ``SCALE_LAST`` highest caller slots among them),
+#: the whole fleet as intruders ``WITNESS_CHUNK`` at a time, and the
+#: relative margin within which a compared quantity leaves a pair's
+#: float32 flag free to go either way (an excused pair)
+WITNESS_OWN = 1024
+WITNESS_CHUNK = 8192
+WITNESS_MARGIN = 1e-4
+
+
+def bench_columns(n_ac, geometry, seed=0):
+    """The creation inputs of ``bench.py``'s ``_make_traffic``: its numpy
+    seed and its draws in its order; ``geometry`` "global" (area-uniform
+    up to +-70 deg, every longitude) or "regional" (the 230 nm circle
+    around 52.6 N 5.4 E).  Returns ``dict(lat, lon, alt, spd, hdg)``."""
+    rng = np.random.default_rng(seed)
+    if geometry == "global":
+        lat = np.degrees(np.arcsin(rng.uniform(-0.94, 0.94, n_ac)))
+        lon = rng.uniform(-180.0, 180.0, n_ac)
+    else:
+        ang = rng.uniform(0, 2 * np.pi, n_ac)
+        r = 3.8 * np.sqrt(rng.random(n_ac))
+        lat = 52.6 + r * np.cos(ang)
+        lon = 5.4 + r * np.sin(ang) / 0.6
+    alt = rng.uniform(3000.0, 11000.0, n_ac)
+    spd = rng.uniform(130.0, 240.0, n_ac)
+    hdg = rng.uniform(0.0, 360.0, n_ac)
+    return dict(lat=lat, lon=lon, alt=alt, spd=spd, hdg=hdg)
+
+
+def bench_scene(dev, n_ac, nmax, geometry, cd_backend="sparse",
+                cd_block=256, reso_method="MVP"):
+    """``n_ac`` aircraft of ``bench_columns``' ``geometry`` (B744, seed
+    0) in ``nmax`` slots, built with the port's ``Traffic(pair_matrix=
+    False).create/flush`` on ``dev`` in float32, under ``SimConfig(
+    cd_backend=cd_backend, cd_block=cd_block)``.  Returns ``(state,
+    cfg)``."""
+    from bluesky_tpu_torch.core import asas, step as stepmod
+    from bluesky_tpu_torch.core.traffic import Traffic
+    c = bench_columns(n_ac, geometry)
+    traf = Traffic(nmax=nmax, pair_matrix=False, device=dev)
+    traf.create(n_ac, "B744", c["alt"], c["spd"], None, c["lat"], c["lon"],
+                c["hdg"])
+    traf.flush()
+    return traf.state, stepmod.SimConfig(
+        cd_backend=cd_backend, cd_block=cd_block,
+        asas=asas.AsasConfig(reso_method=reso_method))
+
+
+def global_scene(dev, n_ac=SCALE_GLOBAL, nmax=SCALE_GLOBAL, **kw):
+    """``bench.py``'s global fleet (``bench_scene``): by default its
+    million aircraft in a million slots, as ``bench.run_one`` sizes it."""
+    return bench_scene(dev, n_ac, nmax, "global", **kw)
+
+
+class CaptureLog:
+    """The graph captures made while it is entered: ``(kind, ms)`` of
+    every ``devprof.compile_event`` (``core/graph._capture`` reports its
+    warm-up and its capture)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        from bluesky_tpu_torch.obs import devprof
+        self._orig = devprof.compile_event
+
+        def record(kind, ms):
+            self.events.append((kind, ms))
+            return self._orig(kind, ms)
+        devprof.compile_event = record
+        return self
+
+    def __exit__(self, *exc):
+        from bluesky_tpu_torch.obs import devprof
+        devprof.compile_event = self._orig
+
+    def ms(self, kind):
+        return [round(m, 3) for k, m in self.events if k == kind]
+
+
+def scale_chunks(tag, state, cfg, n_ac, timed):
+    """Drive ``state`` as ``bench.run_one`` drives JAX's: the sort
+    refresh, then a 20-step chunk through ``run_steps_edge``, once to warm
+    up and ``timed`` times more, the launch counts set to 0 just before
+    and read just after.  Fails unless the state stays finite, conflicts
+    are found and the backend's kernels (MVP) are launched, and nothing
+    else is.  Logs the last chunk's ms and aircraft-steps/s, the peak
+    memory (and the memory held when the run started) and the capture
+    ms.  Returns ``(state, launches, info)``."""
+    import torch
+    from bluesky_tpu_torch.core import asas, graph, step as stepmod
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    impl = asas.impl_for_backend(cfg.cd_backend)
+    names = {"sparse": ("cd_sched._sched_kernel", "cd_pallas._kernel_resume"),
+             "pallas": ("cd_pallas._kernel",)}[cfg.cd_backend]
+    graph.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    chunk_ms = []
+    with CaptureLog() as caps:
+        for _ in range(1 + timed):
+            t0 = time.perf_counter()
+            state = asas.refresh_spatial_sort(state, cfg.asas,
+                                              block=cfg.cd_block, impl=impl)
+            state = stepmod.run_steps_edge(state, cfg, CHUNK)[0]
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(cd_pallas.LAUNCHES, **cd_sched.LAUNCHES)
+    launches = {k: v for k, v in launch_counts().items() if k in names}
+    want = {cd_pallas.launch_key(WRAPPERS[k], "mvp") for k in names}
+    others = {k: v for k, v in counts.items() if v and k not in want}
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(stepmod.state_finite(state)):
+        raise AssertionError(f"{tag}: non-finite state")
+    nconf, nlos = int(state.asas.nconf_cur), int(state.asas.nlos_cur)
+    if nconf <= 0:
+        raise AssertionError(f"{tag}: no conflicts detected")
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing or others:
+        raise AssertionError(f"{tag}: launched {others}, never {missing}")
+    info = dict(chunk_ms=chunk_ms[-1], rate=n_ac * CHUNK / chunk_ms[-1] * 1e3,
+                peak_gib=peak / 2**30, held_gib=held / 2**30,
+                nconf=nconf, nlos=nlos,
+                capture_ms=caps.ms("capture"),
+                capture_warmup_ms=caps.ms("capture_warmup"))
+    log(f"{tag}: chunk ms {[round(m, 2) for m in chunk_ms]} (the first the "
+        f"warm-up), the last {info['chunk_ms']:.2f} ms = {info['rate']:.4g} "
+        f"aircraft-steps/s; nconf {nconf}, nlos {nlos}; launches "
+        f"{launches}; peak memory {info['peak_gib']:.3f} GiB, "
+        f"{info['peak_gib'] - info['held_gib']:.3f} above the "
+        f"{info['held_gib']:.3f} GiB held at the start (the state and "
+        f"what earlier phases keep); graph "
+        f"captures {info['capture_ms']} ms (warm-ups "
+        f"{info['capture_warmup_ms']} ms)")
+    return state, launches, info
+
+
+def occupied_rows(x):
+    """Row blocks of the slabs ``x.packed`` holding an active aircraft
+    (numpy, ascending)."""
+    from bluesky_tpu_torch.ops.cd_pallas import _IDX
+    return np.flatnonzero(
+        (x.packed[:, _IDX["active"], :] > 0.5).any(1).cpu().numpy())
+
+
+def sample_rows(pool):
+    """The row blocks a sampled plain hold runs, of the ascending row ids
+    ``pool``: its last ``SCALE_LAST`` (the largest slot offsets) and
+    ``SCALE_RANDOM`` more drawn from numpy seed 0, ascending."""
+    rng = np.random.default_rng(0)
+    pick = rng.choice(pool, min(SCALE_RANDOM, pool.size), replace=False)
+    return np.unique(np.concatenate([pool[-SCALE_LAST:], pick]))
+
+
+def sampled_run(x, rows, kern, plain, **r):
+    """A ``measure`` entry held on the row blocks ``rows``: ``kern`` (the
+    whole launch; its outputs at ``rows`` compared) and ``plain(rows=)``
+    (the plain version of those rows only).  The time is the whole
+    launch's; ``plain_ms`` the sampled rows'."""
+    import torch
+    idx = torch.as_tensor(rows, dtype=torch.long, device=x.packed.device)
+    r["extra"] = dict(r.get("extra", {}), plain_rows=int(len(rows)),
+                      rows=int(x.packed.shape[0]))
+    return dict(r, kern=lambda **kw: [o[idx] for o in kern(**kw)],
+                time=kern, plain=lambda: plain(rows=rows))
+
+
+def sampled_holds(x, runs):
+    """Phase 13 (b)'s holds at the 100k shapes (``sparse_path`` and
+    ``pallas_path`` past K = 8): each run of ``runs`` held on
+    ``sample_rows`` of the occupied row blocks of ``x``
+    (``sampled_run``; its ``plain`` takes ``rows``), timed whole.  The
+    whole grid of each form is held at K = 8 (phases 4-5) and on the
+    check shapes at every K (phase 13 (a))."""
+    rows = sample_rows(occupied_rows(x))
+    return {name: sampled_run(x, rows, r["kern"], r["plain"],
+                              **{k: v for k, v in r.items()
+                                 if k not in ("kern", "plain")})
+            for name, r in runs.items()}
+
+
+def sparse_scale_runs(tag, x, p):
+    """The sampled ``measure`` entries of the sparse interval's kernels
+    on its operands ``x`` (``cd_sched.prepare``): K1 (the segment pass
+    with the partner table) on ``sample_rows`` of the occupied row
+    blocks, K2 (the overflow rows' pass) and, off the path, K3 on the
+    same overflow reach on ``sample_rows`` of the overflow rows (of the
+    occupied ones when there is none: K2 then holds empty rows)."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched
+    occ = occupied_rows(x)
+    over = np.flatnonzero(x.overflow.cpu().numpy())
+    rows_k1, rows_k2 = sample_rows(occ), sample_rows(over if over.size
+                                                      else occ)
+    reach_f = x.reach & x.overflow[:, None]
+    rf = reach_f.cpu().numpy()
+    ln = np.minimum(x.wln.cpu().numpy(), x.wmax)
+    seg = segment_tiles(x)
+    k1 = cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p)
+    k2 = cd_pallas.full_grid_resume(x.packed, reach_f, x.pold, p)
+    over_tiles = lambda i: np.flatnonzero(rf[i])
+    k2_name, k3_name = (f"cd_pallas._kernel_resume/{tag}",
+                        f"cd_pallas._kernel/{tag}_overflow")
+    return {
+        f"cd_sched._sched_kernel/{tag}": sampled_run(
+            x, rows_k1,
+            lambda **kw: cd_sched.sched_tiles(x.packed, x.wst, x.wln, x.wmax,
+                                              x.pold, p, **kw),
+            lambda rows: cd_sched.sched_tiles_plain(
+                x.packed, x.wst, x.wln, x.wmax, x.pold, p, rows=rows),
+            pairs=active_pairs(x, seg), keep=keep_pairs(x, seg, k1[6]),
+            bytes=in_out_bytes(x, True) + 2 * x.wst.numel() * 4,
+            tiles=int(ln.sum()), reso="mvp",
+            extra=item_extra(f"K1 {tag}", x, cd_sched.window_items(
+                x.wst, x.wln, x.wmax, x.nb), p, pold=x.pold)),
+        k2_name: sampled_run(
+            x, rows_k2,
+            lambda **kw: cd_pallas.full_grid_resume(x.packed, reach_f,
+                                                    x.pold, p, **kw),
+            lambda rows: cd_pallas.full_grid_resume_plain(
+                x.packed, reach_f, x.pold, p, rows=rows),
+            pairs=active_pairs(x, over_tiles),
+            keep=keep_pairs(x, over_tiles, k2[6]),
+            bytes=in_out_bytes(x, True) + x.nb * x.nb, tiles=int(rf.sum()),
+            reso="mvp", extra=dict(item_extra(
+                f"K2 {tag}", x, cd_pallas.reach_items(reach_f), p,
+                pold=x.pold), overflow_rows=int(x.overflow.sum()))),
+        k3_name: sampled_run(
+            x, rows_k2,
+            lambda **kw: cd_pallas.full_grid(x.packed, reach_f, p, **kw),
+            lambda rows: cd_pallas.full_grid_plain(x.packed, reach_f, p,
+                                                   rows=rows),
+            pairs=active_pairs(x, over_tiles), bytes=in_out_bytes(x, False)
+            + x.nb * x.nb, tiles=int(rf.sum()), reso="mvp",
+            extra=dict(item_extra(f"K3 {tag} overflow rows", x,
+                                  cd_pallas.reach_items(reach_f), p),
+                       overflow_rows=int(x.overflow.sum())))}
+
+
+def scale_operands(state, cfg):
+    """The next interval's operands of the stepped sparse state: the
+    sorted slabs, windows and partner table (``cd_sched.prepare``) and
+    the tile parameters."""
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cr_mvp
+    ac, a, c = state.ac, state.asas, cfg.asas
+    n_tot = cd_sched.padded_size(ac.lat.shape[0], 256)
+    x = cd_sched.prepare(ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs,
+                         ac.gseast, ac.gsnorth, ac.active, a.noreso, c.rpz,
+                         c.hpz, c.dtlookahead, a.partners_s[:n_tot],
+                         block=256, perm=a.sort_perm)
+    mvp = cr_mvp.MVPConfig(rpz_m=c.rpz_m, hpz_m=c.hpz_m,
+                           tlookahead=c.dtlookahead)
+    p = cd_pallas.tile_params(c.rpz, c.hpz, c.dtlookahead, mvp,
+                              c.rpz * c.resofach)
+    return x, p, mvp
+
+
+def log_schedule(tag, x):
+    """One line of the sparse schedule of ``x``: row blocks, occupied
+    ones, overflow rows, segment, overflow and reachable tiles."""
+    ln = np.minimum(x.wln.cpu().numpy(), x.wmax).sum(1)
+    rf = int((x.reach & x.overflow[:, None]).sum())
+    log(f"{tag}: {x.nb} row blocks ({occupied_rows(x).size} occupied), "
+        f"overflow rows {int(x.overflow.sum())}, segment tiles "
+        f"{int(ln.sum())} (per row block mean {ln.mean():.4g}, max "
+        f"{ln.max()}), overflow tiles {rf}, reachable tiles "
+        f"{int(x.reach.sum())}")
+
+
+def witness_counts(cols, own_ids, p, dev):
+    """Float64 brute force: the conflict and LoS counts of the ownships
+    ``own_ids`` (caller slots) against the whole fleet of the caller
+    columns ``cols`` (lat, lon, trk, gs, alt, vs, gseast, gsnorth,
+    active, noreso: float32 on the card), by the tile body's own pair
+    math (``cd_pallas.conflict_terms``) on float64 slabs of the same
+    float32 inputs, ``WITNESS_CHUNK`` intruders at a time.  Returns
+    ``(nconf, nlos, excused)`` [len(own_ids)] each.  ``excused`` counts
+    the pairs whose float64 flag hangs on a comparison within
+    ``WITNESS_MARGIN`` (relative) of its threshold while none of the
+    flag's other comparisons fails clearly: dcpa^2 against R^2, the
+    window's ends (the horizontal window taken on both sides of the
+    grazing pair) against each other, 0 and the lookahead, the altitude
+    gap against the half-height, the distance against R.  Float32 may
+    flag those either way."""
+    import torch
+    from bluesky_tpu_torch.ops import cd_pallas, cd_tiled
+    lat, lon, trk, gs, alt, vs, gse, gsn, act, noreso = (
+        c.double() for c in cols)
+    trkrad = torch.deg2rad(trk)
+    f = cd_tiled.precompute_trig(lat, lon)
+    f.update(u=gs * torch.sin(trkrad), v=gs * torch.cos(trkrad), alt=alt,
+             vs=vs, gse=gse, gsn=gsn, trk=trk, active=act, noreso=noreso,
+             tr=torch.ones_like(lat))
+    slab = torch.stack([f[k] for k in cd_pallas._FIELDS])      # [NF, n]
+    own_ids = torch.as_tensor(own_ids, dtype=torch.long, device=dev)
+    own = slab[:, own_ids]
+    n = slab.shape[1]
+    m, tl, r2 = WITNESS_MARGIN, p.tlookahead, p.rpz * p.rpz
+    nconf = torch.zeros(own_ids.numel(), dtype=torch.int64, device=dev)
+    nlos, excused = torch.zeros_like(nconf), torch.zeros_like(nconf)
+    near = lambda a, b, scale: (a - b).abs() <= m * scale
+    for j0 in range(0, n, WITNESS_CHUNK):
+        ids = torch.arange(j0, min(j0 + WITNESS_CHUNK, n), device=dev)
+        t = cd_pallas.conflict_terms(own, slab[:, ids], own_ids, ids, p)
+        nconf += t["swconfl"].sum(0)
+        nlos += t["swlos"].sum(0)
+        dcpa2, dist, dalt = t["dcpa2"], t["dist"], t["dalt"].abs()
+        dt = torch.sqrt(torch.clamp_min(r2 - dcpa2, 0.0)) * t["rvrel"]
+        hi, lo = t["tcrosshi"], t["tcrosslo"]
+        tin = torch.maximum(torch.minimum(hi, lo), t["tcpa"] - dt)
+        tout = torch.minimum(torch.maximum(hi, lo), t["tcpa"] + dt)
+        conds = (                    # (holds, within the margin)
+            (dcpa2 < r2, near(dcpa2, r2, dist * dist + r2)),
+            (tin <= tout, near(tin, tout, tin.abs() + tout.abs() + tl)
+             | near(dalt, p.hpz, p.hpz)),
+            (tout > 0.0, near(tout, 0.0, tout.abs() + tl)),
+            (tin < tl, near(tin, tl, tin.abs() + tl)))
+        los = ((dist < p.rpz, near(dist, p.rpz, p.rpz)),
+               (dalt < p.hpz, near(dalt, p.hpz, p.hpz)))
+
+        def unsure(cs):
+            fails = torch.zeros_like(dist, dtype=torch.bool)
+            edge = torch.zeros_like(fails)
+            for holds, close in cs:
+                fails |= ~holds & ~close
+                edge |= close
+            return edge & ~fails
+        excused += ((unsure(conds) | unsure(los)) & t["pairmask"]).sum(0)
+    return nconf, nlos, excused
+
+
+def scale_witness(tag, cols, p, nconf_k, nlos_k, slot_of, dev):
+    """Hold the kernels' per-ownship conflict and LoS counts (``nconf_k``
+    / ``nlos_k`` [slots], read at ``slot_of[caller]``) on
+    ``WITNESS_OWN`` sampled ownships against ``witness_counts``: the
+    ``SCALE_LAST`` active aircraft with the highest slots and the
+    ``SCALE_LAST`` highest active caller slots, the rest drawn from numpy
+    seed 0.  A difference must be covered by the ownship's excused
+    pairs.  Logs the pairs excused and the ownships that needed them."""
+    act = cols[8].cpu().numpy()
+    slots = slot_of.cpu().numpy()
+    live = np.flatnonzero(act)
+    top_slot = live[np.argsort(slots[live])[-SCALE_LAST:]]
+    top_id = live[-SCALE_LAST:]
+    rest = np.setdiff1d(live, np.concatenate([top_slot, top_id]))
+    rng = np.random.default_rng(0)
+    own = np.unique(np.concatenate([
+        top_slot, top_id,
+        rng.choice(rest, WITNESS_OWN - 2 * SCALE_LAST, replace=False)]))
+    t0 = time.perf_counter()
+    wc, wl, ex = (a.cpu().numpy() for a in witness_counts(cols, own, p, dev))
+    ms = (time.perf_counter() - t0) * 1e3
+    kc = nconf_k.reshape(-1).cpu().numpy()[slots[own]].astype(np.int64)
+    kl = nlos_k.reshape(-1).cpu().numpy()[slots[own]].astype(np.int64)
+    dc, dl = np.abs(kc - wc), np.abs(kl - wl)
+    bad = (dc + dl) > ex
+    log(f"{tag} witness: {own.size} ownships against {act.size} slots in "
+        f"float64 ({ms:.0f} ms): conflicts {int(wc.sum())} (kernels "
+        f"{int(kc.sum())}), LoS {int(wl.sum())} (kernels {int(kl.sum())}); "
+        f"{int(ex.sum())} pairs excused on {int((ex > 0).sum())} ownships, "
+        f"{int(((dc + dl) > 0).sum())} ownships needed them "
+        f"({int((dc + dl).sum())} pairs)")
+    if bad.any():
+        i = np.flatnonzero(bad)[:8]
+        raise AssertionError(
+            f"{tag} witness: ownships {own[i].tolist()} count conflicts "
+            f"{kc[i].tolist()} / LoS {kl[i].tolist()} on the card against "
+            f"{wc[i].tolist()} / {wl[i].tolist()} in float64, beyond "
+            f"their {ex[i].tolist()} excused pairs")
+    return dict(witness_ownships=int(own.size),
+                witness_excused=int(ex.sum()),
+                witness_needed=int(((dc + dl) > 0).sum()))
+
+
+def scale_global(dev, errs, regs):
+    """Phase 21 (a)-(c): ``global_scene``'s million aircraft, sparse then
+    pallas (block 256, MVP, K = 8), each a warm-up chunk and three timed
+    ones (``scale_chunks``), the interval and the sort refresh timed
+    alone; then, on the stepped sparse state's next interval, each
+    launched kernel held on sampled row blocks against its plain version
+    and timed, the sparse and pallas CD equal in flags, per-ownship
+    counts, ``nconf`` and ``nlos``, and both against the float64
+    witness.  Returns the kernels JSON entries."""
+    import torch
+    from bluesky_tpu_torch.core import asas
+    from bluesky_tpu_torch.ops import cd_pallas, cd_sched, cd_tiled
+    # what earlier phases left in reference cycles goes first, so that
+    # the peak is this fleet's
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state, cfg = global_scene(dev)
+    torch.cuda.synchronize()
+    log(f"scale global: {SCALE_GLOBAL} aircraft in {SCALE_GLOBAL} slots "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    state, l_sparse, i_sparse = scale_chunks("scale global sparse", state,
+                                             cfg, SCALE_GLOBAL, 3)
+    time_layers("scale global sparse", {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
+                                                   block=256, impl="sparse"),
+        "sort refresh": lambda: asas.refresh_spatial_sort(
+            state, cfg.asas, block=256, impl="sparse")})
+    snap = state_copy(state)
+    cfg_p = cfg._replace(cd_backend="pallas")
+    state, l_pallas, i_pallas = scale_chunks("scale global pallas", state,
+                                             cfg_p, SCALE_GLOBAL, 3)
+    time_layers("scale global pallas", {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg_p.asas,
+                                                   block=256, impl="pallas"),
+        "sort refresh": lambda: asas.refresh_spatial_sort(
+            state, cfg_p.asas, block=256, impl="pallas")})
+    del state
+    gc.collect()
+
+    # (c) the next interval of the stepped sparse state, both backends
+    x, p, mvp = scale_operands(snap, cfg)
+    log_schedule("scale global sparse", x)
+    ac, a, c = snap.ac, snap.asas, cfg.asas
+    cols = [ac.lat, ac.lon, ac.trk, ac.gs, ac.alt, ac.vs, ac.gseast,
+            ac.gsnorth, ac.active, a.noreso]
+    rd_s = cd_sched.detect_resolve_sched(
+        *cols, c.rpz, c.hpz, c.dtlookahead, mvp,
+        partners=a.partners_s[:x.n_tot], resume_rpz_m=c.rpz * c.resofach,
+        block=256, perm=a.sort_perm)[0]
+    perm_m = cd_tiled.spatial_permutation(ac.lat, ac.lon, ac.active)
+    rd_p = cd_pallas.detect_resolve_pallas(
+        *cols, c.rpz, c.hpz, c.dtlookahead, mvp, block=256, perm=perm_m)
+    for k in ("inconf", "nconf", "nlos"):
+        if not torch.equal(getattr(rd_s, k), getattr(rd_p, k)):
+            raise AssertionError(f"scale global: sparse and pallas {k} "
+                                 "differ")
+    outs_s = cd_sched.run_kernels(x, p)
+    g = lambda t: cd_tiled.take(t, perm_m.long())
+    xp = cd_pallas.prepare(*(g(t) for t in cols), c.rpz, c.dtlookahead,
+                           block=256)
+    k3 = cd_pallas.full_grid(xp.packed, xp.reach, p)
+    inv_m = cd_tiled.invert(perm_m.long())
+    per_own = lambda o, slot: o.reshape(-1)[slot]
+    for j, what in ((6, "conflict"), (7, "LoS")):
+        if not torch.equal(per_own(outs_s[j], x.perm.long()),
+                           per_own(k3[j], inv_m)):
+            raise AssertionError(f"scale global: sparse and pallas "
+                                 f"per-ownship {what} counts differ")
+    log(f"scale global: sparse and pallas agree on the next interval: "
+        f"nconf {int(rd_s.nconf)}, nlos {int(rd_s.nlos)}, ownships in "
+        f"conflict {int(rd_s.inconf.sum())}, every ownship's counts")
+    extra = scale_witness("scale global", cols, p, outs_s[6], outs_s[7],
+                          x.perm, dev)
+
+    # the sampled plain holds and the timings of every launched form
+    runs = sparse_scale_runs("scale_global", x, p)
+    if not int(x.overflow.sum()):   # no overflow row: no K3 tile to hold
+        runs.pop("cd_pallas._kernel/scale_global_overflow")
+    rows_p = sample_rows(occupied_rows(xp))
+    rh = xp.reach.cpu().numpy()
+    runs["cd_pallas._kernel/scale_global"] = sampled_run(
+        xp, rows_p, lambda **kw: cd_pallas.full_grid(xp.packed, xp.reach, p,
+                                                     **kw),
+        lambda rows: cd_pallas.full_grid_plain(xp.packed, xp.reach, p,
+                                               rows=rows),
+        pairs=active_pairs(xp, lambda i: np.flatnonzero(rh[i])),
+        bytes=in_out_bytes(xp, False) + xp.nb * xp.nb, tiles=int(rh.sum()),
+        reso="mvp", extra=item_extra("K3 scale_global", xp,
+                                     cd_pallas.reach_items(xp.reach), p))
+    log(f"scale global pallas: {xp.nb} row blocks, reachable tiles "
+        f"{int(rh.sum())} (per row block mean {rh.sum(1).mean():.4g}, max "
+        f"{rh.sum(1).max()})")
+    launches = {f"{k}/scale_global": v
+                for k, v in dict(l_sparse, **l_pallas).items()}
+    launches.setdefault("cd_pallas._kernel/scale_global_overflow", 0)
+    for r in runs.values():
+        r["extra"].update(extra)
+    for name, info in (("cd_sched._sched_kernel/scale_global", i_sparse),
+                       ("cd_pallas._kernel_resume/scale_global", i_sparse),
+                       ("cd_pallas._kernel/scale_global", i_pallas)):
+        runs[name]["extra"].update({f"path_{k}": v for k, v in info.items()})
+    report = report_kernels(runs, launches, errs, regs)
+    del snap, x, xp, outs_s, k3
+    gc.collect()
+    return report
+
+
+def scale_regional(dev, errs, regs):
+    """Phase 21 (d): ``SCALE_REGIONAL`` aircraft of ``bench_columns``'
+    230 nm circle (``bench_scene``), sparse, block 256,
+    MVP, K = 8: a warm-up chunk and two timed ones, the interval timed
+    alone, then K1, K2 and (off the path) K3 on the overflow rows held on
+    sampled row blocks against their plain versions and timed.  Fails
+    unless the schedule has overflow rows.  Returns the kernels JSON
+    entries."""
+    import torch
+    from bluesky_tpu_torch.core import asas
+    n_ac, nmax = SCALE_REGIONAL
+    t0 = time.perf_counter()
+    state, cfg = bench_scene(dev, n_ac, nmax, "regional")
+    torch.cuda.synchronize()
+    log(f"scale regional: {n_ac} aircraft in {nmax} slots built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    state, launches, info = scale_chunks("scale regional sparse", state, cfg,
+                                         n_ac, 2)
+    time_layers("scale regional sparse", {
+        "ASAS interval": lambda: asas.update_tiled(state, cfg.asas,
+                                                   block=256, impl="sparse")})
+    x, p, _ = scale_operands(state, cfg)
+    log_schedule("scale regional sparse", x)
+    if not int(x.overflow.sum()):
+        raise AssertionError("scale regional: no overflow row, so the "
+                             "overflow pass went untested")
+    runs = sparse_scale_runs("scale_regional", x, p)
+    launches = {f"{k}/scale_regional": v for k, v in launches.items()}
+    launches["cd_pallas._kernel/scale_regional_overflow"] = 0
+    for name in ("cd_sched._sched_kernel/scale_regional",
+                 "cd_pallas._kernel_resume/scale_regional"):
+        runs[name]["extra"].update({f"path_{k}": v for k, v in info.items()})
+    report = report_kernels(runs, launches, errs, regs)
+    del state, x
+    gc.collect()
+    return report
+
+
+def scale_phase(dev, errs, regs):
+    """Phase 21: ``scale_global`` and ``scale_regional``, each logging its
+    seconds."""
+    report = []
+    for part in (scale_global, scale_regional):
+        t0 = time.perf_counter()
+        report += part(dev, errs, regs)
+        log(f"{part.__name__}: {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6011,9 +6606,14 @@ def main():
     ui_phase(dev)
     log(f"ui_phase: {time.perf_counter() - t0:.1f} s")
     log_card("after ui_phase")
+    t0 = time.perf_counter()
+    scale_report = scale_phase(dev, errs, regs)
+    log(f"scale_phase: {time.perf_counter() - t0:.1f} s")
+    log_card("after scale_phase")
     for entry in report:
         entry["sim_launches"] = sim_launches[entry["name"]]
-    report += world_report + kwide_report + shard_report + nores_report
+    report += (world_report + kwide_report + shard_report + nores_report
+               + scale_report)
     for entry in report:
         entry["entry_launches"] = entry_launches.get(entry["name"], 0)
         entry["fabric_launches"] = fabric.get(entry["name"], 0)
@@ -6021,8 +6621,8 @@ def main():
             entry[col] = counts.get(entry["name"], 0)
     missing = ({form_name(k, r) for k, r in FORMS}
                | {nores_name(k, r) for r in RESOS
-                  for k in ("cd_sched._sched_kernel", "cd_pallas._kernel")}) \
-        - {e["name"] for e in report}
+                  for k in ("cd_sched._sched_kernel", "cd_pallas._kernel")}
+               | set(SCALE_FORMS)) - {e["name"] for e in report}
     if missing:
         raise AssertionError(f"kernel forms never measured: {sorted(missing)}")
 
