@@ -29,6 +29,7 @@ import torch
 from ..ops import aero, cd as cdops, cd_pallas, cd_sched, cd_tiled, cr_eby, \
     cr_mvp, cr_ssd, cr_swarm, geo
 from .state import SimState
+from ..obs.trace import get_recorder, sync
 
 
 class AsasConfig(NamedTuple):
@@ -461,7 +462,8 @@ def refresh_spatial_shard(state: SimState, cfg: AsasConfig, ndev: int,
     its caller rows, or reach crosses more than the halo window even
     after the drift margin; the caller falls back to ``replicate``.
     ``halo_blocks`` 0 is AUTO: check against the widest window, then pin
-    1.25x the need (at least one shard's blocks)."""
+    1.25x the need (at least one shard's blocks).  Each blocking read of
+    the device is a ``sync`` span."""
     ac = state.ac
     n = ac.lat.shape[0]
     block = min(block, 256)
@@ -480,10 +482,12 @@ def refresh_spatial_shard(state: SimState, cfg: AsasConfig, ndev: int,
             state.asas.partners_s[:n_tot], block=block, ndev=int(ndev),
             extra=extra, halo=halo, cfg=cfg)
     counts, halo_ok, halo_need, gsmax = stats
-    halo_need = int(halo_need)
+    with sync("spatial_refresh.check"):
+        counts = counts.cpu().numpy()
+        halo_need, halo_ok = int(halo_need), bool(halo_ok)
+        gsmax = float(gsmax)
     if auto:
         halo = min(max(nb_l, int(np.ceil(1.25 * halo_need))), halo_max)
-    counts = counts.cpu().numpy()
     C = n // ndev
     if counts.max() > C:
         raise RuntimeError(
@@ -491,7 +495,7 @@ def refresh_spatial_shard(state: SimState, cfg: AsasConfig, ndev: int,
             f"{int(counts.argmax())} owns {int(counts.max())} aircraft "
             f"> caller-shard capacity {C} (nmax/{ndev}). Raise nmax or "
             "use SHARD REPLICATE for this geometry.")
-    if not bool(halo_ok):
+    if not halo_ok:
         raise RuntimeError(
             f"spatial refresh: halo coverage violated — reachability "
             f"(drift-margin widened) needs {halo_need} halo blocks "
@@ -501,10 +505,12 @@ def refresh_spatial_shard(state: SimState, cfg: AsasConfig, ndev: int,
     new_state = _permute_state(state, srcidx, newslot, sort_perm,
                                partners_new)
     info = dict(counts=counts, occupancy=float(counts.max() / max(C, 1)),
-                halo_blocks=halo, halo_need=halo_need, gsmax=float(gsmax),
+                halo_blocks=halo, halo_need=halo_need, gsmax=gsmax,
                 nb=nb, nb_local=nb_l, n_tot=n_tot, extra_blocks=extra,
                 halo_rows=2 * halo * block * ndev)
-    return new_state, newslot.cpu().numpy(), info
+    with sync("spatial_refresh.newslot"):
+        newslot = newslot.cpu().numpy()
+    return new_state, newslot, info
 
 
 def _tile_shard_refresh(lat, lon, gs, active, old_perm, partners_s, *,
@@ -577,7 +583,8 @@ def refresh_tile_shard(state: SimState, cfg: AsasConfig, tiles,
     Raises ``RuntimeError`` on a tile holding more aircraft than its
     caller rows, on reach escaping the edge and corner neighbourhood, or
     on a pinned budget short of the measured need; the caller falls back
-    (tiles -> spatial -> replicate)."""
+    (tiles -> spatial -> replicate).  Each blocking read of the device
+    is a ``sync`` span."""
     ac = state.ac
     n = ac.lat.shape[0]
     block = min(block, 256)
@@ -596,8 +603,10 @@ def refresh_tile_shard(state: SimState, cfg: AsasConfig, tiles,
         state.asas.partners_s[:n_tot], block=block, extra=extra,
         tiles=(tR, tC), budgets=budgets, cfg=cfg)
     counts, halo_ok, budget_ok, needs, gsmax = stats
-    counts = counts.cpu().numpy()
-    needs = needs.cpu().numpy()
+    with sync("tile_refresh.check"):
+        counts, needs = counts.cpu().numpy(), needs.cpu().numpy()
+        halo_ok, budget_ok = bool(halo_ok), bool(budget_ok)
+        gsmax = float(gsmax)
     C = n // ndev
     if counts.max() > C:
         t_bad = int(counts.argmax())
@@ -607,14 +616,14 @@ def refresh_tile_shard(state: SimState, cfg: AsasConfig, tiles,
             f"aircraft > caller-shard capacity {C} (nmax/{ndev}). Raise "
             "nmax, use a different tile shape, or SHARD "
             "SPATIAL/REPLICATE for this geometry.")
-    if not bool(halo_ok):
+    if not halo_ok:
         raise RuntimeError(
             f"tile refresh: corner-halo contract violated — "
             f"(drift-margin widened) reachability escapes the "
             f"edge+corner neighbourhood of the {tR}x{tC} tile mesh. "
             "Use SHARD SPATIAL/REPLICATE or fewer tiles for this "
             "geometry.")
-    if not bool(budget_ok):
+    if not budget_ok:
         raise RuntimeError(
             f"tile refresh: halo slab budget exceeded — measured "
             f"per-offset import need {needs.tolist()} > pinned budgets "
@@ -629,10 +638,12 @@ def refresh_tile_shard(state: SimState, cfg: AsasConfig, tiles,
     offs = cd_sched.tile_offsets((tR, tC))
     info = dict(counts=counts, occupancy=float(counts.max() / max(C, 1)),
                 tile_shape=(tR, tC), offsets=offs, budgets=budgets,
-                needs=needs.tolist(), gsmax=float(gsmax), nb=nb,
+                needs=needs.tolist(), gsmax=gsmax, nb=nb,
                 nb_local=nb_t, n_tot=n_tot, extra_blocks=extra,
                 halo_rows=int(sum(budgets)) * block * ndev)
-    return new_state, newslot.cpu().numpy(), info
+    with sync("tile_refresh.newslot"):
+        newslot = newslot.cpu().numpy()
+    return new_state, newslot, info
 
 
 def _inscan_layout(state: SimState, block: int, what: str):
@@ -767,16 +778,28 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
     the stack, and the resolvers then run per aircraft on the W * N
     aircraft, partner ids made global for the gathers.  Tiled loops over
     the worlds: its eager row loop is to be redesigned (ROADMAP A11)."""
+    with get_recorder().span("asas.interval", cat="asas", device=True,
+                             impl=impl):
+        return _update_tiled(state, cfg, block, impl, mesh, mesh_axis,
+                             shard_mode, halo_blocks, tile_shape,
+                             tile_budgets)
+
+
+def _update_tiled(state, cfg, block, impl, mesh, mesh_axis, shard_mode,
+                  halo_blocks, tile_shape, tile_budgets):
+    """``update_tiled``'s interval, inside its span."""
     _require_impl(impl)
     require_resolver(cfg)
     from .state import (flatten_worlds, is_stacked, stack_worlds,
                         unflatten_worlds, unstack_worlds)
     worlds = is_stacked(state)
     if worlds and impl == "lax":
-        outs = [update_tiled(sw, cfg, block, impl)
+        outs = [_update_tiled(sw, cfg, block, impl, None, "ac",
+                              "replicate", 0, None, ())
                 for sw in unstack_worlds(state)]
         return (stack_worlds([o[0] for o in outs]),
                 stack_worlds([o[1] for o in outs]))
+    rec = get_recorder()
     ac, asas = state.ac, state.asas
     mvpcfg = _mvp_config(cfg)
     reso_m = cfg.reso_method.upper()
@@ -853,33 +876,34 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
         nconf = rd.nconf
     ac, asas = state.ac, state.asas
 
-    if kern_reso == "swarm":
-        # the MVP avoidance from the MVP sums, then the blend with the
-        # neighbour sums; the CA gate is the previous active flags
-        m_trk, m_gs, m_vs, *_ = cr_mvp.resolve_from_sums(
-            rd.sum_dve, rd.sum_dvn, rd.sum_dvv, rd.tsolv,
-            ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
-            ac.selalt, state.ap.vs, asas.alt,
-            cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
-            resooff=asas.resooff)
-        asas = _apply_commands(
-            asas, ac.active & (nconf > 0),
-            _with_velocity(*cr_swarm.resolve_from_sums(
-                *swarm_sums, ac.alt, ac.trk, ac.cas, ac.vs, ac.gseast,
-                ac.gsnorth, ac.active, m_trk, m_gs, m_vs, asas.active,
-                *_swarm_inputs(state), cfg.vmin, cfg.vmax)))
-    elif kern_reso == "eby":
-        asas = _apply_commands(asas, rd.inconf, _with_velocity(
-            *cr_eby.resolve_from_sums(
-                rd.sum_dve, rd.sum_dvn, rd.sum_dvv, ac.alt, ac.vs, ac.trk,
-                ac.tas, cfg.vmin, cfg.vmax)))
-    elif cfg.reso_on and reso_m == "MVP":
-        asas = _apply_commands(asas, rd.inconf, cr_mvp.resolve_from_sums(
-            rd.sum_dve, rd.sum_dvn, rd.sum_dvv, rd.tsolv,
-            ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
-            ac.selalt, state.ap.vs, asas.alt,
-            cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
-            resooff=asas.resooff))
+    with rec.span("cr.resolve", cat="asas", device=True):
+        if kern_reso == "swarm":
+            # the MVP avoidance from the MVP sums, then the blend with the
+            # neighbour sums; the CA gate is the previous active flags
+            m_trk, m_gs, m_vs, *_ = cr_mvp.resolve_from_sums(
+                rd.sum_dve, rd.sum_dvn, rd.sum_dvv, rd.tsolv,
+                ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
+                ac.selalt, state.ap.vs, asas.alt,
+                cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
+                resooff=asas.resooff)
+            asas = _apply_commands(
+                asas, ac.active & (nconf > 0),
+                _with_velocity(*cr_swarm.resolve_from_sums(
+                    *swarm_sums, ac.alt, ac.trk, ac.cas, ac.vs, ac.gseast,
+                    ac.gsnorth, ac.active, m_trk, m_gs, m_vs, asas.active,
+                    *_swarm_inputs(state), cfg.vmin, cfg.vmax)))
+        elif kern_reso == "eby":
+            asas = _apply_commands(asas, rd.inconf, _with_velocity(
+                *cr_eby.resolve_from_sums(
+                    rd.sum_dve, rd.sum_dvn, rd.sum_dvv, ac.alt, ac.vs, ac.trk,
+                    ac.tas, cfg.vmin, cfg.vmax)))
+        elif cfg.reso_on and reso_m == "MVP":
+            asas = _apply_commands(asas, rd.inconf, cr_mvp.resolve_from_sums(
+                rd.sum_dve, rd.sum_dvn, rd.sum_dvv, rd.tsolv,
+                ac.alt, ac.gseast, ac.gsnorth, ac.vs, ac.trk, ac.gs,
+                ac.selalt, state.ap.vs, asas.alt,
+                cfg.vmin, cfg.vmax, cfg.vsmin, cfg.vsmax, mvpcfg,
+                resooff=asas.resooff))
 
     def ssd_resolve(cur, ptable):
         """SSD from the caller-space [N, K] partner table
@@ -892,46 +916,49 @@ def update_tiled(state: SimState, cfg: AsasConfig, block: int = 512,
         return _apply_commands(cur, rd.inconf, _with_velocity(
             newtrk, newgs, cur.vs, cur.alt))
 
-    ssd_on = cfg.reso_on and reso_m == "SSD"
-    if impl != "sparse":
-        # Resume-nav on the caller-space table (asas.py:1124-1144): prune
-        # the old partners, merge in this interval's fresh conflicts,
-        # prune the merged table.
-        prune = lambda tbl: cd_tiled.partner_keep(
-            tbl, ac.lat, ac.lon, ac.gseast, ac.gsnorth, ac.trk, ac.active,
-            cfg.rpz, cfg.rpz * cfg.resofach)
-        new_idx = cd_tiled.topk_partners(rd, k)
-        merged = cd_tiled.merge_partners(new_idx, asas.partners,
-                                         prune(asas.partners))
-        partners = torch.where(prune(merged), merged,
-                               torch.full_like(merged, -1))
-        if ssd_on:
-            asas = ssd_resolve(asas, partners)
-        asas = asas.replace(partners=partners)
-        act_new = (partners >= 0).any(1)
-    else:
-        if ssd_on:
-            # the in-kernel merged table is sorted-space
-            ptable = cd_sched.partners_to_caller(
-                stacked.asas.sort_perm, partners_s, n, partners_s.shape[-2])
-            asas = ssd_resolve(asas, _global_ids(ptable, n) if worlds
-                               else ptable)
-        spad = stacked.asas.partners_s.shape[-2] - partners_s.shape[-2]
-        if spad > 0:
-            partners_s = torch.cat([partners_s, partners_s.new_full(
-                (*partners_s.shape[:-2], spad, partners_s.shape[-1]), -1)],
-                -2)
-        asas = asas.replace(partners_s=partners_s.reshape(
-            asas.partners_s.shape))
-    if kern_reso == "swarm":
-        # the whole swarm follows ASAS once a conflict triggered a resolve
-        act_new = torch.where(nconf > 0, ac.active, act_new)
-    asas = asas.replace(
-        active=act_new & cfg.reso_on,
-        inconf=rd.inconf,
-        tcpamax=rd.tcpamax.to(asas.tcpamax.dtype),
-        nconf_cur=rd.nconf,
-        nlos_cur=rd.nlos)
+    with rec.span("asas.partners", cat="asas", device=True):
+        ssd_on = cfg.reso_on and reso_m == "SSD"
+        if impl != "sparse":
+            # Resume-nav on the caller-space table (asas.py:1124-1144): prune
+            # the old partners, merge in this interval's fresh conflicts,
+            # prune the merged table.
+            prune = lambda tbl: cd_tiled.partner_keep(
+                tbl, ac.lat, ac.lon, ac.gseast, ac.gsnorth, ac.trk, ac.active,
+                cfg.rpz, cfg.rpz * cfg.resofach)
+            new_idx = cd_tiled.topk_partners(rd, k)
+            merged = cd_tiled.merge_partners(new_idx, asas.partners,
+                                             prune(asas.partners))
+            partners = torch.where(prune(merged), merged,
+                                   torch.full_like(merged, -1))
+            if ssd_on:
+                asas = ssd_resolve(asas, partners)
+            asas = asas.replace(partners=partners)
+            act_new = (partners >= 0).any(1)
+        else:
+            if ssd_on:
+                # the in-kernel merged table is sorted-space
+                ptable = cd_sched.partners_to_caller(
+                    stacked.asas.sort_perm, partners_s, n,
+                    partners_s.shape[-2])
+                asas = ssd_resolve(asas, _global_ids(ptable, n) if worlds
+                                   else ptable)
+            spad = stacked.asas.partners_s.shape[-2] - partners_s.shape[-2]
+            if spad > 0:
+                partners_s = torch.cat([partners_s, partners_s.new_full(
+                    (*partners_s.shape[:-2], spad, partners_s.shape[-1]), -1)],
+                    -2)
+            asas = asas.replace(partners_s=partners_s.reshape(
+                asas.partners_s.shape))
+        if kern_reso == "swarm":
+            # the whole swarm follows ASAS once a conflict triggered a
+            # resolve
+            act_new = torch.where(nconf > 0, ac.active, act_new)
+        asas = asas.replace(
+            active=act_new & cfg.reso_on,
+            inconf=rd.inconf,
+            tcpamax=rd.tcpamax.to(asas.tcpamax.dtype),
+            nconf_cur=rd.nconf,
+            nlos_cur=rd.nlos)
     if worlds:
         asas = asas.replace(partners=_local_ids(asas.partners, nw, n))
         return unflatten_worlds(state.replace(asas=asas), stacked), rd_out

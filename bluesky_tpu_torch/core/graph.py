@@ -55,6 +55,7 @@ import torch
 
 from . import step as stepmod
 from ..obs import devprof
+from ..obs.trace import get_recorder
 
 #: the chunk executors by key; per device, the shared graph memory pool,
 #: the side stream of the warm-ups and captures, and every graph captured
@@ -62,7 +63,8 @@ from ..obs import devprof
 #: have all been destroyed, so they live until ``clear``)
 _CHUNKS = {}
 _POOLS = {}
-#: this thread's count of new chunk executors (``misses``); the keys the
+#: this thread's counts of new chunk executors (``misses``), of graph
+#: replays (``replays``) and of captures (``captures``); the keys the
 #: CPU's eager chunks have run under (``eager_lookup``)
 _LOOKUPS = threading.local()
 _EAGER = set()
@@ -85,6 +87,17 @@ def misses() -> int:
 
 def _miss():
     _LOOKUPS.misses = misses() + 1
+
+
+def replays() -> int:
+    """The step graphs this thread has replayed (the Simulation's
+    ``graph_replays`` counter adds a dispatch's difference)."""
+    return getattr(_LOOKUPS, "replays", 0)
+
+
+def captures() -> int:
+    """The step graphs this thread has captured (``graph_captures``)."""
+    return getattr(_LOOKUPS, "captures", 0)
 
 
 def eager_lookup(state, cfg, checked: bool, keep: bool):
@@ -171,7 +184,8 @@ def _capture(body, device, gen):
         if one is not None:
             g.register_generator_state(one)
     side.wait_stream(cur)
-    with torch.cuda.stream(side):
+    with get_recorder().span("step.capture", cat="step"), \
+            torch.cuda.stream(side):
         t0 = time.perf_counter()
         body()
         t1 = time.perf_counter()
@@ -182,6 +196,7 @@ def _capture(body, device, gen):
             g.capture_end()
     cur.wait_stream(side)
     graphs.append(g)
+    _LOOKUPS.captures = captures() + 1
     devprof.compile_event("capture_warmup", (t1 - t0) * 1e3)
     devprof.compile_event("capture", (time.perf_counter() - t1) * 1e3)
     return g.replay
@@ -225,6 +240,8 @@ class ChunkGraphs:
         self.replays = {}
         self.clocks = None
         self.lent = False
+        self._run = None         # the open step.replay span, its steps
+        self._run_steps = 0
 
     def owns(self, state) -> bool:
         """Whether ``state`` holds one of the buffers (it was made from a
@@ -236,13 +253,15 @@ class ChunkGraphs:
 
     def start(self, state):
         """Copy ``state`` and fresh folds into the buffers."""
-        write_back(self.bufs, [t for _, t in leaves(state)])
-        write_back(self.carry_bufs, [t for _, t in leaves(
-            stepmod.init_carry(state, self.cfg, self.checked))])
-        if self.worlds:
-            self.simt.copy_(stepmod.host_to_device(state.simt, self.device))
-        else:
-            self.simt.fill_(float(state.simt))
+        with get_recorder().span("step.start", cat="step", device=True):
+            write_back(self.bufs, [t for _, t in leaves(state)])
+            write_back(self.carry_bufs, [t for _, t in leaves(
+                stepmod.init_carry(state, self.cfg, self.checked))])
+            if self.worlds:
+                self.simt.copy_(stepmod.host_to_device(state.simt,
+                                                       self.device))
+            else:
+                self.simt.fill_(float(state.simt))
         self.clocks = stepmod.Clocks(state.simt, state.fms_t0,
                                      state.asas_tnext, state.rng)
 
@@ -252,7 +271,8 @@ class ChunkGraphs:
         return self.static.replace(**self.clocks._asdict())
 
     def _body(self, fms: bool, asas: bool):
-        """One step and its folds on the buffers, written back."""
+        """One step and its folds on the buffers, written back (the
+        device span ``step.fold``)."""
         if self.worlds:
             out = stepmod.step_body_worlds(
                 self.static, self.cfg, fms, asas, self.fms_mask,
@@ -260,11 +280,12 @@ class ChunkGraphs:
         else:
             out = stepmod.step_body(self.static, self.cfg, fms, asas,
                                     self.simt, self.gen)
-        carry = stepmod.fold_carry(self.carry, out, self.cfg)
-        write_back(self.bufs + self.carry_bufs,
-                   [t for _, t in leaves(out)]
-                   + [t for _, t in leaves(carry)])
-        self.simt.add_(self.simdt)
+        with get_recorder().span("step.fold", cat="step", device=True):
+            carry = stepmod.fold_carry(self.carry, out, self.cfg)
+            write_back(self.bufs + self.carry_bufs,
+                       [t for _, t in leaves(out)]
+                       + [t for _, t in leaves(carry)])
+            self.simt.add_(self.simdt)
 
     def step(self):
         if self.worlds:
@@ -279,33 +300,63 @@ class ChunkGraphs:
             fms, asas, clk = stepmod.next_clocks(self.clocks, self.cfg)
             if self.gen is not None:
                 self.gen.manual_seed(stepmod.noise_seed(self.clocks))
-        if asas:
-            self._body(fms, True)
+        replay = None if asas else self.replays.get(fms)
+        if replay is not None:
+            self._replay(replay)
         else:
-            replay = self.replays.get(fms)
-            if replay is None:
+            self._end_run()
+            if asas:
+                with get_recorder().span("step.eager", cat="step",
+                                         device=True):
+                    self._body(fms, True)
+            else:
                 self.replays[fms] = _capture(
                     lambda: self._body(fms, False), self.device, self.gen)
-            else:
-                replay()
         self.clocks = clk
 
+    def _replay(self, replay):
+        """Replay one step; consecutive replays share one ``step.replay``
+        span, open until the next eager step, ``apply`` or ``finish``."""
+        if self._run is None:
+            self._run = get_recorder().span("step.replay", cat="step",
+                                            device=True)
+            self._run.__enter__()
+            self._run_steps = 0
+        self._run_steps += 1
+        _LOOKUPS.replays = replays() + 1
+        replay()
+
+    def _end_run(self):
+        """Close the open ``step.replay`` span (if any), tagged with its
+        steps."""
+        run, self._run = self._run, None
+        if run is not None:
+            run.set(steps=self._run_steps)
+            run.__exit__(None, None, None)
+
     def apply(self, fn):
-        """Run ``fn(state)`` eagerly and write its result back."""
-        write_back(self.bufs, [t for _, t in leaves(fn(self.state))])
+        """Run ``fn(state)`` eagerly and write its result back (the
+        in-chunk sort refresh, spanned as ``sort_refresh``)."""
+        self._end_run()
+        with get_recorder().span("sort_refresh", cat="asas", device=True,
+                                 inscan=True):
+            write_back(self.bufs, [t for _, t in leaves(fn(self.state))])
 
     def finish(self, keep: bool):
         """``(state, carry, simt)`` of the chunk: the buffers themselves,
         or copies of them with ``keep``; the folds and ``simt`` always as
-        copies (they are reset by the next chunk)."""
-        state = self.state
-        if keep:
-            state = rebuild(state, iter([t.clone() for t in self.bufs]))
-        else:
-            self.lent = True
-        carry = rebuild(self.carry, iter([t.clone()
-                                          for t in self.carry_bufs]))
-        return state, carry, self.simt.clone()
+        copies (they are reset by the next chunk); the copies are the
+        device span ``step.pack``, after the last run of replays."""
+        self._end_run()
+        with get_recorder().span("step.pack", cat="step", device=True):
+            state = self.state
+            if keep:
+                state = rebuild(state, iter([t.clone() for t in self.bufs]))
+            else:
+                self.lent = True
+            carry = rebuild(self.carry, iter([t.clone()
+                                              for t in self.carry_bufs]))
+            return state, carry, self.simt.clone()
 
 
 def chunk_key(state, cfg, checked: bool, keep: bool):

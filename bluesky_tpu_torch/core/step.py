@@ -47,6 +47,7 @@ from . import autopilot, kinematics, noise, perf as perfmod, pilot
 from . import wind as windmod
 from .asas import AsasConfig
 from .noise import NoiseConfig
+from ..obs.trace import get_recorder
 from .state import (SimState, stack_worlds, unstack_worlds,  # noqa: F401
                     world_slice)
 
@@ -191,20 +192,24 @@ def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
     """The device part of one step, with the gates decided: ``simt`` is
     the pre-step clock (a host scalar, or a 0-d tensor of the same value
     on the state's device), ``gen`` the noise generator (None without
-    noise).  Leaves the host side of ``state`` as it was."""
+    noise).  Leaves the host side of ``state`` as it was.  The parts
+    before and after the ASAS interval are the device spans ``step.pre``
+    and ``step.post``."""
     simdt = float(state.simt.dtype.type(cfg.simdt))
+    span = get_recorder().span
 
-    # ---------- Atmosphere ----------
-    state = state.replace(ac=kinematics.update_atmosphere(state.ac))
+    with span("step.pre", cat="step", device=True):
+        # ---------- Atmosphere ----------
+        state = state.replace(ac=kinematics.update_atmosphere(state.ac))
 
-    # ---------- ADS-B broadcast model ----------
-    state = state.replace(adsb=noise.adsb_update(
-        state.adsb, state.ac, gen, simt, cfg.noise, smooth=cfg.smooth))
+        # ---------- ADS-B broadcast model ----------
+        state = state.replace(adsb=noise.adsb_update(
+            state.adsb, state.ac, gen, simt, cfg.noise, smooth=cfg.smooth))
 
-    # ---------- FMS / autopilot, gated at fms_dt ----------
-    if fms:
-        state = autopilot.update_fms(state)
-    state = autopilot.update_continuous(state)
+        # ---------- FMS / autopilot, gated at fms_dt ----------
+        if fms:
+            state = autopilot.update_fms(state)
+        state = autopilot.update_continuous(state)
 
     # ---------- ASAS CD&R, gated at dtasas ----------
     if asas:
@@ -221,12 +226,13 @@ def step_body(state: SimState, cfg: SimConfig, fms: bool, asas: bool,
                 tile_budgets=cfg.cd_tile_budgets)
 
     # ---------- Pilot arbitration ----------
-    if cfg.use_wind:
-        windn, winde = windmod.getdata(state.wind, state.ac.lat,
-                                       state.ac.lon, state.ac.alt)
-    else:
-        windn = winde = None
-    return _tail(state, cfg, simdt, gen, windn, winde)
+    with span("step.post", cat="step", device=True):
+        if cfg.use_wind:
+            windn, winde = windmod.getdata(state.wind, state.ac.lat,
+                                           state.ac.lon, state.ac.alt)
+        else:
+            windn = winde = None
+        return _tail(state, cfg, simdt, gen, windn, winde)
 
 
 def _tail(state: SimState, cfg: SimConfig, simdt: float, gen, windn,
@@ -473,8 +479,10 @@ class _EagerChunk:
         self.carry = fold_carry(self.carry, self.state, self.cfg)
 
     def apply(self, fn):
-        """Replace the state by ``fn(state)`` (the sort refresh)."""
-        self.state = fn(self.state)
+        """Replace the state by ``fn(state)`` (the in-chunk sort
+        refresh, spanned as ``sort_refresh``)."""
+        with get_recorder().span("sort_refresh", cat="asas", inscan=True):
+            self.state = fn(self.state)
 
     def finish(self, keep: bool):
         return self.state, self.carry, _simt_tensor(self.state)
@@ -611,10 +619,11 @@ def _run_chunk(state: SimState, cfg: SimConfig, nsteps: int, checked: bool,
     state, carry, simt = ex.finish(keep)
     rpack = None
     if inscan:
-        rpack = RefreshPack(
-            sort_t=sort_t if worlds else sort_t[()],
-            count=host_to_device(count, state.device),
-            guard=guard, newslot=newslot)
+        with get_recorder().span("step.pack", cat="step", device=True):
+            rpack = RefreshPack(
+                sort_t=sort_t if worlds else sort_t[()],
+                count=host_to_device(count, state.device),
+                guard=guard, newslot=newslot)
     return state, carry, simt, rpack
 
 
@@ -690,7 +699,8 @@ def _edge(state, cfg, nsteps, checked, sort_t0, keep):
     ``cfg.fingerprint``, in that order, as in JAX."""
     state, carry, simt, refresh = _run_chunk(state, cfg, nsteps, checked,
                                              sort_t0, keep)
-    out = (state, pack_telemetry(state, carry.get("bad"), simt))
+    with get_recorder().span("step.pack", cat="step", device=True):
+        out = (state, pack_telemetry(state, carry.get("bad"), simt))
     if "st" in carry:
         out += (carry["st"],)
     if refresh is not None:

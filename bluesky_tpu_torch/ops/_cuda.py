@@ -81,9 +81,13 @@ def _start_build(source: str, verbose: bool = False):
 
 
 def _finish_build(source: str, job) -> str:
+    """Wait for one ``nvcc`` (the ``cuda.build`` span) and move its
+    library into place."""
     from ..obs import devprof
+    from ..obs.trace import get_recorder
     proc, tmp, out, t0 = job
-    _, err = proc.communicate()
+    with get_recorder().span("cuda.build", cat="build", source=source):
+        _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{err}")
     os.replace(tmp, out)

@@ -61,6 +61,7 @@ from .cd_tiled import (RowConflictData, block_reachability, precompute_trig,
                        take, take_ids, take_rows)
 from . import geo
 from ..parallel.dist import allgather_shards, process_index, spans_ranks
+from ..obs.trace import get_recorder
 
 #: The ``LAUNCHES`` name of the segment pass's no-resume form (JAX
 #: ``_sched_kernel`` with ``rpz_m=None``: no partner table), the C entry
@@ -669,11 +670,31 @@ def _overflow_pass(packed, reach_f, pold, p, reso, kk, mesh=None):
 def run_kernels(x: SchedInputs, p: TileParams):
     """The segment pass plus the overflow fallback in the resolver form
     ``x.reso``, merged row-disjointly (the 13 outputs in kernel layout,
-    20 in the swarm form; 10 and 17 in the no-resume form)."""
-    outs_s = sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p,
-                         reso=x.reso, nbw=x.nb, kk=x.kk)
-    outs_f = _overflow_pass(x.packed, x.reach & x.overflow[:, None], x.pold,
-                            p, x.reso, x.kk)
+    20 in the swarm form; 10 and 17 in the no-resume form).  The passes
+    are the spans ``cd.k1`` and ``cd.k2``; while the recorder counts,
+    they carry the device counters ``cd_items`` and ``cd_k1_tiles`` (the
+    walker's work items and tiles, as ``window_items`` cuts them),
+    ``cd_k2_tiles`` and ``cd_overflow_rows`` (``reach & overflow`` and
+    ``overflow``)."""
+    rec = get_recorder()
+    with rec.span("cd.k1", cat="cd", device=True):
+        outs_s = sched_tiles(x.packed, x.wst, x.wln, x.wmax, x.pold, p,
+                             reso=x.reso, nbw=x.nb, kk=x.kk)
+        if rec.counting:
+            # window_items' counts and items, without building them: a
+            # row's tiles, cut into items of ceil(count / per_row)
+            count = torch.minimum(torch.clamp(x.wln, 0, int(x.wmax)),
+                                  torch.clamp(x.nb - x.wst, min=0)).sum(1)
+            size = torch.clamp((count + cd_pallas.ITEMS_PER_ROW - 1)
+                               // cd_pallas.ITEMS_PER_ROW, min=1)
+            rec.count("cd_items", ((count + size - 1) // size).sum())
+            rec.count("cd_k1_tiles", count.sum())
+    with rec.span("cd.k2", cat="cd", device=True):
+        reach_f = x.reach & x.overflow[:, None]
+        outs_f = _overflow_pass(x.packed, reach_f, x.pold, p, x.reso, x.kk)
+        if rec.counting:
+            rec.count("cd_k2_tiles", reach_f.sum())
+            rec.count("cd_overflow_rows", x.overflow.sum())
     rsel = x.overflow[:, None, None]
     return [torch.where(rsel, f, s) for f, s in zip(outs_f, outs_s)]
 
@@ -1173,17 +1194,27 @@ def detect_resolve_sched(lat, lon, trk, gs, alt, vs, gseast, gsnorth,
                                   reach_kw)
         return _mesh_result(parts, lat.device, n_tot, kk, reso, shards)
 
-    x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
-                noreso, rpz, hpz, tlookahead, partners, block=block,
-                s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
-                perm=perm, tas=tas, cas=cas, reso=reso,
-                sentinel=shard_mode in ("spatial", "tiles"), kk=kk)
+    with get_recorder().span("cd.prepare", cat="cd", device=True):
+        x = prepare(lat, lon, trk, gs, alt, vs, gseast, gsnorth, active,
+                    noreso, rpz, hpz, tlookahead, partners, block=block,
+                    s_cap=s_cap, wmax=wmax, extra_blocks=extra_blocks,
+                    perm=perm, tas=tas, cas=cas, reso=reso,
+                    sentinel=shard_mode in ("spatial", "tiles"), kk=kk)
     if shard_mode == "tiles":
         outs = _tiles_reference(x, p, tcfg)
     elif mesh is not None and mesh.shape[mesh_axis] > 1:
         outs = _replicate_rows(x, p, mesh_shards(mesh))
     else:
         outs = run_kernels(x, p)
+    with get_recorder().span("cd.back", cat="cd", device=True):
+        return _to_caller(x, outs, lead, n, n_tot, kk, resume, reso,
+                          shard_mode)
+
+
+def _to_caller(x, outs, lead, n, n_tot, kk, resume, reso, shard_mode):
+    """``detect_resolve_sched``'s result from the kernels' outputs
+    ``outs``: the per-ownship reductions and the partner table back in
+    caller order (the device span ``cd.back``)."""
     (inconf, tcpamax, sdve, sdvn, sdvv, tsolv, ncnt, lcnt,
      ctin, cidx) = outs[:10]
     perm = x.perm.long()

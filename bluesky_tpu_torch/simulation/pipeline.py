@@ -22,7 +22,11 @@ already.
 Observability: the chunk-sequence correlation tag lives here, on the
 host edge object, not in the device pack; ``t_dispatch`` anchors the
 chunk-latency series and ``fetch`` reports the edge pull's wall time to
-the owning sim's ``sim_edge_pull_ms`` histogram through ``obs_sink``.
+the owning sim's ``sim_edge_pull_ms`` histogram through ``obs_sink``;
+the wait is the span ``sync`` (``obs.trace.sync``, counted in the sim's
+``sim_host_syncs``).  The copies to pinned memory are the device span
+``edge.copy``, ended before the completion event is recorded, so it has
+finished when the wait returns.
 """
 import time
 from typing import Optional
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.graph import leaves, rebuild
+from ..obs.trace import get_recorder, sync
 
 
 def _host_copy(tree):
@@ -42,10 +47,11 @@ def _host_copy(tree):
     if not any(t.is_cuda for t in src):
         return rebuild(tree, iter([t.numpy() for t in src])), None
     dst = []
-    for t in src:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        dst.append(h)
+    with get_recorder().span("edge.copy", cat="step", device=True):
+        for t in src:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            dst.append(h)
     event = torch.cuda.Event()
     event.record()
     return rebuild(tree, iter([h.numpy() for h in dst])), event
@@ -81,7 +87,8 @@ class ChunkEdge:
         """Block until this edge's chunk and its host copies are done."""
         if not self._ready:
             t0 = time.perf_counter()
-            self._event.synchronize()
+            with sync("edge"):
+                self._event.synchronize()
             self._ready = True
             if self._obs_sink is not None:
                 self._obs_sink((time.perf_counter() - t0) * 1e3)

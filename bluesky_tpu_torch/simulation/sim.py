@@ -405,6 +405,19 @@ class Simulation:
                          help="sort refreshes fired inside chunks")
         self.obs.counter("sim_mesh_trips",
                          help="mesh-epoch events (mesh_lost+resharded)")
+        self._host_syncs = self.obs.counter(
+            "sim_host_syncs",
+            help="blocking device-to-host waits inside step and "
+                 "drain_pipeline (sync spans)")
+        self.obs.counter("graph_replays", help="CUDA-graph step replays")
+        self.obs.counter("graph_captures", help="CUDA-graph step captures")
+        # the interval's device counters, read at the edges while device
+        # timing is on (TRACE ON DEVICE)
+        for name, what in (("cd_items", "the walker's work items"),
+                           ("cd_k1_tiles", "tiles the segment pass visits"),
+                           ("cd_k2_tiles", "tiles the overflow pass visits"),
+                           ("cd_overflow_rows", "overflow row blocks")):
+            self.obs.counter(name, help=what)
         _h = self.obs.histogram
         _h("sim_chunk_latency_ms",
            help="chunk dispatch -> edge retirement wall ms")
@@ -412,8 +425,6 @@ class Simulation:
            help="host gap between consecutive chunk dispatches")
         _h("sim_edge_pull_ms",
            help="wait for an edge's telemetry on the host, wall ms")
-        _h("sim_sort_refresh_ms",
-           help="spatial-sort refresh wall ms")
         _h("sim_snapshot_capture_ms",
            help="snapshot-ring capture wall ms")
         self._edge_pull_sink = \
@@ -1273,10 +1284,20 @@ class Simulation:
         """
         if self.state_flag == END:
             return False
-        plan = self._plan_chunk(max_chunk)
-        if plan is None:
-            return True
-        chunk, simt = plan
+        rec = self.recorder
+        syncs = obs_trace.syncs()
+        # seq: the chunk this iteration dispatches, if it dispatches one
+        with rec.span("sim.step", seq=self._chunk_seq + 1,
+                      world=self.world_tag):
+            with rec.span("sim.plan"):
+                plan = self._plan_chunk(max_chunk)
+            if plan is not None:
+                self._step_chunk(*plan)
+        self._host_syncs.inc(obs_trace.syncs() - syncs)
+        return True
+
+    def _step_chunk(self, chunk: int, simt: float):
+        """``step()``'s device chunk of ``chunk`` steps from ``simt``."""
         from ..parallel.sharding import MeshLostError
         try:
             reasons = self._sync_reasons(simt, chunk)
@@ -1293,7 +1314,6 @@ class Simulation:
             # a group of shards died: end the mesh epoch, not the run
             self._handle_mesh_lost(e)
         self._after_chunk()
-        return True
 
     def _plan_chunk(self, max_chunk: Optional[int] = None):
         """The host pre-chunk phase of ``step()``: process the stack,
@@ -1545,8 +1565,11 @@ class Simulation:
                 dp.fence(state.device)
                 t_c0 = time.perf_counter()
             misses = graph.misses()
+            replays, captures = graph.replays(), graph.captures()
             out = runner(state, self.cfg, chunk,
                          checked=self.guard.enabled, sort_t0=sort_t0)
+            self.obs.get("graph_replays").inc(graph.replays() - replays)
+            self.obs.get("graph_captures").inc(graph.captures() - captures)
             if win:
                 # the compute section needs the device fence: the few
                 # windowed chunks serialize the pipeline (PROFILE DEVICE)
@@ -1604,8 +1627,8 @@ class Simulation:
         in-chunk refresh active this is a NO-OP (the refresh rides the
         chunk and retires via the RefreshPack)."""
         if self._refresh_due(simt):
-            t0 = time.perf_counter()
-            with self.recorder.span("sort_refresh",
+            with self.recorder.span("sort_refresh", cat="asas",
+                                    device=True,
                                     backend=self.cfg.cd_backend,
                                     shard=self.shard_mode,
                                     world=self.world_tag):
@@ -1618,8 +1641,6 @@ class Simulation:
                         state, self.cfg.asas,
                         block=self.cfg.cd_block,
                         impl=impl_for_backend(self.cfg.cd_backend))
-            self.obs.get("sim_sort_refresh_ms").observe(
-                (time.perf_counter() - t0) * 1e3)
             self._sort_simt = simt
             self._sort_backend = self.cfg.cd_backend
         return state
@@ -1686,75 +1707,76 @@ class Simulation:
         """Install one synchronously-completed chunk's result and run
         every edge subsystem against it — the post-dispatch half of
         ``_step_sync``."""
-        self.traf.state = state
-        self._step_count += chunk
-        self._straggle_charge(chunk)
         if seq is None:
             seq = self._seq_dispatched
-        edge = ChunkEdge(telem, chunk,      # device clock, no prediction
-                         seq=seq, obs_sink=self._edge_pull_sink,
-                         stats=stats, refresh=refresh,
-                         fingerprint=fingerprint)
-        t_ret0 = time.perf_counter()
-        # Retire the in-chunk refresh pack FIRST (before the guard
-        # response and every edge consumer).
-        self._retire_refresh(edge)
-        tripped = False
-        if self.guard.enabled:
-            # Integrity-guarded chunk: the isfinite check rides the
-            # chunk's carry and pins a trip to one step of the chunk;
-            # the guard then quarantines or rolls back at this edge.
-            bad = edge.bad_step
-            if bad >= 0:
-                self.guard.trip(bad, chunk)
-                tripped = True
-        # Publish the edge to the ACDATA cache only when its pack still
-        # describes the live state: a trip just scrubbed/rolled back the
-        # fleet, so the tripped pack must never reach the stream.
-        self._last_edge = None if tripped else edge
-        # Drain the in-chunk stats pack only off a CLEAN edge.
-        if not tripped:
-            self._drain_scanstats(edge)
-            self._drain_fingerprint(edge)
+        with self.recorder.span("sim.edge", seq=seq, chunk=chunk) as span:
+            self.traf.state = state
+            self._step_count += chunk
+            self._straggle_charge(chunk)
+            edge = ChunkEdge(telem, chunk,  # device clock, no prediction
+                             seq=seq, obs_sink=self._edge_pull_sink,
+                             stats=stats, refresh=refresh,
+                             fingerprint=fingerprint)
+            t_ret0 = time.perf_counter()
+            # Retire the in-chunk refresh pack FIRST (before the guard
+            # response and every edge consumer).
+            self._retire_refresh(edge)
+            tripped = False
+            if self.guard.enabled:
+                # Integrity-guarded chunk: the isfinite check rides the
+                # chunk's carry and pins a trip to one step of the chunk;
+                # the guard then quarantines or rolls back at this edge.
+                bad = edge.bad_step
+                if bad >= 0:
+                    self.guard.trip(bad, chunk)
+                    tripped = True
+            # Publish the edge to the ACDATA cache only when its pack still
+            # describes the live state: a trip just scrubbed/rolled back the
+            # fleet, so the tripped pack must never reach the stream.
+            self._last_edge = None if tripped else edge
+            # Drain the in-chunk stats pack only off a CLEAN edge.
+            if not tripped:
+                self._drain_scanstats(edge)
+                self._drain_fingerprint(edge)
 
-        plugins_due = self.plugins.has_due(self.simt)
+            plugins_due = self.plugins.has_due(self.simt)
 
-        # Chunk-edge subsystems: plugin updates, conditional triggers,
-        # trails, loggers (the reference runs these per 0.05 s step,
-        # simulation.py:110-116; here they sample the chunk-edge state)
-        self.plugins.update(self.simt)
-        self.traf.flush()
-        self.cond.update()
-        self._check_runway_landings()
-        self.plotter.update(self.simt)
-        self.metrics.update()
-        if self.traf.trails.active:
-            # inactive trails only re-anchor, and TRAIL ON anchors anew
-            self.traf.trails.update(self.simt)
-        self.datalog.postupdate(self)
-        if plugins_due:
-            # plugin hooks can mutate traffic directly, past the cache
-            self._last_edge = None
+            # Chunk-edge subsystems: plugin updates, conditional triggers,
+            # trails, loggers (the reference runs these per 0.05 s step,
+            # simulation.py:110-116; here they sample the chunk-edge state)
+            self.plugins.update(self.simt)
+            self.traf.flush()
+            self.cond.update()
+            self._check_runway_landings()
+            self.plotter.update(self.simt)
+            self.metrics.update()
+            if self.traf.trails.active:
+                # inactive trails only re-anchor, and TRAIL ON anchors anew
+                self.traf.trails.update(self.simt)
+            self.datalog.postupdate(self)
+            if plugins_due:
+                # plugin hooks can mutate traffic directly, past the cache
+                self._last_edge = None
 
-        # Periodic snapshot-ring capture: the post-chunk state is
-        # verified finite when the guard is on, so ring entries are
-        # always healthy restore points.  The rollback policy and the
-        # mesh-epoch recovery consume the ring, and a capture is a full
-        # device->host copy of the state, so other runs do not pay it.
-        if self.state_flag == OP and (
-                (self.guard.enabled and self.guard.policy == "rollback")
-                or self.shard_mode != "off"):
-            self.snap_ring.maybe_capture(self)
+            # Periodic snapshot-ring capture: the post-chunk state is
+            # verified finite when the guard is on, so ring entries are
+            # always healthy restore points.  The rollback policy and the
+            # mesh-epoch recovery consume the ring, and a capture is a full
+            # device->host copy of the state, so other runs do not pay it.
+            if self.state_flag == OP and (
+                    (self.guard.enabled and self.guard.policy == "rollback")
+                    or self.shard_mode != "off"):
+                self.snap_ring.maybe_capture(self)
 
-        # Periodic on-disk autosnapshot (snapshot_autosave_dt, off by
-        # default): persist the newest ring entry, or a fresh capture,
-        # with the atomic checksummed writer, so a later preemption or
-        # kill resumes from here.
-        if self.autosave_dt > 0 and self.state_flag == OP \
-                and self.simt - self._autosave_t \
-                >= self.autosave_dt - 1e-9:
-            self._autosave()
-        self._edge_retired(edge, t_ret0)
+            # Periodic on-disk autosnapshot (snapshot_autosave_dt, off by
+            # default): persist the newest ring entry, or a fresh capture,
+            # with the atomic checksummed writer, so a later preemption or
+            # kill resumes from here.
+            if self.autosave_dt > 0 and self.state_flag == OP \
+                    and self.simt - self._autosave_t \
+                    >= self.autosave_dt - 1e-9:
+                self._autosave()
+            span.set(latency_ms=self._edge_retired(edge, t_ret0))
 
     def _straggle_charge(self, chunk: int):
         """FAULT STRAGGLE <factor>: each simulated second owes ``factor``
@@ -1768,32 +1790,34 @@ class Simulation:
         completion fence), respond to a late trip, then run the passive
         edge consumers off the telemetry pack.  Runs while the next
         chunk computes on the device."""
-        t_ret0 = time.perf_counter()
-        self._retire_refresh(edge)
-        bad = edge.bad_step
-        if self.guard.enabled and bad >= 0:
-            self._deferred_trip(edge, bad)
-            return
-        # Passive consumers: each samples the edge state from the pack.
-        self._drain_scanstats(edge)
-        self._drain_fingerprint(edge)
-        self.metrics.update(edge)
-        if self.traf.trails.active:
-            pack = edge.fetch()
-            self.traf.trails.update(edge.simt,
-                                    np.asarray(pack.lat),
-                                    np.asarray(pack.lon),
-                                    active=np.asarray(pack.active))
-        # Snapshot-ring capture of the kept (not donated) post-chunk
-        # state while the next chunk is in flight; the runners return
-        # that state to no one else, so its buffers are free after it.
-        if capture_state is not None:
-            self.snap_ring.capture(self, state=capture_state,
-                                   simt=edge.simt)
-            from ..core import graph
-            graph.release(capture_state)
-        self._last_edge = edge
-        self._edge_retired(edge, t_ret0)
+        with self.recorder.span("sim.edge", seq=edge.seq,
+                                chunk=edge.chunk) as span:
+            t_ret0 = time.perf_counter()
+            self._retire_refresh(edge)
+            bad = edge.bad_step
+            if self.guard.enabled and bad >= 0:
+                self._deferred_trip(edge, bad)
+                return
+            # Passive consumers: each samples the edge state from the pack.
+            self._drain_scanstats(edge)
+            self._drain_fingerprint(edge)
+            self.metrics.update(edge)
+            if self.traf.trails.active:
+                pack = edge.fetch()
+                self.traf.trails.update(edge.simt,
+                                        np.asarray(pack.lat),
+                                        np.asarray(pack.lon),
+                                        active=np.asarray(pack.active))
+            # Snapshot-ring capture of the kept (not donated) post-chunk
+            # state while the next chunk is in flight; the runners return
+            # that state to no one else, so its buffers are free after it.
+            if capture_state is not None:
+                self.snap_ring.capture(self, state=capture_state,
+                                       simt=edge.simt)
+                from ..core import graph
+                graph.release(capture_state)
+            self._last_edge = edge
+            span.set(latency_ms=self._edge_retired(edge, t_ret0))
 
     def _drain_scanstats(self, edge):
         """Drain one clean edge's in-chunk accumulator pack (host
@@ -1816,19 +1840,18 @@ class Simulation:
 
     def _edge_retired(self, edge, t_ret0: float):
         """Book one retired edge into the registry + recorder: the
-        chunk-latency series and a chunk_edge span covering the
-        retirement work itself."""
+        chunk-latency series, and the device spans whose chunks have
+        finished (``Recorder.resolve``: this edge's completion event has
+        fired, so reading them waits for nothing).  Returns the chunk's
+        latency, dispatch to retirement, in ms (``sim.edge``'s
+        ``latency_ms``)."""
         now = time.perf_counter()
-        self.obs.get("sim_chunk_latency_ms").observe(
-            (now - edge.t_dispatch) * 1e3)
+        latency = (now - edge.t_dispatch) * 1e3
+        self.obs.get("sim_chunk_latency_ms").observe(latency)
         self.devprof.note_edge(edge.seq, (now - t_ret0) * 1e3)
-        rec = self.recorder
-        if rec.enabled:
-            rec.complete("chunk_edge", rec.wall_us(t_ret0),
-                         (now - t_ret0) * 1e6,
-                         seq=edge.seq, chunk=edge.chunk,
-                         latency_ms=round(
-                             (now - edge.t_dispatch) * 1e3, 3))
+        # the device spans and counters of the chunks retired so far
+        self.recorder.resolve(self.obs)
+        return round(latency, 3)
 
     def _deferred_trip(self, edge, bad: int):
         """A guard word that came back tripped one chunk LATE: the fleet
@@ -1873,7 +1896,9 @@ class Simulation:
     def drain_pipeline(self):
         """Public alias: block until no chunk is in flight and all edge
         work has run (callers: tests, snapshots)."""
+        syncs = obs_trace.syncs()
         self._retire_edge("drain")
+        self._host_syncs.inc(obs_trace.syncs() - syncs)
         return True
 
     def _runway_approach_active(self) -> bool:

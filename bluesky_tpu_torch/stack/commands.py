@@ -977,16 +977,28 @@ def register_all(stack):
             return True, "sim registry:\n" + sim.obs.text()
         return sim.metrics.toggle(flag, dt)
 
-    def tracecmd(sub=None):
-        """TRACE [ON/OFF/DUMP]: the flight recorder (obs/trace.py) —
-        bounded span ring dumped as Chrome/Perfetto trace-event JSON;
-        merge multi-process dumps with scripts/trace_report.py."""
+    def tracecmd(sub=None, opt=None):
+        """TRACE [ON [DEVICE]/OFF/DUMP]: the flight recorder
+        (obs/trace.py) — bounded span ring dumped as Chrome/Perfetto
+        trace-event JSON; merge dumps and tabulate them per chunk with
+        scripts/torch_trace_report.py.  TRACE ON DEVICE also times the
+        device spans on the card and reads the interval's counters."""
         rec = sim.recorder
         if sub is None:
-            return True, (f"TRACE {'ON' if rec.enabled else 'OFF'} "
+            return True, (f"TRACE {'ON' if rec.enabled else 'OFF'}"
+                          f"{' DEVICE' if rec.timing else ''} "
                           f"({len(rec)}/{rec.maxlen} events buffered)")
         s = str(sub).upper()
         if s in ("ON", "1", "TRUE"):
+            if opt is not None and str(opt).upper() == "DEVICE":
+                dev = sim.traf.state.device
+                if dev.type != "cuda":
+                    return False, ("TRACE ON DEVICE: device timing is "
+                                   f"unavailable on {dev.type}")
+                rec.enable(device=True)
+                return True, "Flight recorder ON, device spans timed"
+            if opt is not None:
+                return False, "TRACE [ON [DEVICE]/OFF/DUMP]"
             rec.enable()
             return True, "Flight recorder ON"
         if s in ("OFF", "0", "FALSE"):
@@ -1277,7 +1289,7 @@ def register_all(stack):
                 return False, f"PROFILE STOP: {e}"
             return True, f"torch.profiler trace stopped, written to {path}"
         if s == "TRACE":
-            return tracecmd(arg)
+            return tracecmd(arg, arg2)
         if s == "DEVICE":
             if sim.devprof.window_active:
                 return False, ("PROFILE DEVICE: a window is already "
@@ -1818,7 +1830,7 @@ def register_all(stack):
                     "[txt,word,word]", profile,
                     "torch.profiler trace capture, per-kernel timings, "
                     "device-trace windows and the flight recorder"],
-        "TRACE": ["TRACE [ON/OFF/DUMP]", "[txt]", tracecmd,
+        "TRACE": ["TRACE [ON/OFF/DUMP]", "[txt,txt]", tracecmd,
                   "Flight recorder: bounded span ring dumped as "
                   "Perfetto trace JSON (readback bare)"],
         "ADDNODES": ["ADDNODES number", "int", addnodes,
